@@ -6,17 +6,24 @@
 Phases, each of which exits non-zero on failure:
 
 1. Device: the card's name and power limit (nvidia-smi) and its torch name.
-2. Build: both CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc.
+2. Build: the three CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc,
+   one process per source, in parallel.
 3. Kernels against their plain PyTorch versions, on the card, on seeded
    random inputs at the main path's shapes: K1 scan_agg at S=16, D=2^23
    (i16 / i8 ids, f32 values, a filter of range / lut / not-neq leaves,
-   a product value, count / sum / min / max / exact-sum slots) and K2
-   group_agg at S=8, D=2^22, G=35. Counts, exact-sum planes and min / max
-   must match bit for bit; float sums within 1e-5 of the slot's sum of
-   |contribution|. Times: CUDA events, median of 20 launches. Bound: the
-   bytes the function must move on these inputs (the filter's columns in
-   full, the other columns only in the 32-byte sectors holding a doc the
-   filter keeps, parameters and output once) over 3.35 TB/s.
+   a product value, count / sum / min / max / exact-sum slots), K2
+   group_agg at S=8, D=2^22, G=35, and K3 sketch_agg at S=16, D=2^23
+   (HLL slots at log2m 12 and 16 over i32 split planes of longs below
+   2^55, 0 and negatives among them; an 8192-bucket histogram over f32
+   values with NaN, +-inf and the bounds; a filter of range / lut /
+   vrange64 leaves). Counts, exact-sum planes, min / max, registers and
+   buckets must match bit for bit; float sums within 1e-5 of the slot's
+   sum of |contribution|. Times: CUDA events, median of 20 launches.
+   Bound: the bytes the function must move on these inputs (the filter's
+   columns in full, the other columns, split planes included, only in the
+   32-byte sectors holding a doc the filter keeps, parameters and output
+   once) over 3.35 TB/s. Library: torch.histc over K3's histogram input,
+   unfiltered (nearly K3's histogram; no PyTorch call computes HLL).
 4. Q1 leg: SSB-flat lineorder data (bench.py's column distributions), 16
    segments x 8M rows = 128M rows, built with the port's creator into a
    temp dir; SSB Q1.1 as bench.py runs it plus Q1.2- and Q1.3-shaped date
@@ -27,9 +34,19 @@ Phases, each of which exits non-zero on failure:
    'AMERICA' GROUP BY d_year, p_category ORDER BY ... LIMIT 100, checked
    against numpy truth: keys exactly, float32 sums within rel 1e-6 (the
    kernel adds in double; one float32 rounding of the total is 6e-8).
-6. Launch counts: each kernel's counter is set to 0 just before a leg's
+6. Config-#4 leg: BASELINE config #4 (NYC-taxi-shaped trip_id LONG and
+   fare DOUBLE, bench_extra.py:200-209's draws) at 128 segments x 8M rows
+   = 1,024M rows, generated, written and folded into the truth one
+   segment at a time; DISTINCTCOUNTHLL(trip_id) + PERCENTILETDIGEST95(fare)
+   unfiltered (bench_extra.py:211-212), under a fare range and under a
+   trip_id range. The HLL value must equal the port's numpy HyperLogLog
+   over the (filtered) trip_ids, the p95 the per-segment
+   TDigest.from_histogram of a numpy histogram built with the kernel's
+   float32 formula merged in segment order, and within rel 0.02 of the
+   exact percentile.
+7. Launch counts: each kernel's counter is set to 0 just before a leg's
    timed queries and read just after them; the leg's kernel must have
-   launched once per query run and the other kernel never. Then a short
+   launched once per query run and the others never. Then a short
    torch.profiler trace of the same warm query gives the card's busy time
    per query. Prints each query's p50 latency, rows/s and peak device
    memory, the host-clock stage split of the timed runs, the card line,
@@ -58,8 +75,12 @@ SECTOR = 32  # bytes: the unit in which the card reads device memory
 #: bench.py NUM_SEGMENTS x DOCS_PER_SEGMENT and bench_extra.py config #3
 Q1_SEGMENTS, Q1_DOCS = 16, 8_000_000
 GB_SEGMENTS, GB_DOCS = 8, 4_000_000
+#: BASELINE config #4 at its own scale: 128 x 8M = 1,024M rows
+TAXI_SEGMENTS, TAXI_DOCS = 128, 8_000_000
 #: warm runs per query, after one cold run
 ITERS = 10
+#: processes that generate and write segments (the card's host has 8 cores)
+BUILD_WORKERS = max(1, min(7, (os.cpu_count() or 2) - 1))
 
 Q1_QUERIES = {
     # bench.py:42, verbatim
@@ -85,6 +106,19 @@ Q1_TRUTH = {  # (date lo, date hi, discount lo, hi, quantity lo, hi)
 GB_QUERY = ("SELECT d_year, p_category, SUM(lo_revenue) FROM ssbgb "
             "WHERE s_region = 'AMERICA' GROUP BY d_year, p_category "
             "ORDER BY d_year, p_category LIMIT 100")
+_SKETCHES = ("SELECT DISTINCTCOUNTHLL(trip_id), PERCENTILETDIGEST95(fare) "
+             "FROM taxi")
+TAXI_QUERIES = {
+    # bench_extra.py:211-212, verbatim
+    "q4.1": _SKETCHES,
+    # a vrange leaf on the histogram's own column
+    "q4.2": _SKETCHES + " WHERE fare BETWEEN 10 AND 40",
+    # a vrange64 leaf on the HLL column's own split planes (2^39)
+    "q4.3": _SKETCHES + " WHERE trip_id < 549755813888",
+}
+#: the device sketches' shapes (DistinctCountHLL log2m, PercentileTDigest
+#: DEVICE_BUCKETS) and the percentile
+HLL_LOG2M, HIST_BUCKETS, PCT = 12, 8192, 95.0
 REGIONS = np.array(["AMERICA", "ASIA", "EUROPE", "AFRICA"], dtype=object)
 CATEGORIES = np.array([f"MFGR#{i}" for i in range(1, 6)], dtype=object)
 #: SSB date keys as bench.py draws them: 1992-1998, 12 months, 28 days
@@ -145,6 +179,77 @@ def groupby_truth(cols: dict) -> dict:
             sel = (years == y) & (cats == c)
             if sel.any():
                 out[(int(y), str(c))] = int(rev[sel].sum())
+    return out
+
+
+def taxi_columns(rng, n: int) -> dict:
+    """bench_extra.py:200-209 `config4_distinct_percentile` columns."""
+    return {
+        "trip_id": rng.integers(0, 1 << 40, n).astype(np.int64),
+        "fare": np.round(rng.gamma(2.5, 8.0, n), 2),
+    }
+
+
+def taxi_masks(cols: dict) -> dict:
+    """Each config-#4 query's filter over one segment's columns; the fare
+    range compares the float32 values the engine stages."""
+    f32 = cols["fare"].astype(np.float32)
+    return {"q4.1": np.ones(len(f32), dtype=bool),
+            "q4.2": (f32 >= np.float32(10)) & (f32 <= np.float32(40)),
+            "q4.3": cols["trip_id"] < (1 << 39)}
+
+
+def taxi_truth(cols: dict) -> dict:
+    """Per query, over one segment: the port's numpy HLL registers of the
+    kept trip_ids, and the count of each kept fare in cents (fares are
+    rounded to cents, so a value is cents / 100 exactly)."""
+    from pinot_tpu_torch.query.sketches import HyperLogLog
+    cents = np.rint(cols["fare"] * 100).astype(np.int64)
+    out = {}
+    for name, m in taxi_masks(cols).items():
+        hll = HyperLogLog(HLL_LOG2M)
+        hll.add_array(cols["trip_id"][m])
+        out[name] = (hll.registers, np.bincount(cents[m]))
+    return out
+
+
+def taxi_expected(truths: list, segs: list) -> dict:
+    """Per query: (the HLL cardinality, the p95 the engine must give, the
+    exact 95th percentile). The p95 repeats the engine's arithmetic on a
+    numpy histogram: bounds from the segments' fare min and max, bucket =
+    clip((f32(v) - f32(lo)) * f32(B / span), 0, B - 1), one digest per
+    segment merged in segment order."""
+    from pinot_tpu_torch.query.sketches import HyperLogLog, TDigest
+    metas = [s.metadata.columns["fare"] for s in segs]
+    lo = min(float(m.min_value) for m in metas)
+    span = max(max(float(m.max_value) for m in metas) - lo, 1e-30)
+    out = {}
+    for name in TAXI_QUERIES:
+        regs = np.zeros(1 << HLL_LOG2M, dtype=np.uint8)
+        width = max(len(t[name][1]) for t in truths)
+        total = np.zeros(width, dtype=np.int64)
+        v32 = (np.arange(width) / 100.0).astype(np.float32)
+        t = np.clip((v32 - np.float32(lo)) * np.float32(HIST_BUCKETS / span),
+                    0, HIST_BUCKETS - 1)
+        bucket = t.astype(np.int64)
+        digest = TDigest(100.0)
+        for tr in truths:
+            r, counts = tr[name]
+            np.maximum(regs, r, out=regs)
+            total[:len(counts)] += counts
+            hist = np.bincount(bucket[:len(counts)], weights=counts,
+                               minlength=HIST_BUCKETS)
+            digest = digest.merge(TDigest.from_histogram(
+                lo, span / HIST_BUCKETS, hist))
+        # np.percentile's linear rule over the sorted kept fares
+        n = int(total.sum())
+        h = PCT / 100.0 * (n - 1)
+        cum = np.cumsum(total)
+        a, b = (np.searchsorted(cum, k, side="right") / 100.0
+                for k in (int(np.floor(h)), min(int(np.floor(h)) + 1, n - 1)))
+        exact = a + (b - a) * (h - np.floor(h))
+        out[name] = (HyperLogLog.from_registers(regs, HLL_LOG2M)
+                     .cardinality(), digest.quantile(PCT / 100.0), exact, n)
     return out
 
 
@@ -263,6 +368,80 @@ def kernel_inputs(seed: int, grouped: bool):
     return plan, cols, params, num_docs, D
 
 
+def sketch_kernel_inputs(seed: int):
+    """K3's seeded inputs at the config-#4 leg's block width, made on the
+    card: longs below 2^55 as (hi, lo) i32 planes (0, -1, 1 and the most
+    negative admissible among them), f32 values with NaN, +-inf and the
+    histogram's bounds, a filter of range / lut / vrange64 leaves."""
+    import torch
+
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+
+    def ints(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int64).to(dtype)
+
+    S, D = Q1_SEGMENTS, 1 << 23
+    hi = ints(-(1 << 31) + 1, 1 << 31, (S, D), torch.int32)
+    lo = ints(0, 1 << 24, (S, D), torch.int32)
+    # v = 0, -1, 1, -(2^55 - 2^24)
+    hi[:, :4] = torch.tensor([0, -1, 0, -(1 << 31) + 1], dtype=torch.int32,
+                             device=dev)
+    lo[:, :4] = torch.tensor([0, (1 << 24) - 1, 1, 0], dtype=torch.int32,
+                             device=dev)
+    fare = torch.rand((S, D), generator=g, device=dev) * 250 - 25
+    h_lo, h_span = 0.0, 200.0
+    fare[:, 4:9] = torch.tensor([float("nan"), float("inf"), float("-inf"),
+                                 h_lo, h_lo + h_span], device=dev)
+    cols = {"ids:a": ints(0, 2000, (S, D), torch.int16),
+            "ids:b": ints(0, 100, (S, D), torch.int8),
+            "valhi:t": hi, "vallo:t": lo, "val:fare": fare}
+    leaves = (DeviceLeaf("range", "a"), DeviceLeaf("lut", "b"),
+              DeviceLeaf("vrange64", "t"))
+    plan = DevicePlan(
+        filter_ir=("or", ("and", ("leaf", 0), ("leaf", 1)), ("leaf", 2)),
+        leaves=leaves, value_irs=(("col", "fare"),),
+        agg_ops=(("hll:12:t", None, None), ("hll:16:t", None, None),
+                 (f"hist:{HIST_BUCKETS}", 0, None)),
+        dict_cols=("a", "b"), raw_cols=("fare",), raw64_cols=("t",))
+    a_lo = ints(0, 800, (S,), torch.int32)
+    v_lo, v_hi = -(1 << 54), 1 << 54
+
+    def planes(v):
+        return (torch.full((S,), v >> 24, dtype=torch.int32, device=dev),
+                torch.full((S,), v & 0xFFFFFF, dtype=torch.int32,
+                           device=dev))
+    params = {"leaf0:lo": a_lo, "leaf0:hi": a_lo + 1200,
+              "leaf1:lut": torch.rand((S, 128), generator=g,
+                                      device=dev) < 0.3,
+              "slot2:hlo": torch.full((S,), h_lo, device=dev),
+              "slot2:hscale": torch.full((S,), HIST_BUCKETS / h_span,
+                                         device=dev)}
+    params["leaf2:lohi"], params["leaf2:lolo"] = planes(v_lo)
+    params["leaf2:hihi"], params["leaf2:hilo"] = planes(v_hi)
+    num_docs = torch.full((S,), Q1_DOCS, dtype=torch.int32, device=dev)
+    num_docs[-1] = 0
+    return plan, cols, params, num_docs, D
+
+
+def histc_ms(plan, cols, params, num_docs) -> float:
+    """torch.histc over the histogram slot's input, every real doc,
+    unfiltered: the PyTorch call nearest K3's histogram (its edges and its
+    NaN handling differ, so only its time is kept)."""
+    import torch
+    j, (op, vidx, _f) = next((j, s) for j, s in enumerate(plan.agg_ops)
+                            if s[0].startswith("hist:"))
+    vals = cols["val:" + plan.value_irs[vidx][1]][num_docs > 0]
+    vals = torch.nan_to_num(vals.reshape(-1), nan=0.0)
+    lo = float(params[f"slot{j}:hlo"][0])
+    hi = lo + HIST_BUCKETS / float(params[f"slot{j}:hscale"][0])
+    return cuda_ms(lambda: torch.histc(vals, bins=HIST_BUCKETS, min=lo,
+                                       max=hi))
+
+
 def check_kernel(name: str, plan, cols, params, num_docs, D) -> dict:
     """One kernel against its plain version on the card: returns its
     entry of the `kernels` line (launches filled in by the legs)."""
@@ -324,9 +503,10 @@ def leaf_columns(leaf) -> tuple:
 def bytes_needed(plan, cols, params, num_docs, D, out):
     """The bytes the kernel's function must move on these inputs, and the
     docs its filter keeps: the main filter's columns for every real doc;
-    every other column the plan reads (value inputs, group keys) only in
-    the SECTOR-byte sectors that hold a kept doc, since no doc the filter
-    rejects needs them; parameters, num_docs and the output once."""
+    every other column the plan reads (value inputs, group keys, the split
+    planes an HLL slot hashes) only in the SECTOR-byte sectors that hold a
+    kept doc, since no doc the filter rejects needs them; parameters,
+    num_docs and the output once."""
     import torch
 
     from pinot_tpu_torch.ops import kernels, program
@@ -354,14 +534,14 @@ def bytes_needed(plan, cols, params, num_docs, D, out):
 # phases 4-5: the port's main path, from SQL to rows
 # ---------------------------------------------------------------------------
 
-def build_segments(root: str, name: str, fields, no_dict, n_segments: int,
-                   docs: int, columns_fn, truth_fn, seed: int):
-    """Build n_segments with the port's creator; returns (segments, the
-    per-segment truths)."""
+def build_one_segment(job):
+    """Generate segment i's columns from [seed, i], fold its truth and
+    write it with the port's creator; returns (its directory, its truth).
+    Runs in a worker process: only the truth comes back."""
+    root, name, fields, no_dict, docs, columns_fn, truth_fn, seed, i = job
     from pinot_tpu_torch.models import (DataType, FieldSpec, FieldType,
                                         Schema, TableConfig)
     from pinot_tpu_torch.segment.creator import SegmentCreator
-    from pinot_tpu_torch.segment.loader import load_segment
     schema = Schema(name, [FieldSpec(f, getattr(DataType, t),
                                      FieldType.METRIC if m
                                      else FieldType.DIMENSION)
@@ -369,15 +549,29 @@ def build_segments(root: str, name: str, fields, no_dict, n_segments: int,
     tc = TableConfig(name)
     tc.indexing.no_dictionary_columns = list(no_dict)
     tc.indexing.compression = "PASS_THROUGH"
-    creator = SegmentCreator(tc, schema)
-    segs, truths = [], []
-    for i in range(n_segments):
-        cols = columns_fn(np.random.default_rng([seed, i]), docs)
-        truths.append(truth_fn(cols))
-        out = os.path.join(root, f"{name}_{i}")
-        creator.build(cols, out, f"{name}_{i}")
-        segs.append(load_segment(out))
-    return segs, truths
+    cols = columns_fn(np.random.default_rng([seed, i]), docs)
+    truth = truth_fn(cols)
+    out = os.path.join(root, f"{name}_{i}")
+    SegmentCreator(tc, schema).build(cols, out, f"{name}_{i}")
+    return out, truth
+
+
+def build_segments(root: str, name: str, fields, no_dict, n_segments: int,
+                   docs: int, columns_fn, truth_fn, seed: int,
+                   workers: int = 1):
+    """Build n_segments with the port's creator, one segment at a time in
+    each of `workers` spawned processes (1: in this one), and load them in
+    order; returns (segments, the per-segment truths)."""
+    from pinot_tpu_torch.segment.loader import load_segment
+    jobs = [(root, name, fields, no_dict, docs, columns_fn, truth_fn, seed,
+             i) for i in range(n_segments)]
+    if workers > 1:
+        import multiprocessing
+        with multiprocessing.get_context("spawn").Pool(workers) as pool:
+            done = pool.map(build_one_segment, jobs, chunksize=1)
+    else:
+        done = [build_one_segment(job) for job in jobs]
+    return [load_segment(out) for out, _t in done], [t for _o, t in done]
 
 
 def time_query(ex, sql: str, iters: int):
@@ -437,13 +631,19 @@ def device_busy(ex, sql: str, iters: int, tmp: str):
             "device_ms_per_query": {n: v / 1e3 / iters for n, v in top}}
 
 
-def launches_of_leg(leg: str, kern, other, runs: int) -> int:
-    """The leg's launch counts, read just after its timed runs: its kernel
-    once per query run, the other kernel never."""
-    if kern.launches != runs or other.launches != 0:
-        fail(f"{leg}: {kern.name} launched {kern.launches} times and "
-             f"{other.name} {other.launches} times over {runs} query runs")
-    return kern.launches
+def launches_of_leg(leg: str, kernels, want: dict) -> dict:
+    """The leg's launch counts, read just after its timed runs, against
+    the counts it must show (name -> launches): its kernels once per query
+    run, the others never."""
+    got = {k.name: k.launches for k in kernels}
+    if got != want:
+        fail(f"{leg}: launches {got}, expected {want}")
+    return got
+
+
+def zero_launches(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
 
 
 def main() -> None:
@@ -479,7 +679,15 @@ def main() -> None:
     print(f"[kernel] scan_agg {json.dumps(k1)}", flush=True)
     k2 = check_kernel("group_agg", *kernel_inputs(args.seed, grouped=True))
     print(f"[kernel] group_agg {json.dumps(k2)}", flush=True)
+    k3_inputs = sketch_kernel_inputs(args.seed)
+    k3 = check_kernel("sketch_agg", *k3_inputs)
+    k3["library_ms"] = histc_ms(*k3_inputs[:4])
+    k3["library"] = "torch.histc, unfiltered histogram only"
+    print(f"[kernel] sketch_agg {json.dumps(k3)}", flush=True)
+    del k3_inputs
     torch.cuda.empty_cache()
+    kernels = _cuda.KERNELS
+    none = {k.name: 0 for k in kernels}
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -491,14 +699,13 @@ def main() -> None:
                          ("lo_quantity", "INT", False),
                          ("lo_extendedprice", "INT", True)],
             ["lo_extendedprice"], Q1_SEGMENTS, Q1_DOCS, ssb_q1_columns,
-            q1_truth, args.seed)
+            q1_truth, args.seed, BUILD_WORKERS)
         rows = sum(s.num_docs for s in segs)
         print(f"[q1] built {len(segs)} segments, {rows} rows in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         ex = QueryExecutor(segs)  # device=None: the card
         torch.cuda.reset_peak_memory_stats()
-        _cuda.SCAN_AGG.launches = 0
-        _cuda.GROUP_AGG.launches = 0
+        zero_launches(kernels)
         legs, splits = [], {}
         for name, sql in Q1_QUERIES.items():
             resp, cold, lats, splits[name] = time_query(ex, sql, ITERS)
@@ -514,8 +721,8 @@ def main() -> None:
                          "rows_per_s": rows / statistics.median(lats),
                          "sum": want_sum, "count": want_cnt})
         k1["launches"] = launches_of_leg(
-            "Q1 leg", _cuda.SCAN_AGG, _cuda.GROUP_AGG,
-            len(Q1_QUERIES) * (1 + ITERS))
+            "Q1 leg", kernels,
+            {**none, "scan_agg": len(Q1_QUERIES) * (1 + ITERS)})["scan_agg"]
         q1_peak = torch.cuda.max_memory_allocated()
         for leg in legs:
             leg["max_memory_allocated"] = q1_peak
@@ -538,17 +745,17 @@ def main() -> None:
                            ("s_region", "STRING", False),
                            ("lo_revenue", "INT", True)],
             ["lo_revenue"], GB_SEGMENTS, GB_DOCS, ssb_flat_columns,
-            groupby_truth, args.seed)
+            groupby_truth, args.seed, BUILD_WORKERS)
         rows = sum(s.num_docs for s in segs)
         print(f"[groupby] built {len(segs)} segments, {rows} rows in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         ex = QueryExecutor(segs)
         torch.cuda.reset_peak_memory_stats()
-        _cuda.SCAN_AGG.launches = 0
-        _cuda.GROUP_AGG.launches = 0
+        zero_launches(kernels)
         resp, cold, lats, split = time_query(ex, GB_QUERY, ITERS)
         k2["launches"] = launches_of_leg(
-            "group-by leg", _cuda.GROUP_AGG, _cuda.SCAN_AGG, 1 + ITERS)
+            "group-by leg", kernels,
+            {**none, "group_agg": 1 + ITERS})["group_agg"]
         want = {}
         for t in truths:
             for key, v in t.items():
@@ -570,14 +777,66 @@ def main() -> None:
         busy = device_busy(ex, GB_QUERY, ITERS, tmp)
         print(f"[groupby] trace {json.dumps(busy or 'not measured')} "
               f"| {card}", flush=True)
+        del ex, segs
+        torch.cuda.empty_cache()
+
+        # phase 6: config-#4 sketch leg
+        t0 = time.perf_counter()
+        segs, truths = build_segments(
+            tmp, "taxi", [("trip_id", "LONG", False),
+                          ("fare", "DOUBLE", True)],
+            ["trip_id", "fare"], TAXI_SEGMENTS, TAXI_DOCS, taxi_columns,
+            taxi_truth, args.seed, BUILD_WORKERS)
+        expected = taxi_expected(truths, segs)
+        rows = sum(s.num_docs for s in segs)
+        print(f"[config4] built {len(segs)} segments, {rows} rows and "
+              f"their truth in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        ex = QueryExecutor(segs)
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(kernels)
+        legs, splits = [], {}
+        for name, sql in TAXI_QUERIES.items():
+            resp, cold, lats, splits[name] = time_query(ex, sql, ITERS)
+            card_hll, p95, exact, kept = expected[name]
+            got = resp.rows[0]
+            if int(got[0]) != card_hll:
+                fail(f"{name}: DISTINCTCOUNTHLL {got[0]}, numpy HLL "
+                     f"{card_hll}")
+            if float(got[1]) != p95:
+                fail(f"{name}: p95 {got[1]}, numpy histogram digest {p95}")
+            if abs(float(got[1]) - exact) > 0.02 * abs(exact):
+                fail(f"{name}: p95 {got[1]} beyond rel 0.02 of the exact "
+                     f"{exact}")
+            legs.append({"query": name, "rows": rows, "kept": kept,
+                         "p50_ms": statistics.median(lats) * 1e3,
+                         "cold_s": cold,
+                         "rows_per_s": rows / statistics.median(lats),
+                         "distinctcounthll": card_hll, "p95": p95,
+                         "exact_p95": exact})
+        k3["launches"] = launches_of_leg(
+            "config-#4 leg", kernels,
+            {**none, "sketch_agg": len(TAXI_QUERIES) * (1 + ITERS)}
+        )["sketch_agg"]
+        peak = torch.cuda.max_memory_allocated()
+        for leg in legs:
+            leg["max_memory_allocated"] = peak
+            leg["stage_ms"] = splits[leg["query"]]
+            print(f"[config4] {json.dumps(leg)} | {card}", flush=True)
+        for name, sql in TAXI_QUERIES.items():
+            busy = device_busy(ex, sql, ITERS, tmp)
+            print(f"[config4] trace {name} "
+                  f"{json.dumps(busy or 'not measured')} | {card}",
+                  flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # phase 6: the kernels line, the card line, the result
+    # phase 7: the kernels line, the card line, the result
     entries = []
     for kern, entry, replaces in (
             (_cuda.SCAN_AGG, k1, "pinot_tpu/ops/kernels.py:537"),
-            (_cuda.GROUP_AGG, k2, "pinot_tpu/ops/kernels.py:252")):
+            (_cuda.GROUP_AGG, k2, "pinot_tpu/ops/kernels.py:252"),
+            (_cuda.SKETCH_AGG, k3, "pinot_tpu/ops/kernels.py:429,451")):
         entries.append({
             "name": kern.name, "route": "cuda",
             "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",

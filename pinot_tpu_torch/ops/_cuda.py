@@ -1,10 +1,10 @@
-"""Build, bind and launch the two hand-written CUDA kernels.
+"""Build, bind and launch the hand-written CUDA kernels.
 
-K1 `scan_agg` (csrc/scan_agg.cu) and K2 `group_agg` (csrc/group_agg.cu)
-are plain-C-interface shared libraries built with `nvcc` for sm_90a at first
-use, into the git-ignored `build/kernels/` directory beside the package, and
-loaded with ctypes. Both sources build at once, one `nvcc` each, in
-parallel. A library's file name carries a hash of its sources and flags, so
+K1 `scan_agg` (csrc/scan_agg.cu), K2 `group_agg` (csrc/group_agg.cu) and
+K3 `sketch_agg` (csrc/sketch_agg.cu) are plain-C-interface shared libraries
+built with `nvcc` for sm_90a at first use, into the git-ignored
+`build/kernels/` directory beside the package, and loaded with ctypes. All
+sources build at once, one `nvcc` each, in parallel. A library's file name carries a hash of its sources and flags, so
 an edited source rebuilds and an unchanged one is reused.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
@@ -21,7 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -39,6 +39,11 @@ THREADS = 256
 #: each thread of K1/K2 walks about this many docs of its segment
 DOCS_PER_THREAD = 32
 MAX_BLOCKS_PER_SEGMENT = 1024
+#: K3's grid: about this many blocks over the launch (8 per SM of an H100),
+#: each over at least SKETCH_MIN_DOCS docs of its segment, so a block's
+#: table write-out stays small beside its scan
+SKETCH_BLOCKS = 1056
+SKETCH_MIN_DOCS = 1 << 16
 
 
 class _Args(ctypes.Structure):
@@ -87,7 +92,10 @@ SCAN_AGG = CudaKernel("scan_agg", "scan_agg.cu", "pt_scan_agg",
 GROUP_AGG = CudaKernel("group_agg", "group_agg.cu", "pt_group_agg",
                        [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I, _I,
                         _P, _P, _I, _P])
-KERNELS = (SCAN_AGG, GROUP_AGG)
+SKETCH_AGG = CudaKernel("sketch_agg", "sketch_agg.cu", "pt_sketch_agg",
+                        [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I,
+                         _I, _P, _P, _P, _I, _P])
+KERNELS = (SCAN_AGG, GROUP_AGG, SKETCH_AGG)
 
 _build_lock = threading.Lock()
 
@@ -242,4 +250,45 @@ def group_agg(plan: DevicePlan, cols: Dict[str, torch.Tensor],
     if rc != 0:
         raise RuntimeError(f"group_agg launch failed: cudaError {rc}")
     GROUP_AGG.launches += 1
+    return out
+
+
+def sketch_agg(plan: DevicePlan, cols: Dict[str, torch.Tensor],
+               params: Dict[str, torch.Tensor], num_docs: torch.Tensor,
+               D: int, value_dtype: torch.dtype,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3: the matched count and the sketch slots' columns of the packed
+    [S, 1 + sum(w)] result of `plan`, written into `out` (K1's output, on
+    the same stream, for a plan that also has scalar slots) or into a new
+    tensor."""
+    if plan.num_groups:
+        raise ValueError("sketch_agg takes ungrouped plans")
+    args, pmat, prog, S, _nb = _prepare(plan, cols, params, num_docs, D,
+                                        value_dtype)
+    device = num_docs.device
+    for op, _v, _f in plan.agg_ops:
+        if op.startswith("hll:"):
+            col = op.split(":", 2)[2]
+            for plane in ("valhi:", "vallo:"):
+                _check(cols[plane + col], plane + col, device,
+                       (torch.int32,), (S, D))
+    shape = (S, prog.out_width)
+    if out is None:
+        out = torch.empty(shape, dtype=value_dtype, device=device)
+    else:
+        _check(out, "out", device, (value_dtype,), shape)
+    nb = max(1, min(math.ceil(SKETCH_BLOCKS / S),
+                    math.ceil(D / SKETCH_MIN_DOCS)))
+    words = prog.sketch_smem_words
+    partial = torch.empty(max(1, S * nb * words), dtype=torch.int32,
+                          device=device)
+    gtab = torch.empty(shape, dtype=torch.int32, device=device)
+    fn = SKETCH_AGG.fn()
+    rc = fn(ctypes.byref(args), pmat.data_ptr(), num_docs.data_ptr(), S, D,
+            pmat.shape[1], nb, words, int(value_dtype == torch.float64),
+            partial.data_ptr(), gtab.data_ptr(), out.data_ptr(),
+            device.index, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sketch_agg launch failed: cudaError {rc}")
+    SKETCH_AGG.launches += 1
     return out

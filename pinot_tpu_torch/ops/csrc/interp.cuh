@@ -1,4 +1,5 @@
-// Shared by K1 (scan_agg.cu) and K2 (group_agg.cu): the launch arguments and
+// Shared by K1 (scan_agg.cu), K2 (group_agg.cu) and K3 (sketch_agg.cu): the
+// launch arguments and
 // the per-document interpreter of the plan program that
 // pinot_tpu_torch/ops/program.py compiles. The layout constants below must
 // match program.py.
@@ -28,11 +29,11 @@ enum { L_RANGE, L_NEQ, L_LUT, L_VRANGE, L_VRANGE64 };
 enum { F_LEAF, F_AND, F_OR, F_NOT };
 enum { V_COL, V_LIT, V_ADD, V_SUB, V_MUL, V_DIV, V_NEG };
 enum { S_COUNT, S_SUM, S_SUMSQ, S_SUM3, S_SUM4, S_MIN, S_MAX, S_ISUM,
-       S_ISUM_U };
+       S_ISUM_U, S_HLL, S_HIST };
 enum { R_ADD, R_MIN, R_MAX };
 enum { O_SCALAR, O_PLANE };
 #define LEAF_W 5
-#define SLOT_W 5
+#define SLOT_W 8  // (op, value, filter, acc, n, out, c0, c1)
 #define ACC_W 3
 
 // Passed by value (__grid_constant__): column and LUT pointers plus the
@@ -76,6 +77,9 @@ __device__ __forceinline__ double combine(int r, double x, double y) {
 }
 __device__ __forceinline__ double identity_of(int r) {
   return r == R_ADD ? 0.0 : (r == R_MIN ? INFINITY : -INFINITY);
+}
+__device__ __forceinline__ bool is_sketch(int op) {
+  return op == S_HLL || op == S_HIST;
 }
 __device__ __forceinline__ int slot_red(int op) {
   return op == S_MIN ? R_MIN : (op == S_MAX ? R_MAX : R_ADD);

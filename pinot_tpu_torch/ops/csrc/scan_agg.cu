@@ -21,7 +21,8 @@
 // per-word partials to scratch [S, nb, n_acc]; a second kernel reduces
 // them in a fixed order, so reruns give the same bits, and writes the
 // packed output in the value dtype, splitting isum planes into (hi, lo)
-// 12-bit halves.
+// 12-bit halves. Sketch slots (HLL, histogram) are K3's (sketch_agg.cu):
+// K1 skips them and leaves their output columns to K3.
 #include "interp.cuh"
 
 template <typename T>
@@ -54,6 +55,7 @@ scan_agg_kernel(const __grid_constant__ Args a, const double* __restrict__ param
     for (int j = 0; j < nslot; ++j) {
       const int* sl = slots + j * SLOT_W;
       const int op = sl[0], v = sl[1], w = sl[3];
+      if (is_sketch(op)) continue;  // K3's slots
       if (!slot_passes(a, sh, sl[2], s, i, c)) continue;
       if (op == S_COUNT) {
         acc[w] += 1.0;

@@ -12,7 +12,9 @@ This slice launches directly: no dispatch ring, residency tier, star-tree,
 CLP, vector, time-series or mesh. The rules it keeps from the JAX engine:
 cardinality-aware i8/i16/i32 id staging, power-of-two doc padding masked by
 `num_docs`, the per-segment doc cap, the group-count and group-result-size
-caps, the float32 precision guard, and the exact-int-sum (isum) admission.
+caps, the float32 precision guard, the exact-int-sum (isum) admission, and
+the ungrouped sketch slots (HLL registers over split planes of int columns
+below 2^55, histogram buckets between the batch's metadata min and max).
 A query or segment batch outside the slice raises NotImplementedError
 naming the missing feature: the port has no host executor to hand it to.
 """
@@ -25,7 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from pinot_tpu_torch.ops import kernels
+from pinot_tpu_torch.ops import kernels, program
 from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan
 from pinot_tpu_torch.query.context import QueryContext
 from pinot_tpu_torch.query.expressions import (
@@ -104,6 +106,12 @@ class TorchOperatorExecutor:
         for fn in ctx.agg_functions:
             if fn.missing_feature is not None:
                 return fn.missing_feature
+        if ctx.group_by and any(kernels.is_sketch(op)
+                                for fn in ctx.agg_functions
+                                for op in fn.device_spec.ops):
+            # sketch slots are vector-valued; the grouped layout is
+            # scalar per slot (the JAX engine runs these on its host)
+            return "grouped sketches"
         for f in list(ctx.agg_filters) + [ctx.filter]:
             if f is not None:
                 why = self._filter_missing(f)
@@ -240,13 +248,14 @@ class TorchOperatorExecutor:
             return all(check_value_cols(c) for c in ir[1:]
                        if isinstance(c, tuple))
 
+        hll_cols = self._hll_columns(segments, ctx)
         # filter IR first: leaves fill in build order, so the main filter's
         # leaves precede agg-filter leaves (staging resolves in this order)
         leaves: List[DeviceLeaf] = []
         filter_ir = None
         if ctx.filter is not None:
             filter_ir = self._build_filter_ir(ctx.filter, segments, leaves,
-                                              classify)
+                                              classify, hll_cols)
         agg_filter_irs: List[tuple] = []
         fidx_of_filter: Dict[Expression, int] = {}
         agg_fidx: List[Optional[int]] = []
@@ -257,9 +266,12 @@ class TorchOperatorExecutor:
             if f not in fidx_of_filter:
                 fidx_of_filter[f] = len(agg_filter_irs)
                 agg_filter_irs.append(self._build_filter_ir(
-                    f, segments, leaves, classify))
+                    f, segments, leaves, classify, hll_cols))
             agg_fidx.append(fidx_of_filter[f])
-        raw64 = {lf.column for lf in leaves if lf.kind == "vrange64"}
+        # split-plane columns: big-int filter columns and HLL inputs; they
+        # carry no 'val:' block, so no value IR can read them
+        raw64 = {lf.column for lf in leaves
+                 if lf.kind == "vrange64"} | hll_cols
 
         agg_ops: List[Tuple[str, Optional[int], Optional[int]]] = []
         slot_index: Dict[Tuple[str, Optional[int], Optional[int]], int] = {}
@@ -273,9 +285,11 @@ class TorchOperatorExecutor:
 
         for i, (node, fn) in enumerate(zip(ctx.aggregations,
                                            ctx.agg_functions)):
+            is_hll = any(op.startswith("hll:") for op in fn.device_spec.ops)
             arg_ir = None
-            if node.args and not (isinstance(node.args[0], Identifier)
-                                  and node.args[0].name == "*"):
+            if not is_hll and node.args \
+                    and not (isinstance(node.args[0], Identifier)
+                             and node.args[0].name == "*"):
                 arg_ir = self._value_ir_shape(node.args[0])
                 if arg_ir is None or not check_value_cols(arg_ir):
                     raise NotOffloadable(
@@ -301,6 +315,11 @@ class TorchOperatorExecutor:
                     else:
                         op_key = "isum"
                     mapping[op] = slot((op_key, vidx, fidx))
+                elif op.startswith("hll:"):
+                    # the column rides in the op key: K3 reads its split
+                    # planes directly, through no value IR
+                    mapping[op] = slot((f"{op}:{node.args[0].name}", None,
+                                        fidx))
                 elif op == "count":
                     mapping[op] = slot(("count", None, fidx))
                 else:
@@ -355,14 +374,53 @@ class TorchOperatorExecutor:
         )
         return plan, slots_of_fn
 
-    def _build_filter_ir(self, e: Function, segments, leaves, classify):
+    @staticmethod
+    def _hll_columns(segments, ctx: QueryContext) -> set:
+        """The columns DISTINCTCOUNTHLL hashes on the device: single-value
+        int columns with |min|, |max| < 2^55 in every segment, staged as
+        (hi, lo) i32 split planes (the hi plane would wrap beyond, where
+        the host sketch folds the lost bits in). Raises NotOffloadable
+        naming what a column lacks."""
+        out = set()
+        for node, fn in zip(ctx.aggregations, ctx.agg_functions):
+            ops = [op for op in fn.device_spec.ops if op.startswith("hll:")]
+            if not ops:
+                continue
+            lo_m, hi_m = program.HLL_LOG2M_RANGE
+            log2m = int(ops[0].split(":")[1])
+            if not lo_m <= log2m <= hi_m:
+                raise NotOffloadable(f"DISTINCTCOUNTHLL log2m {log2m} "
+                                     f"outside [{lo_m}, {hi_m}]")
+            col = node.args[0].name
+            for seg in segments:
+                m = seg.metadata.columns.get(col)
+                if m is None or not m.single_value \
+                        or m.data_type.np_dtype.kind not in "iu":
+                    raise NotOffloadable(
+                        f"DISTINCTCOUNTHLL over {col}, not a single-value "
+                        "int column (device HLL hashes int split planes)")
+                if m.min_value is None or m.max_value is None:
+                    raise NotOffloadable(
+                        f"DISTINCTCOUNTHLL over {col} without min/max")
+                if max(abs(int(m.min_value)),
+                       abs(int(m.max_value))) >= (1 << 55):
+                    raise NotOffloadable(
+                        f"DISTINCTCOUNTHLL over {col} with huge longs "
+                        "(|v| >= 2^55)")
+            out.add(col)
+        return out
+
+    def _build_filter_ir(self, e: Function, segments, leaves, classify,
+                         force64: set = frozenset()):
+        """force64: raw int columns staged only as split planes (HLL
+        inputs), whose range leaves must be vrange64."""
         if e.name in ("and", "or"):
             return (e.name, *(self._build_filter_ir(a, segments, leaves,
-                                                    classify)
+                                                    classify, force64)
                               for a in e.args))
         if e.name == "not":
             return ("not", self._build_filter_ir(e.args[0], segments,
-                                                 leaves, classify))
+                                                 leaves, classify, force64))
         col = e.args[0].name
         if not classify(col):
             raise NotOffloadable(f"filter on column {col} with no device "
@@ -378,7 +436,9 @@ class TorchOperatorExecutor:
         else:
             if e.name not in _LEAF_RANGE_FUNCS:
                 raise NotOffloadable(f"{e.name} on raw column {col}")
-            if m.data_type.np_dtype.kind in "iu" \
+            if col in force64:
+                kind = "vrange64"
+            elif m.data_type.np_dtype.kind in "iu" \
                     and self.value_dtype == torch.float32:
                 kind = self._int_filter_kind(segments, col)
             else:
@@ -498,9 +558,34 @@ class TorchOperatorExecutor:
             cols["val:" + col] = self._block(segments, D, col, "val",
                                              fetch_values, vdt)
         params = self._leaf_params(segments, ctx, plan)
+        # histogram slots: bucket bounds from the batch's metadata; B / span
+        # in Python double, rounded once to the value dtype
+        for j, (op, vidx, _f) in enumerate(plan.agg_ops):
+            if op.startswith("hist:"):
+                lo, span = self._hist_bounds(segments,
+                                             plan.value_irs[vidx][1])
+                B = kernels.slot_width(op)
+                params[f"slot{j}:hlo"] = torch.from_numpy(
+                    np.full(S, lo, dtype=vdt)).to(self.device)
+                params[f"slot{j}:hscale"] = torch.from_numpy(
+                    np.full(S, B / span, dtype=vdt)).to(self.device)
         num_docs = torch.tensor([s.num_docs for s in segments],
                                 dtype=torch.int32).to(self.device)
         return cols, params, num_docs, D
+
+    @staticmethod
+    def _hist_bounds(segments, col: str) -> Tuple[float, float]:
+        """(lo, span) of a histogram slot: the batch's metadata min and
+        max; span clamped positive so the scale stays finite."""
+        lo, hi = np.inf, -np.inf
+        for seg in segments:
+            m = seg.metadata.columns.get(col)
+            if m is None or m.min_value is None or m.max_value is None:
+                raise NotOffloadable(
+                    f"PERCENTILETDIGEST over {col} without min/max")
+            lo = min(lo, float(m.min_value))
+            hi = max(hi, float(m.max_value))
+        return lo, max(hi - lo, 1e-30)
 
     def _leaf_params(self, segments, ctx: QueryContext,
                      plan: DevicePlan) -> Dict[str, torch.Tensor]:
@@ -635,6 +720,10 @@ class TorchOperatorExecutor:
         count_j = None
         if plan.num_groups:
             count_j = plan.agg_ops.index(("count", None, None))
+        # histogram bounds are batch-global: once per slot
+        hist_bounds = {j: self._hist_bounds(segments, plan.value_irs[v][1])
+                       for j, (op, v, _f) in enumerate(plan.agg_ops)
+                       if op.startswith("hist:")}
         results = []
         for s, seg in enumerate(segments):
             if plan.num_groups:
@@ -665,6 +754,12 @@ class TorchOperatorExecutor:
                         slots[op] = isum_value(planes)
                     elif plan_op.startswith("isum:u"):
                         slots[op] = isum_u_value(planes)
+                    elif widths[j] > 1:   # sketch registers / buckets
+                        slots[op] = planes
+                        if op.startswith("hist:"):
+                            lo, span = hist_bounds[j]
+                            slots["hist_lo"] = lo
+                            slots["hist_width"] = span / widths[j]
                     else:
                         slots[op] = packed[s, off]
                 inters.append(fn.from_device_slots(slots))

@@ -1,5 +1,5 @@
-"""The scan-aggregate and group-by kernels: plain PyTorch versions, and the
-wrapper that hands CUDA tensors to the hand-written kernels.
+"""The scan-aggregate, group-by and sketch kernels: plain PyTorch versions,
+and the wrapper that hands CUDA tensors to the hand-written kernels.
 
 Counterpart of pinot_tpu/ops/kernels.py, whose jit'd `make_kernel`
 (kernels.py:537) computes, for stacked segment blocks [S, D]:
@@ -7,14 +7,17 @@ Counterpart of pinot_tpu/ops/kernels.py, whose jit'd `make_kernel`
   mask  = filter tree over dictId compares / LUT gathers / value ranges
   vals  = value-expression arithmetic over staged value blocks
   out   = masked reductions (count / sum / sumsq / sum3 / sum4 / min / max,
-          exact integer sums as 6- or 7-bit planes), or per-group partials
+          exact integer sums as 6- or 7-bit planes), sketch slots (HLL
+          registers over a column's i32 split planes, `_hll_slot` :429;
+          fixed-bucket histograms, `_hist_slot` :451), or per-group
+          partials
 
 The functions below are the same arithmetic in PyTorch, in the same packed
 layouts: `[S, 1 + sum(w)]` ungrouped (column 0 = matched count) and
 `[S, G, n_slots]` grouped. They run on any device; `make_kernel` uses them
 only for CPU tensors. A CUDA tensor goes to the kernels in
-`ops/csrc/` (K1 `scan_agg`, K2 `group_agg`, wrapped by `ops/_cuda.py`) or
-raises — there is no fallback between the two.
+`ops/csrc/` (K1 `scan_agg`, K2 `group_agg`, K3 `sketch_agg`, wrapped by
+`ops/_cuda.py`) or raises — there is no fallback between the two.
 
 The value dtype (float32, the card's default, or float64) is an explicit
 argument, where the JAX package reads `jax_enable_x64`. Values and their
@@ -31,10 +34,11 @@ import torch
 
 from pinot_tpu_torch.ops import _cuda
 from pinot_tpu_torch.ops.plan_ir import DevicePlan
-from pinot_tpu_torch.ops.program import ISUM_PLANES, ISUM_U_BITS, slot_width
+from pinot_tpu_torch.ops.program import (ISUM_PLANES, ISUM_U_BITS,
+                                         is_sketch, slot_width)
 
 __all__ = ["make_kernel", "plain_kernel", "from_jax_staged", "slot_width",
-           "ISUM_PLANES", "ISUM_U_BITS"]
+           "is_sketch", "ISUM_PLANES", "ISUM_U_BITS"]
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -233,6 +237,76 @@ def _halves(s: torch.Tensor, value_dtype: torch.dtype) -> List[torch.Tensor]:
     return [(s >> 12).to(value_dtype), (s & 4095).to(value_dtype)]
 
 
+# ---------------------------------------------------------------------------
+# sketch slots (kernels.py:419 `_fmix32`, :429 `_hll_slot`, :451
+# `_hist_slot`)
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """h * c mod 2^32 for h in [0, 2^32) held in int64: PyTorch has no
+    uint32 shifts on the CPU, and a full 32 x 32-bit product would leave
+    int64, so the product is taken in 16-bit halves (each below 2^48)."""
+    lo = (h & 0xFFFF) * c
+    hi = (((h >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3 32-bit finalizer over uint32 values held in int64."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def hash32_pair(hi: torch.Tensor, lo: torch.Tensor):
+    """The HLL hash pair over (hi, lo) i32 split planes, as uint32 values
+    in int64; the host sketch's `hash32_pair` bit for bit."""
+    hi = hi.long() & _U32
+    lo = lo.long() & _U32
+    h1 = fmix32(fmix32(lo ^ 0x9E3779B9) ^ hi)
+    h2 = fmix32(fmix32(hi ^ 0x85EBCA77) ^ lo)
+    return h1, h2
+
+
+def hll_slot(op: str, cols: Tensors, mask: torch.Tensor,
+             value_dtype: torch.dtype) -> torch.Tensor:
+    """HLL registers [S, 2^log2m] of op 'hll:<log2m>:<col>': bucket = the
+    low log2m bits of h1, rank = clz(h2) + 1 (33 when h2 is 0) taken
+    exactly from frexp, max-scattered; ranks in the value dtype."""
+    _, log2m, col = op.split(":", 2)
+    m = 1 << int(log2m)
+    h1, h2 = hash32_pair(cols["valhi:" + col], cols["vallo:" + col])
+    _frac, e = torch.frexp(h2.double())
+    rank = torch.where(h2 == 0, 33, 33 - e.long())
+    rank = torch.where(mask, rank, 0).to(value_dtype)  # 0 = empty register
+    bucket = torch.where(mask, h1 & (m - 1), 0)
+    regs = torch.zeros((mask.shape[0], m), dtype=value_dtype,
+                       device=mask.device)
+    return regs.scatter_reduce_(1, bucket, rank, "amax", include_self=True)
+
+
+def hist_slot(op: str, j: int, vals: torch.Tensor, params: Tensors,
+              mask: torch.Tensor, value_dtype: torch.dtype) -> torch.Tensor:
+    """Histogram counts [S, B] of op 'hist:<B>' (slot j), bounds from the
+    per-segment `slot{j}:hlo` / `slot{j}:hscale` parameters: bucket =
+    clip((v - lo) * scale, 0, B - 1) in the value dtype, truncated. NaN
+    lands in bucket 0, where XLA's float to int32 conversion puts it (a C
+    cast or Tensor.to leaves it undefined); -inf clips to 0, +inf to B - 1."""
+    B = int(op.split(":")[1])
+    lo = params[f"slot{j}:hlo"][:, None]
+    scale = params[f"slot{j}:hscale"][:, None]
+    t = ((_full(vals, mask) - lo) * scale).clamp(0, B - 1)
+    bucket = torch.where(mask & ~torch.isnan(t), t, 0).long()
+    counts = torch.zeros((mask.shape[0], B), dtype=torch.int64,
+                         device=mask.device)
+    return counts.scatter_add_(1, bucket, mask.long()).to(value_dtype)
+
+
 def pack_flat(matched: torch.Tensor,
               slots: List[Tuple[str, torch.Tensor]]) -> torch.Tensor:
     """[S]-scalar and [S, w] slots -> one [S, 1 + sum(w)] array."""
@@ -271,8 +345,15 @@ def compute_slots(plan: DevicePlan, cols: Tensors, params: Tensors,
                                              plan.num_groups, value_dtype)))
         return slots, None
     matched = (mask & valid).sum(1).to(value_dtype)
-    for op, vidx, fidx in plan.agg_ops:
+    for j, (op, vidx, fidx) in enumerate(plan.agg_ops):
         m = mask if fidx is None else mask & agg_masks[fidx]
+        if op.startswith("hll:"):
+            slots.append((op, hll_slot(op, cols, m & valid, value_dtype)))
+            continue
+        if op.startswith("hist:"):
+            slots.append((op, hist_slot(op, j, values[vidx], params,
+                                        m & valid, value_dtype)))
+            continue
         if op == "isum" or op.startswith("isum:u"):
             vi = eval_value_int(plan.value_irs[vidx], cols, device)
             slot = isum_slot(vi, m & valid, value_dtype) if op == "isum" \
@@ -303,8 +384,10 @@ def plain_kernel(plan: DevicePlan, value_dtype: torch.dtype = torch.float32):
 
 def make_kernel(plan: DevicePlan, value_dtype: torch.dtype = torch.float32):
     """fn(cols, params, num_docs, D, G=0) -> packed tensor, in the JAX
-    kernel's layouts. CUDA inputs launch K1 (`scan_agg`) or, for a
-    group-by plan, K2 (`group_agg`); CPU inputs run the plain version.
+    kernel's layouts. CUDA inputs launch K1 (`scan_agg`) for scalar slots,
+    K3 (`sketch_agg`) for sketch slots — both, on the current stream and
+    into one output, when the plan holds both — or, for a group-by plan,
+    K2 (`group_agg`); CPU inputs run the plain version.
 
     cols:     'ids:<col>' i8/i16/i32 [S, D] / 'val:<col>' float [S, D] /
               'valhi:'/'vallo:<col>' i32 [S, D]
@@ -316,6 +399,7 @@ def make_kernel(plan: DevicePlan, value_dtype: torch.dtype = torch.float32):
     if value_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"value dtype {value_dtype} is not float32/64")
     plain = plain_kernel(plan, value_dtype)
+    sketch = [is_sketch(op) for op, _v, _f in plan.agg_ops]
 
     def kernel(cols: Tensors, params: Tensors, num_docs: torch.Tensor,
                D: int, G: int = 0) -> torch.Tensor:
@@ -325,8 +409,13 @@ def make_kernel(plan: DevicePlan, value_dtype: torch.dtype = torch.float32):
             if plan.num_groups:
                 return _cuda.group_agg(plan, cols, params, num_docs, D,
                                        value_dtype)
-            return _cuda.scan_agg(plan, cols, params, num_docs, D,
-                                  value_dtype)
+            if not any(sketch):
+                return _cuda.scan_agg(plan, cols, params, num_docs, D,
+                                      value_dtype)
+            out = None if all(sketch) else _cuda.scan_agg(
+                plan, cols, params, num_docs, D, value_dtype)
+            return _cuda.sketch_agg(plan, cols, params, num_docs, D,
+                                    value_dtype, out=out)
         if num_docs.device.type != "cpu":
             raise ValueError(f"no kernel for device {num_docs.device}")
         return plain(cols, params, num_docs, D)
@@ -372,8 +461,11 @@ def abs_contributions(plan: DevicePlan, cols: Tensors, params: Tensors,
 def from_jax_staged(cols: Dict[str, np.ndarray], params: Dict[str, np.ndarray],
                     num_docs: np.ndarray, device="cpu"):
     """The JAX engine's staged `cols` / `params` / `num_docs` (as numpy
-    arrays) as the port's tensors, dtypes unchanged."""
+    arrays, read-only ones included) as the port's tensors, keys and dtypes
+    unchanged: id blocks, value blocks, `valhi:`/`vallo:` split planes,
+    leaf parameters and `slot{j}:hlo/hscale` histogram bounds alike."""
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return torch.from_numpy(np.require(a, requirements=["C", "W"])
+                                ).to(device)
     return ({k: t(v) for k, v in cols.items()},
             {k: t(v) for k, v in params.items()}, t(num_docs))

@@ -2,7 +2,7 @@
 
 The JAX package traces one XLA program per plan under `jax.jit`
 (pinot_tpu/ops/kernels.py:643 `compiled_kernel`). The port instead builds
-its two CUDA kernels once and hands them the plan as data: a small postfix
+its CUDA kernels once and hands them the plan as data: a small postfix
 program over the filter tree, the value expressions and the aggregation
 slots. One `nvcc` build then serves every plan.
 
@@ -12,7 +12,8 @@ Layout of `Program.code` (all int32; offsets are absolute indexes into it):
     leaves  n_leaves x LEAF_W           (kind, col_a, col_b, param, lut)
     filters n_filters x (start, len)    postfix, 2 ints per instruction
     values  n_values  x (start, len)    postfix, 2 ints per instruction
-    slots   n_slots   x SLOT_W          (op, value, filter, acc, planes)
+    slots   n_slots   x SLOT_W          (op, value, filter, acc, n, out,
+                                         c0, c1)
     gcols   n_gcols   x (col, stride)   dense mixed-radix group key
     accs    n_acc     x ACC_W           (reduction, out kind, out column)
     coldt   n_cols                      dtype code of each staged column
@@ -24,6 +25,21 @@ Value instructions:  (V_COL, col) / (V_LIT, param) / (V_ADD|V_SUB|V_MUL|
 V_DIV|V_NEG, 0). Literals live in the per-segment parameter matrix after
 the leaf bounds (replicated over segments), so the code itself holds only
 ints.
+
+A slot row: `value` is the value-expression index (-1: none), `filter`
+the agg FILTER tree (-1: none), `n` the isum plane count, HLL log2m or
+histogram bucket count, and `out` the slot's first column in the packed
+ungrouped output. `acc` is a scalar slot's first accumulator word; for a
+sketch slot, which has none, it is the offset of the slot's table in K3's
+shared memory, or -1 where the tables before it leave no room under
+SKETCH_SMEM_WORDS (the slot then updates its global table with atomics).
+`c0`/`c1` are the HLL slot's valhi/vallo column indexes, or the histogram
+slot's `hlo`/`hscale` parameter indexes.
+
+Scalar slots (count ... isum) are K1's (csrc/scan_agg.cu); sketch slots
+(S_HLL, S_HIST) are K3's (csrc/sketch_agg.cu), which also counts the
+matched docs. A plan holding both launches both kernels into one output:
+each writes its own slots' columns, and both write the same matched count.
 
 Filter index 0 is the main WHERE tree when the plan has one
 (header H_MAIN = 0, else -1); agg FILTER trees follow. Each ungrouped
@@ -51,7 +67,7 @@ H_NLEAVES, H_NFILT, H_MAIN, H_NVAL, H_NSLOT, H_NACC, H_NGCOL, H_OUTW, \
     H_COLDT, H_LUTC, H_LEN = range(19)
 HEADER = 19
 
-LEAF_W, SLOT_W, ACC_W = 5, 5, 3
+LEAF_W, SLOT_W, ACC_W = 5, 8, 3
 
 # leaf kinds
 L_RANGE, L_NEQ, L_LUT, L_VRANGE, L_VRANGE64 = range(5)
@@ -63,8 +79,9 @@ F_LEAF, F_AND, F_OR, F_NOT = range(4)
 V_COL, V_LIT, V_ADD, V_SUB, V_MUL, V_DIV, V_NEG = range(7)
 _VALUE_OP = {"add": V_ADD, "sub": V_SUB, "mul": V_MUL, "div": V_DIV}
 # slot ops
-S_COUNT, S_SUM, S_SUMSQ, S_SUM3, S_SUM4, S_MIN, S_MAX, S_ISUM, S_ISUM_U = \
-    range(9)
+S_COUNT, S_SUM, S_SUMSQ, S_SUM3, S_SUM4, S_MIN, S_MAX, S_ISUM, S_ISUM_U, \
+    S_HLL, S_HIST = range(11)
+SKETCH_OPS = (S_HLL, S_HIST)
 _SLOT_OP = {"count": S_COUNT, "sum": S_SUM, "sumsq": S_SUMSQ,
             "sum3": S_SUM3, "sum4": S_SUM4, "min": S_MIN, "max": S_MAX}
 # accumulator reductions and output kinds
@@ -88,6 +105,14 @@ MAX_VALUE_DEPTH = 16
 #: exact integer SUM: signed six-bit planes, or unsigned seven-bit planes
 ISUM_PLANES = 6
 ISUM_U_BITS = 7
+#: HLL register counts and histogram widths K3 takes (csrc/sketch_agg.cu)
+HLL_LOG2M_RANGE = (4, 16)
+MAX_HIST_BUCKETS = 1 << 16
+MAX_SKETCH_SLOTS = 8
+#: 32-bit words of K3's shared-memory sketch tables (96 KB of the 227 KB a
+#: block may opt into): one HLL at log2m 12 (4096) and one 8192-bucket
+#: histogram fit, log2m 16 (65536) goes to global atomics
+SKETCH_SMEM_WORDS = 24576
 
 
 @dataclass(frozen=True)
@@ -105,6 +130,8 @@ class Program:
     params: Tuple[Tuple[Optional[str], Optional[float]], ...]
     n_acc: int
     out_width: int
+    #: 32-bit words of K3's shared-memory tables (0: no sketch slot there)
+    sketch_smem_words: int = 0
 
     def for_launch(self, dtypes: List[str],
                    lut_widths: List[int]) -> np.ndarray:
@@ -116,8 +143,19 @@ class Program:
         return code
 
 
+def is_sketch(op: str) -> bool:
+    """A K3 slot: HLL registers or histogram buckets."""
+    return op.startswith(("hll:", "hist:"))
+
+
 def slot_width(op: str) -> int:
-    """Output width of a slot in the ungrouped packed layout."""
+    """Output width of a slot in the ungrouped packed layout: 2^log2m HLL
+    registers ('hll:<log2m>[:<col>]'), B histogram buckets ('hist:<B>'),
+    two halves per exact-sum plane, else 1."""
+    if op.startswith("hll:"):
+        return 1 << int(op.split(":")[1])
+    if op.startswith("hist:"):
+        return int(op.split(":")[1])
     if op == "isum":
         return 2 * ISUM_PLANES
     if op.startswith("isum:u"):
@@ -217,19 +255,44 @@ def compile_plan(plan: DevicePlan) -> Program:
         values.append((start, len(instr) - start))
 
     slots, accs = [], []
+    smem = 0
     out_col = 0 if grouped else 1
     if not grouped:
         accs.append((R_ADD, O_SCALAR, 0))   # matched count
-    for op, vidx, fidx in plan.agg_ops:
+    for j, (op, vidx, fidx) in enumerate(plan.agg_ops):
         f = -1 if fidx is None else agg_base + fidx
         v = -1 if vidx is None else vidx
         acc = len(accs)
+        if is_sketch(op):
+            if grouped:
+                raise ValueError("sketch slots are ungrouped only")
+            width = slot_width(op)
+            sm = smem if smem + width <= SKETCH_SMEM_WORDS else -1
+            smem += width if sm >= 0 else 0
+            if op.startswith("hll:"):
+                _, log2m, column = op.split(":", 2)
+                lo_m, hi_m = HLL_LOG2M_RANGE
+                if not lo_m <= int(log2m) <= hi_m:
+                    raise ValueError(f"HLL log2m {log2m} outside "
+                                     f"[{lo_m}, {hi_m}]")
+                slots.append((S_HLL, -1, f, sm, int(log2m), out_col,
+                              col("valhi:" + column),
+                              col("vallo:" + column)))
+            else:
+                if not 1 <= width <= MAX_HIST_BUCKETS or vidx is None:
+                    raise ValueError(f"histogram slot {op!r} out of range")
+                p = len(params)
+                params += [(f"slot{j}:hlo", None), (f"slot{j}:hscale", None)]
+                slots.append((S_HIST, v, f, sm, width, out_col, p, p + 1))
+            out_col += width
+            continue
         if op == "isum" or op.startswith("isum:u"):
             if grouped:
                 raise ValueError("exact-sum slots are ungrouped only")
             signed = op == "isum"
             planes = ISUM_PLANES if signed else int(op.split(":")[1][1:])
-            slots.append((S_ISUM if signed else S_ISUM_U, v, f, acc, planes))
+            slots.append((S_ISUM if signed else S_ISUM_U, v, f, acc, planes,
+                          out_col, 0, 0))
             for k in range(planes):
                 accs.append((R_ADD, O_PLANE, out_col + 2 * k))
             out_col += 2 * planes
@@ -238,9 +301,10 @@ def compile_plan(plan: DevicePlan) -> Program:
         if code is None:
             raise ValueError(f"slot op {op!r} is not in this port")
         red = {S_MIN: R_MIN, S_MAX: R_MAX}.get(code, R_ADD)
-        slots.append((code, v, f, acc, 0))
+        slots.append((code, v, f, acc, 0, out_col, 0, 0))
         accs.append((red, O_SCALAR, out_col))
         out_col += 1
+    n_sketch = sum(1 for sl in slots if sl[0] in SKETCH_OPS)
 
     gcols = [(col("ids:" + c), s)
              for c, s in zip(plan.group_cols, plan.group_strides)]
@@ -250,7 +314,8 @@ def compile_plan(plan: DevicePlan) -> Program:
               (len(params), MAX_PARAMS, "leaf bounds and literals"),
               (len(accs), MAX_ACC, "accumulator words"),
               (len(filters), MAX_FILTERS, "filter trees"),
-              (len(values), MAX_VALUES, "value expressions"))
+              (len(values), MAX_VALUES, "value expressions"),
+              (n_sketch, MAX_SKETCH_SLOTS, "sketch slots"))
     for n, cap, what in checks:
         if n > cap:
             raise ValueError(f"{n} {what} exceed the device program's {cap}")
@@ -297,4 +362,4 @@ def compile_plan(plan: DevicePlan) -> Program:
     code[H_LEN] = len(code)
     return Program(code=tuple(code), cols=tuple(cols), luts=tuple(luts),
                    params=tuple(params), n_acc=len(accs),
-                   out_width=code[H_OUTW])
+                   out_width=code[H_OUTW], sketch_smem_words=smem)

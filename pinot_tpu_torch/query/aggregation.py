@@ -1,7 +1,9 @@
 """Aggregation functions of the device slice: registry + base contract.
 
 Counterpart of pinot_tpu/query/aggregation/base.py and the COUNT / SUM /
-MIN / MAX / AVG / MINMAXRANGE classes of functions.py (ref pinot-core
+MIN / MAX / AVG / MINMAXRANGE, DISTINCTCOUNTHLL and PERCENTILETDIGEST
+classes of functions.py, with its `percentiletdigestNN` suffix resolution
+(`resolve_percentile_suffix`) (ref pinot-core
 query/aggregation/function/AggregationFunction.java:42). The port has no
 host executor, so a function here carries only what the device path and the
 reduce need: its device slots (`device_spec`), `from_device_slots`, `merge`,
@@ -17,11 +19,15 @@ import re
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Type
 
+from pinot_tpu_torch.query.expressions import Identifier, Literal
+from pinot_tpu_torch.query.sketches import HyperLogLog, TDigest
+
 
 @dataclass(frozen=True)
 class DeviceAggSpec:
-    """The masked reductions ('count' | 'sum' | 'min' | 'max') the fused
-    device kernel computes for one function."""
+    """The masked reductions ('count' | 'sum' | 'min' | 'max') or sketch
+    slots ('hll:<log2m>' | 'hist:<buckets>') the device kernels compute
+    for one function."""
     ops: tuple
 
 
@@ -176,15 +182,119 @@ class MinMaxRangeAggregation(AggregationFunction):
         return (float(slots["min"]), float(slots["max"]))
 
 
+def _plain_column_arg(args: tuple) -> bool:
+    """The device sketch slots read one staged column: the first argument
+    must name it."""
+    return bool(args) and isinstance(args[0], Identifier) \
+        and args[0].name != "*"
+
+
+def _sketch_input_missing(fn: str, args: tuple) -> str:
+    what = str(args[0]) if args else "no argument"
+    return f"{fn} over {what} (sketches over expressions)"
+
+
+@register
+class DistinctCountHLLAggregation(AggregationFunction):
+    """Approximate distinct count via HyperLogLog
+    (ref DistinctCountHLLAggregationFunction, log2m default 12)."""
+    names = ("distinctcounthll", "distinctcounthllplus", "distinctcountull",
+             "distinctcountcpcsketch")
+
+    def _log2m(self) -> int:
+        if len(self.args) > 1 and isinstance(self.args[1], Literal):
+            return int(self.args[1].value)
+        return 12
+
+    @property
+    def device_spec(self) -> Optional[DeviceAggSpec]:
+        """Registers from the sketch kernel's hash -> bucket -> max over
+        the column's i32 split planes, bit-identical to the host sketch.
+        Plain-column arguments only."""
+        if _plain_column_arg(self.args):
+            return DeviceAggSpec((f"hll:{self._log2m()}",))
+        return None
+
+    @property
+    def missing_feature(self) -> Optional[str]:
+        if self.device_spec is None:
+            return _sketch_input_missing("DISTINCTCOUNTHLL", self.args)
+        return None
+
+    def merge(self, a, b):
+        return a.merge(b)
+
+    def identity(self):
+        return HyperLogLog(self._log2m())
+
+    def extract_final(self, intermediate):
+        return intermediate.cardinality()
+
+    def from_device_slots(self, slots):
+        return HyperLogLog.from_registers(
+            slots[f"hll:{self._log2m()}"], self._log2m())
+
+    @property
+    def final_dtype(self):
+        return "LONG"
+
+
+@register
+class PercentileTDigestAggregation(AggregationFunction):
+    """Approximate percentile via t-digest
+    (ref PercentileTDigestAggregationFunction, compression 100)."""
+    names = ("percentiletdigest", "percentilerawtdigest")
+
+    #: device histogram resolution (quantile error <= one bucket width of
+    #: the column's [min, max] range on top of the digest's own error)
+    DEVICE_BUCKETS = 8192
+
+    def __init__(self, args, percent: Optional[float] = None):
+        super().__init__(args)
+        self._pct = percent if percent is not None else (
+            float(args[1].value)
+            if len(args) > 1 and isinstance(args[1], Literal) else 50.0)
+        self._compression = (
+            float(args[2].value)
+            if len(args) > 2 and isinstance(args[2], Literal) else 100.0)
+
+    @property
+    def device_spec(self) -> Optional[DeviceAggSpec]:
+        """Fixed-bucket histogram partials over the column's value block
+        (bounds from segment metadata), turned into centroids host-side.
+        Plain-column arguments only."""
+        if _plain_column_arg(self.args):
+            return DeviceAggSpec((f"hist:{self.DEVICE_BUCKETS}",))
+        return None
+
+    @property
+    def missing_feature(self) -> Optional[str]:
+        if self.device_spec is None:
+            return _sketch_input_missing("PERCENTILETDIGEST", self.args)
+        return None
+
+    def merge(self, a, b):
+        return a.merge(b)
+
+    def identity(self):
+        return TDigest(self._compression)
+
+    def extract_final(self, intermediate):
+        return intermediate.quantile(self._pct / 100.0)
+
+    def from_device_slots(self, slots):
+        return TDigest.from_histogram(
+            slots["hist_lo"], slots["hist_width"],
+            slots[f"hist:{self.DEVICE_BUCKETS}"], self._compression)
+
+
 #: aggregation names of the JAX package that later slices of the port bring
 #: over, by the feature that carries them
 _LATER = {
     "sketches": (
         "distinctcount", "distinctcountbitmap",
-        "segmentpartitioneddistinctcount", "distinctcounthll",
-        "distinctcounthllplus", "distinctcountull", "distinctcountcpcsketch",
-        "percentile", "percentileest", "percentilerawest",
-        "percentiletdigest", "percentilerawtdigest", "percentilekll",
+        "segmentpartitioneddistinctcount",
+        "percentile", "percentileest", "percentilerawest", "percentilekll",
         "percentilerawkll", "distinctcountthetasketch",
         "distinctcountrawthetasketch", "distinctcounttuplesketch",
         "distinctcountrawintegersumtuplesketch", "histogram", "mode"),
@@ -204,7 +314,7 @@ _LATER = {
 }
 _FEATURE_OF = {n: f for f, names in _LATER.items() for n in names}
 _PERCENTILE_SUFFIX = re.compile(
-    r"percentile(?:est|kll|tdigest|rawest|rawtdigest)?\d{1,3}")
+    r"(percentile(?:est|kll|tdigest|rawest|rawtdigest)?)(\d{1,3})")
 
 
 class UnsupportedAggregation(AggregationFunction):
@@ -222,11 +332,28 @@ def is_aggregation(name: str) -> bool:
         or _PERCENTILE_SUFFIX.fullmatch(n) is not None
 
 
+def resolve_percentile_suffix(name: str, args: tuple
+                              ) -> Optional[AggregationFunction]:
+    """percentiletdigest95(col) style names -> a configured instance; None
+    when the name carries no percent suffix. Suffixed names of the other
+    percentile families are still to port."""
+    m = _PERCENTILE_SUFFIX.fullmatch(name.lower())
+    if m is None:
+        return None
+    base, pct = m.group(1), float(m.group(2))
+    if "tdigest" in base:
+        return PercentileTDigestAggregation(args, percent=pct)
+    return UnsupportedAggregation(name.lower(), args)
+
+
 def get_aggregation(name: str, args: tuple) -> AggregationFunction:
     n = name.lower()
     cls = REGISTRY.get(n)
     if cls is not None:
         return cls(args)
-    if is_aggregation(n):
+    if n in _FEATURE_OF:
         return UnsupportedAggregation(n, args)
-    raise ValueError(f"unknown aggregation function: {name}")
+    inst = resolve_percentile_suffix(n, args)
+    if inst is None:
+        raise ValueError(f"unknown aggregation function: {name}")
+    return inst

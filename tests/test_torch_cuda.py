@@ -1,5 +1,6 @@
-"""K1 scan_agg and K2 group_agg on the card against their plain PyTorch
-versions on the card, over the seeded random plans of tests/torch_plans.py.
+"""K1 scan_agg, K2 group_agg and K3 sketch_agg on the card against their
+plain PyTorch versions on the card, over the seeded random plans of
+tests/torch_plans.py.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. On the card
 they run without the repo's conftest (which imports JAX):
@@ -7,10 +8,11 @@ they run without the repo's conftest (which imports JAX):
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 
-Tolerances: counts, exact-sum planes and min/max bit-identical (both sides
-round every float operation once, in the same order: the kernels are built
-with --fmad=false); float32 sums within 1e-5 and float64 within 1e-9 of the
-slot's sum of |contribution| (both add in double, in other orders).
+Tolerances: counts, exact-sum planes, min/max, HLL registers and
+histogram buckets bit-identical (both sides round every float operation
+once, in the same order: the kernels are built with --fmad=false); float32
+sums within 1e-5 and float64 within 1e-9 of the slot's sum of
+|contribution| (both add in double, in other orders).
 """
 import os
 import sys
@@ -78,3 +80,41 @@ def test_large_group_space_uses_global_table(card):
              for j, v in tk.abs_contributions(plan, tc, tpar, tnd, 20_000).items()}
     tp.assert_packed_equal(spec, ref.cpu().numpy(), out.cpu().numpy(),
                            scale, x64=False)
+
+
+def _sketch_case(card, spec, x64, S, D, seed):
+    plan = DevicePlan(**spec)
+    vdt = torch.float64 if x64 else torch.float32
+    cols, params, nd = tp.sketch_inputs(seed, spec, S, D,
+                                        np.float64 if x64 else np.float32,
+                                        pad_segments=2)
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    scalar = not all(tk.is_sketch(op) for op, _v, _f in spec["agg_ops"])
+    before = (_cuda.SCAN_AGG.launches, _cuda.SKETCH_AGG.launches)
+    out = tk.make_kernel(plan, vdt)(tc, tpar, tnd, D)
+    ref = tk.plain_kernel(plan, vdt)(tc, tpar, tnd, D)
+    torch.cuda.synchronize()
+    after = (_cuda.SCAN_AGG.launches, _cuda.SKETCH_AGG.launches)
+    assert after == (before[0] + int(scalar), before[1] + 1)
+    scale = {j: v.cpu().numpy()
+             for j, v in tk.abs_contributions(plan, tc, tpar, tnd, D).items()}
+    tp.assert_packed_equal(spec, ref.cpu().numpy(), out.cpu().numpy(),
+                           scale, x64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_sketch_kernel_matches_plain_on_card(card, seed, x64):
+    """K3 alone (odd seeds) and K1 + K3 into one output (even seeds)."""
+    spec = tp.random_sketch_spec(seed, scalar=seed % 2 == 0)
+    _sketch_case(card, spec, x64, 6, 3000 + 37 * seed, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_sketch_kernel_global_atomics_path(card, x64):
+    """log2m 16 does not fit beside the others in shared memory: K3
+    updates that slot's global table with atomics."""
+    spec = tp.random_sketch_spec(21, log2ms=(12, 16), scalar=False)
+    _sketch_case(card, spec, x64, 5, 70_000, 21)

@@ -24,9 +24,12 @@ import pinot_tpu_torch.ops._cuda, pinot_tpu_torch.ops.program
 d = tempfile.mkdtemp()
 SegmentCreator(TableConfig("t"), Schema("t", [FieldSpec("a", DataType.INT)])
                ).build({"a": np.arange(100, dtype=np.int32) % 7}, d, "s")
-rows = QueryExecutor([load_segment(d)], device="cpu").execute(
+ex = QueryExecutor([load_segment(d)], device="cpu")
+rows = ex.execute(
     "SELECT a, COUNT(*) FROM t WHERE a > 2 GROUP BY a ORDER BY a").rows
 assert [r[0] for r in rows] == [3, 4, 5, 6], rows
+assert ex.execute("SELECT DISTINCTCOUNTHLL(a) FROM t").rows == [(7,)]
+assert ex.execute("SELECT PERCENTILETDIGEST50(a) FROM t").rows
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "pinot_tpu")
              or m.startswith(("jax.", "jaxlib.", "pinot_tpu.")))

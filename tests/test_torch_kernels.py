@@ -17,9 +17,10 @@ the same numpy inputs, under both precision postures:
       rounding) while PyTorch rounds the product and the sum apart.
 
 A numpy mirror of the CUDA interpreter (csrc/interp.cuh, scan_agg.cu,
-group_agg.cu) runs the compiled program (ops/program.py) on the same inputs
-and is held to the port's plain version with the same tolerances: the
-program encoding is checked here, on the CPU, where the kernels cannot run.
+group_agg.cu, sketch_agg.cu) runs the compiled program (ops/program.py) on
+the same inputs and is held to the port's plain version with the same
+tolerances (HLL registers and histogram buckets bit-identical): the program
+encoding is checked here, on the CPU, where the kernels cannot run.
 """
 import numpy as np
 import pytest
@@ -38,6 +39,7 @@ from pinot_tpu.ops import plan_ir as jir
 from pinot_tpu_torch.ops import kernels as tk
 from pinot_tpu_torch.ops import program as pg
 from pinot_tpu_torch.ops.plan_ir import DevicePlan
+from pinot_tpu_torch.query.sketches import hash32_pair
 from tests import torch_plans as tp
 
 S, D = 4, 512
@@ -242,8 +244,26 @@ def run_program(plan, cols, params, num_docs, D, vdt):
             m0 &= (key >= 0) & (key < G)
         acc = {}
         for j in range(code[pg.H_NSLOT]):
-            op, v, f, w, planes = _code_at(code, pg.H_SLOT, j, pg.SLOT_W)
+            op, v, f, w, planes, oc, c0, c1 = _code_at(code, pg.H_SLOT, j,
+                                                       pg.SLOT_W)
             m = m0 & filt(f) if f >= 0 else m0
+            if op == pg.S_HLL:
+                h1, h2 = hash32_pair(
+                    colarr[c0][s, :n][m].astype(np.uint32),
+                    colarr[c1][s, :n][m].astype(np.uint32))
+                reg = (h1 & np.uint32((1 << planes) - 1)).astype(np.int64)
+                e = np.frexp(h2.astype(np.float64))[1]
+                tab = np.zeros(1 << planes)
+                np.maximum.at(tab, reg, np.where(h2 != 0, 33 - e, 33))
+                out[s, oc:oc + (1 << planes)] = tab
+                continue
+            if op == pg.S_HIST:
+                with np.errstate(all="ignore"):
+                    t = ((value(v, T) - T(prm[c0])) * T(prm[c1])).astype(T)
+                t = np.where(np.isnan(t), 0, np.clip(t, 0, planes - 1))
+                out[s, oc:oc + planes] = np.bincount(
+                    t[m].astype(np.int64), minlength=planes)
+                continue
             if op in (pg.S_ISUM, pg.S_ISUM_U):
                 vi = value(v, np.int32)[m]
                 bits, mask_ = (6, 63) if op == pg.S_ISUM else (7, 127)
@@ -304,6 +324,35 @@ def test_program_interpreter_matches_plain(seed, grouped):
     mirror = run_program(plan, cols, params, nd, D, np.float32)
     out, scale = run_port(spec, cols, params, nd, torch.float32)
     tp.assert_packed_equal(spec, mirror, out, scale, x64=False)
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("x64", [True, False], ids=["f64", "f32"])
+def test_program_interpreter_matches_plain_sketches(seed, x64):
+    """The mirror on sketch plans: K3's HLL and histogram slots beside K1's
+    scalar slots (even seeds), with NaN, +-inf and bound values."""
+    spec = tp.random_sketch_spec(seed, scalar=seed % 2 == 0,
+                                 log2ms=(4, 12) if seed % 3 else (16,))
+    vdt = np.float64 if x64 else np.float32
+    cols, params, nd = tp.sketch_inputs(seed, spec, S, D, vdt)
+    mirror = run_program(DevicePlan(**spec), cols, params, nd, D, vdt)
+    out, scale = run_port(spec, cols, params, nd,
+                          torch.float64 if x64 else torch.float32)
+    tp.assert_packed_equal(spec, mirror, out, scale, x64)
+
+
+def test_sketch_tables_fit_shared_memory():
+    """program.py places each sketch table in K3's shared memory while the
+    tables before it leave room, back to back, else in global memory."""
+    spec = tp.random_sketch_spec(0, log2ms=(12, 16, 4), scalar=True)
+    prog = pg.compile_plan(DevicePlan(**spec))
+    rows = [_code_at(prog.code, pg.H_SLOT, j, pg.SLOT_W)
+            for j in range(len(spec["agg_ops"]))]
+    placed = [(r[3], r[4]) for r in rows if r[0] in pg.SKETCH_OPS]
+    # hll:12 at 0, hll:16 global, hll:4 after hll:12, hist:8192 after it
+    assert placed == [(0, 12), (-1, 16), (4096, 4), (4112, 8192)]
+    assert prog.sketch_smem_words == 4112 + 8192 <= pg.SKETCH_SMEM_WORDS
+    assert prog.out_width == 1 + 4096 + 65536 + 16 + 8192 + 2
 
 
 def test_program_limits_raise():

@@ -161,6 +161,73 @@ def random_inputs(seed: int, spec: dict, S: int, D: int, value_dtype,
     return cols, params, num_docs
 
 
+def random_sketch_spec(seed: int, log2ms=(12,), scalar: bool = True,
+                       buckets: int = 8192) -> dict:
+    """Plan fields with sketch slots: one HLL slot over the split-plane
+    column 't' per log2m, a histogram slot over 'x', a random main filter
+    and agg FILTER trees, and (scalar=True) count and sum slots beside
+    them, so the plan runs K1 and K3 into one output on the card."""
+    rng = np.random.default_rng(seed)
+    leaves: list = []
+    filter_ir = _filter_tree(rng, leaves) if rng.random() < 0.7 else None
+    agg_filter_irs = tuple(_filter_tree(rng, leaves)
+                           for _ in range(int(rng.integers(0, 2))))
+
+    def fidx():
+        return None if not agg_filter_irs or rng.random() < 0.5 else 0
+
+    agg_ops = [(f"hll:{m}:t", None, fidx()) for m in log2ms]
+    agg_ops.append((f"hist:{buckets}", 0, fidx()))
+    if scalar:
+        agg_ops.insert(seed % (len(agg_ops) + 1),
+                       ("count", None, fidx()))
+        agg_ops.append(("sum", 0, None))
+    return dict(filter_ir=filter_ir, leaves=tuple(leaves),
+                value_irs=(("col", "x"),), agg_ops=tuple(agg_ops),
+                agg_filter_irs=agg_filter_irs, raw64_cols=("t",))
+
+
+def hist_params(seed: int, spec: dict, S: int, value_dtype,
+                ) -> Dict[str, np.ndarray]:
+    """`slot{j}:hlo` / `slot{j}:hscale` for each histogram slot: bounds
+    around 'x''s range, narrower on some segments so values clip at both
+    ends; B / span taken in double and rounded once, as the engine
+    stages them."""
+    rng = np.random.default_rng(seed + 104729)
+    vdt = np.dtype(value_dtype)
+    out = {}
+    for j, (op, _v, _f) in enumerate(spec["agg_ops"]):
+        if op.startswith("hist:"):
+            B = slot_width(op)
+            lo = rng.choice([-100.0, -20.0, 0.0], S)
+            span = rng.choice([200.0, 50.0, 117.3], S)
+            out[f"slot{j}:hlo"] = lo.astype(vdt)
+            out[f"slot{j}:hscale"] = (B / span).astype(vdt)
+    return out
+
+
+def sketch_inputs(seed: int, spec: dict, S: int, D: int, value_dtype,
+                  pad_segments: int = 1):
+    """random_inputs plus the histogram parameters, with NaN, +-inf and
+    values at each segment's bounds in 'x', and the planes of 0, -1 and
+    the largest admissible longs (|v| < 2^55) in 't'."""
+    cols, params, nd = random_inputs(seed, spec, S, D, value_dtype,
+                                     nan=True, pad_segments=pad_segments)
+    params.update(hist_params(seed, spec, S, value_dtype))
+    x = cols["val:x"]
+    x[:, 1], x[:, 2], x[:, 3] = np.inf, -np.inf, np.nan
+    for j, (op, _v, _f) in enumerate(spec["agg_ops"]):
+        if op.startswith("hist:"):
+            lo = params[f"slot{j}:hlo"].astype(np.float64)
+            hi = lo + slot_width(op) / params[f"slot{j}:hscale"]
+            x[:, 4], x[:, 5] = lo, hi
+    t = np.array([0, -1, (1 << 55) - 1, -(1 << 55) + 1, 1 << 24, -(1 << 24)],
+                 dtype=np.int64)
+    cols["valhi:t"][:, 6:12] = (t >> 24).astype(np.int32)
+    cols["vallo:t"][:, 6:12] = (t & 0xFFFFFF).astype(np.int32)
+    return cols, params, nd
+
+
 def contractible(ir) -> bool:
     """True when an add/sub takes a product directly: XLA on the CPU fuses
     such pairs into one FMA (one rounding instead of two), so a min/max of
@@ -204,7 +271,7 @@ def assert_packed_equal(spec, a, b, scale, x64: bool, fma: bool = False):
         y = b[..., j] if grouped else b[:, col:col + w]
         col += w
         what = f"slot {j} {op}"
-        if op == "count" or op.startswith("isum"):
+        if op == "count" or op.startswith(("isum", "hll:", "hist:")):
             assert np.array_equal(x, y), what
         elif op in ("min", "max"):
             if x64:
