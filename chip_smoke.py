@@ -6,34 +6,45 @@
 Phases, each of which exits non-zero on failure:
 
 1. Device: the card's name and power limit (nvidia-smi) and its torch name.
-2. Build: the three CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc,
+2. Build: the four CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc,
    one process per source, in parallel.
 3. Kernels against their plain PyTorch versions, on the card, on seeded
    random inputs at the main path's shapes: K1 scan_agg at S=16, D=2^23
    (i16 / i8 ids, f32 values, a filter of range / lut / not-neq leaves,
    a product value, count / sum / min / max / exact-sum slots), K2
-   group_agg at S=8, D=2^22, G=35, and K3 sketch_agg at S=16, D=2^23
+   group_agg at S=8, D=2^22, G=35, K3 sketch_agg at S=16, D=2^23
    (HLL slots at log2m 12 and 16 over i32 split planes of longs below
    2^55, 0 and negatives among them; an 8192-bucket histogram over f32
    values with NaN, +-inf and the bounds; a filter of range / lut /
-   vrange64 leaves). Counts, exact-sum planes, min / max, registers and
-   buckets must match bit for bit; float sums within 1e-5 of the slot's
-   sum of |contribution|. Times: CUDA events, median of 20 launches.
-   Bound: the bytes the function must move on these inputs (the filter's
-   columns in full, the other columns, split planes included, only in the
-   32-byte sectors holding a doc the filter keeps, parameters and output
-   once) over 3.35 TB/s. Library: torch.histc over K3's histogram input,
-   unfiltered (nearly K3's histogram; no PyTorch call computes HLL).
+   vrange64 leaves), and K4 topn at S=16, D=2^23 in four cases (a raw f32
+   value DESC k=10 and an i16 ids value ASC k=1000 under a filter keeping
+   about 0.3% of docs; the raw value ASC k=8192 and unordered k=1000
+   under one keeping about 50%), its order values small integers with
+   NaN, +-inf and +-0.0. Counts, exact-sum planes, min / max, registers,
+   buckets and K4's whole output must match bit for bit; float sums
+   within 1e-5 of the slot's sum of |contribution|. Times: CUDA events,
+   median of 20 launches. Bound: the bytes the function must move on
+   these inputs (the filter's columns in full, the other columns, split
+   planes and order values included, only in the 32-byte sectors holding
+   a doc the filter keeps, parameters and output once) over 3.35 TB/s.
+   Library: torch.histc over K3's histogram input, unfiltered (nearly
+   K3's histogram; no PyTorch call computes HLL); torch.topk over K4's
+   masked score block (it keeps no tie order: a time only).
 4. Q1 leg: SSB-flat lineorder data (bench.py's column distributions), 16
    segments x 8M rows = 128M rows, built with the port's creator into a
    temp dir; SSB Q1.1 as bench.py runs it plus Q1.2- and Q1.3-shaped date
    windows through QueryExecutor(device="cuda"), each checked EXACTLY
    (integer SUM and COUNT) against numpy truth from the generated columns.
+   Then the selection leg on the same segments: four top-N queries on K4
+   (a raw order value, a dictionary order value with OFFSET, unordered,
+   an expression order value) and a DISTINCT on K2, every row equal to
+   the numpy truth in order (selection_truth / selection_expected).
 5. Group-by leg: 8 x 4M rows of bench_extra.py config #3 data;
    SELECT d_year, p_category, SUM(lo_revenue) ... WHERE s_region =
    'AMERICA' GROUP BY d_year, p_category ORDER BY ... LIMIT 100, checked
    against numpy truth: keys exactly, float32 sums within rel 1e-6 (the
-   kernel adds in double; one float32 rounding of the total is 6e-8).
+   kernel adds in double; one float32 rounding of the total is 6e-8); and
+   a DISTINCT over two string columns, equal to the numpy pairs.
 6. Config-#4 leg: BASELINE config #4 (NYC-taxi-shaped trip_id LONG and
    fare DOUBLE, bench_extra.py:200-209's draws) at 128 segments x 8M rows
    = 1,024M rows, generated, written and folded into the truth one
@@ -45,12 +56,13 @@ Phases, each of which exits non-zero on failure:
    float32 formula merged in segment order, and within rel 0.02 of the
    exact percentile.
 7. Launch counts: each kernel's counter is set to 0 just before a leg's
-   timed queries and read just after them; the leg's kernel must have
+   timed queries and read just after them; the leg's kernels must have
    launched once per query run and the others never. Then a short
    torch.profiler trace of the same warm query gives the card's busy time
-   per query. Prints each query's p50 latency, rows/s and peak device
-   memory, the host-clock stage split of the timed runs, the card line,
-   the `kernels` JSON line, and last {"ok": true, "device": {...}}.
+   per query and each port kernel's share. Prints each query's p50
+   latency, rows/s and peak device memory, the host-clock stage split of
+   the timed runs, the card line, the `kernels` JSON line, and last
+   {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of pinot_tpu. Exits non-zero, printing no
 result, where torch sees no CUDA device or the port's package is missing.
@@ -106,6 +118,34 @@ Q1_TRUTH = {  # (date lo, date hi, discount lo, hi, quantity lo, hi)
 GB_QUERY = ("SELECT d_year, p_category, SUM(lo_revenue) FROM ssbgb "
             "WHERE s_region = 'AMERICA' GROUP BY d_year, p_category "
             "ORDER BY d_year, p_category LIMIT 100")
+GB_DISTINCT = ("SELECT DISTINCT p_category, s_region FROM ssbgb "
+               "WHERE d_year = 1995 ORDER BY p_category, s_region LIMIT 100")
+#: the selection leg on the Q1 leg's segments: a dashboard's "top line
+#: items" tile and a paged table view. name -> (SQL, limit, offset, asc)
+SEL_QUERIES = {
+    # a raw order value, about 0.3% of rows kept
+    "sel.1": ("SELECT lo_orderdate, lo_discount, lo_quantity, "
+              "lo_extendedprice FROM ssb WHERE lo_orderdate BETWEEN "
+              "19940101 AND 19940131 AND lo_discount BETWEEN 4 AND 6 "
+              "ORDER BY lo_extendedprice DESC LIMIT 10", 10, 0, False),
+    # a dictionary (ids) order value, k = 1000, about 48% kept, dense ties
+    "sel.2": ("SELECT * FROM ssb WHERE lo_quantity < 25 "
+              "ORDER BY lo_orderdate LIMIT 100 OFFSET 900", 100, 900, True),
+    # unordered: the first matched docs
+    "sel.3": ("SELECT lo_orderdate, lo_extendedprice FROM ssb "
+              "WHERE lo_discount = 7 AND lo_quantity BETWEEN 26 AND 35 "
+              "LIMIT 100", 100, 0, True),
+    # an expression order value
+    "sel.4": ("SELECT lo_orderdate, lo_discount, lo_extendedprice FROM ssb "
+              "WHERE lo_orderdate BETWEEN 19930101 AND 19931231 "
+              "ORDER BY lo_extendedprice * lo_discount DESC LIMIT 10",
+              10, 0, False),
+}
+#: DISTINCT on K2: 11 x 50 = 550 dense keys
+DIST_QUERY = ("SELECT DISTINCT lo_discount, lo_quantity FROM ssb "
+              "WHERE lo_orderdate BETWEEN 19940101 AND 19940131 "
+              "ORDER BY lo_discount, lo_quantity LIMIT 1000")
+SSB_COLS = ("lo_orderdate", "lo_discount", "lo_quantity", "lo_extendedprice")
 _SKETCHES = ("SELECT DISTINCTCOUNTHLL(trip_id), PERCENTILETDIGEST95(fare) "
              "FROM taxi")
 TAXI_QUERIES = {
@@ -180,6 +220,66 @@ def groupby_truth(cols: dict) -> dict:
             if sel.any():
                 out[(int(y), str(c))] = int(rev[sel].sum())
     return out
+
+
+def selection_truth(cols: dict) -> dict:
+    """Per selection query over one segment's columns, computed with numpy
+    apart from the port: (the matched count, the winners in the kernel's
+    order as (exact order value, row over SSB_COLS)). Winners: the first k
+    of np.lexsort on (doc, -score), k = limit + offset; sel.4's score is
+    the float32 product the kernel rounds. Also dist.1's (discount,
+    quantity) pairs present."""
+    date, disc, qty, price = (cols[c] for c in SSB_COLS)
+    jan94 = (date >= 19940101) & (date <= 19940131)
+    specs = {  # name -> (kept, score or None, exact order value)
+        "sel.1": (jan94 & (disc >= 4) & (disc <= 6), price, price),
+        "sel.2": (qty < 25, -date.astype(np.int64), date),
+        "sel.3": ((disc == 7) & (qty >= 26) & (qty <= 35), None, None),
+        "sel.4": ((date >= 19930101) & (date <= 19931231),
+                  price.astype(np.float32) * disc.astype(np.float32),
+                  price.astype(np.int64) * disc),
+    }
+    out = {}
+    for name, (kept, score, value) in specs.items():
+        _sql, limit, offset, _asc = SEL_QUERIES[name]
+        docs = np.nonzero(kept)[0]
+        if score is not None:
+            docs = docs[np.lexsort((docs, -score[docs]))]
+        docs = docs[:limit + offset]
+        rows = [(None if value is None else int(value[d]),
+                 tuple(int(cols[c][d]) for c in SSB_COLS)) for d in docs]
+        out[name] = (int(kept.sum()), rows)
+    out["dist.1"] = set(zip(disc[jan94].tolist(), qty[jan94].tolist()))
+    return out
+
+
+def selection_expected(truths: list, name: str, columns: list):
+    """The response a selection query must give over segments whose
+    selection_truth are `truths`, in segment order: their winners
+    concatenated and stably sorted by the exact order value (rows that tie
+    keep segment order, as the broker's reduce keeps them), then OFFSET and
+    LIMIT; rows over `columns`. Returns (rows, total matched)."""
+    _sql, limit, offset, asc = SEL_QUERIES[name]
+    rows = [r for t in truths for r in t[name][1]]
+    if rows and rows[0][0] is not None:
+        rows = sorted(rows, key=lambda r: r[0] if asc else -r[0])
+    pick = [SSB_COLS.index(c) for c in columns]
+    return ([tuple(r[1][i] for i in pick)
+             for r in rows[offset:offset + limit]],
+            sum(t[name][0] for t in truths))
+
+
+def q1_leg_truth(cols: dict) -> dict:
+    return {"q1": q1_truth(cols), "sel": selection_truth(cols)}
+
+
+def groupby_leg_truth(cols: dict) -> dict:
+    """groupby_truth, and the (p_category, s_region) pairs present in
+    d_year 1995 (GB_DISTINCT)."""
+    y95 = cols["d_year"] == 1995
+    return {"gb": groupby_truth(cols),
+            "dist": set(zip(cols["p_category"][y95].tolist(),
+                            cols["s_region"][y95].tolist()))}
 
 
 def taxi_columns(rng, n: int) -> dict:
@@ -530,6 +630,104 @@ def bytes_needed(plan, cols, params, num_docs, D, out):
     return moved, int(mask.sum())
 
 
+def topn_kernel_inputs(seed: int) -> dict:
+    """K4's four phase-3 cases at the Q1 leg's block width, made on the
+    card: name -> (plan, cols, params, num_docs, D). i16 / i8 id filters
+    (range, lut, neq) keep about 50% ('wide') or 0.3% ('narrow') of the
+    docs; the f32 order values are small integers (dense ties) with NaN,
+    +-inf, -0.0 and +0.0 among them; the last segment is padding."""
+    import torch
+
+    from pinot_tpu_torch.ops import program
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2)
+
+    def ints(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int64).to(dtype)
+
+    S, D = Q1_SEGMENTS, 1 << 23
+    v = ints(-4, 5, (S, D), torch.float32)
+    special = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0,
+                            0.0], device=dev)
+    pick = torch.rand((S, D), generator=g, device=dev) < 0.05
+    v[pick] = special[ints(0, 5, (int(pick.sum()),), torch.int64)]
+    cols = {"ids:f16": ints(0, 2000, (S, D), torch.int16),
+            "ids:f8": ints(0, 100, (S, D), torch.int8),
+            "ids:o16": ints(0, 30000, (S, D), torch.int16), "val:v": v}
+    lo = ints(0, 100, (S,), torch.int32)
+    wide = dict(filter_ir=("and", ("leaf", 0), ("leaf", 1), ("leaf", 2)),
+                leaves=(DeviceLeaf("range", "f16"), DeviceLeaf("neq", "f8"),
+                        DeviceLeaf("lut", "f8")))
+    wide_params = {"leaf0:lo": lo, "leaf0:hi": lo + 999,
+                   "leaf1:idx": ints(0, 100, (S,), torch.int32),
+                   "leaf2:lut": torch.rand((S, 128), generator=g,
+                                           device=dev) < 0.99}
+    narrow = dict(filter_ir=("and", ("leaf", 0), ("leaf", 1)),
+                  leaves=(DeviceLeaf("range", "f16"),
+                          DeviceLeaf("lut", "f8")))
+    narrow_params = {"leaf0:lo": lo, "leaf0:hi": lo + 19,
+                     "leaf1:lut": torch.rand((S, 128), generator=g,
+                                             device=dev) < 0.3}
+    num_docs = torch.full((S,), Q1_DOCS, dtype=torch.int32, device=dev)
+    num_docs[-1] = 0
+    cases = {  # name -> (filter, order value, ascending, k)
+        "a: raw value DESC k=10": (narrow, ("col", "v"), False, 10),
+        "b: raw value ASC k=8192": (wide, ("col", "v"), True, 8192),
+        "c: unordered k=1000": (wide, None, True, 1000),
+        "d: ids ASC k=1000": (narrow, ("ids", "o16"), True, 1000),
+    }
+    out = {}
+    for name, (filt, ir, asc, k) in cases.items():
+        plan = DevicePlan(**filt, value_irs=() if ir is None else (ir,),
+                          agg_ops=(), dict_cols=("f16", "f8", "o16"),
+                          raw_cols=("v",), mode="topn", topn_k=k,
+                          topn_asc=asc)
+        params = wide_params if filt is wide else narrow_params
+        used = set(program.compile_plan(plan).cols)
+        out[name] = (plan, {c: t for c, t in cols.items() if c in used},
+                     params, num_docs, D)
+    return out
+
+
+def check_topn(name: str, plan, cols, params, num_docs, D) -> dict:
+    """K4 against its plain version on the card, bit for bit over the whole
+    [S, 1 + k] output; returns the case's entry (times, bound, the
+    torch.topk yardstick)."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels
+    kern = kernels.make_topn_kernel(plan, torch.float32)
+
+    def plain():
+        return kernels.topn_kernel(plan, cols, params, num_docs, D,
+                                   torch.float32)
+    out = kern(cols, params, num_docs, D)
+    ref = plain()
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or not torch.equal(out, ref):
+        bad = (out != ref).nonzero()[:5].tolist() \
+            if out.shape == ref.shape else "shape"
+        fail(f"topn {name}: differs from its plain version at {bad}")
+    moved, matched = bytes_needed(plan, cols, params, num_docs, D, out)
+    ms = cuda_ms(lambda: kern(cols, params, num_docs, D))
+    plain_ms = cuda_ms(plain)
+    _mask, score = kernels.topn_scores(plan, cols, params, num_docs, D,
+                                       torch.float32)
+    k = out.shape[1] - 1
+    library_ms = cuda_ms(lambda: torch.topk(score, k, dim=1))
+    return {"case": name, "max_abs_err": max_abs_err(out, ref), "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": library_ms,
+            "library": "torch.topk over the masked score block (no tie "
+                       "order: time only)",
+            "rows": int(num_docs.sum()), "matched": matched, "k": k,
+            "bytes": moved}
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the port's main path, from SQL to rows
 # ---------------------------------------------------------------------------
@@ -626,9 +824,15 @@ def device_busy(ex, sql: str, iters: int, tmp: str):
             end = b
         by_name[name[:80]] = by_name.get(name[:80], 0.0) + (b - a)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    # each port kernel's passes, summed (K4 runs a dozen small kernels)
+    port = {k: sum(v for n, v in by_name.items() if p in n) / 1e3 / iters
+            for k, p in (("scan_agg", "scan_"), ("group_agg", "group_"),
+                         ("sketch_agg", "sketch_"), ("topn", "topn_"))}
     return {"busy_ms_per_query": busy / 1e3 / iters,
             "traced_wall_ms_per_query": wall * 1e3 / iters,
-            "device_ms_per_query": {n: v / 1e3 / iters for n, v in top}}
+            "device_ms_per_query": {n: v / 1e3 / iters for n, v in top},
+            "port_kernel_ms_per_query": {k: v for k, v in port.items()
+                                         if v}}
 
 
 def launches_of_leg(leg: str, kernels, want: dict) -> dict:
@@ -686,6 +890,15 @@ def main() -> None:
     print(f"[kernel] sketch_agg {json.dumps(k3)}", flush=True)
     del k3_inputs
     torch.cuda.empty_cache()
+    k4_cases = {}
+    for name, inputs in topn_kernel_inputs(args.seed).items():
+        k4_cases[name] = check_topn(name, *inputs)
+        print(f"[kernel] topn {json.dumps(k4_cases[name])}", flush=True)
+    # the kernels line carries case (a), the shape of sel.1 and sel.4, and
+    # the largest error over all four cases
+    k4 = dict(k4_cases["a: raw value DESC k=10"],
+              max_abs_err=max(c["max_abs_err"] for c in k4_cases.values()))
+    torch.cuda.empty_cache()
     kernels = _cuda.KERNELS
     none = {k.name: 0 for k in kernels}
 
@@ -699,7 +912,7 @@ def main() -> None:
                          ("lo_quantity", "INT", False),
                          ("lo_extendedprice", "INT", True)],
             ["lo_extendedprice"], Q1_SEGMENTS, Q1_DOCS, ssb_q1_columns,
-            q1_truth, args.seed, BUILD_WORKERS)
+            q1_leg_truth, args.seed, BUILD_WORKERS)
         rows = sum(s.num_docs for s in segs)
         print(f"[q1] built {len(segs)} segments, {rows} rows in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -709,8 +922,8 @@ def main() -> None:
         legs, splits = [], {}
         for name, sql in Q1_QUERIES.items():
             resp, cold, lats, splits[name] = time_query(ex, sql, ITERS)
-            want_sum = sum(t[name][0] for t in truths)
-            want_cnt = sum(t[name][1] for t in truths)
+            want_sum = sum(t["q1"][name][0] for t in truths)
+            want_cnt = sum(t["q1"][name][1] for t in truths)
             got = resp.rows[0]
             if int(got[1]) != want_cnt or float(got[0]) != float(want_sum):
                 fail(f"{name}: got {got}, numpy truth "
@@ -731,6 +944,53 @@ def main() -> None:
         busy = device_busy(ex, Q1_QUERIES["q1.1"], ITERS, tmp)
         print(f"[q1] trace q1.1 {json.dumps(busy or 'not measured')} "
               f"| {card}", flush=True)
+
+        # phase 4b: selection leg, on the Q1 leg's segments
+        sel_truths = [t["sel"] for t in truths]
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(kernels)
+        legs, splits = [], {}
+        for name, (sql, _limit, _offset, _asc) in SEL_QUERIES.items():
+            resp, cold, lats, splits[name] = time_query(ex, sql, ITERS)
+            want, matched = selection_expected(
+                sel_truths, name, resp.result_table.columns)
+            if resp.rows != want:
+                bad = next((i for i, (a, b) in enumerate(zip(resp.rows,
+                                                             want))
+                            if a != b), min(len(resp.rows), len(want)))
+                fail(f"{name}: {len(resp.rows)} rows, numpy truth "
+                     f"{len(want)}; first difference at row {bad}")
+            if resp.stats.num_docs_scanned != matched:
+                fail(f"{name}: {resp.stats.num_docs_scanned} docs matched, "
+                     f"numpy truth {matched}")
+            legs.append({"query": name, "rows": rows, "matched": matched,
+                         "returned": len(want),
+                         "p50_ms": statistics.median(lats) * 1e3,
+                         "cold_s": cold,
+                         "rows_per_s": rows / statistics.median(lats)})
+        resp, cold, lats, splits["dist.1"] = time_query(ex, DIST_QUERY,
+                                                        ITERS)
+        want = sorted(set().union(*(t["dist.1"] for t in sel_truths)))
+        if [tuple(r) for r in resp.rows] != want:
+            fail(f"dist.1: {len(resp.rows)} pairs, numpy truth {len(want)}")
+        legs.append({"query": "dist.1", "rows": rows, "returned": len(want),
+                     "p50_ms": statistics.median(lats) * 1e3, "cold_s": cold,
+                     "rows_per_s": rows / statistics.median(lats)})
+        got = launches_of_leg(
+            "selection leg", kernels,
+            {**none, "topn": len(SEL_QUERIES) * (1 + ITERS),
+             "group_agg": 1 + ITERS})
+        k4["launches"] = got["topn"]
+        k2_launches = got["group_agg"]
+        peak = torch.cuda.max_memory_allocated()
+        for leg in legs:
+            leg["max_memory_allocated"] = peak
+            leg["stage_ms"] = splits[leg["query"]]
+            print(f"[sel] {json.dumps(leg)} | {card}", flush=True)
+        for name in ("sel.1", "sel.2"):
+            busy = device_busy(ex, SEL_QUERIES[name][0], ITERS, tmp)
+            print(f"[sel] trace {name} {json.dumps(busy or 'not measured')} "
+                  f"| {card}", flush=True)
         del ex, segs
         torch.cuda.empty_cache()
 
@@ -745,7 +1005,7 @@ def main() -> None:
                            ("s_region", "STRING", False),
                            ("lo_revenue", "INT", True)],
             ["lo_revenue"], GB_SEGMENTS, GB_DOCS, ssb_flat_columns,
-            groupby_truth, args.seed, BUILD_WORKERS)
+            groupby_leg_truth, args.seed, BUILD_WORKERS)
         rows = sum(s.num_docs for s in segs)
         print(f"[groupby] built {len(segs)} segments, {rows} rows in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -753,12 +1013,13 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         zero_launches(kernels)
         resp, cold, lats, split = time_query(ex, GB_QUERY, ITERS)
-        k2["launches"] = launches_of_leg(
+        dresp, dcold, dlats, dsplit = time_query(ex, GB_DISTINCT, ITERS)
+        k2["launches"] = k2_launches + launches_of_leg(
             "group-by leg", kernels,
-            {**none, "group_agg": 1 + ITERS})["group_agg"]
+            {**none, "group_agg": 2 * (1 + ITERS)})["group_agg"]
         want = {}
         for t in truths:
-            for key, v in t.items():
+            for key, v in t["gb"].items():
                 want[key] = want.get(key, 0) + v
         got = {(int(r[0]), str(r[1])): float(r[2]) for r in resp.rows}
         if sorted(got) != sorted(want) or \
@@ -773,6 +1034,16 @@ def main() -> None:
                "rows_per_s": rows / statistics.median(lats),
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
                "stage_ms": split}
+        print(f"[groupby] {json.dumps(leg)} | {card}", flush=True)
+        dwant = sorted(set().union(*(t["dist"] for t in truths)))
+        if [tuple(r) for r in dresp.rows] != dwant:
+            fail(f"string DISTINCT: {[tuple(r) for r in dresp.rows][:5]} "
+                 f"vs numpy truth {dwant[:5]}")
+        leg = {"query": "distinct", "rows": rows, "returned": len(dwant),
+               "p50_ms": statistics.median(dlats) * 1e3, "cold_s": dcold,
+               "rows_per_s": rows / statistics.median(dlats),
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "stage_ms": dsplit}
         print(f"[groupby] {json.dumps(leg)} | {card}", flush=True)
         busy = device_busy(ex, GB_QUERY, ITERS, tmp)
         print(f"[groupby] trace {json.dumps(busy or 'not measured')} "
@@ -836,7 +1107,8 @@ def main() -> None:
     for kern, entry, replaces in (
             (_cuda.SCAN_AGG, k1, "pinot_tpu/ops/kernels.py:537"),
             (_cuda.GROUP_AGG, k2, "pinot_tpu/ops/kernels.py:252"),
-            (_cuda.SKETCH_AGG, k3, "pinot_tpu/ops/kernels.py:429,451")):
+            (_cuda.SKETCH_AGG, k3, "pinot_tpu/ops/kernels.py:429,451"),
+            (_cuda.TOPN, k4, "pinot_tpu/ops/kernels.py:583")):
         entries.append({
             "name": kern.name, "route": "cuda",
             "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",

@@ -2,9 +2,9 @@
 an NVIDIA H100.
 
 The package mirrors pinot_tpu's sub-packages (models, segment, query, ops)
-and imports nothing of it, nor JAX. This slice carries scan-aggregate and
-group-by queries from SQL text to result rows through two hand-written CUDA
-kernels (ops/csrc). Entry point:
+and imports nothing of it, nor JAX. It carries scan-aggregate, group-by,
+sketch, selection (top-N) and DISTINCT queries from SQL text to result rows
+through four hand-written CUDA kernels (ops/csrc). Entry point:
 
     from pinot_tpu_torch.query.executor import QueryExecutor
     QueryExecutor(segments).execute(sql)        # on the card

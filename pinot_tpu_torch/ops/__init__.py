@@ -3,5 +3,5 @@ interpret, the kernels' plain PyTorch versions and wrappers, and the engine
 that stages segments and launches them.
 
 Counterpart of pinot_tpu/ops (jit'd JAX programs); here the device work is
-two hand-written CUDA kernels under csrc/.
+four hand-written CUDA kernels under csrc/.
 """

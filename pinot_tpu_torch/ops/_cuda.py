@@ -1,7 +1,8 @@
 """Build, bind and launch the hand-written CUDA kernels.
 
-K1 `scan_agg` (csrc/scan_agg.cu), K2 `group_agg` (csrc/group_agg.cu) and
-K3 `sketch_agg` (csrc/sketch_agg.cu) are plain-C-interface shared libraries
+K1 `scan_agg` (csrc/scan_agg.cu), K2 `group_agg` (csrc/group_agg.cu),
+K3 `sketch_agg` (csrc/sketch_agg.cu) and K4 `topn` (csrc/topn.cu) are
+plain-C-interface shared libraries
 built with `nvcc` for sm_90a at first use, into the git-ignored
 `build/kernels/` directory beside the package, and loaded with ctypes. All
 sources build at once, one `nvcc` each, in parallel. A library's file name carries a hash of its sources and flags, so
@@ -44,6 +45,10 @@ MAX_BLOCKS_PER_SEGMENT = 1024
 #: table write-out stays small beside its scan
 SKETCH_BLOCKS = 1056
 SKETCH_MIN_DOCS = 1 << 16
+#: K4 sorts its k candidates in one block's shared memory (csrc/topn.cu)
+TOPN_MAX_K = 8192
+#: K4's per-segment state words (csrc/topn.cu ST_*)
+TOPN_STATE_WORDS = 5
 
 
 class _Args(ctypes.Structure):
@@ -95,7 +100,10 @@ GROUP_AGG = CudaKernel("group_agg", "group_agg.cu", "pt_group_agg",
 SKETCH_AGG = CudaKernel("sketch_agg", "sketch_agg.cu", "pt_sketch_agg",
                         [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I,
                          _I, _P, _P, _P, _I, _P])
-KERNELS = (SCAN_AGG, GROUP_AGG, SKETCH_AGG)
+TOPN = CudaKernel("topn", "topn.cu", "pt_topn",
+                  [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _P, _P, _P, _P, _P, _P, _P, _I, _P])
+KERNELS = (SCAN_AGG, GROUP_AGG, SKETCH_AGG, TOPN)
 
 _build_lock = threading.Lock()
 
@@ -291,4 +299,38 @@ def sketch_agg(plan: DevicePlan, cols: Dict[str, torch.Tensor],
     if rc != 0:
         raise RuntimeError(f"sketch_agg launch failed: cudaError {rc}")
     SKETCH_AGG.launches += 1
+    return out
+
+
+def topn(plan: DevicePlan, cols: Dict[str, torch.Tensor],
+         params: Dict[str, torch.Tensor], num_docs: torch.Tensor, D: int,
+         value_dtype: torch.dtype) -> torch.Tensor:
+    """K4: the [S, 1 + k] int32 top-N of `plan`, k = min(topn_k, D)."""
+    if plan.mode != "topn":
+        raise ValueError("topn takes top-N plans")
+    k = min(plan.topn_k, D)
+    if not 1 <= k <= TOPN_MAX_K:
+        raise ValueError(f"top-N k {k} outside [1, {TOPN_MAX_K}]")
+    args, pmat, _prog, S, nb = _prepare(plan, cols, params, num_docs, D,
+                                        value_dtype)
+    device = num_docs.device
+    kdt = torch.int64 if value_dtype == torch.float64 else torch.int32
+    keys = torch.empty((S, D), dtype=kdt, device=device)
+    state = torch.empty((S, TOPN_STATE_WORDS), dtype=torch.int64,
+                        device=device)
+    hist = torch.empty((S, 256), dtype=torch.int32, device=device)
+    ties = torch.empty((S, nb), dtype=torch.int32, device=device)
+    cand_key = torch.empty((S, k), dtype=kdt, device=device)
+    cand_doc = torch.empty((S, k), dtype=torch.int32, device=device)
+    out = torch.empty((S, 1 + k), dtype=torch.int32, device=device)
+    fn = TOPN.fn()
+    rc = fn(ctypes.byref(args), pmat.data_ptr(), num_docs.data_ptr(), S, D,
+            pmat.shape[1], nb, int(value_dtype == torch.float64), k,
+            int(plan.topn_asc), keys.data_ptr(), state.data_ptr(),
+            hist.data_ptr(), ties.data_ptr(), cand_key.data_ptr(),
+            cand_doc.data_ptr(), out.data_ptr(), device.index,
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"topn launch failed: cudaError {rc}")
+    TOPN.launches += 1
     return out

@@ -1,6 +1,5 @@
-// Shared by K1 (scan_agg.cu), K2 (group_agg.cu) and K3 (sketch_agg.cu): the
-// launch arguments and
-// the per-document interpreter of the plan program that
+// Shared by K1 (scan_agg.cu), K2 (group_agg.cu), K3 (sketch_agg.cu) and K4
+// (topn.cu): the launch arguments and the per-document interpreter of the plan program that
 // pinot_tpu_torch/ops/program.py compiles. The layout constants below must
 // match program.py.
 //
@@ -27,7 +26,7 @@ enum { H_NLEAVES, H_NFILT, H_MAIN, H_NVAL, H_NSLOT, H_NACC, H_NGCOL, H_OUTW,
        H_COLDT, H_LUTC, H_LEN };
 enum { L_RANGE, L_NEQ, L_LUT, L_VRANGE, L_VRANGE64 };
 enum { F_LEAF, F_AND, F_OR, F_NOT };
-enum { V_COL, V_LIT, V_ADD, V_SUB, V_MUL, V_DIV, V_NEG };
+enum { V_COL, V_LIT, V_ADD, V_SUB, V_MUL, V_DIV, V_NEG, V_IDS };
 enum { S_COUNT, S_SUM, S_SUMSQ, S_SUM3, S_SUM4, S_MIN, S_MAX, S_ISUM,
        S_ISUM_U, S_HLL, S_HIST };
 enum { R_ADD, R_MIN, R_MAX };
@@ -169,7 +168,11 @@ __device__ bool eval_filter(const Args& a, const Shared& sh, int f, int s,
 // operation as the JAX kernel does (the build passes --fmad=false so no
 // multiply-add is fused); int is the exact-sum mode (kernels.py:354),
 // where a staged float converts by truncation like astype(int32).
-template <typename T>
+// kIds admits V_IDS, a staged i8/i16/i32 dictId widened to the value type
+// (exact, as the JAX kernel's astype: the engine orders only by ids below
+// 2^24); only K4 (topn.cu) reads order values, so K1-K3 instantiate the
+// interpreter without that case and keep their code as it was.
+template <typename T, bool kIds = false>
 __device__ T eval_value(const Args& a, const Shared& sh, int v, long long i) {
   const int* V = sh.code + sh.code[H_VAL] + 2 * v;
   const int* ins = sh.code + V[0];
@@ -178,7 +181,7 @@ __device__ T eval_value(const Args& a, const Shared& sh, int v, long long i) {
   int sp = 0;
   for (int k = 0; k < n; ++k) {
     const int op = ins[2 * k], arg = ins[2 * k + 1];
-    if (op == V_COL) {
+    if (op == V_COL || (kIds && op == V_IDS)) {
       st[sp++] = (T)load_col(a, sh.code, arg, i);
     } else if (op == V_LIT) {
       st[sp++] = (T)sh.prm[arg];

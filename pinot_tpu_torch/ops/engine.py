@@ -1,10 +1,13 @@
 """TorchOperatorExecutor: stages segment columns on the card and runs the
-fused scan-aggregate / group-by kernel across segments.
+fused scan-aggregate / group-by / top-N kernels across segments.
 
-Counterpart of the aggregation path of pinot_tpu/ops/engine.py
-(`TpuOperatorExecutor`: supports :259, `_plan` :1487, `_build_filter_ir`
-:1883, `_stage` :1991, `_assemble` :2913, `_isum_value` :3119), which
-replaces the reference's per-segment operator chain + combine fan-out
+Counterpart of the aggregation, selection and DISTINCT paths of
+pinot_tpu/ops/engine.py (`TpuOperatorExecutor`: supports :259,
+`_supports_distinct` :302, `_supports_selection` :315, `_execute_distinct`
+:1360, `_execute_topn` :1442, `_plan` :1487, `_plan_topn` :1791,
+`_assemble_topn` :1849, `_build_filter_ir` :1883, `_stage` :1991,
+`_assemble` :2913, `_isum_value` :3119), which replaces the reference's
+per-segment operator chain + combine fan-out
 (pinot-core combine/BaseCombineOperator.java:54) with ONE device program
 over stacked [num_segments, padded_docs] blocks.
 
@@ -12,11 +15,16 @@ This slice launches directly: no dispatch ring, residency tier, star-tree,
 CLP, vector, time-series or mesh. The rules it keeps from the JAX engine:
 cardinality-aware i8/i16/i32 id staging, power-of-two doc padding masked by
 `num_docs`, the per-segment doc cap, the group-count and group-result-size
-caps, the float32 precision guard, the exact-int-sum (isum) admission, and
-the ungrouped sketch slots (HLL registers over split planes of int columns
-below 2^55, histogram buckets between the batch's metadata min and max).
-A query or segment batch outside the slice raises NotImplementedError
-naming the missing feature: the port has no host executor to hand it to.
+caps, the float32 precision guard, the exact-int-sum (isum) admission, the
+ungrouped sketch slots (HLL registers over split planes of int columns
+below 2^55, histogram buckets between the batch's metadata min and max),
+selection as a per-segment top-K over one order value (k <= TOPN_MAX_K)
+whose winners alone are projected on the host, and DISTINCT as a
+presence-only group-by. A selection with neither a filter nor an ORDER BY
+is answered on the host from the first docs of each segment, as the JAX
+engine leaves it to its host executor. A query or segment batch outside
+the slice raises NotImplementedError naming the missing feature: the port
+has no host executor to hand it to.
 """
 from __future__ import annotations
 
@@ -28,13 +36,17 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.ops import kernels, program
+#: most rows a selection fetches per segment (limit + offset)
+from pinot_tpu_torch.ops._cuda import TOPN_MAX_K
 from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan
+from pinot_tpu_torch.query import executor_cpu
 from pinot_tpu_torch.query.context import QueryContext
 from pinot_tpu_torch.query.expressions import (
     Expression, Function, Identifier, Literal)
 from pinot_tpu_torch.query.predicate import resolve_predicate
 from pinot_tpu_torch.query.results import (
-    AggregationResult, ExecutionStats, GroupByResult)
+    AggregationResult, DistinctResult, ExecutionStats, GroupByResult,
+    SelectionResult)
 from pinot_tpu_torch.segment.loader import ImmutableSegment
 
 MAX_DEVICE_GROUPS = 1 << 20
@@ -100,9 +112,15 @@ class TorchOperatorExecutor:
         """None when this slice runs the query's shape, else the feature
         it lacks."""
         if ctx.distinct:
-            return "DISTINCT"
+            return self._distinct_missing(ctx)
         if not ctx.aggregations:
-            return "selection / top-N"
+            return self._selection_missing(ctx)
+        return self._aggregation_missing(ctx)
+
+    def supports(self, ctx: QueryContext) -> bool:
+        return self.missing_feature(ctx) is None
+
+    def _aggregation_missing(self, ctx: QueryContext) -> Optional[str]:
         for fn in ctx.agg_functions:
             if fn.missing_feature is not None:
                 return fn.missing_feature
@@ -127,8 +145,42 @@ class TorchOperatorExecutor:
                 return f"group-by on expression {g} (time-series buckets)"
         return None
 
-    def supports(self, ctx: QueryContext) -> bool:
-        return self.missing_feature(ctx) is None
+    def _distinct_missing(self, ctx: QueryContext) -> Optional[str]:
+        """DISTINCT over columns rides the group-by kernel (a presence-only
+        group-by; JAX `_supports_distinct`)."""
+        if not ctx.select or ctx.aggregations:
+            return "DISTINCT with aggregations"
+        for e in ctx.select:
+            if not isinstance(e, Identifier) or e.name == "*":
+                return f"DISTINCT over {e} (expressions)"
+        if ctx.filter is not None:
+            return self._filter_missing(ctx.filter)
+        return None
+
+    def _selection_missing(self, ctx: QueryContext) -> Optional[str]:
+        """Selection with at most one ORDER BY key runs as a device top-K
+        over the order value (JAX `_supports_selection`); neither a filter
+        nor an ORDER BY is the host's first-docs scan."""
+        if ctx.filter is not None:
+            why = self._filter_missing(ctx.filter)
+            if why is not None:
+                return why
+        if len(ctx.order_by) > 1:
+            return "selection with more than one ORDER BY key"
+        if ctx.filter is None and not ctx.order_by:
+            return None
+        k = ctx.limit + ctx.offset
+        if k <= 0:
+            return "selection with LIMIT 0"
+        if k > TOPN_MAX_K:
+            return f"selection of {k} rows per segment (top-N above " \
+                   f"{TOPN_MAX_K})"
+        if ctx.order_by:
+            e, _asc = ctx.order_by[0]
+            if not isinstance(e, (Identifier, Function)) \
+                    or self._value_ir_shape(e) is None:
+                return f"ORDER BY {e} (expressions)"
+        return None
 
     def _filter_missing(self, e: Expression) -> Optional[str]:
         if isinstance(e, Function):
@@ -171,9 +223,10 @@ class TorchOperatorExecutor:
     # ------------------------------------------------------------------
     def execute(self, segments: List[ImmutableSegment],
                 ctx: QueryContext) -> List[Any]:
-        """Per-segment AggregationResult / GroupByResult, in segment order.
-        Raises NotOffloadable (a NotImplementedError) naming what the
-        query or the batch needs beyond this slice."""
+        """Per-segment AggregationResult / GroupByResult / SelectionResult
+        / DistinctResult, in segment order. Raises NotOffloadable (a
+        NotImplementedError) naming what the query or the batch needs
+        beyond this slice."""
         t0 = time.perf_counter()
         why = self.missing_feature(ctx)
         if why is not None:
@@ -181,14 +234,43 @@ class TorchOperatorExecutor:
         if not segments:
             self.last_stage_ms = {}
             return []
-        plan, slots_of_fn = self._plan(segments, ctx)
+        if not ctx.aggregations and not ctx.distinct and ctx.filter is None \
+                and not ctx.order_by:
+            t1 = time.perf_counter()
+            out = [executor_cpu.select_first(seg, ctx) for seg in segments]
+            self.last_stage_ms = {"plan": (t1 - t0) * 1e3, "stage": 0.0,
+                                  "kernel_fetch": 0.0,
+                                  "assemble": (time.perf_counter() - t1)
+                                  * 1e3}
+            return out
+        if ctx.distinct:
+            # DISTINCT d1..dk = a presence-only GROUP BY d1..dk on K2 (ref
+            # DistinctOperator; dictionary-based distinct)
+            ctx = _distinct_context(ctx)
+            plan, _slots = self._plan(segments, ctx)
+            kernel = kernels.make_kernel(plan, self.value_dtype)
+
+            def assemble(packed):
+                return self._assemble_distinct(segments, ctx, plan, packed)
+        elif not ctx.aggregations:
+            plan = self._plan_topn(segments, ctx)
+            kernel = kernels.make_topn_kernel(plan, self.value_dtype)
+
+            def assemble(packed):
+                return self._assemble_topn(segments, ctx, packed)
+        else:
+            plan, slots_of_fn = self._plan(segments, ctx)
+            kernel = kernels.make_kernel(plan, self.value_dtype)
+
+            def assemble(packed):
+                return self._assemble(segments, ctx, plan, packed,
+                                      slots_of_fn)
         t1 = time.perf_counter()
         cols, params, num_docs, D = self._stage(segments, ctx, plan)
         t2 = time.perf_counter()
-        kernel = kernels.make_kernel(plan, self.value_dtype)
         packed = kernel(cols, params, num_docs, D).cpu().numpy()
         t3 = time.perf_counter()
-        out = self._assemble(segments, ctx, plan, packed, slots_of_fn)
+        out = assemble(packed)
         self.last_stage_ms = {"plan": (t1 - t0) * 1e3,
                               "stage": (t2 - t1) * 1e3,
                               "kernel_fetch": (t3 - t2) * 1e3,
@@ -373,6 +455,65 @@ class TorchOperatorExecutor:
             raw64_cols=tuple(sorted(raw64)),
         )
         return plan, slots_of_fn
+
+    def _plan_topn(self, segments, ctx: QueryContext) -> DevicePlan:
+        """DevicePlan for selection / single-key order-by top-K (JAX
+        `_plan_topn`); raises NotOffloadable where the JAX engine would
+        hand the query to its host executor."""
+        seg0 = segments[0]
+        classify, dict_cols, raw_cols = self._make_classifier(seg0)
+        leaves: List[DeviceLeaf] = []
+        filter_ir = None
+        if ctx.filter is not None:
+            filter_ir = self._build_filter_ir(ctx.filter, segments, leaves,
+                                              classify)
+        raw64 = {lf.column for lf in leaves if lf.kind == "vrange64"}
+
+        value_irs: Tuple[tuple, ...] = ()
+        topn_asc = True
+        if ctx.order_by:
+            e, topn_asc = ctx.order_by[0]
+            if isinstance(e, Identifier):
+                if not classify(e.name):
+                    raise NotOffloadable(f"ORDER BY {e.name} with no "
+                                         "device block")
+                if seg0.metadata.columns[e.name].has_dictionary:
+                    # dictionaries are value-sorted: dictId order IS value
+                    # order, and ids stay exact in f32 below 2^24
+                    if max(s.metadata.columns[e.name].cardinality
+                           for s in segments) >= (1 << 24):
+                        raise NotOffloadable(
+                            f"ORDER BY {e.name} with 2^24 or more "
+                            "dictionary ids")
+                    ir = ("ids", e.name)
+                elif e.name in raw64:
+                    raise NotOffloadable(f"ORDER BY {e.name}, a raw64 "
+                                         "split-plane column")
+                else:
+                    ir = ("col", e.name)
+            else:
+                ir = self._value_ir_shape(e)
+                if ir is None:
+                    raise NotOffloadable(f"ORDER BY {e} (expressions)")
+                for col in _ir_cols(ir):
+                    if col in raw64 or not classify(col) \
+                            or seg0.metadata.columns[col].data_type \
+                            .np_dtype.kind not in "iuf":
+                        raise NotOffloadable(
+                            f"ORDER BY {e}: {col} has no numeric device "
+                            "block")
+            value_irs = (ir,)
+
+        return DevicePlan(
+            filter_ir=filter_ir,
+            leaves=tuple(leaves),
+            value_irs=value_irs,
+            agg_ops=(),
+            dict_cols=tuple(sorted(dict_cols)),
+            raw_cols=tuple(sorted(raw_cols - raw64)),
+            raw64_cols=tuple(sorted(raw64)),
+            mode="topn", topn_k=ctx.limit + ctx.offset,
+            topn_asc=bool(topn_asc))
 
     @staticmethod
     def _hll_columns(segments, ctx: QueryContext) -> set:
@@ -708,7 +849,6 @@ class TorchOperatorExecutor:
     def _assemble(self, segments, ctx: QueryContext, plan: DevicePlan,
                   packed: np.ndarray,
                   mappings: List[Dict[str, int]]) -> List[Any]:
-        filter_cols = len(set(ctx.filter_columns()))
         # COUNT(*) materializes no column, so it doesn't contribute to
         # entries-scanned-post-filter
         n_valued_aggs = sum(
@@ -730,15 +870,8 @@ class TorchOperatorExecutor:
                 matched = int(round(float(packed[s, :, count_j].sum())))
             else:
                 matched = int(round(float(packed[s, 0])))
-            stats = ExecutionStats(
-                num_docs_scanned=matched,
-                num_entries_scanned_in_filter=(
-                    seg.num_docs * filter_cols
-                    if ctx.filter is not None else 0),
-                num_entries_scanned_post_filter=matched * n_valued_aggs,
-                num_segments_processed=1,
-                num_segments_matched=1 if matched else 0,
-                total_docs=seg.num_docs)
+            stats = _segment_stats(seg, ctx, matched,
+                                   matched * n_valued_aggs)
             if plan.num_groups:
                 results.append(self._assemble_group(
                     seg, s, ctx, plan, packed, count_j, mappings, stats))
@@ -768,29 +901,81 @@ class TorchOperatorExecutor:
 
     def _assemble_group(self, seg, s, ctx, plan, packed, count_j, mappings,
                         stats) -> GroupByResult:
-        present = np.nonzero(packed[s, :, count_j] > 0)[0]
-        dicts = [seg.data_source(c).dictionary for c in plan.group_cols]
-        cards = [seg.metadata.columns[c].cardinality for c in plan.group_cols]
-        # decode combined keys (mixed radix) -> per-column dictIds
-        rem = present.copy()
-        ids_per_col = []
-        for stride in plan.group_strides:
-            ids_per_col.append(rem // stride)
-            rem = rem % stride
-        valid = np.ones(len(present), dtype=bool)
-        for ids, card in zip(ids_per_col, cards):
-            valid &= ids < card
-        present = present[valid]
-        key_cols = [d.get_values(ids[valid])
-                    for d, ids in zip(dicts, ids_per_col)]
+        present, keys = _group_keys(seg, plan, packed[s, :, count_j])
         groups: Dict[tuple, list] = {}
-        for gi, g in enumerate(present):
-            key = tuple(_py(col[gi]) for col in key_cols)
+        for key, g in zip(keys, present):
             groups[key] = [
                 fn.from_device_slots({op: packed[s, g, j]
                                       for op, j in mapping.items()})
                 for fn, mapping in zip(ctx.agg_functions, mappings)]
         return GroupByResult(groups, stats)
+
+    @staticmethod
+    def _assemble_distinct(segments, gctx: QueryContext, plan: DevicePlan,
+                           packed: np.ndarray) -> List[DistinctResult]:
+        """The present group keys of a DISTINCT's group-by, as
+        DistinctResults (no per-group intermediates)."""
+        count_j = plan.agg_ops.index(("count", None, None))
+        results = []
+        for s, seg in enumerate(segments):
+            counts = packed[s, :, count_j]
+            _present, keys = _group_keys(seg, plan, counts)
+            matched = int(round(float(counts.sum())))
+            results.append(DistinctResult(
+                set(keys), _segment_stats(seg, gctx, matched, 0)))
+        return results
+
+    @staticmethod
+    def _assemble_topn(segments, ctx: QueryContext,
+                       packed: np.ndarray) -> List[SelectionResult]:
+        """packed [S, 1 + k] int32 -> SelectionResults: project ONLY the
+        winning docs on the host (incl. '*' and string columns)."""
+        order_exprs = [e for e, _ in ctx.order_by]
+        results = []
+        for s, seg in enumerate(segments):
+            idx = packed[s, 1:]
+            idx = idx[(idx >= 0) & (idx < seg.num_docs)].astype(np.int64)
+            rows = executor_cpu._project_rows(seg, ctx.select, idx)
+            order_values = executor_cpu._project_rows(
+                seg, order_exprs, idx) if order_exprs else None
+            stats = _segment_stats(seg, ctx, int(packed[s, 0]),
+                                   len(idx) * max(len(ctx.select), 1))
+            results.append(SelectionResult(
+                rows, order_values=order_values,
+                columns=executor_cpu.expand_star(seg, ctx), stats=stats))
+        return results
+
+
+def _segment_stats(seg, ctx: QueryContext, matched: int,
+                   post_filter: int) -> ExecutionStats:
+    return ExecutionStats(
+        num_docs_scanned=matched,
+        num_entries_scanned_in_filter=(
+            seg.num_docs * len(set(ctx.filter_columns()))
+            if ctx.filter is not None else 0),
+        num_entries_scanned_post_filter=post_filter,
+        num_segments_processed=1,
+        num_segments_matched=1 if matched else 0,
+        total_docs=seg.num_docs)
+
+
+def _group_keys(seg, plan: DevicePlan, counts: np.ndarray):
+    """The dense keys with a nonzero count, and their group-key tuples
+    (raw values): combined keys decoded by mixed radix into dictIds, keys
+    beyond this segment's cardinalities dropped."""
+    present = np.nonzero(counts > 0)[0]
+    cards = [seg.metadata.columns[c].cardinality for c in plan.group_cols]
+    rem = present.copy()
+    ids_per_col = []
+    for stride in plan.group_strides:
+        ids_per_col.append(rem // stride)
+        rem = rem % stride
+    valid = np.ones(len(present), dtype=bool)
+    for ids, card in zip(ids_per_col, cards):
+        valid &= ids < card
+    key_cols = [seg.data_source(c).dictionary.get_values(ids[valid]).tolist()
+                for c, ids in zip(plan.group_cols, ids_per_col)]
+    return present[valid], list(zip(*key_cols))
 
 
 def isum_value(planes: np.ndarray) -> float:
@@ -819,6 +1004,19 @@ def _resolve(seg, expr: Function):
     if p is None:
         raise NotOffloadable(f"predicate {expr}")
     return p
+
+
+def _distinct_context(ctx: QueryContext) -> QueryContext:
+    """The GROUP BY <select list> + COUNT(*) context a DISTINCT runs as
+    (JAX `_execute_distinct`), its limit carried."""
+    sel = list(ctx.select)
+    gctx = QueryContext(
+        table=ctx.table, select=sel + [Function("count", (Identifier("*"),))],
+        aliases=[None] * (len(sel) + 1), distinct=False, filter=ctx.filter,
+        group_by=sel, having=None, order_by=[], limit=ctx.limit, offset=0,
+        options=dict(ctx.options))
+    gctx._extract_aggregations()
+    return gctx
 
 
 def _ir_cols(ir) -> set:
@@ -915,6 +1113,3 @@ def _vrange_int_bounds(e: Function) -> Tuple[int, int]:
         return -_INT_BOUND_CLAMP, clamp(math.ceil(lv(1)) - 1)
     return -_INT_BOUND_CLAMP, clamp(math.floor(lv(1)))  # less_than_or_equal
 
-
-def _py(v):
-    return v.item() if isinstance(v, np.generic) else v

@@ -1,5 +1,6 @@
-"""The scan-aggregate, group-by and sketch kernels: plain PyTorch versions,
-and the wrapper that hands CUDA tensors to the hand-written kernels.
+"""The scan-aggregate, group-by, sketch and top-N kernels: plain PyTorch
+versions, and the wrappers that hand CUDA tensors to the hand-written
+kernels.
 
 Counterpart of pinot_tpu/ops/kernels.py, whose jit'd `make_kernel`
 (kernels.py:537) computes, for stacked segment blocks [S, D]:
@@ -12,12 +13,17 @@ Counterpart of pinot_tpu/ops/kernels.py, whose jit'd `make_kernel`
           fixed-bucket histograms, `_hist_slot` :451), or per-group
           partials
 
+and whose `make_topn_kernel` (kernels.py:583) picks, per segment, the top-K
+doc ids by an order value (or the first K matched docs) as `[S, 1 + K]`
+int32.
+
 The functions below are the same arithmetic in PyTorch, in the same packed
-layouts: `[S, 1 + sum(w)]` ungrouped (column 0 = matched count) and
-`[S, G, n_slots]` grouped. They run on any device; `make_kernel` uses them
-only for CPU tensors. A CUDA tensor goes to the kernels in
-`ops/csrc/` (K1 `scan_agg`, K2 `group_agg`, K3 `sketch_agg`, wrapped by
-`ops/_cuda.py`) or raises — there is no fallback between the two.
+layouts: `[S, 1 + sum(w)]` ungrouped (column 0 = matched count),
+`[S, G, n_slots]` grouped and `[S, 1 + K]` top-N. They run on any device;
+`make_kernel` and `make_topn_kernel` use them only for CPU tensors. A CUDA
+tensor goes to the kernels in
+`ops/csrc/` (K1 `scan_agg`, K2 `group_agg`, K3 `sketch_agg`, K4 `topn`,
+wrapped by `ops/_cuda.py`) or raises — there is no fallback between the two.
 
 The value dtype (float32, the card's default, or float64) is an explicit
 argument, where the JAX package reads `jax_enable_x64`. Values and their
@@ -37,8 +43,9 @@ from pinot_tpu_torch.ops.plan_ir import DevicePlan
 from pinot_tpu_torch.ops.program import (ISUM_PLANES, ISUM_U_BITS,
                                          is_sketch, slot_width)
 
-__all__ = ["make_kernel", "plain_kernel", "from_jax_staged", "slot_width",
-           "is_sketch", "ISUM_PLANES", "ISUM_U_BITS"]
+__all__ = ["make_kernel", "plain_kernel", "make_topn_kernel", "topn_kernel",
+           "order_keys", "from_jax_staged", "slot_width", "is_sketch",
+           "ISUM_PLANES", "ISUM_U_BITS"]
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -107,6 +114,8 @@ def eval_value(ir, cols: Tensors, value_dtype: torch.dtype,
     op = ir[0]
     if op == "col":
         return cols["val:" + ir[1]]
+    if op == "ids":
+        return cols["ids:" + ir[1]].to(value_dtype)
     if op == "lit":
         return torch.tensor(ir[1], dtype=value_dtype, device=device)
     a = eval_value(ir[1], cols, value_dtype, device)
@@ -398,6 +407,8 @@ def make_kernel(plan: DevicePlan, value_dtype: torch.dtype = torch.float32):
     """
     if value_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"value dtype {value_dtype} is not float32/64")
+    if plan.mode != "agg":
+        raise ValueError("make_kernel takes aggregation plans")
     plain = plain_kernel(plan, value_dtype)
     sketch = [is_sketch(op) for op, _v, _f in plan.agg_ops]
 
@@ -419,6 +430,85 @@ def make_kernel(plan: DevicePlan, value_dtype: torch.dtype = torch.float32):
         if num_docs.device.type != "cpu":
             raise ValueError(f"no kernel for device {num_docs.device}")
         return plain(cols, params, num_docs, D)
+
+    return kernel
+
+
+# ---------------------------------------------------------------------------
+# top-N (kernels.py:583 `make_topn_kernel`)
+# ---------------------------------------------------------------------------
+
+def order_keys(score: torch.Tensor) -> torch.Tensor:
+    """Float scores as signed integers in the total order of their bits
+    (int32 for float32, int64 for float64): -inf < ... < -0.0 < +0.0 < ...
+    < +inf, the order XLA's top_k ranks floats in. A float compare (and so
+    torch.sort or torch.topk on the scores) holds -0.0 and +0.0 equal."""
+    if score.dtype == torch.float32:
+        b = score.contiguous().view(torch.int32)
+        return b ^ ((b >> 31) & 0x7FFFFFFF)
+    if score.dtype == torch.float64:
+        b = score.contiguous().view(torch.int64)
+        return b ^ ((b >> 63) & 0x7FFFFFFFFFFFFFFF)
+    raise ValueError(f"score dtype {score.dtype} is not float32/64")
+
+
+def topn_scores(plan: DevicePlan, cols: Tensors, params: Tensors,
+                num_docs: torch.Tensor, D: int, value_dtype: torch.dtype):
+    """(mask, score) of a top-N plan over [S, D]: mask = valid & filter;
+    score = the order value (negated for ASC) or -doc when unordered, NaN
+    as the finite minimum, matched scores clipped to the finite range and
+    unmatched ones -inf."""
+    device = num_docs.device
+    valid = torch.arange(D, dtype=torch.int32, device=device)[None, :] \
+        < num_docs[:, None]
+    mask = valid if plan.filter_ir is None else \
+        valid & eval_filter(plan.filter_ir, plan, cols, params)
+    if plan.value_irs:
+        v = _full(eval_value(plan.value_irs[0], cols, value_dtype, device),
+                  mask)
+        score = -v if plan.topn_asc else v
+    else:
+        score = -torch.arange(D, dtype=value_dtype,
+                              device=device)[None, :].expand(mask.shape)
+    fin = torch.finfo(value_dtype)
+    score = torch.where(torch.isnan(score), fin.min, score)
+    score = torch.where(mask, score.clamp(fin.min, fin.max), float("-inf"))
+    return mask, score
+
+
+def topn_kernel(plan: DevicePlan, cols: Tensors, params: Tensors,
+                num_docs: torch.Tensor, D: int,
+                value_dtype: torch.dtype) -> torch.Tensor:
+    """The plain top-N: [S, 1 + k] int32, k = min(topn_k, D): the matched
+    count, then the winners' doc ids, score descending under the total
+    order of the float's bits and ties toward the lower doc (lax.top_k's
+    order), -1 where the winner is unmatched."""
+    mask, score = topn_scores(plan, cols, params, num_docs, D, value_dtype)
+    k = min(plan.topn_k, D)
+    idx = torch.sort(order_keys(score), dim=1, descending=True,
+                     stable=True).indices[:, :k]
+    found = mask.gather(1, idx)
+    top = torch.where(found, idx, -1).to(torch.int32)
+    matched = mask.sum(1, dtype=torch.int32)
+    return torch.cat([matched[:, None], top], 1)
+
+
+def make_topn_kernel(plan: DevicePlan,
+                     value_dtype: torch.dtype = torch.float32):
+    """fn(cols, params, num_docs, D) -> [S, 1 + k] int32: CUDA inputs
+    launch K4 (`topn`), CPU inputs run the plain version."""
+    if value_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"value dtype {value_dtype} is not float32/64")
+    if plan.mode != "topn":
+        raise ValueError("make_topn_kernel takes top-N plans")
+
+    def kernel(cols: Tensors, params: Tensors, num_docs: torch.Tensor,
+               D: int) -> torch.Tensor:
+        if num_docs.device.type == "cuda":
+            return _cuda.topn(plan, cols, params, num_docs, D, value_dtype)
+        if num_docs.device.type != "cpu":
+            raise ValueError(f"no kernel for device {num_docs.device}")
+        return topn_kernel(plan, cols, params, num_docs, D, value_dtype)
 
     return kernel
 

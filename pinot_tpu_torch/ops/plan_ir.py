@@ -1,8 +1,8 @@
 """Device plan IR: the hashable structure a kernel program is compiled from.
 
-Counterpart of pinot_tpu/ops/plan_ir.py, trimmed to the scan-aggregate and
-dense group-by plans of this slice (no compact group keys, CLP leaves, top-N,
-upsert mask or time buckets yet).
+Counterpart of pinot_tpu/ops/plan_ir.py, trimmed to the scan-aggregate,
+dense group-by and top-N plans of the port (no compact group keys, CLP
+leaves, upsert mask or time buckets yet).
 
 Filter IR nodes (nested tuples, hashable):
     ('and', n1, n2, ...) / ('or', ...) / ('not', n)
@@ -17,8 +17,11 @@ Leaf kinds (resolved per-segment into parameter arrays, see ops/engine.py):
               on big-int columns staged as (hi, lo) i32 split planes
               (hi = v >> 24, lo = v & 0xFFFFFF)
 
-Value IR (aggregation inputs):
+Value IR (aggregation inputs, top-N order values):
     ('col', name)       -- staged value block of a column
+    ('ids', name)       -- staged dictId block of a dictionary column, as
+                           a top-N order value (dictionaries are sorted,
+                           so dictId order is value order)
     ('lit', v)
     ('add'|'sub'|'mul'|'div', a, b)
     ('neg', a)
@@ -56,3 +59,9 @@ class DevicePlan:
     raw_cols: Tuple[str, ...] = ()
     #: big-int columns staged as (hi, lo) i32 split planes, filter-only
     raw64_cols: Tuple[str, ...] = ()
+    #: 'agg' (scan-aggregate / group-by) or 'topn' (selection: per segment
+    #: the top topn_k doc ids by value_irs[0], or the first topn_k matched
+    #: docs when value_irs is empty; ascending negates the value)
+    mode: str = "agg"
+    topn_k: int = 0
+    topn_asc: bool = True

@@ -21,8 +21,10 @@ Layout of `Program.code` (all int32; offsets are absolute indexes into it):
     instructions
 
 Filter instructions: (F_LEAF, leaf) / (F_AND, 0) / (F_OR, 0) / (F_NOT, 0).
-Value instructions:  (V_COL, col) / (V_LIT, param) / (V_ADD|V_SUB|V_MUL|
-V_DIV|V_NEG, 0). Literals live in the per-segment parameter matrix after
+Value instructions:  (V_COL, col) / (V_IDS, col) / (V_LIT, param) /
+(V_ADD|V_SUB|V_MUL|V_DIV|V_NEG, 0). V_IDS reads a staged dictId block
+(i8/i16/i32) as a value, the order value of a top-N plan on a dictionary
+column. Literals live in the per-segment parameter matrix after
 the leaf bounds (replicated over segments), so the code itself holds only
 ints.
 
@@ -40,6 +42,10 @@ Scalar slots (count ... isum) are K1's (csrc/scan_agg.cu); sketch slots
 (S_HLL, S_HIST) are K3's (csrc/sketch_agg.cu), which also counts the
 matched docs. A plan holding both launches both kernels into one output:
 each writes its own slots' columns, and both write the same matched count.
+
+A top-N plan (mode 'topn', K4 csrc/topn.cu) has no slots and at most one
+value expression, the order value (none: the first docs in doc order); K4
+takes `topn_k` and `topn_asc` as launch arguments.
 
 Filter index 0 is the main WHERE tree when the plan has one
 (header H_MAIN = 0, else -1); agg FILTER trees follow. Each ungrouped
@@ -76,7 +82,7 @@ _LEAF_KIND = {"range": L_RANGE, "neq": L_NEQ, "lut": L_LUT,
 # filter ops
 F_LEAF, F_AND, F_OR, F_NOT = range(4)
 # value ops
-V_COL, V_LIT, V_ADD, V_SUB, V_MUL, V_DIV, V_NEG = range(7)
+V_COL, V_LIT, V_ADD, V_SUB, V_MUL, V_DIV, V_NEG, V_IDS = range(8)
 _VALUE_OP = {"add": V_ADD, "sub": V_SUB, "mul": V_MUL, "div": V_DIV}
 # slot ops
 S_COUNT, S_SUM, S_SUMSQ, S_SUM3, S_SUM4, S_MIN, S_MAX, S_ISUM, S_ISUM_U, \
@@ -165,6 +171,13 @@ def slot_width(op: str) -> int:
 
 @functools.lru_cache(maxsize=256)
 def compile_plan(plan: DevicePlan) -> Program:
+    if plan.mode == "topn":
+        if plan.agg_ops or plan.num_groups or len(plan.value_irs) > 1 \
+                or plan.topn_k < 1:
+            raise ValueError("a top-N plan takes no slots or groups, at "
+                             "most one order value and k >= 1")
+    elif plan.mode != "agg":
+        raise ValueError(f"plan mode {plan.mode!r} is not in this port")
     grouped = bool(plan.num_groups)
     cols: List[str] = []
     luts: List[str] = []
@@ -222,6 +235,9 @@ def compile_plan(plan: DevicePlan) -> Program:
         op = ir[0]
         if op == "col":
             instr.append((V_COL, col("val:" + ir[1])))
+            return depth + 1
+        if op == "ids":
+            instr.append((V_IDS, col("ids:" + ir[1])))
             return depth + 1
         if op == "lit":
             instr.append((V_LIT, len(params)))

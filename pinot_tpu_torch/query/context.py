@@ -99,13 +99,24 @@ class QueryContext:
         self.agg_functions = [get_aggregation(f.name, f.args) for f in inner]
 
     @property
+    def is_aggregation_query(self) -> bool:
+        return bool(self.aggregations) and not self.group_by
+
+    @property
     def is_group_by_query(self) -> bool:
         return bool(self.aggregations) and bool(self.group_by)
+
+    @property
+    def is_distinct_query(self) -> bool:
+        return self.distinct
 
     def filter_columns(self) -> List[str]:
         return self.filter.columns() if self.filter is not None else []
 
     def result_column_names(self) -> List[str]:
+        """One name per select expression: its alias, the column, the
+        aggregation's result name, or the expression's text ('*' for a
+        star, which the selection path expands per segment)."""
         return [alias if alias is not None else _column_name(e)
                 for e, alias in zip(self.select, self.aliases)]
 

@@ -1,11 +1,11 @@
-"""Broker-side reduce of the device slice: aggregation and group-by.
+"""Broker-side reduce of the device slice: aggregation, group-by,
+selection and DISTINCT.
 
 Counterpart of pinot_tpu/query/reduce.py (ref pinot-core
-query/reduce/BrokerReduceService.java:61, AggregationDataTableReducer and
+query/reduce/BrokerReduceService.java:61, AggregationDataTableReducer,
 GroupByDataTableReducer with IndexedTable merge + HavingFilterHandler +
-PostAggregationHandler), trimmed to the two query shapes the port runs:
-aggregation, and group-by with HAVING, ORDER BY, OFFSET and LIMIT over
-groups.
+PostAggregationHandler, SelectionDataTableReducer and
+DistinctDataTableReducer), trimmed to the query shapes the port runs.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ from pinot_tpu_torch.query.context import QueryContext
 from pinot_tpu_torch.query.expressions import (
     Expression, Function, Identifier, Literal)
 from pinot_tpu_torch.query.results import (
-    AggregationResult, ExecutionStats, GroupByResult)
+    AggregationResult, DistinctResult, ExecutionStats, GroupByResult,
+    SelectionResult)
 
 
 @dataclass
@@ -102,8 +103,12 @@ def reduce_results(ctx: QueryContext, results: Sequence[Any]
         resp.stats.merge(r.stats)
     if ctx.is_group_by_query:
         resp.result_table = _reduce_group_by(ctx, results)
-    else:
+    elif ctx.is_aggregation_query:
         resp.result_table = _reduce_aggregation(ctx, results)
+    elif ctx.is_distinct_query:
+        resp.result_table = _reduce_distinct(ctx, results)
+    else:
+        resp.result_table = _reduce_selection(ctx, results)
     return resp
 
 
@@ -156,8 +161,50 @@ def _reduce_group_by(ctx: QueryContext,
                        [_result_type(e) for e in ctx.select], out)
 
 
+def _reduce_selection(ctx: QueryContext,
+                      results: Sequence[SelectionResult]) -> ResultTable:
+    names = list(ctx.result_column_names())
+    for r in results:
+        if r.columns:
+            names = list(r.columns)
+            break
+    if not ctx.order_by:
+        rows: List[Tuple] = []
+        for r in results:
+            rows.extend(r.rows)
+        rows = rows[ctx.offset:ctx.offset + ctx.limit]
+        return ResultTable(names, ["UNKNOWN"] * len(names), rows)
+    # ordered results come from the engine's _assemble_topn, which always
+    # projects the order values beside the rows
+    paired = []
+    for r in results:
+        paired.extend(zip(r.order_values, r.rows))
+    # a stable sort: rows that tie across segments keep segment order
+    paired = _sorted_by_keys(paired, [asc for _, asc in ctx.order_by])
+    rows = [row for _, row in paired][ctx.offset:ctx.offset + ctx.limit]
+    return ResultTable(names, ["UNKNOWN"] * len(names), rows)
+
+
+def _reduce_distinct(ctx: QueryContext,
+                     results: Sequence[DistinctResult]) -> ResultTable:
+    seen = set()
+    for r in results:
+        seen |= r.rows
+    rows = list(seen)
+    if ctx.order_by:
+        # order-by exprs must be in the select list for distinct
+        idx = {e: i for i, e in enumerate(ctx.select)}
+        paired = [(tuple(row[idx[e]] for e, _ in ctx.order_by), row)
+                  for row in rows]
+        paired = _sorted_by_keys(paired, [asc for _, asc in ctx.order_by])
+        rows = [row for _, row in paired]
+    rows = rows[ctx.offset:ctx.offset + ctx.limit]
+    names = list(ctx.result_column_names())
+    return ResultTable(names, ["UNKNOWN"] * len(names), rows)
+
+
 def _sorted_by_keys(rows, ascs: List[bool]):
-    """Sort (sort_key, row) pairs honoring per-key direction."""
+    """Sort (sort_key, row) pairs honoring per-key direction (stable)."""
     def cmp(a, b):
         for i, asc in enumerate(ascs):
             ka, kb = a[0][i], b[0][i]

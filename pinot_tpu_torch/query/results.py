@@ -1,12 +1,13 @@
 """Per-segment intermediate result containers of the device slice.
 
 Counterpart of pinot_tpu/query/results.py (ref pinot-core operator result
-blocks AggregationResultsBlock / GroupByResultsBlock).
+blocks AggregationResultsBlock / GroupByResultsBlock /
+SelectionResultsBlock / DistinctResultsBlock).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 
 @dataclass
@@ -40,4 +41,19 @@ class AggregationResult:
 class GroupByResult:
     """group-key tuple (raw values) -> list of intermediates."""
     groups: Dict[Tuple, List[Any]]
+    stats: ExecutionStats = field(default_factory=ExecutionStats)
+
+
+@dataclass
+class SelectionResult:
+    """Projected rows; order_values present when pre-sorted server-side."""
+    rows: List[Tuple]
+    order_values: Optional[List[Tuple]] = None
+    columns: Optional[List[str]] = None  # star-expanded column names
+    stats: ExecutionStats = field(default_factory=ExecutionStats)
+
+
+@dataclass
+class DistinctResult:
+    rows: set
     stats: ExecutionStats = field(default_factory=ExecutionStats)

@@ -2,14 +2,14 @@
 
 Counterpart of pinot_tpu/segment/loader.py (ref pinot-segment-local
 ImmutableSegmentLoader.java:57 and pinot-segment-spi DataSource.java:41),
-trimmed to what the scan-aggregate path reads: metadata, the dictionary,
+trimmed to what the scan-aggregate and selection paths read: metadata, the dictionary,
 dictIds and materialized values of single-value columns. Index families
 the port does not read (inverted, range, sorted, bloom, null vectors,
 star-tree, CLP, JSON, text, vector, geo, map) stay on disk untouched.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -89,6 +89,11 @@ class ImmutableSegment:
     @property
     def num_docs(self) -> int:
         return self.metadata.num_docs
+
+    @property
+    def column_names(self) -> List[str]:
+        """The segment's columns in metadata order (what '*' selects)."""
+        return list(self.metadata.columns.keys())
 
     def data_source(self, column: str) -> DataSource:
         ds = self._sources.get(column)

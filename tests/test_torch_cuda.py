@@ -1,5 +1,5 @@
-"""K1 scan_agg, K2 group_agg and K3 sketch_agg on the card against their
-plain PyTorch versions on the card, over the seeded random plans of
+"""K1 scan_agg, K2 group_agg, K3 sketch_agg and K4 topn on the card against
+their plain PyTorch versions on the card, over the seeded random plans of
 tests/torch_plans.py.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. On the card
@@ -10,7 +10,8 @@ they run without the repo's conftest (which imports JAX):
 
 Tolerances: counts, exact-sum planes, min/max, HLL registers and
 histogram buckets bit-identical (both sides round every float operation
-once, in the same order: the kernels are built with --fmad=false); float32
+once, in the same order: the kernels are built with --fmad=false), K4's
+whole [S, 1 + k] output bit-identical; float32
 sums within 1e-5 and float64 within 1e-9 of the slot's sum of
 |contribution| (both add in double, in other orders).
 """
@@ -118,3 +119,51 @@ def test_sketch_kernel_global_atomics_path(card, x64):
     updates that slot's global table with atomics."""
     spec = tp.random_sketch_spec(21, log2ms=(12, 16), scalar=False)
     _sketch_case(card, spec, x64, 5, 70_000, 21)
+
+
+TOPN_CASES = [(seed, order, asc, k)
+              for seed, (asc, k) in enumerate([(False, 10), (True, 1000),
+                                               (True, 8192)])
+              for order in tp.TOPN_ORDERS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,order,asc,k", TOPN_CASES)
+@pytest.mark.parametrize("D", [20_000, 100_003])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_topn_kernel_matches_plain_on_card(card, seed, order, asc, k, D,
+                                           x64):
+    """K4 at chip_smoke's phase-3 case shapes (k = 10, 1000, 8192; raw,
+    ids, expression and no order value; ASC and DESC), D reduced: several
+    blocks per segment, so tie ranks cross blocks; dense ties, NaN, +-inf
+    and +-0.0 among the order values; two padded segments."""
+    spec = tp.topn_spec(seed, order, asc, k)
+    vdt = torch.float64 if x64 else torch.float32
+    cols, params, nd = tp.topn_inputs(seed, spec, 5, D,
+                                      np.float64 if x64 else np.float32,
+                                      pad_segments=2)
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    plan = DevicePlan(**spec)
+    before = _cuda.TOPN.launches
+    out = tk.make_topn_kernel(plan, vdt)(tc, tpar, tnd, D)
+    ref = tk.topn_kernel(plan, tc, tpar, tnd, D, vdt)
+    torch.cuda.synchronize()
+    assert _cuda.TOPN.launches == before + 1
+    assert out.shape == ref.shape == (5, 1 + k)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_topn_kernel_all_ties_no_filter(card, x64):
+    """Every doc ties: the winners are the lowest docs, in doc order."""
+    vdt = torch.float64 if x64 else torch.float32
+    spec = tp.topn_spec(0, "col", False, 4096, filtered=False)
+    S, D = 3, 50_000
+    cols = {"val:x": torch.zeros((S, D), dtype=vdt, device=card)}
+    nd = torch.tensor([D, 4000, 0], dtype=torch.int32, device=card)
+    out = tk.make_topn_kernel(DevicePlan(**spec), vdt)(cols, {}, nd, D)
+    ref = tk.topn_kernel(DevicePlan(**spec), cols, {}, nd, D, vdt)
+    assert torch.equal(out, ref)
+    assert out[0, 1:].tolist() == list(range(4096))
+    assert out[1, 0] == 4000 and out[1, 4001] == -1

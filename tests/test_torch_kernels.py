@@ -145,22 +145,11 @@ def test_nan_propagates_through_min_max():
 # numpy mirror of the CUDA interpreter, driven by the compiled program
 # ---------------------------------------------------------------------------
 
-def _code_at(code, table, i, width):
-    off = code[table] + i * width
-    return code[off:off + width]
-
-
 def run_program(plan, cols, params, num_docs, D, vdt):
-    """What K1 / K2 compute, per the program `compile_plan` emits."""
-    prog = pg.compile_plan(plan)
-    code = prog.for_launch([str(cols[n].dtype) for n in prog.cols],
-                           [params[k].shape[1] for k in prog.luts])
+    """What K1 / K2 / K3 compute, per the program `compile_plan` emits."""
+    pm = tp.ProgramMirror(plan, cols, params, num_docs, D)
+    code, colarr = pm.code, pm.colarr
     Sn = len(num_docs)
-    colarr = [cols[n] for n in prog.cols]
-    luts = [params[k] for k in prog.luts]
-    pmat = np.stack([params[k].astype(np.float64) if k is not None
-                     else np.full(Sn, lit) for k, lit in prog.params]
-                    or [np.zeros(Sn)], 1)
     T = np.dtype(vdt).type
     G = plan.num_groups
     if G:
@@ -168,83 +157,20 @@ def run_program(plan, cols, params, num_docs, D, vdt):
     else:
         out = np.zeros((Sn, code[pg.H_OUTW]), np.float64)
     for s in range(Sn):
-        prm = pmat[s].copy()
-        for li in range(code[pg.H_NLEAVES]):
-            kind, a, _b, p, _l = _code_at(code, pg.H_LEAF, li, pg.LEAF_W)
-            dt = code[code[pg.H_COLDT] + a]
-            if kind in (pg.L_RANGE, pg.L_NEQ) and dt <= 1:
-                lim = (128.0, 127.0) if dt == 0 else (32768.0, 32767.0)
-                n_p = 2 if kind == pg.L_RANGE else 1
-                prm[p:p + n_p] = np.clip(prm[p:p + n_p], -lim[0], lim[1])
-        n = max(0, min(int(num_docs[s]), D))
-
-        def col(c, s=s, n=n):
-            return colarr[c][s, :n].astype(np.float64)
-
-        def leaf(li, s=s, prm=prm):
-            kind, a, b, p, lut = _code_at(code, pg.H_LEAF, li, pg.LEAF_W)
-            v = col(a)
-            if kind == pg.L_RANGE:
-                return (v >= prm[p]) & (v <= prm[p + 1])
-            if kind == pg.L_NEQ:
-                return v != prm[p]
-            if kind == pg.L_LUT:
-                return luts[lut][s][v.astype(np.int64)]
-            if kind == pg.L_VRANGE:
-                return (v >= prm[p]) & (v <= prm[p + 1])
-            lo = col(b)
-            ge = (v > prm[p]) | ((v == prm[p]) & (lo >= prm[p + 1]))
-            le = (v < prm[p + 2]) | ((v == prm[p + 2]) & (lo <= prm[p + 3]))
-            return ge & le
-
-        def run(table, i, push, unary, binary):
-            start, cnt = _code_at(code, table, i, 2)
-            st = []
-            for k in range(cnt):
-                op, arg = code[start + 2 * k], code[start + 2 * k + 1]
-                r = push(op, arg)
-                if r is not None:
-                    st.append(r)
-                elif unary(op):
-                    st[-1] = unary(op)(st[-1])
-                else:
-                    y = st.pop()
-                    st[-1] = binary(op, st[-1], y)
-            return st[0]
-
-        def filt(f):
-            return run(pg.H_FILT, f,
-                       lambda op, arg: leaf(arg) if op == pg.F_LEAF else None,
-                       lambda op: (lambda x: ~x) if op == pg.F_NOT else None,
-                       lambda op, x, y: x & y if op == pg.F_AND else x | y)
-
-        def value(v, ty, prm=prm, n=n):
-            bins = {pg.V_ADD: np.add, pg.V_SUB: np.subtract,
-                    pg.V_MUL: np.multiply, pg.V_DIV: np.divide}
-
-            def push(op, arg):
-                if op == pg.V_COL:
-                    return col(arg).astype(ty)
-                if op == pg.V_LIT:
-                    return np.full(n, prm[arg]).astype(ty)
-                return None
-            with np.errstate(all="ignore"):
-                return run(pg.H_VAL, v, push,
-                           lambda op: np.negative if op == pg.V_NEG
-                           else None,
-                           lambda op, x, y: bins[op](x, y).astype(ty))
+        n = pm.segment(s)
+        prm, col, filt, value = pm.prm, pm.col, pm.filt, pm.value
 
         main = code[pg.H_MAIN]
         m0 = filt(main) if main >= 0 else np.ones(n, bool)
         if G:
             key = np.zeros(n, np.int64)
             for g in range(code[pg.H_NGCOL]):
-                c, stride = _code_at(code, pg.H_GCOL, g, 2)
+                c, stride = tp.code_at(code, pg.H_GCOL, g, 2)
                 key += col(c).astype(np.int64) * stride
             m0 &= (key >= 0) & (key < G)
         acc = {}
         for j in range(code[pg.H_NSLOT]):
-            op, v, f, w, planes, oc, c0, c1 = _code_at(code, pg.H_SLOT, j,
+            op, v, f, w, planes, oc, c0, c1 = tp.code_at(code, pg.H_SLOT, j,
                                                        pg.SLOT_W)
             m = m0 & filt(f) if f >= 0 else m0
             if op == pg.S_HLL:
@@ -304,7 +230,7 @@ def run_program(plan, cols, params, num_docs, D, vdt):
             continue
         acc[0] = float(m0.sum())
         for w in range(code[pg.H_NACC]):
-            _red, kind, oc = _code_at(code, pg.H_ACC, w, pg.ACC_W)
+            _red, kind, oc = tp.code_at(code, pg.H_ACC, w, pg.ACC_W)
             if kind == pg.O_SCALAR:
                 out[s, oc] = T(acc.get(w, 0.0))
             else:
@@ -346,7 +272,7 @@ def test_sketch_tables_fit_shared_memory():
     tables before it leave room, back to back, else in global memory."""
     spec = tp.random_sketch_spec(0, log2ms=(12, 16, 4), scalar=True)
     prog = pg.compile_plan(DevicePlan(**spec))
-    rows = [_code_at(prog.code, pg.H_SLOT, j, pg.SLOT_W)
+    rows = [tp.code_at(prog.code, pg.H_SLOT, j, pg.SLOT_W)
             for j in range(len(spec["agg_ops"]))]
     placed = [(r[3], r[4]) for r in rows if r[0] in pg.SKETCH_OPS]
     # hll:12 at 0, hll:16 global, hll:4 after hll:12, hist:8192 after it

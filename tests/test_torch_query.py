@@ -73,9 +73,8 @@ CORPUS = [
 ]
 
 UNSUPPORTED = [
-    ("SELECT intCol FROM testTable WHERE intCol = 77 LIMIT 10",
-     "selection"),
-    ("SELECT DISTINCT groupCol FROM testTable LIMIT 10", "DISTINCT"),
+    ("SELECT intCol FROM testTable ORDER BY intCol, longCol LIMIT 10",
+     "more than one ORDER BY key"),
     ("SELECT DISTINCTCOUNT(stringCol) FROM testTable", "sketches"),
     ("SELECT PERCENTILE95(doubleCol) FROM testTable", "sketches"),
     ("SELECT VARIANCE(doubleCol) FROM testTable", "moment"),
@@ -216,6 +215,21 @@ def test_unsupported_queries_name_the_feature(corpus_segs, sql, feature):
     ex = QueryExecutor(corpus_segs[1], device="cpu")
     from pinot_tpu_torch.query.context import QueryContext
     assert not ex.engine.supports(QueryContext.from_sql(sql))
+    with pytest.raises(NotImplementedError, match=feature):
+        ex.execute(sql)
+
+
+#: shapes the capability check admits but the planner refuses on the
+#: segments at hand (here: a DISTINCT key space above MAX_DEVICE_GROUPS)
+PLAN_TIME_REFUSALS = [
+    ("SELECT DISTINCT longCol, intCol, doubleCol FROM testTable",
+     "compact group keys"),
+]
+
+
+@pytest.mark.parametrize("sql,feature", PLAN_TIME_REFUSALS)
+def test_plan_time_refusals_name_the_feature(corpus_segs, sql, feature):
+    ex = QueryExecutor(corpus_segs[1], device="cpu")
     with pytest.raises(NotImplementedError, match=feature):
         ex.execute(sql)
 

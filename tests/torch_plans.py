@@ -13,6 +13,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from pinot_tpu_torch.ops import program as pg
 from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
 from pinot_tpu_torch.ops.program import slot_width
 
@@ -226,6 +227,138 @@ def sketch_inputs(seed: int, spec: dict, S: int, D: int, value_dtype,
     cols["valhi:t"][:, 6:12] = (t >> 24).astype(np.int32)
     cols["vallo:t"][:, 6:12] = (t & 0xFFFFFF).astype(np.int32)
     return cols, params, nd
+
+
+#: top-N order values by kind (None: unordered, the first docs)
+TOPN_ORDERS = {"col": ("col", "x"), "ids": ("ids", "b"),
+               "expr": ("mul", ("col", "x"), ("col", "y")), "none": None}
+
+
+def topn_spec(seed: int, order: str, asc: bool, k: int,
+              filtered: bool = True) -> dict:
+    """Plan fields of a top-N plan: a random main filter (or none) and the
+    order value TOPN_ORDERS[order]."""
+    rng = np.random.default_rng(seed)
+    leaves: list = []
+    filter_ir = _filter_tree(rng, leaves) if filtered else None
+    ir = TOPN_ORDERS[order]
+    return dict(filter_ir=filter_ir, leaves=tuple(leaves),
+                value_irs=() if ir is None else (ir,), agg_ops=(),
+                raw64_cols=("t",), mode="topn", topn_k=k, topn_asc=asc)
+
+
+def topn_inputs(seed: int, spec: dict, S: int, D: int, value_dtype,
+                pad_segments: int = 1):
+    """random_inputs with tie-dense order values: 'x' and 'y' small
+    integers in [-3, 3], a tenth of them -0.0, +0.0, NaN, +inf or -inf."""
+    cols, params, nd = random_inputs(seed, spec, S, D, value_dtype,
+                                     pad_segments=pad_segments)
+    rng = np.random.default_rng(seed + 15485863)
+    special = np.array([0.0, -0.0, np.nan, np.inf, -np.inf])
+    for c in VAL_COLS:
+        v = rng.integers(-3, 4, (S, D)).astype(np.float64)
+        pick = rng.random((S, D)) < 0.1
+        v[pick] = special[rng.integers(0, len(special), int(pick.sum()))]
+        cols["val:" + c] = v.astype(value_dtype)
+    return cols, params, nd
+
+
+def code_at(code, table, i, width):
+    off = code[table] + i * width
+    return code[off:off + width]
+
+
+class ProgramMirror:
+    """numpy mirror of csrc/interp.cuh: runs the program `compile_plan`
+    emits for `plan` over one segment at a time (`segment(s)`), with the
+    same per-segment parameter clamping, leaves, filter trees and value
+    expressions (one rounding per operation in the value type)."""
+
+    def __init__(self, plan, cols, params, num_docs, D):
+        prog = pg.compile_plan(plan)
+        self.prog = prog
+        self.code = prog.for_launch([str(cols[n].dtype) for n in prog.cols],
+                                    [params[k].shape[1] for k in prog.luts])
+        self.num_docs, self.D = num_docs, D
+        Sn = len(num_docs)
+        self.colarr = [cols[n] for n in prog.cols]
+        self.luts = [params[k] for k in prog.luts]
+        self.pmat = np.stack([params[k].astype(np.float64) if k is not None
+                              else np.full(Sn, lit)
+                              for k, lit in prog.params]
+                             or [np.zeros(Sn)], 1)
+
+    def segment(self, s: int) -> int:
+        """Select segment s; returns its real doc count n."""
+        code = self.code
+        prm = self.pmat[s].copy()
+        for li in range(code[pg.H_NLEAVES]):
+            kind, a, _b, p, _l = code_at(code, pg.H_LEAF, li, pg.LEAF_W)
+            dt = code[code[pg.H_COLDT] + a]
+            if kind in (pg.L_RANGE, pg.L_NEQ) and dt <= 1:
+                lim = (128.0, 127.0) if dt == 0 else (32768.0, 32767.0)
+                n_p = 2 if kind == pg.L_RANGE else 1
+                prm[p:p + n_p] = np.clip(prm[p:p + n_p], -lim[0], lim[1])
+        self.s, self.prm = s, prm
+        self.n = max(0, min(int(self.num_docs[s]), self.D))
+        return self.n
+
+    def col(self, c):
+        return self.colarr[c][self.s, :self.n].astype(np.float64)
+
+    def leaf(self, li):
+        kind, a, b, p, lut = code_at(self.code, pg.H_LEAF, li, pg.LEAF_W)
+        prm, v = self.prm, self.col(a)
+        if kind == pg.L_RANGE:
+            return (v >= prm[p]) & (v <= prm[p + 1])
+        if kind == pg.L_NEQ:
+            return v != prm[p]
+        if kind == pg.L_LUT:
+            return self.luts[lut][self.s][v.astype(np.int64)]
+        if kind == pg.L_VRANGE:
+            return (v >= prm[p]) & (v <= prm[p + 1])
+        lo = self.col(b)
+        ge = (v > prm[p]) | ((v == prm[p]) & (lo >= prm[p + 1]))
+        le = (v < prm[p + 2]) | ((v == prm[p + 2]) & (lo <= prm[p + 3]))
+        return ge & le
+
+    def _run(self, table, i, push, unary, binary):
+        start, cnt = code_at(self.code, table, i, 2)
+        st = []
+        for k in range(cnt):
+            op, arg = self.code[start + 2 * k], self.code[start + 2 * k + 1]
+            r = push(op, arg)
+            if r is not None:
+                st.append(r)
+            elif unary(op):
+                st[-1] = unary(op)(st[-1])
+            else:
+                y = st.pop()
+                st[-1] = binary(op, st[-1], y)
+        return st[0]
+
+    def filt(self, f):
+        return self._run(
+            pg.H_FILT, f,
+            lambda op, arg: self.leaf(arg) if op == pg.F_LEAF else None,
+            lambda op: (lambda x: ~x) if op == pg.F_NOT else None,
+            lambda op, x, y: x & y if op == pg.F_AND else x | y)
+
+    def value(self, v, ty):
+        bins = {pg.V_ADD: np.add, pg.V_SUB: np.subtract,
+                pg.V_MUL: np.multiply, pg.V_DIV: np.divide}
+
+        def push(op, arg):
+            if op in (pg.V_COL, pg.V_IDS):
+                return self.col(arg).astype(ty)
+            if op == pg.V_LIT:
+                return np.full(self.n, self.prm[arg]).astype(ty)
+            return None
+        with np.errstate(all="ignore"):
+            return self._run(pg.H_VAL, v, push,
+                             lambda op: np.negative if op == pg.V_NEG
+                             else None,
+                             lambda op, x, y: bins[op](x, y).astype(ty))
 
 
 def contractible(ir) -> bool:
