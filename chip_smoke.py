@@ -6,7 +6,7 @@
 Phases, each of which exits non-zero on failure:
 
 1. Device: the card's name and power limit (nvidia-smi) and its torch name.
-2. Build: the four CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc,
+2. Build: the five CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc,
    one process per source, in parallel.
 3. Kernels against their plain PyTorch versions, on the card, on seeded
    random inputs at the main path's shapes: K1 scan_agg at S=16, D=2^23
@@ -20,16 +20,25 @@ Phases, each of which exits non-zero on failure:
    value DESC k=10 and an i16 ids value ASC k=1000 under a filter keeping
    about 0.3% of docs; the raw value ASC k=8192 and unordered k=1000
    under one keeping about 50%), its order values small integers with
-   NaN, +-inf and +-0.0. Counts, exact-sum planes, min / max, registers,
-   buckets and K4's whole output must match bit for bit; float sums
-   within 1e-5 of the slot's sum of |contribution|. Times: CUDA events,
+   NaN, +-inf and +-0.0, and K5 startree_agg at S=16, D=2^20 pre-agg
+   records (far past the star-tree leg's trees, many blocks per segment;
+   phase 7 checks K5 at the leg's own shapes) in three shapes (flat;
+   grouped with G=35, its table in shared memory; grouped with G=2^14,
+   past shared memory) over one exact-sum (usum) pair, one float sum and
+   one max, its selection contiguous record runs keeping about 10%, as
+   traversal yields [start, end) slices.
+   Counts, exact-sum planes, min / max, registers, buckets and K4's whole
+   output must match bit for bit; float sums within 1e-5 of the slot's sum
+   of |contribution|. Times: CUDA events,
    median of 20 launches. Bound: the bytes the function must move on
    these inputs (the filter's columns in full, the other columns, split
    planes and order values included, only in the 32-byte sectors holding
    a doc the filter keeps, parameters and output once) over 3.35 TB/s.
    Library: torch.histc over K3's histogram input, unfiltered (nearly
    K3's histogram; no PyTorch call computes HLL); torch.topk over K4's
-   masked score block (it keeps no tie order: a time only).
+   masked score block (it keeps no tie order: a time only); none for K5
+   (no one PyTorch call computes its count, exact-sum planes and float
+   slots together).
 4. Q1 leg: SSB-flat lineorder data (bench.py's column distributions), 16
    segments x 8M rows = 128M rows, built with the port's creator into a
    temp dir; SSB Q1.1 as bench.py runs it plus Q1.2- and Q1.3-shaped date
@@ -55,7 +64,23 @@ Phases, each of which exits non-zero on failure:
    TDigest.from_histogram of a numpy histogram built with the kernel's
    float32 formula merged in segment order, and within rel 0.02 of the
    exact percentile.
-7. Launch counts: each kernel's counter is set to 0 just before a leg's
+7. Star-tree leg (BASELINE config #5): two tables built with the port's
+   creator, star-trees included, 8 x 4M = 32M rows each: `ssbst`, config
+   #5 verbatim (bench_extra.py:224-234: the SSB-flat columns, no raw
+   columns, tree [d_year, p_category] with SUM__lo_revenue and COUNT__*,
+   max_leaf 1000) with its query, and `stb`, bench.py:2162-2194's table
+   (tree [country, browser, locale] with SUM__impressions, MAX__cost and
+   SUM__cost, max_leaf 10) with the four parity_sqls(3) of
+   bench.py:2198-2208. Each query runs from the tree (K5) and again with
+   OPTION(useStarTree=false) on K1 / K2; each answer must equal the numpy
+   truth of the generated columns (integer sums and counts exactly from
+   the tree; floats, and the scan's float32 grouped sums, within rel 1e-6)
+   and the tree's answer its scan's within rel 1e-6. After the tree runs
+   of each table, K5 is held against its plain version on the very inputs
+   the engine staged for each query (S=8 segments of D=128 or 2048
+   pre-agg records: one block per segment, fewer records than a block has
+   threads), as in phase 3; the kernels line carries config #5's query.
+8. Launch counts: each kernel's counter is set to 0 just before a leg's
    timed queries and read just after them; the leg's kernels must have
    launched once per query run and the others never. Then a short
    torch.profiler trace of the same warm query gives the card's busy time
@@ -156,6 +181,46 @@ TAXI_QUERIES = {
     # a vrange64 leaf on the HLL column's own split planes (2^39)
     "q4.3": _SKETCHES + " WHERE trip_id < 549755813888",
 }
+#: BASELINE config #5 (bench_extra.py:224-234) and bench.py --startree's
+#: table (bench.py:2162-2194), at the group-by leg's cut of SSB scale
+ST_SEGMENTS, ST_DOCS = 8, 4_000_000
+ST_TABLES = {
+    # table -> (fields, star-tree config, queries: name -> (SQL, grouped))
+    "ssbst": ([("lo_orderdate", "INT", False), ("lo_discount", "INT", False),
+               ("lo_quantity", "INT", False), ("d_year", "INT", False),
+               ("p_category", "STRING", False),
+               ("s_region", "STRING", False), ("lo_revenue", "INT", True)],
+              dict(dimensions_split_order=["d_year", "p_category"],
+                   function_column_pairs=["SUM__lo_revenue", "COUNT__*"],
+                   max_leaf_records=1000),
+              {"st5.1": ("SELECT d_year, SUM(lo_revenue) FROM ssbst "
+                         "GROUP BY d_year ORDER BY d_year LIMIT 100", True)}),
+    "stb": ([("country", "STRING", False), ("browser", "STRING", False),
+             ("locale", "STRING", False), ("impressions", "LONG", True),
+             ("cost", "DOUBLE", True)],
+            dict(dimensions_split_order=["country", "browser", "locale"],
+                 function_column_pairs=["SUM__impressions", "MAX__cost",
+                                        "SUM__cost"],
+                 max_leaf_records=10),
+            # bench.py:2198-2208 parity_sqls(3), verbatim
+            {"stb.1": ("SELECT SUM(impressions), COUNT(*) FROM stb "
+                       "WHERE country = 'c3'", False),
+             "stb.2": ("SELECT SUM(impressions) FROM stb "
+                       "WHERE country IN ('c1','c2','c3') AND browser = 'b2'",
+                       False),
+             "stb.3": ("SELECT MAX(cost), SUM(cost), COUNT(*) FROM stb",
+                       False),
+             "stb.4": ("SELECT browser, SUM(impressions), COUNT(*) FROM stb "
+                       "WHERE locale = 'l3' "
+                       "GROUP BY browser ORDER BY browser LIMIT 100", True)}),
+}
+NO_STAR_TREE = " OPTION(useStarTree=false)"
+#: stb's strings as fixed-width numpy strings: the creator's and the
+#: star-tree builder's np.unique sort them far faster than Python objects,
+#: in the same order
+STB_COUNTRIES = np.array([f"c{v}" for v in range(20)])
+STB_BROWSERS = np.array([f"b{v}" for v in range(6)])
+STB_LOCALES = np.array([f"l{v}" for v in range(10)])
 #: the device sketches' shapes (DistinctCountHLL log2m, PercentileTDigest
 #: DEVICE_BUCKETS) and the percentile
 HLL_LOG2M, HIST_BUCKETS, PCT = 12, 8192, 95.0
@@ -280,6 +345,75 @@ def groupby_leg_truth(cols: dict) -> dict:
     return {"gb": groupby_truth(cols),
             "dist": set(zip(cols["p_category"][y95].tolist(),
                             cols["s_region"][y95].tolist()))}
+
+
+def stb_columns(rng, n: int) -> dict:
+    """bench.py:2176-2188's draws (the strings picked from tables instead
+    of formatted one by one)."""
+    return {
+        "country": STB_COUNTRIES[rng.integers(0, 20, n)],
+        "browser": STB_BROWSERS[rng.integers(0, 6, n)],
+        "locale": STB_LOCALES[rng.integers(0, 10, n)],
+        "impressions": rng.integers(0, 1000, n).astype(np.int64),
+        "cost": rng.random(n) * 100,
+    }
+
+
+def startree_truth(cols: dict) -> dict:
+    """The star-tree leg's answers over one segment's columns, in numpy:
+    per query the partial rows that startree_expected merges."""
+    if "d_year" in cols:
+        rev = cols["lo_revenue"].astype(np.int64)
+        return {"st5.1": {int(y): int(rev[cols["d_year"] == y].sum())
+                          for y in np.unique(cols["d_year"])}}
+    imp, cost = cols["impressions"], cols["cost"]
+    c3 = cols["country"] == "c3"
+    q2 = np.isin(cols["country"], ["c1", "c2", "c3"]) \
+        & (cols["browser"] == "b2")
+    l3 = cols["locale"] == "l3"
+    return {"stb.1": (int(imp[c3].sum()), int(c3.sum())),
+            "stb.2": int(imp[q2].sum()),
+            "stb.3": (float(cost.max()), float(cost.sum()), len(cost)),
+            "stb.4": {str(b): (int(imp[l3 & (cols["browser"] == b)].sum()),
+                               int((l3 & (cols["browser"] == b)).sum()))
+                      for b in np.unique(cols["browser"][l3])}}
+
+
+def startree_expected(truths: list, name: str) -> list:
+    """A star-tree leg query's rows from the per-segment truths: integer
+    sums and counts as Python ints, float sums and the max as floats."""
+    parts = [t[name] for t in truths]
+    if name == "st5.1":
+        years = sorted(set().union(*parts))
+        return [(y, sum(p.get(y, 0) for p in parts)) for y in years]
+    if name == "stb.1":
+        return [(sum(p[0] for p in parts), sum(p[1] for p in parts))]
+    if name == "stb.2":
+        return [(sum(parts),)]
+    if name == "stb.3":
+        return [(max(p[0] for p in parts), float(sum(p[1] for p in parts)),
+                 sum(p[2] for p in parts))]
+    keys = sorted(set().union(*parts))
+    return [(b, sum(p.get(b, (0, 0))[0] for p in parts),
+             sum(p.get(b, (0, 0))[1] for p in parts)) for b in keys]
+
+
+def rows_agree(got, want, exact_ints: bool) -> bool:
+    """Rows equal: strings and (where exact_ints) integers exactly, other
+    numbers within rel 1e-6."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        for a, b in zip(g, w):
+            if isinstance(b, str) or (exact_ints and isinstance(b, int)):
+                if not (a == b if isinstance(b, str)
+                        else float(a) == float(b)):
+                    return False
+            elif abs(float(a) - float(b)) > 1e-6 * abs(float(b)):
+                return False
+    return True
 
 
 def taxi_columns(rng, n: int) -> dict:
@@ -728,6 +862,128 @@ def check_topn(name: str, plan, cols, params, num_docs, D) -> dict:
             "bytes": moved}
 
 
+STARTREE_CASES = {  # name -> group dims ((dim, card), ...)
+    "flat": (),
+    "grouped G=35 (shared memory)": (("a", 7), ("b", 5)),
+    "grouped G=2^14 (global memory)": (("a", 128), ("b", 128)),
+}
+
+
+def startree_kernel_inputs(seed: int) -> dict:
+    """K5's three phase-3 cases at S=16, D=2^20 pre-agg records, made on
+    the card: name -> (plan, cols, params, num_docs, D). One usum pair
+    (digits below 2^20 and 2^24), one float sum and one max (f32); the
+    selection is a run of 52 records at a random offset in every 512
+    (about 10%); one segment ragged, the last one padding."""
+    import torch
+
+    from pinot_tpu_torch.ops.startree_device import StarTreePlan
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 3)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    S, D = Q1_SEGMENTS, 1 << 20
+    pos = torch.arange(D, device=dev)
+    off = ints(0, 512 - 52, (S, D // 512)).long()[:, pos // 512]
+    sel = (pos % 512 >= off) & (pos % 512 < off + 52)
+    cols = {"sthi:sum__u": ints(0, 1 << 20, (S, D)),
+            "stlo:sum__u": ints(0, 1 << 24, (S, D)),
+            "stval:sum__x": (torch.rand((S, D), generator=g, device=dev)
+                             - 0.3) * 1e6,
+            "stval:max__y": torch.rand((S, D), generator=g, device=dev)}
+    num_docs = torch.full((S,), D, dtype=torch.int32, device=dev)
+    num_docs[S // 2] = D - 12345
+    num_docs[-1] = 0
+    out = {}
+    for name, dims in STARTREE_CASES.items():
+        cards = [c for _d, c in dims]
+        plan = StarTreePlan(
+            slots=(("usum", "sum__u"), ("sum", "sum__x"), ("max", "max__y")),
+            group_dims=tuple(d for d, _c in dims), group_cards=tuple(cards),
+            group_strides=tuple(int(np.prod(cards[i + 1:], dtype=np.int64))
+                                for i in range(len(cards))),
+            num_groups=int(np.prod(cards, dtype=np.int64)) if dims else 0)
+        case_cols = dict(cols)
+        for d, c in dims:
+            case_cols["stid:" + d] = ints(0, c, (S, D))
+        out[name] = (plan, case_cols, {"sel": sel}, num_docs, D)
+    return out
+
+
+def check_startree(name: str, plan, cols, params, num_docs, D,
+                   value_dtype=None) -> dict:
+    """K5 against its plain version on the card: record counts, exact-sum
+    planes and min / max bit for bit, float sums within 1e-5 of their sum
+    of |contribution|; returns the case's entry. value_dtype: the value
+    columns' (float32 unless given)."""
+    import torch
+
+    from pinot_tpu_torch.ops import startree_device as sd
+    vdt = value_dtype or torch.float32
+    kern = sd.make_startree_kernel(plan, vdt)
+
+    def plain():
+        return sd.startree_kernel(plan, cols, params, num_docs, D,
+                                  value_dtype=vdt)
+    out = kern(cols, params, num_docs, D)
+    ref = plain()
+    torch.cuda.synchronize()
+    if out.shape != ref.shape:
+        fail(f"startree {name}: shape {tuple(out.shape)} != "
+             f"{tuple(ref.shape)}")
+    valid = torch.arange(D, device=num_docs.device)[None, :] \
+        < num_docs[:, None]
+    mask = params["sel"] & valid
+    col = 1
+    for op, pair in plan.slots:
+        w = sd.slot_width(op)
+        a, b = out[..., col:col + w], ref[..., col:col + w]
+        col += w
+        if op == "sum":
+            contrib = torch.where(mask, cols["stval:" + pair].double().abs(),
+                                  0)
+            if plan.num_groups:
+                keys = sum(cols["stid:" + d].long() * st for d, st in
+                           zip(plan.group_dims, plan.group_strides))
+                scale = torch.zeros((mask.shape[0], plan.num_groups),
+                                    dtype=torch.float64, device=mask.device
+                                    ).scatter_add_(
+                    1, torch.where(mask, keys, 0), contrib)[..., None]
+            else:
+                scale = contrib.sum(1)[:, None]
+            err = (a.double() - b.double()).abs()
+            if not bool((err <= 1e-5 * scale + 1e-30).all()):
+                fail(f"startree {name}: sum beyond 1e-5 of sum|contrib|: "
+                     f"max err {float(err.max())}")
+        elif not torch.equal(a, b):
+            fail(f"startree {name}: {op} {pair} not bit-identical")
+    if not torch.equal(out[..., 0], ref[..., 0]):
+        fail(f"startree {name}: record counts differ")
+    # bytes: the mask of every real record, the other columns only in the
+    # sectors holding a selected record, num_docs and the output once
+    moved = int(valid.sum()) * params["sel"].element_size()
+    for t in cols.values():
+        size = t.element_size()
+        sectors = mask.view(mask.shape[0], -1, SECTOR // size).any(-1)
+        moved += SECTOR * int(sectors.sum())
+    moved += num_docs.numel() * num_docs.element_size() \
+        + out.numel() * out.element_size()
+    ms = cuda_ms(lambda: kern(cols, params, num_docs, D))
+    plain_ms = cuda_ms(plain)
+    return {"case": name, "max_abs_err": max_abs_err(out, ref), "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "library": "none: no one PyTorch call computes the count, the "
+                       "exact-sum planes and the float slots together",
+            "records": int(num_docs.sum()), "selected": int(mask.sum()),
+            "groups": plan.num_groups, "bytes": moved}
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the port's main path, from SQL to rows
 # ---------------------------------------------------------------------------
@@ -736,9 +992,11 @@ def build_one_segment(job):
     """Generate segment i's columns from [seed, i], fold its truth and
     write it with the port's creator; returns (its directory, its truth).
     Runs in a worker process: only the truth comes back."""
-    root, name, fields, no_dict, docs, columns_fn, truth_fn, seed, i = job
+    (root, name, fields, no_dict, docs, columns_fn, truth_fn, seed, i,
+     star_tree) = job
     from pinot_tpu_torch.models import (DataType, FieldSpec, FieldType,
-                                        Schema, TableConfig)
+                                        Schema, StarTreeIndexConfig,
+                                        TableConfig)
     from pinot_tpu_torch.segment.creator import SegmentCreator
     schema = Schema(name, [FieldSpec(f, getattr(DataType, t),
                                      FieldType.METRIC if m
@@ -747,6 +1005,8 @@ def build_one_segment(job):
     tc = TableConfig(name)
     tc.indexing.no_dictionary_columns = list(no_dict)
     tc.indexing.compression = "PASS_THROUGH"
+    if star_tree is not None:
+        tc.indexing.star_tree_configs = [StarTreeIndexConfig(**star_tree)]
     cols = columns_fn(np.random.default_rng([seed, i]), docs)
     truth = truth_fn(cols)
     out = os.path.join(root, f"{name}_{i}")
@@ -756,13 +1016,14 @@ def build_one_segment(job):
 
 def build_segments(root: str, name: str, fields, no_dict, n_segments: int,
                    docs: int, columns_fn, truth_fn, seed: int,
-                   workers: int = 1):
+                   workers: int = 1, star_tree=None):
     """Build n_segments with the port's creator, one segment at a time in
     each of `workers` spawned processes (1: in this one), and load them in
-    order; returns (segments, the per-segment truths)."""
+    order; returns (segments, the per-segment truths). star_tree: the
+    StarTreeIndexConfig fields of the table's one star-tree, or None."""
     from pinot_tpu_torch.segment.loader import load_segment
     jobs = [(root, name, fields, no_dict, docs, columns_fn, truth_fn, seed,
-             i) for i in range(n_segments)]
+             i, star_tree) for i in range(n_segments)]
     if workers > 1:
         import multiprocessing
         with multiprocessing.get_context("spawn").Pool(workers) as pool:
@@ -824,15 +1085,115 @@ def device_busy(ex, sql: str, iters: int, tmp: str):
             end = b
         by_name[name[:80]] = by_name.get(name[:80], 0.0) + (b - a)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    # each port kernel's passes, summed (K4 runs a dozen small kernels)
-    port = {k: sum(v for n, v in by_name.items() if p in n) / 1e3 / iters
+    # each port kernel's passes, summed (K4 runs a dozen small kernels),
+    # by the prefix of the function's name (K5's startree_group_* are not
+    # K2's group_*)
+    port = {k: sum(v for n, v in by_name.items()
+                   if n.removeprefix("void ").startswith(p)) / 1e3 / iters
             for k, p in (("scan_agg", "scan_"), ("group_agg", "group_"),
-                         ("sketch_agg", "sketch_"), ("topn", "topn_"))}
+                         ("sketch_agg", "sketch_"), ("topn", "topn_"),
+                         ("startree_agg", "startree_"))}
     return {"busy_ms_per_query": busy / 1e3 / iters,
             "traced_wall_ms_per_query": wall * 1e3 / iters,
             "device_ms_per_query": {n: v / 1e3 / iters for n, v in top},
             "port_kernel_ms_per_query": {k: v for k, v in port.items()
                                          if v}}
+
+
+def staged_startree(ex, sql: str):
+    """The inputs the engine stages for K5 on a tree query, as it stages
+    them on the main path: (plan, cols, params, num_docs, D)."""
+    from pinot_tpu_torch.query.context import QueryContext
+    ctx = QueryContext.from_sql(sql)
+    st = ex.engine._plan_startree(ex.segments, ctx)
+    if st is None:
+        fail(f"the engine does not serve {sql!r} from the tree")
+    plan, _needed, fits = st
+    return (plan, *ex.engine._stage_startree(ex.segments, ctx, plan, fits))
+
+
+def startree_leg(tmp: str, seed: int, kernels, none: dict, card: str):
+    """Phase 7: each star-tree table built, each query run from the tree
+    and with OPTION(useStarTree=false), checked against the numpy truth
+    and each other, and K5 held against its plain version on the inputs
+    the engine staged for each query; returns the leg's launches per
+    kernel and K5's cases by query name."""
+    import torch
+
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    launches = {k.name: 0 for k in kernels}
+    cases = {}
+    for table, (fields, tree, queries) in ST_TABLES.items():
+        t0 = time.perf_counter()
+        segs, truths = build_segments(
+            tmp, table, fields, [], ST_SEGMENTS, ST_DOCS,
+            ssb_flat_columns if table == "ssbst" else stb_columns,
+            startree_truth, seed, BUILD_WORKERS, star_tree=tree)
+        rows = sum(s.num_docs for s in segs)
+        records = [s.metadata.star_tree["trees"][0]["numRecords"]
+                   for s in segs]
+        print(f"[startree] built {table}: {len(segs)} segments, {rows} "
+              f"rows, {min(records)}-{max(records)} pre-agg records per "
+              f"segment in {time.perf_counter() - t0:.1f} s", flush=True)
+        ex = QueryExecutor(segs)
+        grouped = sum(g for _sql, g in queries.values())
+        for path, suffix in (("tree", ""), ("scan", NO_STAR_TREE)):
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches(kernels)
+            legs, splits, answers = [], {}, {}
+            for name, (sql, is_grouped) in queries.items():
+                resp, cold, lats, splits[name] = time_query(
+                    ex, sql + suffix, ITERS)
+                got = [tuple(r) for r in resp.rows]
+                want = startree_expected(truths, name)
+                exact = path == "tree" or not is_grouped
+                if not rows_agree(got, want, exact):
+                    fail(f"{name} {path}: {got[:4]} vs numpy truth "
+                         f"{want[:4]}")
+                answers[name] = got
+                legs.append({"query": name, "path": path, "rows": rows,
+                             "selected": resp.stats.num_docs_scanned,
+                             "p50_ms": statistics.median(lats) * 1e3,
+                             "cold_s": cold,
+                             "rows_per_s": rows / statistics.median(lats)})
+            runs = 1 + ITERS
+            want_launches = {**none, "startree_agg": len(queries) * runs} \
+                if path == "tree" else \
+                {**none, "scan_agg": (len(queries) - grouped) * runs,
+                 "group_agg": grouped * runs}
+            got = launches_of_leg(f"star-tree leg {table} {path}", kernels,
+                                  want_launches)
+            for k, v in got.items():
+                launches[k] += v
+            peak = torch.cuda.max_memory_allocated()
+            for leg in legs:
+                leg["max_memory_allocated"] = peak
+                leg["stage_ms"] = splits[leg["query"]]
+                print(f"[startree] {json.dumps(leg)} | {card}", flush=True)
+            if path == "tree":
+                tree_answers = answers
+                # after the launch counts were read: these launches are
+                # the comparison's, not the main path's
+                for name, (sql, _g) in queries.items():
+                    cases[name] = check_startree(
+                        f"{table} {name}", *staged_startree(ex, sql),
+                        value_dtype=ex.engine.value_dtype)
+                    print(f"[kernel] startree_agg {json.dumps(cases[name])}"
+                          f" | {card}", flush=True)
+            else:
+                for name, got in answers.items():
+                    if not rows_agree(got, tree_answers[name], False):
+                        fail(f"{name}: tree {tree_answers[name][:4]} vs "
+                             f"scan {got[:4]}")
+        for name, (sql, _g) in list(queries.items())[:2]:
+            for path, suffix in (("tree", ""), ("scan", NO_STAR_TREE)):
+                busy = device_busy(ex, sql + suffix, ITERS, tmp)
+                print(f"[startree] trace {name} {path} "
+                      f"{json.dumps(busy or 'not measured')} | {card}",
+                      flush=True)
+        del ex, segs
+        torch.cuda.empty_cache()
+    return launches, cases
 
 
 def launches_of_leg(leg: str, kernels, want: dict) -> dict:
@@ -898,6 +1259,12 @@ def main() -> None:
     # the largest error over all four cases
     k4 = dict(k4_cases["a: raw value DESC k=10"],
               max_abs_err=max(c["max_abs_err"] for c in k4_cases.values()))
+    torch.cuda.empty_cache()
+    k5_cases = {}
+    for name, inputs in startree_kernel_inputs(args.seed).items():
+        k5_cases[name] = check_startree(name, *inputs)
+        print(f"[kernel] startree_agg {json.dumps(k5_cases[name])}",
+              flush=True)
     torch.cuda.empty_cache()
     kernels = _cuda.KERNELS
     none = {k.name: 0 for k in kernels}
@@ -1099,16 +1466,31 @@ def main() -> None:
             print(f"[config4] trace {name} "
                   f"{json.dumps(busy or 'not measured')} | {card}",
                   flush=True)
+        del ex, segs
+        torch.cuda.empty_cache()
+
+        # phase 7: star-tree leg (config #5 and bench.py --startree's table)
+        got, leg_cases = startree_leg(tmp, args.seed, kernels, none, card)
+        # the kernels line carries config #5's query on the inputs the
+        # engine staged for it, and the largest error over every case,
+        # phase 3's and the leg's
+        k5 = dict(leg_cases["st5.1"], launches=got["startree_agg"],
+                  max_abs_err=max(c["max_abs_err"] for c in
+                                  [*k5_cases.values(), *leg_cases.values()]))
+        k1["launches"] += got["scan_agg"]
+        k2["launches"] += got["group_agg"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # phase 7: the kernels line, the card line, the result
+    # phase 8: the kernels line, the card line, the result
     entries = []
     for kern, entry, replaces in (
             (_cuda.SCAN_AGG, k1, "pinot_tpu/ops/kernels.py:537"),
             (_cuda.GROUP_AGG, k2, "pinot_tpu/ops/kernels.py:252"),
             (_cuda.SKETCH_AGG, k3, "pinot_tpu/ops/kernels.py:429,451"),
-            (_cuda.TOPN, k4, "pinot_tpu/ops/kernels.py:583")):
+            (_cuda.TOPN, k4, "pinot_tpu/ops/kernels.py:583"),
+            (_cuda.STARTREE_AGG, k5,
+             "pinot_tpu/ops/startree_device.py:99,81")):
         entries.append({
             "name": kern.name, "route": "cuda",
             "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",

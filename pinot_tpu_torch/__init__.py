@@ -3,8 +3,8 @@ an NVIDIA H100.
 
 The package mirrors pinot_tpu's sub-packages (models, segment, query, ops)
 and imports nothing of it, nor JAX. It carries scan-aggregate, group-by,
-sketch, selection (top-N) and DISTINCT queries from SQL text to result rows
-through four hand-written CUDA kernels (ops/csrc). Entry point:
+sketch, selection (top-N), DISTINCT and star-tree queries from SQL text to
+result rows through five hand-written CUDA kernels (ops/csrc). Entry point:
 
     from pinot_tpu_torch.query.executor import QueryExecutor
     QueryExecutor(segments).execute(sql)        # on the card

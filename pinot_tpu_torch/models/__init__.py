@@ -7,9 +7,10 @@ JAX package.
 from pinot_tpu_torch.models.field_spec import DataType, FieldSpec, FieldType
 from pinot_tpu_torch.models.schema import Schema
 from pinot_tpu_torch.models.table_config import (
-    IndexingConfig, RetentionConfig, TableConfig, TableType)
+    IndexingConfig, RetentionConfig, StarTreeIndexConfig, TableConfig,
+    TableType)
 
 __all__ = [
     "DataType", "FieldType", "FieldSpec", "Schema", "TableConfig",
-    "TableType", "IndexingConfig", "RetentionConfig",
+    "TableType", "IndexingConfig", "RetentionConfig", "StarTreeIndexConfig",
 ]

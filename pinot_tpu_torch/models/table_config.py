@@ -2,9 +2,11 @@
 
 Counterpart of pinot_tpu/models/table_config.py (ref
 pinot-spi/src/main/java/org/apache/pinot/spi/config/table/TableConfig.java:38).
-The port's creator writes dictionaries and forward indexes only, so only the
-indexing fields that decide those (no-dictionary columns, raw-chunk
-compression) and the time column survive here.
+The port's creator writes dictionaries, forward indexes and star-trees, so
+only the indexing fields that decide those (no-dictionary columns, raw-chunk
+compression, star-tree configs) and the time column survive here. The port
+has no upsert config yet, so the JAX package's upsert / star-tree exclusion
+(`TableConfig.validate`) has nothing to check here.
 """
 from __future__ import annotations
 
@@ -19,10 +21,38 @@ class TableType(enum.Enum):
 
 
 @dataclass
+class StarTreeIndexConfig:
+    """Ref: spi/config/table/StarTreeIndexConfig.java."""
+
+    dimensions_split_order: List[str] = field(default_factory=list)
+    skip_star_node_creation: List[str] = field(default_factory=list)
+    function_column_pairs: List[str] = field(default_factory=list)  # e.g. "SUM__revenue"
+    max_leaf_records: int = 10_000
+
+    def to_dict(self) -> dict:
+        return {
+            "dimensionsSplitOrder": self.dimensions_split_order,
+            "skipStarNodeCreationForDimensions": self.skip_star_node_creation,
+            "functionColumnPairs": self.function_column_pairs,
+            "maxLeafRecords": self.max_leaf_records,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "StarTreeIndexConfig":
+        return cls(
+            dimensions_split_order=d.get("dimensionsSplitOrder", []),
+            skip_star_node_creation=d.get("skipStarNodeCreationForDimensions", []),
+            function_column_pairs=d.get("functionColumnPairs", []),
+            max_leaf_records=d.get("maxLeafRecords", 10_000),
+        )
+
+
+@dataclass
 class IndexingConfig:
     """Ref: spi/config/table/IndexingConfig.java (trimmed)."""
 
     no_dictionary_columns: List[str] = field(default_factory=list)
+    star_tree_configs: List[StarTreeIndexConfig] = field(default_factory=list)
     # Chunk compression for raw (no-dictionary) columns.
     compression: str = "LZ4"  # PASS_THROUGH | LZ4 | GZIP | ZSTANDARD
 

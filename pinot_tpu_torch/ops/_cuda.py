@@ -1,8 +1,8 @@
 """Build, bind and launch the hand-written CUDA kernels.
 
 K1 `scan_agg` (csrc/scan_agg.cu), K2 `group_agg` (csrc/group_agg.cu),
-K3 `sketch_agg` (csrc/sketch_agg.cu) and K4 `topn` (csrc/topn.cu) are
-plain-C-interface shared libraries
+K3 `sketch_agg` (csrc/sketch_agg.cu), K4 `topn` (csrc/topn.cu) and K5
+`startree_agg` (csrc/startree_agg.cu) are plain-C-interface shared libraries
 built with `nvcc` for sm_90a at first use, into the git-ignored
 `build/kernels/` directory beside the package, and loaded with ctypes. All
 sources build at once, one `nvcc` each, in parallel. A library's file name carries a hash of its sources and flags, so
@@ -49,6 +49,14 @@ SKETCH_MIN_DOCS = 1 << 16
 TOPN_MAX_K = 8192
 #: K4's per-segment state words (csrc/topn.cu ST_*)
 TOPN_STATE_WORDS = 5
+#: K5's slot and group-dimension capacity (csrc/startree_agg.cu ST_MAX_*)
+ST_MAX_SLOTS = 16
+ST_MAX_DIMS = 8
+#: planes of 7 bits per 24-bit digit of a K5 exact-sum (usum) slot
+USUM_PLANES = 4
+#: K5's accumulator columns: the record count, 2 * USUM_PLANES per usum
+#: slot, one per float slot
+ST_MAX_ACC = 1 + 2 * USUM_PLANES * ST_MAX_SLOTS
 
 
 class _Args(ctypes.Structure):
@@ -56,6 +64,18 @@ class _Args(ctypes.Structure):
     _fields_ = [("cols", ctypes.c_void_p * prog_mod.MAX_COLS),
                 ("luts", ctypes.c_void_p * prog_mod.MAX_LUTS),
                 ("code", ctypes.c_int * prog_mod.MAX_CODE)]
+
+
+class _StArgs(ctypes.Structure):
+    """csrc/startree_agg.cu `struct StArgs`, passed to the kernel by value."""
+    _fields_ = [("a", ctypes.c_void_p * ST_MAX_SLOTS),
+                ("b", ctypes.c_void_p * ST_MAX_SLOTS),
+                ("op", ctypes.c_int * ST_MAX_SLOTS),
+                ("gid", ctypes.c_void_p * ST_MAX_DIMS),
+                ("stride", ctypes.c_int * ST_MAX_DIMS),
+                ("acc_op", ctypes.c_int * ST_MAX_ACC),
+                ("acc_out", ctypes.c_int * ST_MAX_ACC),
+                ("nslot", ctypes.c_int), ("ndim", ctypes.c_int)]
 
 
 class CudaKernel:
@@ -103,7 +123,11 @@ SKETCH_AGG = CudaKernel("sketch_agg", "sketch_agg.cu", "pt_sketch_agg",
 TOPN = CudaKernel("topn", "topn.cu", "pt_topn",
                   [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P, _P, _P, _P, _I, _P])
-KERNELS = (SCAN_AGG, GROUP_AGG, SKETCH_AGG, TOPN)
+STARTREE_AGG = CudaKernel("startree_agg", "startree_agg.cu",
+                          "pt_startree_agg",
+                          [ctypes.POINTER(_StArgs), _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _P, _P, _I, _P])
+KERNELS = (SCAN_AGG, GROUP_AGG, SKETCH_AGG, TOPN, STARTREE_AGG)
 
 _build_lock = threading.Lock()
 
@@ -333,4 +357,81 @@ def topn(plan: DevicePlan, cols: Dict[str, torch.Tensor],
     if rc != 0:
         raise RuntimeError(f"topn launch failed: cudaError {rc}")
     TOPN.launches += 1
+    return out
+
+
+#: K5 slot op codes (csrc/startree_agg.cu OP_*)
+_ST_OPS = {"usum": 0, "sum": 1, "min": 2, "max": 3}
+
+
+def startree_agg(plan, cols: Dict[str, torch.Tensor],
+                 params: Dict[str, torch.Tensor], num_docs: torch.Tensor,
+                 D: int, value_dtype: torch.dtype) -> torch.Tensor:
+    """K5: the packed star-tree residual aggregation of `plan` (an
+    ops/startree_device.StarTreePlan): [S, 1 + sum(w)] flat or
+    [S, G, 1 + sum(w)] grouped, in the value dtype."""
+    device = num_docs.device
+    if device.type != "cuda":
+        raise ValueError(f"CUDA kernel given tensors on {device}")
+    if value_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"value dtype {value_dtype} is not float32/64")
+    if num_docs.dim() != 1:
+        raise ValueError("num_docs must be 1-D")
+    S = num_docs.shape[0]
+    _check(num_docs, "num_docs", device, (torch.int32,), (S,))
+    if D <= 0 or D > (1 << 30):
+        raise ValueError(f"record block width {D} out of range")
+    if len(plan.slots) > ST_MAX_SLOTS or len(plan.group_dims) > ST_MAX_DIMS:
+        raise ValueError(f"star-tree plan beyond {ST_MAX_SLOTS} slots or "
+                         f"{ST_MAX_DIMS} group dims")
+    sel = params["sel"]
+    _check(sel, "sel", device, (torch.bool,), (S, D))
+    args = _StArgs()
+    args.nslot, args.ndim = len(plan.slots), len(plan.group_dims)
+    A, W = 1, 1  # accumulator and output columns; column 0 is the count
+    args.acc_op[0], args.acc_out[0] = _ST_OPS["sum"], 0
+    for j, (op, name) in enumerate(plan.slots):
+        if op not in _ST_OPS:
+            raise ValueError(f"unknown star-tree slot op {op!r}")
+        args.op[j] = _ST_OPS[op]
+        if op == "usum":
+            for field, key in (("a", "sthi:"), ("b", "stlo:")):
+                t = cols[key + name]
+                _check(t, key + name, device, (torch.int32,), (S, D))
+                getattr(args, field)[j] = t.data_ptr()
+            for p in range(2 * USUM_PLANES):
+                args.acc_op[A + p] = _ST_OPS["usum"]
+                args.acc_out[A + p] = W + 2 * p
+            A += 2 * USUM_PLANES
+            W += 4 * USUM_PLANES
+        else:
+            t = cols["stval:" + name]
+            _check(t, "stval:" + name, device, (value_dtype,), (S, D))
+            args.a[j] = t.data_ptr()
+            args.acc_op[A], args.acc_out[A] = _ST_OPS[op], W
+            A += 1
+            W += 1
+    for g, (dim, stride) in enumerate(zip(plan.group_dims,
+                                          plan.group_strides)):
+        t = cols["stid:" + dim]
+        _check(t, "stid:" + dim, device, (torch.int32,), (S, D))
+        args.gid[g] = t.data_ptr()
+        args.stride[g] = stride
+    G = plan.num_groups
+    nb = max(1, min(MAX_BLOCKS_PER_SEGMENT,
+                    math.ceil(D / (THREADS * DOCS_PER_THREAD))))
+    if G:
+        scratch = torch.empty((S, G, A), dtype=torch.float64, device=device)
+        out = torch.empty((S, G, W), dtype=value_dtype, device=device)
+    else:
+        scratch = torch.empty((S, nb, A), dtype=torch.float64, device=device)
+        out = torch.empty((S, W), dtype=value_dtype, device=device)
+    fn = STARTREE_AGG.fn()
+    rc = fn(ctypes.byref(args), sel.data_ptr(), num_docs.data_ptr(), S, D,
+            G, nb, A, W, int(value_dtype == torch.float64),
+            scratch.data_ptr(), out.data_ptr(), device.index,
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"startree_agg launch failed: cudaError {rc}")
+    STARTREE_AGG.launches += 1
     return out

@@ -1,18 +1,20 @@
 """TorchOperatorExecutor: stages segment columns on the card and runs the
-fused scan-aggregate / group-by / top-N kernels across segments.
+fused scan-aggregate / group-by / top-N / star-tree kernels across segments.
 
 Counterpart of the aggregation, selection and DISTINCT paths of
 pinot_tpu/ops/engine.py (`TpuOperatorExecutor`: supports :259,
 `_supports_distinct` :302, `_supports_selection` :315, `_execute_distinct`
 :1360, `_execute_topn` :1442, `_plan` :1487, `_plan_topn` :1791,
 `_assemble_topn` :1849, `_build_filter_ir` :1883, `_stage` :1991,
-`_assemble` :2913, `_isum_value` :3119), which replaces the reference's
+`_assemble` :2913, `_isum_value` :3119; the star-tree leg
+`_startree_candidate` :662, `_prepare_startree` :981, `_stage_startree` :1062,
+`_st_block` :1112, routed at :1240-1267), which replaces the reference's
 per-segment operator chain + combine fan-out
 (pinot-core combine/BaseCombineOperator.java:54) with ONE device program
 over stacked [num_segments, padded_docs] blocks.
 
-This slice launches directly: no dispatch ring, residency tier, star-tree,
-CLP, vector, time-series or mesh. The rules it keeps from the JAX engine:
+This slice launches directly: no dispatch ring, residency tier, CLP,
+vector, time-series or mesh. The rules it keeps from the JAX engine:
 cardinality-aware i8/i16/i32 id staging, power-of-two doc padding masked by
 `num_docs`, the per-segment doc cap, the group-count and group-result-size
 caps, the float32 precision guard, the exact-int-sum (isum) admission, the
@@ -20,22 +22,25 @@ ungrouped sketch slots (HLL registers over split planes of int columns
 below 2^55, histogram buckets between the batch's metadata min and max),
 selection as a per-segment top-K over one order value (k <= TOPN_MAX_K)
 whose winners alone are projected on the host, and DISTINCT as a
-presence-only group-by. A selection with neither a filter nor an ORDER BY
-is answered on the host from the first docs of each segment, as the JAX
-engine leaves it to its host executor. A query or segment batch outside
-the slice raises NotImplementedError naming the missing feature: the port
-has no host executor to hand it to.
+presence-only group-by. An aggregation over segments that all carry a
+star-tree is answered from the fitted trees' pre-aggregated records first
+(ops/startree_device.py, K5); any fallback reason, counted in `meters`,
+drops it through to the scan path (K1/K2). A selection with neither a
+filter nor an ORDER BY is answered on the host from the first docs of each
+segment, as the JAX engine leaves it to its host executor. A query or
+segment batch outside the slice raises NotImplementedError naming the
+missing feature: the port has no host executor to hand it to.
 """
 from __future__ import annotations
 
 import time
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from pinot_tpu_torch.ops import kernels, program
+from pinot_tpu_torch.ops import kernels, program, startree_device
 #: most rows a selection fetches per segment (limit + offset)
 from pinot_tpu_torch.ops._cuda import TOPN_MAX_K
 from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan
@@ -81,20 +86,31 @@ class TorchOperatorExecutor:
 
     value_dtype: float32 (the card's default: f32 value blocks, exact int
     sums through isum planes) or float64 (f64 blocks, no isum).
+    startree: answer aggregations from fitted star-trees (the JAX engine's
+    `pinot.server.startree.enabled`); a query opts out with
+    OPTION(useStarTree=false).
     """
 
     #: budget of the staged-block cache, which keeps each (segment batch,
     #: column) block on the device across queries, LRU-evicted
     CACHE_BYTES = 16 << 30
+    #: star-tree selection masks kept per (segment batch, plan, filter)
+    PARAMS_CACHE_ENTRIES = 4096
 
-    def __init__(self, device="cuda", value_dtype=torch.float32):
+    def __init__(self, device="cuda", value_dtype=torch.float32,
+                 startree: bool = True):
         self.device = torch.device(device)
         if value_dtype not in (torch.float32, torch.float64):
             raise ValueError(f"value dtype {value_dtype} is not float32/64")
         self.value_dtype = value_dtype
+        self._startree_enabled = startree
         self._blocks: "OrderedDict[tuple, Tuple[tuple, torch.Tensor]]" = \
             OrderedDict()
         self._cached = 0
+        self._params_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        #: the JAX engine's meters, keyed (name, reason):
+        #: ("startree_served", None) and ("startree_fallback", <reason>)
+        self.meters: Counter = Counter()
         #: host-clock split of the last execute (ms): plan (capability
         #: check + plan), stage (block cache + leaf parameters),
         #: kernel_fetch (launch to the result on the host), assemble
@@ -119,6 +135,11 @@ class TorchOperatorExecutor:
 
     def supports(self, ctx: QueryContext) -> bool:
         return self.missing_feature(ctx) is None
+
+    def meter(self, name: str, reason: Optional[str] = None) -> int:
+        """A meter's count: `startree_served`, or `startree_fallback` with
+        its reason."""
+        return self.meters[(name, reason)]
 
     def _aggregation_missing(self, ctx: QueryContext) -> Optional[str]:
         for fn in ctx.agg_functions:
@@ -243,6 +264,7 @@ class TorchOperatorExecutor:
                                   "assemble": (time.perf_counter() - t1)
                                   * 1e3}
             return out
+        st = None
         if ctx.distinct:
             # DISTINCT d1..dk = a presence-only GROUP BY d1..dk on K2 (ref
             # DistinctOperator; dictionary-based distinct)
@@ -258,6 +280,16 @@ class TorchOperatorExecutor:
 
             def assemble(packed):
                 return self._assemble_topn(segments, ctx, packed)
+        elif (st := self._plan_startree(segments, ctx)) is not None:
+            # the star-tree leg first: any fallback reason drops through to
+            # the scan path below
+            plan, needed, fits = st
+            kernel = startree_device.make_startree_kernel(plan,
+                                                          self.value_dtype)
+
+            def assemble(packed):
+                return startree_device.assemble(segments, ctx, plan, needed,
+                                                fits, packed)
         else:
             plan, slots_of_fn = self._plan(segments, ctx)
             kernel = kernels.make_kernel(plan, self.value_dtype)
@@ -266,7 +298,11 @@ class TorchOperatorExecutor:
                 return self._assemble(segments, ctx, plan, packed,
                                       slots_of_fn)
         t1 = time.perf_counter()
-        cols, params, num_docs, D = self._stage(segments, ctx, plan)
+        if st is not None:
+            cols, params, num_docs, D = self._stage_startree(segments, ctx,
+                                                             plan, fits)
+        else:
+            cols, params, num_docs, D = self._stage(segments, ctx, plan)
         t2 = time.perf_counter()
         packed = kernel(cols, params, num_docs, D).cpu().numpy()
         t3 = time.perf_counter()
@@ -818,21 +854,26 @@ class TorchOperatorExecutor:
                     "(host executor)")
 
     def _block(self, segments, D, col, kind, fetch, dtype) -> torch.Tensor:
-        """The [S, D] device block of one column, zero-padded, from the
-        staged-block cache when this exact segment batch staged it
-        before."""
-        key = (tuple((id(s), s.name) for s in segments), kind, col, D,
-               np.dtype(dtype).str)
+        """The [S, D] device block of one column (see _cached_block)."""
+        def row(_s, seg):
+            if not seg.has_column(col):
+                raise NotOffloadable(f"column {col} missing in {seg.name}")
+            return fetch(seg.data_source(col))
+        return self._cached_block(segments, D, (kind, col), dtype, row)
+
+    def _cached_block(self, segments, D, what, dtype, row) -> torch.Tensor:
+        """The [S, D] device block `what` of a segment batch, row(s, seg)
+        zero-padded, from the staged-block cache when this exact segment
+        batch staged it before."""
+        key = (_batch_key(segments), what, D, np.dtype(dtype).str)
         hit = self._blocks.get(key)
         if hit is not None and all(a is b for a, b in zip(hit[0], segments)):
             self._blocks.move_to_end(key)
             return hit[1]
         block = np.zeros((len(segments), D), dtype=dtype)
         for s, seg in enumerate(segments):
-            if not seg.has_column(col):
-                raise NotOffloadable(f"column {col} missing in {seg.name}")
-            row = fetch(seg.data_source(col))
-            block[s, :len(row)] = row
+            r = row(s, seg)
+            block[s, :len(r)] = r
         dev = torch.from_numpy(block).to(self.device)
         nbytes = block.nbytes
         if nbytes <= self.CACHE_BYTES:
@@ -842,6 +883,77 @@ class TorchOperatorExecutor:
             self._blocks[key] = (tuple(segments), dev)
             self._cached += nbytes
         return dev
+
+    # ------------------------------------------------------------------
+    # star-tree leg (ops/startree_device.py)
+    # ------------------------------------------------------------------
+    def _startree_candidate(self, segments) -> bool:
+        """Structural gate before the star-tree planner runs: only batches
+        where EVERY segment carries a tree reach it, so treeless tables pay
+        one getattr per segment and the fallback meter counts only batches
+        a tree could serve. A partially valid upsert bitmap keeps the scan
+        path: pre-agg records include retracted rows, which no selection
+        over the pre-agg table can subtract."""
+        if not self._startree_enabled:
+            return False
+        for s in segments:
+            reader = getattr(s, "star_tree", None)
+            if reader is None or not reader.trees:
+                return False
+            vd = getattr(s, "valid_doc_ids", None)
+            if vd is not None and not vd.is_full():
+                return False
+        return True
+
+    def _plan_startree(self, segments, ctx: QueryContext):
+        """(plan, needed, fits) when the fitted trees answer the
+        aggregation, else None with the fallback reason counted."""
+        if not self._startree_candidate(segments):
+            return None
+        plan, needed, fits, reason = startree_device.plan_startree(segments,
+                                                                   ctx)
+        if plan is None:
+            self.meters[("startree_fallback", reason)] += 1
+            return None
+        if max(int(f.tree.meta.num_records) for f in fits) \
+                > MAX_DOCS_PER_SEGMENT:
+            self.meters[("startree_fallback", "staging")] += 1
+            return None
+        self.meters[("startree_served", None)] += 1
+        return plan, needed, fits
+
+    def _stage_startree(self, segments, ctx: QueryContext, plan, fits):
+        """Stage the fitted trees' pre-agg rows as `__startree__<ti>/<col>`
+        pseudo-column blocks through the staged-block cache, and the
+        [S, D] selection mask and record counts through the params cache,
+        so a repeat query (same batch, plan and filter) runs no traversal
+        and uploads nothing. D is the power of two of the largest fitted
+        tree's record count: star records make num_records exceed num_docs,
+        so the scan path's D does not hold here."""
+        S = len(segments)
+        D = _pow2(max(int(f.tree.meta.num_records) for f in fits))
+        tis = tuple(f.ti for f in fits)
+        cols: Dict[str, torch.Tensor] = {}
+        for ckey, form, dtype in startree_device.staged_columns(plan,
+                                                                self._vdt):
+            names = tuple(f"__startree__{ti}/{ckey}" for ti in tis)
+            cols[ckey] = self._cached_block(
+                segments, D, ("startree", names), dtype,
+                lambda s, _seg, _form=form, _dt=dtype:
+                startree_device.fetch_row(fits[s].tree, _form, _dt))
+        pkey = (_batch_key(segments), plan, ctx.filter, tis, D)
+        hit = self._params_cache.get(pkey)
+        if hit is not None and all(a is b for a, b in zip(hit[0], segments)):
+            self._params_cache.move_to_end(pkey)
+            return cols, dict(hit[1]), hit[2], D
+        sel = startree_device.selection_mask(fits, S, D)
+        params = {"sel": torch.from_numpy(sel).to(self.device)}
+        num_docs = torch.tensor([int(f.tree.meta.num_records) for f in fits],
+                                dtype=torch.int32).to(self.device)
+        self._params_cache[pkey] = (tuple(segments), dict(params), num_docs)
+        while len(self._params_cache) > self.PARAMS_CACHE_ENTRIES:
+            self._params_cache.popitem(last=False)
+        return cols, params, num_docs, D
 
     # ------------------------------------------------------------------
     # assembly
@@ -944,6 +1056,12 @@ class TorchOperatorExecutor:
                 rows, order_values=order_values,
                 columns=executor_cpu.expand_star(seg, ctx), stats=stats))
         return results
+
+
+def _batch_key(segments) -> tuple:
+    """A segment batch's identity in the block and params caches (hits are
+    confirmed by object identity)."""
+    return tuple((id(s), s.name) for s in segments)
 
 
 def _segment_stats(seg, ctx: QueryContext, matched: int,

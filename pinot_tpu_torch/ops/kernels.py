@@ -24,6 +24,7 @@ layouts: `[S, 1 + sum(w)]` ungrouped (column 0 = matched count),
 tensor goes to the kernels in
 `ops/csrc/` (K1 `scan_agg`, K2 `group_agg`, K3 `sketch_agg`, K4 `topn`,
 wrapped by `ops/_cuda.py`) or raises — there is no fallback between the two.
+K5 `startree_agg`'s plain version and wrapper live in ops/startree_device.py.
 
 The value dtype (float32, the card's default, or float64) is an explicit
 argument, where the JAX package reads `jax_enable_x64`. Values and their
@@ -553,7 +554,9 @@ def from_jax_staged(cols: Dict[str, np.ndarray], params: Dict[str, np.ndarray],
     """The JAX engine's staged `cols` / `params` / `num_docs` (as numpy
     arrays, read-only ones included) as the port's tensors, keys and dtypes
     unchanged: id blocks, value blocks, `valhi:`/`vallo:` split planes,
-    leaf parameters and `slot{j}:hlo/hscale` histogram bounds alike."""
+    leaf parameters and `slot{j}:hlo/hscale` histogram bounds alike, and
+    the star-tree leg's `stid:`/`sthi:`/`stlo:`/`stval:` blocks and `sel`
+    mask."""
     def t(a):
         return torch.from_numpy(np.require(a, requirements=["C", "W"])
                                 ).to(device)

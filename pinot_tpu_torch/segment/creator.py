@@ -3,10 +3,10 @@
 Counterpart of pinot_tpu/segment/creator.py (ref pinot-segment-local
 SegmentIndexCreationDriverImpl.java:93,231), trimmed: single-value columns
 without nulls, written as a sorted dictionary plus a fixed-bit forward index,
-or as a raw chunked forward index for no-dictionary columns. The on-disk
-layout is the JAX package's, so its loader reads these segments; auxiliary
-indexes (inverted, range, sorted, bloom, star-tree, CLP, ...) are not
-written.
+or as a raw chunked forward index for no-dictionary columns, plus the
+table's star-trees (segment/startree.py). The on-disk layout is the JAX
+package's, so its loader reads these segments; other auxiliary indexes
+(inverted, range, sorted, bloom, CLP, ...) are not written.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from pinot_tpu_torch.models import DataType, FieldSpec, Schema, TableConfig
 from pinot_tpu_torch.segment import bitpack, fwd, index_types as it
 from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.meta import ColumnMetadata, SegmentMetadata
+from pinot_tpu_torch.segment.startree import build_star_trees
 from pinot_tpu_torch.segment.store import index_key, write_segment
 
 ColumnData = Union[np.ndarray, Sequence]
@@ -59,6 +60,11 @@ class SegmentCreator:
             num_docs=num_docs, columns=col_meta, time_column=time_col,
             start_time=start_t, end_time=end_t,
             creation_time_ms=int(time.time() * 1000))
+        # star-trees are built before packing (ref
+        # SegmentIndexCreationDriverImpl.java:396 buildStarTreeV2IfNecessary)
+        if self.table_config.indexing.star_tree_configs:
+            build_star_trees(self.table_config, self.schema, columns,
+                             metadata, buffers)
         write_segment(out_dir, metadata, buffers)
         return out_dir
 

@@ -6,3 +6,5 @@ the JAX package and the port skips them.
 """
 DICTIONARY = "dictionary"
 FORWARD = "forward_index"
+STARTREE = "startree_index"
+STARTREE_DATA = "startree_data"

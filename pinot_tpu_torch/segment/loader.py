@@ -2,10 +2,11 @@
 
 Counterpart of pinot_tpu/segment/loader.py (ref pinot-segment-local
 ImmutableSegmentLoader.java:57 and pinot-segment-spi DataSource.java:41),
-trimmed to what the scan-aggregate and selection paths read: metadata, the dictionary,
-dictIds and materialized values of single-value columns. Index families
-the port does not read (inverted, range, sorted, bloom, null vectors,
-star-tree, CLP, JSON, text, vector, geo, map) stay on disk untouched.
+trimmed to what the scan-aggregate, selection and star-tree paths read:
+metadata, the dictionary, dictIds and materialized values of single-value
+columns, and the star-trees. Index families the port does not read
+(inverted, range, sorted, bloom, null vectors, CLP, JSON, text, vector,
+geo, map) stay on disk untouched.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from pinot_tpu_torch.models.field_spec import DataType
 from pinot_tpu_torch.segment import fwd, index_types as it
 from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.meta import ColumnMetadata, SegmentMetadata
+from pinot_tpu_torch.segment.startree import StarTreeReader
 from pinot_tpu_torch.segment.store import SegmentDirectory
 
 
@@ -81,6 +83,7 @@ class ImmutableSegment:
         self.dir = SegmentDirectory(seg_dir)
         self.metadata: SegmentMetadata = self.dir.metadata
         self._sources: Dict[str, DataSource] = {}
+        self._star_tree: Optional[StarTreeReader] = None
 
     @property
     def name(self) -> str:
@@ -107,6 +110,13 @@ class ImmutableSegment:
 
     def has_column(self, column: str) -> bool:
         return column in self.metadata.columns
+
+    @property
+    def star_tree(self) -> Optional[StarTreeReader]:
+        """The segment's star-trees, read at first use; None without."""
+        if self._star_tree is None and self.metadata.star_tree:
+            self._star_tree = StarTreeReader(self)
+        return self._star_tree
 
 
 def load_segment(seg_dir: str) -> ImmutableSegment:

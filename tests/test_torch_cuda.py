@@ -1,6 +1,6 @@
-"""K1 scan_agg, K2 group_agg, K3 sketch_agg and K4 topn on the card against
-their plain PyTorch versions on the card, over the seeded random plans of
-tests/torch_plans.py.
+"""K1 scan_agg, K2 group_agg, K3 sketch_agg, K4 topn and K5 startree_agg on
+the card against their plain PyTorch versions on the card, over the seeded
+random plans of tests/torch_plans.py.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. On the card
 they run without the repo's conftest (which imports JAX):
@@ -11,7 +11,8 @@ they run without the repo's conftest (which imports JAX):
 Tolerances: counts, exact-sum planes, min/max, HLL registers and
 histogram buckets bit-identical (both sides round every float operation
 once, in the same order: the kernels are built with --fmad=false), K4's
-whole [S, 1 + k] output bit-identical; float32
+whole [S, 1 + k] output bit-identical, K5's record counts, exact-sum
+planes and min / max bit-identical; float32
 sums within 1e-5 and float64 within 1e-9 of the slot's sum of
 |contribution| (both add in double, in other orders).
 """
@@ -24,6 +25,7 @@ import torch
 
 from pinot_tpu_torch.ops import _cuda
 from pinot_tpu_torch.ops import kernels as tk
+from pinot_tpu_torch.ops import startree_device as tsd
 from pinot_tpu_torch.ops.plan_ir import DevicePlan
 
 # by path: on the card's machine another installed 'tests' package can
@@ -167,3 +169,59 @@ def test_topn_kernel_all_ties_no_filter(card, x64):
     assert torch.equal(out, ref)
     assert out[0, 1:].tolist() == list(range(4096))
     assert out[1, 0] == 4000 and out[1, 4001] == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", list(tp.ST_GROUPS))
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_startree_kernel_matches_plain_on_card(card, group, seed, x64):
+    """K5 flat, grouped with its table in shared memory (G = 35) and in
+    global memory (G = 16384), over several blocks per segment, a ragged
+    and a padded segment, and contiguous selected runs."""
+    fields = tp.startree_spec(group)
+    S, D = 5, 70_003 + 1000 * seed
+    vdt = torch.float64 if x64 else torch.float32
+    cols, params, nd = tp.startree_inputs(seed, fields, S, D,
+                                          np.float64 if x64 else np.float32)
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    plan = tsd.StarTreePlan(**fields)
+    before = _cuda.STARTREE_AGG.launches
+    out = tsd.make_startree_kernel(plan, vdt)(tc, tpar, tnd, D)
+    ref = tsd.startree_kernel(plan, tc, tpar, tnd, D, value_dtype=vdt)
+    torch.cuda.synchronize()
+    assert _cuda.STARTREE_AGG.launches == before + 1
+    tp.assert_startree_equal(fields, out.cpu().numpy(), ref.cpu().numpy(),
+                             tp.startree_abs_sums(fields, cols, params, nd,
+                                                  D),
+                             tp.F64_TOL if x64 else tp.F32_SUM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,D", [((("a", 7),), 128), ((), 2048),
+                                    ((("a", 6),), 2048),
+                                    ((("a", 7), ("b", 5)), 128)],
+                         ids=["G=7 D=128", "flat D=2048", "G=6 D=2048",
+                              "G=35 D=128"])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_startree_kernel_one_block_per_segment_on_card(card, dims, D, x64):
+    """K5 at the star-tree leg's own shapes: S = 8 segments of at most
+    D = 128 or 2048 pre-agg records, one block per segment and, at 128,
+    fewer records than a block has threads (config #5's tree grouped by
+    d_year, G = 7; bench.py's tree flat and grouped by browser, G = 6)."""
+    fields = tp.startree_spec("flat", dims)
+    S = 8
+    vdt = torch.float64 if x64 else torch.float32
+    cols, params, nd = tp.startree_inputs(D, fields, S, D,
+                                          np.float64 if x64 else np.float32)
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    plan = tsd.StarTreePlan(**fields)
+    before = _cuda.STARTREE_AGG.launches
+    out = tsd.make_startree_kernel(plan, vdt)(tc, tpar, tnd, D)
+    ref = tsd.startree_kernel(plan, tc, tpar, tnd, D, value_dtype=vdt)
+    torch.cuda.synchronize()
+    assert _cuda.STARTREE_AGG.launches == before + 1
+    tp.assert_startree_equal(fields, out.cpu().numpy(), ref.cpu().numpy(),
+                             tp.startree_abs_sums(fields, cols, params, nd,
+                                                  D),
+                             tp.F64_TOL if x64 else tp.F32_SUM_TOL)

@@ -30,6 +30,18 @@ rows = ex.execute(
 assert [r[0] for r in rows] == [3, 4, 5, 6], rows
 assert ex.execute("SELECT DISTINCTCOUNTHLL(a) FROM t").rows == [(7,)]
 assert ex.execute("SELECT PERCENTILETDIGEST50(a) FROM t").rows
+from pinot_tpu_torch.models import FieldType, StarTreeIndexConfig
+tc = TableConfig("u")
+tc.indexing.star_tree_configs = [StarTreeIndexConfig(["a"], [], ["SUM__m"])]
+d2 = tempfile.mkdtemp()
+SegmentCreator(tc, Schema("u", [
+    FieldSpec("a", DataType.INT),
+    FieldSpec("m", DataType.INT, FieldType.METRIC)])).build(
+        {"a": np.arange(100, dtype=np.int32) % 7,
+         "m": np.arange(100, dtype=np.int32)}, d2, "s")
+ex = QueryExecutor([load_segment(d2)], device="cpu")
+assert ex.execute("SELECT SUM(m) FROM u WHERE a = 3").rows == [(679.0,)]
+assert ex.engine.meter("startree_served") == 1
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "pinot_tpu")
              or m.startswith(("jax.", "jaxlib.", "pinot_tpu.")))

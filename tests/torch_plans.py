@@ -263,6 +263,105 @@ def topn_inputs(seed: int, spec: dict, S: int, D: int, value_dtype,
     return cols, params, nd
 
 
+#: star-tree group dims per key-space size: name -> ((dim, card), ...);
+#: "smem" fits K5's shared-memory table (G = 35), "global" does not
+ST_GROUPS = {"flat": (), "smem": (("a", 7), ("b", 5)),
+             "global": (("a", 128), ("b", 128))}
+
+
+def startree_spec(group: str, dims=None) -> dict:
+    """StarTreePlan fields: a usum, a float sum, a min and a max slot over
+    K5's staged pre-agg columns, grouped by ST_GROUPS[group] or, where
+    given, by `dims` ((name, card), ...)."""
+    dims = ST_GROUPS[group] if dims is None else dims
+    cards = [c for _d, c in dims]
+    strides = [int(np.prod(cards[i + 1:], dtype=np.int64))
+               for i in range(len(cards))]
+    return dict(slots=(("usum", "sum__u"), ("sum", "sum__x"),
+                       ("min", "min__x"), ("max", "max__y")),
+                group_dims=tuple(d for d, _c in dims),
+                group_cards=tuple(cards), group_strides=tuple(strides),
+                num_groups=int(np.prod(cards, dtype=np.int64)) if dims
+                else 0)
+
+
+def startree_inputs(seed: int, spec: dict, S: int, D: int, value_dtype):
+    """Seeded K5 inputs as numpy arrays: exact-sum digit rows in
+    [0, 2^24), float values in +-[0, 1e4), group codes in [0, card) (-1, a
+    star, on some unselected records), a selection of contiguous record
+    runs (as traversal yields [start, end) slices) keeping about a tenth,
+    and record counts D, ragged, and 0 (a padding segment)."""
+    rng = np.random.default_rng(seed)
+    pos = np.arange(D)
+    run = 53
+    starts = rng.integers(0, 512 - run, (S, (D + 511) // 512))
+    off = starts[:, pos // 512]
+    sel = (pos % 512 >= off) & (pos % 512 < off + run)
+    sel |= rng.random((S, D)) < 0.01
+    cols = {}
+    for op, name in spec["slots"]:
+        if op == "usum":
+            cols["sthi:" + name] = rng.integers(0, 1 << 24, (S, D),
+                                                dtype=np.int32)
+            cols["stlo:" + name] = rng.integers(0, 1 << 24, (S, D),
+                                                dtype=np.int32)
+        else:
+            cols["stval:" + name] = ((rng.random((S, D)) - 0.3) * 1e4
+                                     ).astype(value_dtype)
+    for dim, card in zip(spec["group_dims"], spec["group_cards"]):
+        ids = rng.integers(0, card, (S, D)).astype(np.int32)
+        ids[~sel & (rng.random((S, D)) < 0.2)] = -1
+        cols["stid:" + dim] = ids
+    nd = np.full(S, D, dtype=np.int32)
+    nd[S // 2] = max(1, D - 4321)
+    nd[-1] = 0
+    return cols, {"sel": sel}, nd
+
+
+def startree_abs_sums(spec: dict, cols, params, nd,
+                      D) -> Dict[str, np.ndarray]:
+    """Per float-sum slot, the sum of |contribution| per segment [S] or
+    per group [S, G] (float64): the yardstick of the sum tolerances."""
+    S = len(nd)
+    m = params["sel"] & (np.arange(D)[None, :] < nd[:, None])
+    out = {}
+    for op, name in spec["slots"]:
+        if op != "sum":
+            continue
+        c = np.where(m, np.abs(cols["stval:" + name].astype(np.float64)), 0)
+        if not spec["num_groups"]:
+            out[name] = c.sum(1)
+            continue
+        keys = np.zeros((S, D), dtype=np.int64)
+        for dim, stride in zip(spec["group_dims"], spec["group_strides"]):
+            keys += cols["stid:" + dim].astype(np.int64) * stride
+        g = np.zeros((S, spec["num_groups"]))
+        for s in range(S):
+            np.add.at(g[s], keys[s][m[s]], c[s][m[s]])
+        out[name] = g
+    return out
+
+
+def assert_startree_equal(spec: dict, a, b, scale, sum_tol: float):
+    """Two packed K5 outputs of one plan (numpy): record counts, exact-sum
+    planes, min and max equal bit for bit; float sums within sum_tol of
+    the slot's sum of |contribution|."""
+    assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape)
+    assert np.array_equal(a[..., 0], b[..., 0]), "record counts"
+    col = 1
+    for op, name in spec["slots"]:
+        w = 16 if op == "usum" else 1
+        x, y = a[..., col:col + w], b[..., col:col + w]
+        col += w
+        if op == "sum":
+            sc = scale[name][..., None]
+            err = np.abs(x.astype(np.float64) - y.astype(np.float64))
+            assert (err <= sum_tol * sc + 1e-300).all(), \
+                (name, float(err.max()))
+        else:
+            assert np.array_equal(x, y), (op, name)
+
+
 def code_at(code, table, i, width):
     off = code[table] + i * width
     return code[off:off + width]
