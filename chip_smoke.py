@@ -39,6 +39,15 @@ Phases, each of which exits non-zero on failure:
    masked score block (it keeps no tie order: a time only); none for K5
    (no one PyTorch call computes its count, exact-sum planes and float
    slots together).
+3b. The query axis: K1-K4 with B = 8 members (8 seeded literal sets on
+   phase 3's inputs, each column set its own seeded data) in three forms:
+   broadcast (U = 1 column set), stacked (U = 8) and dedup (U = 3, member
+   m over set m mod 3). Every member's output must equal the plain batched
+   version's and the member's own single launch (the same bars as phase
+   3). Prints the B = 8 time, 8 x the single launch's time (paired, in the
+   same phase) and the bound: each column set's bytes once for the members
+   that read it (filter columns in full, the others in the sectors some
+   member keeps), plus each member's parameters and output.
 4. Q1 leg: SSB-flat lineorder data (bench.py's column distributions), 16
    segments x 8M rows = 128M rows, built with the port's creator into a
    temp dir; SSB Q1.1 as bench.py runs it plus Q1.2- and Q1.3-shaped date
@@ -80,6 +89,30 @@ Phases, each of which exits non-zero on failure:
    the engine staged for each query (S=8 segments of D=128 or 2048
    pre-agg records: one block per segment, fewer records than a block has
    threads), as in phase 3; the kernels line carries config #5's query.
+9. Concurrency leg: 8 closed-loop clients (bench.py:1744 batching_main)
+   through one QueryExecutor per dispatch mode, `serialized` then
+   `pipelined`, alternated twice in windows of WINDOW_S seconds, each
+   client drawing seeded literal sets from its sub-leg's pool:
+   9a Q1.1-shaped queries on phase 4's 128M rows (D = 2^23 is above
+   doc.bucket.max: the same-batch key, broadcast batches); 9b
+   batching_main's three tables ssb_a / ssb_b / ssb_c at 16 x 750k, 16 x
+   900k and 12 x 1M rows (one (S, D) bucket; 3 + 3 + 2 clients, so stacked
+   and dedup batches both form), built after phase 7, with one held round
+   per variant first (the ring held on its first pop by the
+   server.dispatch.before failpoint, so a stacked and a dedup batch form
+   whatever the timing); 9c sel.1-shaped top-N with seeded filters on the
+   128M rows (K4's batched form: its key scratch is [B, S, D]); 9d
+   config-#3-shaped group-bys on phase 5's 32M rows; 9e config #4's three
+   sketch queries on phase 6's 1,024M rows. Each pool query runs alone
+   first through both executors and must equal its numpy truth (phase
+   4-6's bars); every answer in the windows must equal the same query run
+   alone. Per sub-leg and mode: QPS, per-query p50 / p99, the largest
+   batch and the batched launches per variant, the card's busy share from
+   a torch.profiler trace of one TRACE_S window, and peak device memory.
+   Fails if a pipelined sub-leg never formed a batch of 2 or more, if 9a
+   and 9b together did not show each variant, or if a measured window
+   built a program or a batched kernel (kernels.trace_count moved; every
+   batch bucket is built before the windows).
 8. Launch counts: each kernel's counter is set to 0 just before a leg's
    timed queries and read just after them; the leg's kernels must have
    launched once per query run and the others never. Then a short
@@ -87,7 +120,9 @@ Phases, each of which exits non-zero on failure:
    per query and each port kernel's share. Prints each query's p50
    latency, rows/s and peak device memory, the host-clock stage split of
    the timed runs, the card line, the `kernels` JSON line, and last
-   {"ok": true, "device": {...}}.
+   {"ok": true, "device": {...}}. The batched forms' entries (`*_batched`)
+   carry phase 3b's broadcast times and their batched launches in phase
+   9's pipelined windows.
 
 Imports nothing of JAX or of pinot_tpu. Exits non-zero, printing no
 result, where torch sees no CUDA device or the port's package is missing.
@@ -102,6 +137,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -118,6 +154,43 @@ TAXI_SEGMENTS, TAXI_DOCS = 128, 8_000_000
 ITERS = 10
 #: processes that generate and write segments (the card's host has 8 cores)
 BUILD_WORKERS = max(1, min(7, (os.cpu_count() or 2) - 1))
+
+#: phase 3b's members per launch, and each form's member-to-set map
+BATCH_B = 8
+BATCH_FORMS = {"broadcast": [0] * BATCH_B,
+               "stacked": list(range(BATCH_B)),
+               "dedup": [m % 3 for m in range(BATCH_B)]}
+#: phase 9: closed-loop clients (bench.py:1744), window and traced-window
+#: lengths, and the seeded literal pools
+CLIENTS = 8
+WINDOW_S = 4.0
+TRACE_S = 1.5
+_POOL_RNG = np.random.default_rng(5150)
+_MONTHS = [y * 10000 + m * 100 for y in range(1992, 1999)
+           for m in range(1, 13)]
+#: 9a: Q1.1's shape, a month, a discount window of 3, a quantity window
+#: of 10 -> (date lo, date hi, discount lo, hi, quantity lo, hi)
+Q1_POOL = [(int(d) + 1, int(d) + 31, int(c), int(c) + 2, int(q), int(q) + 9)
+           for d, c, q in zip(_POOL_RNG.choice(_MONTHS, 16),
+                              _POOL_RNG.integers(0, 9, 16),
+                              _POOL_RNG.integers(1, 42, 16))]
+#: 9c: sel.1's shape -> (date lo, date hi, discount lo, discount hi)
+SEL_POOL = [(int(d) + 1, int(d) + 31, int(c), int(c) + 2)
+            for d, c in zip(_POOL_RNG.choice(_MONTHS, 16),
+                            _POOL_RNG.integers(0, 9, 16))]
+#: 9d: config #3's shape -> (s_region, discount lo, discount hi)
+GB_POOL = [(str(r), int(c), int(c) + int(w))
+           for r, c, w in zip(_POOL_RNG.choice(["AMERICA", "ASIA", "EUROPE",
+                                                 "AFRICA"], 16),
+                              _POOL_RNG.integers(0, 8, 16),
+                              _POOL_RNG.integers(1, 4, 16))]
+#: 9b: batching_main's tables (bench.py:1751) at x500 docs and x4
+#: segments; its query's discount windows a..a+2, a in 0..8; clients per
+#: table
+B9_TABLES = {"ssb_a": (16, 750_000), "ssb_b": (16, 900_000),
+             "ssb_c": (12, 1_000_000)}
+B9_CLIENTS = ["ssb_a"] * 3 + ["ssb_b"] * 3 + ["ssb_c"] * 2
+B9_DISCOUNTS = range(9)
 
 Q1_QUERIES = {
     # bench.py:42, verbatim
@@ -334,17 +407,89 @@ def selection_expected(truths: list, name: str, columns: list):
             sum(t[name][0] for t in truths))
 
 
+def q1_sql(d0, d1, c0, c1, q0, q1, table="ssb") -> str:
+    return ("SELECT SUM(lo_extendedprice * lo_discount), COUNT(*) "
+            f"FROM {table} WHERE lo_orderdate BETWEEN {d0} AND {d1} "
+            f"AND lo_discount BETWEEN {c0} AND {c1} "
+            f"AND lo_quantity BETWEEN {q0} AND {q1}")
+
+
+def q1_window_truth(cols: dict, d0, d1, c0, c1, q0, q1):
+    """Exact (SUM(lo_extendedprice * lo_discount), COUNT(*)) of one
+    Q1-shaped window over one segment's columns."""
+    m = ((cols["lo_orderdate"] >= d0) & (cols["lo_orderdate"] <= d1)
+         & (cols["lo_discount"] >= c0) & (cols["lo_discount"] <= c1)
+         & (cols["lo_quantity"] >= q0) & (cols["lo_quantity"] <= q1))
+    prod = cols["lo_extendedprice"][m].astype(np.int64) \
+        * cols["lo_discount"][m]
+    return int(prod.sum()), int(m.sum())
+
+
+def sel_pool_sql(d0, d1, c0, c1) -> str:
+    return ("SELECT lo_orderdate, lo_discount, lo_quantity, "
+            "lo_extendedprice FROM ssb WHERE lo_orderdate BETWEEN "
+            f"{d0} AND {d1} AND lo_discount BETWEEN {c0} AND {c1} "
+            "ORDER BY lo_extendedprice DESC LIMIT 10")
+
+
+def sel_pool_truth(cols: dict, d0, d1, c0, c1):
+    """(matched, the top 10 as (price, row over SSB_COLS)) of one
+    sel.1-shaped query over one segment: np.lexsort on (doc, -price)."""
+    date, disc, _qty, price = (cols[c] for c in SSB_COLS)
+    kept = (date >= d0) & (date <= d1) & (disc >= c0) & (disc <= c1)
+    docs = np.nonzero(kept)[0]
+    docs = docs[np.lexsort((docs, -price[docs]))][:10]
+    return int(kept.sum()), [(int(price[d]),
+                              tuple(int(cols[c][d]) for c in SSB_COLS))
+                             for d in docs]
+
+
 def q1_leg_truth(cols: dict) -> dict:
-    return {"q1": q1_truth(cols), "sel": selection_truth(cols)}
+    return {"q1": q1_truth(cols), "sel": selection_truth(cols),
+            "q1pool": [q1_window_truth(cols, *w) for w in Q1_POOL],
+            "selpool": [sel_pool_truth(cols, *w) for w in SEL_POOL]}
+
+
+def gb_pool_sql(region, c0, c1) -> str:
+    return ("SELECT d_year, p_category, SUM(lo_revenue), COUNT(*) "
+            f"FROM ssbgb WHERE s_region = '{region}' AND lo_discount "
+            f"BETWEEN {c0} AND {c1} GROUP BY d_year, p_category "
+            "ORDER BY d_year, p_category LIMIT 100")
+
+
+def gb_pool_truth(cols: dict, region, c0, c1) -> dict:
+    """(d_year, p_category) -> exact (SUM(lo_revenue), COUNT(*)) of one
+    config-#3-shaped group-by over one segment."""
+    m = (cols["s_region"] == region) & (cols["lo_discount"] >= c0) \
+        & (cols["lo_discount"] <= c1)
+    keys = cols["d_year"][m].astype(np.int64) * 8 \
+        + np.searchsorted(CATEGORIES, cols["p_category"][m])
+    rev = cols["lo_revenue"][m].astype(np.int64)
+    uniq, inv = np.unique(keys, return_inverse=True)
+    sums = np.bincount(inv, weights=rev, minlength=len(uniq))
+    cnts = np.bincount(inv, minlength=len(uniq))
+    return {(int(k // 8), str(CATEGORIES[k % 8])): (int(round(sm)), int(c))
+            for k, sm, c in zip(uniq, sums, cnts)}
 
 
 def groupby_leg_truth(cols: dict) -> dict:
-    """groupby_truth, and the (p_category, s_region) pairs present in
-    d_year 1995 (GB_DISTINCT)."""
+    """groupby_truth, the (p_category, s_region) pairs present in d_year
+    1995 (GB_DISTINCT), and the 9d pool's group-bys."""
     y95 = cols["d_year"] == 1995
     return {"gb": groupby_truth(cols),
             "dist": set(zip(cols["p_category"][y95].tolist(),
-                            cols["s_region"][y95].tolist()))}
+                            cols["s_region"][y95].tolist())),
+            "gbpool": [gb_pool_truth(cols, *w) for w in GB_POOL]}
+
+
+def b9_sql(table: str, a: int) -> str:
+    """bench.py:1786 `sql_for`."""
+    return q1_sql(19940101, 19940131, a, a + 2, 26, 35, table)
+
+
+def b9_truth(cols: dict) -> dict:
+    return {a: q1_window_truth(cols, 19940101, 19940131, a, a + 2, 26, 35)
+            for a in B9_DISCOUNTS}
 
 
 def stb_columns(rng, n: int) -> dict:
@@ -688,8 +833,32 @@ def check_kernel(name: str, plan, cols, params, num_docs, D) -> dict:
     ref = plain(cols, params, num_docs, D)
     scales = kernels.abs_contributions(plan, cols, params, num_docs, D)
     torch.cuda.synchronize()
+    compare_packed(name, plan, out, ref, scales)
+    moved, matched = bytes_needed(plan, cols, params, num_docs, D, out)
+    ms = cuda_ms(lambda: kern(cols, params, num_docs, D))
+    plain_ms = cuda_ms(lambda: plain(cols, params, num_docs, D))
+    return {"max_abs_err": max_abs_err(out, ref), "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "rows": int(num_docs.sum()),
+            "matched": matched, "bytes": moved}
+
+
+def compare_packed(name: str, plan, out, ref, scales) -> None:
+    """A kernel's packed output against its reference: counts, exact-sum
+    planes, min / max, registers and buckets bit for bit, float sums
+    within 1e-5 of the slot's sum of |contribution| (`scales`); a top-N
+    output whole, bit for bit."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels
     if out.shape != ref.shape:
         fail(f"{name}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
+    if plan.mode == "topn":
+        if not torch.equal(out, ref):
+            bad = (out != ref).nonzero()[:5].tolist()
+            fail(f"{name}: differs at {bad}")
+        return
     col = 0 if plan.num_groups else 1
     if not plan.num_groups and not torch.equal(out[:, 0], ref[:, 0]):
         fail(f"{name}: matched counts differ")
@@ -700,20 +869,13 @@ def check_kernel(name: str, plan, cols, params, num_docs, D) -> dict:
         col += w
         if op == "sum":
             scale = scales[j] if plan.num_groups else scales[j][:, None]
-            err = (a.double() - b.double()).abs()
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            err = torch.where(same, 0.0, (a.double() - b.double()).abs())
             if not bool((err <= 1e-5 * scale + 1e-30).all()):
                 fail(f"{name}: slot {j} sum beyond 1e-5 of sum|contrib|: "
                      f"max err {float(err.max())}")
         elif not torch.equal(a, b):
             fail(f"{name}: slot {j} {op} not bit-identical")
-    moved, matched = bytes_needed(plan, cols, params, num_docs, D, out)
-    ms = cuda_ms(lambda: kern(cols, params, num_docs, D))
-    plain_ms = cuda_ms(lambda: plain(cols, params, num_docs, D))
-    return {"max_abs_err": max_abs_err(out, ref), "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None, "rows": int(num_docs.sum()),
-            "matched": matched, "bytes": moved}
 
 
 def filter_leaves(node) -> set:
@@ -736,32 +898,46 @@ def leaf_columns(leaf) -> tuple:
 
 def bytes_needed(plan, cols, params, num_docs, D, out):
     """The bytes the kernel's function must move on these inputs, and the
-    docs its filter keeps: the main filter's columns for every real doc;
-    every other column the plan reads (value inputs, group keys, the split
-    planes an HLL slot hashes) only in the SECTOR-byte sectors that hold a
-    kept doc, since no doc the filter rejects needs them; parameters,
-    num_docs and the output once."""
+    docs its filter keeps (batch_bytes of one member)."""
+    return batch_bytes(plan, [cols], [params], [num_docs], [0], D, out)
+
+
+def batch_bytes(plan, col_sets, plist, ndlist, idx, D, out):
+    """The bytes a launch of members over column sets (member m over set
+    idx[m]) must move, and the docs their filters keep: each set's main
+    filter columns for every real doc, once; every other column the plan
+    reads (value inputs, group keys, order values, the split planes an
+    HLL slot hashes) only in the SECTOR-byte sectors that hold a doc some
+    member over that set keeps, once; each member's parameters, each
+    set's num_docs and the output once."""
     import torch
 
     from pinot_tpu_torch.ops import kernels, program
-    valid = torch.arange(D, device=num_docs.device)[None, :] \
-        < num_docs[:, None]
-    mask = valid if plan.filter_ir is None else \
-        valid & kernels.eval_filter(plan.filter_ir, plan, cols, params)
     full = {c for i in filter_leaves(plan.filter_ir)
             for c in leaf_columns(plan.leaves[i])}
-    moved = 0
-    for name in program.compile_plan(plan).cols:
-        size = cols[name].element_size()
-        if name in full:
-            moved += int(valid.sum()) * size
-        else:
-            sectors = mask.view(mask.shape[0], -1, SECTOR // size).any(-1)
-            moved += SECTOR * int(sectors.sum())
-    moved += sum(v.numel() * v.element_size() for v in params.values()) \
-        + num_docs.numel() * num_docs.element_size() \
+    moved, matched = 0, 0
+    for u, (cols, num_docs) in enumerate(zip(col_sets, ndlist)):
+        valid = torch.arange(D, device=num_docs.device)[None, :] \
+            < num_docs[:, None]
+        kept = torch.zeros_like(valid)
+        for params in [p for p, v in zip(plist, idx) if v == u]:
+            mask = valid if plan.filter_ir is None else valid \
+                & kernels.eval_filter(plan.filter_ir, plan, cols, params)
+            kept |= mask
+            matched += int(mask.sum())
+        for name in program.compile_plan(plan).cols:
+            size = cols[name].element_size()
+            if name in full:
+                moved += int(valid.sum()) * size
+            else:
+                sectors = kept.view(kept.shape[0], -1,
+                                    SECTOR // size).any(-1)
+                moved += SECTOR * int(sectors.sum())
+        moved += num_docs.numel() * num_docs.element_size()
+    moved += sum(v.numel() * v.element_size()
+                 for params in plist for v in params.values()) \
         + out.numel() * out.element_size()
-    return moved, int(mask.sum())
+    return moved, matched
 
 
 def topn_kernel_inputs(seed: int) -> dict:
@@ -841,10 +1017,7 @@ def check_topn(name: str, plan, cols, params, num_docs, D) -> dict:
     out = kern(cols, params, num_docs, D)
     ref = plain()
     torch.cuda.synchronize()
-    if out.shape != ref.shape or not torch.equal(out, ref):
-        bad = (out != ref).nonzero()[:5].tolist() \
-            if out.shape == ref.shape else "shape"
-        fail(f"topn {name}: differs from its plain version at {bad}")
+    compare_packed(f"topn {name}", plan, out, ref, None)
     moved, matched = bytes_needed(plan, cols, params, num_docs, D, out)
     ms = cuda_ms(lambda: kern(cols, params, num_docs, D))
     plain_ms = cuda_ms(plain)
@@ -860,6 +1033,67 @@ def check_topn(name: str, plan, cols, params, num_docs, D) -> dict:
                        "order: time only)",
             "rows": int(num_docs.sum()), "matched": matched, "k": k,
             "bytes": moved}
+
+
+def batched_inputs(inputs_fn, seed: int):
+    """Phase 3b's members on phase 3's inputs: member m's literal set and
+    column set m from inputs_fn(seed + 100 + m), each set its own seeded
+    data. Returns (plan, col_sets, params per member, num_docs per set,
+    D)."""
+    plan, sets, plist, ndlist = None, [], [], []
+    for m in range(BATCH_B):
+        plan, cols, params, num_docs, D = inputs_fn(seed + 100 + m)
+        sets.append(cols)
+        plist.append(params)
+        ndlist.append(num_docs)
+    return plan, sets, plist, ndlist, D
+
+
+def check_batched(name: str, plan, sets, plist, ndlist, D) -> dict:
+    """A kernel's query axis against its plain batched version and each
+    member's own single launch, in the three forms of BATCH_FORMS; returns
+    the times, bounds and errors per form, 8 x the single launch's time,
+    and the kernels-line entry (the broadcast form's)."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels
+    vdt = torch.float32
+    run = kernels.batched_kernel(plan, vdt)
+    plain = kernels.plain_batched_kernel(plan, vdt)
+    single = kernels.make_topn_kernel(plan, vdt) if plan.mode == "topn" \
+        else kernels.make_kernel(plan, vdt)
+    forms = {}
+    for form, idx in BATCH_FORMS.items():
+        U = max(idx) + 1
+        args = (sets[:U], plist, ndlist[:U], idx, D)
+        out = run(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        for m, u in enumerate(idx):
+            scales = None if plan.mode == "topn" else \
+                kernels.abs_contributions(plan, sets[u], plist[m],
+                                          ndlist[u], D)
+            compare_packed(f"{name} {form} member {m} vs plain", plan,
+                           out[m], ref[m], scales)
+            compare_packed(f"{name} {form} member {m} vs its single launch",
+                           plan, out[m],
+                           single(sets[u], plist[m], ndlist[u], D), scales)
+        moved, matched = batch_bytes(plan, *args, out)
+        forms[form] = {"U": U, "ms": cuda_ms(lambda: run(*args)),
+                       "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                       "bytes": moved, "matched": matched,
+                       "max_abs_err": max_abs_err(out, ref)}
+        del out, ref
+    args = (sets[:1], plist, ndlist[:1], BATCH_FORMS["broadcast"], D)
+    single_ms = cuda_ms(lambda: single(sets[0], plist[0], ndlist[0], D))
+    entry = {"max_abs_err": max(f["max_abs_err"] for f in forms.values()),
+             "ms": forms["broadcast"]["ms"],
+             "plain_ms": cuda_ms(lambda: plain(*args), iters=3),
+             "bound_ms": forms["broadcast"]["bound_ms"],
+             "bound_by": "bytes", "library_ms": None,
+             "library": "none: no single PyTorch call computes it"}
+    return {"B": BATCH_B, "forms": forms, "single_ms": single_ms,
+            "8x_single_ms": BATCH_B * single_ms, **entry}
 
 
 STARTREE_CASES = {  # name -> group dims ((dim, card), ...)
@@ -1068,22 +1302,9 @@ def device_busy(ex, sql: str, iters: int, tmp: str):
             ex.execute(sql)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    path = os.path.join(tmp, "trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
-                    e.get("name", "")) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                   and "dur" in e)
-    if not spans:
+    busy, by_name = trace_busy_us(prof, tmp)
+    if busy is None:
         return None
-    busy, end, by_name = 0.0, float("-inf"), {}
-    for a, b, name in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-        by_name[name[:80]] = by_name.get(name[:80], 0.0) + (b - a)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     # each port kernel's passes, summed (K4 runs a dozen small kernels),
     # by the prefix of the function's name (K5's startree_group_* are not
@@ -1098,6 +1319,29 @@ def device_busy(ex, sql: str, iters: int, tmp: str):
             "device_ms_per_query": {n: v / 1e3 / iters for n, v in top},
             "port_kernel_ms_per_query": {k: v for k, v in port.items()
                                          if v}}
+
+
+def trace_busy_us(prof, tmp: str):
+    """The card's busy time in a torch.profiler trace (the union of its
+    kernel, copy and set intervals, us) and each device function's time;
+    (None, {}) if the trace holds no device event."""
+    path = os.path.join(tmp, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                    e.get("name", "")) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and "dur" in e)
+    if not spans:
+        return None, {}
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for a, b, name in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+        by_name[name[:80]] = by_name.get(name[:80], 0.0) + (b - a)
+    return busy, by_name
 
 
 def staged_startree(ex, sql: str):
@@ -1199,16 +1443,212 @@ def startree_leg(tmp: str, seed: int, kernels, none: dict, card: str):
 def launches_of_leg(leg: str, kernels, want: dict) -> dict:
     """The leg's launch counts, read just after its timed runs, against
     the counts it must show (name -> launches): its kernels once per query
-    run, the others never."""
+    run, the others never, and no batched launch (one query at a time)."""
     got = {k.name: k.launches for k in kernels}
-    if got != want:
-        fail(f"{leg}: launches {got}, expected {want}")
+    if got != want or any(k.batched_launches for k in kernels):
+        fail(f"{leg}: launches {got}, expected {want}; batched "
+             f"{ {k.name: k.batched_launches for k in kernels} }")
     return got
 
 
 def zero_launches(kernels) -> None:
     for k in kernels:
-        k.launches = 0
+        k.reset_counts()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the concurrency leg
+# ---------------------------------------------------------------------------
+
+def rows_of(resp) -> list:
+    return [tuple(r) for r in resp.rows]
+
+
+def run_window(ex, pool, client_pools, alone, seconds, seed, tmp=None):
+    """len(client_pools) closed-loop clients through `ex` for `seconds`:
+    client c draws indexes of `pool` from client_pools[c] with a seeded
+    generator, and every answer must equal alone[i], the same query run
+    alone. With `tmp`, the window runs under torch.profiler and reports
+    the card's busy share. Returns the window's numbers."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels
+    disp = ex.engine.dispatcher
+    stats0, codegen0 = disp.stats(), kernels.trace_count()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lats = [[] for _ in client_pools]
+    errors = []
+    gate = threading.Barrier(len(client_pools) + 1)
+    end = [0.0]
+
+    def client(c):
+        rng = np.random.default_rng([seed, c])
+        gate.wait()
+        while time.perf_counter() < end[0] and not errors:
+            i = int(rng.choice(client_pools[c]))
+            t0 = time.perf_counter()
+            try:
+                got = rows_of(ex.execute(pool[i]))
+            except Exception as e:  # noqa: BLE001 — fails the run below
+                errors.append(f"{pool[i]}: {e!r}")
+                return
+            lats[c].append(time.perf_counter() - t0)
+            if got != alone[i]:
+                errors.append(f"{pool[i]}: {got[:3]} vs the query alone "
+                              f"{alone[i][:3]}")
+                return
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(len(client_pools))]
+    for t in threads:
+        t.start()
+    prof = None
+    if tmp is not None:
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.perf_counter()
+    end[0] = t0 + seconds
+    gate.wait()
+    for t in threads:
+        t.join(timeout=seconds + 300)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    if any(t.is_alive() for t in threads):
+        fail("a phase 9 client did not finish")
+    if errors:
+        fail(f"phase 9: {errors[0]}")
+    stats = disp.stats()
+    stats.subtract(stats0)
+    sizes = [k[1] for k, v in stats.items() if isinstance(k, tuple) and v]
+    flat = sorted(x for c in lats for x in c)
+    out = {"queries": len(flat), "wall_s": wall, "qps": len(flat) / wall,
+           "p50_ms": float(np.percentile(flat, 50)) * 1e3 if flat else None,
+           "p99_ms": float(np.percentile(flat, 99)) * 1e3 if flat else None,
+           "max_batch": max(sizes, default=0),
+           "launches": {v: stats[v] for v in ("inline", "single",
+                                              "broadcast", "stacked",
+                                              "dedup")},
+           "codegen": kernels.trace_count() - codegen0,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "latencies": flat}
+    if prof is not None:
+        busy, _by = trace_busy_us(prof, tmp)
+        out["busy_share"] = None if busy is None else busy / 1e6 / wall
+    return out
+
+
+def concurrency_leg(name: str, executors: dict, pool: list,
+                    client_pools: list, check, card: str, tmp: str,
+                    probes=()) -> dict:
+    """Phase 9's sub-leg `name`: every pool query alone through each
+    executor ({mode: QueryExecutor}) against its numpy truth (check(i,
+    rows) -> None or what differs), every batch bucket of the pipelined
+    engine built, the held probe rounds (each a list of pool indexes that
+    must form one batch), then WINDOW_S windows alternating serialized and
+    pipelined twice and one traced TRACE_S window per mode. Prints each
+    mode's numbers; returns them."""
+    from pinot_tpu_torch.query.context import QueryContext
+    from pinot_tpu_torch.utils.failpoints import failpoints
+    alone = {}
+    seen0 = executors["pipelined"].engine.dispatcher.stats()
+    for mode, ex in executors.items():
+        for i, sql in enumerate(pool):
+            rows = rows_of(ex.execute(sql))
+            why = check(i, rows)
+            if why is not None:
+                fail(f"{name} {mode}: {sql}: {why}")
+            if alone.setdefault(i, rows) != rows:
+                fail(f"{name}: {sql} alone differs between the modes")
+    pipe = executors["pipelined"]
+    for sql in pool:
+        ctx = QueryContext.from_sql(sql)
+        pipe.engine.warm_batches(pipe.segments_of(ctx.table), ctx)
+    for members in probes:
+        # an extra active caller keeps every member off the inline path;
+        # the held first pop lets them all enqueue: one batch
+        with pipe.engine.dispatcher.active(), \
+                failpoints.armed("server.dispatch.before", delay=0.5,
+                                 times=1):
+            got = {}
+            threads = [threading.Thread(
+                target=lambda i=i: got.__setitem__(
+                    i, rows_of(pipe.execute(pool[i]))), daemon=True)
+                for i in members]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+        if any(got.get(i) != alone[i] for i in members):
+            fail(f"{name}: a held round's answer differs from alone")
+    windows = {"serialized": [], "pipelined": []}
+    for rep in range(2):
+        for mode in windows:
+            w = run_window(executors[mode], pool, client_pools, alone,
+                           WINDOW_S, seed=[rep, len(windows[mode])])
+            if w["codegen"]:
+                fail(f"{name} {mode}: a steady-state window built "
+                     f"{w['codegen']} programs or batched kernels")
+            windows[mode].append(w)
+    out = {}
+    for mode, ws in windows.items():
+        traced = run_window(executors[mode], pool, client_pools, alone,
+                            TRACE_S, seed=[9, 9], tmp=tmp)
+        lats = sorted(x for w in ws for x in w["latencies"])
+        launches = {v: sum(w["launches"][v] for w in ws)
+                    for v in ws[0]["launches"]}
+        out[mode] = {
+            "sub_leg": name, "mode": mode, "clients": len(client_pools),
+            "window_s": WINDOW_S, "qps": [w["qps"] for w in ws],
+            "queries": sum(w["queries"] for w in ws),
+            "p50_ms": float(np.percentile(lats, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lats, 99)) * 1e3,
+            "max_batch": max(w["max_batch"] for w in ws),
+            "launches": launches,
+            "busy_share": traced.get("busy_share"),
+            "traced_qps": traced["qps"],
+            "max_memory_allocated": max(w["max_memory_allocated"]
+                                        for w in ws)}
+        print(f"[concurrency] {json.dumps(out[mode])} | {card}", flush=True)
+    if out["pipelined"]["max_batch"] < 2:
+        fail(f"{name}: the pipelined windows never formed a batch of 2")
+    seen = pipe.engine.dispatcher.stats()
+    seen.subtract(seen0)
+    out["seen"] = {v: seen[v] for v in ("broadcast", "stacked", "dedup")}
+    return out
+
+
+def modes_of(segments, pipelined=None) -> dict:
+    """A QueryExecutor per dispatch mode over the same segments (one
+    table's, or {table: segments}); `pipelined`: an executor of the
+    default (pipelined) configuration to reuse."""
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    from pinot_tpu_torch.utils.config import PinotConfiguration
+
+    def of(mode):
+        return QueryExecutor(segments, config=PinotConfiguration(
+            overrides={"pinot.server.dispatch.mode": mode}))
+    return {"serialized": of("serialized"),
+            "pipelined": pipelined or of("pipelined")}
+
+
+def count_phase9(kernels, totals: dict) -> None:
+    """Add a phase 9 sub-leg's single and batched launches (read just
+    after it) to `totals` (name -> [single, batched])."""
+    for k in kernels:
+        totals[k.name][0] += k.launches
+        totals[k.name][1] += k.batched_launches
+
+
+def exact_pair(rows, want_sum: int, want_cnt: int):
+    """None where rows hold one (SUM, COUNT) equal to the truth."""
+    got = rows[0]
+    if int(got[1]) != want_cnt or float(got[0]) != float(want_sum):
+        return f"got {got}, numpy truth ({want_sum}, {want_cnt})"
+    return None
 
 
 def main() -> None:
@@ -1216,6 +1656,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of every generated column and kernel input")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -1266,8 +1707,25 @@ def main() -> None:
         print(f"[kernel] startree_agg {json.dumps(k5_cases[name])}",
               flush=True)
     torch.cuda.empty_cache()
+
+    # phase 3b: the query axis against its plain version and the single
+    # launches
+    batched = {}
+    for kname, inputs_fn in (
+            ("scan_agg", lambda s: kernel_inputs(s, grouped=False)),
+            ("group_agg", lambda s: kernel_inputs(s, grouped=True)),
+            ("sketch_agg", sketch_kernel_inputs),
+            ("topn",
+             lambda s: topn_kernel_inputs(s)["a: raw value DESC k=10"])):
+        batched[kname] = check_batched(kname,
+                                       *batched_inputs(inputs_fn, args.seed))
+        print(f"[kernel] {kname} batched {json.dumps(batched[kname])} "
+              f"| {card}", flush=True)
+        torch.cuda.empty_cache()
     kernels = _cuda.KERNELS
     none = {k.name: 0 for k in kernels}
+    p9 = {k.name: [0, 0] for k in kernels}
+    variants = {}
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1358,7 +1816,32 @@ def main() -> None:
             busy = device_busy(ex, SEL_QUERIES[name][0], ITERS, tmp)
             print(f"[sel] trace {name} {json.dumps(busy or 'not measured')} "
                   f"| {card}", flush=True)
-        del ex, segs
+
+        # phase 9a: Q1.1-shaped concurrency, broadcast batches (K1)
+        execs = modes_of(segs, pipelined=ex)
+        zero_launches(kernels)
+        leg = concurrency_leg(
+            "9a", execs, [q1_sql(*w) for w in Q1_POOL],
+            [list(range(len(Q1_POOL)))] * CLIENTS,
+            lambda i, rows: exact_pair(
+                rows, sum(t["q1pool"][i][0] for t in truths),
+                sum(t["q1pool"][i][1] for t in truths)), card, tmp)
+        count_phase9(kernels, p9)
+        variants["9a"] = leg["seen"]
+
+        # phase 9c: sel.1-shaped top-N concurrency (K4)
+        def sel_check(i, rows):
+            parts = [t["selpool"][i][1] for t in truths]
+            want = [r[1] for r in sorted((r for p in parts for r in p),
+                                         key=lambda r: -r[0])][:10]
+            return None if rows == want else \
+                f"{rows[:3]} vs numpy truth {want[:3]}"
+        zero_launches(kernels)
+        concurrency_leg("9c", execs, [sel_pool_sql(*w) for w in SEL_POOL],
+                        [list(range(len(SEL_POOL)))] * CLIENTS, sel_check,
+                        card, tmp)
+        count_phase9(kernels, p9)
+        del ex, execs, segs
         torch.cuda.empty_cache()
 
         # phase 5: group-by leg
@@ -1415,6 +1898,28 @@ def main() -> None:
         busy = device_busy(ex, GB_QUERY, ITERS, tmp)
         print(f"[groupby] trace {json.dumps(busy or 'not measured')} "
               f"| {card}", flush=True)
+
+        # phase 9d: config-#3-shaped group-by concurrency (K2)
+        def gb_check(i, rows):
+            want = {}
+            for t in truths:
+                for key, (sm, cnt) in t["gbpool"][i].items():
+                    a, b = want.get(key, (0, 0))
+                    want[key] = (a + sm, b + cnt)
+            keys = sorted(want)
+            if [(int(r[0]), str(r[1])) for r in rows] != keys:
+                return f"group keys {rows[:3]} vs numpy truth {keys[:3]}"
+            for r in rows:
+                sm, cnt = want[(int(r[0]), str(r[1]))]
+                if int(r[3]) != cnt or abs(float(r[2]) - sm) > 1e-6 * sm:
+                    return f"group {r} vs numpy truth ({sm}, {cnt})"
+            return None
+        zero_launches(kernels)
+        concurrency_leg("9d", modes_of(segs, pipelined=ex),
+                        [gb_pool_sql(*w) for w in GB_POOL],
+                        [list(range(len(GB_POOL)))] * CLIENTS, gb_check,
+                        card, tmp)
+        count_phase9(kernels, p9)
         del ex, segs
         torch.cuda.empty_cache()
 
@@ -1466,6 +1971,21 @@ def main() -> None:
             print(f"[config4] trace {name} "
                   f"{json.dumps(busy or 'not measured')} | {card}",
                   flush=True)
+
+        # phase 9e: config #4's sketches under concurrency (K3)
+        names = list(TAXI_QUERIES)
+
+        def taxi_check(i, rows):
+            card_hll, p95, _exact, _kept = expected[names[i]]
+            if int(rows[0][0]) != card_hll or float(rows[0][1]) != p95:
+                return f"{rows[0]} vs numpy ({card_hll}, {p95})"
+            return None
+        zero_launches(kernels)
+        concurrency_leg("9e", modes_of(segs, pipelined=ex),
+                        list(TAXI_QUERIES.values()),
+                        [list(range(len(names)))] * CLIENTS, taxi_check,
+                        card, tmp)
+        count_phase9(kernels, p9)
         del ex, segs
         torch.cuda.empty_cache()
 
@@ -1479,10 +1999,55 @@ def main() -> None:
                                   [*k5_cases.values(), *leg_cases.values()]))
         k1["launches"] += got["scan_agg"]
         k2["launches"] += got["group_agg"]
+
+        # phase 9b: batching_main's three tables, stacked and dedup (K1)
+        t0 = time.perf_counter()
+        tables, b9 = {}, {}
+        for ti, (table, (n_segs, docs)) in enumerate(B9_TABLES.items()):
+            tables[table], b9[table] = build_segments(
+                tmp, table, [("lo_orderdate", "INT", False),
+                             ("lo_discount", "INT", False),
+                             ("lo_quantity", "INT", False),
+                             ("lo_extendedprice", "INT", True)],
+                ["lo_extendedprice"], n_segs, docs, ssb_q1_columns,
+                b9_truth, args.seed + 1000 * (ti + 1), BUILD_WORKERS)
+        print(f"[9b] built {sum(len(v) for v in tables.values())} segments,"
+              f" {sum(s.num_docs for v in tables.values() for s in v)} rows"
+              f" in {time.perf_counter() - t0:.1f} s", flush=True)
+        names = list(B9_TABLES)
+        pool = [b9_sql(t, a) for t in names for a in B9_DISCOUNTS]
+        width = len(B9_DISCOUNTS)
+
+        def b9_check(i, rows):
+            table, a = names[i // width], i % width
+            return exact_pair(rows, sum(t[a][0] for t in b9[table]),
+                              sum(t[a][1] for t in b9[table]))
+        zero_launches(kernels)
+        leg = concurrency_leg(
+            "9b", modes_of(tables), pool,
+            [[names.index(t) * width + a for a in B9_DISCOUNTS]
+             for t in B9_CLIENTS], b9_check, card, tmp,
+            probes=([0, width + 1, 2 * width + 2], [0, 3, width + 1]))
+        count_phase9(kernels, p9)
+        variants["9b"] = leg["seen"]
+        del tables
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # phase 8: the kernels line, the card line, the result
+    print(f"[concurrency] batched launches per variant {json.dumps(variants)}"
+          f" | {card}", flush=True)
+    for v in ("broadcast", "stacked", "dedup"):
+        if not any(seen[v] for seen in variants.values()):
+            fail(f"phase 9a-9b never formed a {v} batch")
+    for kern, entry in ((_cuda.SCAN_AGG, k1), (_cuda.GROUP_AGG, k2),
+                        (_cuda.SKETCH_AGG, k3), (_cuda.TOPN, k4)):
+        single, batch = p9[kern.name]
+        entry["launches"] += single
+        batched[kern.name]["launches"] = batch
+        if not batch:
+            fail(f"phase 9 never launched {kern.name}'s batched form")
     entries = []
     for kern, entry, replaces in (
             (_cuda.SCAN_AGG, k1, "pinot_tpu/ops/kernels.py:537"),
@@ -1499,6 +2064,21 @@ def main() -> None:
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"],
             "library_ms": entry["library_ms"]})
+    for kern in (_cuda.SCAN_AGG, _cuda.GROUP_AGG, _cuda.SKETCH_AGG,
+                 _cuda.TOPN):
+        entry = batched[kern.name]
+        entries.append({
+            "name": f"{kern.name}_batched", "route": "cuda",
+            "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",
+            "replaces": "pinot_tpu/ops/kernels.py:858" if kern is _cuda.TOPN
+            else "pinot_tpu/ops/kernels.py:793,823",
+            "launches": entry["launches"],
+            "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
+            "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+            "bound_by": entry["bound_by"],
+            "library_ms": entry["library_ms"]})
+    print(f"[time] whole run {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

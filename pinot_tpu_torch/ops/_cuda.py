@@ -12,6 +12,15 @@ The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, allocate outputs and scratch with `torch.empty`, launch on the
 current stream, raise if the launch failed, and count their launches. They
 never fall back to the plain PyTorch version.
+
+K1-K4 carry a member axis (csrc/interp.cuh): one launch computes B
+coalesced queries of one plan over U column sets, member m reading set
+idx[m]. `scan_agg`, `group_agg`, `sketch_agg` and `topn` are the single
+launch (B = U = 1); the `*_batched` forms take the members' column sets,
+parameters, doc counts and member-to-set map and return [B, S, ...]. A
+kernel counts single launches in `launches`, batched ones in
+`batched_launches` and their members in `batched_members`, under a lock:
+pool threads launch concurrently, and ctypes releases the GIL for the call.
 """
 from __future__ import annotations
 
@@ -49,6 +58,12 @@ SKETCH_MIN_DOCS = 1 << 16
 TOPN_MAX_K = 8192
 #: K4's per-segment state words (csrc/topn.cu ST_*)
 TOPN_STATE_WORDS = 5
+#: column sets and members of one K1-K4 launch (csrc/interp.cuh
+#: PT_MAX_SETS, PT_MAX_MEMBERS)
+MAX_SETS = 16
+MAX_MEMBERS = 16
+#: K4's grid carries B x S rows on its y axis
+TOPN_MAX_ROWS = 65535
 #: K5's slot and group-dimension capacity (csrc/startree_agg.cu ST_MAX_*)
 ST_MAX_SLOTS = 16
 ST_MAX_DIMS = 8
@@ -61,9 +76,10 @@ ST_MAX_ACC = 1 + 2 * USUM_PLANES * ST_MAX_SLOTS
 
 class _Args(ctypes.Structure):
     """csrc/interp.cuh `struct Args`, passed to the kernel by value."""
-    _fields_ = [("cols", ctypes.c_void_p * prog_mod.MAX_COLS),
+    _fields_ = [("cols", (ctypes.c_void_p * prog_mod.MAX_COLS) * MAX_SETS),
                 ("luts", ctypes.c_void_p * prog_mod.MAX_LUTS),
-                ("code", ctypes.c_int * prog_mod.MAX_CODE)]
+                ("code", ctypes.c_int * prog_mod.MAX_CODE),
+                ("set_of", ctypes.c_int * MAX_MEMBERS)]
 
 
 class _StArgs(ctypes.Structure):
@@ -80,7 +96,7 @@ class _StArgs(ctypes.Structure):
 
 class CudaKernel:
     """One hand-written kernel: its source, its entry point and the number
-    of times it was launched."""
+    of times it was launched, single and batched."""
 
     def __init__(self, name: str, source: str, entry: str, argtypes: list):
         self.name = name
@@ -88,7 +104,25 @@ class CudaKernel:
         self.entry = entry
         self.argtypes = argtypes
         self.launches = 0
+        self.batched_launches = 0
+        self.batched_members = 0
         self._fn = None
+        self._lock = threading.Lock()
+
+    def count(self, members: int, batched: bool) -> None:
+        """One launch of `members` members: a single launch, or a batched
+        one."""
+        with self._lock:
+            if batched:
+                self.batched_launches += 1
+                self.batched_members += members
+            else:
+                self.launches += 1
+
+    def reset_counts(self) -> None:
+        with self._lock:
+            self.launches = self.batched_launches = 0
+            self.batched_members = 0
 
     @property
     def library(self) -> str:
@@ -100,29 +134,30 @@ class CudaKernel:
                             f"lib{self.name}-{h.hexdigest()[:16]}.so")
 
     def fn(self):
-        if self._fn is None:
-            build([self])
-            lib = ctypes.CDLL(self.library)
-            f = getattr(lib, self.entry)
-            f.argtypes = self.argtypes
-            f.restype = ctypes.c_int
-            self._fn = f
-        return self._fn
+        with self._lock:
+            if self._fn is None:
+                build([self])
+                lib = ctypes.CDLL(self.library)
+                f = getattr(lib, self.entry)
+                f.argtypes = self.argtypes
+                f.restype = ctypes.c_int
+                self._fn = f
+            return self._fn
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SCAN_AGG = CudaKernel("scan_agg", "scan_agg.cu", "pt_scan_agg",
-                      [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I, _P,
-                       _P, _I, _P])
+                      [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _I, _P])
 GROUP_AGG = CudaKernel("group_agg", "group_agg.cu", "pt_group_agg",
                        [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I, _I,
-                        _P, _P, _I, _P])
+                        _I, _P, _P, _I, _P])
 SKETCH_AGG = CudaKernel("sketch_agg", "sketch_agg.cu", "pt_sketch_agg",
                         [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I,
-                         _I, _P, _P, _P, _I, _P])
+                         _I, _I, _P, _P, _P, _I, _P])
 TOPN = CudaKernel("topn", "topn.cu", "pt_topn",
                   [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   _P, _P, _P, _P, _P, _P, _P, _I, _P])
+                   _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
 STARTREE_AGG = CudaKernel("startree_agg", "startree_agg.cu",
                           "pt_startree_agg",
                           [ctypes.POINTER(_StArgs), _P, _P, _I, _I, _I, _I,
@@ -184,180 +219,271 @@ def _check(t: torch.Tensor, what: str, device: torch.device,
 _COL_DTYPES = (torch.int8, torch.int16, torch.int32, torch.float32,
                torch.float64)
 
-
-def _prepare(plan: DevicePlan, cols: Dict[str, torch.Tensor],
-             params: Dict[str, torch.Tensor], num_docs: torch.Tensor,
-             D: int, value_dtype: torch.dtype):
-    """Validate a launch and pack its arguments: the ctypes Args struct
-    (column and LUT pointers, program), the [S, P] float64 parameter matrix
-    and the program."""
-    device = num_docs.device
-    if device.type != "cuda":
-        raise ValueError(f"CUDA kernel given tensors on {device}")
-    if value_dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"value dtype {value_dtype} is not float32/64")
-    if num_docs.dim() != 1:
-        raise ValueError("num_docs must be 1-D")
-    S = num_docs.shape[0]
-    _check(num_docs, "num_docs", device, (torch.int32,), (S,))
-    if D <= 0 or D > (1 << 30):
-        raise ValueError(f"doc block width {D} out of range")
-    prog = prog_mod.compile_plan(plan)
-    args = _Args()
-    dtypes = []
-    for c, name in enumerate(prog.cols):
-        t = cols[name]
-        _check(t, name, device, _COL_DTYPES, (S, D))
-        args.cols[c] = t.data_ptr()
-        dtypes.append(str(t.dtype).replace("torch.", ""))
-    widths = []
-    for k, key in enumerate(prog.luts):
-        t = params[key]
-        if t.dim() != 2:
-            raise ValueError(f"{key} must be [S, C]")
-        _check(t, key, device, (torch.bool,), (S, t.shape[1]))
-        args.luts[k] = t.data_ptr()
-        widths.append(int(t.shape[1]))
-    code = prog.for_launch(dtypes, widths)
-    ctypes.memmove(args.code, code.ctypes.data, code.nbytes)
-    columns = []
-    for key, lit in prog.params:
-        if key is None:
-            columns.append(torch.full((S,), lit, dtype=torch.float64,
-                                      device=device))
-            continue
-        t = params[key]
-        if t.device != device or tuple(t.shape) != (S,):
-            raise ValueError(f"{key} must be a [S] tensor on {device}")
-        columns.append(t.to(torch.float64))
-    if not columns:
-        columns.append(torch.zeros(S, dtype=torch.float64, device=device))
-    pmat = torch.stack(columns, 1).contiguous()
-    nb = max(1, min(MAX_BLOCKS_PER_SEGMENT,
-                    math.ceil(D / (THREADS * DOCS_PER_THREAD))))
-    return args, pmat, prog, S, nb
+Tensors = Dict[str, torch.Tensor]
 
 
-def scan_agg(plan: DevicePlan, cols: Dict[str, torch.Tensor],
-             params: Dict[str, torch.Tensor], num_docs: torch.Tensor, D: int,
-             value_dtype: torch.dtype) -> torch.Tensor:
-    """K1: the ungrouped packed [S, 1 + sum(w)] result of `plan`."""
+def _stack(ts: List[torch.Tensor]) -> torch.Tensor:
+    """[n, ...] from n equal-shaped tensors (a view when n is 1)."""
+    return ts[0].unsqueeze(0) if len(ts) == 1 else torch.stack(ts)
+
+
+class _Launch:
+    """A validated K1-K4 launch of B members: the ctypes Args struct
+    (column pointers per set, LUT pointers, program, member-to-set map),
+    the [B, S, P] float64 parameter matrix, the [U, S] doc counts and the
+    [B, S, C] LUTs it points at (held here until the launch is
+    enqueued)."""
+
+    def __init__(self, plan: DevicePlan, col_sets: List[Tensors],
+                 params_list: List[Tensors], num_docs_list: List[torch.Tensor],
+                 idx: List[int], D: int, value_dtype: torch.dtype):
+        B, U = len(params_list), len(col_sets)
+        if not 1 <= B <= MAX_MEMBERS or not 1 <= U <= MAX_SETS:
+            raise ValueError(f"{B} members over {U} column sets: a launch "
+                             f"takes 1-{MAX_MEMBERS} members and 1-{MAX_SETS}"
+                             " sets")
+        if len(num_docs_list) != U or len(idx) != B \
+                or any(not 0 <= int(u) < U for u in idx):
+            raise ValueError("num_docs per column set and a member-to-set "
+                             "index in [0, U) per member")
+        nd0 = num_docs_list[0]
+        device = nd0.device
+        if device.type != "cuda":
+            raise ValueError(f"CUDA kernel given tensors on {device}")
+        if value_dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"value dtype {value_dtype} is not float32/64")
+        if nd0.dim() != 1:
+            raise ValueError("num_docs must be 1-D")
+        S = nd0.shape[0]
+        for u, nd in enumerate(num_docs_list):
+            _check(nd, f"num_docs[{u}]", device, (torch.int32,), (S,))
+        if D <= 0 or D > (1 << 30):
+            raise ValueError(f"doc block width {D} out of range")
+        prog = prog_mod.compile_plan(plan)
+        args = _Args()
+        dtypes = []
+        for c, name in enumerate(prog.cols):
+            t0 = col_sets[0][name]
+            for u, cols in enumerate(col_sets):
+                _check(cols[name], f"{name} of set {u}", device,
+                       (t0.dtype,) if u else _COL_DTYPES, (S, D))
+                args.cols[u][c] = cols[name].data_ptr()
+            dtypes.append(str(t0.dtype).replace("torch.", ""))
+        self.luts, widths = [], []
+        for k, key in enumerate(prog.luts):
+            ts = [p[key] for p in params_list]
+            if ts[0].dim() != 2:
+                raise ValueError(f"{key} must be [S, C]")
+            for m, t in enumerate(ts):
+                _check(t, f"{key} of member {m}", device, (torch.bool,),
+                       (S, ts[0].shape[1]))
+            lut = _stack(ts)
+            self.luts.append(lut)
+            args.luts[k] = lut.data_ptr()
+            widths.append(int(ts[0].shape[1]))
+        code = prog.for_launch(dtypes, widths)
+        ctypes.memmove(args.code, code.ctypes.data, code.nbytes)
+        for m, u in enumerate(idx):
+            args.set_of[m] = int(u)
+        columns = []
+        for key, lit in prog.params:
+            if key is None:
+                columns.append(torch.full((B, S), lit, dtype=torch.float64,
+                                          device=device))
+                continue
+            ts = [p[key] for p in params_list]
+            for m, t in enumerate(ts):
+                if t.device != device or tuple(t.shape) != (S,) \
+                        or t.dtype != ts[0].dtype:
+                    raise ValueError(f"{key} of member {m} must be a [S] "
+                                     f"{ts[0].dtype} tensor on {device}")
+            columns.append(_stack(ts).to(torch.float64))
+        if not columns:
+            columns.append(torch.zeros((B, S), dtype=torch.float64,
+                                       device=device))
+        self.pmat = torch.stack(columns, 2).contiguous()
+        self.num_docs = _stack(num_docs_list).contiguous()
+        self.args, self.prog, self.device = args, prog, device
+        self.B, self.S, self.D = B, S, D
+        self.P = self.pmat.shape[2]
+        self.f64 = int(value_dtype == torch.float64)
+        self.nb = max(1, min(MAX_BLOCKS_PER_SEGMENT,
+                             math.ceil(D / (THREADS * DOCS_PER_THREAD))))
+
+    @property
+    def stream(self) -> int:
+        return torch.cuda.current_stream(self.device).cuda_stream
+
+
+def _single(fn, plan, cols, params, num_docs, D, value_dtype, **kw):
+    """A single launch (B = U = 1) of a batched wrapper, as [S, ...]."""
+    return fn(plan, [cols], [params], [num_docs], [0], D, value_dtype,
+              batched=False, **kw)[0]
+
+
+def scan_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
+                     params_list: List[Tensors],
+                     num_docs_list: List[torch.Tensor], idx: List[int],
+                     D: int, value_dtype: torch.dtype,
+                     batched: bool = True) -> torch.Tensor:
+    """K1 over B members: the ungrouped packed [B, S, 1 + sum(w)] result
+    of `plan`, member m over column set idx[m]."""
     if plan.num_groups:
         raise ValueError("scan_agg takes ungrouped plans")
-    args, pmat, prog, S, nb = _prepare(plan, cols, params, num_docs, D,
-                                       value_dtype)
-    device = num_docs.device
-    partial = torch.empty((S, nb, prog.n_acc), dtype=torch.float64,
-                          device=device)
-    out = torch.empty((S, prog.out_width), dtype=value_dtype, device=device)
-    fn = SCAN_AGG.fn()
-    rc = fn(ctypes.byref(args), pmat.data_ptr(), num_docs.data_ptr(), S,
-                D, pmat.shape[1], nb, int(value_dtype == torch.float64),
-                partial.data_ptr(), out.data_ptr(), device.index,
-                torch.cuda.current_stream(device).cuda_stream)
+    L = _Launch(plan, col_sets, params_list, num_docs_list, idx, D,
+                value_dtype)
+    partial = torch.empty((L.B, L.S, L.nb, L.prog.n_acc),
+                          dtype=torch.float64, device=L.device)
+    out = torch.empty((L.B, L.S, L.prog.out_width), dtype=value_dtype,
+                      device=L.device)
+    rc = SCAN_AGG.fn()(ctypes.byref(L.args), L.pmat.data_ptr(),
+                       L.num_docs.data_ptr(), L.S, D, L.P, L.nb, L.B, L.f64,
+                       partial.data_ptr(), out.data_ptr(), L.device.index,
+                       L.stream)
     if rc != 0:
         raise RuntimeError(f"scan_agg launch failed: cudaError {rc}")
-    SCAN_AGG.launches += 1
+    SCAN_AGG.count(L.B, batched)
     return out
 
 
-def group_agg(plan: DevicePlan, cols: Dict[str, torch.Tensor],
-              params: Dict[str, torch.Tensor], num_docs: torch.Tensor,
-              D: int, value_dtype: torch.dtype) -> torch.Tensor:
-    """K2: the grouped packed [S, G, n_slots] result of `plan`."""
+def scan_agg(plan: DevicePlan, cols: Tensors, params: Tensors,
+             num_docs: torch.Tensor, D: int,
+             value_dtype: torch.dtype) -> torch.Tensor:
+    """K1: the ungrouped packed [S, 1 + sum(w)] result of `plan`."""
+    return _single(scan_agg_batched, plan, cols, params, num_docs, D,
+                   value_dtype)
+
+
+def group_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
+                      params_list: List[Tensors],
+                      num_docs_list: List[torch.Tensor], idx: List[int],
+                      D: int, value_dtype: torch.dtype,
+                      batched: bool = True) -> torch.Tensor:
+    """K2 over B members: the grouped packed [B, S, G, n_slots] result of
+    `plan`, member m over column set idx[m]."""
     G = plan.num_groups
     if not G:
         raise ValueError("group_agg takes group-by plans")
-    args, pmat, prog, S, nb = _prepare(plan, cols, params, num_docs, D,
-                                       value_dtype)
-    device = num_docs.device
-    shape = (S, G, prog.out_width)
-    table = torch.empty(shape, dtype=torch.float64, device=device)
-    out = torch.empty(shape, dtype=value_dtype, device=device)
-    fn = GROUP_AGG.fn()
-    rc = fn(ctypes.byref(args), pmat.data_ptr(), num_docs.data_ptr(), S,
-                D, pmat.shape[1], G, nb, int(value_dtype == torch.float64),
-                table.data_ptr(), out.data_ptr(), device.index,
-                torch.cuda.current_stream(device).cuda_stream)
+    L = _Launch(plan, col_sets, params_list, num_docs_list, idx, D,
+                value_dtype)
+    shape = (L.B, L.S, G, L.prog.out_width)
+    table = torch.empty(shape, dtype=torch.float64, device=L.device)
+    out = torch.empty(shape, dtype=value_dtype, device=L.device)
+    rc = GROUP_AGG.fn()(ctypes.byref(L.args), L.pmat.data_ptr(),
+                        L.num_docs.data_ptr(), L.S, D, L.P, G, L.nb, L.B,
+                        L.f64, table.data_ptr(), out.data_ptr(),
+                        L.device.index, L.stream)
     if rc != 0:
         raise RuntimeError(f"group_agg launch failed: cudaError {rc}")
-    GROUP_AGG.launches += 1
+    GROUP_AGG.count(L.B, batched)
     return out
 
 
-def sketch_agg(plan: DevicePlan, cols: Dict[str, torch.Tensor],
-               params: Dict[str, torch.Tensor], num_docs: torch.Tensor,
-               D: int, value_dtype: torch.dtype,
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K3: the matched count and the sketch slots' columns of the packed
-    [S, 1 + sum(w)] result of `plan`, written into `out` (K1's output, on
-    the same stream, for a plan that also has scalar slots) or into a new
-    tensor."""
+def group_agg(plan: DevicePlan, cols: Tensors, params: Tensors,
+              num_docs: torch.Tensor, D: int,
+              value_dtype: torch.dtype) -> torch.Tensor:
+    """K2: the grouped packed [S, G, n_slots] result of `plan`."""
+    return _single(group_agg_batched, plan, cols, params, num_docs, D,
+                   value_dtype)
+
+
+def sketch_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
+                       params_list: List[Tensors],
+                       num_docs_list: List[torch.Tensor], idx: List[int],
+                       D: int, value_dtype: torch.dtype,
+                       batched: bool = True,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3 over B members: the matched count and the sketch slots' columns
+    of the packed [B, S, 1 + sum(w)] result of `plan`, written into `out`
+    (K1's output, on the same stream, for a plan that also has scalar
+    slots) or into a new tensor."""
     if plan.num_groups:
         raise ValueError("sketch_agg takes ungrouped plans")
-    args, pmat, prog, S, _nb = _prepare(plan, cols, params, num_docs, D,
-                                        value_dtype)
-    device = num_docs.device
+    L = _Launch(plan, col_sets, params_list, num_docs_list, idx, D,
+                value_dtype)
     for op, _v, _f in plan.agg_ops:
         if op.startswith("hll:"):
             col = op.split(":", 2)[2]
-            for plane in ("valhi:", "vallo:"):
-                _check(cols[plane + col], plane + col, device,
-                       (torch.int32,), (S, D))
-    shape = (S, prog.out_width)
+            for u, cols in enumerate(col_sets):
+                for plane in ("valhi:", "vallo:"):
+                    _check(cols[plane + col], f"{plane}{col} of set {u}",
+                           L.device, (torch.int32,), (L.S, D))
+    shape = (L.B, L.S, L.prog.out_width)
     if out is None:
-        out = torch.empty(shape, dtype=value_dtype, device=device)
+        out = torch.empty(shape, dtype=value_dtype, device=L.device)
     else:
-        _check(out, "out", device, (value_dtype,), shape)
-    nb = max(1, min(math.ceil(SKETCH_BLOCKS / S),
+        _check(out, "out", L.device, (value_dtype,), shape)
+    # the block partition follows D and S only, never B
+    nb = max(1, min(math.ceil(SKETCH_BLOCKS / L.S),
                     math.ceil(D / SKETCH_MIN_DOCS)))
-    words = prog.sketch_smem_words
-    partial = torch.empty(max(1, S * nb * words), dtype=torch.int32,
-                          device=device)
-    gtab = torch.empty(shape, dtype=torch.int32, device=device)
-    fn = SKETCH_AGG.fn()
-    rc = fn(ctypes.byref(args), pmat.data_ptr(), num_docs.data_ptr(), S, D,
-            pmat.shape[1], nb, words, int(value_dtype == torch.float64),
-            partial.data_ptr(), gtab.data_ptr(), out.data_ptr(),
-            device.index, torch.cuda.current_stream(device).cuda_stream)
+    words = L.prog.sketch_smem_words
+    partial = torch.empty(max(1, L.B * L.S * nb * words), dtype=torch.int32,
+                          device=L.device)
+    gtab = torch.empty(shape, dtype=torch.int32, device=L.device)
+    rc = SKETCH_AGG.fn()(ctypes.byref(L.args), L.pmat.data_ptr(),
+                         L.num_docs.data_ptr(), L.S, D, L.P, nb, L.B, words,
+                         L.f64, partial.data_ptr(), gtab.data_ptr(),
+                         out.data_ptr(), L.device.index, L.stream)
     if rc != 0:
         raise RuntimeError(f"sketch_agg launch failed: cudaError {rc}")
-    SKETCH_AGG.launches += 1
+    SKETCH_AGG.count(L.B, batched)
     return out
 
 
-def topn(plan: DevicePlan, cols: Dict[str, torch.Tensor],
-         params: Dict[str, torch.Tensor], num_docs: torch.Tensor, D: int,
-         value_dtype: torch.dtype) -> torch.Tensor:
-    """K4: the [S, 1 + k] int32 top-N of `plan`, k = min(topn_k, D)."""
+def sketch_agg(plan: DevicePlan, cols: Tensors, params: Tensors,
+               num_docs: torch.Tensor, D: int, value_dtype: torch.dtype,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3: the matched count and the sketch slots' columns of the packed
+    [S, 1 + sum(w)] result of `plan`, written into `out` or a new
+    tensor."""
+    return _single(sketch_agg_batched, plan, cols, params, num_docs, D,
+                   value_dtype, out=None if out is None else out[None])
+
+
+def topn_batched(plan: DevicePlan, col_sets: List[Tensors],
+                 params_list: List[Tensors],
+                 num_docs_list: List[torch.Tensor], idx: List[int], D: int,
+                 value_dtype: torch.dtype,
+                 batched: bool = True) -> torch.Tensor:
+    """K4 over B members: the [B, S, 1 + k] int32 top-N of `plan`,
+    k = min(topn_k, D), member m over column set idx[m]."""
     if plan.mode != "topn":
         raise ValueError("topn takes top-N plans")
     k = min(plan.topn_k, D)
     if not 1 <= k <= TOPN_MAX_K:
         raise ValueError(f"top-N k {k} outside [1, {TOPN_MAX_K}]")
-    args, pmat, _prog, S, nb = _prepare(plan, cols, params, num_docs, D,
-                                        value_dtype)
-    device = num_docs.device
+    L = _Launch(plan, col_sets, params_list, num_docs_list, idx, D,
+                value_dtype)
+    R = L.B * L.S
+    if R > TOPN_MAX_ROWS:
+        raise ValueError(f"{L.B} members x {L.S} segments exceed K4's "
+                         f"{TOPN_MAX_ROWS} rows")
+    dev = L.device
     kdt = torch.int64 if value_dtype == torch.float64 else torch.int32
-    keys = torch.empty((S, D), dtype=kdt, device=device)
-    state = torch.empty((S, TOPN_STATE_WORDS), dtype=torch.int64,
-                        device=device)
-    hist = torch.empty((S, 256), dtype=torch.int32, device=device)
-    ties = torch.empty((S, nb), dtype=torch.int32, device=device)
-    cand_key = torch.empty((S, k), dtype=kdt, device=device)
-    cand_doc = torch.empty((S, k), dtype=torch.int32, device=device)
-    out = torch.empty((S, 1 + k), dtype=torch.int32, device=device)
-    fn = TOPN.fn()
-    rc = fn(ctypes.byref(args), pmat.data_ptr(), num_docs.data_ptr(), S, D,
-            pmat.shape[1], nb, int(value_dtype == torch.float64), k,
-            int(plan.topn_asc), keys.data_ptr(), state.data_ptr(),
-            hist.data_ptr(), ties.data_ptr(), cand_key.data_ptr(),
-            cand_doc.data_ptr(), out.data_ptr(), device.index,
-            torch.cuda.current_stream(device).cuda_stream)
+    keys = torch.empty((L.B, L.S, D), dtype=kdt, device=dev)
+    state = torch.empty((R, TOPN_STATE_WORDS), dtype=torch.int64, device=dev)
+    hist = torch.empty((R, 256), dtype=torch.int32, device=dev)
+    ties = torch.empty((R, L.nb), dtype=torch.int32, device=dev)
+    cand_key = torch.empty((R, k), dtype=kdt, device=dev)
+    cand_doc = torch.empty((R, k), dtype=torch.int32, device=dev)
+    out = torch.empty((L.B, L.S, 1 + k), dtype=torch.int32, device=dev)
+    rc = TOPN.fn()(ctypes.byref(L.args), L.pmat.data_ptr(),
+                   L.num_docs.data_ptr(), L.S, D, L.P, L.nb, L.B, L.f64, k,
+                   int(plan.topn_asc), keys.data_ptr(), state.data_ptr(),
+                   hist.data_ptr(), ties.data_ptr(), cand_key.data_ptr(),
+                   cand_doc.data_ptr(), out.data_ptr(), dev.index, L.stream)
     if rc != 0:
         raise RuntimeError(f"topn launch failed: cudaError {rc}")
-    TOPN.launches += 1
+    TOPN.count(L.B, batched)
     return out
+
+
+def topn(plan: DevicePlan, cols: Tensors, params: Tensors,
+         num_docs: torch.Tensor, D: int,
+         value_dtype: torch.dtype) -> torch.Tensor:
+    """K4: the [S, 1 + k] int32 top-N of `plan`, k = min(topn_k, D)."""
+    return _single(topn_batched, plan, cols, params, num_docs, D,
+                   value_dtype)
 
 
 #: K5 slot op codes (csrc/startree_agg.cu OP_*)
@@ -433,5 +559,5 @@ def startree_agg(plan, cols: Dict[str, torch.Tensor],
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"startree_agg launch failed: cudaError {rc}")
-    STARTREE_AGG.launches += 1
+    STARTREE_AGG.count(1, batched=False)
     return out

@@ -11,12 +11,14 @@
 // Bound on an H100: bytes, as for K1 — each staged element is read once;
 // the output [S, G, n_slots] is small beside the columns.
 //
-// Design: grid (blocks per segment, S), each block over one contiguous doc
-// range of one segment. When the G x n_slots accumulators of a segment fit
-// in 40 KB they live in shared memory: docs update them with shared-memory
-// atomics (atomicAdd on doubles for counts and sums, compare-and-swap loops
-// for NaN-propagating min / max), and the block then merges the entries it
-// touched into a float64 table [S, G, n_slots] with global atomics.
+// Design: grid (B members x blocks per segment, S), a single launch being
+// the B = 1 case (interp.cuh: the member axis), each
+// block over one contiguous doc range of one segment for one member. When
+// the G x n_slots accumulators of a segment fit in 40 KB they live in
+// shared memory: docs update them with shared-memory atomics (atomicAdd on
+// doubles for counts and sums, compare-and-swap loops for NaN-propagating
+// min / max), and the block then merges the entries it touched into a
+// float64 table [B, S, G, n_slots] with global atomics.
 // Otherwise docs update the global table directly. A last pass converts
 // the table to the value dtype. Sums accumulate in double, so a float32
 // result is the correctly rounded sum of float32 contributions up to the
@@ -66,21 +68,24 @@ __global__ void group_init(const __grid_constant__ Args a, long long n,
     table[e] = identity_of(slot_red(slots[(e % nslot) * SLOT_W]));
 }
 
-template <typename T>
+template <typename T, typename M>
 __global__ void __launch_bounds__(PT_THREADS)
 group_agg_kernel(const __grid_constant__ Args a, const double* __restrict__ params,
-                 const int* __restrict__ num_docs, int D, int P, int G,
-                 int use_smem, double* __restrict__ table) {
+                 const int* __restrict__ num_docs, int S, int D, int P,
+                 int G, int nmem, int use_smem,
+                 double* __restrict__ table) {
   __shared__ Shared sh;
   extern __shared__ double tab[];
-  const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
-  stage_block(a, params, s, P, sh);
+  const int s = blockIdx.y;
+  int b, nb;
+  const M mb = Grid<M>::at(a, S, nmem, b, nb);
+  stage_block(a, params, mb.row(), P, sh);
   const int* code = sh.code;
   const int nslot = code[H_NSLOT], ngcol = code[H_NGCOL], mainf = code[H_MAIN];
   const int* slots = code + code[H_SLOT];
   const int* gcols = code + code[H_GCOL];
   const int entries = G * nslot;
-  double* seg_table = table + (long long)s * entries;
+  double* seg_table = table + mb.row() * entries;
   double* my = use_smem ? tab : seg_table;
   if (use_smem) {
     for (int e = threadIdx.x; e < entries; e += blockDim.x)
@@ -88,16 +93,16 @@ group_agg_kernel(const __grid_constant__ Args a, const double* __restrict__ para
     __syncthreads();
   }
 
-  const int n = max(0, min(num_docs[s], D));
+  const int n = max(0, min(num_docs[(long long)mb.u() * S + s], D));
   const int per = (n + nb - 1) / nb;
   const int start = b * per, end = min(n, start + per);
   const long long base = (long long)s * D;
   for (int d = start + threadIdx.x; d < end; d += blockDim.x) {
     const long long i = base + d;
-    if (mainf >= 0 && !eval_filter(a, sh, mainf, s, i)) continue;
+    if (mainf >= 0 && !eval_filter(a, sh, mainf, mb, i)) continue;
     int key = 0;
     for (int g = 0; g < ngcol; ++g)
-      key += (int)load_col(a, code, gcols[2 * g], i) * gcols[2 * g + 1];
+      key += (int)load_col(a, code, mb.u(), gcols[2 * g], i) * gcols[2 * g + 1];
     if (key < 0 || key >= G) continue;  // as XLA drops out-of-range scatters
     double* row = my + (long long)key * nslot;
     DocCache c = {0u, 0u, 0u};
@@ -105,13 +110,13 @@ group_agg_kernel(const __grid_constant__ Args a, const double* __restrict__ para
     for (int j = 0; j < nslot; ++j) {
       const int* sl = slots + j * SLOT_W;
       const int op = sl[0], v = sl[1];
-      if (!slot_passes(a, sh, sl[2], s, i, c)) continue;
+      if (!slot_passes(a, sh, sl[2], mb, i, c)) continue;
       if (op == S_COUNT) {
         atomicAdd(row + j, 1.0);
         continue;
       }
       if (!(c.vdone & (1u << v))) {
-        vc[v] = eval_value<T>(a, sh, v, i);
+        vc[v] = eval_value<T>(a, sh, v, mb, i);
         c.vdone |= 1u << v;
       }
       atomic_combine(slot_red(op), row + j, slot_contrib<T>(op, vc[v]));
@@ -136,30 +141,32 @@ __global__ void group_finalize(long long n, const double* __restrict__ table,
     out[e] = (T)table[e];
 }
 
-// Launches the table init, K2 and the finalize pass on `stream`. params:
-// [S, P] float64; table: [S, G, n_slots] float64 scratch; out: the same
-// shape in the value dtype (f64 != 0: float64, else float32); dev: the
-// tensors' device. Returns cudaGetLastError().
+// Launches the table init, K2 and the finalize pass on `stream` for B
+// members. params: [B, S, P] float64; num_docs: [U, S] int32; table:
+// [B, S, G, n_slots] float64 scratch; out: the same shape in the value
+// dtype (f64 != 0: float64, else float32); dev: the tensors' device.
+// Returns cudaGetLastError().
 extern "C" int pt_group_agg(const Args* a, const double* params,
                             const int* num_docs, int S, int D, int P, int G,
-                            int nb, int f64, double* table, void* out,
+                            int nb, int B, int f64, double* table, void* out,
                             int dev, void* stream) {
   cudaSetDevice(dev);
   cudaStream_t st = (cudaStream_t)stream;
-  const long long n = (long long)S * G * a->code[H_NSLOT];
+  const long long n = (long long)B * S * G * a->code[H_NSLOT];
   const long long tb = (n + PT_THREADS - 1) / PT_THREADS;
   const int flat = (int)(tb < 4096 ? (tb > 0 ? tb : 1) : 4096);
   const size_t smem = (size_t)G * a->code[H_NSLOT] * sizeof(double);
   const int use_smem = smem <= PT_SMEM_TABLE_BYTES;
-  const dim3 grid(nb, S);
+  const dim3 grid(nb * B, S);
+  const size_t dyn = use_smem ? smem : 0;
   group_init<<<flat, PT_THREADS, 0, st>>>(*a, n, table);
   if (f64) {
-    group_agg_kernel<double><<<grid, PT_THREADS, use_smem ? smem : 0, st>>>(
-        *a, params, num_docs, D, P, G, use_smem, table);
+    group_agg_kernel<double, Mem><<<grid, PT_THREADS, dyn, st>>>(
+        *a, params, num_docs, S, D, P, G, B, use_smem, table);
     group_finalize<double><<<flat, PT_THREADS, 0, st>>>(n, table, (double*)out);
   } else {
-    group_agg_kernel<float><<<grid, PT_THREADS, use_smem ? smem : 0, st>>>(
-        *a, params, num_docs, D, P, G, use_smem, table);
+    group_agg_kernel<float, Mem><<<grid, PT_THREADS, dyn, st>>>(
+        *a, params, num_docs, S, D, P, G, B, use_smem, table);
     group_finalize<float><<<flat, PT_THREADS, 0, st>>>(n, table, (float*)out);
   }
   return (int)cudaGetLastError();

@@ -7,6 +7,26 @@
 // (pinot_tpu/ops/kernels.py:643): every thread walks the same postfix code,
 // so the interpreter's branches are uniform across a warp, and the code and
 // this segment's parameter row sit in shared memory.
+//
+// The member axis: one launch computes B members (coalesced queries of one
+// plan), the counterpart of pinot_tpu/ops/kernels.py:793
+// `make_batched_kernel`, :823 `make_batched_dedup_kernel` and :858
+// `make_batched_topn_kernel` (the plan under vmap over B members). Member m
+// reads column set set_of[m] of U sets, its own parameter row of the
+// [B, S, P] matrix and its own rows of each [B, S, C] LUT, and writes its
+// own [S, ...] output. One kernel serves the three JAX variants: broadcast
+// is U = 1 with set_of = 0...0, stacked U = B with set_of = 0...B-1, dedup
+// set_of = the member-to-unique-set map; no [B, S, D] stack is copied, the
+// launch carries U sets of column pointers instead. num_docs is [U, S].
+//
+// The kernels are templates on the type of a block's member: `Mem` for a
+// batch. K2 and K4 run a single launch (B = U = 1) as the B = 1 case of
+// that kernel; K1 and K3 compile a second body on `Single`, the kernel's
+// code before the member axis, for it: as the B = 1 case, their single
+// launch ran 14% (K1) and 12% (K3) slower than before the member axis on an
+// H100 (80GB HBM3, 700 W; kernel_ab.py, parent / change / change / parent),
+// the member's set and row taking registers the interpreter's loop needed
+// (both spilled), where K2 stayed within 2% and K4 ran 14% faster.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +40,8 @@
 #define PT_MAX_VALUES 16
 #define PT_MAX_VDEPTH 16
 #define PT_THREADS 256
+#define PT_MAX_SETS 16     // column sets per launch (ops/_cuda.py MAX_SETS)
+#define PT_MAX_MEMBERS 16  // members per launch (ops/_cuda.py MAX_MEMBERS)
 
 enum { H_NLEAVES, H_NFILT, H_MAIN, H_NVAL, H_NSLOT, H_NACC, H_NGCOL, H_OUTW,
        H_NPARAM, H_LEAF, H_FILT, H_VAL, H_SLOT, H_GCOL, H_ACC, H_NCOL,
@@ -35,25 +57,73 @@ enum { O_SCALAR, O_PLANE };
 #define SLOT_W 8  // (op, value, filter, acc, n, out, c0, c1)
 #define ACC_W 3
 
-// Passed by value (__grid_constant__): column and LUT pointers plus the
-// program. 3456 bytes, inside the 4 KB kernel-parameter limit.
+// Passed by value (__grid_constant__): the column pointers of each column
+// set, the LUT pointers, the program and the member-to-set map. 7360 bytes:
+// past the classic 4,096-byte kernel-parameter limit, inside the 32,764
+// bytes that CUDA 12.1 and later allow on sm_70 and later (the build uses
+// CUDA 12.8 for sm_90a), so no device-side pointer table is uploaded per
+// launch.
 struct Args {
-  const void* cols[PT_MAX_COLS];
+  const void* cols[PT_MAX_SETS][PT_MAX_COLS];
   const unsigned char* luts[PT_MAX_LUTS];
   int code[PT_MAX_CODE];
+  int set_of[PT_MAX_MEMBERS];
 };
 
-// Block-shared copy of the program and of this segment's parameter row.
+// Block-shared copy of the program and of this member's parameter row for
+// this segment.
 struct Shared {
   int code[PT_MAX_CODE];
   double prm[PT_MAX_PARAMS];
 };
 
+// A block's member: its column set u() and its LUT / parameter row row()
+// (m * S + s). Passed by value. A single launch's member is set 0, row s.
+struct Single {
+  int s;
+  __device__ __forceinline__ int u() const { return 0; }
+  __device__ __forceinline__ long long row() const { return s; }
+};
+struct Mem {
+  int u_;
+  long long row_;
+  __device__ __forceinline__ int u() const { return u_; }
+  __device__ __forceinline__ long long row() const { return row_; }
+};
+
+// The member of this block and its doc-range block b of nb. A single
+// launch's grid is (nb, S); a batch's (B x nb, S), the member the
+// fastest-varying block coordinate, so the B blocks of one doc range run
+// side by side and read a shared column set through L2 once.
+template <typename M> struct Grid;
+template <> struct Grid<Single> {
+  static __device__ __forceinline__ Single at(const Args&, int, int, int& b,
+                                              int& nb) {
+    b = blockIdx.x;
+    nb = gridDim.x;
+    Single r;
+    r.s = blockIdx.y;
+    return r;
+  }
+};
+template <> struct Grid<Mem> {
+  static __device__ __forceinline__ Mem at(const Args& a, int S, int nmem,
+                                           int& b, int& nb) {
+    const int m = blockIdx.x % nmem;
+    b = blockIdx.x / nmem;
+    nb = gridDim.x / nmem;
+    Mem r;
+    r.u_ = a.set_of[m];
+    r.row_ = (long long)m * S + blockIdx.y;
+    return r;
+  }
+};
+
 // A staged column element widened to double: exact for every staged dtype
 // (i8/i16/i32 ids, i32 split planes, f32/f64 values).
 __device__ __forceinline__ double load_col(const Args& a, const int* code,
-                                           int c, long long i) {
-  const void* p = a.cols[c];
+                                           int u, int c, long long i) {
+  const void* p = a.cols[u][c];
   switch (code[code[H_COLDT] + c]) {
     case 0: return (double)((const signed char*)p)[i];
     case 1: return (double)((const short*)p)[i];
@@ -84,15 +154,15 @@ __device__ __forceinline__ int slot_red(int op) {
   return op == S_MIN ? R_MIN : (op == S_MAX ? R_MAX : R_ADD);
 }
 
-// Copy the program and segment s's parameter row into shared memory, then
-// clamp range / neq bounds into the id column's dtype, as the JAX kernel's
-// `_clamp_to` does before comparing at the narrow width.
-__device__ void stage_block(const Args& a, const double* params, int s,
-                            int P, Shared& sh) {
+// Copy the program and parameter row `row` (member m, segment s) into
+// shared memory, then clamp range / neq bounds into the id column's dtype,
+// as the JAX kernel's `_clamp_to` does before comparing at the narrow width.
+__device__ void stage_block(const Args& a, const double* params,
+                            long long row, int P, Shared& sh) {
   const int len = a.code[H_LEN];
   for (int k = threadIdx.x; k < len; k += blockDim.x) sh.code[k] = a.code[k];
   for (int k = threadIdx.x; k < P; k += blockDim.x)
-    sh.prm[k] = params[(long long)s * P + k];
+    sh.prm[k] = params[row * P + k];
   __syncthreads();
   if (threadIdx.x == 0) {
     const int nl = sh.code[H_NLEAVES];
@@ -111,29 +181,30 @@ __device__ void stage_block(const Args& a, const double* params, int s,
   __syncthreads();
 }
 
+template <typename M>
 __device__ __forceinline__ bool eval_leaf(const Args& a, const Shared& sh,
-                                          int li, int s, long long i) {
+                                          int li, M mb, long long i) {
   const int* L = sh.code + sh.code[H_LEAF] + li * LEAF_W;
   const double* p = sh.prm + L[3];
   switch (L[0]) {
     case L_RANGE: {
-      const double id = load_col(a, sh.code, L[1], i);
+      const double id = load_col(a, sh.code, mb.u(), L[1], i);
       return id >= p[0] && id <= p[1];
     }
     case L_NEQ:
-      return load_col(a, sh.code, L[1], i) != p[0];
+      return load_col(a, sh.code, mb.u(), L[1], i) != p[0];
     case L_LUT: {
-      const int id = (int)load_col(a, sh.code, L[1], i);
+      const int id = (int)load_col(a, sh.code, mb.u(), L[1], i);
       const int C = sh.code[sh.code[H_LUTC] + L[4]];
-      return a.luts[L[4]][(long long)s * C + id] != 0;
+      return a.luts[L[4]][mb.row() * C + id] != 0;
     }
     case L_VRANGE: {
-      const double v = load_col(a, sh.code, L[1], i);
+      const double v = load_col(a, sh.code, mb.u(), L[1], i);
       return v >= p[0] && v <= p[1];
     }
     default: {  // L_VRANGE64: lexicographic compare on (hi, lo) planes
-      const double hi = load_col(a, sh.code, L[1], i);
-      const double lo = load_col(a, sh.code, L[2], i);
+      const double hi = load_col(a, sh.code, mb.u(), L[1], i);
+      const double lo = load_col(a, sh.code, mb.u(), L[2], i);
       const bool ge = hi > p[0] || (hi == p[0] && lo >= p[1]);
       const bool le = hi < p[2] || (hi == p[2] && lo <= p[3]);
       return ge && le;
@@ -143,7 +214,8 @@ __device__ __forceinline__ bool eval_leaf(const Args& a, const Shared& sh,
 
 // Filter f over doc i. The bool stack is a shift register: bit 0 is the
 // top, so depth is bounded by 32 (program.py MAX_FILTER_DEPTH).
-__device__ bool eval_filter(const Args& a, const Shared& sh, int f, int s,
+template <typename M>
+__device__ bool eval_filter(const Args& a, const Shared& sh, int f, M mb,
                             long long i) {
   const int* F = sh.code + sh.code[H_FILT] + 2 * f;
   const int* ins = sh.code + F[0];
@@ -152,7 +224,7 @@ __device__ bool eval_filter(const Args& a, const Shared& sh, int f, int s,
   for (int k = 0; k < n; ++k) {
     const int op = ins[2 * k];
     if (op == F_LEAF) {
-      st = (st << 1) | (eval_leaf(a, sh, ins[2 * k + 1], s, i) ? 1u : 0u);
+      st = (st << 1) | (eval_leaf(a, sh, ins[2 * k + 1], mb, i) ? 1u : 0u);
     } else if (op == F_NOT) {
       st ^= 1u;
     } else {
@@ -172,8 +244,9 @@ __device__ bool eval_filter(const Args& a, const Shared& sh, int f, int s,
 // (exact, as the JAX kernel's astype: the engine orders only by ids below
 // 2^24); only K4 (topn.cu) reads order values, so K1-K3 instantiate the
 // interpreter without that case and keep their code as it was.
-template <typename T, bool kIds = false>
-__device__ T eval_value(const Args& a, const Shared& sh, int v, long long i) {
+template <typename T, bool kIds = false, typename M>
+__device__ T eval_value(const Args& a, const Shared& sh, int v, M mb,
+                        long long i) {
   const int* V = sh.code + sh.code[H_VAL] + 2 * v;
   const int* ins = sh.code + V[0];
   const int n = V[1];
@@ -182,7 +255,7 @@ __device__ T eval_value(const Args& a, const Shared& sh, int v, long long i) {
   for (int k = 0; k < n; ++k) {
     const int op = ins[2 * k], arg = ins[2 * k + 1];
     if (op == V_COL || (kIds && op == V_IDS)) {
-      st[sp++] = (T)load_col(a, sh.code, arg, i);
+      st[sp++] = (T)load_col(a, sh.code, mb.u(), arg, i);
     } else if (op == V_LIT) {
       st[sp++] = (T)sh.prm[arg];
     } else if (op == V_NEG) {
@@ -205,14 +278,15 @@ struct DocCache {
   unsigned fdone, fval, vdone;
 };
 
+template <typename M>
 __device__ __forceinline__ bool slot_passes(const Args& a, const Shared& sh,
-                                            int f, int s, long long i,
+                                            int f, M mb, long long i,
                                             DocCache& c) {
   if (f < 0) return true;
   const unsigned bit = 1u << f;
   if (!(c.fdone & bit)) {
     c.fdone |= bit;
-    if (eval_filter(a, sh, f, s, i)) c.fval |= bit;
+    if (eval_filter(a, sh, f, mb, i)) c.fval |= bit;
   }
   return (c.fval & bit) != 0;
 }

@@ -12,16 +12,18 @@
 // operations (two murmur3 finalizers each way) and one shared-memory
 // atomic, far below the rate where the card's compute would limit.
 //
-// Design: grid (blocks per segment, S), 256 threads, each block over one
-// contiguous doc range of one segment, as K1. The filter and the value IR
+// Design: grid (blocks per segment, S) for a single launch, (B members x
+// blocks per segment, S) for a batch, 256 threads, each block over one
+// contiguous doc range of one segment for one member, as K1 (interp.cuh:
+// the member axis). The filter and the value IR
 // run through interp.cuh. Each sketch slot whose table fits under
 // SKETCH_SMEM_WORDS (program.py places it: the slot row's `acc` field) keeps
 // a per-block uint32 table in dynamic shared memory: registers take
 // atomicMax of the rank, buckets atomicAdd of 1. At the end the block
 // writes its whole table (zeros too) to its own row of a partial buffer
-// [S, nb, smem_words], coalesced and without atomics. A slot that does not
-// fit (log2m 16, or several sketches) updates a per-segment global table
-// [S, out_width] with atomics instead. A finalize pass reduces the nb
+// [B, S, nb, smem_words], coalesced and without atomics. A slot that does
+// not fit (log2m 16, or several sketches) updates a per-segment global
+// table [B, S, out_width] with atomics instead. A finalize pass reduces the nb
 // partials of each column (max or sum) in a fixed order, or reads the
 // global table, and writes the value dtype. Integer tables and integer
 // atomics make every result bit-exact whatever the block order.
@@ -56,18 +58,20 @@ __device__ __forceinline__ int sketch_width(const int* sl) {
   return sl[0] == S_HLL ? (1 << sl[4]) : sl[4];
 }
 
-template <typename T>
+template <typename T, typename M>
 __global__ void __launch_bounds__(PT_THREADS)
 sketch_agg_kernel(const __grid_constant__ Args a,
                   const double* __restrict__ params,
-                  const int* __restrict__ num_docs, int D, int P,
-                  int smem_words, unsigned* __restrict__ partial,
+                  const int* __restrict__ num_docs, int S, int D, int P,
+                  int nmem, int smem_words, unsigned* __restrict__ partial,
                   unsigned* __restrict__ gtab) {
   __shared__ Shared sh;
   __shared__ unsigned warp_cnt[PT_THREADS / 32];
   extern __shared__ unsigned tab[];
-  const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
-  stage_block(a, params, s, P, sh);
+  const int s = blockIdx.y;
+  int b, nb;
+  const M mb = Grid<M>::at(a, S, nmem, b, nb);
+  stage_block(a, params, mb.row(), P, sh);
   const int* code = sh.code;
   const int nslot = code[H_NSLOT], mainf = code[H_MAIN];
   const int outw = code[H_OUTW];
@@ -75,8 +79,8 @@ sketch_agg_kernel(const __grid_constant__ Args a,
   for (int k = threadIdx.x; k < smem_words; k += blockDim.x) tab[k] = 0u;
   __syncthreads();
 
-  unsigned* grow = gtab + (long long)s * outw;
-  const int n = max(0, min(num_docs[s], D));
+  unsigned* grow = gtab + mb.row() * outw;
+  const int n = max(0, min(num_docs[(long long)mb.u() * S + s], D));
   const int per = (n + nb - 1) / nb;
   const int start = b * per, end = min(n, start + per);
   const long long base = (long long)s * D;
@@ -89,7 +93,7 @@ sketch_agg_kernel(const __grid_constant__ Args a,
   for (int d0 = start; d0 < end; d0 += blockDim.x) {
     const int d = d0 + threadIdx.x;
     const long long i = base + d;
-    if (d < end && (mainf < 0 || eval_filter(a, sh, mainf, s, i))) {
+    if (d < end && (mainf < 0 || eval_filter(a, sh, mainf, mb, i))) {
       ++matched;
       DocCache c = {0u, 0u, 0u};
       T vc[PT_MAX_VALUES];
@@ -97,11 +101,11 @@ sketch_agg_kernel(const __grid_constant__ Args a,
         const int* sl = slots + j * SLOT_W;
         const int op = sl[0];
         if (!is_sketch(op)) continue;  // K1's slots
-        if (!slot_passes(a, sh, sl[2], s, i, c)) continue;
+        if (!slot_passes(a, sh, sl[2], mb, i, c)) continue;
         const int sm = sl[3];
         if (op == S_HLL) {
-          const unsigned hi = (unsigned)((const int*)a.cols[sl[6]])[i];
-          const unsigned lo = (unsigned)((const int*)a.cols[sl[7]])[i];
+          const unsigned hi = (unsigned)((const int*)a.cols[mb.u()][sl[6]])[i];
+          const unsigned lo = (unsigned)((const int*)a.cols[mb.u()][sl[7]])[i];
           const unsigned h1 = fmix32(fmix32(lo ^ 0x9E3779B9u) ^ hi);
           const unsigned h2 = fmix32(fmix32(hi ^ 0x85EBCA77u) ^ lo);
           const int reg = (int)(h1 & ((1u << sl[4]) - 1u));
@@ -111,7 +115,7 @@ sketch_agg_kernel(const __grid_constant__ Args a,
         } else {
           const int v = sl[1];
           if (!(c.vdone & (1u << v))) {
-            vc[v] = eval_value<T>(a, sh, v, i);
+            vc[v] = eval_value<T>(a, sh, v, mb, i);
             c.vdone |= 1u << v;
           }
           const int bk = hist_bucket<T>(vc[v], (T)sh.prm[sl[6]],
@@ -135,11 +139,11 @@ sketch_agg_kernel(const __grid_constant__ Args a,
     if (total) atomicAdd(grow, total);
   }
   // this block's shared tables, whole, to its row of the partial buffer
-  unsigned* prow = partial + ((long long)s * nb + b) * smem_words;
+  unsigned* prow = partial + (mb.row() * nb + b) * smem_words;
   for (int k = threadIdx.x; k < smem_words; k += blockDim.x) prow[k] = tab[k];
 }
 
-// One thread per (output column, segment): the matched count, and every
+// One thread per (output column, segment, member): the matched count, and every
 // sketch column, reduced over the nb block partials (max for registers,
 // sum for buckets) in block order or read from the global table. Scalar
 // slots' columns are K1's and are left as they are.
@@ -149,7 +153,8 @@ sketch_finalize(const __grid_constant__ Args a,
                 const unsigned* __restrict__ partial,
                 const unsigned* __restrict__ gtab, int nb, int smem_words,
                 T* __restrict__ out) {
-  const int s = blockIdx.y;
+  // the (member, segment) row of partial, gtab and out
+  const long long s = (long long)blockIdx.z * gridDim.y + blockIdx.y;
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int outw = a.code[H_OUTW];
   if (col >= outw) return;
@@ -182,46 +187,56 @@ sketch_finalize(const __grid_constant__ Args a,
   }
 }
 
-template <typename T>
+template <typename T, typename M>
 static int launch(const Args* a, const double* params, const int* num_docs,
-                  int S, int D, int P, int nb, int smem_words,
+                  int S, int D, int P, int nb, int B, int smem_words,
                   unsigned* partial, unsigned* gtab, T* out,
                   cudaStream_t st) {
   const size_t dyn = (size_t)smem_words * sizeof(unsigned);
   cudaError_t e = cudaFuncSetAttribute(
-      sketch_agg_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sketch_agg_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dyn);
   if (e != cudaSuccess) return (int)e;
   const int outw = a->code[H_OUTW];
-  e = cudaMemsetAsync(gtab, 0, (size_t)S * outw * sizeof(unsigned), st);
+  e = cudaMemsetAsync(gtab, 0, (size_t)B * S * outw * sizeof(unsigned),
+                      st);
   if (e != cudaSuccess) return (int)e;
-  sketch_agg_kernel<T><<<dim3(nb, S), PT_THREADS, dyn, st>>>(
-      *a, params, num_docs, D, P, smem_words, partial, gtab);
+  sketch_agg_kernel<T, M><<<dim3(nb * B, S), PT_THREADS, dyn, st>>>(
+      *a, params, num_docs, S, D, P, B, smem_words, partial, gtab);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  sketch_finalize<T><<<dim3((outw + PT_THREADS - 1) / PT_THREADS, S),
+  sketch_finalize<T><<<dim3((outw + PT_THREADS - 1) / PT_THREADS, S, B),
                        PT_THREADS, 0, st>>>(*a, partial, gtab, nb,
                                             smem_words, out);
   return (int)cudaGetLastError();
 }
 
-// Launches K3 and its finalize pass on `stream`. params: [S, P] float64;
-// partial: [S, nb, smem_words] uint32 scratch (written whole, no zeroing
-// needed); gtab: [S, out_width] uint32 scratch, zeroed here; out:
-// [S, out_width] of the value dtype (f64 != 0: float64, else float32),
-// of which K3 writes column 0 and its sketch slots' columns. dev: the
-// tensors' device. Returns the first CUDA error, or 0.
+// Launches K3 and its finalize pass on `stream` for B members. params:
+// [B, S, P] float64; num_docs: [U, S] int32; partial: [B, S, nb,
+// smem_words] uint32 scratch (written whole, no zeroing needed); gtab:
+// [B, S, out_width] uint32 scratch, zeroed here; out: [B, S, out_width] of
+// the value dtype (f64 != 0: float64, else float32), of which K3 writes
+// column 0 and its sketch slots' columns. dev: the tensors' device.
+// Returns the first CUDA error, or 0.
 extern "C" int pt_sketch_agg(const Args* a, const double* params,
                              const int* num_docs, int S, int D, int P,
-                             int nb, int smem_words, int f64,
+                             int nb, int B, int smem_words, int f64,
                              unsigned* partial, unsigned* gtab, void* out,
                              int dev, void* stream) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
+  const bool one = B == 1 && a->set_of[0] == 0;
+  if (f64 && one)
+    return launch<double, Single>(a, params, num_docs, S, D, P, nb, B,
+                                  smem_words, partial, gtab, (double*)out,
+                                  st);
   if (f64)
-    return launch<double>(a, params, num_docs, S, D, P, nb, smem_words,
-                          partial, gtab, (double*)out, st);
-  return launch<float>(a, params, num_docs, S, D, P, nb, smem_words, partial,
-                       gtab, (float*)out, st);
+    return launch<double, Mem>(a, params, num_docs, S, D, P, nb, B,
+                               smem_words, partial, gtab, (double*)out, st);
+  if (one)
+    return launch<float, Single>(a, params, num_docs, S, D, P, nb, B,
+                                 smem_words, partial, gtab, (float*)out, st);
+  return launch<float, Mem>(a, params, num_docs, S, D, P, nb, B, smem_words,
+                            partial, gtab, (float*)out, st);
 }

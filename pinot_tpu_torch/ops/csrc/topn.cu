@@ -15,11 +15,14 @@
 // every doc and the order value for the kept ones and writes k + 1 ints
 // per segment; selecting needs a handful of integer operations per doc.
 //
-// Design (simple and deterministic; see ROADMAP for a faster one):
-//   1. keys: grid (blocks per segment, S). Each doc runs the filter and
+// Design (simple and deterministic; see ROADMAP for a faster one). B
+// members (interp.cuh: the member axis) make B x S rows; every pass after
+// the first works on rows alone, so member m's segment s is row m * S + s.
+//   1. keys: grid (B members x blocks per segment, S), the member fastest
+//      (a single launch is the B = 1 case). Each doc runs the filter and
 //      the order value through interp.cuh and writes its ordered integer
 //      key (the float's bits with the sign flip: u32 for float32, u64 for
-//      float64) to scratch [S, D]; blocks add their matched counts.
+//      float64) to scratch [B, S, D]; blocks add their matched counts.
 //   2. threshold: an MSB-first radix select over the keys, 8-bit digits.
 //      Per digit a histogram pass counts the digits of the keys that share
 //      the higher digits found so far (per-warp shared histograms,
@@ -32,7 +35,7 @@
 //      final sort fixes their order) and the first k_eq ties in doc order
 //      (a tie's rank = the ties of earlier blocks + its rank in its block,
 //      from warp ballots, tile by tile in doc order).
-//   4. sort: one block per segment sorts its k candidates by (key desc,
+//   4. sort: one block per row sorts its k candidates by (key desc,
 //      doc asc) with a bitonic sort in dynamic shared memory (k <= 8192:
 //      64 KB for u32 keys, 96 KB for u64) and writes the row.
 // Every pass is deterministic, so the output is the same bits every run.
@@ -75,9 +78,9 @@ __device__ __forceinline__ void block_range(int D, int b, int nb, int& start,
   end = min(D, start + per);
 }
 
-__global__ void topn_init(long long* __restrict__ state, int S, int k) {
+__global__ void topn_init(long long* __restrict__ state, int R, int k) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
+  if (s >= R) return;
   long long* st = state + (long long)s * ST_WORDS;
   st[ST_PREFIX] = 0;
   st[ST_KREM] = k;
@@ -86,35 +89,38 @@ __global__ void topn_init(long long* __restrict__ state, int S, int k) {
   st[ST_SLOT] = 0;
 }
 
-template <typename T>
+template <typename T, typename M>
 __global__ void __launch_bounds__(PT_THREADS)
 topn_keys(const __grid_constant__ Args a, const double* __restrict__ params,
-          const int* __restrict__ num_docs, int D, int P, int asc,
-          typename KeyOf<T>::K* __restrict__ keys,
+          const int* __restrict__ num_docs, int S, int D, int P, int nmem,
+          int asc, typename KeyOf<T>::K* __restrict__ keys,
           long long* __restrict__ state) {
   typedef typename KeyOf<T>::K K;
   __shared__ Shared sh;
   const int s = blockIdx.y;
-  stage_block(a, params, s, P, sh);
+  int b, nb;
+  const M mb = Grid<M>::at(a, S, nmem, b, nb);
+  stage_block(a, params, mb.row(), P, sh);
   const int mainf = sh.code[H_MAIN];
   const bool has_value = sh.code[H_NVAL] > 0;
-  const int n = max(0, min(num_docs[s], D));
+  const int n = max(0, min(num_docs[(long long)mb.u() * S + s], D));
   int start, end;
-  block_range(D, blockIdx.x, gridDim.x, start, end);
+  block_range(D, b, nb, start, end);
   const long long base = (long long)s * D;
+  K* row_keys = keys + mb.row() * D;
   const K unmatched = KeyOf<T>::of((T)-INFINITY);
   int matched = 0;
   for (int t0 = start; t0 < end; t0 += blockDim.x) {
     const int d = t0 + threadIdx.x;
-    bool m = false;
+    bool hit = false;
     if (d < end) {
       const long long i = base + d;
-      m = d < n && (mainf < 0 || eval_filter(a, sh, mainf, s, i));
+      hit = d < n && (mainf < 0 || eval_filter(a, sh, mainf, mb, i));
       K key = unmatched;
-      if (m) {
+      if (hit) {
         T sc;
         if (has_value) {
-          const T v = eval_value<T, true>(a, sh, 0, i);
+          const T v = eval_value<T, true>(a, sh, 0, mb, i);
           sc = asc ? -v : v;
         } else {
           sc = -(T)d;
@@ -124,18 +130,18 @@ topn_keys(const __grid_constant__ Args a, const double* __restrict__ params,
            : (sc > KeyOf<T>::highest() ? KeyOf<T>::highest() : sc);
         key = KeyOf<T>::of(sc);
       }
-      keys[i] = key;
+      row_keys[d] = key;
     }
-    matched += __syncthreads_count(m);
+    matched += __syncthreads_count(hit);
   }
   if (threadIdx.x == 0 && matched)
-    atomicAdd((unsigned long long*)(state + (long long)s * ST_WORDS +
+    atomicAdd((unsigned long long*)(state + mb.row() * ST_WORDS +
                                     ST_MATCHED),
               (unsigned long long)matched);
 }
 
 // The digit at `shift` of every key that shares the digits above it with
-// the prefix found so far, counted into hist [S, 256].
+// the prefix found so far, counted into hist [R, 256].
 template <typename K>
 __global__ void __launch_bounds__(PT_THREADS)
 topn_hist(const K* __restrict__ keys, int D, int shift,
@@ -174,7 +180,7 @@ topn_hist(const K* __restrict__ keys, int D, int shift,
   }
 }
 
-// One block per segment: the digit holding the k-th key; clears hist.
+// One block per row: the digit holding the k-th key; clears hist.
 __global__ void topn_pick(int* __restrict__ hist,
                           long long* __restrict__ state, int shift) {
   __shared__ int h[256];
@@ -201,7 +207,7 @@ __global__ void topn_pick(int* __restrict__ hist,
   }
 }
 
-// Each block's count of keys equal to T, into ties [S, nb].
+// Each block's count of keys equal to T, into ties [R, nb].
 template <typename K>
 __global__ void __launch_bounds__(PT_THREADS)
 topn_count(const K* __restrict__ keys, int D,
@@ -328,27 +334,29 @@ topn_sort(const K* __restrict__ cand_key, const int* __restrict__ cand_doc,
 
 template <typename T>
 static int launch(const Args* a, const double* params, const int* num_docs,
-                  int S, int D, int P, int nb, int k, int asc, void* keys_v,
-                  long long* state, int* hist, int* ties, void* cand_key_v,
-                  int* cand_doc, int* out, cudaStream_t st) {
+                  int S, int D, int P, int nb, int B, int k, int asc,
+                  void* keys_v, long long* state, int* hist, int* ties,
+                  void* cand_key_v, int* cand_doc, int* out,
+                  cudaStream_t st) {
   typedef typename KeyOf<T>::K K;
   K* keys = (K*)keys_v;
   K* cand_key = (K*)cand_key_v;
   cudaError_t err;
 #define PT_CHECK() \
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err
-  const dim3 grid(nb, S);
-  topn_init<<<(S + 127) / 128, 128, 0, st>>>(state, S, k);
+  const int R = B * S;  // (member, segment) rows
+  const dim3 grid(nb, R);
+  topn_init<<<(R + 127) / 128, 128, 0, st>>>(state, R, k);
   PT_CHECK();
-  cudaMemsetAsync(hist, 0, sizeof(int) * 256 * (size_t)S, st);
+  cudaMemsetAsync(hist, 0, sizeof(int) * 256 * (size_t)R, st);
   PT_CHECK();
-  topn_keys<T><<<grid, PT_THREADS, 0, st>>>(*a, params, num_docs, D, P, asc,
-                                            keys, state);
+  topn_keys<T, Mem><<<dim3(nb * B, S), PT_THREADS, 0, st>>>(
+      *a, params, num_docs, S, D, P, B, asc, keys, state);
   PT_CHECK();
   for (int shift = 8 * (int)sizeof(K) - 8; shift >= 0; shift -= 8) {
     topn_hist<K><<<grid, PT_THREADS, 0, st>>>(keys, D, shift, state, hist);
     PT_CHECK();
-    topn_pick<<<S, 256, 0, st>>>(hist, state, shift);
+    topn_pick<<<R, 256, 0, st>>>(hist, state, shift);
     PT_CHECK();
   }
   topn_count<K><<<grid, PT_THREADS, 0, st>>>(keys, D, state, ties);
@@ -365,28 +373,33 @@ static int launch(const Args* a, const double* params, const int* num_docs,
   PT_CHECK();
   const K unmatched = (K)(sizeof(K) == 4 ? 0x007FFFFFull
                                          : 0x000FFFFFFFFFFFFFull);
-  topn_sort<K><<<S, PT_SORT_THREADS, smem, st>>>(cand_key, cand_doc, k, n2,
+  topn_sort<K><<<R, PT_SORT_THREADS, smem, st>>>(cand_key, cand_doc, k, n2,
                                                  unmatched, state, out);
   PT_CHECK();
 #undef PT_CHECK
   return 0;
 }
 
-// Launches K4's passes on `stream`. params: [S, P] float64; keys: [S, D]
+// Launches K4's passes on `stream` for B members (R = B x S rows).
+// params: [B, S, P] float64; num_docs: [U, S] int32; keys: [B, S, D]
 // scratch (u32 keys for float32 values, u64 for float64); state:
-// [S, ST_WORDS] int64; hist: [S, 256] int32; ties: [S, nb] int32;
-// cand_key / cand_doc: [S, k]; out: [S, 1 + k] int32. 1 <= k <=
-// min(D, 8192). Returns the first nonzero cudaGetLastError().
+// [R, ST_WORDS] int64; hist: [R, 256] int32; ties: [R, nb] int32;
+// cand_key / cand_doc: [R, k]; out: [B, S, 1 + k] int32. 1 <= k <=
+// min(D, 8192), R <= 65535. Returns the first nonzero cudaGetLastError().
 extern "C" int pt_topn(const Args* a, const double* params,
                        const int* num_docs, int S, int D, int P, int nb,
-                       int f64, int k, int asc, void* keys, long long* state,
-                       int* hist, int* ties, void* cand_key, int* cand_doc,
-                       int* out, int dev, void* stream) {
+                       int B, int f64, int k, int asc, void* keys,
+                       long long* state, int* hist, int* ties,
+                       void* cand_key, int* cand_doc, int* out, int dev,
+                       void* stream) {
   cudaSetDevice(dev);
-  if (k < 1 || k > PT_TOPN_MAX_K || k > D) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > PT_TOPN_MAX_K || k > D || (long long)B * S > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return f64 ? launch<double>(a, params, num_docs, S, D, P, nb, k, asc, keys,
-                              state, hist, ties, cand_key, cand_doc, out, st)
-             : launch<float>(a, params, num_docs, S, D, P, nb, k, asc, keys,
-                             state, hist, ties, cand_key, cand_doc, out, st);
+  return f64 ? launch<double>(a, params, num_docs, S, D, P, nb, B, k, asc,
+                              keys, state, hist, ties, cand_key, cand_doc,
+                              out, st)
+             : launch<float>(a, params, num_docs, S, D, P, nb, B, k, asc,
+                             keys, state, hist, ties, cand_key, cand_doc,
+                             out, st);
 }

@@ -13,8 +13,16 @@ per-segment operator chain + combine fan-out
 (pinot-core combine/BaseCombineOperator.java:54) with ONE device program
 over stacked [num_segments, padded_docs] blocks.
 
-This slice launches directly: no dispatch ring, residency tier, CLP,
-vector, time-series or mesh. The rules it keeps from the JAX engine:
+Launches ride the dispatch ring (ops/dispatch.py, JAX `execute` :1221,
+`execute_async` :1273): plan and stage run under the engine lock (they
+mutate the block and parameter caches), then the staged `Launch` goes to
+the `KernelDispatcher`, which coalesces concurrent launches of one plan and
+shape bucket into one launch of K1-K4 with a member axis and splits the
+result back per caller (`_prepare_agg` / `_prepare_topn` / `_prepare_startree`
+as JAX :390, :1396, :981; the pow2 segment bucket `_padded_S` :1963;
+`_batch_id` :3147, `_shape_sig` :3153, `_cols_key` :2261). Star-tree launches
+ride the ring unbatched. No residency tier, CLP, vector, time-series or
+mesh. The rules it keeps from the JAX engine:
 cardinality-aware i8/i16/i32 id staging, power-of-two doc padding masked by
 `num_docs`, the per-segment doc cap, the group-count and group-result-size
 caps, the float32 precision guard, the exact-int-sum (isum) admission, the
@@ -33,13 +41,16 @@ missing feature: the port has no host executor to hand it to.
 """
 from __future__ import annotations
 
+import threading
 import time
 from collections import Counter, OrderedDict
+from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from pinot_tpu_torch.ops import dispatch as dispatch_mod
 from pinot_tpu_torch.ops import kernels, program, startree_device
 #: most rows a selection fetches per segment (limit + offset)
 from pinot_tpu_torch.ops._cuda import TOPN_MAX_K
@@ -53,6 +64,7 @@ from pinot_tpu_torch.query.results import (
     AggregationResult, DistinctResult, ExecutionStats, GroupByResult,
     SelectionResult)
 from pinot_tpu_torch.segment.loader import ImmutableSegment
+from pinot_tpu_torch.utils.config import PinotConfiguration
 
 MAX_DEVICE_GROUPS = 1 << 20
 #: cap on the [S, G, slots] group-by result buffer
@@ -82,13 +94,16 @@ class NotOffloadable(NotImplementedError):
 
 
 class TorchOperatorExecutor:
-    """Plans, stages and runs aggregation queries on one device.
+    """Plans, stages and runs aggregation queries on one device; safe to
+    call from many threads at once.
 
     value_dtype: float32 (the card's default: f32 value blocks, exact int
     sums through isum planes) or float64 (f64 blocks, no isum).
-    startree: answer aggregations from fitted star-trees (the JAX engine's
-    `pinot.server.startree.enabled`); a query opts out with
-    OPTION(useStarTree=false).
+    config: a utils.config.PinotConfiguration; the engine reads the
+    `pinot.server.dispatch.*` keys (its dispatch ring) and
+    `pinot.server.startree.enabled` (answer aggregations from fitted
+    star-trees; a query opts out with OPTION(useStarTree=false)).
+    metrics_labels: labels of the dispatcher's meters and timers.
     """
 
     #: budget of the staged-block cache, which keeps each (segment batch,
@@ -96,14 +111,23 @@ class TorchOperatorExecutor:
     CACHE_BYTES = 16 << 30
     #: star-tree selection masks kept per (segment batch, plan, filter)
     PARAMS_CACHE_ENTRIES = 4096
+    #: hard backstop on one wait for a launch's result
+    LAUNCH_WAIT_CAP_S = dispatch_mod.DEFAULT_WAIT_CAP_S
 
     def __init__(self, device="cuda", value_dtype=torch.float32,
-                 startree: bool = True):
+                 config: Optional[PinotConfiguration] = None,
+                 metrics_labels: Optional[Dict[str, str]] = None):
         self.device = torch.device(device)
         if value_dtype not in (torch.float32, torch.float64):
             raise ValueError(f"value dtype {value_dtype} is not float32/64")
         self.value_dtype = value_dtype
-        self._startree_enabled = startree
+        cfg = config or PinotConfiguration()
+        self._startree_enabled = cfg.get_bool(
+            "pinot.server.startree.enabled", True)
+        #: plan and stage mutate the block and parameter caches and the
+        #: meters, so they run under this lock; launches and fetches run
+        #: outside it, on the dispatcher
+        self._engine_lock = threading.RLock()
         self._blocks: "OrderedDict[tuple, Tuple[tuple, torch.Tensor]]" = \
             OrderedDict()
         self._cached = 0
@@ -111,10 +135,31 @@ class TorchOperatorExecutor:
         #: the JAX engine's meters, keyed (name, reason):
         #: ("startree_served", None) and ("startree_fallback", <reason>)
         self.meters: Counter = Counter()
-        #: host-clock split of the last execute (ms): plan (capability
-        #: check + plan), stage (block cache + leaf parameters),
-        #: kernel_fetch (launch to the result on the host), assemble
-        self.last_stage_ms: Dict[str, float] = {}
+        self._dispatcher = dispatch_mod.KernelDispatcher(
+            config=cfg, labels=metrics_labels)
+        #: shape-bucket coalescing across tables: the segment axis pads to
+        #: a power of two so equal plans over other tables share a key;
+        #: only where a batch can form at all, and for doc buckets up to
+        #: doc.bucket.max (a larger D keeps the same-batch key)
+        self._cross_table = (
+            cfg.get_bool("pinot.server.dispatch.batch.cross.table", True)
+            and self._dispatcher.mode != "serialized"
+            and self._dispatcher.batch_max > 1)
+        self._doc_bucket_max = cfg.get_int(
+            "pinot.server.dispatch.doc.bucket.max")
+        self._tls = threading.local()
+
+    @property
+    def last_stage_ms(self) -> Dict[str, float]:
+        """Host-clock split (ms) of this thread's last execute: plan
+        (capability check, lock wait and plan), stage (block cache and
+        leaf parameters), kernel_fetch (submit to the result on the host,
+        the ring's queue wait included), assemble."""
+        return getattr(self._tls, "stage_ms", {})
+
+    @property
+    def dispatcher(self) -> dispatch_mod.KernelDispatcher:
+        return self._dispatcher
 
     @property
     def _vdt(self):
@@ -242,76 +287,214 @@ class TorchOperatorExecutor:
     # ------------------------------------------------------------------
     # execution
     # ------------------------------------------------------------------
-    def execute(self, segments: List[ImmutableSegment],
-                ctx: QueryContext) -> List[Any]:
+    def execute(self, segments: List[ImmutableSegment], ctx: QueryContext,
+                cancel_check=None) -> List[Any]:
         """Per-segment AggregationResult / GroupByResult / SelectionResult
         / DistinctResult, in segment order. Raises NotOffloadable (a
         NotImplementedError) naming what the query or the batch needs
-        beyond this slice."""
+        beyond this slice. cancel_check: polled while the launch waits in
+        the ring; what it raises (BrokerTimeoutError, QueryCancelledError)
+        fails the query before its kernel runs."""
         t0 = time.perf_counter()
         why = self.missing_feature(ctx)
         if why is not None:
             raise NotOffloadable(why)
         if not segments:
-            self.last_stage_ms = {}
+            self._tls.stage_ms = {}
             return []
-        if not ctx.aggregations and not ctx.distinct and ctx.filter is None \
-                and not ctx.order_by:
+        if _first_docs(ctx):
             t1 = time.perf_counter()
             out = [executor_cpu.select_first(seg, ctx) for seg in segments]
-            self.last_stage_ms = {"plan": (t1 - t0) * 1e3, "stage": 0.0,
+            self._tls.stage_ms = {"plan": (t1 - t0) * 1e3, "stage": 0.0,
                                   "kernel_fetch": 0.0,
                                   "assemble": (time.perf_counter() - t1)
                                   * 1e3}
             return out
-        st = None
-        if ctx.distinct:
-            # DISTINCT d1..dk = a presence-only GROUP BY d1..dk on K2 (ref
-            # DistinctOperator; dictionary-based distinct)
-            ctx = _distinct_context(ctx)
-            plan, _slots = self._plan(segments, ctx)
-            kernel = kernels.make_kernel(plan, self.value_dtype)
-
-            def assemble(packed):
-                return self._assemble_distinct(segments, ctx, plan, packed)
-        elif not ctx.aggregations:
-            plan = self._plan_topn(segments, ctx)
-            kernel = kernels.make_topn_kernel(plan, self.value_dtype)
-
-            def assemble(packed):
-                return self._assemble_topn(segments, ctx, packed)
-        elif (st := self._plan_startree(segments, ctx)) is not None:
-            # the star-tree leg first: any fallback reason drops through to
-            # the scan path below
-            plan, needed, fits = st
-            kernel = startree_device.make_startree_kernel(plan,
-                                                          self.value_dtype)
-
-            def assemble(packed):
-                return startree_device.assemble(segments, ctx, plan, needed,
-                                                fits, packed)
-        else:
-            plan, slots_of_fn = self._plan(segments, ctx)
-            kernel = kernels.make_kernel(plan, self.value_dtype)
-
-            def assemble(packed):
-                return self._assemble(segments, ctx, plan, packed,
-                                      slots_of_fn)
-        t1 = time.perf_counter()
-        if st is not None:
-            cols, params, num_docs, D = self._stage_startree(segments, ctx,
-                                                             plan, fits)
-        else:
-            cols, params, num_docs, D = self._stage(segments, ctx, plan)
-        t2 = time.perf_counter()
-        packed = kernel(cols, params, num_docs, D).cpu().numpy()
+        with self._dispatcher.active():
+            launch, assemble = self._prepare(segments, ctx, cancel_check)
+            t2 = time.perf_counter()
+            packed = dispatch_mod.wait_result(
+                self._dispatcher.submit(launch), launch.cancel_check,
+                max_wait_s=self.LAUNCH_WAIT_CAP_S)
         t3 = time.perf_counter()
         out = assemble(packed)
-        self.last_stage_ms = {"plan": (t1 - t0) * 1e3,
+        t1 = self._tls.planned
+        self._tls.stage_ms = {"plan": (t1 - t0) * 1e3,
                               "stage": (t2 - t1) * 1e3,
                               "kernel_fetch": (t3 - t2) * 1e3,
                               "assemble": (time.perf_counter() - t3) * 1e3}
         return out
+
+    def execute_async(self, segments: List[ImmutableSegment],
+                      ctx: QueryContext, cancel_check=None) -> Future:
+        """Future of execute's results: an aggregation stages on the
+        dispatch staging pool and its launch rides the ring, so the caller
+        runs on while query N+1 stages beside query N's kernel. Other
+        shapes (top-N, DISTINCT, first docs) and serialized mode run
+        inline on the caller, as execute does (JAX :1273)."""
+        if ctx.distinct or not ctx.aggregations \
+                or self._dispatcher.mode == "serialized":
+            fut: Future = Future()
+            try:
+                fut.set_result(self.execute(segments, ctx, cancel_check))
+            except BaseException as e:  # noqa: BLE001 — the future carries it
+                fut.set_exception(e)
+            return fut
+        out: Future = Future()
+        self._dispatcher.enter_active()
+        out.add_done_callback(lambda _f: self._dispatcher.exit_active())
+
+        def stage_and_enqueue():
+            try:
+                why = self.missing_feature(ctx)
+                if why is not None:
+                    raise NotOffloadable(why)
+                if not segments:
+                    out.set_result([])
+                    return
+                launch, assemble = self._prepare(segments, ctx, cancel_check)
+
+                def finish(f):
+                    try:
+                        # a done-callback: f is resolved
+                        out.set_result(assemble(f.result(timeout=0)))
+                    except BaseException as e:  # noqa: BLE001
+                        out.set_exception(e)
+
+                self._dispatcher.submit(launch).add_done_callback(finish)
+            except BaseException as e:  # noqa: BLE001
+                out.set_exception(e)
+
+        dispatch_mod.staging_pool().submit(stage_and_enqueue)
+        return out
+
+    def warm_batches(self, segments, ctx: QueryContext) -> None:
+        """Build the batched kernels of the query's plan for every batch
+        bucket the ring can form (B a power of two up to batch.max, and
+        for dedup U from 2 up to B), so steady-state traffic builds
+        nothing (the JAX bench's `warm_buckets`)."""
+        if ctx.distinct:
+            ctx = _distinct_context(ctx)
+        with self._engine_lock:
+            if ctx.aggregations:
+                plan, _slots = self._plan(segments, ctx)
+            else:
+                plan = self._plan_topn(segments, ctx)
+        vdt, B = self.value_dtype, 2
+        while B <= dispatch_mod._pow2(self._dispatcher.batch_max):
+            if plan.mode == "topn":
+                kernels.make_batched_topn_kernel(plan, B, vdt)
+            else:
+                kernels.make_batched_kernel(plan, B, vdt)
+                for k in range(1, B.bit_length()):
+                    kernels.make_batched_dedup_kernel(plan, B, 1 << k, vdt)
+            B *= 2
+
+    def _prepare(self, segments, ctx: QueryContext, cancel_check):
+        """Plan and stage under the engine lock: (the Launch, the function
+        that assembles its packed result). Records the clock after
+        planning in `self._tls.planned`, and how much of this staging ran
+        while another launch was in flight (`staging_overlap_ms`)."""
+        busy0 = self._dispatcher.busy_ms()
+        with self._engine_lock:
+            if ctx.distinct:
+                prepared = self._prepare_agg(segments, ctx, cancel_check,
+                                             distinct=True)
+            elif not ctx.aggregations:
+                prepared = self._prepare_topn(segments, ctx, cancel_check)
+            else:
+                # the star-tree leg first: any fallback reason drops
+                # through to the scan path
+                prepared = self._prepare_startree(segments, ctx,
+                                                  cancel_check) \
+                    or self._prepare_agg(segments, ctx, cancel_check)
+        overlap = self._dispatcher.busy_ms() - busy0
+        if overlap > 0:
+            self._dispatcher.observe("staging_overlap_ms", overlap)
+        return prepared
+
+    def _prepare_agg(self, segments, ctx: QueryContext, cancel_check,
+                     distinct: bool = False):
+        """An aggregation, or a DISTINCT as a presence-only group-by (ref
+        DistinctOperator; JAX `_execute_distinct`), on K1-K3; caller
+        holds the engine lock."""
+        if distinct:
+            ctx = _distinct_context(ctx)
+        plan, slots_of_fn = self._plan(segments, ctx)
+        self._tls.planned = time.perf_counter()
+        vdt = self.value_dtype
+        launch = self._launch(
+            segments, ctx, plan, kernels.make_kernel(plan, vdt),
+            lambda B: kernels.make_batched_kernel(plan, B, vdt),
+            lambda B, U: kernels.make_batched_dedup_kernel(plan, B, U, vdt),
+            cancel_check, "distinct" if distinct else "agg")
+        if distinct:
+            return launch, lambda packed: self._assemble_distinct(
+                segments, ctx, plan, packed)
+        return launch, lambda packed: self._assemble(
+            segments, ctx, plan, packed, slots_of_fn)
+
+    def _prepare_topn(self, segments, ctx: QueryContext, cancel_check):
+        """A selection as a per-segment top-K on K4 (JAX `_prepare_topn`:
+        no dedup form); caller holds the engine lock."""
+        plan = self._plan_topn(segments, ctx)
+        self._tls.planned = time.perf_counter()
+        vdt = self.value_dtype
+        launch = self._launch(
+            segments, ctx, plan, kernels.make_topn_kernel(plan, vdt),
+            lambda B: kernels.make_batched_topn_kernel(plan, B, vdt), None,
+            cancel_check, "topn")
+        return launch, lambda packed: self._assemble_topn(segments, ctx,
+                                                          packed)
+
+    def _prepare_startree(self, segments, ctx: QueryContext, cancel_check):
+        """The star-tree leg on K5, or None with the fallback reason
+        counted. Its launch rides the ring unbatched (batch_key None: the
+        batched star-tree kernel is a later slice); caller holds the
+        engine lock."""
+        st = self._plan_startree(segments, ctx)
+        if st is None:
+            return None
+        plan, needed, fits = st
+        self._tls.planned = time.perf_counter()
+        kernel = startree_device.make_startree_kernel(plan, self.value_dtype)
+        cols, params, num_docs, D = self._stage_startree(segments, ctx, plan,
+                                                         fits)
+        launch = dispatch_mod.Launch(
+            call=lambda: kernel(cols, params, num_docs, D),
+            cols=cols, params=params, num_docs=num_docs, D=D,
+            batch_key=None, cols_key=(_batch_key(segments),
+                                      tuple(f.ti for f in fits)),
+            cancel_check=cancel_check,
+            site_ctx={"table": ctx.table, "mode": "startree"},
+            docs=sum(s.num_docs for s in segments))
+        return launch, lambda packed: startree_device.assemble(
+            segments, ctx, plan, needed, fits, packed)
+
+    def _launch(self, segments, ctx: QueryContext, plan: DevicePlan, kernel,
+                factory, dedup_factory, cancel_check, mode: str
+                ) -> dispatch_mod.Launch:
+        """Stage a K1-K4 plan and wrap it for the ring, with its coalesce
+        key: (plan, padded S, D, G, staged-array signature) for doc
+        buckets up to doc.bucket.max, so equal plans over other tables
+        share it; the same segment batch only above (JAX :500-527)."""
+        cols, params, num_docs, D = self._stage(segments, ctx, plan)
+        G = plan.num_groups
+        batch_key = None
+        if self._dispatcher.batch_max > 1:
+            if self._cross_table and D <= self._doc_bucket_max:
+                batch_key = (plan, int(num_docs.shape[0]), D, G,
+                             _shape_sig(cols, params))
+            else:
+                batch_key = (plan, _batch_key(segments), D, G)
+        return dispatch_mod.Launch(
+            call=lambda: kernel(cols, params, num_docs, D),
+            cols=cols, params=params, num_docs=num_docs, D=D, G=G,
+            batch_key=batch_key, cols_key=_batch_key(segments),
+            factory=factory, dedup_factory=dedup_factory,
+            cancel_check=cancel_check,
+            site_ctx={"table": ctx.table, "mode": mode},
+            docs=sum(s.num_docs for s in segments))
 
     @staticmethod
     def _make_classifier(seg0):
@@ -688,12 +871,21 @@ class TorchOperatorExecutor:
     # ------------------------------------------------------------------
     # staging
     # ------------------------------------------------------------------
+    def _padded_S(self, S_real: int, D: int) -> int:
+        """The segment axis: a power of two where cross-table coalescing
+        is on and D is within doc.bucket.max, so equal plans over other
+        tables land in one shape bucket (padded segments carry num_docs 0
+        and zero rows, which every kernel reads as empty); else S_real."""
+        if self._cross_table and D <= self._doc_bucket_max:
+            return _pow2(S_real, floor=1)
+        return S_real
+
     def _stage(self, segments, ctx: QueryContext, plan: DevicePlan):
-        S = len(segments)
         if max(s.num_docs for s in segments) > MAX_DOCS_PER_SEGMENT:
             raise NotOffloadable(
                 f"segment above {MAX_DOCS_PER_SEGMENT} docs")
         D = _pow2(max(s.num_docs for s in segments))
+        S = self._padded_S(len(segments), D)
         vdt = self._vdt
         cols: Dict[str, torch.Tensor] = {}
         for col in plan.dict_cols:
@@ -703,20 +895,20 @@ class TorchOperatorExecutor:
             idt = np.int8 if card <= 127 else \
                 np.int16 if card <= 32767 else np.int32
             cols["ids:" + col] = self._block(
-                segments, D, col, "ids",
+                segments, S, D, col, "ids",
                 lambda ds, _t=idt: ds.dict_ids().astype(_t), idt)
         for col in plan.raw_cols:
             self._check_value_precision(segments, col)
             cols["val:" + col] = self._block(
-                segments, D, col, "val", lambda ds: ds.values().astype(vdt),
-                vdt)
+                segments, S, D, col, "val",
+                lambda ds: ds.values().astype(vdt), vdt)
         for col in plan.raw64_cols:
             cols["valhi:" + col] = self._block(
-                segments, D, col, "valhi",
+                segments, S, D, col, "valhi",
                 lambda ds: (ds.values().astype(np.int64) >> 24
                             ).astype(np.int32), np.int32)
             cols["vallo:" + col] = self._block(
-                segments, D, col, "vallo",
+                segments, S, D, col, "vallo",
                 lambda ds: (ds.values().astype(np.int64) & 0xFFFFFF
                             ).astype(np.int32), np.int32)
         # value columns of dictionary columns stage MATERIALIZED values
@@ -732,9 +924,9 @@ class TorchOperatorExecutor:
                 if vals.dtype.kind not in "iuf":
                     raise NotOffloadable(f"non-numeric values of {col}")
                 return vals.astype(vdt)
-            cols["val:" + col] = self._block(segments, D, col, "val",
+            cols["val:" + col] = self._block(segments, S, D, col, "val",
                                              fetch_values, vdt)
-        params = self._leaf_params(segments, ctx, plan)
+        params = self._leaf_params(segments, ctx, plan, S)
         # histogram slots: bucket bounds from the batch's metadata; B / span
         # in Python double, rounded once to the value dtype
         for j, (op, vidx, _f) in enumerate(plan.agg_ops):
@@ -742,12 +934,13 @@ class TorchOperatorExecutor:
                 lo, span = self._hist_bounds(segments,
                                              plan.value_irs[vidx][1])
                 B = kernels.slot_width(op)
-                params[f"slot{j}:hlo"] = torch.from_numpy(
-                    np.full(S, lo, dtype=vdt)).to(self.device)
-                params[f"slot{j}:hscale"] = torch.from_numpy(
-                    np.full(S, B / span, dtype=vdt)).to(self.device)
-        num_docs = torch.tensor([s.num_docs for s in segments],
-                                dtype=torch.int32).to(self.device)
+                params[f"slot{j}:hlo"] = self._upload(
+                    np.full(S, lo, dtype=vdt))
+                params[f"slot{j}:hscale"] = self._upload(
+                    np.full(S, B / span, dtype=vdt))
+        num_docs = self._upload(np.array(
+            [s.num_docs for s in segments] + [0] * (S - len(segments)),
+            dtype=np.int32))
         return cols, params, num_docs, D
 
     @staticmethod
@@ -764,11 +957,12 @@ class TorchOperatorExecutor:
             hi = max(hi, float(m.max_value))
         return lo, max(hi - lo, 1e-30)
 
-    def _leaf_params(self, segments, ctx: QueryContext,
-                     plan: DevicePlan) -> Dict[str, torch.Tensor]:
+    def _leaf_params(self, segments, ctx: QueryContext, plan: DevicePlan,
+                     S_pad: int) -> Dict[str, torch.Tensor]:
         """Per-leaf kernel parameters, resolved per segment against its
         dictionary (leaves in _plan's order: main filter, then each
-        distinct agg FILTER tree)."""
+        distinct agg FILTER tree), zero rows for the S_pad - S padded
+        segments."""
         S = len(segments)
         vdt = self._vdt
         leaf_exprs: List[Function] = []
@@ -833,8 +1027,22 @@ class TorchOperatorExecutor:
                         table[s, :card] = True
                         table[s, p.ids] = False
                 out[f"leaf{i}:lut"] = table
-        return {k: torch.from_numpy(v).to(self.device)
+        pad = S_pad - S
+        return {k: self._upload(np.concatenate(
+                    [v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+                    if pad else v)
                 for k, v in out.items()}
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A small per-query array (leaf parameters, doc counts) on the
+        device. To the card it goes through pinned memory without
+        blocking: a pageable copy would wait for every launch queued on
+        the stream, so staging could not overlap another query's
+        kernel."""
+        t = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _check_value_precision(self, segments, col: str) -> None:
         """float32 staging is exact only for integers with |v| <= 2^24;
@@ -853,24 +1061,30 @@ class TorchOperatorExecutor:
                     f"int column {col} beyond 2^24 under float32 values "
                     "(host executor)")
 
-    def _block(self, segments, D, col, kind, fetch, dtype) -> torch.Tensor:
+    def _block(self, segments, S, D, col, kind, fetch,
+               dtype) -> torch.Tensor:
         """The [S, D] device block of one column (see _cached_block)."""
         def row(_s, seg):
             if not seg.has_column(col):
                 raise NotOffloadable(f"column {col} missing in {seg.name}")
             return fetch(seg.data_source(col))
-        return self._cached_block(segments, D, (kind, col), dtype, row)
+        return self._cached_block(segments, D, (kind, col), dtype, row, S)
 
-    def _cached_block(self, segments, D, what, dtype, row) -> torch.Tensor:
+    def _cached_block(self, segments, D, what, dtype, row,
+                      S: Optional[int] = None) -> torch.Tensor:
         """The [S, D] device block `what` of a segment batch, row(s, seg)
-        zero-padded, from the staged-block cache when this exact segment
-        batch staged it before."""
-        key = (_batch_key(segments), what, D, np.dtype(dtype).str)
+        zero-padded (S rows, len(segments) by default: rows past the
+        segments are zero), from the staged-block cache when this exact
+        segment batch staged it before. Eviction only drops the cache's
+        reference: every launch, copy and fetch is on one stream, so the
+        allocator reuses the memory only after a queued kernel read it."""
+        S = len(segments) if S is None else S
+        key = (_batch_key(segments), what, S, D, np.dtype(dtype).str)
         hit = self._blocks.get(key)
         if hit is not None and all(a is b for a, b in zip(hit[0], segments)):
             self._blocks.move_to_end(key)
             return hit[1]
-        block = np.zeros((len(segments), D), dtype=dtype)
+        block = np.zeros((S, D), dtype=dtype)
         for s, seg in enumerate(segments):
             r = row(s, seg)
             block[s, :len(r)] = r
@@ -947,9 +1161,9 @@ class TorchOperatorExecutor:
             self._params_cache.move_to_end(pkey)
             return cols, dict(hit[1]), hit[2], D
         sel = startree_device.selection_mask(fits, S, D)
-        params = {"sel": torch.from_numpy(sel).to(self.device)}
-        num_docs = torch.tensor([int(f.tree.meta.num_records) for f in fits],
-                                dtype=torch.int32).to(self.device)
+        params = {"sel": self._upload(sel)}
+        num_docs = self._upload(np.array(
+            [int(f.tree.meta.num_records) for f in fits], dtype=np.int32))
         self._params_cache[pkey] = (tuple(segments), dict(params), num_docs)
         while len(self._params_cache) > self.PARAMS_CACHE_ENTRIES:
             self._params_cache.popitem(last=False)
@@ -1060,8 +1274,31 @@ class TorchOperatorExecutor:
 
 def _batch_key(segments) -> tuple:
     """A segment batch's identity in the block and params caches (hits are
-    confirmed by object identity)."""
+    confirmed by object identity), and the dispatcher's `cols_key` (JAX
+    `_batch_id` :3147, `_cols_key` :2261: the port stages no upsert
+    validity mask)."""
     return tuple((id(s), s.name) for s in segments)
+
+
+def _shape_sig(cols: Dict[str, torch.Tensor],
+               params: Dict[str, torch.Tensor]) -> tuple:
+    """The part of the coalesce key that plan, S, D and G leave open
+    across tables (JAX `_shape_sig` :3153): LUT widths pad to each table's
+    cardinality and id blocks stage at cardinality-chosen widths, so equal
+    plans can still stage different shapes or dtypes. Equal signatures
+    guarantee the members' tensors agree leaf for leaf, the LUT width C
+    included."""
+    return (tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                         for k, v in cols.items())),
+            tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                         for k, v in params.items())))
+
+
+def _first_docs(ctx: QueryContext) -> bool:
+    """A selection with neither a filter nor an ORDER BY: the host's
+    first-docs scan, no device launch."""
+    return not ctx.aggregations and not ctx.distinct \
+        and ctx.filter is None and not ctx.order_by
 
 
 def _segment_stats(seg, ctx: QueryContext, matched: int,

@@ -60,8 +60,10 @@ layout.
 from __future__ import annotations
 
 import functools
+import hashlib
+import threading
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -119,6 +121,45 @@ MAX_SKETCH_SLOTS = 8
 #: block may opt into): one HLL at log2m 12 (4096) and one 8192-bucket
 #: histogram fit, log2m 16 (65536) goes to global atomics
 SKETCH_SMEM_WORDS = 24576
+
+
+# ---------------------------------------------------------------------------
+# codegen odometer: the port's counterpart of the JAX package's trace count
+# (pinot_tpu/ops/kernels.py:46-85). The CUDA kernels are built once; what a
+# new plan or batch shape costs is a program compiled here (a compile_plan
+# cache miss) or a batched factory built (ops/kernels.py, cached per plan,
+# B and U). The dispatch ring meters the delta as `kernel_retrace`, so
+# steady-state traffic over warmed plans and batch buckets keeps it flat.
+# ---------------------------------------------------------------------------
+_trace_lock = threading.Lock()
+_trace_count = 0
+_trace_by_plan: Dict[str, int] = {}
+
+
+def note_trace(plan_fp: str = "") -> None:
+    global _trace_count
+    with _trace_lock:
+        _trace_count += 1
+        if plan_fp:
+            _trace_by_plan[plan_fp] = _trace_by_plan.get(plan_fp, 0) + 1
+
+
+def trace_count() -> int:
+    with _trace_lock:
+        return _trace_count
+
+
+def trace_count_by_plan() -> Dict[str, int]:
+    """Codegens per plan fingerprint (a snapshot)."""
+    with _trace_lock:
+        return dict(_trace_by_plan)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_fingerprint(plan) -> str:
+    """Short stable id of a plan's structure: the `plan` label of the
+    kernel_retrace_by_plan meter (repr of the frozen dataclass)."""
+    return hashlib.sha1(repr(plan).encode()).hexdigest()[:12]
 
 
 @dataclass(frozen=True)
@@ -376,6 +417,7 @@ def compile_plan(plan: DevicePlan) -> Program:
     code[H_COLDT] = sections["coldt"]
     code[H_LUTC] = sections["lutc"]
     code[H_LEN] = len(code)
+    note_trace(plan_fingerprint(plan))
     return Program(code=tuple(code), cols=tuple(cols), luts=tuple(luts),
                    params=tuple(params), n_acc=len(accs),
                    out_width=code[H_OUTW], sketch_smem_words=smem)

@@ -1,0 +1,134 @@
+"""Deterministic failpoint (chaos) registry.
+
+A trimmed copy of pinot_tpu/utils/failpoints.py: named sites compiled into
+the code as ``fire("site.name", **ctx)``; an unarmed site costs one dict
+lookup. A policy is armed per site with seeded, replayable behaviour:
+
+  failpoints.arm("server.dispatch.before", delay=0.25, times=2)
+  failpoints.arm(site, error=FailpointError("chaos"), probability=0.5,
+                 seed=7)
+  failpoints.arm(site, delay=0.1, where={"table": "t1"})
+
+Every matched hit appends (fired, delay) to the policy's ``decisions``, so
+two runs with the same seed can be asserted identical.
+"""
+from __future__ import annotations
+
+import random
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+#: the sites the port fires, with the reference catalog's contracts
+SITES: Dict[str, str] = {
+    "server.dispatch.before":
+        "kernel dispatch (ring + inline paths)",
+    "server.dispatch.batch":
+        "per MEMBER inside the coalesced-batch path (ctx: table, mode, "
+        "batch_size) — an erroring member fails only its own future; "
+        "peers stay batched and complete",
+}
+
+
+class FailpointError(RuntimeError):
+    """Default error of an armed policy."""
+
+
+class Failpoint:
+    """One armed policy: action, trigger discipline, decision log."""
+
+    def __init__(self, site: str, delay: float = 0.0,
+                 error: Optional[BaseException] = None,
+                 times: Optional[int] = None, probability: float = 1.0,
+                 seed: int = 0, where: Optional[Dict[str, Any]] = None):
+        self.site = site
+        self.delay = float(delay)
+        self.error = error
+        self.times = times
+        self.probability = float(probability)
+        self.where = dict(where or {})
+        # private seeded PRNG: decision N depends only on (seed, N)
+        self._rng = random.Random(seed)
+        self._lock = threading.Lock()
+        self.decisions: List[Tuple[bool, float]] = []
+        self.hits = 0
+        self.fired = 0
+
+    def apply(self, ctx: Dict[str, Any]) -> None:
+        with self._lock:
+            if not all(ctx.get(k) == v for k, v in self.where.items()):
+                return
+            self.hits += 1
+            if self.times is not None and self.fired >= self.times:
+                self.decisions.append((False, 0.0))
+                return
+            # the PRNG advances once per matched hit, fired or not
+            if self._rng.random() >= self.probability:
+                self.decisions.append((False, 0.0))
+                return
+            self.fired += 1
+            wait = self.delay
+            self.decisions.append((True, wait))
+        if wait:
+            time.sleep(wait)
+        if self.error is not None:
+            raise self.error
+
+
+class FailpointRegistry:
+    """Process-wide site registry: a site fires wherever the code runs."""
+
+    def __init__(self):
+        self._sites: Dict[str, List[Failpoint]] = {}
+        self._lock = threading.Lock()
+
+    def arm(self, site: str, **kwargs) -> Failpoint:
+        fp = Failpoint(site, **kwargs)
+        with self._lock:
+            self._sites.setdefault(site, []).append(fp)
+        return fp
+
+    def disarm(self, site: str) -> None:
+        with self._lock:
+            self._sites.pop(site, None)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._sites.clear()
+
+    def armed(self, site: str, **kwargs) -> "_Armed":
+        """``with failpoints.armed(site, delay=1): ...``"""
+        return _Armed(self, site, kwargs)
+
+    def hit(self, site: str, **ctx) -> None:
+        # unarmed cost: one dict lookup; arm/disarm replace the list
+        # under the lock and the copy below tolerates a concurrent disarm
+        fps = self._sites.get(site)
+        if not fps:
+            return
+        for fp in list(fps):
+            fp.apply(ctx)
+
+
+class _Armed:
+    def __init__(self, registry: FailpointRegistry, site: str, kwargs: dict):
+        self._registry = registry
+        self._site = site
+        self._kwargs = kwargs
+        self.failpoint: Optional[Failpoint] = None
+
+    def __enter__(self) -> Failpoint:
+        self.failpoint = self._registry.arm(self._site, **self._kwargs)
+        return self.failpoint
+
+    def __exit__(self, *exc) -> None:
+        with self._registry._lock:
+            fps = self._registry._sites.get(self._site)
+            if fps and self.failpoint in fps:
+                fps.remove(self.failpoint)
+                if not fps:
+                    del self._registry._sites[self._site]
+
+
+failpoints = FailpointRegistry()
+fire = failpoints.hit

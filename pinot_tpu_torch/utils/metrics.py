@@ -1,0 +1,110 @@
+"""Meters, gauges and timers with labels: a trimmed copy of
+pinot_tpu/utils/metrics.py's `MetricsRegistry` (no exposition).
+
+The dispatch ring writes `dispatch_batch_size` (a timer whose values are
+batch sizes: its `max_ms` is the largest batch), the meters
+`dispatch_batch_cross_table`, `dispatch_batch_dedup`, `kernel_retrace`
+and `kernel_retrace_by_plan`, the timer `staging_overlap_ms` and the
+gauge `dispatch_queue_depth`.
+"""
+from __future__ import annotations
+
+import random
+import threading
+from collections import defaultdict
+from typing import Dict, List, Optional, Tuple
+
+_Key = Tuple[str, Tuple[Tuple[str, str], ...]]
+
+
+def _key(name: str, labels: Optional[Dict[str, str]]) -> _Key:
+    return (name, tuple(sorted((labels or {}).items())))
+
+
+class Timer:
+    """count / sum / max, and a fixed-size reservoir of samples
+    (Vitter's algorithm R)."""
+
+    RESERVOIR_SIZE = 256
+
+    def __init__(self):
+        self.count = 0
+        self.total_ms = 0.0
+        self.max_ms = 0.0
+        self._reservoir: List[float] = []
+        self._rng = random.Random(0x5EED)
+
+    def update(self, ms: float) -> None:
+        self.count += 1
+        self.total_ms += ms
+        self.max_ms = max(self.max_ms, ms)
+        if len(self._reservoir) < self.RESERVOIR_SIZE:
+            self._reservoir.append(ms)
+        else:
+            j = self._rng.randrange(self.count)
+            if j < self.RESERVOIR_SIZE:
+                self._reservoir[j] = ms
+
+    def snapshot(self) -> "Timer":
+        t = Timer()
+        t.count, t.total_ms, t.max_ms = self.count, self.total_ms, \
+            self.max_ms
+        t._reservoir = list(self._reservoir)
+        return t
+
+
+class MetricsRegistry:
+    """Thread-safe meters (counters), gauges and timers."""
+
+    def __init__(self, role: str = "server"):
+        self.role = role
+        self._meters: Dict[_Key, float] = defaultdict(float)
+        self._gauges: Dict[_Key, float] = {}
+        self._timers: Dict[_Key, Timer] = defaultdict(Timer)
+        self._lock = threading.Lock()
+
+    def add_meter(self, name: str, value: float = 1,
+                  labels: Optional[Dict[str, str]] = None) -> None:
+        with self._lock:
+            self._meters[_key(name, labels)] += value
+
+    def set_gauge(self, name: str, value: float,
+                  labels: Optional[Dict[str, str]] = None) -> None:
+        with self._lock:
+            self._gauges[_key(name, labels)] = value
+
+    def add_timing(self, name: str, ms: float,
+                   labels: Optional[Dict[str, str]] = None) -> None:
+        with self._lock:
+            self._timers[_key(name, labels)].update(ms)
+
+    def meter(self, name: str,
+              labels: Optional[Dict[str, str]] = None) -> float:
+        with self._lock:
+            return self._meters.get(_key(name, labels), 0.0)
+
+    def gauge(self, name: str,
+              labels: Optional[Dict[str, str]] = None) -> Optional[float]:
+        with self._lock:
+            return self._gauges.get(_key(name, labels))
+
+    def timer(self, name: str,
+              labels: Optional[Dict[str, str]] = None) -> Timer:
+        """A detached copy of the timer (empty if never written)."""
+        with self._lock:
+            t = self._timers.get(_key(name, labels))
+            return t.snapshot() if t is not None else Timer()
+
+
+_registries: Dict[str, MetricsRegistry] = {}
+_registries_lock = threading.Lock()
+
+
+def get_registry(role: str = "server") -> MetricsRegistry:
+    """The process's registry of a role: one server's meters are read
+    across its engines, as the reference's role registries are."""
+    with _registries_lock:
+        reg = _registries.get(role)
+        if reg is None:
+            reg = _registries[role] = MetricsRegistry(role)
+        return reg

@@ -1,6 +1,8 @@
 """K1 scan_agg, K2 group_agg, K3 sketch_agg, K4 topn and K5 startree_agg on
 the card against their plain PyTorch versions on the card, over the seeded
-random plans of tests/torch_plans.py.
+random plans of tests/torch_plans.py; K1-K4's query axis (B members over U
+column sets) against the plain batched version and each member's own
+single launch; and 8 threads through one engine.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. On the card
 they run without the repo's conftest (which imports JAX):
@@ -14,16 +16,21 @@ once, in the same order: the kernels are built with --fmad=false), K4's
 whole [S, 1 + k] output bit-identical, K5's record counts, exact-sum
 planes and min / max bit-identical; float32
 sums within 1e-5 and float64 within 1e-9 of the slot's sum of
-|contribution| (both add in double, in other orders).
+|contribution| (both add in double, in other orders). A batched member
+equals its single launch bit for bit where the kernel reduces in a fixed
+order (K1, K3, K4); K2's float sums, which take the atomics' order, within
+the same tolerance.
 """
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 
 from pinot_tpu_torch.ops import _cuda
+from pinot_tpu_torch.ops import program as prog_mod
 from pinot_tpu_torch.ops import kernels as tk
 from pinot_tpu_torch.ops import startree_device as tsd
 from pinot_tpu_torch.ops.plan_ir import DevicePlan
@@ -225,3 +232,146 @@ def test_startree_kernel_one_block_per_segment_on_card(card, dims, D, x64):
                              tp.startree_abs_sums(fields, cols, params, nd,
                                                   D),
                              tp.F64_TOL if x64 else tp.F32_SUM_TOL)
+
+
+BATCH_KERNELS = {"scan": _cuda.SCAN_AGG, "group": _cuda.GROUP_AGG,
+                 "sketch": _cuda.SKETCH_AGG, "topn": _cuda.TOPN}
+BATCH_CASES = [(kind, B, form) for kind in BATCH_KERNELS for B in (2, 8)
+               for form in ("broadcast", "stacked", "dedup")]
+
+
+def _batch_inputs(card, kind, B, form, x64):
+    """B members (each its own literal set) over U column sets (each its
+    own data), two padded segments: (plan, spec, col_sets, plist, ndlist,
+    idx, D, value dtype)."""
+    seed = 5
+    spec = {"scan": lambda: tp.random_spec(seed, False),
+            "group": lambda: tp.random_spec(seed, True),
+            "sketch": lambda: tp.random_sketch_spec(seed),
+            "topn": lambda: tp.topn_spec(seed, "col", False, 100)}[kind]()
+    inputs = {"sketch": tp.sketch_inputs,
+              "topn": tp.topn_inputs}.get(kind, tp.random_inputs)
+    U = {"broadcast": 1, "stacked": B, "dedup": max(2, B // 2 - 1)}[form]
+    idx = [0] * B if form == "broadcast" else \
+        list(range(B)) if form == "stacked" else \
+        [(m + 1) % U for m in range(B)]
+    S, D = 6, 5000 + 37 * B
+    vnp = np.float64 if x64 else np.float32
+    sets = [tk.from_jax_staged(*inputs(seed + 101 * u, spec, S, D, vnp,
+                                       pad_segments=2), device=card)
+            for u in range(U)]
+    plist = [tk.from_jax_staged(*inputs(seed + 7 * m + 3, spec, S, D, vnp,
+                                        pad_segments=2), device=card)[1]
+             for m in range(B)]
+    return (DevicePlan(**spec), spec, [c for c, _p, _n in sets], plist,
+            [n for _c, _p, n in sets], idx, D,
+            torch.float64 if x64 else torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,B,form", BATCH_CASES)
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_batched_kernel_matches_plain_and_single_on_card(card, kind, B,
+                                                         form, x64):
+    """One launch of K1-K4 with B members, broadcast (U = 1), stacked
+    (U = B) or dedup (U < B): each member against the plain batched
+    version and its own single launch, the launch counted as batched."""
+    plan, spec, sets, plist, nds, idx, D, vdt = _batch_inputs(
+        card, kind, B, form, x64)
+    kern = BATCH_KERNELS[kind]
+    before = (kern.launches, kern.batched_launches, kern.batched_members)
+    out = tk.batched_kernel(plan, vdt)(sets, plist, nds, idx, D)
+    ref = tk.plain_batched_kernel(plan, vdt)(sets, plist, nds, idx, D)
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.batched_launches, kern.batched_members) \
+        == (before[0], before[1] + 1, before[2] + B)
+    assert out.shape == ref.shape and out.shape[0] == B
+    single_of = tk.make_topn_kernel(plan, vdt) if kind == "topn" \
+        else tk.make_kernel(plan, vdt)
+    for m, u in enumerate(idx):
+        single = single_of(sets[u], plist[m], nds[u], D)
+        if kind == "topn":
+            assert torch.equal(out[m], ref[m]), m
+            assert torch.equal(out[m], single), m
+            continue
+        scale = {j: v.cpu().numpy() for j, v in tk.abs_contributions(
+            plan, sets[u], plist[m], nds[u], D).items()}
+        got = out[m].cpu().numpy()
+        tp.assert_packed_equal(spec, ref[m].cpu().numpy(), got, scale, x64)
+        tp.assert_packed_equal(spec, single.cpu().numpy(), got, scale, x64)
+        if kind != "group":
+            assert np.array_equal(got, single.cpu().numpy(), equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_eight_threads_through_one_engine_on_card(card, tmp_path):
+    """8 threads through one engine: every answer equals the serial run's,
+    and the launch counters sum exactly to the dispatches the ring made
+    (single launches one each, batched ones their pow2 member count)."""
+    from pinot_tpu_torch.models import (DataType, FieldSpec, FieldType,
+                                        Schema, TableConfig)
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    from pinot_tpu_torch.segment.creator import SegmentCreator
+    from pinot_tpu_torch.segment.loader import load_segment
+    tc = TableConfig("t")
+    tc.indexing.no_dictionary_columns = ["m"]
+    creator = SegmentCreator(tc, Schema("t", [
+        FieldSpec("d", DataType.INT),
+        FieldSpec("m", DataType.INT, FieldType.METRIC)]))
+    rng = np.random.default_rng(3)
+    segs = []
+    for i in range(4):
+        out = str(tmp_path / f"s{i}")
+        creator.build({"d": rng.integers(0, 10, 200_000).astype(np.int32),
+                       "m": rng.integers(0, 100, 200_000).astype(np.int32)},
+                      out, f"s{i}")
+        segs.append(load_segment(out))
+    ex = QueryExecutor(segs)
+    agg = [f"SELECT SUM(m), COUNT(*), MAX(m) FROM t WHERE d < {k}"
+           for k in range(1, 9)]
+    top = [f"SELECT d, m FROM t WHERE d = {k} ORDER BY m DESC LIMIT 5"
+           for k in range(8)]
+    serial = {q: ex.execute(q).rows for q in agg + top}
+    disp = ex.engine.dispatcher
+    for queries, kern in ((agg, _cuda.SCAN_AGG), (top, _cuda.TOPN)):
+        jobs = queries * 4
+        stats0 = disp.stats()
+        c0 = (kern.launches, kern.batched_launches, kern.batched_members)
+        with ThreadPoolExecutor(8) as pool:
+            rows = list(pool.map(lambda q: ex.execute(q).rows, jobs,
+                                 timeout=300))
+        assert rows == [serial[q] for q in jobs]
+        stats = disp.stats()
+        stats.subtract(stats0)
+        sizes = {k[1]: v for k, v in stats.items()
+                 if isinstance(k, tuple) and v}
+        assert sum(n * c for n, c in sizes.items()) == len(jobs)
+        singles = kern.launches - c0[0]
+        assert singles == sizes.get(1, 0)
+        assert kern.batched_launches - c0[1] == \
+            sum(c for n, c in sizes.items() if n > 1)
+        assert kern.batched_members - c0[2] == \
+            sum((1 << (n - 1).bit_length()) * c
+                for n, c in sizes.items() if n > 1)
+
+
+@pytest.mark.cuda
+def test_batched_wrapper_rejects_members_that_disagree(card):
+    """Every member's tensors must share device, dtype and shape: a column
+    set of another dtype or shape, or a parameter of another dtype,
+    raises before anything launches."""
+    plan, spec, sets, plist, nds, idx, D, vdt = _batch_inputs(
+        card, "scan", 2, "stacked", False)
+    before = _cuda.SCAN_AGG.batched_launches
+    prog = prog_mod.compile_plan(plan)
+    name = prog.cols[0]                                    # read by the plan
+    key = next(k for k, _lit in prog.params if k)          # a [S] parameter
+    for bad_sets, bad_params in (
+            ([sets[0], {**sets[1], name: sets[1][name].double()}], plist),
+            ([sets[0], {**sets[1], name: sets[1][name][:, :-1].contiguous()}],
+             plist),
+            (sets, [plist[0], {**plist[1], key: plist[1][key].double()}])):
+        with pytest.raises(ValueError):
+            _cuda.scan_agg_batched(plan, bad_sets, bad_params, nds, idx, D,
+                                   vdt)
+    assert _cuda.SCAN_AGG.batched_launches == before

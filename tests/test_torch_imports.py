@@ -21,6 +21,8 @@ from pinot_tpu_torch.segment.creator import SegmentCreator
 from pinot_tpu_torch.segment.loader import load_segment
 from pinot_tpu_torch.query.executor import QueryExecutor
 import pinot_tpu_torch.ops._cuda, pinot_tpu_torch.ops.program
+import pinot_tpu_torch.ops.dispatch
+from pinot_tpu_torch.utils import accounting, config, failpoints, metrics
 d = tempfile.mkdtemp()
 SegmentCreator(TableConfig("t"), Schema("t", [FieldSpec("a", DataType.INT)])
                ).build({"a": np.arange(100, dtype=np.int32) % 7}, d, "s")
@@ -42,6 +44,16 @@ SegmentCreator(tc, Schema("u", [
 ex = QueryExecutor([load_segment(d2)], device="cpu")
 assert ex.execute("SELECT SUM(m) FROM u WHERE a = 3").rows == [(679.0,)]
 assert ex.engine.meter("startree_served") == 1
+from concurrent.futures import ThreadPoolExecutor
+from pinot_tpu_torch.query.context import QueryContext
+with ThreadPoolExecutor(4) as pool:
+    outs = list(pool.map(lambda k: ex.execute(
+        f"SELECT SUM(m) FROM u WHERE a > {k}").rows, range(4)))
+assert [o[0][0] for o in outs] == [sum(m for m in range(100) if m % 7 > k)
+                                   for k in range(4)], outs
+fut = ex.engine.execute_async(ex.segments, QueryContext.from_sql(
+    "SELECT COUNT(*) FROM u WHERE a < 3"))
+assert int(fut.result(timeout=60)[0].intermediates[0]) == 44
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "pinot_tpu")
              or m.startswith(("jax.", "jaxlib.", "pinot_tpu.")))
@@ -81,6 +93,24 @@ def test_port_sources_import_no_jax_and_no_pinot_tpu():
             for n in names:
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib", "pinot_tpu"), (path, n)
+
+
+def test_dispatch_modules_stand_alone():
+    """The dispatch ring and the utils it reads import nothing of JAX or
+    pinot_tpu, each in a fresh interpreter."""
+    for mod in ("pinot_tpu_torch.ops.dispatch", "pinot_tpu_torch.utils.config",
+                "pinot_tpu_torch.utils.failpoints",
+                "pinot_tpu_torch.utils.metrics",
+                "pinot_tpu_torch.utils.accounting"):
+        probe = (f"import sys, {mod}\n"
+                 "print('BAD', sorted(m for m in sys.modules if m in "
+                 "('jax', 'jaxlib', 'pinot_tpu') or m.startswith(('jax.', "
+                 "'jaxlib.', 'pinot_tpu.'))))")
+        out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                             env=_env(), capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode == 0, out.stderr
+        assert "BAD []" in out.stdout, (mod, out.stdout)
 
 
 def test_default_device_is_the_card():

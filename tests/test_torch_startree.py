@@ -61,6 +61,7 @@ from pinot_tpu_torch.query.executor import QueryExecutor
 from pinot_tpu_torch.query.startree_exec import _filter_id_sets
 from pinot_tpu_torch.segment.creator import SegmentCreator
 from pinot_tpu_torch.segment.loader import load_segment
+from pinot_tpu_torch.utils.config import PinotConfiguration
 
 from tests import test_startree_device as jst
 from tests import torch_plans as tp
@@ -384,16 +385,17 @@ def test_fallbacks_answer_through_the_scan_path(tables, sql, reason, x64):
 
 @POSTURES
 def test_engine_switch_disables_the_leg(tables, x64):
-    """TorchOperatorExecutor(startree=False), the JAX engine's
-    pinot.server.startree.enabled=false: the same rows through the scan
-    path, nothing served from the trees and no fallback counted."""
+    """pinot.server.startree.enabled=false in the port's configuration, as
+    in the JAX engine's: the same rows through the scan path, nothing
+    served from the trees and no fallback counted."""
     t = tables["st"]
     sql = "SELECT SUM(impressions), COUNT(*) FROM st WHERE browser = 'b2'"
     vdt = torch.float64 if x64 else torch.float32
     with jax.enable_x64(x64):
         scan = JaxExecutor(t["jax_plain"], use_tpu=False).execute(sql)
-    ex = QueryExecutor(t["port"], device="cpu", value_dtype=vdt)
-    ex.engine = TorchOperatorExecutor("cpu", vdt, startree=False)
+    ex = QueryExecutor(t["port"], device="cpu", value_dtype=vdt,
+                       config=PinotConfiguration(overrides={
+                           "pinot.server.startree.enabled": False}))
     port = ex.execute(sql)
     _assert_rows(scan, port, sql)
     assert port.stats.num_docs_scanned == scan.stats.num_docs_scanned
