@@ -93,8 +93,8 @@ Phases, each of which exits non-zero on failure:
    through one QueryExecutor per dispatch mode, `serialized` then
    `pipelined`, alternated twice in windows of WINDOW_S seconds, each
    client drawing seeded literal sets from its sub-leg's pool:
-   9a Q1.1-shaped queries on phase 4's 128M rows (D = 2^23 is above
-   doc.bucket.max: the same-batch key, broadcast batches); 9b
+   9a Q1.1-shaped queries on phase 4's 128M rows (D = 2^23 is above the
+   engine's DOC_BUCKET_MAX: the same-batch key, broadcast batches); 9b
    batching_main's three tables ssb_a / ssb_b / ssb_c at 16 x 750k, 16 x
    900k and 12 x 1M rows (one (S, D) bucket; 3 + 3 + 2 clients, so stacked
    and dedup batches both form), built after phase 7, with one held round
@@ -109,10 +109,15 @@ Phases, each of which exits non-zero on failure:
    alone. Per sub-leg and mode: QPS, per-query p50 / p99, the largest
    batch and the batched launches per variant, the card's busy share from
    a torch.profiler trace of one TRACE_S window, and peak device memory.
-   Fails if a pipelined sub-leg never formed a batch of 2 or more, if 9a
+   The launch counts are set to 0 just before a sub-leg's windows and
+   read just after them: the sub-leg's kernel must show one single launch
+   per inline or single dispatch, one batched launch per broadcast,
+   stacked or dedup dispatch and, over those, exactly the batches'
+   members (no padding); every other kernel none. Fails on any other
+   count, if a pipelined sub-leg never formed a batch of 2 or more, if 9a
    and 9b together did not show each variant, or if a measured window
-   built a program or a batched kernel (kernels.trace_count moved; every
-   batch bucket is built before the windows).
+   compiled a program (kernels.trace_count moved: the solo runs before
+   the windows compiled every plan of the pool).
 8. Launch counts: each kernel's counter is set to 0 just before a leg's
    timed queries and read just after them; the leg's kernels must have
    launched once per query run and the others never. Then a short
@@ -122,7 +127,7 @@ Phases, each of which exits non-zero on failure:
    the timed runs, the card line, the `kernels` JSON line, and last
    {"ok": true, "device": {...}}. The batched forms' entries (`*_batched`)
    carry phase 3b's broadcast times and their batched launches in phase
-   9's pipelined windows.
+   9's windows.
 
 Imports nothing of JAX or of pinot_tpu. Exits non-zero, printing no
 result, where torch sees no CUDA device or the port's package is missing.
@@ -139,6 +144,7 @@ import sys
 import tempfile
 import threading
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -1543,15 +1549,16 @@ def run_window(ex, pool, client_pools, alone, seconds, seed, tmp=None):
 
 def concurrency_leg(name: str, executors: dict, pool: list,
                     client_pools: list, check, card: str, tmp: str,
-                    probes=()) -> dict:
+                    kernels, runs: str, probes=()) -> dict:
     """Phase 9's sub-leg `name`: every pool query alone through each
     executor ({mode: QueryExecutor}) against its numpy truth (check(i,
-    rows) -> None or what differs), every batch bucket of the pipelined
-    engine built, the held probe rounds (each a list of pool indexes that
-    must form one batch), then WINDOW_S windows alternating serialized and
-    pipelined twice and one traced TRACE_S window per mode. Prints each
-    mode's numbers; returns them."""
-    from pinot_tpu_torch.query.context import QueryContext
+    rows) -> None or what differs), the held probe rounds (each a list of
+    pool indexes that must form one batch), then WINDOW_S windows
+    alternating serialized and pipelined twice and one traced TRACE_S
+    window per mode, with the launch counts of `kernels` set to 0 just
+    before the windows and held just after them against the dispatchers'
+    own counts (`runs`: the one kernel the pool's queries launch). Prints
+    each mode's numbers; returns them, with the windows' launches."""
     from pinot_tpu_torch.utils.failpoints import failpoints
     alone = {}
     seen0 = executors["pipelined"].engine.dispatcher.stats()
@@ -1564,9 +1571,6 @@ def concurrency_leg(name: str, executors: dict, pool: list,
             if alone.setdefault(i, rows) != rows:
                 fail(f"{name}: {sql} alone differs between the modes")
     pipe = executors["pipelined"]
-    for sql in pool:
-        ctx = QueryContext.from_sql(sql)
-        pipe.engine.warm_batches(pipe.segments_of(ctx.table), ctx)
     for members in probes:
         # an extra active caller keeps every member off the inline path;
         # the held first pop lets them all enqueue: one batch
@@ -1584,14 +1588,17 @@ def concurrency_leg(name: str, executors: dict, pool: list,
                 t.join(timeout=300)
         if any(got.get(i) != alone[i] for i in members):
             fail(f"{name}: a held round's answer differs from alone")
+    disps = [ex.engine.dispatcher for ex in executors.values()]
+    stats0 = [d.stats() for d in disps]
+    zero_launches(kernels)
     windows = {"serialized": [], "pipelined": []}
     for rep in range(2):
         for mode in windows:
             w = run_window(executors[mode], pool, client_pools, alone,
                            WINDOW_S, seed=[rep, len(windows[mode])])
             if w["codegen"]:
-                fail(f"{name} {mode}: a steady-state window built "
-                     f"{w['codegen']} programs or batched kernels")
+                fail(f"{name} {mode}: a steady-state window compiled "
+                     f"{w['codegen']} programs")
             windows[mode].append(w)
     out = {}
     for mode, ws in windows.items():
@@ -1613,6 +1620,7 @@ def concurrency_leg(name: str, executors: dict, pool: list,
             "max_memory_allocated": max(w["max_memory_allocated"]
                                         for w in ws)}
         print(f"[concurrency] {json.dumps(out[mode])} | {card}", flush=True)
+    out["launches"] = window_launches(name, kernels, runs, disps, stats0)
     if out["pipelined"]["max_batch"] < 2:
         fail(f"{name}: the pipelined windows never formed a batch of 2")
     seen = pipe.engine.dispatcher.stats()
@@ -1635,12 +1643,39 @@ def modes_of(segments, pipelined=None) -> dict:
             "pipelined": pipelined or of("pipelined")}
 
 
-def count_phase9(kernels, totals: dict) -> None:
-    """Add a phase 9 sub-leg's single and batched launches (read just
-    after it) to `totals` (name -> [single, batched])."""
-    for k in kernels:
-        totals[k.name][0] += k.launches
-        totals[k.name][1] += k.batched_launches
+def window_launches(name: str, kernels, runs: str, disps: list,
+                    stats0: list) -> dict:
+    """The launch counts of a sub-leg's windows (name -> [single,
+    batched]), read just after them, against what the dispatchers `disps`
+    counted since `stats0`: kernel `runs` one single launch per inline or
+    single dispatch, one batched launch per broadcast, stacked or dedup
+    dispatch, as many batched members as those batches held; every other
+    kernel none."""
+    seen: Counter = Counter()
+    for d, s0 in zip(disps, stats0):
+        s = d.stats()
+        s.subtract(s0)
+        seen.update(s)
+    single = seen["inline"] + seen["single"]
+    batched = seen["broadcast"] + seen["stacked"] + seen["dedup"]
+    members = sum(k[1] * c for k, c in seen.items()
+                  if isinstance(k, tuple) and k[1] > 1)
+    got = {k.name: (k.launches, k.batched_launches, k.batched_members)
+           for k in kernels}
+    want = {k.name: (single, batched, members) if k.name == runs
+            else (0, 0, 0) for k in kernels}
+    if got != want:
+        fail(f"{name}: launches (single, batched, batched members) {got}, "
+             f"the dispatchers counted {want}")
+    return {k.name: [k.launches, k.batched_launches] for k in kernels}
+
+
+def count_phase9(leg_launches: dict, totals: dict) -> None:
+    """Add a phase 9 sub-leg's window launches to `totals` (name ->
+    [single, batched])."""
+    for kname, (single, batched) in leg_launches.items():
+        totals[kname][0] += single
+        totals[kname][1] += batched
 
 
 def exact_pair(rows, want_sum: int, want_cnt: int):
@@ -1819,14 +1854,14 @@ def main() -> None:
 
         # phase 9a: Q1.1-shaped concurrency, broadcast batches (K1)
         execs = modes_of(segs, pipelined=ex)
-        zero_launches(kernels)
         leg = concurrency_leg(
             "9a", execs, [q1_sql(*w) for w in Q1_POOL],
             [list(range(len(Q1_POOL)))] * CLIENTS,
             lambda i, rows: exact_pair(
                 rows, sum(t["q1pool"][i][0] for t in truths),
-                sum(t["q1pool"][i][1] for t in truths)), card, tmp)
-        count_phase9(kernels, p9)
+                sum(t["q1pool"][i][1] for t in truths)), card, tmp,
+            kernels, "scan_agg")
+        count_phase9(leg["launches"], p9)
         variants["9a"] = leg["seen"]
 
         # phase 9c: sel.1-shaped top-N concurrency (K4)
@@ -1836,11 +1871,11 @@ def main() -> None:
                                          key=lambda r: -r[0])][:10]
             return None if rows == want else \
                 f"{rows[:3]} vs numpy truth {want[:3]}"
-        zero_launches(kernels)
-        concurrency_leg("9c", execs, [sel_pool_sql(*w) for w in SEL_POOL],
-                        [list(range(len(SEL_POOL)))] * CLIENTS, sel_check,
-                        card, tmp)
-        count_phase9(kernels, p9)
+        leg = concurrency_leg(
+            "9c", execs, [sel_pool_sql(*w) for w in SEL_POOL],
+            [list(range(len(SEL_POOL)))] * CLIENTS, sel_check, card, tmp,
+            kernels, "topn")
+        count_phase9(leg["launches"], p9)
         del ex, execs, segs
         torch.cuda.empty_cache()
 
@@ -1914,12 +1949,12 @@ def main() -> None:
                 if int(r[3]) != cnt or abs(float(r[2]) - sm) > 1e-6 * sm:
                     return f"group {r} vs numpy truth ({sm}, {cnt})"
             return None
-        zero_launches(kernels)
-        concurrency_leg("9d", modes_of(segs, pipelined=ex),
-                        [gb_pool_sql(*w) for w in GB_POOL],
-                        [list(range(len(GB_POOL)))] * CLIENTS, gb_check,
-                        card, tmp)
-        count_phase9(kernels, p9)
+        leg = concurrency_leg(
+            "9d", modes_of(segs, pipelined=ex),
+            [gb_pool_sql(*w) for w in GB_POOL],
+            [list(range(len(GB_POOL)))] * CLIENTS, gb_check, card, tmp,
+            kernels, "group_agg")
+        count_phase9(leg["launches"], p9)
         del ex, segs
         torch.cuda.empty_cache()
 
@@ -1980,12 +2015,11 @@ def main() -> None:
             if int(rows[0][0]) != card_hll or float(rows[0][1]) != p95:
                 return f"{rows[0]} vs numpy ({card_hll}, {p95})"
             return None
-        zero_launches(kernels)
-        concurrency_leg("9e", modes_of(segs, pipelined=ex),
-                        list(TAXI_QUERIES.values()),
-                        [list(range(len(names)))] * CLIENTS, taxi_check,
-                        card, tmp)
-        count_phase9(kernels, p9)
+        leg = concurrency_leg(
+            "9e", modes_of(segs, pipelined=ex), list(TAXI_QUERIES.values()),
+            [list(range(len(names)))] * CLIENTS, taxi_check, card, tmp,
+            kernels, "sketch_agg")
+        count_phase9(leg["launches"], p9)
         del ex, segs
         torch.cuda.empty_cache()
 
@@ -2022,13 +2056,12 @@ def main() -> None:
             table, a = names[i // width], i % width
             return exact_pair(rows, sum(t[a][0] for t in b9[table]),
                               sum(t[a][1] for t in b9[table]))
-        zero_launches(kernels)
         leg = concurrency_leg(
             "9b", modes_of(tables), pool,
             [[names.index(t) * width + a for a in B9_DISCOUNTS]
-             for t in B9_CLIENTS], b9_check, card, tmp,
+             for t in B9_CLIENTS], b9_check, card, tmp, kernels, "scan_agg",
             probes=([0, width + 1, 2 * width + 2], [0, 3, width + 1]))
-        count_phase9(kernels, p9)
+        count_phase9(leg["launches"], p9)
         variants["9b"] = leg["seen"]
         del tables
         torch.cuda.empty_cache()

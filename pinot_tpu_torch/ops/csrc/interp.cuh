@@ -21,12 +21,17 @@
 //
 // The kernels are templates on the type of a block's member: `Mem` for a
 // batch. K2 and K4 run a single launch (B = U = 1) as the B = 1 case of
-// that kernel; K1 and K3 compile a second body on `Single`, the kernel's
-// code before the member axis, for it: as the B = 1 case, their single
-// launch ran 14% (K1) and 12% (K3) slower than before the member axis on an
-// H100 (80GB HBM3, 700 W; kernel_ab.py, parent / change / change / parent),
-// the member's set and row taking registers the interpreter's loop needed
-// (both spilled), where K2 stayed within 2% and K4 ran 14% faster.
+// that kernel; K1 and K3 compile a second body on `Single`, a B = 1
+// instantiation that carries no member set or row, for it: as the B = 1
+// case of `Mem`, their single launch ran 14% (K1) and 12% (K3) slower than
+// before the member axis on an H100 (80GB HBM3, 700 W; kernel_ab.py,
+// parent / change / change / parent), the member's set and row taking
+// registers the interpreter's loop needed (both spilled), where K2 stayed
+// within 2% and K4 ran 14% faster. `Single` is not the code from before
+// the member axis: K1's float32 `Single` body takes 32 registers and
+// spills 40 / 48 bytes (ptxas), where that code took 40 and spilled
+// none, and it ran 10% faster than that code all the same, for a reason
+// not yet known.
 #pragma once
 
 #include <cuda_runtime.h>

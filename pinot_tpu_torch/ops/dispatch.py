@@ -11,14 +11,14 @@ Port of pinot_tpu/ops/dispatch.py (`KernelDispatcher` :311, `Launch` :247,
   * micro-batching: launches coalesce on their `batch_key` (plan, padded
     S, D, G, staged-array signature: the shape bucket, not the segment
     batch, so a dashboard fleet batches across tables). One launch of the
-    plan's kernels with a member axis (ops/kernels.py
-    `make_batched_kernel`, `make_batched_dedup_kernel`,
-    `make_batched_topn_kernel`; K1-K4 in csrc/) carries every member, in
-    one of three variants: broadcast (every member staged the same column
-    blocks), stacked (one column set per member) or dedup (one per
-    distinct staged batch, and a member-to-set map). The batch pads to
-    its power-of-two bucket with the leader's inputs; results split back
-    per caller as views of one host array.
+    plan's kernels with a member axis (ops/kernels.py `batched_kernel`;
+    K1-K4 in csrc/) carries exactly the batch's members, in one of three
+    variants: broadcast (every member staged the same column blocks),
+    stacked (one column set per member) or dedup (one per distinct staged
+    batch, and a member-to-set map). The kernels take the member count at
+    run time, so a batch is not padded to a power of two (the JAX ring
+    pads to bound its retraces); results split back per caller as views
+    of one host array.
   * overlap: the device-to-host fetch runs on a fetch pool off the ring,
     and `execute_async` stages on a staging pool, so one query's host work
     overlaps another's kernel (`staging_overlap_ms` measures it).
@@ -39,9 +39,8 @@ failpoint (every dispatch, ring and inline) and the per-member
 future). Not ported: the CPU collective lock and the mesh variants
 (multi-GPU slice), spans (no tracing layer yet).
 
-Knobs (utils/config.py): pinot.server.dispatch.mode, .ring.size,
-.batch.window.ms (a number, or `auto`), .batch.max (at most the kernels'
-16 members), .batch.cross.table and .doc.bucket.max.
+Knobs (utils/config.py): pinot.server.dispatch.mode and .batch.max (at
+most the kernels' 16 members); the engine reads .batch.cross.table.
 """
 from __future__ import annotations
 
@@ -57,7 +56,7 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.ops import _cuda, kernels
-from pinot_tpu_torch.utils.config import KEYS, PinotConfiguration
+from pinot_tpu_torch.utils.config import PinotConfiguration
 from pinot_tpu_torch.utils.failpoints import fire
 from pinot_tpu_torch.utils.metrics import MetricsRegistry, get_registry
 
@@ -91,11 +90,12 @@ def staging_pool() -> ThreadPoolExecutor:
     return _pool("kernel-staging", _STAGING_THREADS)
 
 
-def _pow2(n: int) -> int:
-    v = 1
-    while v < n:
-        v *= 2
-    return v
+#: launches the ring holds before a submit blocks for space
+RING_SIZE = 64
+#: how long a leader waits for peers to join its batch, and only while
+#: more callers are active than the batch holds (JAX's default
+#: pinot.server.dispatch.batch.window.ms)
+BATCH_WINDOW_S = 2e-3
 
 
 #: chunk of a bounded future wait: short enough that a deadline trips
@@ -133,8 +133,7 @@ def wait_result(future: Future, cancel_check=None,
 def split_packed(arr: np.ndarray, n: int) -> List[np.ndarray]:
     """The first n members of a batched fetch, as VIEWS into the one
     packed host array (basic indexing on the leading query axis): the
-    fetch copies a launch's bytes once whatever the batch size. Padding
-    members past n are never viewed."""
+    fetch copies a launch's bytes once whatever the batch size."""
     members = [arr[i] for i in range(n)]
     if not all(m.base is not None and np.shares_memory(m, arr)
                for m in members):
@@ -165,24 +164,22 @@ class Launch:
     """One staged device launch waiting in the ring.
 
     `call` runs the single-query kernel. The batching fields (cols,
-    params, num_docs, D, G) are read only when `batch_key` is set and the
+    params, num_docs, D) are read only when `batch_key` is set and the
     ring coalesces this launch with equal-keyed peers. `cols_key` is the
     staged batch's identity: equal keys share one column set (broadcast,
-    or one dedup entry). `factory(B)` builds the batched kernel,
-    `dedup_factory(B, U)` the member-grouped one (None: the plan has no
-    dedup form). `cancel_check` is polled while queued."""
+    or one dedup entry). `batched(col_sets, plist, ndlist, idx, D)` runs
+    the plan's batched kernel (ops/kernels.py `batched_kernel`) over any
+    member count. `cancel_check` is polled while queued."""
 
-    __slots__ = ("call", "cols", "params", "num_docs", "D", "G",
-                 "batch_key", "cols_key", "factory", "dedup_factory",
-                 "cancel_check", "site_ctx", "future", "enq_ts", "slip",
-                 "docs")
+    __slots__ = ("call", "cols", "params", "num_docs", "D", "batch_key",
+                 "cols_key", "batched", "cancel_check", "site_ctx",
+                 "future", "enq_ts", "slip", "docs")
 
     def __init__(self, call: Callable[[], Any], cols=None,
-                 params=None, num_docs=None, D: int = 0, G: int = 0,
+                 params=None, num_docs=None, D: int = 0,
                  batch_key: Optional[tuple] = None,
                  cols_key: Optional[tuple] = None,
-                 factory: Optional[Callable[[int], Any]] = None,
-                 dedup_factory: Optional[Callable[[int, int], Any]] = None,
+                 batched: Optional[Callable[..., Any]] = None,
                  cancel_check: Optional[Callable[[], None]] = None,
                  site_ctx: Optional[Dict[str, Any]] = None,
                  slip=None, docs: int = 0):
@@ -191,11 +188,9 @@ class Launch:
         self.params = params
         self.num_docs = num_docs
         self.D = D
-        self.G = G
         self.batch_key = batch_key
         self.cols_key = cols_key
-        self.factory = factory
-        self.dedup_factory = dedup_factory
+        self.batched = batched
         self.cancel_check = cancel_check
         self.site_ctx = site_ctx or {}
         self.future: Future = Future()
@@ -232,22 +227,10 @@ class KernelDispatcher:
         if self.mode not in ("pipelined", "serialized"):
             raise ValueError(f"dispatch mode {self.mode!r} is not "
                              "pipelined or serialized")
-        self.ring_size = max(1, cfg.get_int("pinot.server.dispatch.ring.size"))
         # the kernels carry at most MAX_MEMBERS members per launch
         self.batch_max = max(1, min(
             _cuda.MAX_MEMBERS,
             cfg.get_int("pinot.server.dispatch.batch.max")))
-        # window.ms=auto: the coalesce wait follows an EWMA of caller
-        # inter-arrival gaps, clamped to [0.5x, 4x] of the catalog default
-        raw_window = cfg.get("pinot.server.dispatch.batch.window.ms")
-        static_s = float(KEYS["pinot.server.dispatch.batch.window.ms"]) / 1e3
-        self.window_auto = str(raw_window).strip().lower() == "auto"
-        self.window_s = static_s if self.window_auto \
-            else max(0.0, float(raw_window) / 1e3)
-        self._window_floor_s = 0.5 * static_s
-        self._window_ceil_s = 4.0 * static_s
-        self._arrival_ewma_s: Optional[float] = None
-        self._last_arrival: Optional[float] = None
         self._metrics = metrics if metrics is not None \
             else get_registry("server")
         self._labels = labels
@@ -355,24 +338,6 @@ class KernelDispatcher:
             self._metrics.add_meter("kernel_retrace_by_plan", d,
                                     labels=labels)
 
-    # -- adaptive batching window ---------------------------------------
-    def _note_arrival_locked(self) -> None:
-        if not self.window_auto:
-            return
-        now = time.monotonic()
-        if self._last_arrival is not None:
-            gap = min(now - self._last_arrival, self._window_ceil_s)
-            cur = self._arrival_ewma_s
-            self._arrival_ewma_s = gap if cur is None \
-                else 0.8 * cur + 0.2 * gap
-        self._last_arrival = now
-
-    def current_window_s(self) -> float:
-        if not self.window_auto or self._arrival_ewma_s is None:
-            return self.window_s
-        return min(self._window_ceil_s,
-                   max(self._window_floor_s, self._arrival_ewma_s))
-
     # -- submission ----------------------------------------------------
     def submit(self, launch: Launch) -> Future:
         """Enqueue a staged launch; returns its future (the packed result
@@ -382,14 +347,13 @@ class KernelDispatcher:
         if self.mode == "serialized":
             return self._submit_serialized(launch)
         with self._cv:
-            self._note_arrival_locked()
             idle = self._active <= 1 and not self._pending
         if idle and self._idle_device():
             # lone-query fast path: nothing to coalesce or overlap, so
             # dispatch inline and pay no ring latency
             return self._submit_serialized(launch)
         with self._cv:
-            while len(self._pending) >= self.ring_size and not self._closed:
+            while len(self._pending) >= RING_SIZE and not self._closed:
                 if launch.cancel_check is not None:
                     try:
                         launch.cancel_check()
@@ -497,54 +461,33 @@ class KernelDispatcher:
             launch_pool().submit(self._run_and_finish, live, live[0].call,
                                  False)
             return
-        # pad to the pow2 bucket with the leader's inputs
-        bucket = _pow2(len(live))
-        lead = live[0]
-        pad = bucket - len(live)
-        plist = [it.params for it in live] + [lead.params] * pad
-        # broadcast when every member staged the same column blocks;
-        # stacked when members come from different segment batches of one
-        # shape bucket; dedup when some of those share a staged batch
-        stacked = any(it.cols_key != lead.cols_key for it in live)
+        # one column set per distinct staged batch: broadcast when every
+        # member staged the same column blocks (one set), stacked when
+        # each member comes from its own segment batch of one shape
+        # bucket, dedup when some of those share a staged batch
         uniq_pos: Dict[tuple, int] = {}
+        sets: List[Launch] = []
         for it in live:
-            uniq_pos.setdefault(it.cols_key, len(uniq_pos))
-        dedup = (stacked and lead.dedup_factory is not None
-                 and len(uniq_pos) < len(live))
-        if dedup:
+            if it.cols_key not in uniq_pos:
+                uniq_pos[it.cols_key] = len(sets)
+                sets.append(it)
+        variant = "broadcast" if len(sets) == 1 else \
+            "stacked" if len(sets) == len(live) else "dedup"
+        if variant != "broadcast":
             self._metrics.add_meter("dispatch_batch_cross_table", len(live),
                                     labels=self._labels)
+        if variant == "dedup":
             self._metrics.add_meter("dispatch_batch_dedup",
-                                    len(live) - len(uniq_pos),
+                                    len(live) - len(sets),
                                     labels=self._labels)
-            by_pos: List[Launch] = [None] * len(uniq_pos)  # type: ignore
-            for it in live:
-                p = uniq_pos[it.cols_key]
-                if by_pos[p] is None:
-                    by_pos[p] = it
-            ubucket = _pow2(len(uniq_pos))
-            upad = ubucket - len(uniq_pos)
-            kern = lead.dedup_factory(bucket, ubucket)
-            clist = [it.cols for it in by_pos] + [lead.cols] * upad
-            ndlist = [it.num_docs for it in by_pos] + [lead.num_docs] * upad
-            idx = [uniq_pos[it.cols_key] for it in live] \
-                + [uniq_pos[lead.cols_key]] * pad
-            call = lambda: kern(clist, plist, ndlist, idx,  # noqa: E731
-                                D=lead.D, G=lead.G)
-        elif stacked:
-            self._metrics.add_meter("dispatch_batch_cross_table", len(live),
-                                    labels=self._labels)
-            kern = lead.factory(bucket)
-            clist = [it.cols for it in live] + [lead.cols] * pad
-            ndlist = [it.num_docs for it in live] + [lead.num_docs] * pad
-            call = lambda: kern(clist, plist, ndlist,  # noqa: E731
-                                D=lead.D, G=lead.G)
-        else:
-            kern = lead.factory(bucket)
-            call = lambda: kern(lead.cols, plist,  # noqa: E731
-                                lead.num_docs, D=lead.D, G=lead.G)
-        self._note("dedup" if dedup else "stacked" if stacked
-                   else "broadcast", len(live))
+        lead = live[0]
+        clist = [it.cols for it in sets]
+        ndlist = [it.num_docs for it in sets]
+        plist = [it.params for it in live]
+        idx = [uniq_pos[it.cols_key] for it in live]
+        call = lambda: lead.batched(clist, plist, ndlist,  # noqa: E731
+                                    idx, lead.D)
+        self._note(variant, len(live))
         launch_pool().submit(self._run_and_finish, live, call, True)
 
     def _coalesce(self, leader: Launch) -> List[Launch]:
@@ -554,7 +497,7 @@ class KernelDispatcher:
         batch = [leader]
         if leader.batch_key is None or self.batch_max <= 1:
             return batch
-        deadline = time.monotonic() + self.current_window_s()
+        deadline = time.monotonic() + BATCH_WINDOW_S
         with self._cv:
             while True:
                 i = 0

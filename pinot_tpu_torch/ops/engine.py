@@ -71,6 +71,10 @@ MAX_DEVICE_GROUPS = 1 << 20
 MAX_GROUP_RESULT_BYTES = 1 << 31
 #: doc-padding cap: counts are packed in float32, exact only below 2^24
 MAX_DOCS_PER_SEGMENT = 1 << 24
+#: the largest doc bucket that takes the cross-table coalesce key (JAX's
+#: default pinot.server.dispatch.doc.bucket.max); a larger D keeps the
+#: same-batch key
+DOC_BUCKET_MAX = 1 << 20
 _LEAF_RANGE_FUNCS = {
     "equals", "between", "greater_than", "greater_than_or_equal",
     "less_than", "less_than_or_equal",
@@ -140,13 +144,11 @@ class TorchOperatorExecutor:
         #: shape-bucket coalescing across tables: the segment axis pads to
         #: a power of two so equal plans over other tables share a key;
         #: only where a batch can form at all, and for doc buckets up to
-        #: doc.bucket.max (a larger D keeps the same-batch key)
+        #: DOC_BUCKET_MAX
         self._cross_table = (
             cfg.get_bool("pinot.server.dispatch.batch.cross.table", True)
             and self._dispatcher.mode != "serialized"
             and self._dispatcher.batch_max > 1)
-        self._doc_bucket_max = cfg.get_int(
-            "pinot.server.dispatch.doc.bucket.max")
         self._tls = threading.local()
 
     @property
@@ -368,28 +370,6 @@ class TorchOperatorExecutor:
         dispatch_mod.staging_pool().submit(stage_and_enqueue)
         return out
 
-    def warm_batches(self, segments, ctx: QueryContext) -> None:
-        """Build the batched kernels of the query's plan for every batch
-        bucket the ring can form (B a power of two up to batch.max, and
-        for dedup U from 2 up to B), so steady-state traffic builds
-        nothing (the JAX bench's `warm_buckets`)."""
-        if ctx.distinct:
-            ctx = _distinct_context(ctx)
-        with self._engine_lock:
-            if ctx.aggregations:
-                plan, _slots = self._plan(segments, ctx)
-            else:
-                plan = self._plan_topn(segments, ctx)
-        vdt, B = self.value_dtype, 2
-        while B <= dispatch_mod._pow2(self._dispatcher.batch_max):
-            if plan.mode == "topn":
-                kernels.make_batched_topn_kernel(plan, B, vdt)
-            else:
-                kernels.make_batched_kernel(plan, B, vdt)
-                for k in range(1, B.bit_length()):
-                    kernels.make_batched_dedup_kernel(plan, B, 1 << k, vdt)
-            B *= 2
-
     def _prepare(self, segments, ctx: QueryContext, cancel_check):
         """Plan and stage under the engine lock: (the Launch, the function
         that assembles its packed result). Records the clock after
@@ -422,11 +402,8 @@ class TorchOperatorExecutor:
             ctx = _distinct_context(ctx)
         plan, slots_of_fn = self._plan(segments, ctx)
         self._tls.planned = time.perf_counter()
-        vdt = self.value_dtype
         launch = self._launch(
-            segments, ctx, plan, kernels.make_kernel(plan, vdt),
-            lambda B: kernels.make_batched_kernel(plan, B, vdt),
-            lambda B, U: kernels.make_batched_dedup_kernel(plan, B, U, vdt),
+            segments, ctx, plan, kernels.make_kernel(plan, self.value_dtype),
             cancel_check, "distinct" if distinct else "agg")
         if distinct:
             return launch, lambda packed: self._assemble_distinct(
@@ -435,14 +412,13 @@ class TorchOperatorExecutor:
             segments, ctx, plan, packed, slots_of_fn)
 
     def _prepare_topn(self, segments, ctx: QueryContext, cancel_check):
-        """A selection as a per-segment top-K on K4 (JAX `_prepare_topn`:
-        no dedup form); caller holds the engine lock."""
+        """A selection as a per-segment top-K on K4 (JAX `_prepare_topn`);
+        caller holds the engine lock."""
         plan = self._plan_topn(segments, ctx)
         self._tls.planned = time.perf_counter()
-        vdt = self.value_dtype
         launch = self._launch(
-            segments, ctx, plan, kernels.make_topn_kernel(plan, vdt),
-            lambda B: kernels.make_batched_topn_kernel(plan, B, vdt), None,
+            segments, ctx, plan,
+            kernels.make_topn_kernel(plan, self.value_dtype),
             cancel_check, "topn")
         return launch, lambda packed: self._assemble_topn(segments, ctx,
                                                           packed)
@@ -472,26 +448,29 @@ class TorchOperatorExecutor:
             segments, ctx, plan, needed, fits, packed)
 
     def _launch(self, segments, ctx: QueryContext, plan: DevicePlan, kernel,
-                factory, dedup_factory, cancel_check, mode: str
-                ) -> dispatch_mod.Launch:
+                cancel_check, mode: str) -> dispatch_mod.Launch:
         """Stage a K1-K4 plan and wrap it for the ring, with its coalesce
         key: (plan, padded S, D, G, staged-array signature) for doc
-        buckets up to doc.bucket.max, so equal plans over other tables
-        share it; the same segment batch only above (JAX :500-527)."""
+        buckets up to DOC_BUCKET_MAX, so equal plans over other tables
+        share it; the same segment batch only above (JAX :500-527). The
+        plan's device program compiles here once per plan (cached), on the
+        CPU too: a plan K1-K4 cannot run fails alike on either device, and
+        the codegen odometer (`kernel_retrace`) counts each new plan."""
+        program.compile_plan(plan)
         cols, params, num_docs, D = self._stage(segments, ctx, plan)
         G = plan.num_groups
         batch_key = None
         if self._dispatcher.batch_max > 1:
-            if self._cross_table and D <= self._doc_bucket_max:
+            if self._cross_table and D <= DOC_BUCKET_MAX:
                 batch_key = (plan, int(num_docs.shape[0]), D, G,
                              _shape_sig(cols, params))
             else:
                 batch_key = (plan, _batch_key(segments), D, G)
         return dispatch_mod.Launch(
             call=lambda: kernel(cols, params, num_docs, D),
-            cols=cols, params=params, num_docs=num_docs, D=D, G=G,
+            cols=cols, params=params, num_docs=num_docs, D=D,
             batch_key=batch_key, cols_key=_batch_key(segments),
-            factory=factory, dedup_factory=dedup_factory,
+            batched=kernels.batched_kernel(plan, self.value_dtype),
             cancel_check=cancel_check,
             site_ctx={"table": ctx.table, "mode": mode},
             docs=sum(s.num_docs for s in segments))
@@ -873,10 +852,10 @@ class TorchOperatorExecutor:
     # ------------------------------------------------------------------
     def _padded_S(self, S_real: int, D: int) -> int:
         """The segment axis: a power of two where cross-table coalescing
-        is on and D is within doc.bucket.max, so equal plans over other
+        is on and D is within DOC_BUCKET_MAX, so equal plans over other
         tables land in one shape bucket (padded segments carry num_docs 0
         and zero rows, which every kernel reads as empty); else S_real."""
-        if self._cross_table and D <= self._doc_bucket_max:
+        if self._cross_table and D <= DOC_BUCKET_MAX:
             return _pow2(S_real, floor=1)
         return S_real
 

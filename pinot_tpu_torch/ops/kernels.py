@@ -26,12 +26,12 @@ tensor goes to the kernels in
 wrapped by `ops/_cuda.py`) or raises — there is no fallback between the two.
 K5 `startree_agg`'s plain version and wrapper live in ops/startree_device.py.
 
-The batched factories (`make_batched_kernel`, `make_batched_dedup_kernel`,
-`make_batched_topn_kernel`; kernels.py:793, :823, :858) run B coalesced
-queries of one plan as one launch of the same kernels with a member axis:
-CUDA inputs launch K1-K4 once for all members (ops/_cuda.py `*_batched`),
-CPU inputs loop over the members through the plain versions
-(`plain_batched_kernel`). The output carries a leading [B] axis.
+`batched_kernel` (JAX's batched factories, kernels.py:793, :823, :858)
+runs B coalesced queries of one plan as one launch of the same kernels
+with a member axis: CUDA inputs launch K1-K4 once for all members
+(ops/_cuda.py `*_batched`), CPU inputs loop over the members through the
+plain versions (`plain_batched_kernel`). The output carries a leading [B]
+axis.
 
 The value dtype (float32, the card's default, or float64) is an explicit
 argument, where the JAX package reads `jax_enable_x64`. Values and their
@@ -41,13 +41,12 @@ adds in the value dtype), in these plain versions and in the kernels alike.
 """
 from __future__ import annotations
 
-import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from pinot_tpu_torch.ops import _cuda, program
+from pinot_tpu_torch.ops import _cuda
 from pinot_tpu_torch.ops.plan_ir import DevicePlan
 from pinot_tpu_torch.ops.program import (ISUM_PLANES, ISUM_U_BITS,
                                          is_sketch, plan_fingerprint,
@@ -55,9 +54,7 @@ from pinot_tpu_torch.ops.program import (ISUM_PLANES, ISUM_U_BITS,
                                          trace_count_by_plan)
 
 __all__ = ["make_kernel", "plain_kernel", "make_topn_kernel", "topn_kernel",
-           "make_batched_kernel", "make_batched_dedup_kernel",
-           "make_batched_topn_kernel", "plain_batched_kernel",
-           "batched_kernel",
+           "plain_batched_kernel", "batched_kernel",
            "order_keys", "from_jax_staged", "slot_width", "is_sketch",
            "trace_count", "trace_count_by_plan", "plan_fingerprint",
            "ISUM_PLANES", "ISUM_U_BITS"]
@@ -533,25 +530,6 @@ def make_topn_kernel(plan: DevicePlan,
 # `make_batched_dedup_kernel`, :858 `make_batched_topn_kernel`)
 # ---------------------------------------------------------------------------
 
-def _member_lists(cols, plist, num_docs, idx=None):
-    """(column sets, params per member, num_docs per set, member-to-set
-    map) of a batched call in any of the JAX signatures: broadcast (one
-    cols dict and one num_docs for every member), stacked (one of each per
-    member) or dedup (U of each, and idx)."""
-    plist = list(plist)
-    if isinstance(cols, dict):
-        return [cols], plist, [num_docs], [0] * len(plist)
-    col_sets, ndlist = list(cols), list(num_docs)
-    if idx is None:
-        if len(col_sets) != len(plist):
-            raise ValueError("a stacked batch takes one column set per "
-                             "member")
-        idx = range(len(plist))
-    if len(ndlist) != len(col_sets):
-        raise ValueError("num_docs per column set")
-    return col_sets, plist, ndlist, [int(u) for u in idx]
-
-
 def plain_batched_kernel(plan: DevicePlan,
                          value_dtype: torch.dtype = torch.float32):
     """The plain batched version: fn(col_sets, plist, ndlist, idx, D) ->
@@ -576,17 +554,27 @@ def plain_batched_kernel(plan: DevicePlan,
 
 def batched_kernel(plan: DevicePlan,
                    value_dtype: torch.dtype = torch.float32):
-    """fn(col_sets, plist, ndlist, idx, D) -> [B, ...]: B members over U
-    column sets, member m over set idx[m]; CUDA inputs launch the plan's
-    kernels once for all members (K1 / K3 / both, K2 or K4 with the member
-    axis), CPU inputs run the plain version. The factories below wrap it
-    in the JAX signatures."""
+    """fn(col_sets, plist, ndlist, idx, D) -> [B, ...]: B = len(plist)
+    members over U = len(col_sets) column sets (ndlist: num_docs per set),
+    member m over set idx[m]. One function serves JAX's three batched
+    factories (kernels.py:793 `make_batched_kernel`, :823
+    `make_batched_dedup_kernel`, :858 `make_batched_topn_kernel`):
+    broadcast is U = 1, stacked idx = 0..B-1, dedup a member-to-set map.
+    CUDA inputs launch the plan's kernels once for all members (K1 / K3 /
+    both, K2 or K4 with the member axis), CPU inputs run the plain
+    version. The kernels take B at run time, so nothing is built per
+    member count."""
     if value_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"value dtype {value_dtype} is not float32/64")
     plain = plain_batched_kernel(plan, value_dtype)
     sketch = [is_sketch(op) for op, _v, _f in plan.agg_ops]
 
     def run(col_sets, plist, ndlist, idx, D):
+        if len(ndlist) != len(col_sets) or len(idx) != len(plist) \
+                or not all(0 <= u < len(col_sets) for u in idx):
+            raise ValueError(
+                f"{len(plist)} members with {len(idx)} set indexes over "
+                f"{len(col_sets)} column sets and {len(ndlist)} num_docs")
         device = ndlist[0].device
         if device.type == "cpu":
             return plain(col_sets, plist, ndlist, idx, D)
@@ -603,75 +591,6 @@ def batched_kernel(plan: DevicePlan,
         return _cuda.sketch_agg_batched(*args, out=out)
 
     return run
-
-
-def _check_members(B: int, plist) -> None:
-    if len(plist) != B:
-        raise ValueError(f"{len(plist)} members for a B={B} kernel")
-
-
-@functools.lru_cache(maxsize=256)
-def make_batched_kernel(plan: DevicePlan, B: int,
-                        value_dtype: torch.dtype = torch.float32):
-    """fn(cols | clist, plist, num_docs | ndlist, D, G=0) -> [B, S, ...]:
-    B members of an aggregation plan in one launch, broadcast (one cols
-    dict and num_docs shared by every member) or stacked (one per member).
-    Cached per (plan, B); a cache miss counts as a codegen."""
-    if plan.mode != "agg":
-        raise ValueError("make_batched_kernel takes aggregation plans")
-    run = batched_kernel(plan, value_dtype)
-    program.note_trace(plan_fingerprint(plan))
-
-    def kernel(cols, plist, num_docs, D: int, G: int = 0) -> torch.Tensor:
-        if G and G != plan.num_groups:
-            raise ValueError("compact group keys are not in this port yet")
-        _check_members(B, plist)
-        return run(*_member_lists(cols, plist, num_docs), D)
-
-    return kernel
-
-
-@functools.lru_cache(maxsize=256)
-def make_batched_dedup_kernel(plan: DevicePlan, B: int, U: int,
-                              value_dtype: torch.dtype = torch.float32):
-    """fn(clist, plist, ndlist, idx, D, G=0) -> [B, S, ...]: B members of
-    an aggregation plan over U unique column sets, member m over set
-    idx[m] (no set is copied: the launch carries U sets of pointers).
-    Cached per (plan, B, U); a cache miss counts as a codegen."""
-    if plan.mode != "agg":
-        raise ValueError("make_batched_dedup_kernel takes aggregation plans")
-    run = batched_kernel(plan, value_dtype)
-    program.note_trace(plan_fingerprint(plan))
-
-    def kernel(clist, plist, ndlist, idx, D: int,
-               G: int = 0) -> torch.Tensor:
-        if G and G != plan.num_groups:
-            raise ValueError("compact group keys are not in this port yet")
-        _check_members(B, plist)
-        if len(clist) != U or len(idx) != B:
-            raise ValueError(f"a (B={B}, U={U}) kernel takes {U} column "
-                             f"sets and {B} set indexes")
-        return run(*_member_lists(clist, plist, ndlist, idx), D)
-
-    return kernel
-
-
-@functools.lru_cache(maxsize=256)
-def make_batched_topn_kernel(plan: DevicePlan, B: int,
-                             value_dtype: torch.dtype = torch.float32):
-    """fn(cols | clist, plist, num_docs | ndlist, D, G=0) -> [B, S, 1 + k]
-    int32: B members of a top-N plan in one launch of K4, broadcast or
-    stacked. Cached per (plan, B); a cache miss counts as a codegen."""
-    if plan.mode != "topn":
-        raise ValueError("make_batched_topn_kernel takes top-N plans")
-    run = batched_kernel(plan, value_dtype)
-    program.note_trace(plan_fingerprint(plan))
-
-    def kernel(cols, plist, num_docs, D: int, G: int = 0) -> torch.Tensor:
-        _check_members(B, plist)
-        return run(*_member_lists(cols, plist, num_docs), D)
-
-    return kernel
 
 
 def abs_contributions(plan: DevicePlan, cols: Tensors, params: Tensors,

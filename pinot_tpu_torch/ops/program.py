@@ -125,11 +125,11 @@ SKETCH_SMEM_WORDS = 24576
 
 # ---------------------------------------------------------------------------
 # codegen odometer: the port's counterpart of the JAX package's trace count
-# (pinot_tpu/ops/kernels.py:46-85). The CUDA kernels are built once; what a
-# new plan or batch shape costs is a program compiled here (a compile_plan
-# cache miss) or a batched factory built (ops/kernels.py, cached per plan,
-# B and U). The dispatch ring meters the delta as `kernel_retrace`, so
-# steady-state traffic over warmed plans and batch buckets keeps it flat.
+# (pinot_tpu/ops/kernels.py:46-85). The CUDA kernels are built once and take
+# the batch's member count at run time; what a new plan costs is a program
+# compiled here (a compile_plan cache miss). The dispatch ring meters the
+# delta as `kernel_retrace`, so steady-state traffic over seen plans keeps
+# it flat.
 # ---------------------------------------------------------------------------
 _trace_lock = threading.Lock()
 _trace_count = 0

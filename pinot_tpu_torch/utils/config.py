@@ -1,21 +1,13 @@
-"""Instance configuration: catalog defaults, environment, overrides.
+"""Instance configuration: catalog defaults under explicit overrides.
 
 A trimmed copy of pinot_tpu/utils/config.py's `PinotConfiguration`
 holding only the keys the port reads, with the reference's names and
-defaults (pinot_tpu/utils/config.py:28-52 and :74). Precedence, highest
-first:
-
-  1. explicit overrides passed to the constructor
-  2. environment variables: `pinot.server.dispatch.mode` reads
-     `PINOT_TPU_SERVER_DISPATCH_MODE`
-  3. catalog defaults (KEYS below)
+defaults (pinot_tpu/utils/config.py:28-52 and :74). An override passed to
+the constructor wins over the catalog default (KEYS below).
 """
 from __future__ import annotations
 
-import os
 from typing import Any, Dict, Optional
-
-ENV_PREFIX = "PINOT_TPU_"
 
 #: every key the port reads, with its default
 KEYS: Dict[str, Any] = {
@@ -24,29 +16,17 @@ KEYS: Dict[str, Any] = {
     # 'serialized' = inline dispatch on the caller's thread (the A/B
     # baseline)
     "pinot.server.dispatch.mode": "pipelined",
-    "pinot.server.dispatch.ring.size": 64,      # bounded launch queue
     # coalescing: fingerprint-equal concurrent queries merge into one
-    # launch within this window (waited only while more than one caller
-    # is active), at most batch.max members. 'auto' sizes the window from
-    # an EWMA of caller inter-arrival gaps, clamped to [0.5x, 4x] of 2 ms
-    "pinot.server.dispatch.batch.window.ms": 2.0,
+    # launch, at most batch.max members
     "pinot.server.dispatch.batch.max": 16,
     # shape-bucket coalescing across tables: launches coalesce on (plan,
     # padded S, D, G, staged-array signature); off = the same segment
-    # batch only. doc.bucket.max: the largest doc bucket that may take
-    # the cross-table key
+    # batch only
     "pinot.server.dispatch.batch.cross.table": True,
-    "pinot.server.dispatch.doc.bucket.max": 1 << 20,
     # star-tree leg (ops/startree_device.py): fitted aggregations answer
     # from pre-aggregated records
     "pinot.server.startree.enabled": True,
 }
-
-
-def _env_name(key: str) -> str:
-    if key.startswith("pinot."):
-        key = key[len("pinot."):]
-    return ENV_PREFIX + key.replace(".", "_").upper()
 
 
 class PinotConfiguration:
@@ -56,12 +36,7 @@ class PinotConfiguration:
     def get(self, key: str, default: Any = None) -> Any:
         if key in self._overrides:
             return self._overrides[key]
-        env = os.environ.get(_env_name(key))
-        if env is not None:
-            return env
-        if key in KEYS:
-            return KEYS[key]
-        return default
+        return KEYS.get(key, default)
 
     def get_int(self, key: str, default: int = 0) -> int:
         return int(self.get(key, default))

@@ -1,12 +1,13 @@
-"""The port's batched kernel factories (pinot_tpu_torch/ops/kernels.py
-`make_batched_kernel`, `make_batched_dedup_kernel`,
+"""The port's batched kernel (pinot_tpu_torch/ops/kernels.py
+`batched_kernel`, the counterpart of the JAX package's
+`make_batched_kernel`, `make_batched_dedup_kernel` and
 `make_batched_topn_kernel`) and cross-table coalescing through its engine.
 
-Factories: seeded random plans (tests/torch_plans.py) over B members with
-their own literal sets, in the three forms the dispatcher builds
+Batched kernel: seeded random plans (tests/torch_plans.py) over B members
+with their own literal sets, in the three forms the dispatcher builds
 (broadcast: one column set; stacked: one per member; dedup: U sets and a
-member-to-set map), with B and U at powers of two and at padded sizes (the
-dispatcher pads a batch with its leader's inputs) and padded segments
+member-to-set map), with B and U at powers of two and between them (the
+dispatcher launches exactly a batch's members) and padded segments
 (num_docs 0). Each member's output is held bit for bit against its own
 single plain launch, and against the JAX package's batched kernels on the
 same numpy inputs with tests/test_torch_kernels.py's tolerances, in both
@@ -45,19 +46,15 @@ from tests.test_torch_dispatch import (agg_values, build_table, jax_values,
                                        singles_of)
 
 S, D = 4, 384
-#: form -> (B, U, member-to-set map): pow2 and padded sizes; a padded
-#: batch repeats its leader (member 0) in the tail, as the dispatcher does
+#: form -> (B, U, member-to-set map): powers of two and the sizes between
 FORMS = {
     "broadcast-2": (2, 1, [0, 0]),
-    "broadcast-pad3to4": (4, 1, [0, 0, 0, 0]),
+    "broadcast-3": (3, 1, [0, 0, 0]),
     "stacked-4": (4, 4, [0, 1, 2, 3]),
-    "stacked-pad3to4": (4, 4, [0, 1, 2, 0]),
-    "dedup-8-over-3to4": (8, 4, [0, 1, 0, 2, 1, 0, 0, 0]),
+    "stacked-3": (3, 3, [0, 1, 2]),
+    "dedup-5-over-3": (5, 3, [0, 1, 0, 2, 1]),
     "dedup-4-over-2": (4, 2, [1, 0, 1, 0]),
 }
-#: members past the live count repeat the leader's parameters
-LIVE = {"broadcast-pad3to4": 3, "stacked-pad3to4": 3,
-        "dedup-8-over-3to4": 5}
 
 
 def jax_plan(spec):
@@ -68,14 +65,12 @@ def jax_plan(spec):
 
 def member_inputs(seed, spec, form, vdt, inputs=tp.random_inputs):
     """(column sets, params per member, num_docs per set, idx) in numpy:
-    each set and each member's literals drawn from its own seed; padded
-    members repeat member 0's parameters. The last segment is padding."""
+    each set and each member's literals drawn from its own seed. The last
+    segment is padding."""
     B, U, idx = FORMS[form]
     sets = [inputs(seed + 101 * u, spec, S, D, vdt) for u in range(U)]
-    live = LIVE.get(form, B)
     plist = [inputs(seed + 7 * m + 3, spec, S, D, vdt)[1]
-             for m in range(live)]
-    plist += [plist[0]] * (B - live)
+             for m in range(B)]
     return ([c for c, _p, _n in sets], plist, [n for _c, _p, n in sets],
             idx)
 
@@ -85,25 +80,11 @@ def torch_of(arrays):
             for k, v in arrays.items()}
 
 
-def run_port_batched(plan, form, cols, plist, nds, idx, vdt):
-    B, U, _ = FORMS[form]
+def run_port_batched(plan, cols, plist, nds, idx, vdt):
     tcols = [torch_of(c) for c in cols]
     tps = [torch_of(p) for p in plist]
     tnds = [torch.from_numpy(n) for n in nds]
-    if plan.mode == "topn":
-        fn = tk.make_batched_topn_kernel(plan, B, vdt)
-        if form.startswith("broadcast"):
-            return fn(tcols[0], tps, tnds[0], D).numpy()
-        return fn([tcols[u] for u in idx], tps, [tnds[u] for u in idx],
-                  D).numpy()
-    if form.startswith("broadcast"):
-        return tk.make_batched_kernel(plan, B, vdt)(tcols[0], tps, tnds[0],
-                                                    D).numpy()
-    if form.startswith("stacked"):
-        return tk.make_batched_kernel(plan, B, vdt)(
-            [tcols[u] for u in idx], tps, [tnds[u] for u in idx], D).numpy()
-    return tk.make_batched_dedup_kernel(plan, B, U, vdt)(
-        tcols, tps, tnds, idx, D).numpy()
+    return tk.batched_kernel(plan, vdt)(tcols, tps, tnds, idx, D).numpy()
 
 
 def run_jax_batched(spec, form, cols, plist, nds, idx, x64):
@@ -145,10 +126,6 @@ def check_members(spec, plan, form, cols, plist, nds, idx, vdt, x64, got):
         else:
             one = tk.plain_kernel(plan, vdt)(tc, tpar, tnd, D).numpy()
         assert np.array_equal(got[m], one, equal_nan=True), (form, m)
-    live = LIVE.get(form, B)
-    for m in range(live, B):   # padding repeats the leader's parameters
-        if idx[m] == idx[0]:
-            assert np.array_equal(got[m], got[0], equal_nan=True)
 
 
 def scales_of(plan, cols, plist, nds, idx):
@@ -162,8 +139,7 @@ def scales_of(plan, cols, plist, nds, idx):
 
 AGG_CASES = [(seed, grouped, form) for seed in range(2)
              for grouped in (False, True)
-             for form in ("broadcast-pad3to4", "stacked-pad3to4",
-                          "dedup-8-over-3to4")]
+             for form in ("broadcast-3", "stacked-3", "dedup-5-over-3")]
 
 
 @pytest.mark.parametrize("seed,grouped,form", AGG_CASES)
@@ -174,7 +150,7 @@ def test_batched_agg_matches_single_and_jax(seed, grouped, form, x64):
     vdt = torch.float64 if x64 else torch.float32
     cols, plist, nds, idx = member_inputs(
         seed, spec, form, np.float64 if x64 else np.float32)
-    got = run_port_batched(plan, form, cols, plist, nds, idx, vdt)
+    got = run_port_batched(plan, cols, plist, nds, idx, vdt)
     check_members(spec, plan, form, cols, plist, nds, idx, vdt, x64, got)
     ref = run_jax_batched(spec, form, cols, plist, nds, idx, x64)
     scales = scales_of(plan, cols, plist, nds, idx)
@@ -192,7 +168,7 @@ def test_batched_sketches_match_single_and_jax(form):
     plan = DevicePlan(**spec)
     cols, plist, nds, idx = member_inputs(5, spec, form, np.float32,
                                           inputs=tp.sketch_inputs)
-    got = run_port_batched(plan, form, cols, plist, nds, idx, torch.float32)
+    got = run_port_batched(plan, cols, plist, nds, idx, torch.float32)
     check_members(spec, plan, form, cols, plist, nds, idx, torch.float32,
                   False, got)
     ref = run_jax_batched(spec, form, cols, plist, nds, idx, False)
@@ -205,7 +181,7 @@ def test_batched_sketches_match_single_and_jax(form):
 TOPN_CASES = [(order, asc, form) for order, asc in
               (("col", False), ("ids", True), ("expr", False),
                ("none", True))
-              for form in ("broadcast-pad3to4", "stacked-4")]
+              for form in ("broadcast-3", "stacked-4")]
 
 
 @pytest.mark.parametrize("order,asc,form", TOPN_CASES)
@@ -219,29 +195,31 @@ def test_batched_topn_matches_single_and_jax(order, asc, form, x64):
     cols, plist, nds, idx = member_inputs(
         9, spec, form, np.float64 if x64 else np.float32,
         inputs=tp.topn_inputs)
-    got = run_port_batched(plan, form, cols, plist, nds, idx, vdt)
+    got = run_port_batched(plan, cols, plist, nds, idx, vdt)
     check_members(spec, plan, form, cols, plist, nds, idx, vdt, x64, got)
     ref = run_jax_batched(spec, form, cols, plist, nds, idx, x64)
     assert np.array_equal(got, ref)
 
 
-def test_factories_cache_per_plan_and_bucket():
-    """One factory per (plan, B[, U]): a miss counts one codegen, a hit
-    none, and a factory takes exactly B members."""
-    plan = DevicePlan(**tp.random_spec(41, False))
-    t0 = program.trace_count()
-    a = tk.make_batched_kernel(plan, 8)
-    assert program.trace_count() == t0 + 1
-    assert tk.make_batched_kernel(plan, 8) is a
-    assert program.trace_count() == t0 + 1
-    tk.make_batched_dedup_kernel(plan, 8, 2)
-    assert program.trace_count() == t0 + 2
-    assert program.trace_count_by_plan()[tk.plan_fingerprint(plan)] >= 2
-    cols, params, nd = tp.random_inputs(41, tp.random_spec(41, False), S, D,
-                                        np.float32)
+@pytest.mark.parametrize("sets,n_nds,idx", [
+    (1, 1, [0, 0]),        # a set index per member: 3 members, 2 indexes
+    (2, 1, [0, 1, 1]),     # num_docs per column set
+    (2, 2, [0, 2, 1]),     # an index past the sets
+])
+def test_batched_kernel_rejects_member_lists_that_disagree(sets, n_nds,
+                                                           idx):
+    """The batched kernel takes any member count, but its lists must
+    agree: one set index per member's parameters, one num_docs per column
+    set, every index naming a set. Building it compiles nothing."""
+    spec = tp.random_spec(41, False)
+    plan = DevicePlan(**spec)
+    cols, params, nd = tp.random_inputs(41, spec, S, D, np.float32)
     tc, tpar, tnd = tk.from_jax_staged(cols, params, nd)
+    t0 = program.trace_count()
+    run = tk.batched_kernel(plan)
+    assert program.trace_count() == t0
     with pytest.raises(ValueError, match="members"):
-        a(tc, [tpar] * 3, tnd, D)
+        run([tc] * sets, [tpar] * 3, [tnd] * n_nds, idx, D)
 
 
 # ---------------------------------------------------------------------------
@@ -404,7 +382,7 @@ class TestBatchChaos:
                  f"SELECT SUM(m), COUNT(*) FROM x WHERE d < {i + 2}")
                 for i, tn in enumerate(["t1", "t2", "t3", "t1"])]
         singles = singles_of(eng, jobs)
-        run_concurrent(eng, jobs, hold=0.5)  # warm the batched factory
+        run_concurrent(eng, jobs, hold=0.5)
 
         def run_round():
             fp = failpoints.arm("server.dispatch.batch",

@@ -278,15 +278,14 @@ class TestCancelAndDeadline:
 
 class TestRetraceGuard:
     def test_steady_state_zero_codegen_and_zero_new_blocks(self, table):
-        """Repeated singles and coalesced batches over warmed plans and
-        batch buckets build no program or batched kernel (the codegen
-        odometer) and stage no new block."""
+        """Repeated singles and coalesced batches over seen plans compile
+        no program (the codegen odometer) and stage no new block."""
         port, _, _ = table
         eng = make_engine()
         jobs = [(port, f"SELECT SUM(m), COUNT(*), MIN(m) FROM t "
                        f"WHERE d < {k}") for k in range(1, 9)]
         singles_of(eng, jobs)
-        run_concurrent(eng, jobs)  # warm the batched bucket
+        run_concurrent(eng, jobs)
         t0 = kernels.trace_count()
         blocks = len(eng._blocks)
         singles_of(eng, jobs)
@@ -306,7 +305,7 @@ class TestRetraceGuard:
 
         one = (port, "SELECT SUM(m), COUNT(*) FROM t WHERE d < 1")
         singles_of(eng, [one])
-        round_of(0)                  # warm the bucket-8 batched kernel
+        round_of(0)
         before = kernels.trace_count()
         meter0 = eng.dispatcher._metrics.meter("kernel_retrace")
         round_of(1)                  # same shapes, fresh literals
@@ -316,16 +315,36 @@ class TestRetraceGuard:
         assert eng.dispatcher._metrics.meter("kernel_retrace") == meter0
 
 
-    def test_warm_batches_builds_every_bucket(self, table):
-        """After warm_batches, no batch composition the ring can form
-        builds anything."""
+    def test_any_batch_size_launches_its_members_and_builds_nothing(
+            self, table, monkeypatch):
+        """Once a plan ran alone, batches of any size build nothing, and
+        each launches the batched kernel with exactly its members: the
+        kernels take B at run time, so no batch pads to a power of two."""
         port, _, _ = table
         eng = make_engine(**{"pinot.server.dispatch.batch.max": 8})
         sql = "SELECT SUM(m), MIN(m), COUNT(*) FROM t WHERE d > {}"
-        eng.warm_batches(port, QueryContext.from_sql(sql.format(0)))
+        singles_of(eng, [(port, sql.format(0))])
+        members = []
+        real = kernels.batched_kernel
+
+        def spy(plan, value_dtype):
+            run = real(plan, value_dtype)
+
+            def counted(col_sets, plist, ndlist, idx, D):
+                members.append(len(plist))
+                return run(col_sets, plist, ndlist, idx, D)
+            return counted
+
+        monkeypatch.setattr(kernels, "batched_kernel", spy)
         before = kernels.trace_count()
         for n in (2, 3, 5, 8):
-            run_concurrent(eng, [(port, sql.format(k)) for k in range(n)])
+            start = len(members)
+            # an extra active caller keeps every job off the inline fast
+            # path, so the batch is exactly the n jobs
+            with eng.dispatcher.active():
+                run_concurrent(eng, [(port, sql.format(k))
+                                     for k in range(n)])
+            assert members[start:] == [n]
         assert kernels.trace_count() == before
 
 
