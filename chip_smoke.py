@@ -6,7 +6,7 @@
 Phases, each of which exits non-zero on failure:
 
 1. Device: the card's name and power limit (nvidia-smi) and its torch name.
-2. Build: the five CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc,
+2. Build: the six CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc,
    one process per source, in parallel.
 3. Kernels against their plain PyTorch versions, on the card, on seeded
    random inputs at the main path's shapes: K1 scan_agg at S=16, D=2^23
@@ -26,7 +26,12 @@ Phases, each of which exits non-zero on failure:
    grouped with G=35, its table in shared memory; grouped with G=2^14,
    past shared memory) over one exact-sum (usum) pair, one float sum and
    one max, its selection contiguous record runs keeping about 10%, as
-   traversal yields [start, end) slices.
+   traversal yields [start, end) slices. K6 row_assemble at the Q1 leg's
+   block, [16, 2^23], element sizes 1, 4 and 8, in two cases: 13 rows of
+   mixed power-of-two lengths (three padded segments) and 16 full-length
+   rows (the stack form), bit for bit against its plain version (which
+   takes CPU tensors: the same rows copied to the host, timed by the host
+   clock); library: torch.stack on the full-length case.
    Counts, exact-sum planes, min / max, registers, buckets and K4's whole
    output must match bit for bit; float sums within 1e-5 of the slot's sum
    of |contribution|. Times: CUDA events,
@@ -47,7 +52,12 @@ Phases, each of which exits non-zero on failure:
    3). Prints the B = 8 time, 8 x the single launch's time (paired, in the
    same phase) and the bound: each column set's bytes once for the members
    that read it (filter columns in full, the others in the sectors some
-   member keeps), plus each member's parameters and output.
+   member keeps), plus each member's parameters and output. K5's case
+   runs in phase 7, on the blocks the engine stages for eight seeded
+   st5.1-shaped queries (9f's pool) over ssbst: broadcast (one segment
+   batch), stacked (each member over the segments rotated by its index)
+   and dedup (rotations m mod 3); each member against the plain batched
+   version and its own single launch, as phase 3 holds K5.
 4. Q1 leg: SSB-flat lineorder data (bench.py's column distributions), 16
    segments x 8M rows = 128M rows, built with the port's creator into a
    temp dir; SSB Q1.1 as bench.py runs it plus Q1.2- and Q1.3-shaped date
@@ -57,6 +67,12 @@ Phases, each of which exits non-zero on failure:
    (a raw order value, a dictionary order value with OFFSET, unordered,
    an expression order value) and a DISTINCT on K2, every row equal to
    the numpy truth in order (selection_truth / selection_expected).
+4c. Residency (after 9a and 9c): a fresh engine over the Q1 segments runs
+   Q1.1 over segments 0-11, then over 4-15 (its column uploads must be
+   exactly the rows of segments 12-15, by the transfer odometer), then 4-15
+   again (no column byte, no K6 launch); invalidate_segment of segment 5's
+   name must drop exactly its resident rows. Prints each step's column
+   bytes, stage ms, K6 launches and peak device memory.
 5. Group-by leg: 8 x 4M rows of bench_extra.py config #3 data;
    SELECT d_year, p_category, SUM(lo_revenue) ... WHERE s_region =
    'AMERICA' GROUP BY d_year, p_category ORDER BY ... LIMIT 100, checked
@@ -84,11 +100,13 @@ Phases, each of which exits non-zero on failure:
    OPTION(useStarTree=false) on K1 / K2; each answer must equal the numpy
    truth of the generated columns (integer sums and counts exactly from
    the tree; floats, and the scan's float32 grouped sums, within rel 1e-6)
-   and the tree's answer its scan's within rel 1e-6. After the tree runs
-   of each table, K5 is held against its plain version on the very inputs
-   the engine staged for each query (S=8 segments of D=128 or 2048
-   pre-agg records: one block per segment, fewer records than a block has
-   threads), as in phase 3; the kernels line carries config #5's query.
+   and the tree's answer its scan's within rel 1e-6. On ssbst the tree
+   runs start with a prestage of st5.1 (the warm-up call), after which the
+   leg must upload no column byte. After the tree runs of each table, K5
+   is held against its plain version on the very inputs the engine staged
+   for each query (S=8 segments of D=128 or 2048 pre-agg records: one
+   block per segment, fewer records than a block has threads), as in
+   phase 3; the kernels line carries config #5's query.
 9. Concurrency leg: 8 closed-loop clients (bench.py:1744 batching_main)
    through one QueryExecutor per dispatch mode, `serialized` then
    `pipelined`, alternated twice in windows of WINDOW_S seconds, each
@@ -103,7 +121,10 @@ Phases, each of which exits non-zero on failure:
    whatever the timing); 9c sel.1-shaped top-N with seeded filters on the
    128M rows (K4's batched form: its key scratch is [B, S, D]); 9d
    config-#3-shaped group-bys on phase 5's 32M rows; 9e config #4's three
-   sketch queries on phase 6's 1,024M rows. Each pool query runs alone
+   sketch queries on phase 6's 1,024M rows; 9f st5.1-shaped star-tree
+   queries (a p_category and a d_year range from a seeded pool, all
+   filters on the tree's dimensions) on phase 7's ssbst segments, K5's
+   member axis. Each pool query runs alone
    first through both executors and must equal its numpy truth (phase
    4-6's bars); every answer in the windows must equal the same query run
    alone. Per sub-leg and mode: QPS, per-query p50 / p99, the largest
@@ -115,19 +136,23 @@ Phases, each of which exits non-zero on failure:
    stacked or dedup dispatch and, over those, exactly the batches'
    members (no padding); every other kernel none. Fails on any other
    count, if a pipelined sub-leg never formed a batch of 2 or more, if 9a
-   and 9b together did not show each variant, or if a measured window
+   and 9b together did not show each variant, if a measured window
    compiled a program (kernels.trace_count moved: the solo runs before
-   the windows compiled every plan of the pool).
+   the windows compiled every plan of the pool), or if a window's peak
+   device memory passed the card's 80 GB.
 8. Launch counts: each kernel's counter is set to 0 just before a leg's
    timed queries and read just after them; the leg's kernels must have
-   launched once per query run and the others never. Then a short
+   launched once per query run, K6 once per block the leg assembled (the
+   engines' hbm_block_miss meter), the others never, and no leg's peak
+   device memory may pass 80 GB. Then a short
    torch.profiler trace of the same warm query gives the card's busy time
    per query and each port kernel's share. Prints each query's p50
    latency, rows/s and peak device memory, the host-clock stage split of
    the timed runs, the card line, the `kernels` JSON line, and last
    {"ok": true, "device": {...}}. The batched forms' entries (`*_batched`)
    carry phase 3b's broadcast times and their batched launches in phase
-   9's windows.
+   9's windows; K6's entry the full float32 case of phase 3 and its
+   launches in phases 4-7.
 
 Imports nothing of JAX or of pinot_tpu. Exits non-zero, printing no
 result, where torch sees no CUDA device or the port's package is missing.
@@ -197,6 +222,13 @@ B9_TABLES = {"ssb_a": (16, 750_000), "ssb_b": (16, 900_000),
              "ssb_c": (12, 1_000_000)}
 B9_CLIENTS = ["ssb_a"] * 3 + ["ssb_b"] * 3 + ["ssb_c"] * 2
 B9_DISCOUNTS = range(9)
+#: 9f: st5.1's shape under a filter on the tree's own dimensions ->
+#: (p_category, first d_year, last d_year)
+ST_POOL = [(str(c), int(y), int(y) + int(w))
+           for c, y, w in zip(_POOL_RNG.choice(["MFGR#1", "MFGR#2", "MFGR#3",
+                                                "MFGR#4", "MFGR#5"], 16),
+                              _POOL_RNG.integers(1992, 1998, 16),
+                              _POOL_RNG.integers(0, 4, 16))]
 
 Q1_QUERIES = {
     # bench.py:42, verbatim
@@ -510,13 +542,26 @@ def stb_columns(rng, n: int) -> dict:
     }
 
 
+def st_pool_sql(category, y0, y1) -> str:
+    return ("SELECT d_year, SUM(lo_revenue) FROM ssbst "
+            f"WHERE p_category = '{category}' AND d_year BETWEEN {y0} "
+            f"AND {y1} GROUP BY d_year ORDER BY d_year LIMIT 100")
+
+
 def startree_truth(cols: dict) -> dict:
     """The star-tree leg's answers over one segment's columns, in numpy:
-    per query the partial rows that startree_expected merges."""
+    per query the partial rows that startree_expected merges (ssbst: also
+    each 9f pool query's d_year -> SUM(lo_revenue))."""
     if "d_year" in cols:
         rev = cols["lo_revenue"].astype(np.int64)
-        return {"st5.1": {int(y): int(rev[cols["d_year"] == y].sum())
-                          for y in np.unique(cols["d_year"])}}
+        year, cat = cols["d_year"], cols["p_category"]
+        pool = []
+        for c, y0, y1 in ST_POOL:
+            m = (cat == c) & (year >= y0) & (year <= y1)
+            pool.append({int(y): int(rev[m & (year == y)].sum())
+                         for y in np.unique(year[m])})
+        return {"st5.1": {int(y): int(rev[year == y].sum())
+                          for y in np.unique(year)}, "stpool": pool}
     imp, cost = cols["impressions"], cols["cost"]
     c3 = cols["country"] == "c3"
     q2 = np.isin(cols["country"], ["c1", "c2", "c3"]) \
@@ -1154,27 +1199,16 @@ def startree_kernel_inputs(seed: int) -> dict:
     return out
 
 
-def check_startree(name: str, plan, cols, params, num_docs, D,
-                   value_dtype=None) -> dict:
-    """K5 against its plain version on the card: record counts, exact-sum
-    planes and min / max bit for bit, float sums within 1e-5 of their sum
-    of |contribution|; returns the case's entry. value_dtype: the value
-    columns' (float32 unless given)."""
+def compare_startree(name: str, plan, out, ref, cols, params, num_docs,
+                     D) -> None:
+    """A K5 output against its reference: record counts, exact-sum planes
+    and min / max bit for bit, float sums within 1e-5 of their sum of
+    |contribution|."""
     import torch
 
     from pinot_tpu_torch.ops import startree_device as sd
-    vdt = value_dtype or torch.float32
-    kern = sd.make_startree_kernel(plan, vdt)
-
-    def plain():
-        return sd.startree_kernel(plan, cols, params, num_docs, D,
-                                  value_dtype=vdt)
-    out = kern(cols, params, num_docs, D)
-    ref = plain()
-    torch.cuda.synchronize()
     if out.shape != ref.shape:
-        fail(f"startree {name}: shape {tuple(out.shape)} != "
-             f"{tuple(ref.shape)}")
+        fail(f"{name}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
     valid = torch.arange(D, device=num_docs.device)[None, :] \
         < num_docs[:, None]
     mask = params["sel"] & valid
@@ -1197,12 +1231,37 @@ def check_startree(name: str, plan, cols, params, num_docs, D,
                 scale = contrib.sum(1)[:, None]
             err = (a.double() - b.double()).abs()
             if not bool((err <= 1e-5 * scale + 1e-30).all()):
-                fail(f"startree {name}: sum beyond 1e-5 of sum|contrib|: "
-                     f"max err {float(err.max())}")
+                fail(f"{name}: sum beyond 1e-5 of sum|contrib|: max err "
+                     f"{float(err.max())}")
         elif not torch.equal(a, b):
-            fail(f"startree {name}: {op} {pair} not bit-identical")
+            fail(f"{name}: {op} {pair} not bit-identical")
     if not torch.equal(out[..., 0], ref[..., 0]):
-        fail(f"startree {name}: record counts differ")
+        fail(f"{name}: record counts differ")
+
+
+def check_startree(name: str, plan, cols, params, num_docs, D,
+                   value_dtype=None) -> dict:
+    """K5 against its plain version on the card: record counts, exact-sum
+    planes and min / max bit for bit, float sums within 1e-5 of their sum
+    of |contribution|; returns the case's entry. value_dtype: the value
+    columns' (float32 unless given)."""
+    import torch
+
+    from pinot_tpu_torch.ops import startree_device as sd
+    vdt = value_dtype or torch.float32
+    kern = sd.make_startree_kernel(plan, vdt)
+
+    def plain():
+        return sd.startree_kernel(plan, cols, params, num_docs, D,
+                                  value_dtype=vdt)
+    out = kern(cols, params, num_docs, D)
+    ref = plain()
+    torch.cuda.synchronize()
+    compare_startree(f"startree {name}", plan, out, ref, cols, params,
+                     num_docs, D)
+    valid = torch.arange(D, device=num_docs.device)[None, :] \
+        < num_docs[:, None]
+    mask = params["sel"] & valid
     # bytes: the mask of every real record, the other columns only in the
     # sectors holding a selected record, num_docs and the output once
     moved = int(valid.sum()) * params["sel"].element_size()
@@ -1222,6 +1281,151 @@ def check_startree(name: str, plan, cols, params, num_docs, D,
                        "exact-sum planes and the float slots together",
             "records": int(num_docs.sum()), "selected": int(mask.sum()),
             "groups": plan.num_groups, "bytes": moved}
+
+
+#: K6's phase-3 cases: 13 segments' rows into a block of 16 (three padded
+#: segments), at the Q1 leg's doc bucket; row lengths (powers of two, as the
+#: engine pads each segment's row to its own bucket) per case
+RA_S, RA_D = 16, 1 << 23
+RA_CASES = {"mixed": [RA_D >> k for k in (0, 3, 1, 0, 2, 0, 1, 3, 0, 2, 0,
+                                          1, 0)],
+            "full": [RA_D] * RA_S}
+
+
+def check_row_assemble(seed: int) -> dict:
+    """K6 against its plain version, bit for bit, at element sizes 1, 4 and
+    8 (int8 ids, float32 values, float64 values) in two cases: 13 rows of
+    mixed lengths into [16, 2^23] and 16 full-length rows (the stack
+    form). The plain version runs on the host (it takes CPU tensors only):
+    the same rows, copied there. Times: CUDA events for K6 and for
+    torch.stack (the full case only: there it computes the same block),
+    the host clock for the plain version; bound: the rows' bytes read and
+    the block's written, over 3.35 TB/s. Returns the cases and the kernels
+    line's entry (the full float32 case)."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 4)
+    cases = {}
+    for dtype in (torch.int8, torch.float32, torch.float64):
+        for case, lens in RA_CASES.items():
+            if dtype.is_floating_point:
+                rows = [torch.randn(n, generator=g, device=dev, dtype=dtype)
+                        for n in lens]
+            else:
+                rows = [torch.randint(-128, 128, (n,), generator=g,
+                                      device=dev, dtype=dtype) for n in lens]
+            out = kernels.assemble_rows(rows, RA_S, RA_D)
+            host = [r.cpu() for r in rows]
+            t0 = time.perf_counter()
+            ref = kernels.row_assemble(host, RA_S, RA_D)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            if not torch.equal(out.cpu().view(torch.uint8),
+                               ref.view(torch.uint8)):
+                fail(f"row_assemble {dtype} {case}: not bit-identical")
+            size = rows[0].element_size()
+            moved = sum(lens) * size + RA_S * RA_D * size
+            name = f"{str(dtype).replace('torch.', '')} {case}"
+            cases[name] = {
+                "case": name, "max_abs_err": max_abs_err(out.cpu(), ref),
+                "ms": cuda_ms(lambda: kernels.assemble_rows(rows, RA_S,
+                                                            RA_D)),
+                "plain_ms": plain_ms, "plain": "host CPU",
+                "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "bytes": moved,
+                "library_ms": cuda_ms(lambda: torch.stack(rows))
+                if case == "full" else None,
+                "library": "torch.stack (full-length rows only)"}
+            del rows, host, out, ref
+            torch.cuda.empty_cache()
+    entry = dict(cases["float32 full"], max_abs_err=max(
+        c["max_abs_err"] for c in cases.values()))
+    return {"cases": cases, **entry}
+
+
+def staged_startree_batch(ex, sqls, batches):
+    """The inputs the engine stages for a batch of star-tree queries, as a
+    coalesced launch reads them: member m is sqls[m] over the segment
+    batch batches[m] (a tuple of segment indexes); members of one batch
+    share its column set. Returns (plan, column sets, params per member,
+    record counts per set, member-to-set map, D)."""
+    staged = [staged_startree(ex, sql, [ex.segments[i] for i in batch])
+              for sql, batch in zip(sqls, batches)]
+    plan, D = staged[0][0], staged[0][4]
+    if any(st[0] != plan or st[4] != D for st in staged):
+        fail("phase 3b: the star-tree members do not share one plan and D")
+    uniq = list(dict.fromkeys(batches))
+    idx = [uniq.index(b) for b in batches]
+    first = [idx.index(u) for u in range(len(uniq))]
+    return (plan, [staged[m][1] for m in first], [st[2] for st in staged],
+            [staged[m][3] for m in first], idx, D)
+
+
+def check_startree_batched(ex, sqls) -> dict:
+    """Phase 3b's K5 case, on the blocks the engine staged for the B = 8
+    st5.1-shaped queries `sqls` over phase 7's ssbst segments: broadcast
+    (every member over the same batch), stacked (member m over the
+    segments rotated by m, each its own batch) and dedup (rotations m mod
+    3). Each member against the plain batched version and its own single
+    launch: record counts, exact-sum planes and min / max bit for bit,
+    float sums within 1e-5 of their sum of |contribution| (as phase 3 holds
+    K5's single launch). Returns the times per form, 8 x the single
+    launch's, and the kernels line's entry (broadcast)."""
+    import torch
+
+    from pinot_tpu_torch.ops import startree_device as sd
+    vdt = ex.engine.value_dtype
+    n = len(ex.segments)
+    rot = [tuple((i + m) % n for i in range(n)) for m in range(BATCH_B)]
+    batches = {"broadcast": [rot[0]] * BATCH_B, "stacked": rot,
+               "dedup": [rot[m % 3] for m in range(BATCH_B)]}
+    forms = {}
+    for form, bs in batches.items():
+        plan, sets, plist, nds, idx, D = staged_startree_batch(ex, sqls, bs)
+        run = sd.batched_kernel(plan, vdt)
+        plain = sd.plain_batched_kernel(plan, vdt)
+        single = sd.make_startree_kernel(plan, vdt)
+        args = (sets, plist, nds, idx, D)
+        out = run(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        for m, u in enumerate(idx):
+            one = single(sets[u], plist[m], nds[u], D)
+            for what, other in (("plain", ref[m]), ("its single launch",
+                                                    one)):
+                compare_startree(f"startree {form} member {m} vs {what}",
+                                 plan, out[m], other, sets[u], plist[m],
+                                 nds[u], D)
+        moved = 0
+        for u, (cols, nd) in enumerate(zip(sets, nds)):
+            valid = torch.arange(D, device=nd.device)[None, :] < nd[:, None]
+            kept = torch.zeros_like(valid)
+            for p in [p for p, v in zip(plist, idx) if v == u]:
+                kept |= p["sel"] & valid
+                moved += int(valid.sum()) * p["sel"].element_size()
+            for t in cols.values():
+                size = t.element_size()
+                moved += SECTOR * int(kept.view(kept.shape[0], -1,
+                                                SECTOR // size).any(-1).sum())
+            moved += nd.numel() * nd.element_size()
+        moved += out.numel() * out.element_size()
+        forms[form] = {"U": len(sets), "ms": cuda_ms(lambda: run(*args)),
+                       "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                       "bytes": moved, "max_abs_err": max_abs_err(out, ref)}
+        if form == "broadcast":
+            single_ms = cuda_ms(lambda: single(sets[0], plist[0], nds[0], D))
+            plain_ms = cuda_ms(lambda: plain(*args), iters=3)
+        del out, ref
+    return {"B": BATCH_B, "forms": forms, "single_ms": single_ms,
+            "8x_single_ms": BATCH_B * single_ms,
+            "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
+            "ms": forms["broadcast"]["ms"], "plain_ms": plain_ms,
+            "bound_ms": forms["broadcast"]["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "library": "none: no one PyTorch call computes it"}
 
 
 # ---------------------------------------------------------------------------
@@ -1319,7 +1523,8 @@ def device_busy(ex, sql: str, iters: int, tmp: str):
                    if n.removeprefix("void ").startswith(p)) / 1e3 / iters
             for k, p in (("scan_agg", "scan_"), ("group_agg", "group_"),
                          ("sketch_agg", "sketch_"), ("topn", "topn_"),
-                         ("startree_agg", "startree_"))}
+                         ("startree_agg", "startree_"),
+                         ("row_assemble", "row_assemble"))}
     return {"busy_ms_per_query": busy / 1e3 / iters,
             "traced_wall_ms_per_query": wall * 1e3 / iters,
             "device_ms_per_query": {n: v / 1e3 / iters for n, v in top},
@@ -1350,29 +1555,37 @@ def trace_busy_us(prof, tmp: str):
     return busy, by_name
 
 
-def staged_startree(ex, sql: str):
-    """The inputs the engine stages for K5 on a tree query, as it stages
-    them on the main path: (plan, cols, params, num_docs, D)."""
+def staged_startree(ex, sql: str, segments=None):
+    """The inputs the engine stages for K5 on a tree query over
+    `segments` (the executor's by default), as it stages them on the main
+    path: (plan, cols, params, num_docs, D)."""
     from pinot_tpu_torch.query.context import QueryContext
+    segments = ex.segments if segments is None else segments
     ctx = QueryContext.from_sql(sql)
-    st = ex.engine._plan_startree(ex.segments, ctx)
+    st = ex.engine._plan_startree(segments, ctx)
     if st is None:
         fail(f"the engine does not serve {sql!r} from the tree")
     plan, _needed, fits = st
-    return (plan, *ex.engine._stage_startree(ex.segments, ctx, plan, fits))
+    return (plan, *ex.engine._stage_startree(segments, ctx, plan, fits))
 
 
 def startree_leg(tmp: str, seed: int, kernels, none: dict, card: str):
     """Phase 7: each star-tree table built, each query run from the tree
     and with OPTION(useStarTree=false), checked against the numpy truth
     and each other, and K5 held against its plain version on the inputs
-    the engine staged for each query; returns the leg's launches per
-    kernel and K5's cases by query name."""
+    the engine staged for each query. On ssbst the tree runs start with a
+    prestage of st5.1, after which the leg must upload no column byte;
+    then phase 3b's K5 case (check_startree_batched on eight 9f pool
+    queries) and phase 9f. Returns the leg's launches per kernel, K5's
+    cases by query name, the batched K5 check and 9f's window launches."""
     import torch
 
+    from pinot_tpu_torch.ops import residency
+    from pinot_tpu_torch.query.context import QueryContext
     from pinot_tpu_torch.query.executor import QueryExecutor
     launches = {k.name: 0 for k in kernels}
     cases = {}
+    batched, p9f = None, None
     for table, (fields, tree, queries) in ST_TABLES.items():
         t0 = time.perf_counter()
         segs, truths = build_segments(
@@ -1391,6 +1604,12 @@ def startree_leg(tmp: str, seed: int, kernels, none: dict, card: str):
             torch.cuda.reset_peak_memory_stats()
             zero_launches(kernels)
             legs, splits, answers = [], {}, {}
+            if path == "tree" and table == "ssbst":
+                c0 = residency.column_transfer_bytes()
+                if not ex.engine.prestage(segs, QueryContext.from_sql(
+                        queries["st5.1"][0])):
+                    fail("prestage of st5.1 staged nothing")
+                prestaged = residency.column_transfer_bytes()
             for name, (sql, is_grouped) in queries.items():
                 resp, cold, lats, splits[name] = time_query(
                     ex, sql + suffix, ITERS)
@@ -1406,6 +1625,14 @@ def startree_leg(tmp: str, seed: int, kernels, none: dict, card: str):
                              "p50_ms": statistics.median(lats) * 1e3,
                              "cold_s": cold,
                              "rows_per_s": rows / statistics.median(lats)})
+            if path == "tree" and table == "ssbst":
+                after = residency.column_transfer_bytes() - prestaged
+                print(f"[startree] prestage st5.1: "
+                      f"{json.dumps({'prestage_column_bytes': prestaged - c0, 'column_bytes_after': after})}"
+                      f" | {card}", flush=True)
+                if after:
+                    fail(f"st5.1 after its prestage uploaded {after} column "
+                         "bytes")
             runs = 1 + ITERS
             want_launches = {**none, "startree_agg": len(queries) * runs} \
                 if path == "tree" else \
@@ -1441,25 +1668,154 @@ def startree_leg(tmp: str, seed: int, kernels, none: dict, card: str):
                 print(f"[startree] trace {name} {path} "
                       f"{json.dumps(busy or 'not measured')} | {card}",
                       flush=True)
+        if table == "ssbst":
+            pool = [st_pool_sql(*w) for w in ST_POOL]
+            # phase 3b's K5 case, on the blocks the engine stages for the
+            # pool's first eight queries
+            batched = check_startree_batched(ex, pool[:BATCH_B])
+            print(f"[kernel] startree_agg batched {json.dumps(batched)} "
+                  f"| {card}", flush=True)
+
+            # phase 9f: st5.1-shaped queries under concurrency (K5)
+            def st_check(i, rows):
+                want = sorted(set().union(*(t["stpool"][i] for t in truths)))
+                want = [(y, sum(t["stpool"][i].get(y, 0) for t in truths))
+                        for y in want]
+                return None if rows_agree(rows, want, True) else \
+                    f"{rows[:3]} vs numpy truth {want[:3]}"
+            leg = concurrency_leg(
+                "9f", modes_of(segs, pipelined=ex), pool,
+                [list(range(len(pool)))] * CLIENTS, st_check, card, tmp,
+                kernels, "startree_agg")
+            p9f = leg["launches"]
         del ex, segs
         torch.cuda.empty_cache()
-    return launches, cases
+    return launches, cases, batched, p9f
 
 
 def launches_of_leg(leg: str, kernels, want: dict) -> dict:
     """The leg's launch counts, read just after its timed runs, against
     the counts it must show (name -> launches): its kernels once per query
-    run, the others never, and no batched launch (one query at a time)."""
+    run, K6 (row_assemble) once per block the leg assembled (the engines'
+    `hbm_block_miss` meter since zero_launches), the others never, and no
+    batched launch (one query at a time). Also holds the leg's peak device
+    memory to the card's 80 GB."""
+    want = {**want, "row_assemble": int(block_misses() - _MISSES[0])}
     got = {k.name: k.launches for k in kernels}
     if got != want or any(k.batched_launches for k in kernels):
         fail(f"{leg}: launches {got}, expected {want}; batched "
              f"{ {k.name: k.batched_launches for k in kernels} }")
+    check_peak(leg)
     return got
 
 
+#: the block-miss meter when the launch counts were last set to 0
+_MISSES = [0.0]
+#: the card's memory (H100 80GB): no leg may peak above it
+PEAK_LIMIT = 80e9
+
+
+def block_misses() -> float:
+    """Blocks the engines assembled so far: each one K6 launch."""
+    from pinot_tpu_torch.utils.metrics import get_registry
+    return get_registry("server").meter("hbm_block_miss")
+
+
+def check_peak(where: str) -> None:
+    import torch
+    peak = torch.cuda.max_memory_allocated()
+    if peak > PEAK_LIMIT:
+        fail(f"{where}: peak device memory {peak} above {PEAK_LIMIT}")
+
+
 def zero_launches(kernels) -> None:
+    _MISSES[0] = block_misses()
     for k in kernels:
         k.reset_counts()
+
+
+def residency_phase(segs, truths, card: str) -> dict:
+    """Phase 4c: the staging levels on phase 4's 16 x 8M Q1 segments, through
+    a fresh engine (nothing staged): Q1.1 over segments 0-11; over 4-15,
+    whose column uploads must be exactly the rows of segments 12-15 (each
+    staged column's element size times the segment's power-of-two doc
+    bucket); over 4-15 again, adding no column byte and no K6 launch;
+    then invalidate_segment of segment 5's name must drop exactly its
+    resident rows. Every answer equals the numpy truth of its segments.
+    Prints each step's column bytes, stage ms, K6 launches and peak device
+    memory; returns K6's launches."""
+    import torch
+
+    from pinot_tpu_torch.ops import _cuda, residency
+    from pinot_tpu_torch.ops.engine import _batch_key, _pow2
+    from pinot_tpu_torch.query.context import QueryContext
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    from pinot_tpu_torch.query.reduce import reduce_results
+    eng = QueryExecutor(segs).engine
+    ctx = QueryContext.from_sql(Q1_QUERIES["q1.1"])
+    launches = 0
+
+    def step(name, lo, hi, want_bytes=None):
+        nonlocal launches
+        batch = segs[lo:hi]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = residency.column_transfer_bytes()
+        k0 = _cuda.ROW_ASSEMBLE.launches
+        rows = reduce_results(ctx, eng.execute(batch, ctx)).rows
+        torch.cuda.synchronize()
+        moved = residency.column_transfer_bytes() - c0
+        k6 = _cuda.ROW_ASSEMBLE.launches - k0
+        launches += k6
+        err = exact_pair(rows, sum(t["q1"]["q1.1"][0] for t in truths[lo:hi]),
+                         sum(t["q1"]["q1.1"][1] for t in truths[lo:hi]))
+        if err is not None:
+            fail(f"residency {name}: {err}")
+        if want_bytes is not None and moved != want_bytes:
+            fail(f"residency {name}: {moved} column bytes uploaded, "
+                 f"expected {want_bytes}")
+        out = {"step": name, "segments": [lo, hi - 1],
+               "column_bytes": moved, "stage_ms": eng.last_stage_ms["stage"],
+               "row_assemble_launches": k6,
+               "resident_rows": len(eng.residency),
+               "resident_bytes": eng.residency.bytes,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        print(f"[residency] {json.dumps(out)} | {card}", flush=True)
+        check_peak(f"residency {name}")
+        return out
+
+    first = step("1: segments 0-11", 0, 12)
+    if not first["row_assemble_launches"]:
+        fail("residency: the cold batch launched no row_assemble")
+    # each block the first batch staged: its element size times the new
+    # segments' doc buckets
+    key0 = _batch_key(segs[:12])
+    sizes = [dev.element_size() for key, (_s, dev) in eng._blocks.items()
+             if key[0] == key0]
+    want = sum(_pow2(seg.num_docs) * size for seg in segs[12:16]
+               for size in sizes)
+    second = step("2: segments 4-15", 4, 16, want)
+    if second["row_assemble_launches"] != len(sizes):
+        fail(f"residency: {second['row_assemble_launches']} row_assemble "
+             f"launches for {len(sizes)} blocks")
+    third = step("3: segments 4-15 again", 4, 16, 0)
+    if third["row_assemble_launches"]:
+        fail("residency: a repeat batch assembled a block")
+    name = segs[5].name
+    before, mine = len(eng.residency), eng.residency.resident_for(name)
+    eng.invalidate_segment(name)
+    after = len(eng.residency)
+    print(f"[residency] {json.dumps({'step': '4: invalidate ' + name, 'rows_before': before, 'rows_of_segment': mine, 'rows_after': after})}"
+          f" | {card}", flush=True)
+    if mine != len(sizes) or after != before - mine \
+            or eng.residency.resident_for(name):
+        fail(f"residency: invalidate_segment({name}) left {after} of "
+             f"{before} rows ({mine} of them its own)")
+    if any(any(x.name == name for x in s) for s, _d in eng._blocks.values()):
+        fail(f"residency: a block of {name} survived invalidate_segment")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1599,6 +1955,9 @@ def concurrency_leg(name: str, executors: dict, pool: list,
             if w["codegen"]:
                 fail(f"{name} {mode}: a steady-state window compiled "
                      f"{w['codegen']} programs")
+            if w["max_memory_allocated"] > PEAK_LIMIT:
+                fail(f"{name} {mode}: peak device memory "
+                     f"{w['max_memory_allocated']} above {PEAK_LIMIT}")
             windows[mode].append(w)
     out = {}
     for mode, ws in windows.items():
@@ -1742,9 +2101,13 @@ def main() -> None:
         print(f"[kernel] startree_agg {json.dumps(k5_cases[name])}",
               flush=True)
     torch.cuda.empty_cache()
+    k6 = check_row_assemble(args.seed)
+    for name, case in k6.pop("cases").items():
+        print(f"[kernel] row_assemble {json.dumps(case)} | {card}",
+              flush=True)
 
     # phase 3b: the query axis against its plain version and the single
-    # launches
+    # launches (K5's case runs in phase 7, on the blocks it stages)
     batched = {}
     for kname, inputs_fn in (
             ("scan_agg", lambda s: kernel_inputs(s, grouped=False)),
@@ -1793,9 +2156,11 @@ def main() -> None:
                          "cold_s": cold,
                          "rows_per_s": rows / statistics.median(lats),
                          "sum": want_sum, "count": want_cnt})
-        k1["launches"] = launches_of_leg(
+        got = launches_of_leg(
             "Q1 leg", kernels,
-            {**none, "scan_agg": len(Q1_QUERIES) * (1 + ITERS)})["scan_agg"]
+            {**none, "scan_agg": len(Q1_QUERIES) * (1 + ITERS)})
+        k1["launches"] = got["scan_agg"]
+        k6["launches"] = got["row_assemble"]
         q1_peak = torch.cuda.max_memory_allocated()
         for leg in legs:
             leg["max_memory_allocated"] = q1_peak
@@ -1842,6 +2207,7 @@ def main() -> None:
              "group_agg": 1 + ITERS})
         k4["launches"] = got["topn"]
         k2_launches = got["group_agg"]
+        k6["launches"] += got["row_assemble"]
         peak = torch.cuda.max_memory_allocated()
         for leg in legs:
             leg["max_memory_allocated"] = peak
@@ -1876,7 +2242,12 @@ def main() -> None:
             [list(range(len(SEL_POOL)))] * CLIENTS, sel_check, card, tmp,
             kernels, "topn")
         count_phase9(leg["launches"], p9)
-        del ex, execs, segs
+        del ex, execs
+        torch.cuda.empty_cache()
+
+        # phase 4c: the staging levels (residency) on the Q1 segments
+        k6["launches"] += residency_phase(segs, truths, card)
+        del segs
         torch.cuda.empty_cache()
 
         # phase 5: group-by leg
@@ -1899,9 +2270,10 @@ def main() -> None:
         zero_launches(kernels)
         resp, cold, lats, split = time_query(ex, GB_QUERY, ITERS)
         dresp, dcold, dlats, dsplit = time_query(ex, GB_DISTINCT, ITERS)
-        k2["launches"] = k2_launches + launches_of_leg(
-            "group-by leg", kernels,
-            {**none, "group_agg": 2 * (1 + ITERS)})["group_agg"]
+        got = launches_of_leg("group-by leg", kernels,
+                              {**none, "group_agg": 2 * (1 + ITERS)})
+        k2["launches"] = k2_launches + got["group_agg"]
+        k6["launches"] += got["row_assemble"]
         want = {}
         for t in truths:
             for key, v in t["gb"].items():
@@ -1992,10 +2364,11 @@ def main() -> None:
                          "rows_per_s": rows / statistics.median(lats),
                          "distinctcounthll": card_hll, "p95": p95,
                          "exact_p95": exact})
-        k3["launches"] = launches_of_leg(
+        got = launches_of_leg(
             "config-#4 leg", kernels,
-            {**none, "sketch_agg": len(TAXI_QUERIES) * (1 + ITERS)}
-        )["sketch_agg"]
+            {**none, "sketch_agg": len(TAXI_QUERIES) * (1 + ITERS)})
+        k3["launches"] = got["sketch_agg"]
+        k6["launches"] += got["row_assemble"]
         peak = torch.cuda.max_memory_allocated()
         for leg in legs:
             leg["max_memory_allocated"] = peak
@@ -2023,8 +2396,11 @@ def main() -> None:
         del ex, segs
         torch.cuda.empty_cache()
 
-        # phase 7: star-tree leg (config #5 and bench.py --startree's table)
-        got, leg_cases = startree_leg(tmp, args.seed, kernels, none, card)
+        # phase 7: star-tree leg (config #5 and bench.py --startree's
+        # table), with phase 3b's K5 case and phase 9f
+        got, leg_cases, batched["startree_agg"], p9f = startree_leg(
+            tmp, args.seed, kernels, none, card)
+        count_phase9(p9f, p9)
         # the kernels line carries config #5's query on the inputs the
         # engine staged for it, and the largest error over every case,
         # phase 3's and the leg's
@@ -2033,6 +2409,7 @@ def main() -> None:
                                   [*k5_cases.values(), *leg_cases.values()]))
         k1["launches"] += got["scan_agg"]
         k2["launches"] += got["group_agg"]
+        k6["launches"] += got["row_assemble"]
 
         # phase 9b: batching_main's three tables, stacked and dedup (K1)
         t0 = time.perf_counter()
@@ -2075,12 +2452,15 @@ def main() -> None:
         if not any(seen[v] for seen in variants.values()):
             fail(f"phase 9a-9b never formed a {v} batch")
     for kern, entry in ((_cuda.SCAN_AGG, k1), (_cuda.GROUP_AGG, k2),
-                        (_cuda.SKETCH_AGG, k3), (_cuda.TOPN, k4)):
+                        (_cuda.SKETCH_AGG, k3), (_cuda.TOPN, k4),
+                        (_cuda.STARTREE_AGG, k5)):
         single, batch = p9[kern.name]
         entry["launches"] += single
         batched[kern.name]["launches"] = batch
         if not batch:
             fail(f"phase 9 never launched {kern.name}'s batched form")
+    if not k6["launches"]:
+        fail("the main path never launched row_assemble")
     entries = []
     for kern, entry, replaces in (
             (_cuda.SCAN_AGG, k1, "pinot_tpu/ops/kernels.py:537"),
@@ -2088,7 +2468,8 @@ def main() -> None:
             (_cuda.SKETCH_AGG, k3, "pinot_tpu/ops/kernels.py:429,451"),
             (_cuda.TOPN, k4, "pinot_tpu/ops/kernels.py:583"),
             (_cuda.STARTREE_AGG, k5,
-             "pinot_tpu/ops/startree_device.py:99,81")):
+             "pinot_tpu/ops/startree_device.py:99,81"),
+            (_cuda.ROW_ASSEMBLE, k6, "pinot_tpu/ops/kernels.py:100")):
         entries.append({
             "name": kern.name, "route": "cuda",
             "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",
@@ -2097,15 +2478,17 @@ def main() -> None:
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"],
             "library_ms": entry["library_ms"]})
-    for kern in (_cuda.SCAN_AGG, _cuda.GROUP_AGG, _cuda.SKETCH_AGG,
-                 _cuda.TOPN):
+    for kern, replaces in (
+            (_cuda.SCAN_AGG, "pinot_tpu/ops/kernels.py:793,823"),
+            (_cuda.GROUP_AGG, "pinot_tpu/ops/kernels.py:793,823"),
+            (_cuda.SKETCH_AGG, "pinot_tpu/ops/kernels.py:793,823"),
+            (_cuda.TOPN, "pinot_tpu/ops/kernels.py:858"),
+            (_cuda.STARTREE_AGG, "pinot_tpu/ops/startree_device.py:152")):
         entry = batched[kern.name]
         entries.append({
             "name": f"{kern.name}_batched", "route": "cuda",
             "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",
-            "replaces": "pinot_tpu/ops/kernels.py:858" if kern is _cuda.TOPN
-            else "pinot_tpu/ops/kernels.py:793,823",
-            "launches": entry["launches"],
+            "replaces": replaces, "launches": entry["launches"],
             "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"],

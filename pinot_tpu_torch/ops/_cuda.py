@@ -1,8 +1,9 @@
 """Build, bind and launch the hand-written CUDA kernels.
 
 K1 `scan_agg` (csrc/scan_agg.cu), K2 `group_agg` (csrc/group_agg.cu),
-K3 `sketch_agg` (csrc/sketch_agg.cu), K4 `topn` (csrc/topn.cu) and K5
-`startree_agg` (csrc/startree_agg.cu) are plain-C-interface shared libraries
+K3 `sketch_agg` (csrc/sketch_agg.cu), K4 `topn` (csrc/topn.cu), K5
+`startree_agg` (csrc/startree_agg.cu) and K6 `row_assemble`
+(csrc/row_assemble.cu) are plain-C-interface shared libraries
 built with `nvcc` for sm_90a at first use, into the git-ignored
 `build/kernels/` directory beside the package, and loaded with ctypes. All
 sources build at once, one `nvcc` each, in parallel. A library's file name carries a hash of its sources and flags, so
@@ -13,10 +14,11 @@ contiguity, allocate outputs and scratch with `torch.empty`, launch on the
 current stream, raise if the launch failed, and count their launches. They
 never fall back to the plain PyTorch version.
 
-K1-K4 carry a member axis (csrc/interp.cuh): one launch computes B
-coalesced queries of one plan over U column sets, member m reading set
-idx[m]. `scan_agg`, `group_agg`, `sketch_agg` and `topn` are the single
-launch (B = U = 1); the `*_batched` forms take the members' column sets,
+K1-K5 carry a member axis (csrc/interp.cuh, csrc/startree_agg.cu): one
+launch computes B coalesced queries of one plan over U column sets, member
+m reading set idx[m]. `scan_agg`, `group_agg`, `sketch_agg`, `topn` and
+`startree_agg` are the single launch (B = U = 1); the `*_batched` forms
+take the members' column sets,
 parameters, doc counts and member-to-set map and return [B, S, ...]. A
 kernel counts single launches in `launches`, batched ones in
 `batched_launches` and their members in `batched_members`, under a lock:
@@ -72,6 +74,8 @@ USUM_PLANES = 4
 #: K5's accumulator columns: the record count, 2 * USUM_PLANES per usum
 #: slot, one per float slot
 ST_MAX_ACC = 1 + 2 * USUM_PLANES * ST_MAX_SLOTS
+#: block rows K6 takes per launch (csrc/row_assemble.cu RA_MAX_ROWS)
+RA_MAX_ROWS = 1024
 
 
 class _Args(ctypes.Structure):
@@ -83,26 +87,41 @@ class _Args(ctypes.Structure):
 
 
 class _StArgs(ctypes.Structure):
-    """csrc/startree_agg.cu `struct StArgs`, passed to the kernel by value."""
-    _fields_ = [("a", ctypes.c_void_p * ST_MAX_SLOTS),
-                ("b", ctypes.c_void_p * ST_MAX_SLOTS),
+    """csrc/startree_agg.cu `struct StArgs`, passed to the kernel by value:
+    per column set the slots' and group dimensions' row pointers, per
+    member its selection mask and its set."""
+    _fields_ = [("a", (ctypes.c_void_p * ST_MAX_SLOTS) * MAX_SETS),
+                ("b", (ctypes.c_void_p * ST_MAX_SLOTS) * MAX_SETS),
+                ("gid", (ctypes.c_void_p * ST_MAX_DIMS) * MAX_SETS),
+                ("sel", ctypes.c_void_p * MAX_MEMBERS),
+                ("set_of", ctypes.c_int * MAX_MEMBERS),
                 ("op", ctypes.c_int * ST_MAX_SLOTS),
-                ("gid", ctypes.c_void_p * ST_MAX_DIMS),
                 ("stride", ctypes.c_int * ST_MAX_DIMS),
                 ("acc_op", ctypes.c_int * ST_MAX_ACC),
                 ("acc_out", ctypes.c_int * ST_MAX_ACC),
                 ("nslot", ctypes.c_int), ("ndim", ctypes.c_int)]
 
 
+class _RowArgs(ctypes.Structure):
+    """csrc/row_assemble.cu `struct RowArgs`, passed to the kernel by
+    value: each row's pointer and its length in bytes."""
+    _fields_ = [("src", ctypes.c_void_p * RA_MAX_ROWS),
+                ("len", ctypes.c_longlong * RA_MAX_ROWS)]
+
+
 class CudaKernel:
     """One hand-written kernel: its source, its entry point and the number
-    of times it was launched, single and batched."""
+    of times it was launched, single and batched. `layout`: the ctypes
+    mirror of the struct it takes by value and the library's function that
+    returns that struct's size, checked when the library loads."""
 
-    def __init__(self, name: str, source: str, entry: str, argtypes: list):
+    def __init__(self, name: str, source: str, entry: str, argtypes: list,
+                 layout: Optional[Tuple[type, str]] = None):
         self.name = name
         self.source = source
         self.entry = entry
         self.argtypes = argtypes
+        self.layout = layout
         self.launches = 0
         self.batched_launches = 0
         self.batched_members = 0
@@ -141,6 +160,15 @@ class CudaKernel:
                 f = getattr(lib, self.entry)
                 f.argtypes = self.argtypes
                 f.restype = ctypes.c_int
+                if self.layout is not None:
+                    struct, sizer = self.layout
+                    size = getattr(lib, sizer)
+                    size.argtypes, size.restype = [], ctypes.c_int
+                    if size() != ctypes.sizeof(struct):
+                        raise RuntimeError(
+                            f"{self.source}: argument struct of {size()} "
+                            f"bytes, its ctypes mirror "
+                            f"{ctypes.sizeof(struct)}")
                 self._fn = f
             return self._fn
 
@@ -160,9 +188,15 @@ TOPN = CudaKernel("topn", "topn.cu", "pt_topn",
                    _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
 STARTREE_AGG = CudaKernel("startree_agg", "startree_agg.cu",
                           "pt_startree_agg",
-                          [ctypes.POINTER(_StArgs), _P, _P, _I, _I, _I, _I,
-                           _I, _I, _I, _P, _P, _I, _P])
-KERNELS = (SCAN_AGG, GROUP_AGG, SKETCH_AGG, TOPN, STARTREE_AGG)
+                          [ctypes.POINTER(_StArgs), _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _P, _P, _I, _P],
+                          layout=(_StArgs, "pt_startree_args_bytes"))
+ROW_ASSEMBLE = CudaKernel("row_assemble", "row_assemble.cu",
+                          "pt_row_assemble",
+                          [ctypes.POINTER(_RowArgs), _I, _I, ctypes.c_longlong,
+                           _P, _I, _P],
+                          layout=(_RowArgs, "pt_row_assemble_args_bytes"))
+KERNELS = (SCAN_AGG, GROUP_AGG, SKETCH_AGG, TOPN, STARTREE_AGG, ROW_ASSEMBLE)
 
 _build_lock = threading.Lock()
 
@@ -490,30 +524,51 @@ def topn(plan: DevicePlan, cols: Tensors, params: Tensors,
 _ST_OPS = {"usum": 0, "sum": 1, "min": 2, "max": 3}
 
 
-def startree_agg(plan, cols: Dict[str, torch.Tensor],
-                 params: Dict[str, torch.Tensor], num_docs: torch.Tensor,
-                 D: int, value_dtype: torch.dtype) -> torch.Tensor:
-    """K5: the packed star-tree residual aggregation of `plan` (an
-    ops/startree_device.StarTreePlan): [S, 1 + sum(w)] flat or
-    [S, G, 1 + sum(w)] grouped, in the value dtype."""
-    device = num_docs.device
+def startree_agg_batched(plan, col_sets: List[Tensors],
+                         params_list: List[Tensors],
+                         num_docs_list: List[torch.Tensor], idx: List[int],
+                         D: int, value_dtype: torch.dtype,
+                         batched: bool = True) -> torch.Tensor:
+    """K5 over B members: the packed star-tree residual aggregation of
+    `plan` (an ops/startree_device.StarTreePlan), [B, S, 1 + sum(w)] flat
+    or [B, S, G, 1 + sum(w)] grouped, in the value dtype; member m over
+    column set idx[m] with its own selection mask params_list[m]["sel"]."""
+    B, U = len(params_list), len(col_sets)
+    if not 1 <= B <= MAX_MEMBERS or not 1 <= U <= MAX_SETS:
+        raise ValueError(f"{B} members over {U} column sets: a launch takes "
+                         f"1-{MAX_MEMBERS} members and 1-{MAX_SETS} sets")
+    if len(num_docs_list) != U or len(idx) != B \
+            or any(not 0 <= int(u) < U for u in idx):
+        raise ValueError("num_docs per column set and a member-to-set "
+                         "index in [0, U) per member")
+    device = num_docs_list[0].device
     if device.type != "cuda":
         raise ValueError(f"CUDA kernel given tensors on {device}")
     if value_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"value dtype {value_dtype} is not float32/64")
-    if num_docs.dim() != 1:
+    if num_docs_list[0].dim() != 1:
         raise ValueError("num_docs must be 1-D")
-    S = num_docs.shape[0]
-    _check(num_docs, "num_docs", device, (torch.int32,), (S,))
+    S = num_docs_list[0].shape[0]
+    for u, nd in enumerate(num_docs_list):
+        _check(nd, f"num_docs[{u}]", device, (torch.int32,), (S,))
     if D <= 0 or D > (1 << 30):
         raise ValueError(f"record block width {D} out of range")
     if len(plan.slots) > ST_MAX_SLOTS or len(plan.group_dims) > ST_MAX_DIMS:
         raise ValueError(f"star-tree plan beyond {ST_MAX_SLOTS} slots or "
                          f"{ST_MAX_DIMS} group dims")
-    sel = params["sel"]
-    _check(sel, "sel", device, (torch.bool,), (S, D))
     args = _StArgs()
     args.nslot, args.ndim = len(plan.slots), len(plan.group_dims)
+    for m, (params, u) in enumerate(zip(params_list, idx)):
+        _check(params["sel"], f"sel of member {m}", device, (torch.bool,),
+               (S, D))
+        args.sel[m] = params["sel"].data_ptr()
+        args.set_of[m] = int(u)
+
+    def put(field: str, j: int, key: str, dtypes) -> None:
+        for u, cols in enumerate(col_sets):
+            _check(cols[key], f"{key} of set {u}", device, dtypes, (S, D))
+            getattr(args, field)[u][j] = cols[key].data_ptr()
+
     A, W = 1, 1  # accumulator and output columns; column 0 is the count
     args.acc_op[0], args.acc_out[0] = _ST_OPS["sum"], 0
     for j, (op, name) in enumerate(plan.slots):
@@ -521,43 +576,87 @@ def startree_agg(plan, cols: Dict[str, torch.Tensor],
             raise ValueError(f"unknown star-tree slot op {op!r}")
         args.op[j] = _ST_OPS[op]
         if op == "usum":
-            for field, key in (("a", "sthi:"), ("b", "stlo:")):
-                t = cols[key + name]
-                _check(t, key + name, device, (torch.int32,), (S, D))
-                getattr(args, field)[j] = t.data_ptr()
+            put("a", j, "sthi:" + name, (torch.int32,))
+            put("b", j, "stlo:" + name, (torch.int32,))
             for p in range(2 * USUM_PLANES):
                 args.acc_op[A + p] = _ST_OPS["usum"]
                 args.acc_out[A + p] = W + 2 * p
             A += 2 * USUM_PLANES
             W += 4 * USUM_PLANES
         else:
-            t = cols["stval:" + name]
-            _check(t, "stval:" + name, device, (value_dtype,), (S, D))
-            args.a[j] = t.data_ptr()
+            put("a", j, "stval:" + name, (value_dtype,))
             args.acc_op[A], args.acc_out[A] = _ST_OPS[op], W
             A += 1
             W += 1
     for g, (dim, stride) in enumerate(zip(plan.group_dims,
                                           plan.group_strides)):
-        t = cols["stid:" + dim]
-        _check(t, "stid:" + dim, device, (torch.int32,), (S, D))
-        args.gid[g] = t.data_ptr()
+        put("gid", g, "stid:" + dim, (torch.int32,))
         args.stride[g] = stride
     G = plan.num_groups
     nb = max(1, min(MAX_BLOCKS_PER_SEGMENT,
                     math.ceil(D / (THREADS * DOCS_PER_THREAD))))
+    nrec = _stack(num_docs_list).contiguous()
     if G:
-        scratch = torch.empty((S, G, A), dtype=torch.float64, device=device)
-        out = torch.empty((S, G, W), dtype=value_dtype, device=device)
+        scratch = torch.empty((B, S, G, A), dtype=torch.float64,
+                              device=device)
+        out = torch.empty((B, S, G, W), dtype=value_dtype, device=device)
     else:
-        scratch = torch.empty((S, nb, A), dtype=torch.float64, device=device)
-        out = torch.empty((S, W), dtype=value_dtype, device=device)
-    fn = STARTREE_AGG.fn()
-    rc = fn(ctypes.byref(args), sel.data_ptr(), num_docs.data_ptr(), S, D,
-            G, nb, A, W, int(value_dtype == torch.float64),
-            scratch.data_ptr(), out.data_ptr(), device.index,
-            torch.cuda.current_stream(device).cuda_stream)
+        scratch = torch.empty((B, S, nb, A), dtype=torch.float64,
+                              device=device)
+        out = torch.empty((B, S, W), dtype=value_dtype, device=device)
+    rc = STARTREE_AGG.fn()(ctypes.byref(args), nrec.data_ptr(), S, D, G, nb,
+                           A, W, B, int(value_dtype == torch.float64),
+                           scratch.data_ptr(), out.data_ptr(), device.index,
+                           torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"startree_agg launch failed: cudaError {rc}")
-    STARTREE_AGG.count(1, batched=False)
+    STARTREE_AGG.count(B, batched)
+    return out
+
+
+def startree_agg(plan, cols: Tensors, params: Tensors,
+                 num_docs: torch.Tensor, D: int,
+                 value_dtype: torch.dtype) -> torch.Tensor:
+    """K5: the packed star-tree residual aggregation of `plan` (an
+    ops/startree_device.StarTreePlan): [S, 1 + sum(w)] flat or
+    [S, G, 1 + sum(w)] grouped, in the value dtype."""
+    return _single(startree_agg_batched, plan, cols, params, num_docs, D,
+                   value_dtype)
+
+
+def row_assemble(rows: List[torch.Tensor], S: int, D: int) -> torch.Tensor:
+    """K6: the [S, D] block whose row s is rows[s] followed by zeros (rows
+    past len(rows) all zero), from 1-D rows of one dtype on the card, each
+    at most D long. One launch per RA_MAX_ROWS block rows."""
+    if not rows or len(rows) > S:
+        raise ValueError(f"{len(rows)} rows for a block of {S}")
+    t0 = rows[0]
+    device, dtype = t0.device, t0.dtype
+    if device.type != "cuda":
+        raise ValueError(f"CUDA kernel given tensors on {device}")
+    if D <= 0 or S > 65535 * RA_MAX_ROWS:
+        raise ValueError(f"block [{S}, {D}] out of range")
+    for i, r in enumerate(rows):
+        if r.device != device or r.dtype != dtype or r.dim() != 1 \
+                or r.shape[0] > D or not r.is_contiguous():
+            raise ValueError(f"row {i}: {tuple(r.shape)} {r.dtype} on "
+                             f"{r.device}; rows are contiguous 1-D {dtype} "
+                             f"tensors on {device} of at most {D}")
+    out = torch.empty((S, D), dtype=dtype, device=device)
+    size = t0.element_size()
+    row_bytes = D * size
+    fn = ROW_ASSEMBLE.fn()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for c0 in range(0, S, RA_MAX_ROWS):
+        chunk = rows[c0:c0 + RA_MAX_ROWS]
+        args = _RowArgs()
+        for i, r in enumerate(chunk):
+            args.src[i] = r.data_ptr()
+            args.len[i] = r.shape[0] * size
+        rc = fn(ctypes.byref(args), len(chunk), min(RA_MAX_ROWS, S - c0),
+                row_bytes, out.data_ptr() + c0 * row_bytes, device.index,
+                stream)
+        if rc != 0:
+            raise RuntimeError(f"row_assemble launch failed: cudaError {rc}")
+        ROW_ASSEMBLE.count(1, batched=False)
     return out

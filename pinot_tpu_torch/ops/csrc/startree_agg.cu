@@ -6,7 +6,19 @@
 // then each slot).
 //
 // Replaces pinot_tpu/ops/startree_device.py:99 `make_startree_kernel` and
-// :81 `_grouped_usum`.
+// :81 `_grouped_usum`, and, with its member axis, :152
+// `make_batched_startree_kernel` (K5 under vmap over B coalesced queries).
+//
+// The member axis, as K1-K4 carry it (csrc/interp.cuh): one launch computes
+// B members of one plan over U column sets, member m reading set set_of[m]
+// (its pre-agg rows and record counts) and its own selection mask sel[m],
+// and writing its own [S, ...] output. Broadcast is U = 1, stacked U = B,
+// dedup a member-to-set map; no [B, S, D] stack is copied. The grid's z
+// axis is the member, and the block partition of a segment depends on D
+// and its record count only, so a member's flat result is bit for bit its
+// single launch's. The kernels are templates on BATCH: the single launch
+// (B = 1) compiles its own body with the member and its set fixed at 0, so
+// it spends no registers on the member axis.
 //
 // Slots: usum (an exact sum of a non-negative integral pair below 2^48,
 // staged as two 24-bit digit rows; each digit is cut into 4 planes of 7
@@ -49,18 +61,26 @@
 #define ST_USUM_PLANES 4
 #define ST_USUM_BITS 7
 #define ST_MAX_ACC (1 + 2 * ST_USUM_PLANES * ST_MAX_SLOTS)
+#define ST_MAX_SETS 16     // column sets per launch (ops/_cuda.py MAX_SETS)
+#define ST_MAX_MEMBERS 16  // members per launch (ops/_cuda.py MAX_MEMBERS)
 #define ST_SMEM_TABLE_BYTES (96 * 1024)
 
 enum { OP_USUM = 0, OP_SUM = 1, OP_MIN = 2, OP_MAX = 3 };
 
-// ops/_cuda.py `_StArgs`. acc_op / acc_out: per accumulator column, how it
-// combines (count and float sums OP_SUM, exact-sum planes OP_USUM) and the
-// output column it is written to (a plane writes two).
+// ops/_cuda.py `_StArgs`, passed by value: 6,448 bytes, inside the
+// 32,764 bytes of kernel parameters that CUDA 12.1 and later allow on sm_70
+// and later. Per column set u: a[u] / b[u] / gid[u]; per member m: sel[m]
+// and set_of[m]. acc_op / acc_out: per accumulator column, how it combines
+// (count and float sums OP_SUM, exact-sum planes OP_USUM) and the output
+// column it is written to (a plane writes two).
 struct StArgs {
-  const void* a[ST_MAX_SLOTS];  // usum: hi digit rows (int32); else values
-  const int* b[ST_MAX_SLOTS];   // usum: lo digit rows (int32)
+  const void* a[ST_MAX_SETS][ST_MAX_SLOTS];  // usum: hi digit rows (int32);
+                                             // else values
+  const int* b[ST_MAX_SETS][ST_MAX_SLOTS];   // usum: lo digit rows (int32)
+  const int* gid[ST_MAX_SETS][ST_MAX_DIMS];  // group dimension codes (int32)
+  const unsigned char* sel[ST_MAX_MEMBERS];  // [S, D] selection masks
+  int set_of[ST_MAX_MEMBERS];
   int op[ST_MAX_SLOTS];
-  const int* gid[ST_MAX_DIMS];  // group dimension codes (int32)
   int stride[ST_MAX_DIMS];
   int acc_op[ST_MAX_ACC];
   int acc_out[ST_MAX_ACC];
@@ -124,20 +144,22 @@ __device__ void block_store(int op, double v, double* wbuf, double* dst) {
   __syncthreads();
 }
 
-template <typename T>
+// nrec: [U, S] record counts; partial: [B, S, nb, A].
+template <typename T, bool BATCH>
 __global__ void __launch_bounds__(ST_THREADS)
 startree_flat(const __grid_constant__ StArgs a,
-              const unsigned char* __restrict__ sel,
               const int* __restrict__ nrec, int D, int A,
               double* __restrict__ partial) {
   __shared__ double wbuf[ST_THREADS / 32];
-  const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
-  const int n = max(0, min(nrec[s], D));
+  const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x, S = gridDim.y;
+  const int m = BATCH ? (int)blockIdx.z : 0;
+  const int u = BATCH ? a.set_of[m] : 0;
+  const int n = max(0, min(nrec[(long long)u * S + s], D));
   const int per = (n + nb - 1) / nb;
   const int start = min(n, b * per), end = min(n, start + per);
   const long long base = (long long)s * D;
-  const unsigned char* srow = sel + base;
-  double* prow = partial + ((long long)s * nb + b) * A;
+  const unsigned char* srow = a.sel[m] + base;
+  double* prow = partial + (((long long)m * S + s) * nb + b) * A;
 
   int cnt = 0;
   for (int d = start + threadIdx.x; d < end; d += ST_THREADS)
@@ -147,8 +169,8 @@ startree_flat(const __grid_constant__ StArgs a,
   for (int j = 0; j < a.nslot; ++j) {
     const int op = a.op[j];
     if (op == OP_USUM) {
-      const int* hi = (const int*)a.a[j] + base;
-      const int* lo = a.b[j] + base;
+      const int* hi = (const int*)a.a[u][j] + base;
+      const int* lo = a.b[u][j] + base;
       int ph[ST_USUM_PLANES] = {0, 0, 0, 0}, pl[ST_USUM_PLANES] = {0, 0, 0, 0};
       for (int d = start + threadIdx.x; d < end; d += ST_THREADS) {
         const bool m = srow[d] != 0;
@@ -166,7 +188,7 @@ startree_flat(const __grid_constant__ StArgs a,
                     prow + off + ST_USUM_PLANES + k);
       off += 2 * ST_USUM_PLANES;
     } else {
-      const T* v = (const T*)a.a[j] + base;
+      const T* v = (const T*)a.a[u][j] + base;
       const double id = identity_of(op);
       double acc = id;
       for (int d = start + threadIdx.x; d < end; d += ST_THREADS) {
@@ -192,18 +214,19 @@ __device__ __forceinline__ void put(const StArgs& a, int c, double r, T* o) {
   }
 }
 
+// grid (S, B): row (m, s) of the [B, S, nb, A] partials into out[m, s].
 template <typename T>
 __global__ void startree_flat_finalize(const __grid_constant__ StArgs a,
                                        const double* __restrict__ partial,
                                        int nb, int A, int W,
                                        T* __restrict__ out) {
-  const int s = blockIdx.x;
-  const double* p = partial + (long long)s * nb * A;
+  const long long s = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  const double* p = partial + s * nb * A;
   for (int c = threadIdx.x; c < A; c += blockDim.x) {
     const int op = a.acc_op[c] == OP_USUM ? OP_SUM : a.acc_op[c];
     double r = p[c];
     for (int b = 1; b < nb; ++b) r = combine(op, r, p[(long long)b * A + c]);
-    put<T>(a, c, r, out + (long long)s * W);
+    put<T>(a, c, r, out + s * W);
   }
 }
 
@@ -215,16 +238,18 @@ __global__ void startree_group_init(const __grid_constant__ StArgs a,
     table[e] = identity_of(a.acc_op[e % A]);
 }
 
-template <typename T>
+// nrec: [U, S]; table: [B, S, G, A].
+template <typename T, bool BATCH>
 __global__ void __launch_bounds__(ST_THREADS)
 startree_group(const __grid_constant__ StArgs a,
-               const unsigned char* __restrict__ sel,
                const int* __restrict__ nrec, int D, int G, int A,
                int use_smem, double* __restrict__ table) {
   extern __shared__ double tab[];
-  const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
+  const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x, S = gridDim.y;
+  const int m = BATCH ? (int)blockIdx.z : 0;
+  const int u = BATCH ? a.set_of[m] : 0;
   const long long entries = (long long)G * A;
-  double* seg_table = table + (long long)s * entries;
+  double* seg_table = table + ((long long)m * S + s) * entries;
   double* my = use_smem ? tab : seg_table;
   if (use_smem) {
     for (int e = threadIdx.x; e < entries; e += blockDim.x)
@@ -232,10 +257,11 @@ startree_group(const __grid_constant__ StArgs a,
     __syncthreads();
   }
 
-  const int n = max(0, min(nrec[s], D));
+  const int n = max(0, min(nrec[(long long)u * S + s], D));
   const int per = (n + nb - 1) / nb;
   const int start = min(n, b * per), end = min(n, start + per);
   const long long base = (long long)s * D;
+  const unsigned char* sel = a.sel[m];
   // Every lane of a warp takes the same steps and the warp reconverges at
   // the end of each, as in K3: a rejected record (or one whose key XLA
   // would drop) updates nothing, but its lane does not run ahead.
@@ -245,7 +271,7 @@ startree_group(const __grid_constant__ StArgs a,
     int key = -1;
     if (d < end && sel[i] != 0) {
       key = 0;
-      for (int g = 0; g < a.ndim; ++g) key += a.gid[g][i] * a.stride[g];
+      for (int g = 0; g < a.ndim; ++g) key += a.gid[u][g][i] * a.stride[g];
     }
     if (key >= 0 && key < G) {
       double* row = my + (long long)key * A;
@@ -254,7 +280,7 @@ startree_group(const __grid_constant__ StArgs a,
       for (int j = 0; j < a.nslot; ++j) {
         const int op = a.op[j];
         if (op == OP_USUM) {
-          const int vh = ((const int*)a.a[j])[i], vl = a.b[j][i];
+          const int vh = ((const int*)a.a[u][j])[i], vl = a.b[u][j][i];
           for (int k = 0; k < ST_USUM_PLANES; ++k) {
             atomicAdd(row + off + k,
                       (double)((vh >> (ST_USUM_BITS * k)) & 127));
@@ -263,7 +289,7 @@ startree_group(const __grid_constant__ StArgs a,
           }
           off += 2 * ST_USUM_PLANES;
         } else {
-          atomic_combine(op, row + off, (double)((const T*)a.a[j])[i]);
+          atomic_combine(op, row + off, (double)((const T*)a.a[u][j])[i]);
           off += 1;
         }
       }
@@ -292,51 +318,60 @@ __global__ void startree_group_finalize(const __grid_constant__ StArgs a,
     put<T>(a, (int)(e % A), table[e], out + (e / A) * W);
 }
 
-template <typename T>
-static int launch(const StArgs* a, const unsigned char* sel, const int* nrec,
-                  int S, int D, int G, int nb, int A, int W, double* scratch,
-                  T* out, cudaStream_t st) {
-  const dim3 grid(nb, S);
+template <typename T, bool BATCH>
+static int launch(const StArgs* a, const int* nrec, int S, int D, int G,
+                  int nb, int A, int W, int B, double* scratch, T* out,
+                  cudaStream_t st) {
+  const dim3 grid(nb, S, B);
   if (G == 0) {
-    startree_flat<T><<<grid, ST_THREADS, 0, st>>>(*a, sel, nrec, D, A,
-                                                  scratch);
-    startree_flat_finalize<T><<<S, 128, 0, st>>>(*a, scratch, nb, A, W, out);
+    startree_flat<T, BATCH><<<grid, ST_THREADS, 0, st>>>(*a, nrec, D, A,
+                                                         scratch);
+    startree_flat_finalize<T><<<dim3(S, B), 128, 0, st>>>(*a, scratch, nb, A,
+                                                         W, out);
     return (int)cudaGetLastError();
   }
-  const long long n = (long long)S * G * A;
+  const long long n = (long long)B * S * G * A;
   const long long tb = (n + ST_THREADS - 1) / ST_THREADS;
   const int flat = (int)(tb < 4096 ? (tb > 0 ? tb : 1) : 4096);
   const size_t smem = (size_t)G * A * sizeof(double);
   const int use_smem = smem <= ST_SMEM_TABLE_BYTES;
   if (use_smem) {
     const cudaError_t e = cudaFuncSetAttribute(
-        startree_group<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        startree_group<T, BATCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   startree_group_init<<<flat, ST_THREADS, 0, st>>>(*a, n, A, scratch);
-  startree_group<T><<<grid, ST_THREADS, use_smem ? smem : 0, st>>>(
-      *a, sel, nrec, D, G, A, use_smem, scratch);
+  startree_group<T, BATCH><<<grid, ST_THREADS, use_smem ? smem : 0, st>>>(
+      *a, nrec, D, G, A, use_smem, scratch);
   startree_group_finalize<T><<<flat, ST_THREADS, 0, st>>>(*a, n, A, W,
                                                           scratch, out);
   return (int)cudaGetLastError();
 }
 
-// Launches K5 on `stream`. sel: [S, D] bool; nrec: [S] int32 record
-// counts; G: group count (0: flat); nb: blocks per segment; A / W:
-// accumulator / output columns; scratch: [S, nb, A] (flat) or [S, G, A]
-// (grouped) float64; out: [S, W] or [S, G, W] in the value dtype (f64 != 0:
-// float64, else float32); dev: the tensors' device. Returns
-// cudaGetLastError().
-extern "C" int pt_startree_agg(const StArgs* a, const unsigned char* sel,
-                               const int* nrec, int S, int D, int G, int nb,
-                               int A, int W, int f64, double* scratch,
-                               void* out, int dev, void* stream) {
+// The size of StArgs as this compiler lays it out, for the wrapper's check
+// of its ctypes mirror.
+extern "C" int pt_startree_args_bytes() { return (int)sizeof(StArgs); }
+
+// Launches K5 on `stream` for B members (B = 1: the single launch, on its
+// own body). nrec: [U, S] int32 record counts; G: group count (0: flat);
+// nb: blocks per segment; A / W: accumulator / output columns; scratch:
+// [B, S, nb, A] (flat) or [B, S, G, A] (grouped) float64; out: [B, S, W] or
+// [B, S, G, W] in the value dtype (f64 != 0: float64, else float32); dev:
+// the tensors' device. Returns cudaGetLastError().
+extern "C" int pt_startree_agg(const StArgs* a, const int* nrec, int S, int D,
+                               int G, int nb, int A, int W, int B, int f64,
+                               double* scratch, void* out, int dev,
+                               void* stream) {
   cudaSetDevice(dev);
   cudaStream_t st = (cudaStream_t)stream;
   if (f64)
-    return launch<double>(a, sel, nrec, S, D, G, nb, A, W, scratch,
-                          (double*)out, st);
-  return launch<float>(a, sel, nrec, S, D, G, nb, A, W, scratch, (float*)out,
-                       st);
+    return B > 1 ? launch<double, true>(a, nrec, S, D, G, nb, A, W, B,
+                                        scratch, (double*)out, st)
+                 : launch<double, false>(a, nrec, S, D, G, nb, A, W, B,
+                                         scratch, (double*)out, st);
+  return B > 1 ? launch<float, true>(a, nrec, S, D, G, nb, A, W, B, scratch,
+                                     (float*)out, st)
+               : launch<float, false>(a, nrec, S, D, G, nb, A, W, B, scratch,
+                                      (float*)out, st);
 }

@@ -20,9 +20,25 @@ the `KernelDispatcher`, which coalesces concurrent launches of one plan and
 shape bucket into one launch of K1-K4 with a member axis and splits the
 result back per caller (`_prepare_agg` / `_prepare_topn` / `_prepare_startree`
 as JAX :390, :1396, :981; the pow2 segment bucket `_padded_S` :1963;
-`_batch_id` :3147, `_shape_sig` :3153, `_cols_key` :2261). Star-tree launches
-ride the ring unbatched. No residency tier, CLP, vector, time-series or
-mesh. The rules it keeps from the JAX engine:
+`_batch_id` :3147, `_shape_sig` :3153, `_cols_key` :2261); star-tree
+launches coalesce on the same kind of key into one launch of K5 with a
+member axis (JAX :1034-1058).
+
+Staging keeps three levels (JAX `_stacked` :2448-2600): host rows per
+(segment, column), each padded to the segment's own power-of-two bucket
+under a host budget; resident device rows per (segment, column)
+(ops/residency.py: TinyLFU admission under
+`pinot.server.hbm.resident.bytes`); and assembled [S, D] blocks per
+(segment batch, column). A block miss builds and uploads only the rows the
+card does not hold, through pinned memory on the default stream, counts
+their bytes in the transfer odometer and offers them to the resident tier;
+K6 `row_assemble` then assembles the block on the card. Star-tree pre-agg
+pseudo-columns ride the same levels (admitted to the resident tier only
+under `pinot.server.startree.hbm.resident`). `invalidate_segment`,
+`drop_caches`, `prestage` and `residency_seeding` are the server's and
+warm-up's calls on these levels (JAX :2692-2790). No CLP, vector,
+time-series, upsert validity mask or mesh. The rules it keeps from the JAX
+engine:
 cardinality-aware i8/i16/i32 id staging, power-of-two doc padding masked by
 `num_docs`, the per-segment doc cap, the group-count and group-result-size
 caps, the float32 precision guard, the exact-int-sum (isum) admission, the
@@ -52,6 +68,7 @@ import torch
 
 from pinot_tpu_torch.ops import dispatch as dispatch_mod
 from pinot_tpu_torch.ops import kernels, program, startree_device
+from pinot_tpu_torch.ops import residency as residency_mod
 #: most rows a selection fetches per segment (limit + offset)
 from pinot_tpu_torch.ops._cuda import TOPN_MAX_K
 from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan
@@ -65,6 +82,7 @@ from pinot_tpu_torch.query.results import (
     SelectionResult)
 from pinot_tpu_torch.segment.loader import ImmutableSegment
 from pinot_tpu_torch.utils.config import PinotConfiguration
+from pinot_tpu_torch.utils.metrics import get_registry
 
 MAX_DEVICE_GROUPS = 1 << 20
 #: cap on the [S, G, slots] group-by result buffer
@@ -104,15 +122,21 @@ class TorchOperatorExecutor:
     value_dtype: float32 (the card's default: f32 value blocks, exact int
     sums through isum planes) or float64 (f64 blocks, no isum).
     config: a utils.config.PinotConfiguration; the engine reads the
-    `pinot.server.dispatch.*` keys (its dispatch ring) and
+    `pinot.server.dispatch.*` keys (its dispatch ring),
     `pinot.server.startree.enabled` (answer aggregations from fitted
-    star-trees; a query opts out with OPTION(useStarTree=false)).
-    metrics_labels: labels of the dispatcher's meters and timers.
+    star-trees; a query opts out with OPTION(useStarTree=false)), the
+    `pinot.server.hbm.*` keys (the resident-row tier) and
+    `pinot.server.startree.hbm.resident`.
+    metrics_labels: labels of the engine's and dispatcher's meters and
+    timers.
     """
 
-    #: budget of the staged-block cache, which keeps each (segment batch,
+    #: budget of the assembled-block cache, which keeps each (segment batch,
     #: column) block on the device across queries, LRU-evicted
     CACHE_BYTES = 16 << 30
+    #: budget of the host rows (JAX pinot.server.host.row.cache.bytes'
+    #: default), LRU-evicted
+    HOST_ROW_BYTES = 16 << 30
     #: star-tree selection masks kept per (segment batch, plan, filter)
     PARAMS_CACHE_ENTRIES = 4096
     #: hard backstop on one wait for a launch's result
@@ -128,6 +152,19 @@ class TorchOperatorExecutor:
         cfg = config or PinotConfiguration()
         self._startree_enabled = cfg.get_bool(
             "pinot.server.startree.enabled", True)
+        self._st_resident = cfg.get_bool(
+            "pinot.server.startree.hbm.resident", True)
+        self._metrics = get_registry("server")
+        self._labels = metrics_labels
+        resident_bytes = cfg.get_int("pinot.server.hbm.resident.bytes")
+        if not cfg.get_bool("pinot.server.hbm.resident.enabled", True):
+            resident_bytes = 0
+        self._residency = residency_mod.ResidencyManager(
+            resident_bytes,
+            admission=cfg.get_bool("pinot.server.hbm.admission.enabled",
+                                   True),
+            sample_window=cfg.get_int("pinot.server.hbm.admission.sample"),
+            metrics=self._metrics, labels=metrics_labels)
         #: plan and stage mutate the block and parameter caches and the
         #: meters, so they run under this lock; launches and fetches run
         #: outside it, on the dispatcher
@@ -135,6 +172,10 @@ class TorchOperatorExecutor:
         self._blocks: "OrderedDict[tuple, Tuple[tuple, torch.Tensor]]" = \
             OrderedDict()
         self._cached = 0
+        #: (id(segment), kind, column, row length, dtype) -> (segment, row)
+        self._host_rows: "OrderedDict[tuple, Tuple[Any, np.ndarray]]" = \
+            OrderedDict()
+        self._host_bytes = 0
         self._params_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         #: the JAX engine's meters, keyed (name, reason):
         #: ("startree_served", None) and ("startree_fallback", <reason>)
@@ -425,9 +466,12 @@ class TorchOperatorExecutor:
 
     def _prepare_startree(self, segments, ctx: QueryContext, cancel_check):
         """The star-tree leg on K5, or None with the fallback reason
-        counted. Its launch rides the ring unbatched (batch_key None: the
-        batched star-tree kernel is a later slice); caller holds the
-        engine lock."""
+        counted; caller holds the engine lock. Its launch coalesces as a
+        scan's does (JAX :1034-1058): on (plan, padded S, D, 0, staged-array
+        signature) where D is within DOC_BUCKET_MAX, else on the same
+        segment batch; its column-set identity carries the fitted trees, so
+        members that fit different trees of one segment stack rather than
+        share a block."""
         st = self._plan_startree(segments, ctx)
         if st is None:
             return None
@@ -436,11 +480,19 @@ class TorchOperatorExecutor:
         kernel = startree_device.make_startree_kernel(plan, self.value_dtype)
         cols, params, num_docs, D = self._stage_startree(segments, ctx, plan,
                                                          fits)
+        batch_key = None
+        if self._dispatcher.batch_max > 1:
+            if self._cross_table and D <= DOC_BUCKET_MAX:
+                batch_key = (plan, int(num_docs.shape[0]), D, 0,
+                             _shape_sig(cols, params))
+            else:
+                batch_key = (plan, _batch_key(segments), D, 0)
         launch = dispatch_mod.Launch(
             call=lambda: kernel(cols, params, num_docs, D),
             cols=cols, params=params, num_docs=num_docs, D=D,
-            batch_key=None, cols_key=(_batch_key(segments),
-                                      tuple(f.ti for f in fits)),
+            batch_key=batch_key, cols_key=(_batch_key(segments),
+                                           tuple(f.ti for f in fits)),
+            batched=startree_device.batched_kernel(plan, self.value_dtype),
             cancel_check=cancel_check,
             site_ctx={"table": ctx.table, "mode": "startree"},
             docs=sum(s.num_docs for s in segments))
@@ -1012,16 +1064,23 @@ class TorchOperatorExecutor:
                     if pad else v)
                 for k, v in out.items()}
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """A small per-query array (leaf parameters, doc counts) on the
-        device. To the card it goes through pinned memory without
-        blocking: a pageable copy would wait for every launch queued on
-        the stream, so staging could not overlap another query's
-        kernel."""
+    def _upload(self, arr: np.ndarray, column: bool = False) -> torch.Tensor:
+        """A host array on the device, its bytes counted in the transfer
+        odometer (column=True: a column row or block; else per-query
+        parameters). To the card it goes through pinned memory without
+        blocking, on the default stream: a pageable copy would wait for
+        every launch queued on the stream, so staging could not overlap
+        another query's kernel."""
+        residency_mod.note_transfer(arr.nbytes, column=column)
+        if column:
+            self._meter("hbm_transfer_bytes", arr.nbytes)
         t = torch.from_numpy(arr)
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _meter(self, name: str, value: float = 1) -> None:
+        self._metrics.add_meter(name, value, labels=self._labels)
 
     def _check_value_precision(self, segments, col: str) -> None:
         """float32 staging is exact only for integers with |v| <= 2^24;
@@ -1043,39 +1102,93 @@ class TorchOperatorExecutor:
     def _block(self, segments, S, D, col, kind, fetch,
                dtype) -> torch.Tensor:
         """The [S, D] device block of one column (see _cached_block)."""
-        def row(_s, seg):
+        def row(seg):
             if not seg.has_column(col):
                 raise NotOffloadable(f"column {col} missing in {seg.name}")
             return fetch(seg.data_source(col))
-        return self._cached_block(segments, D, (kind, col), dtype, row, S)
+        return self._cached_block(segments, S, D, kind, col,
+                                  [col] * len(segments),
+                                  [row] * len(segments), dtype)
 
-    def _cached_block(self, segments, D, what, dtype, row,
-                      S: Optional[int] = None) -> torch.Tensor:
-        """The [S, D] device block `what` of a segment batch, row(s, seg)
-        zero-padded (S rows, len(segments) by default: rows past the
-        segments are zero), from the staged-block cache when this exact
-        segment batch staged it before. Eviction only drops the cache's
+    def _cached_block(self, segments, S, D, kind, col, names, fetchers,
+                      dtype, resident: bool = True,
+                      pads: Optional[List[int]] = None) -> torch.Tensor:
+        """The zero-padded [S, D] device block `(kind, col)` of a segment
+        batch, row s from fetchers[s](segments[s]) under the row name
+        names[s] (rows past the segments are zero), through the three
+        levels: the assembled block when this exact batch staged it before;
+        else the resident rows the card holds, and the missing ones built
+        on the host (each padded to pads[s], the segment's own power of two
+        by default), uploaded, counted and offered to the resident tier,
+        assembled on the card by K6. resident=False, or the tier off: the
+        rows padded to D on the host and the block uploaded whole. Hits are
+        confirmed by object identity at every level. Eviction only drops a
         reference: every launch, copy and fetch is on one stream, so the
         allocator reuses the memory only after a queued kernel read it."""
-        S = len(segments) if S is None else S
-        key = (_batch_key(segments), what, S, D, np.dtype(dtype).str)
+        dtype_str = np.dtype(dtype).str
+        key = (_batch_key(segments), kind, col, S, D, dtype_str)
         hit = self._blocks.get(key)
         if hit is not None and all(a is b for a, b in zip(hit[0], segments)):
             self._blocks.move_to_end(key)
+            self._meter("hbm_block_hit")
             return hit[1]
-        block = np.zeros((S, D), dtype=dtype)
-        for s, seg in enumerate(segments):
-            r = row(s, seg)
-            block[s, :len(r)] = r
-        dev = torch.from_numpy(block).to(self.device)
-        nbytes = block.nbytes
+        self._meter("hbm_block_miss")
+        if self._residency.enabled and resident:
+            rows = [self._residency.get(seg, kind, name, dtype_str)
+                    for seg, name in zip(segments, names)]
+            missing = [i for i, r in enumerate(rows) if r is None]
+            # every host row first: a NotOffloadable surfaces before any
+            # upload churns the resident tier
+            host = [self._host_row(segments[i], kind, names[i], fetchers[i],
+                                   dtype, None if pads is None else pads[i])
+                    for i in missing]
+            for i, arr in zip(missing, host):
+                rows[i] = self._upload(arr, column=True)
+                self._residency.admit(segments[i], kind, names[i], dtype_str,
+                                      rows[i], arr.nbytes)
+            dev = kernels.assemble_rows(rows, S, D)
+        else:
+            block = np.zeros((S, D), dtype=dtype)
+            for s, (seg, name, fetch) in enumerate(zip(segments, names,
+                                                       fetchers)):
+                block[s] = self._host_row(seg, kind, name, fetch, dtype, D)
+            dev = self._upload(block, column=True)
+        nbytes = dev.numel() * dev.element_size()
+        old = self._blocks.pop(key, None)
+        if old is not None:
+            self._cached -= old[1].numel() * old[1].element_size()
         if nbytes <= self.CACHE_BYTES:
             while self._blocks and self._cached + nbytes > self.CACHE_BYTES:
-                _k, (_segs, old) = self._blocks.popitem(last=False)
-                self._cached -= old.numel() * old.element_size()
+                _k, (_segs, gone) = self._blocks.popitem(last=False)
+                self._cached -= gone.numel() * gone.element_size()
             self._blocks[key] = (tuple(segments), dev)
             self._cached += nbytes
         return dev
+
+    def _host_row(self, seg, kind, name, fetch, dtype,
+                  pad_to: Optional[int] = None) -> np.ndarray:
+        """One (segment, column) row on the host, zero-padded to pad_to
+        (the segment's own power-of-two doc bucket by default: independent
+        of the batch, so every batch composition shares it), from the
+        host-row cache (JAX `_host_row` :2557)."""
+        Dr = pad_to if pad_to is not None else _pow2(seg.num_docs)
+        rkey = (id(seg), kind, name, Dr, np.dtype(dtype).str)
+        hit = self._host_rows.get(rkey)
+        if hit is not None and hit[0] is seg:
+            self._host_rows.move_to_end(rkey)
+            self._meter("host_row_hit")
+            return hit[1]
+        self._meter("host_row_miss")
+        raw = fetch(seg)
+        arr = np.zeros(Dr, dtype=dtype)
+        arr[:len(raw)] = raw
+        self._host_rows[rkey] = (seg, arr)
+        self._host_bytes += arr.nbytes
+        while self._host_bytes > self.HOST_ROW_BYTES \
+                and len(self._host_rows) > 1:
+            _k, (_s, gone) = self._host_rows.popitem(last=False)
+            self._host_bytes -= gone.nbytes
+        return arr
 
     # ------------------------------------------------------------------
     # star-tree leg (ops/startree_device.py)
@@ -1117,36 +1230,118 @@ class TorchOperatorExecutor:
 
     def _stage_startree(self, segments, ctx: QueryContext, plan, fits):
         """Stage the fitted trees' pre-agg rows as `__startree__<ti>/<col>`
-        pseudo-column blocks through the staged-block cache, and the
-        [S, D] selection mask and record counts through the params cache,
-        so a repeat query (same batch, plan and filter) runs no traversal
-        and uploads nothing. D is the power of two of the largest fitted
-        tree's record count: star records make num_records exceed num_docs,
-        so the scan path's D does not hold here."""
-        S = len(segments)
+        pseudo-columns through the staging levels (each row padded to its
+        tree's own power-of-two record bucket), and the [S, D] selection
+        mask and record counts through the params cache, so a repeat query
+        (same batch, plan and filter) runs no traversal and uploads
+        nothing. D is the power of two of the largest fitted tree's record
+        count (star records make num_records exceed num_docs, so the scan
+        path's D does not hold here); S pads as the scan path's does, the
+        padded segments selecting no record (JAX `_stage_startree_locked`
+        :1062)."""
         D = _pow2(max(int(f.tree.meta.num_records) for f in fits))
+        S = self._padded_S(len(segments), D)
         tis = tuple(f.ti for f in fits)
+        pads = [_pow2(int(f.tree.meta.num_records)) for f in fits]
         cols: Dict[str, torch.Tensor] = {}
         for ckey, form, dtype in startree_device.staged_columns(plan,
                                                                 self._vdt):
-            names = tuple(f"__startree__{ti}/{ckey}" for ti in tis)
             cols[ckey] = self._cached_block(
-                segments, D, ("startree", names), dtype,
-                lambda s, _seg, _form=form, _dt=dtype:
-                startree_device.fetch_row(fits[s].tree, _form, _dt))
-        pkey = (_batch_key(segments), plan, ctx.filter, tis, D)
+                segments, S, D, "startree", (ckey, tis),
+                [f"__startree__{f.ti}/{ckey}" for f in fits],
+                [lambda _seg, _t=f.tree, _form=form, _dt=dtype:
+                 startree_device.fetch_row(_t, _form, _dt) for f in fits],
+                dtype, resident=self._st_resident, pads=pads)
+        pkey = (_batch_key(segments), plan, ctx.filter, tis, S, D)
         hit = self._params_cache.get(pkey)
         if hit is not None and all(a is b for a, b in zip(hit[0], segments)):
             self._params_cache.move_to_end(pkey)
             return cols, dict(hit[1]), hit[2], D
         sel = startree_device.selection_mask(fits, S, D)
         params = {"sel": self._upload(sel)}
-        num_docs = self._upload(np.array(
-            [int(f.tree.meta.num_records) for f in fits], dtype=np.int32))
+        records = np.zeros(S, dtype=np.int32)
+        records[:len(fits)] = [int(f.tree.meta.num_records) for f in fits]
+        num_docs = self._upload(records)
         self._params_cache[pkey] = (tuple(segments), dict(params), num_docs)
         while len(self._params_cache) > self.PARAMS_CACHE_ENTRIES:
             self._params_cache.popitem(last=False)
         return cols, params, num_docs, D
+
+    # ------------------------------------------------------------------
+    # the staging levels' lifecycle (JAX :2692-2790)
+    # ------------------------------------------------------------------
+    @property
+    def residency(self) -> residency_mod.ResidencyManager:
+        return self._residency
+
+    def residency_seeding(self):
+        """Context manager marking staging as warm-up-driven: resident-row
+        admissions bypass the frequency duel and carry the seed boost."""
+        return self._residency.seeding()
+
+    def invalidate_segment(self, name: str, keep=None) -> None:
+        """Drop every level's entries of a replaced or removed segment NAME
+        (assembled blocks holding it, its host rows, the params holding it,
+        its resident rows), sparing those pinned to `keep` (the live
+        object). Identity keying already makes them unreachable; this
+        returns their memory now."""
+        with self._engine_lock:
+            def stale(seg) -> bool:
+                return seg.name == name and (keep is None or seg is not keep)
+
+            for k in [k for k, (segs, _d) in self._blocks.items()
+                      if any(stale(x) for x in segs)]:
+                _segs, gone = self._blocks.pop(k)
+                self._cached -= gone.numel() * gone.element_size()
+            for k in [k for k, v in self._host_rows.items() if stale(v[0])]:
+                self._host_bytes -= self._host_rows.pop(k)[1].nbytes
+            for k in [k for k, v in self._params_cache.items()
+                      if any(stale(x) for x in v[0])]:
+                del self._params_cache[k]
+            self._residency.invalidate_segment(name, keep=keep)
+
+    def drop_caches(self, host: bool = True) -> None:
+        """Release the device levels (assembled blocks, params, resident
+        rows); host=True also drops the host rows: the cold server."""
+        with self._engine_lock:
+            self._blocks.clear()
+            self._cached = 0
+            self._params_cache.clear()
+            self._residency.drop_all()
+            if host:
+                self._host_rows.clear()
+                self._host_bytes = 0
+
+    def prestage(self, segments, ctx: QueryContext) -> bool:
+        """Stage a query's columns into the device levels without launching
+        a kernel (segment warm-up: the first routed query then pays compute,
+        not the upload). The star-tree leg first, as execute routes it: a
+        query the trees serve warms their pre-agg blocks and selection
+        mask, not the scan columns. False when there is nothing to stage
+        or the engine would refuse the query."""
+        if not segments or not self.supports(ctx) or _first_docs(ctx):
+            return False
+        with self._engine_lock:
+            try:
+                if ctx.aggregations and not ctx.distinct \
+                        and self._startree_candidate(segments):
+                    plan, _needed, fits, _reason = \
+                        startree_device.plan_startree(segments, ctx)
+                    if plan is not None and max(
+                            int(f.tree.meta.num_records) for f in fits) \
+                            <= MAX_DOCS_PER_SEGMENT:
+                        self._stage_startree(segments, ctx, plan, fits)
+                        return True
+                if ctx.distinct:
+                    ctx = _distinct_context(ctx)
+                if ctx.aggregations:
+                    plan, _ = self._plan(segments, ctx)
+                else:
+                    plan = self._plan_topn(segments, ctx)
+                self._stage(segments, ctx, plan)
+            except NotOffloadable:
+                return False
+        return True
 
     # ------------------------------------------------------------------
     # assembly

@@ -25,6 +25,9 @@ tensor goes to the kernels in
 `ops/csrc/` (K1 `scan_agg`, K2 `group_agg`, K3 `sketch_agg`, K4 `topn`,
 wrapped by `ops/_cuda.py`) or raises — there is no fallback between the two.
 K5 `startree_agg`'s plain version and wrapper live in ops/startree_device.py.
+`assemble_rows` (JAX `compiled_row_assembler`, kernels.py:100) builds a
+staged [S, D] block from per-segment device rows: K6 `row_assemble` on the
+card, `row_assemble` (zeros plus one slice copy per row) on the CPU.
 
 `batched_kernel` (JAX's batched factories, kernels.py:793, :823, :858)
 runs B coalesced queries of one plan as one launch of the same kernels
@@ -54,7 +57,8 @@ from pinot_tpu_torch.ops.program import (ISUM_PLANES, ISUM_U_BITS,
                                          trace_count_by_plan)
 
 __all__ = ["make_kernel", "plain_kernel", "make_topn_kernel", "topn_kernel",
-           "plain_batched_kernel", "batched_kernel",
+           "plain_batched_kernel", "batched_kernel", "row_assemble",
+           "assemble_rows",
            "order_keys", "from_jax_staged", "slot_width", "is_sketch",
            "trace_count", "trace_count_by_plan", "plan_fingerprint",
            "ISUM_PLANES", "ISUM_U_BITS"]
@@ -591,6 +595,37 @@ def batched_kernel(plan: DevicePlan,
         return _cuda.sketch_agg_batched(*args, out=out)
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# row assembly (kernels.py:100 `compiled_row_assembler`)
+# ---------------------------------------------------------------------------
+
+def row_assemble(rows: Sequence[torch.Tensor], S: int,
+                 D: int) -> torch.Tensor:
+    """The plain version of K6: an [S, D] block of zeros, row s overwritten
+    by rows[s] (each 1-D, at most D long); rows past len(rows) stay zero.
+    CPU tensors only."""
+    if not rows or len(rows) > S:
+        raise ValueError(f"{len(rows)} rows for a block of {S}")
+    if any(r.device.type != "cpu" for r in rows):
+        raise ValueError("the plain row assembler takes CPU tensors")
+    out = torch.zeros((S, D), dtype=rows[0].dtype)
+    for s, r in enumerate(rows):
+        out[s, :r.shape[0]] = r
+    return out
+
+
+def assemble_rows(rows: Sequence[torch.Tensor], S: int,
+                  D: int) -> torch.Tensor:
+    """The staged [S, D] block of per-segment device rows: CUDA rows
+    launch K6 (`row_assemble`), CPU rows run the plain version."""
+    device = rows[0].device
+    if device.type == "cuda":
+        return _cuda.row_assemble(list(rows), S, D)
+    if device.type != "cpu":
+        raise ValueError(f"no kernel for device {device}")
+    return row_assemble(rows, S, D)
 
 
 def abs_contributions(plan: DevicePlan, cols: Tensors, params: Tensors,

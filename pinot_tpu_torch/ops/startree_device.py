@@ -1,6 +1,7 @@
 """Star-tree pre-aggregation on the card: the fit check and traversal on the
 host, the residual aggregation over the selected pre-agg records in K5
-`startree_agg`.
+`startree_agg`, one query per launch or B coalesced ones (`batched_kernel`,
+K5's member axis).
 
 Counterpart of pinot_tpu/ops/startree_device.py (ref
 StarTreeFilterOperator + StarTreeAggregationExecutor /
@@ -26,7 +27,8 @@ plan, filter), so a repeat query runs the fit check but not the traversal.
 """
 from __future__ import annotations
 
-from typing import Dict, FrozenSet, List, NamedTuple, Optional, Tuple
+from typing import (Dict, FrozenSet, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -176,6 +178,55 @@ def make_startree_kernel(plan: StarTreePlan,
                                value_dtype)
 
     return kernel
+
+
+def plain_batched_kernel(plan: StarTreePlan,
+                         value_dtype: torch.dtype = torch.float32):
+    """The plain batched version: fn(col_sets, plist, ndlist, idx, D) ->
+    [B, ...], each member's plain launch over column set idx[m], stacked;
+    on whatever device its inputs lie."""
+    def kernel(col_sets: Sequence[Tensors], plist: Sequence[Tensors],
+               ndlist: Sequence[torch.Tensor], idx: Sequence[int],
+               D: int) -> torch.Tensor:
+        return torch.stack([startree_kernel(plan, col_sets[u], params,
+                                            ndlist[u], D,
+                                            value_dtype=value_dtype)
+                            for params, u in zip(plist, idx)])
+
+    return kernel
+
+
+def batched_kernel(plan: StarTreePlan,
+                   value_dtype: torch.dtype = torch.float32):
+    """fn(col_sets, plist, ndlist, idx, D) -> [B, ...]: B = len(plist)
+    coalesced star-tree queries of one plan over U = len(col_sets) column
+    sets (ndlist: record counts per set), member m over set idx[m] with its
+    own selection mask plist[m]["sel"]. One function serves the JAX
+    package's broadcast and stacked forms
+    (startree_device.py:152 `make_batched_startree_kernel`: broadcast is
+    U = 1, stacked idx = 0..B-1) and the dedup map the ring builds. CUDA
+    inputs launch K5 once for all members, CPU inputs run the plain
+    version."""
+    if value_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"value dtype {value_dtype} is not float32/64")
+    plain = plain_batched_kernel(plan, value_dtype)
+
+    def run(col_sets, plist, ndlist, idx, D):
+        if len(ndlist) != len(col_sets) or len(idx) != len(plist) \
+                or not all(0 <= u < len(col_sets) for u in idx):
+            raise ValueError(
+                f"{len(plist)} members with {len(idx)} set indexes over "
+                f"{len(col_sets)} column sets and {len(ndlist)} num_docs")
+        device = ndlist[0].device
+        if device.type == "cpu":
+            return plain(col_sets, plist, ndlist, idx, D)
+        if device.type != "cuda":
+            raise ValueError(f"no kernel for device {device}")
+        return _cuda.startree_agg_batched(plan, list(col_sets), list(plist),
+                                          list(ndlist), list(idx), D,
+                                          value_dtype)
+
+    return run
 
 
 # ---------------------------------------------------------------------------

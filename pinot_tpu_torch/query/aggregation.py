@@ -1,8 +1,10 @@
 """Aggregation functions of the device slice: registry + base contract.
 
-Counterpart of pinot_tpu/query/aggregation/base.py and the COUNT / SUM /
+Counterpart of pinot_tpu/query/aggregation/base.py, the COUNT / SUM /
 MIN / MAX / AVG / MINMAXRANGE, DISTINCTCOUNTHLL and PERCENTILETDIGEST
-classes of functions.py, with its `percentiletdigestNN` suffix resolution
+classes of functions.py and the VARIANCE / STDDEV / SKEWNESS / KURTOSIS and
+BOOL_AND / BOOL_OR classes of functions_stats.py, with the
+`percentiletdigestNN` suffix resolution
 (`resolve_percentile_suffix`) (ref pinot-core
 query/aggregation/function/AggregationFunction.java:42). The port has no
 host executor, so a function here carries only what the device path and the
@@ -15,6 +17,7 @@ refuse the query with it.
 """
 from __future__ import annotations
 
+import math
 import re
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Type
@@ -25,7 +28,8 @@ from pinot_tpu_torch.query.sketches import HyperLogLog, TDigest
 
 @dataclass(frozen=True)
 class DeviceAggSpec:
-    """The masked reductions ('count' | 'sum' | 'min' | 'max') or sketch
+    """The masked reductions ('count' | 'sum' | 'sumsq' | 'sum3' | 'sum4' |
+    'min' | 'max') or sketch
     slots ('hll:<log2m>' | 'hist:<buckets>') the device kernels compute
     for one function."""
     ops: tuple
@@ -288,6 +292,154 @@ class PercentileTDigestAggregation(AggregationFunction):
             slots[f"hist:{self.DEVICE_BUCKETS}"], self._compression)
 
 
+# ---------------------------------------------------------------------------
+# moments and boolean folds (pinot_tpu/query/aggregation/functions_stats.py
+# :33-143, :329-375): the device computes the raw moments and min / max;
+# the host takes the central moments from them
+# ---------------------------------------------------------------------------
+
+class _MomentsAggregation(AggregationFunction):
+    """Intermediate = (count, sum, sumsq[, sum3, sum4]) raw moments:
+    merged by addition, exactly the slots K1 / K2 compute."""
+    order = 2
+
+    def merge(self, a, b):
+        return tuple(x + y for x, y in zip(a, b))
+
+    def identity(self):
+        return (0.0,) * (3 if self.order < 4 else 5)
+
+    def from_device_slots(self, slots):
+        out = [slots["count"], slots["sum"], slots["sumsq"]]
+        if self.order >= 4:
+            out.append(slots["sum3"])
+            out.append(slots["sum4"])
+        return tuple(float(x) for x in out)
+
+
+def _central_moments(inter):
+    """(n, mean, m2, m3, m4) from raw moments; m3 and m4 None below order
+    4."""
+    n, s1, s2 = inter[0], inter[1], inter[2]
+    if n == 0:
+        return 0.0, 0.0, 0.0, None, None
+    mean = s1 / n
+    m2 = s2 / n - mean * mean
+    if len(inter) < 5:
+        return n, mean, m2, None, None
+    s3, s4 = inter[3], inter[4]
+    m3 = s3 / n - 3 * mean * s2 / n + 2 * mean ** 3
+    m4 = s4 / n - 4 * mean * s3 / n + 6 * mean * mean * s2 / n - 3 * mean ** 4
+    return n, mean, m2, m3, m4
+
+
+@register
+class VariancePopAggregation(_MomentsAggregation):
+    names = ("variance", "var_pop", "varpop")
+    device_spec = DeviceAggSpec(("sum", "sumsq", "count"))
+
+    def extract_final(self, inter):
+        n, _mean, m2, _, _ = _central_moments(inter)
+        return max(m2, 0.0) if n else 0.0
+
+
+@register
+class VarianceSampAggregation(_MomentsAggregation):
+    names = ("var_samp", "varsamp", "variancesamp")
+    device_spec = DeviceAggSpec(("sum", "sumsq", "count"))
+
+    def extract_final(self, inter):
+        n, _mean, m2, _, _ = _central_moments(inter)
+        if n < 2:
+            return 0.0
+        return max(m2 * n / (n - 1), 0.0)
+
+
+@register
+class StdDevPopAggregation(VariancePopAggregation):
+    names = ("stddev", "stddev_pop", "stddevpop")
+
+    def extract_final(self, inter):
+        return math.sqrt(super().extract_final(inter))
+
+
+@register
+class StdDevSampAggregation(VarianceSampAggregation):
+    names = ("stddev_samp", "stddevsamp")
+
+    def extract_final(self, inter):
+        return math.sqrt(super().extract_final(inter))
+
+
+@register
+class SkewnessAggregation(_MomentsAggregation):
+    """ref SkewnessAggregationFunction (FourthMoment based)."""
+    names = ("skewness",)
+    order = 4
+    device_spec = DeviceAggSpec(("sum", "sumsq", "sum3", "sum4", "count"))
+
+    def extract_final(self, inter):
+        n, _mean, m2, m3, _ = _central_moments(inter)
+        if not n or m2 <= 0:
+            return 0.0
+        return float(m3 / m2 ** 1.5)
+
+
+@register
+class KurtosisAggregation(_MomentsAggregation):
+    """Excess kurtosis (ref KurtosisAggregationFunction)."""
+    names = ("kurtosis",)
+    order = 4
+    device_spec = DeviceAggSpec(("sum", "sumsq", "sum3", "sum4", "count"))
+
+    def extract_final(self, inter):
+        n, _mean, m2, _m3, m4 = _central_moments(inter)
+        if not n or m2 <= 0:
+            return 0.0
+        return float(m4 / (m2 * m2) - 3.0)
+
+
+@register
+class BoolAndAggregation(AggregationFunction):
+    """TRUE when every matched value is at least 0.5 (the device's min
+    over the column), or nothing matched."""
+    names = ("bool_and", "booland")
+    device_spec = DeviceAggSpec(("min", "count"))
+
+    def merge(self, a, b):
+        return a and b
+
+    def identity(self):
+        return True
+
+    def from_device_slots(self, slots):
+        return bool(slots["count"] == 0 or slots["min"] >= 0.5)
+
+    @property
+    def final_dtype(self):
+        return "BOOLEAN"
+
+
+@register
+class BoolOrAggregation(AggregationFunction):
+    """TRUE when some matched value is at least 0.5 (the device's max)."""
+    names = ("bool_or", "boolor")
+    device_spec = DeviceAggSpec(("max", "count"))
+
+    def merge(self, a, b):
+        return a or b
+
+    def identity(self):
+        return False
+
+    def from_device_slots(self, slots):
+        return bool(slots["count"] > 0 and slots["max"] >= 0.5)
+
+    @property
+    def final_dtype(self):
+        return "BOOLEAN"
+
+
 #: aggregation names of the JAX package that later slices of the port bring
 #: over, by the feature that carries them
 _LATER = {
@@ -298,19 +450,14 @@ _LATER = {
         "percentilerawkll", "distinctcountthetasketch",
         "distinctcountrawthetasketch", "distinctcounttuplesketch",
         "distinctcountrawintegersumtuplesketch", "histogram", "mode"),
-    "moment aggregations": (
-        "variance", "var_pop", "varpop", "var_samp", "varsamp",
-        "variancesamp", "stddev", "stddev_pop", "stddevpop", "stddev_samp",
-        "stddevsamp", "skewness", "kurtosis", "covar_pop", "covarpop",
-        "covar_samp", "covarsamp"),
     "multi-value aggregations": (
         "countmv", "summv", "minmv", "maxmv", "avgmv", "minmaxrangemv",
         "distinctcountmv"),
     "host-only aggregations": (
-        "sumprecision", "firstwithtime", "lastwithtime", "bool_and",
-        "booland", "bool_or", "boolor", "distinctsum", "distinctavg",
-        "funnelcount", "funnel_count", "funnelcompletecount", "arrayagg",
-        "array_agg", "listagg"),
+        "covar_pop", "covarpop", "covar_samp", "covarsamp",
+        "sumprecision", "firstwithtime", "lastwithtime", "distinctsum",
+        "distinctavg", "funnelcount", "funnel_count", "funnelcompletecount",
+        "arrayagg", "array_agg", "listagg"),
 }
 _FEATURE_OF = {n: f for f, names in _LATER.items() for n in names}
 _PERCENTILE_SUFFIX = re.compile(

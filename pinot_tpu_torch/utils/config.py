@@ -2,7 +2,7 @@
 
 A trimmed copy of pinot_tpu/utils/config.py's `PinotConfiguration`
 holding only the keys the port reads, with the reference's names and
-defaults (pinot_tpu/utils/config.py:28-52 and :74). An override passed to
+defaults (pinot_tpu/utils/config.py:28-86). An override passed to
 the constructor wins over the catalog default (KEYS below).
 """
 from __future__ import annotations
@@ -24,8 +24,16 @@ KEYS: Dict[str, Any] = {
     # batch only
     "pinot.server.dispatch.batch.cross.table": True,
     # star-tree leg (ops/startree_device.py): fitted aggregations answer
-    # from pre-aggregated records
+    # from pre-aggregated records; .hbm.resident admits the pre-agg
+    # pseudo-columns into the resident-row tier
     "pinot.server.startree.enabled": True,
+    "pinot.server.startree.hbm.resident": True,
+    # the per-(segment, column) resident-row tier (ops/residency.py): its
+    # switch, its byte budget, TinyLFU admission and its sample window
+    "pinot.server.hbm.resident.enabled": True,
+    "pinot.server.hbm.resident.bytes": 6 << 30,
+    "pinot.server.hbm.admission.enabled": True,
+    "pinot.server.hbm.admission.sample": 4096,
 }
 
 

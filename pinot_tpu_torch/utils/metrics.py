@@ -5,7 +5,11 @@ The dispatch ring writes `dispatch_batch_size` (a timer whose values are
 batch sizes: its `max_ms` is the largest batch), the meters
 `dispatch_batch_cross_table`, `dispatch_batch_dedup`, `kernel_retrace`
 and `kernel_retrace_by_plan`, the timer `staging_overlap_ms` and the
-gauge `dispatch_queue_depth`.
+gauge `dispatch_queue_depth`. The engine's staging levels write the meters
+`hbm_block_hit` / `hbm_block_miss` (assembled blocks; a miss is one K6
+launch), `host_row_hit` / `host_row_miss`, `hbm_transfer_bytes` (column
+bytes uploaded), and the resident tier `hbm_resident_hit` /
+`hbm_resident_miss`, `hbm_admission_rejected` and `hbm_evicted`.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
-"""K1 scan_agg, K2 group_agg, K3 sketch_agg, K4 topn and K5 startree_agg on
-the card against their plain PyTorch versions on the card, over the seeded
-random plans of tests/torch_plans.py; K1-K4's query axis (B members over U
-column sets) against the plain batched version and each member's own
-single launch; and 8 threads through one engine.
+"""K1 scan_agg, K2 group_agg, K3 sketch_agg, K4 topn, K5 startree_agg and
+K6 row_assemble on the card against their plain PyTorch versions, over the
+seeded random plans of tests/torch_plans.py; K1-K5's query axis (B members
+over U column sets) against the plain batched version and each member's
+own single launch; and 8 threads through one engine.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. On the card
 they run without the repo's conftest (which imports JAX):
@@ -18,8 +18,9 @@ planes and min / max bit-identical; float32
 sums within 1e-5 and float64 within 1e-9 of the slot's sum of
 |contribution| (both add in double, in other orders). A batched member
 equals its single launch bit for bit where the kernel reduces in a fixed
-order (K1, K3, K4); K2's float sums, which take the atomics' order, within
-the same tolerance.
+order (K1, K3, K4, K5 flat); K2's and grouped K5's float sums, which take
+the atomics' order, within the same tolerance. K6's block is its plain
+version's bit for bit (it copies bytes).
 """
 import os
 import sys
@@ -374,3 +375,137 @@ def test_batched_wrapper_rejects_members_that_disagree(card):
             _cuda.scan_agg_batched(plan, bad_sets, bad_params, nds, idx, D,
                                    vdt)
     assert _cuda.SCAN_AGG.batched_launches == before
+
+
+ASSEMBLE_DTYPES = [torch.int8, torch.bool, torch.int32, torch.float32,
+                   torch.float64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ASSEMBLE_DTYPES, ids=str)
+@pytest.mark.parametrize("case", ["mixed", "full", "unaligned"])
+def test_row_assemble_matches_plain_on_card(card, dtype, case):
+    """K6 against its plain version, bit for bit: 13 rows of mixed
+    power-of-two lengths into a block of 16 (three padded segments), every
+    row full-length (the stack form), and rows whose start or length is
+    not 16-byte aligned (the byte path)."""
+    g = torch.Generator().manual_seed(7)
+    S, D = 16, 4096
+    if case == "mixed":
+        lens = [4096, 128, 1024, 4096, 256, 2048, 128, 512, 4096, 1024,
+                128, 256, 2048]
+    elif case == "full":
+        S, lens = 13, [D] * 13
+    else:
+        lens = [4093, 1, 130, 4096, 77]
+    base = torch.randint(-100, 100, (sum(lens) + len(lens),),
+                         generator=g).to(dtype).to(card)
+    dev_rows, at = [], 0
+    for n in lens:
+        if case == "unaligned":  # an odd element offset: the byte path
+            at += 1
+            dev_rows.append(base[at:at + n])
+        else:
+            dev_rows.append(base[at:at + n].clone())
+        at += n
+    before = _cuda.ROW_ASSEMBLE.launches
+    out = tk.assemble_rows(dev_rows, S, D)
+    torch.cuda.synchronize()
+    assert _cuda.ROW_ASSEMBLE.launches == before + 1
+    ref = tk.row_assemble([r.cpu() for r in dev_rows], S, D)
+    assert out.dtype == dtype and out.shape == (S, D)
+    assert torch.equal(out.cpu().view(torch.uint8), ref.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_row_assemble_chunks_past_its_row_capacity(card):
+    """More block rows than one launch carries: one launch per
+    RA_MAX_ROWS rows, the same block."""
+    S, D = _cuda.RA_MAX_ROWS + 5, 256
+    rows = [torch.full((128 if s % 2 else 256,), s, dtype=torch.int32,
+                       device=card) for s in range(S - 2)]
+    before = _cuda.ROW_ASSEMBLE.launches
+    out = tk.assemble_rows(rows, S, D)
+    assert _cuda.ROW_ASSEMBLE.launches == before + 2
+    assert torch.equal(out.cpu(), tk.row_assemble([r.cpu() for r in rows],
+                                                   S, D))
+
+
+ST_BATCH_CASES = [(group, B, form) for group in tp.ST_GROUPS
+                  for B in (2, 8) for form in ("broadcast", "stacked",
+                                               "dedup")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,B,form", ST_BATCH_CASES)
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_batched_startree_matches_plain_and_single_on_card(card, group, B,
+                                                           form, x64):
+    """K5 with B members over U column sets (broadcast U = 1, stacked
+    U = B, dedup U < B), each member its own selection mask (a seeded
+    subset of its set's traversal-shaped selection): each member
+    against the plain batched version and its own single launch, the
+    launch counted as batched."""
+    fields = tp.startree_spec(group)
+    plan = tsd.StarTreePlan(**fields)
+    S, D = 5, 9000 + 37 * B
+    vnp = np.float64 if x64 else np.float32
+    vdt = torch.float64 if x64 else torch.float32
+    U = {"broadcast": 1, "stacked": B, "dedup": max(2, B // 2 - 1)}[form]
+    idx = [0] * B if form == "broadcast" else \
+        list(range(B)) if form == "stacked" else [(m + 1) % U
+                                                  for m in range(B)]
+    raw = [tp.startree_inputs(11 + 101 * u, fields, S, D, vnp)
+           for u in range(U)]
+    sets = [tk.from_jax_staged(c, {}, n, device=card) for c, _p, n in raw]
+    # each member selects its own subset of its set's selection (records
+    # outside it may carry a star's -1 group code)
+    rng = np.random.default_rng(5)
+    masks = [{"sel": raw[u][1]["sel"] & (rng.random((S, D)) < 0.7)}
+             for u in idx]
+    plist = [tk.from_jax_staged({}, p, raw[0][2], device=card)[1]
+             for p in masks]
+    cols = [c for c, _p, _n in sets]
+    nds = [n for _c, _p, n in sets]
+    kern = _cuda.STARTREE_AGG
+    before = (kern.launches, kern.batched_launches, kern.batched_members)
+    out = tsd.batched_kernel(plan, vdt)(cols, plist, nds, idx, D)
+    ref = tsd.plain_batched_kernel(plan, vdt)(cols, plist, nds, idx, D)
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.batched_launches, kern.batched_members) \
+        == (before[0], before[1] + 1, before[2] + B)
+    assert out.shape == ref.shape and out.shape[0] == B
+    tol = tp.F64_TOL if x64 else tp.F32_SUM_TOL
+    for m, u in enumerate(idx):
+        single = tsd.make_startree_kernel(plan, vdt)(cols[u], plist[m],
+                                                     nds[u], D)
+        scale = tp.startree_abs_sums(fields, raw[u][0], masks[m], raw[u][2],
+                                     D)
+        got = out[m].cpu().numpy()
+        tp.assert_startree_equal(fields, got, ref[m].cpu().numpy(), scale,
+                                 tol)
+        tp.assert_startree_equal(fields, got, single.cpu().numpy(), scale,
+                                 tol)
+        if not fields["num_groups"]:
+            assert np.array_equal(got, single.cpu().numpy(), equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_batched_startree_rejects_members_that_disagree(card):
+    """A member's mask of another shape, or a set's column of another
+    dtype, raises before anything launches."""
+    fields = tp.startree_spec("smem")
+    plan = tsd.StarTreePlan(**fields)
+    c, p, n = tk.from_jax_staged(*tp.startree_inputs(3, fields, 4, 2048,
+                                                     np.float32),
+                                 device=card)
+    bad_sel = {"sel": p["sel"][:, :-1].contiguous()}
+    bad_cols = {**c, "stval:sum__x": c["stval:sum__x"].double()}
+    before = _cuda.STARTREE_AGG.batched_launches
+    for sets, plist in (([c], [p, bad_sel]), ([c, bad_cols], [p, p])):
+        with pytest.raises(ValueError):
+            _cuda.startree_agg_batched(plan, sets, plist, [n] * len(sets),
+                                       list(range(len(sets))) if
+                                       len(sets) > 1 else [0, 0], 2048,
+                                       torch.float32)
+    assert _cuda.STARTREE_AGG.batched_launches == before

@@ -77,7 +77,7 @@ UNSUPPORTED = [
      "more than one ORDER BY key"),
     ("SELECT DISTINCTCOUNT(stringCol) FROM testTable", "sketches"),
     ("SELECT PERCENTILE95(doubleCol) FROM testTable", "sketches"),
-    ("SELECT VARIANCE(doubleCol) FROM testTable", "moment"),
+    ("SELECT COVAR_POP(doubleCol, intCol) FROM testTable", "host-only"),
     ("SELECT COUNT(*) FROM testTable WHERE intCol + 0 > 500", "expression"),
     ("SELECT COUNT(*) FROM testTable GROUP BY intCol / 10", "group-by"),
     ("SELECT COUNT(*) FROM testTable GROUP BY FLOOR((longCol - 5) / 60)",
