@@ -62,8 +62,12 @@ Phases, each of which exits non-zero on failure:
    segments x 8M rows = 128M rows, built with the port's creator into a
    temp dir; SSB Q1.1 as bench.py runs it plus Q1.2- and Q1.3-shaped date
    windows through QueryExecutor(device="cuda"), each checked EXACTLY
-   (integer SUM and COUNT) against numpy truth from the generated columns.
-   Then the selection leg on the same segments: four top-N queries on K4
+   (integer SUM and COUNT) against numpy truth from the generated columns,
+   and MOM_QUERY (VARIANCE, VAR_SAMP, STDDEV, STDDEV_SAMP, SKEWNESS,
+   KURTOSIS, BOOL_AND, BOOL_OR ungrouped on K1): each moment within
+   MOM_TOL = 2e-3 of max(1, |exact|), the exact value from the columns'
+   integer raw moments, and each boolean equal. Then the selection leg
+   on the same segments: four top-N queries on K4
    (a raw order value, a dictionary order value with OFFSET, unordered,
    an expression order value) and a DISTINCT on K2, every row equal to
    the numpy truth in order (selection_truth / selection_expected).
@@ -71,14 +75,18 @@ Phases, each of which exits non-zero on failure:
    Q1.1 over segments 0-11, then over 4-15 (its column uploads must be
    exactly the rows of segments 12-15, by the transfer odometer), then 4-15
    again (no column byte, no K6 launch); invalidate_segment of segment 5's
-   name must drop exactly its resident rows. Prints each step's column
-   bytes, stage ms, K6 launches and peak device memory.
+   name must drop exactly its resident rows. Each step's launch counts are
+   held as phase 8 holds a leg's (K1 once, K6 once per block assembled).
+   Prints each step's column bytes, stage ms, K6 launches and peak device
+   memory.
 5. Group-by leg: 8 x 4M rows of bench_extra.py config #3 data;
    SELECT d_year, p_category, SUM(lo_revenue) ... WHERE s_region =
    'AMERICA' GROUP BY d_year, p_category ORDER BY ... LIMIT 100, checked
    against numpy truth: keys exactly, float32 sums within rel 1e-6 (the
-   kernel adds in double; one float32 rounding of the total is 6e-8); and
-   a DISTINCT over two string columns, equal to the numpy pairs.
+   kernel adds in double; one float32 rounding of the total is 6e-8); a
+   DISTINCT over two string columns, equal to the numpy pairs; and
+   GB_MOM_QUERY (the moment and boolean aggregations GROUP BY d_year on
+   K2), held as MOM_QUERY is.
 6. Config-#4 leg: BASELINE config #4 (NYC-taxi-shaped trip_id LONG and
    fare DOUBLE, bench_extra.py:200-209's draws) at 128 segments x 8M rows
    = 1,024M rows, generated, written and folded into the truth one
@@ -256,6 +264,31 @@ GB_QUERY = ("SELECT d_year, p_category, SUM(lo_revenue) FROM ssbgb "
             "ORDER BY d_year, p_category LIMIT 100")
 GB_DISTINCT = ("SELECT DISTINCT p_category, s_region FROM ssbgb "
                "WHERE d_year = 1995 ORDER BY p_category, s_region LIMIT 100")
+#: the moment and boolean aggregations on K1 / K2's raw-moment and min /
+#: max slots: one ungrouped query in the Q1 leg, one grouped in the
+#: group-by leg; each result column's (aggregation, column)
+MOM_QUERY = ("SELECT VARIANCE(lo_quantity), VAR_SAMP(lo_discount), "
+             "STDDEV(lo_quantity), STDDEV_SAMP(lo_discount), "
+             "SKEWNESS(lo_quantity), KURTOSIS(lo_discount), "
+             "BOOL_AND(lo_discount), BOOL_OR(lo_discount) FROM ssb "
+             "WHERE lo_orderdate BETWEEN 19930101 AND 19931231 "
+             "AND lo_discount BETWEEN 1 AND 3")
+MOM_COLUMNS = [("variance", "lo_quantity"), ("var_samp", "lo_discount"),
+               ("stddev", "lo_quantity"), ("stddev_samp", "lo_discount"),
+               ("skewness", "lo_quantity"), ("kurtosis", "lo_discount"),
+               ("bool_and", "lo_discount"), ("bool_or", "lo_discount")]
+GB_MOM_QUERY = ("SELECT d_year, VARIANCE(lo_quantity), "
+                "SKEWNESS(lo_quantity), KURTOSIS(lo_discount), "
+                "BOOL_AND(lo_discount), BOOL_OR(lo_discount) FROM ssbgb "
+                "WHERE s_region = 'ASIA' AND lo_discount < 2 "
+                "GROUP BY d_year ORDER BY d_year LIMIT 10")
+GB_MOM_COLUMNS = [("variance", "lo_quantity"), ("skewness", "lo_quantity"),
+                  ("kurtosis", "lo_discount"), ("bool_and", "lo_discount"),
+                  ("bool_or", "lo_discount")]
+#: float32 values: each moment within MOM_TOL * max(1, |exact|) of the
+#: exact value (tests/test_torch_moments.py's F32_JAX_ERR, the JAX float32
+#: engine's own largest error on that test's data); booleans equal
+MOM_TOL = 2e-3
 #: the selection leg on the Q1 leg's segments: a dashboard's "top line
 #: items" tile and a paged table view. name -> (SQL, limit, offset, asc)
 SEL_QUERIES = {
@@ -398,6 +431,96 @@ def groupby_truth(cols: dict) -> dict:
     return out
 
 
+def raw_moments(values: np.ndarray) -> tuple:
+    """(count, sum, sum of squares, of cubes, of fourth powers, min, max)
+    of integer values, exactly (Python ints; min / max None when empty)."""
+    x = values.astype(np.int64)
+    return (len(x),) + tuple(int((x ** k).sum()) for k in range(1, 5)) \
+        + ((int(x.min()), int(x.max())) if len(x) else (None, None))
+
+
+def moment_values(parts: list) -> dict:
+    """Every moment and boolean aggregation over the union of the raw
+    moments `parts`: the central moments from the exact sums in rational
+    arithmetic, rounded once to float. A value is true when it is 1 or more
+    (the columns are non-negative integers)."""
+    from fractions import Fraction
+    n, s1, s2, s3, s4 = (sum(p[k] for p in parts) for k in range(5))
+    lo = min(p[5] for p in parts if p[0])
+    hi = max(p[6] for p in parts if p[0])
+    m2 = Fraction(n * s2 - s1 * s1, n * n)
+    m3 = Fraction(n * n * s3 - 3 * n * s1 * s2 + 2 * s1 ** 3, n ** 3)
+    m4 = Fraction(n ** 3 * s4 - 4 * n * n * s1 * s3
+                  + 6 * n * s1 * s1 * s2 - 3 * s1 ** 4, n ** 4)
+    samp = m2 * n / (n - 1)
+    return {"variance": float(m2), "var_samp": float(samp),
+            "stddev": float(m2) ** 0.5, "stddev_samp": float(samp) ** 0.5,
+            "skewness": float(m3) / float(m2) ** 1.5,
+            "kurtosis": float(m4 / (m2 * m2)) - 3.0,
+            "bool_and": lo >= 1, "bool_or": hi >= 1}
+
+
+def moments_truth(cols: dict) -> dict:
+    """MOM_QUERY's raw moments over one Q1-leg segment (column ->
+    raw_moments), or GB_MOM_QUERY's over one group-by-leg segment (d_year
+    -> column -> raw_moments)."""
+    if "lo_extendedprice" in cols:
+        m = (cols["lo_orderdate"] >= 19930101) \
+            & (cols["lo_orderdate"] <= 19931231) \
+            & (cols["lo_discount"] >= 1) & (cols["lo_discount"] <= 3)
+        return {c: raw_moments(cols[c][m])
+                for c in ("lo_quantity", "lo_discount")}
+    m = (cols["s_region"] == "ASIA") & (cols["lo_discount"] < 2)
+    out = {}
+    for y in np.unique(cols["d_year"][m]):
+        sel = m & (cols["d_year"] == y)
+        out[int(y)] = {c: raw_moments(cols[c][sel])
+                       for c in ("lo_quantity", "lo_discount")}
+    return out
+
+
+def moments_error(row, parts: list, columns: list):
+    """(the largest |got - exact| / max(1, |exact|) over the row's
+    moments, its first disagreement or None) of one result row against
+    the raw moments `parts` (column -> raw_moments, one per segment);
+    `columns` the row's (aggregation, column) pairs."""
+    worst, bad = 0.0, None
+    for got, (agg, col) in zip(row, columns):
+        want = moment_values([p[col] for p in parts])[agg]
+        if agg.startswith("bool_"):
+            if bool(got) is not want:
+                bad = bad or f"{agg}({col}) {got} vs numpy truth {want}"
+            continue
+        err = abs(float(got) - want) / max(1.0, abs(want))
+        worst = max(worst, err)
+        if not err <= MOM_TOL:
+            bad = bad or f"{agg}({col}) {got} vs numpy truth {want}"
+    return worst, bad
+
+
+def check_moments(rows, truths: list, grouped: bool) -> float:
+    """MOM_QUERY's rows (grouped: GB_MOM_QUERY's) against the numpy truth
+    of the segments whose moments_truth are `truths`: fails on any
+    disagreement; returns the largest relative error."""
+    if not grouped:
+        worst, bad = moments_error(rows[0], truths, MOM_COLUMNS)
+        if bad:
+            fail(f"moments: {bad}")
+        return worst
+    years = sorted(set().union(*truths))
+    if [int(r[0]) for r in rows] != years:
+        fail(f"grouped moments: groups {[r[0] for r in rows]} vs numpy "
+             f"truth {years}")
+    worst = 0.0
+    for r in rows:
+        err, bad = moments_error(r[1:], [t[int(r[0])] for t in truths
+                                         if int(r[0]) in t], GB_MOM_COLUMNS)
+        if bad:
+            fail(f"grouped moments, d_year {r[0]}: {bad}")
+        worst = max(worst, err)
+    return worst
+
+
 def selection_truth(cols: dict) -> dict:
     """Per selection query over one segment's columns, computed with numpy
     apart from the port: (the matched count, the winners in the kernel's
@@ -484,6 +607,7 @@ def sel_pool_truth(cols: dict, d0, d1, c0, c1):
 
 def q1_leg_truth(cols: dict) -> dict:
     return {"q1": q1_truth(cols), "sel": selection_truth(cols),
+            "mom": moments_truth(cols),
             "q1pool": [q1_window_truth(cols, *w) for w in Q1_POOL],
             "selpool": [sel_pool_truth(cols, *w) for w in SEL_POOL]}
 
@@ -514,7 +638,7 @@ def groupby_leg_truth(cols: dict) -> dict:
     """groupby_truth, the (p_category, s_region) pairs present in d_year
     1995 (GB_DISTINCT), and the 9d pool's group-bys."""
     y95 = cols["d_year"] == 1995
-    return {"gb": groupby_truth(cols),
+    return {"gb": groupby_truth(cols), "mom": moments_truth(cols),
             "dist": set(zip(cols["p_category"][y95].tolist(),
                             cols["s_region"][y95].tolist())),
             "gbpool": [gb_pool_truth(cols, *w) for w in GB_POOL]}
@@ -1734,7 +1858,7 @@ def zero_launches(kernels) -> None:
         k.reset_counts()
 
 
-def residency_phase(segs, truths, card: str) -> dict:
+def residency_phase(segs, truths, kernels, none: dict, card: str) -> int:
     """Phase 4c: the staging levels on phase 4's 16 x 8M Q1 segments, through
     a fresh engine (nothing staged): Q1.1 over segments 0-11; over 4-15,
     whose column uploads must be exactly the rows of segments 12-15 (each
@@ -1742,11 +1866,13 @@ def residency_phase(segs, truths, card: str) -> dict:
     bucket); over 4-15 again, adding no column byte and no K6 launch;
     then invalidate_segment of segment 5's name must drop exactly its
     resident rows. Every answer equals the numpy truth of its segments.
-    Prints each step's column bytes, stage ms, K6 launches and peak device
-    memory; returns K6's launches."""
+    The launch counts are set to 0 just before each step and held just
+    after it as every leg's are (launches_of_leg: K1 once, K6 once per
+    block assembled, nothing else). Prints each step's column bytes, stage
+    ms, K6 launches and peak device memory; returns K6's launches."""
     import torch
 
-    from pinot_tpu_torch.ops import _cuda, residency
+    from pinot_tpu_torch.ops import residency
     from pinot_tpu_torch.ops.engine import _batch_key, _pow2
     from pinot_tpu_torch.query.context import QueryContext
     from pinot_tpu_torch.query.executor import QueryExecutor
@@ -1761,11 +1887,12 @@ def residency_phase(segs, truths, card: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         c0 = residency.column_transfer_bytes()
-        k0 = _cuda.ROW_ASSEMBLE.launches
+        zero_launches(kernels)
         rows = reduce_results(ctx, eng.execute(batch, ctx)).rows
         torch.cuda.synchronize()
         moved = residency.column_transfer_bytes() - c0
-        k6 = _cuda.ROW_ASSEMBLE.launches - k0
+        k6 = launches_of_leg(f"residency {name}", kernels,
+                             {**none, "scan_agg": 1})["row_assemble"]
         launches += k6
         err = exact_pair(rows, sum(t["q1"]["q1.1"][0] for t in truths[lo:hi]),
                          sum(t["q1"]["q1.1"][1] for t in truths[lo:hi]))
@@ -1781,7 +1908,6 @@ def residency_phase(segs, truths, card: str) -> dict:
                "resident_bytes": eng.residency.bytes,
                "max_memory_allocated": torch.cuda.max_memory_allocated()}
         print(f"[residency] {json.dumps(out)} | {card}", flush=True)
-        check_peak(f"residency {name}")
         return out
 
     first = step("1: segments 0-11", 0, 12)
@@ -2156,9 +2282,17 @@ def main() -> None:
                          "cold_s": cold,
                          "rows_per_s": rows / statistics.median(lats),
                          "sum": want_sum, "count": want_cnt})
+        resp, cold, lats, splits["mom"] = time_query(ex, MOM_QUERY, ITERS)
+        legs.append({"query": "mom", "rows": rows,
+                     "p50_ms": statistics.median(lats) * 1e3,
+                     "cold_s": cold,
+                     "rows_per_s": rows / statistics.median(lats),
+                     "max_rel_err": check_moments(
+                         resp.rows, [t["mom"] for t in truths], False),
+                     "tolerance": MOM_TOL})
         got = launches_of_leg(
             "Q1 leg", kernels,
-            {**none, "scan_agg": len(Q1_QUERIES) * (1 + ITERS)})
+            {**none, "scan_agg": (len(Q1_QUERIES) + 1) * (1 + ITERS)})
         k1["launches"] = got["scan_agg"]
         k6["launches"] = got["row_assemble"]
         q1_peak = torch.cuda.max_memory_allocated()
@@ -2246,7 +2380,8 @@ def main() -> None:
         torch.cuda.empty_cache()
 
         # phase 4c: the staging levels (residency) on the Q1 segments
-        k6["launches"] += residency_phase(segs, truths, card)
+        k6["launches"] += residency_phase(segs, truths, kernels, none,
+                                          card)
         del segs
         torch.cuda.empty_cache()
 
@@ -2270,8 +2405,9 @@ def main() -> None:
         zero_launches(kernels)
         resp, cold, lats, split = time_query(ex, GB_QUERY, ITERS)
         dresp, dcold, dlats, dsplit = time_query(ex, GB_DISTINCT, ITERS)
+        mresp, mcold, mlats, msplit = time_query(ex, GB_MOM_QUERY, ITERS)
         got = launches_of_leg("group-by leg", kernels,
-                              {**none, "group_agg": 2 * (1 + ITERS)})
+                              {**none, "group_agg": 3 * (1 + ITERS)})
         k2["launches"] = k2_launches + got["group_agg"]
         k6["launches"] += got["row_assemble"]
         want = {}
@@ -2301,6 +2437,15 @@ def main() -> None:
                "rows_per_s": rows / statistics.median(dlats),
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
                "stage_ms": dsplit}
+        print(f"[groupby] {json.dumps(leg)} | {card}", flush=True)
+        leg = {"query": "mom", "rows": rows, "groups": len(mresp.rows),
+               "p50_ms": statistics.median(mlats) * 1e3, "cold_s": mcold,
+               "rows_per_s": rows / statistics.median(mlats),
+               "max_rel_err": check_moments(
+                   mresp.rows, [t["mom"] for t in truths], True),
+               "tolerance": MOM_TOL,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "stage_ms": msplit}
         print(f"[groupby] {json.dumps(leg)} | {card}", flush=True)
         busy = device_busy(ex, GB_QUERY, ITERS, tmp)
         print(f"[groupby] trace {json.dumps(busy or 'not measured')} "

@@ -3,7 +3,7 @@
 p50 of two checkouts, in turns, on one card.
 
     python3 kernel_ab.py PARENT_DIR CHANGE_DIR [--seed N] [--iters N]
-                         [--no-queries]
+                         [--no-queries] [--splits]
 
 Runs the turns parent / change / change / parent, each in a fresh process
 whose working directory is that checkout: it builds the checkout's CUDA
@@ -18,10 +18,12 @@ builds chip_smoke.py's legs of phases 4-7 with that checkout's generators
 and creator — SSB Q1 at 16 x 8M rows, the config-#3 group-by at 8 x 4M,
 config #4 at 128 x 8M, config #5's star-tree table at 8 x 4M — and takes
 each leg query's p50 over 20 warm runs alone through its QueryExecutor
-(chip_smoke `time_query`; host clock, the result on the host). One JSON
-line per turn, then the change's time over the parent's per kernel and
-per query (the mean of its two turns over theirs), beside the card's name
-and power limit. Needs a CUDA card; builds the kernels into each
+(chip_smoke `time_query`; host clock, the result on the host); with
+--splits each turn also records each query's median host-clock stage
+split (`stage_ms`: parse, plan, stage, kernel_fetch, assemble, reduce).
+One JSON line per turn, then the change's time over the parent's per
+kernel and per query (the mean of its two turns over theirs), beside the
+card's name and power limit. Needs a CUDA card; builds the kernels into each
 checkout's git-ignored build/kernels/ and the segments into a temporary
 directory.
 """
@@ -41,6 +43,7 @@ import chip_smoke as cs
 from pinot_tpu_torch.ops import _cuda, kernels
 seed, iters, ptxas = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3] == "1"
 queries = sys.argv[4] == "1"
+splits = len(sys.argv) > 5 and sys.argv[5] == "1"
 _cuda.build()
 out = {}
 if ptxas:
@@ -104,7 +107,7 @@ if queries:
          cs.ssb_flat_columns, cs.startree_truth, st_tree,
          {k: v[0] for k, v in st_queries.items()}))
     tmp = tempfile.mkdtemp(prefix="kernel_ab_")
-    p50 = {}
+    p50, stage_ms = {}, {}
     try:
         for table, fields, no_dict, n, docs, cols_fn, truth_fn, tree, \
                 sqls in legs:
@@ -113,13 +116,16 @@ if queries:
                 seed, cs.BUILD_WORKERS, star_tree=tree)
             ex = QueryExecutor(segs)
             for name, sql in sqls.items():
-                _resp, _cold, lats, _split = cs.time_query(ex, sql, 20)
+                _resp, _cold, lats, split = cs.time_query(ex, sql, 20)
                 p50[name] = statistics.median(lats) * 1e3
+                stage_ms[name] = split
             del ex, segs
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["p50_ms"] = p50
+    if splits:
+        out["stage_ms"] = stage_ms
 print("TURN " + json.dumps(out))
 """
 
@@ -139,6 +145,8 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--no-queries", action="store_true",
                     help="time the kernels only")
+    ap.add_argument("--splits", action="store_true",
+                    help="also record each query's host-clock stage split")
     args = ap.parse_args()
     card = card_line()
     turns = []
@@ -147,7 +155,8 @@ def main() -> None:
         first = label not in [t["tree"] for t in turns]
         r = subprocess.run(
             [sys.executable, "-c", TURN, str(args.seed), str(args.iters),
-             "1" if first else "0", "0" if args.no_queries else "1"],
+             "1" if first else "0", "0" if args.no_queries else "1",
+             "1" if args.splits else "0"],
             cwd=tree, capture_output=True, text=True, timeout=1800)
         line = next((x for x in r.stdout.splitlines()
                      if x.startswith("TURN ")), None)

@@ -1120,11 +1120,12 @@ class TorchOperatorExecutor:
         else the resident rows the card holds, and the missing ones built
         on the host (each padded to pads[s], the segment's own power of two
         by default), uploaded, counted and offered to the resident tier,
-        assembled on the card by K6. resident=False, or the tier off: the
-        rows padded to D on the host and the block uploaded whole. Hits are
-        confirmed by object identity at every level. Eviction only drops a
-        reference: every launch, copy and fetch is on one stream, so the
-        allocator reuses the memory only after a queued kernel read it."""
+        assembled on the card by K6. resident=False keeps the rows out of
+        the tier (each block miss uploads them all), as does the tier off.
+        Hits are confirmed by object identity at every level. Eviction only
+        drops a reference: every launch, copy and fetch is on one stream,
+        so the allocator reuses the memory only after a queued kernel read
+        it."""
         dtype_str = np.dtype(dtype).str
         key = (_batch_key(segments), kind, col, S, D, dtype_str)
         hit = self._blocks.get(key)
@@ -1133,26 +1134,21 @@ class TorchOperatorExecutor:
             self._meter("hbm_block_hit")
             return hit[1]
         self._meter("hbm_block_miss")
-        if self._residency.enabled and resident:
-            rows = [self._residency.get(seg, kind, name, dtype_str)
-                    for seg, name in zip(segments, names)]
-            missing = [i for i, r in enumerate(rows) if r is None]
-            # every host row first: a NotOffloadable surfaces before any
-            # upload churns the resident tier
-            host = [self._host_row(segments[i], kind, names[i], fetchers[i],
-                                   dtype, None if pads is None else pads[i])
-                    for i in missing]
-            for i, arr in zip(missing, host):
-                rows[i] = self._upload(arr, column=True)
+        rows = [self._residency.get(seg, kind, name, dtype_str)
+                if resident else None
+                for seg, name in zip(segments, names)]
+        missing = [i for i, r in enumerate(rows) if r is None]
+        # every host row first: a NotOffloadable surfaces before any upload
+        # churns the resident tier
+        host = [self._host_row(segments[i], kind, names[i], fetchers[i],
+                               dtype, None if pads is None else pads[i])
+                for i in missing]
+        for i, arr in zip(missing, host):
+            rows[i] = self._upload(arr, column=True)
+            if resident:
                 self._residency.admit(segments[i], kind, names[i], dtype_str,
                                       rows[i], arr.nbytes)
-            dev = kernels.assemble_rows(rows, S, D)
-        else:
-            block = np.zeros((S, D), dtype=dtype)
-            for s, (seg, name, fetch) in enumerate(zip(segments, names,
-                                                       fetchers)):
-                block[s] = self._host_row(seg, kind, name, fetch, dtype, D)
-            dev = self._upload(block, column=True)
+        dev = kernels.assemble_rows(rows, S, D)
         nbytes = dev.numel() * dev.element_size()
         old = self._blocks.pop(key, None)
         if old is not None:
@@ -1168,9 +1164,10 @@ class TorchOperatorExecutor:
     def _host_row(self, seg, kind, name, fetch, dtype,
                   pad_to: Optional[int] = None) -> np.ndarray:
         """One (segment, column) row on the host, zero-padded to pad_to
-        (the segment's own power-of-two doc bucket by default: independent
-        of the batch, so every batch composition shares it), from the
-        host-row cache (JAX `_host_row` :2557)."""
+        (the segment's own power-of-two doc bucket by default; a star-tree
+        row's, its tree's record bucket): independent of the batch, so
+        every batch composition shares it. From the host-row cache (JAX
+        `_host_row` :2557)."""
         Dr = pad_to if pad_to is not None else _pow2(seg.num_docs)
         rkey = (id(seg), kind, name, Dr, np.dtype(dtype).str)
         hit = self._host_rows.get(rkey)
@@ -1211,22 +1208,22 @@ class TorchOperatorExecutor:
                 return False
         return True
 
-    def _plan_startree(self, segments, ctx: QueryContext):
+    def _plan_startree(self, segments, ctx: QueryContext,
+                       meter: bool = True):
         """(plan, needed, fits) when the fitted trees answer the
-        aggregation, else None with the fallback reason counted."""
+        aggregation, else None; meter=True counts the served query or the
+        fallback reason (prestage routes without counting)."""
         if not self._startree_candidate(segments):
             return None
         plan, needed, fits, reason = startree_device.plan_startree(segments,
                                                                    ctx)
-        if plan is None:
-            self.meters[("startree_fallback", reason)] += 1
-            return None
-        if max(int(f.tree.meta.num_records) for f in fits) \
-                > MAX_DOCS_PER_SEGMENT:
-            self.meters[("startree_fallback", "staging")] += 1
-            return None
-        self.meters[("startree_served", None)] += 1
-        return plan, needed, fits
+        if plan is not None and max(int(f.tree.meta.num_records)
+                                    for f in fits) > MAX_DOCS_PER_SEGMENT:
+            plan, reason = None, "staging"
+        if meter:
+            self.meters[("startree_served", None) if plan is not None
+                        else ("startree_fallback", reason)] += 1
+        return None if plan is None else (plan, needed, fits)
 
     def _stage_startree(self, segments, ctx: QueryContext, plan, fits):
         """Stage the fitted trees' pre-agg rows as `__startree__<ti>/<col>`
@@ -1323,15 +1320,13 @@ class TorchOperatorExecutor:
             return False
         with self._engine_lock:
             try:
-                if ctx.aggregations and not ctx.distinct \
-                        and self._startree_candidate(segments):
-                    plan, _needed, fits, _reason = \
-                        startree_device.plan_startree(segments, ctx)
-                    if plan is not None and max(
-                            int(f.tree.meta.num_records) for f in fits) \
-                            <= MAX_DOCS_PER_SEGMENT:
-                        self._stage_startree(segments, ctx, plan, fits)
-                        return True
+                st = None
+                if ctx.aggregations and not ctx.distinct:
+                    st = self._plan_startree(segments, ctx, meter=False)
+                if st is not None:
+                    plan, _needed, fits = st
+                    self._stage_startree(segments, ctx, plan, fits)
+                    return True
                 if ctx.distinct:
                     ctx = _distinct_context(ctx)
                 if ctx.aggregations:

@@ -49,7 +49,7 @@ _column_bytes = 0
 
 def note_transfer(nbytes: int, column: bool = False) -> None:
     """Count one upload of `nbytes`; column=True marks a column payload
-    (a resident row or a whole block) as opposed to per-query
+    (one segment's row of a column) as opposed to per-query
     parameters."""
     global _transfer_bytes, _column_bytes
     with _transfer_lock:

@@ -168,3 +168,44 @@ def test_moments_plan_device_slots(segs):
         "count", "max", "sum", "sum3", "sum4", "sumsq"]
     with pytest.raises(NotImplementedError, match="host-only"):
         ex.execute("SELECT COVAR_POP(x, v) FROM testTable")
+
+
+@pytest.mark.parametrize("leg", ["q1", "groupby"])
+def test_chip_smoke_moment_checks_hold_on_the_cpu_engine(tmp_path, leg):
+    """chip_smoke.py's moment queries (MOM_QUERY on the Q1 leg's table,
+    GB_MOM_QUERY on the group-by leg's) on small segments of the same
+    columns through the port on the CPU: the script's exact numpy truth
+    accepts the float32 answer, and rejects it with one moment moved by
+    more than MOM_TOL or one boolean flipped."""
+    import chip_smoke as cs
+    if leg == "q1":
+        fields = [("lo_orderdate", "INT", False),
+                  ("lo_discount", "INT", False),
+                  ("lo_quantity", "INT", False),
+                  ("lo_extendedprice", "INT", True)]
+        table, cols_fn, truth_fn, sql = ("ssb", cs.ssb_q1_columns,
+                                         cs.q1_leg_truth, cs.MOM_QUERY)
+    else:
+        fields = [("lo_orderdate", "INT", False),
+                  ("lo_discount", "INT", False),
+                  ("lo_quantity", "INT", False), ("d_year", "INT", False),
+                  ("p_category", "STRING", False),
+                  ("s_region", "STRING", False), ("lo_revenue", "INT", True)]
+        table, cols_fn, truth_fn, sql = ("ssbgb", cs.ssb_flat_columns,
+                                         cs.groupby_leg_truth,
+                                         cs.GB_MOM_QUERY)
+    segs, truths = cs.build_segments(str(tmp_path), table, fields,
+                                     [fields[-1][0]], 3, 20_000, cols_fn,
+                                     truth_fn, 7)
+    rows = QueryExecutor(segs, device="cpu").execute(sql).rows
+    moms = [t["mom"] for t in truths]
+    grouped = leg == "groupby"
+    assert 0.0 <= cs.check_moments(rows, moms, grouped) <= cs.MOM_TOL
+    assert {type(v) for r in rows for v in r[-2:]} == {bool}
+    lead = 1 if grouped else 0
+    for col, bump in ((lead, lambda v: v * (1 + 3 * cs.MOM_TOL) + 0.01),
+                      (len(rows[0]) - 1, lambda v: not v)):
+        bad = [list(r) for r in rows]
+        bad[0][col] = bump(bad[0][col])
+        with pytest.raises(SystemExit):
+            cs.check_moments(bad, moms, grouped)

@@ -216,15 +216,22 @@ class TestCrossBatchResidency:
             segs[:2], ctx))
 
     def test_tier_off_uploads_whole_blocks(self, table):
-        """pinot.server.hbm.resident.enabled=false: the block is built on
-        the host and uploaded whole, [S, D] bytes (S = 3 segments padded to
-        4, D = 4096), and answers the same."""
+        """pinot.server.hbm.resident.enabled=false: each block miss uploads
+        every row of the block (no resident row to reuse), in exact row
+        bytes, keeps none of them resident, and answers the same."""
         segs, _j, _d = table
         eng = make_engine(**{"pinot.server.hbm.resident.enabled": False})
         ctx = QueryContext.from_sql(SQL)
         c0 = residency.column_transfer_bytes()
         res = eng.execute(segs, ctx)
-        assert residency.column_transfer_bytes() - c0 == 4 * 4096 * (1 + 4)
+        assert residency.column_transfer_bytes() - c0 == _rows_bytes(segs,
+                                                                     eng)
+        assert len(eng.residency) == 0
+        # another batch of the same segments ships its rows again
+        c1 = residency.column_transfer_bytes()
+        eng.execute(segs[:2], ctx)
+        assert residency.column_transfer_bytes() - c1 == _rows_bytes(
+            segs[:2], eng)
         assert len(eng.residency) == 0
         assert agg_values(res) == agg_values(make_engine().execute(segs,
                                                                    ctx))
