@@ -44,6 +44,16 @@ Phases, each of which exits non-zero on failure:
    masked score block (it keeps no tie order: a time only); none for K5
    (no one PyTorch call computes its count, exact-sum planes and float
    slots together).
+   K2 with the fused time bucket (BUCKET_CASES) at the time-series leg's
+   block, S = 25, D = 2^22: ts.3's G = 16 x 4000 = 64,000 (past shared
+   memory) and ts.1's G = 1024 (inside it), the timestamp's (hi, lo)
+   planes under a vrange64 window, per-segment sliding starts, negative
+   and wrapping deltas and both grid edges reaching the gate (counts,
+   keys and max bit for bit, sums within 1e-5 of sum|contribution|;
+   library: torch.bincount(keys, weights) on precomputed keys). K1-K4
+   again on their phase-3 inputs under a seeded uint8 validity mask
+   clearing about a third of docs (the bound counts the mask's byte per
+   real doc).
 3b. The query axis: K1-K4 with B = 8 members (8 seeded literal sets on
    phase 3's inputs, each column set its own seeded data) in three forms:
    broadcast (U = 1 column set), stacked (U = 8) and dedup (U = 3, member
@@ -57,7 +67,9 @@ Phases, each of which exits non-zero on failure:
    st5.1-shaped queries (9f's pool) over ssbst: broadcast (one segment
    batch), stacked (each member over the segments rotated by its index)
    and dedup (rotations m mod 3); each member against the plain batched
-   version and its own single launch, as phase 3 holds K5.
+   version and its own single launch, as phase 3 holds K5. K2's bucket
+   case at B = 8 over ts.3's column set (broadcast), member m's window m
+   hours later.
 4. Q1 leg: SSB-flat lineorder data (bench.py's column distributions), 16
    segments x 8M rows = 128M rows, built with the port's creator into a
    temp dir; SSB Q1.1 as bench.py runs it plus Q1.2- and Q1.3-shaped date
@@ -79,6 +91,15 @@ Phases, each of which exits non-zero on failure:
    held as phase 8 holds a leg's (K1 once, K6 once per block assembled).
    Prints each step's column bytes, stage ms, K6 launches and peak device
    memory.
+4d. Upserts (after 4c), on phase 4's segments: segments 0-11 carry
+   validDocIds (the port's Bitmap) with a seeded third of docs cleared,
+   12-15 stay append-only; UPSERT_QUERIES through a fresh executor (Q1.1
+   and COUNT(*) on K1, a GROUP BY lo_discount and a DISTINCT on K2, sel.1
+   on K4, a DISTINCTCOUNTHLL on K3, a LIMIT-only selection on the host),
+   each exact against the numpy truth of the valid docs. Then a seeded 1%
+   of segment 3's valid docs is cleared in place: the next Q1.1 equals
+   the new truth and uploads exactly segment 3's mask row (2^23 bytes) by
+   the transfer odometer, a repeat nothing.
 5. Group-by leg: 8 x 4M rows of bench_extra.py config #3 data;
    SELECT d_year, p_category, SUM(lo_revenue) ... WHERE s_region =
    'AMERICA' GROUP BY d_year, p_category ORDER BY ... LIMIT 100, checked
@@ -148,6 +169,22 @@ Phases, each of which exits non-zero on failure:
    compiled a program (kernels.trace_count moved: the solo runs before
    the windows compiled every plan of the pool), or if a window's peak
    device memory passed the card's 80 GB.
+10. Time-series leg (after 9b): TSBS's devops cpu-only use case
+   (github.com/timescale/tsbs, scale 4000, 10 s interval, 3 days):
+   103,680,000 rows in time order, flushed every 2^22 rows into 25
+   segments, `ts` an epoch-millis LONG without a dictionary (its window
+   runs as vrange64 leaves on the planes the bucket reads), hostname /
+   region / datacenter tags, usage_user / usage_system / usage_idle
+   per-host walks clamped to [0, 100]. ts.1 (single-groupby-1-1-12),
+   ts.2 (single-groupby-1-8-1), ts.3 (double-groupby-1: AVG by hour and
+   host over 12 h, G = 64,000) through QueryExecutor, ts.4 through the
+   port's time-series engine (simpleql, a region's hosts, 5-minute
+   buckets, max() and keep_last_value()), each against the numpy truth
+   of the generated columns (keys and buckets exactly, MAX equal to the
+   float32 of the true maximum, sums and averages within rel 1e-6); then
+   TS_SLIDES refreshes of ts.3, each an hour later, with no codegen.
+   9g: 8 closed-loop clients of ts.3-shaped panels (eight hosts each,
+   seeded hour-aligned windows) on K2's member axis, as 9a-9f run.
 8. Launch counts: each kernel's counter is set to 0 just before a leg's
    timed queries and read just after them; the leg's kernels must have
    launched once per query run, K6 once per block the leg assembled (the
@@ -160,7 +197,11 @@ Phases, each of which exits non-zero on failure:
    {"ok": true, "device": {...}}. The batched forms' entries (`*_batched`)
    carry phase 3b's broadcast times and their batched launches in phase
    9's windows; K6's entry the full float32 case of phase 3 and its
-   launches in phases 4-7.
+   launches in phases 4-7. `group_agg_tbucket` carries phase 3's ts.3
+   bucket case and phase 10's K2 launches, `group_agg_tbucket_batched`
+   phase 3b's bucket case and 9g's batched launches, `*_masked` phase
+   3's masked cases and phase 4d's launches (each a subset of its
+   kernel's own entry).
 
 Imports nothing of JAX or of pinot_tpu. Exits non-zero, printing no
 result, where torch sees no CUDA device or the port's package is missing.
@@ -324,6 +365,63 @@ TAXI_QUERIES = {
     "q4.2": _SKETCHES + " WHERE fare BETWEEN 10 AND 40",
     # a vrange64 leaf on the HLL column's own split planes (2^39)
     "q4.3": _SKETCHES + " WHERE trip_id < 549755813888",
+}
+#: the time-series leg: TSBS's devops `cpu-only` use case
+#: (github.com/timescale/tsbs: --use-case=cpu-only --scale=4000
+#: --log-interval=10s, 2016-01-01 to 2016-01-04): one row per host every
+#: 10 s for 3 days, in time order, flushed every 2^22 rows (Pinot's
+#: realtime.segment.flush.threshold.rows): 24 segments of 4,194,304 rows
+#: and one of 3,016,704. TSBS's other 7 tags and 7 metrics are cut: no
+#: query of the leg reads them
+TS_HOSTS = 4000
+TS_T0 = 1451606400000  # 2016-01-01T00:00:00Z in epoch millis
+TS_INTERVAL = 10_000
+TS_ROWS = 3 * 86400 * 1000 // TS_INTERVAL * TS_HOSTS
+TS_FLUSH = 1 << 22
+TS_SEGMENTS = -(-TS_ROWS // TS_FLUSH)
+TS_REGIONS = ["us-east-1", "us-west-1", "us-west-2", "eu-west-1",
+              "eu-central-1", "ap-southeast-1", "ap-southeast-2",
+              "ap-northeast-1", "sa-east-1"]
+TS_HOUR, TS_MIN, TS_5MIN, TS_12H = 3_600_000, 60_000, 300_000, 43_200_000
+#: warm runs of ts.3 and ts.4 (tens of thousands of groups cross to the
+#: host and reduce there), and ts.3's sliding refreshes
+TS_HEAVY_ITERS = 3
+TS_SLIDES = 20
+_TS_RNG = np.random.default_rng(7107)
+#: seeded windows, aligned to their steps: ts.1 one host, 12 h by minute;
+#: ts.2 eight hosts, 1 h by minute; ts.3 every host, 12 h by hour (and
+#: TS_SLIDES refreshes, each an hour later); ts.4 a region's hosts, 12 h
+#: by 5 minutes through the time-series engine
+TS_S1 = TS_T0 + TS_MIN * int(_TS_RNG.integers(0, 3 * 1440 - 720))
+TS_H1 = int(_TS_RNG.integers(0, TS_HOSTS))
+TS_S2 = TS_T0 + TS_MIN * int(_TS_RNG.integers(0, 3 * 1440 - 60))
+TS_H2 = sorted(int(h) for h in _TS_RNG.choice(TS_HOSTS, 8, replace=False))
+TS_S3 = TS_T0 + TS_HOUR * int(_TS_RNG.integers(0, 72 - 12 - TS_SLIDES))
+TS_S4 = TS_T0 + TS_5MIN * int(_TS_RNG.integers(0, 864 - 144))
+TS_R4 = str(_TS_RNG.choice(TS_REGIONS))
+#: 9g: ts.3-shaped panels (AVG by hour and host over 12 h) on eight hosts
+#: each -> (window start, hosts)
+TS_POOL = [(TS_T0 + TS_HOUR * int(h),
+            sorted(int(x) for x in _TS_RNG.choice(TS_HOSTS, 8,
+                                                  replace=False)))
+           for h in _TS_RNG.integers(0, 60, 16)]
+#: the upsert leg on phase 4's segments: segments 0-11 carry validDocIds
+#: with a seeded third of docs cleared, 12-15 stay append-only; then a
+#: seeded 1% of segment 3's valid docs is cleared
+UPSERT_SEGMENTS = 12
+#: name -> (SQL, the kernel it runs on)
+UPSERT_QUERIES = {
+    "q1.1": (Q1_QUERIES["q1.1"], "scan_agg"),
+    "count": ("SELECT COUNT(*) FROM ssb", "scan_agg"),
+    "gb": ("SELECT lo_discount, COUNT(*), MIN(lo_extendedprice), "
+           "MAX(lo_quantity) FROM ssb GROUP BY lo_discount "
+           "ORDER BY lo_discount LIMIT 20", "group_agg"),
+    "sel.1": (SEL_QUERIES["sel.1"][0], "topn"),
+    "dist.1": (DIST_QUERY, "group_agg"),
+    "hll": ("SELECT DISTINCTCOUNTHLL(lo_extendedprice) FROM ssb "
+            "WHERE lo_discount BETWEEN 4 AND 6", "sketch_agg"),
+    "first": ("SELECT lo_orderdate, lo_extendedprice FROM ssb LIMIT 5",
+              None),
 }
 #: BASELINE config #5 (bench_extra.py:224-234) and bench.py --startree's
 #: table (bench.py:2162-2194), at the group-by leg's cut of SSB scale
@@ -521,15 +619,18 @@ def check_moments(rows, truths: list, grouped: bool) -> float:
     return worst
 
 
-def selection_truth(cols: dict) -> dict:
+def selection_truth(cols: dict, valid=None) -> dict:
     """Per selection query over one segment's columns, computed with numpy
     apart from the port: (the matched count, the winners in the kernel's
     order as (exact order value, row over SSB_COLS)). Winners: the first k
     of np.lexsort on (doc, -score), k = limit + offset; sel.4's score is
     the float32 product the kernel rounds. Also dist.1's (discount,
-    quantity) pairs present."""
+    quantity) pairs present. valid: the docs an upsert left valid (None:
+    all)."""
     date, disc, qty, price = (cols[c] for c in SSB_COLS)
     jan94 = (date >= 19940101) & (date <= 19940131)
+    if valid is None:
+        valid = np.ones(len(date), dtype=bool)
     specs = {  # name -> (kept, score or None, exact order value)
         "sel.1": (jan94 & (disc >= 4) & (disc <= 6), price, price),
         "sel.2": (qty < 25, -date.astype(np.int64), date),
@@ -541,6 +642,7 @@ def selection_truth(cols: dict) -> dict:
     out = {}
     for name, (kept, score, value) in specs.items():
         _sql, limit, offset, _asc = SEL_QUERIES[name]
+        kept = kept & valid
         docs = np.nonzero(kept)[0]
         if score is not None:
             docs = docs[np.lexsort((docs, -score[docs]))]
@@ -548,6 +650,7 @@ def selection_truth(cols: dict) -> dict:
         rows = [(None if value is None else int(value[d]),
                  tuple(int(cols[c][d]) for c in SSB_COLS)) for d in docs]
         out[name] = (int(kept.sum()), rows)
+    jan94 &= valid
     out["dist.1"] = set(zip(disc[jan94].tolist(), qty[jan94].tolist()))
     return out
 
@@ -1082,9 +1185,12 @@ def batch_bytes(plan, col_sets, plist, ndlist, idx, D, out):
     idx[m]) must move, and the docs their filters keep: each set's main
     filter columns for every real doc, once; every other column the plan
     reads (value inputs, group keys, order values, the split planes an
-    HLL slot hashes) only in the SECTOR-byte sectors that hold a doc some
-    member over that set keeps, once; each member's parameters, each
-    set's num_docs and the output once."""
+    HLL slot hashes or a time bucket reads) only in the SECTOR-byte
+    sectors that hold a doc some member over that set keeps (a time
+    bucket's gate included), once; each member's parameters, each set's
+    num_docs and the output once. Under an upsert validity mask: its byte
+    for every real doc, and the filter's columns only in the sectors
+    holding a valid doc."""
     import torch
 
     from pinot_tpu_torch.ops import kernels, program
@@ -1092,22 +1198,32 @@ def batch_bytes(plan, col_sets, plist, ndlist, idx, D, out):
             for c in leaf_columns(plan.leaves[i])}
     moved, matched = 0, 0
     for u, (cols, num_docs) in enumerate(zip(col_sets, ndlist)):
-        valid = torch.arange(D, device=num_docs.device)[None, :] \
+        real = torch.arange(D, device=num_docs.device)[None, :] \
             < num_docs[:, None]
+        # under an upsert validity mask: its byte for every real doc, and
+        # the filter's columns in the sectors holding a valid doc
+        valid = kernels.doc_validity(plan, cols, num_docs, D)
+        if plan.valid_mask:
+            moved += int(real.sum())
         kept = torch.zeros_like(valid)
         for params in [p for p, v in zip(plist, idx) if v == u]:
             mask = valid if plan.filter_ir is None else valid \
                 & kernels.eval_filter(plan.filter_ir, plan, cols, params)
+            if plan.tbucket:
+                mask = mask & kernels.group_keys(plan, cols, params,
+                                                 mask.shape)[1]
             kept |= mask
             matched += int(mask.sum())
+
+        def sectors(docs, size):
+            return SECTOR * int(docs.view(docs.shape[0], -1,
+                                          SECTOR // size).any(-1).sum())
         for name in program.compile_plan(plan).cols:
             size = cols[name].element_size()
-            if name in full:
-                moved += int(valid.sum()) * size
+            if name in full and not plan.valid_mask:
+                moved += int(real.sum()) * size
             else:
-                sectors = kept.view(kept.shape[0], -1,
-                                    SECTOR // size).any(-1)
-                moved += SECTOR * int(sectors.sum())
+                moved += sectors(valid if name in full else kept, size)
         moved += num_docs.numel() * num_docs.element_size()
     moved += sum(v.numel() * v.element_size()
                  for params in plist for v in params.values()) \
@@ -1552,6 +1668,153 @@ def check_startree_batched(ex, sqls) -> dict:
             "library": "none: no one PyTorch call computes it"}
 
 
+def with_mask(plan, cols, seed: int):
+    """A plan and its inputs under an upsert validity mask: a seeded uint8
+    [S, D] block clearing about a third of docs, made on the card."""
+    import dataclasses
+
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 7)
+    t = next(iter(cols.values()))
+    vmask = (torch.rand(t.shape, generator=g, device="cuda")
+             >= 1 / 3).to(torch.uint8)
+    return dataclasses.replace(plan, valid_mask=True), dict(cols,
+                                                            vmask=vmask)
+
+
+#: phase 3's time-bucket cases at the time-series leg's shapes: name ->
+#: (tag cardinality, buckets, step ms); G = cardinality x count_pad
+BUCKET_CASES = {"ts.3: G=64,000 (global memory)": (4000, 12, 3_600_000),
+                "ts.1: G=1024 (shared memory)": (1, 720, 60_000)}
+
+
+def bucket_kernel_inputs(seed: int, case: str, starts=None):
+    """K2 with the fused bucket digit at the time-series leg's block (S =
+    25, D = 2^22), made on the card: the hostname ids (or none), the
+    timestamp's (hi, lo) planes, f32 values, a vrange64 window filter on
+    the planes and a sliding start per segment. The window filter is wider
+    than the bucket grid on every other segment and open on the first, so
+    negative deltas, both grid edges, b past count and deltas that wrap in
+    i32 (timestamps 2^31 ms and more from the start) reach the gate.
+    starts: a window start per segment (default: the case's own)."""
+    import torch
+
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 3)
+    hosts, count, step = BUCKET_CASES[case]
+    pad = 8
+    while pad < count:
+        pad *= 2
+    S, D = TS_SEGMENTS, TS_FLUSH
+    if starts is None:
+        starts = [TS_T0 + 3_600_000 * (s % 48) for s in range(S)]
+    st = torch.tensor(starts, dtype=torch.int64, device=dev)[:, None]
+    t = st + torch.randint(-3 * step, (count + 3) * step, (S, D),
+                           generator=g, device=dev)
+    edges = torch.cat([st, st - 1, st + step * count - 1, st + step * count,
+                       st + (1 << 31), st - (1 << 31), st + (1 << 32) + 5,
+                       st + (1 << 40)], 1)
+    t[:, :edges.shape[1]] = edges
+    cols = {"valhi:ts": (t >> 24).to(torch.int32),
+            "vallo:ts": (t & 0xFFFFFF).to(torch.int32),
+            "val:usage": torch.rand((S, D), generator=g, device=dev) * 100}
+    del t, edges
+    lo = st[:, 0] - torch.where(torch.arange(S, device=dev) % 2 == 0, 0,
+                                5 * step)
+    hi = st[:, 0] + step * count - 1 + torch.where(
+        torch.arange(S, device=dev) % 2 == 0, 0, 5 * step)
+    lo[0], hi[0] = 0, (1 << 55) - 1
+    params = {"leaf0:lohi": (lo >> 24).to(torch.int32),
+              "leaf0:lolo": (lo & 0xFFFFFF).to(torch.int32),
+              "leaf0:hihi": (hi >> 24).to(torch.int32),
+              "leaf0:hilo": (hi & 0xFFFFFF).to(torch.int32),
+              "tb:shi": (st[:, 0] >> 24).to(torch.int32),
+              "tb:slo": (st[:, 0] & 0xFFFFFF).to(torch.int32),
+              "tb:step": torch.full((S,), step, dtype=torch.int32,
+                                    device=dev),
+              "tb:count": torch.full((S,), count, dtype=torch.int32,
+                                     device=dev)}
+    group = {}
+    if hosts > 1:
+        cols["ids:hostname"] = torch.randint(0, hosts, (S, D), generator=g,
+                                             device=dev).to(torch.int16)
+        group = dict(group_cols=("hostname",), group_strides=(pad,),
+                     dict_cols=("hostname",))
+    plan = DevicePlan(filter_ir=("leaf", 0),
+                      leaves=(DeviceLeaf("vrange64", "ts"),),
+                      value_irs=(("col", "usage"),),
+                      agg_ops=(("max", 0, None), ("sum", 0, None),
+                               ("count", None, None)),
+                      num_groups=hosts * pad, raw_cols=("usage",),
+                      raw64_cols=("ts",), tbucket=("ts", pad), **group)
+    num_docs = torch.full((S,), D, dtype=torch.int32, device=dev)
+    num_docs[-1] = TS_ROWS - (S - 1) * TS_FLUSH
+    return plan, cols, params, num_docs, D
+
+
+def bincount_ms(plan, cols, params, num_docs, D) -> float:
+    """torch.bincount(keys, weights) on the kept docs' precomputed flat
+    (segment, group) keys: the scatter-add alone, the PyTorch call nearest
+    K2's sum slot (no filter, bucket math, max or count)."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels
+    keys, gate = kernels.group_keys(plan, cols, params,
+                                    cols["val:usage"].shape)
+    mask = kernels.doc_validity(plan, cols, num_docs, D) & gate \
+        & kernels.eval_filter(plan.filter_ir, plan, cols, params)
+    seg = torch.arange(mask.shape[0], device=mask.device)[:, None]
+    flat = (seg * plan.num_groups + keys)[mask]
+    w = cols["val:usage"][mask]
+    n = mask.shape[0] * plan.num_groups
+    return cuda_ms(lambda: torch.bincount(flat, weights=w, minlength=n))
+
+
+def check_bucket_batched(seed: int) -> dict:
+    """Phase 3b's bucket case: K2's member axis at B = 8 over ts.3's
+    column set (broadcast), member m's window sliding by m hours, against
+    the plain batched version and each member's single launch; returns
+    the kernels-line entry (time, 8 x single, bound)."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels
+    case = "ts.3: G=64,000 (global memory)"
+    plan, cols, params, num_docs, D = bucket_kernel_inputs(seed, case)
+    plist = []
+    for m in range(BATCH_B):
+        starts = [TS_T0 + 3_600_000 * (s % 48 + m)
+                  for s in range(TS_SEGMENTS)]
+        plist.append(bucket_kernel_inputs(seed, case, starts)[2])
+    idx = BATCH_FORMS["broadcast"]
+    args = ([cols], plist, [num_docs], idx, D)
+    run = kernels.batched_kernel(plan, torch.float32)
+    plain = kernels.plain_batched_kernel(plan, torch.float32)
+    single = kernels.make_kernel(plan, torch.float32)
+    out, ref = run(*args), plain(*args)
+    torch.cuda.synchronize()
+    for m in range(BATCH_B):
+        scales = kernels.abs_contributions(plan, cols, plist[m], num_docs, D)
+        compare_packed(f"K2 bucket batched member {m} vs plain", plan,
+                       out[m], ref[m], scales)
+        compare_packed(f"K2 bucket batched member {m} vs its single launch",
+                       plan, out[m], single(cols, plist[m], num_docs, D),
+                       scales)
+    moved, matched = batch_bytes(plan, *args, out)
+    single_ms = cuda_ms(lambda: single(cols, plist[0], num_docs, D))
+    return {"case": "ts.3 x 8 sliding starts", "B": BATCH_B,
+            "max_abs_err": max_abs_err(out, ref),
+            "ms": cuda_ms(lambda: run(*args)), "single_ms": single_ms,
+            "8x_single_ms": BATCH_B * single_ms,
+            "plain_ms": cuda_ms(lambda: plain(*args), iters=3),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes it",
+            "bytes": moved, "matched": matched}
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the port's main path, from SQL to rows
 # ---------------------------------------------------------------------------
@@ -1945,6 +2208,415 @@ def residency_phase(segs, truths, kernels, none: dict, card: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the time-series leg (TSBS cpu-only); phase 4d: upserts
+# ---------------------------------------------------------------------------
+
+def tsbs_host_tags(seed: int):
+    """Each host's hostname, region and datacenter, fixed per host from a
+    seeded draw (TSBS's tags: a region and one of its datacenters)."""
+    rng = np.random.default_rng([seed, TS_HOSTS])
+    region = rng.integers(0, len(TS_REGIONS), TS_HOSTS)
+    zone = rng.integers(0, 3, TS_HOSTS)
+    names = np.array([f"host_{h}" for h in range(TS_HOSTS)], dtype=object)
+    regions = np.array(TS_REGIONS, dtype=object)[region]
+    dcs = np.array([TS_REGIONS[r] + "abc"[z] for r, z in zip(region, zone)],
+                   dtype=object)
+    return names, regions, dcs
+
+
+def tsbs_columns(seed: int, i: int):
+    """Segment i's rows: row r is host r mod 4000 at 10 s interval
+    r div 4000; the three metrics are per-host walks (a seeded start in
+    [0, 100] and seeded normal steps of 0.5, clamped to [0, 100]) over the
+    segment's intervals. Returns (columns, host of each row)."""
+    a = i * TS_FLUSH
+    b = min(TS_ROWS, a + TS_FLUSH)
+    r = np.arange(a, b, dtype=np.int64)
+    k0, k1 = a // TS_HOSTS, (b - 1) // TS_HOSTS + 1
+    rng = np.random.default_rng([seed, i])
+    names, regions, dcs = tsbs_host_tags(seed)
+    host = r % TS_HOSTS
+    cols = {"ts": TS_T0 + (r // TS_HOSTS) * TS_INTERVAL,
+            "hostname": names[host], "region": regions[host],
+            "datacenter": dcs[host]}
+    for m in ("usage_user", "usage_system", "usage_idle"):
+        walk = rng.uniform(0, 100, TS_HOSTS)[None, :] + np.cumsum(
+            rng.normal(0, 0.5, (k1 - k0, TS_HOSTS)), axis=0)
+        cols[m] = np.clip(walk, 0, 100).reshape(-1)[
+            a - k0 * TS_HOSTS:b - k0 * TS_HOSTS]
+    return cols, host
+
+
+def tsbs_truth(cols: dict, host, seed: int) -> dict:
+    """One segment's part of the leg's answers, from its generated columns
+    in float64: ts.1's and ts.2's per-minute maxima; per (hour since
+    2016-01-01, host) usage_user sums and counts (ts.3, its refreshes and
+    9g); per 5-minute bucket of ts.4's window, each host's sum."""
+    ts, v = cols["ts"], cols["usage_user"]
+    out = {}
+    w = (ts >= TS_S1) & (ts < TS_S1 + TS_12H) & (host == TS_H1)
+    out["ts.1"] = np.full(720, -np.inf)
+    np.maximum.at(out["ts.1"], (ts[w] - TS_S1) // TS_MIN, v[w])
+    w = (ts >= TS_S2) & (ts < TS_S2 + TS_HOUR) & np.isin(host, TS_H2)
+    out["ts.2"] = np.full(60, -np.inf)
+    np.maximum.at(out["ts.2"], (ts[w] - TS_S2) // TS_MIN, v[w])
+    hour = (ts - TS_T0) // TS_HOUR
+    out["hour"] = {}
+    for h in np.unique(hour):
+        m = hour == h
+        out["hour"][int(h)] = (np.bincount(host[m], v[m], TS_HOSTS),
+                               np.bincount(host[m], minlength=TS_HOSTS))
+    _names, regions, _dcs = tsbs_host_tags(seed)
+    w = (ts >= TS_S4) & (ts < TS_S4 + TS_12H) & (regions[host] == TS_R4)
+    m5 = (ts[w] - TS_S4) // TS_5MIN
+    out["ts.4"] = {int(j): np.bincount(host[w][m5 == j], v[w][m5 == j],
+                                       TS_HOSTS) for j in np.unique(m5)}
+    return out
+
+
+def build_tsbs_segment(job):
+    """Generate, fold the truth of and write TSBS segment i (a worker
+    process: only the truth comes back)."""
+    root, seed, i = job
+    from pinot_tpu_torch.models import (DataType, FieldSpec, FieldType,
+                                        Schema, TableConfig)
+    from pinot_tpu_torch.segment.creator import SegmentCreator
+    schema = Schema("cpu", [
+        FieldSpec("ts", DataType.LONG, FieldType.DIMENSION),
+        *(FieldSpec(c, DataType.STRING, FieldType.DIMENSION)
+          for c in ("hostname", "region", "datacenter")),
+        *(FieldSpec(c, DataType.DOUBLE, FieldType.METRIC)
+          for c in ("usage_user", "usage_system", "usage_idle"))])
+    tc = TableConfig("cpu")
+    tc.indexing.no_dictionary_columns = ["ts", "usage_user", "usage_system",
+                                         "usage_idle"]
+    tc.indexing.compression = "PASS_THROUGH"
+    cols, host = tsbs_columns(seed, i)
+    truth = tsbs_truth(cols, host, seed)
+    out = os.path.join(root, f"cpu_{i}")
+    SegmentCreator(tc, schema).build(cols, out, f"cpu_{i}")
+    return out, truth
+
+
+def ts_sql(start, window, step, group_host=True, where="", agg=None):
+    """The time-series leaf SQL over `cpu`: floor((ts - start) / step)
+    [, hostname] over [start, start + window)."""
+    b = f"floor((ts - {start}) / {step})"
+    tags = ", hostname" if group_host else ""
+    agg = agg or ("AVG(usage_user)" if group_host else "MAX(usage_user)")
+    extra = f" AND {where}" if where else ""
+    return (f"SELECT {b}{tags}, {agg} FROM cpu WHERE ts >= {start} AND "
+            f"ts < {start + window}{extra} GROUP BY {b}{tags} LIMIT 100000")
+
+
+def hosts_in(hosts) -> str:
+    return "hostname IN (" + ", ".join(f"'host_{h}'" for h in hosts) + ")"
+
+
+def ts_avg_check(rows, hours: dict, start: int, hosts=None):
+    """None where rows are the AVG by hour and host over 12 h from `start`
+    (hosts: every host, or these): the same (bucket, hostname) keys, each
+    average within rel 1e-6 of the true one (values are >= 0: their sum is
+    the sum of |contribution|)."""
+    h0 = (start - TS_T0) // TS_HOUR
+    want = {}
+    for b in range(12):
+        s, c = hours[h0 + b]
+        for h in (range(TS_HOSTS) if hosts is None else hosts):
+            if c[h]:
+                want[(float(b), f"host_{h}")] = s[h] / c[h]
+    got = {(r[0], r[1]): float(r[2]) for r in rows}
+    if set(got) != set(want) or len(rows) != len(want):
+        return f"{len(got)} groups, numpy truth {len(want)}"
+    for k, v in want.items():
+        if abs(got[k] - v) > 1e-6 * v:
+            return f"group {k}: {got[k]} vs numpy truth {v}"
+    return None
+
+
+def ts_max_check(rows, maxima):
+    """None where rows are one (bucket, MAX) per bucket with data, each
+    equal to the float32 of the true maximum."""
+    want = {float(b): float(np.float32(m)) for b, m in enumerate(maxima)
+            if np.isfinite(m)}
+    got = {r[0]: float(r[1]) for r in rows}
+    if got != want:
+        bad = next((k for k in want if got.get(k) != want[k]), None)
+        return (f"{len(got)} buckets, numpy truth {len(want)}; bucket {bad}: "
+                f"{got.get(bad)} vs {want.get(bad)}")
+    return None
+
+
+def tsbs_leg(tmp: str, seed: int, kernels, none: dict, card: str):
+    """Phase 10: TSBS cpu-only at scale 4000 (103,680,000 rows in 25
+    segments), ts.1-ts.3 through QueryExecutor and ts.4 through the port's
+    time-series engine, each against its numpy truth; ts.3's sliding
+    refreshes with no codegen; then 9g. Returns (K2's single launches of
+    the leg, 9g's window launches, the leg's query lines)."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels as kmod
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    from pinot_tpu_torch.timeseries.engine import query as ts_query
+    t0 = time.perf_counter()
+    jobs = [(tmp, seed, i) for i in range(TS_SEGMENTS)]
+    import multiprocessing
+    with multiprocessing.get_context("spawn").Pool(BUILD_WORKERS) as pool:
+        done = pool.map(build_tsbs_segment, jobs, chunksize=1)
+    from pinot_tpu_torch.segment.loader import load_segment
+    segs = [load_segment(out) for out, _t in done]
+    truths = [t for _o, t in done]
+    rows = sum(s.num_docs for s in segs)
+    if rows != TS_ROWS or segs[-1].num_docs != \
+            TS_ROWS - (TS_SEGMENTS - 1) * TS_FLUSH:
+        fail(f"tsbs: {rows} rows in {len(segs)} segments")
+    print(f"[tsbs] built {len(segs)} segments, {rows} rows in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    hours = {}
+    for t in truths:
+        for h, (s, c) in t["hour"].items():
+            a, b = hours.get(h, (0.0, 0))
+            hours[h] = (a + s, b + c)
+    ts1 = np.max([t["ts.1"] for t in truths], 0)
+    ts2 = np.max([t["ts.2"] for t in truths], 0)
+    m5 = {}
+    for t in truths:
+        for j, s in t["ts.4"].items():
+            m5[j] = m5.get(j, 0.0) + s
+    ts4 = np.array([m5[j].max() for j in range(144)])
+    queries = {
+        "ts.1": (ts_sql(TS_S1, TS_12H, TS_MIN, False,
+                        f"hostname = 'host_{TS_H1}'"), ITERS,
+                 lambda r: ts_max_check(r, ts1)),
+        "ts.2": (ts_sql(TS_S2, TS_HOUR, TS_MIN, False, hosts_in(TS_H2)),
+                 ITERS, lambda r: ts_max_check(r, ts2)),
+        "ts.3": (ts_sql(TS_S3, TS_12H, TS_HOUR), TS_HEAVY_ITERS,
+                 lambda r: ts_avg_check(r, hours, TS_S3)),
+    }
+    ex = QueryExecutor(segs)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    legs, runs = [], 0
+    for name, (sql, iters, check) in queries.items():
+        resp, cold, lats, split = time_query(ex, sql, iters)
+        why = check([tuple(r) for r in resp.rows])
+        if why is not None:
+            fail(f"{name}: {why}")
+        runs += 1 + iters
+        legs.append({"query": name, "rows": rows,
+                     "groups": len(resp.rows),
+                     "p50_ms": statistics.median(lats) * 1e3,
+                     "cold_s": cold,
+                     "rows_per_s": rows / statistics.median(lats),
+                     "stage_ms": split})
+    ts4_text = (f"fetch(cpu, usage_user, ts, {TS_S4}, {TS_S4 + TS_12H}, "
+                f"{TS_5MIN}) | where(region = '{TS_R4}') | groupby(hostname) "
+                f"| max() | keep_last_value()")
+    lats = []
+    for k in range(1 + TS_HEAVY_ITERS):
+        t1 = time.perf_counter()
+        block = ts_query(ts4_text, ex)
+        lats.append(time.perf_counter() - t1)
+        runs += 1
+    got = block.series[0].values if len(block.series) == 1 else None
+    if got is None or len(got) != 144 or not bool(
+            (np.abs(got - ts4) <= 1e-6 * ts4).all()):
+        fail(f"ts.4: {None if got is None else got[:4]} vs numpy truth "
+             f"{ts4[:4]}")
+    legs.append({"query": "ts.4", "rows": rows, "series": len(block.series),
+                 "p50_ms": statistics.median(lats[1:]) * 1e3,
+                 "cold_s": lats[0],
+                 "rows_per_s": rows / statistics.median(lats[1:]),
+                 "stage_ms": ex.last_stage_ms})
+    # ts.3's sliding refreshes: only the start moves, nothing compiles
+    codegen = kmod.trace_count()
+    slide = []
+    for k in range(1, TS_SLIDES + 1):
+        start = TS_S3 + k * TS_HOUR
+        t1 = time.perf_counter()
+        resp = ex.execute(ts_sql(start, TS_12H, TS_HOUR))
+        slide.append(time.perf_counter() - t1)
+        why = ts_avg_check([tuple(r) for r in resp.rows], hours, start)
+        if why is not None:
+            fail(f"ts.3 refresh {k}: {why}")
+    runs += TS_SLIDES
+    if kmod.trace_count() != codegen:
+        fail(f"ts.3's sliding refreshes compiled "
+             f"{kmod.trace_count() - codegen} programs")
+    got = launches_of_leg("time-series leg", kernels,
+                          {**none, "group_agg": runs})
+    if ex.engine.meter("timeseries_leaf_device") != runs:
+        fail(f"{ex.engine.meter('timeseries_leaf_device')} leaves served "
+             f"with the fused bucket of {runs}")
+    peak = torch.cuda.max_memory_allocated()
+    for leg in legs:
+        leg["max_memory_allocated"] = peak
+        print(f"[tsbs] {json.dumps(leg)} | {card}", flush=True)
+    print(f"[tsbs] {json.dumps({'query': 'ts.3 sliding refreshes', 'refreshes': TS_SLIDES, 'p50_ms': statistics.median(slide) * 1e3, 'codegen': 0})}"
+          f" | {card}", flush=True)
+    for name in ("ts.1", "ts.3"):
+        busy = device_busy(ex, queries[name][0], 3, tmp)
+        print(f"[tsbs] trace {name} {json.dumps(busy or 'not measured')} "
+              f"| {card}", flush=True)
+
+    # phase 9g: ts.3-shaped panels (eight hosts each) under concurrency
+    pool = [ts_sql(s, TS_12H, TS_HOUR, where=hosts_in(h))
+            for s, h in TS_POOL]
+    leg = concurrency_leg(
+        "9g", modes_of(segs, pipelined=ex), pool,
+        [list(range(len(pool)))] * CLIENTS,
+        lambda i, r: ts_avg_check(r, hours, TS_POOL[i][0], TS_POOL[i][1]),
+        card, tmp, kernels, "group_agg")
+    del ex, segs
+    torch.cuda.empty_cache()
+    return got["group_agg"], got["row_assemble"], leg["launches"]
+
+
+def upsert_truth(cols: dict, valid) -> dict:
+    """One segment's answers to UPSERT_QUERIES over the docs `valid`
+    keeps (None: every doc), from its generated columns."""
+    from pinot_tpu_torch.query.sketches import HyperLogLog
+    date, disc, qty, price = (cols[c] for c in SSB_COLS)
+    v = np.ones(len(date), dtype=bool) if valid is None else valid
+    lo, hi, c0, c1, q0, q1 = Q1_TRUTH["q1.1"]
+    m = v & (date >= lo) & (date <= hi) & (disc >= c0) & (disc <= c1) \
+        & (qty >= q0) & (qty <= q1)
+    hll = HyperLogLog(HLL_LOG2M)
+    hll.add_array(price[v & (disc >= 4) & (disc <= 6)].astype(np.int64))
+    gb = {}
+    for d in np.unique(disc[v]):
+        k = v & (disc == d)
+        gb[int(d)] = (int(k.sum()), int(price[k].min()), int(qty[k].max()))
+    first = np.flatnonzero(v)[:5]
+    return {"q1.1": (int((price[m].astype(np.int64) * disc[m]).sum()),
+                     int(m.sum())),
+            "count": int(v.sum()), "gb": gb,
+            "sel": selection_truth(cols, v), "hll": hll.registers,
+            "first": [(int(date[d]), int(price[d])) for d in first]}
+
+
+def upsert_leg(segs, seed: int, kernels, none: dict, card: str):
+    """Phase 4d: segments 0-11 of phase 4 carry validDocIds (the port's
+    Bitmap) with a seeded third of docs cleared, 12-15 stay append-only;
+    UPSERT_QUERIES through a fresh executor, each exact against the masked
+    numpy truth. Then a seeded 1% of segment 3's valid docs is cleared:
+    the next Q1.1 equals the new truth and uploads exactly segment 3's
+    mask row (2^23 bytes) by the transfer odometer, a repeat nothing.
+    Returns the leg's launches per kernel."""
+    import torch
+
+    from pinot_tpu_torch.ops import residency
+    from pinot_tpu_torch.ops.engine import _pow2
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    from pinot_tpu_torch.query.sketches import HyperLogLog
+    from pinot_tpu_torch.segment.bitmap import Bitmap
+    t0 = time.perf_counter()
+    valid = []
+    for i, seg in enumerate(segs):
+        if i < UPSERT_SEGMENTS:
+            keep = np.random.default_rng([seed, 77, i]).random(
+                seg.num_docs) >= 1 / 3
+            seg.valid_doc_ids = Bitmap.from_mask(keep)
+            valid.append(keep)
+        else:
+            valid.append(None)
+
+    def truths_of(i):
+        cols = ssb_q1_columns(np.random.default_rng([seed, i]), Q1_DOCS)
+        return upsert_truth(cols, valid[i])
+    truths = [truths_of(i) for i in range(len(segs))]
+    print(f"[upsert] {UPSERT_SEGMENTS} of {len(segs)} segments masked, "
+          f"truth in {time.perf_counter() - t0:.1f} s", flush=True)
+    rows = sum(s.num_docs for s in segs)
+    total = sum(t["count"] for t in truths)
+
+    def check(name, resp):
+        got = [tuple(r) for r in resp.rows]
+        if name == "q1.1":
+            return exact_pair(got, sum(t["q1.1"][0] for t in truths),
+                              sum(t["q1.1"][1] for t in truths))
+        if name == "count":
+            want = [(total,)]
+        elif name == "gb":
+            keys = sorted(set().union(*(t["gb"] for t in truths)))
+            want = [(d, sum(t["gb"][d][0] for t in truths if d in t["gb"]),
+                     float(min(t["gb"][d][1] for t in truths
+                               if d in t["gb"])),
+                     float(max(t["gb"][d][2] for t in truths
+                               if d in t["gb"]))) for d in keys]
+            got = [(int(r[0]), int(r[1]), float(r[2]), float(r[3]))
+                   for r in got]
+        elif name == "sel.1":
+            want, matched = selection_expected(
+                [t["sel"] for t in truths], "sel.1",
+                resp.result_table.columns)
+            if resp.stats.num_docs_scanned != matched:
+                return f"{resp.stats.num_docs_scanned} matched, {matched}"
+        elif name == "dist.1":
+            want = sorted(set().union(*(t["sel"]["dist.1"]
+                                        for t in truths)))
+        elif name == "hll":
+            regs = np.max([t["hll"] for t in truths], 0)
+            want = [(HyperLogLog.from_registers(regs, HLL_LOG2M)
+                     .cardinality(),)]
+            got = [(int(got[0][0]),)]
+        else:
+            want = truths[0]["first"]
+            if resp.stats.num_docs_scanned != total:
+                return f"{resp.stats.num_docs_scanned} docs scanned, {total}"
+        return None if got == want else f"{got[:4]} vs numpy truth {want[:4]}"
+
+    ex = QueryExecutor(segs)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    want = dict(none)
+    for name, (sql, kname) in UPSERT_QUERIES.items():
+        resp, cold, lats, split = time_query(ex, sql, ITERS)
+        why = check(name, resp)
+        if why is not None:
+            fail(f"upsert {name}: {why}")
+        if kname is not None:
+            want[kname] += 1 + ITERS
+        leg = {"query": f"upsert {name}", "rows": rows, "valid": total,
+               "p50_ms": statistics.median(lats) * 1e3, "cold_s": cold,
+               "rows_per_s": rows / statistics.median(lats),
+               "stage_ms": split}
+        print(f"[upsert] {json.dumps(leg)} | {card}", flush=True)
+    # an in-place clear of 1% of segment 3's valid docs
+    v3 = segs[3].valid_doc_ids
+    live = np.flatnonzero(valid[3])
+    victims = np.random.default_rng([seed, 78]).choice(
+        live, len(live) // 100, replace=False)
+    for d in victims:
+        v3.clear(int(d))
+    valid[3][victims] = False
+    truths[3] = truths_of(3)
+    moved = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        b0 = residency.column_transfer_bytes()
+        why = check("q1.1", ex.execute(UPSERT_QUERIES["q1.1"][0]))
+        torch.cuda.synchronize()
+        moved.append(residency.column_transfer_bytes() - b0)
+        if why is not None:
+            fail(f"upsert q1.1 after clear(): {why}")
+    want["scan_agg"] += 2
+    print(f"[upsert] {json.dumps({'cleared': len(victims), 'mask_bytes_uploaded': moved[0], 'repeat_bytes': moved[1]})}"
+          f" | {card}", flush=True)
+    # one byte per doc of segment 3's power-of-two bucket (2^23 at 8M docs)
+    row = _pow2(segs[3].num_docs)
+    if moved != [row, 0]:
+        fail(f"upsert: the re-staging after clear() uploaded {moved} bytes, "
+             f"expected [{row}, 0]")
+    got = launches_of_leg("upsert leg", kernels, want)
+    for seg in segs:
+        seg.valid_doc_ids = None
+    del ex
+    torch.cuda.empty_cache()
+    return got
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the concurrency leg
 # ---------------------------------------------------------------------------
 
@@ -2231,6 +2903,41 @@ def main() -> None:
     for name, case in k6.pop("cases").items():
         print(f"[kernel] row_assemble {json.dumps(case)} | {card}",
               flush=True)
+    # K2 with the fused time bucket, at the time-series leg's shapes
+    kb_cases = {}
+    for name in BUCKET_CASES:
+        inputs = bucket_kernel_inputs(args.seed, name)
+        kb_cases[name] = dict(check_kernel(f"group_agg bucket {name}",
+                                           *inputs), case=name,
+                              library_ms=bincount_ms(*inputs),
+                              library="torch.bincount(keys, weights) on "
+                                      "precomputed keys: the scatter alone")
+        print(f"[kernel] group_agg bucket {json.dumps(kb_cases[name])} "
+              f"| {card}", flush=True)
+        del inputs
+        torch.cuda.empty_cache()
+    kb = dict(kb_cases["ts.3: G=64,000 (global memory)"],
+              max_abs_err=max(c["max_abs_err"] for c in kb_cases.values()))
+    # K1-K4 under an upsert validity mask clearing about a third of docs
+    masked = {}
+    for kname, inputs_fn in (
+            ("scan_agg", lambda s: kernel_inputs(s, grouped=False)),
+            ("group_agg", lambda s: kernel_inputs(s, grouped=True)),
+            ("sketch_agg", sketch_kernel_inputs),
+            ("topn",
+             lambda s: topn_kernel_inputs(s)["a: raw value DESC k=10"])):
+        plan, cols, params, num_docs, D = inputs_fn(args.seed)
+        plan, cols = with_mask(plan, cols, args.seed)
+        check = check_topn if kname == "topn" else check_kernel
+        masked[kname] = check(f"{kname} masked", plan, cols, params,
+                              num_docs, D)
+        if kname == "sketch_agg":
+            masked[kname]["library_ms"] = histc_ms(plan, cols, params,
+                                                   num_docs)
+        print(f"[kernel] {kname} masked {json.dumps(masked[kname])} "
+              f"| {card}", flush=True)
+        del plan, cols, params, num_docs
+        torch.cuda.empty_cache()
 
     # phase 3b: the query axis against its plain version and the single
     # launches (K5's case runs in phase 7, on the blocks it stages)
@@ -2246,6 +2953,10 @@ def main() -> None:
         print(f"[kernel] {kname} batched {json.dumps(batched[kname])} "
               f"| {card}", flush=True)
         torch.cuda.empty_cache()
+    kb_batched = check_bucket_batched(args.seed)
+    print(f"[kernel] group_agg bucket batched {json.dumps(kb_batched)} "
+          f"| {card}", flush=True)
+    torch.cuda.empty_cache()
     kernels = _cuda.KERNELS
     none = {k.name: 0 for k in kernels}
     p9 = {k.name: [0, 0] for k in kernels}
@@ -2382,6 +3093,12 @@ def main() -> None:
         # phase 4c: the staging levels (residency) on the Q1 segments
         k6["launches"] += residency_phase(segs, truths, kernels, none,
                                           card)
+        # phase 4d: upserts on the same segments (K1-K4 with the mask)
+        got = upsert_leg(segs, args.seed, kernels, none, card)
+        for kname, entry in masked.items():
+            entry["launches"] = got[kname]
+        upsert_launches = got
+        k6["launches"] += got["row_assemble"]
         del segs
         torch.cuda.empty_cache()
 
@@ -2587,6 +3304,14 @@ def main() -> None:
         variants["9b"] = leg["seen"]
         del tables
         torch.cuda.empty_cache()
+
+        # phase 10: the time-series leg (TSBS cpu-only), with phase 9g
+        kb["launches"], k6_ts, p9g = tsbs_leg(tmp, args.seed, kernels, none,
+                                              card)
+        k2["launches"] += kb["launches"]
+        k6["launches"] += k6_ts
+        count_phase9(p9g, p9)
+        kb_batched["launches"] = p9g["group_agg"][1]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2600,12 +3325,17 @@ def main() -> None:
                         (_cuda.SKETCH_AGG, k3), (_cuda.TOPN, k4),
                         (_cuda.STARTREE_AGG, k5)):
         single, batch = p9[kern.name]
-        entry["launches"] += single
+        entry["launches"] += single + upsert_launches[kern.name]
         batched[kern.name]["launches"] = batch
         if not batch:
             fail(f"phase 9 never launched {kern.name}'s batched form")
     if not k6["launches"]:
         fail("the main path never launched row_assemble")
+    for name, entry in [("group_agg bucket", kb),
+                        ("group_agg bucket batched", kb_batched),
+                        *((f"{k} masked", e) for k, e in masked.items())]:
+        if not entry["launches"]:
+            fail(f"the main path never launched {name}")
     entries = []
     for kern, entry, replaces in (
             (_cuda.SCAN_AGG, k1, "pinot_tpu/ops/kernels.py:537"),
@@ -2632,6 +3362,29 @@ def main() -> None:
         entry = batched[kern.name]
         entries.append({
             "name": f"{kern.name}_batched", "route": "cuda",
+            "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",
+            "replaces": replaces, "launches": entry["launches"],
+            "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
+            "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+            "bound_by": entry["bound_by"],
+            "library_ms": entry["library_ms"]})
+    # the time bucket (K2's digit) and the validity mask (K1-K4): launches
+    # are those of the legs whose every launch carries them (phase 10 and
+    # 9g; phase 4d), a subset of the kernel's own entry above
+    for name, kern, entry, replaces in (
+            ("group_agg_tbucket", _cuda.GROUP_AGG, kb,
+             "pinot_tpu/ops/timeseries_device.py:166"),
+            ("group_agg_tbucket_batched", _cuda.GROUP_AGG, kb_batched,
+             "pinot_tpu/ops/timeseries_device.py:166,"
+             "pinot_tpu/ops/kernels.py:793"),
+            *((f"{k}_masked", kern, masked[k], f"pinot_tpu/ops/kernels.py:"
+               f"{604 if k == 'topn' else 565}")
+              for k, kern in (("scan_agg", _cuda.SCAN_AGG),
+                              ("group_agg", _cuda.GROUP_AGG),
+                              ("sketch_agg", _cuda.SKETCH_AGG),
+                              ("topn", _cuda.TOPN)))):
+        entries.append({
+            "name": name, "route": "cuda",
             "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",
             "replaces": replaces, "launches": entry["launches"],
             "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],

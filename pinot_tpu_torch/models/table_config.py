@@ -4,9 +4,12 @@ Counterpart of pinot_tpu/models/table_config.py (ref
 pinot-spi/src/main/java/org/apache/pinot/spi/config/table/TableConfig.java:38).
 The port's creator writes dictionaries, forward indexes and star-trees, so
 only the indexing fields that decide those (no-dictionary columns, raw-chunk
-compression, star-tree configs) and the time column survive here. The port
-has no upsert config yet, so the JAX package's upsert / star-tree exclusion
-(`TableConfig.validate`) has nothing to check here.
+compression, star-tree configs) and the time column survive here. Upsert
+state is not table configuration here: a
+`segment/upsert.PartitionUpsertMetadataManager` (FULL mode) attaches
+`valid_doc_ids` to the segments it registers, so the JAX package's upsert /
+star-tree exclusion (`TableConfig.validate`) has nothing to check; the
+engine keeps a segment with cleared bits off its star-tree.
 """
 from __future__ import annotations
 

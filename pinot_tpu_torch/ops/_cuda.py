@@ -79,8 +79,11 @@ RA_MAX_ROWS = 1024
 
 
 class _Args(ctypes.Structure):
-    """csrc/interp.cuh `struct Args`, passed to the kernel by value."""
+    """csrc/interp.cuh `struct Args`, passed to the kernel by value: per
+    column set its column pointers and its upsert validity mask (null: no
+    mask), the LUT pointers, the program and the member-to-set map."""
     _fields_ = [("cols", (ctypes.c_void_p * prog_mod.MAX_COLS) * MAX_SETS),
+                ("vmask", ctypes.c_void_p * MAX_SETS),
                 ("luts", ctypes.c_void_p * prog_mod.MAX_LUTS),
                 ("code", ctypes.c_int * prog_mod.MAX_CODE),
                 ("set_of", ctypes.c_int * MAX_MEMBERS)]
@@ -174,18 +177,19 @@ class CudaKernel:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = (_Args, "pt_args_bytes")
 SCAN_AGG = CudaKernel("scan_agg", "scan_agg.cu", "pt_scan_agg",
                       [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _I, _P])
+                       _P, _P, _I, _P], layout=_ARGS)
 GROUP_AGG = CudaKernel("group_agg", "group_agg.cu", "pt_group_agg",
                        [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _P, _P, _I, _P])
+                        _I, _P, _P, _I, _P], layout=_ARGS)
 SKETCH_AGG = CudaKernel("sketch_agg", "sketch_agg.cu", "pt_sketch_agg",
                         [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _P, _P, _P, _I, _P])
+                         _I, _I, _P, _P, _P, _I, _P], layout=_ARGS)
 TOPN = CudaKernel("topn", "topn.cu", "pt_topn",
                   [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
+                   _I, _P, _P, _P, _P, _P, _P, _P, _I, _P], layout=_ARGS)
 STARTREE_AGG = CudaKernel("startree_agg", "startree_agg.cu",
                           "pt_startree_agg",
                           [ctypes.POINTER(_StArgs), _P, _I, _I, _I, _I, _I,
@@ -303,6 +307,20 @@ class _Launch:
                        (t0.dtype,) if u else _COL_DTYPES, (S, D))
                 args.cols[u][c] = cols[name].data_ptr()
             dtypes.append(str(t0.dtype).replace("torch.", ""))
+        if plan.tbucket:  # K2 reads the timestamp's planes as i32
+            for plane in ("valhi:", "vallo:"):
+                if col_sets[0][plane + plan.tbucket[0]].dtype != torch.int32:
+                    raise ValueError(f"{plane}{plan.tbucket[0]} must be "
+                                     "int32 split planes")
+        for u, cols in enumerate(col_sets):
+            vm = cols.get("vmask")
+            if plan.valid_mask:
+                if vm is None:
+                    raise ValueError(f"set {u}: a valid-mask plan without "
+                                     "its vmask block")
+                _check(vm, f"vmask of set {u}", device,
+                       (torch.uint8, torch.bool), (S, D))
+                args.vmask[u] = vm.data_ptr()
         self.luts, widths = [], []
         for k, key in enumerate(prog.luts):
             ts = [p[key] for p in params_list]

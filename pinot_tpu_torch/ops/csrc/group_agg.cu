@@ -8,8 +8,17 @@
 // matmul for small key spaces (:299-311) was a device for the TPU's matrix
 // unit; the function is a scatter-sum, and here it is one.
 //
+// Also replaces pinot_tpu/ops/timeseries_device.py:166 `bucket_ids` (the
+// fused time bucket, kernels.py:496-506): where the plan carries one, each
+// doc's floor((t - start) / step) from the timestamp's (hi, lo) i32 planes
+// and the member's tb:* parameter cells is the key's lowest digit, and a
+// doc outside the window is gated out (interp.cuh ts_bucket). The upsert
+// validity mask skips superseded docs before the filter (doc_valid).
+//
 // Bound on an H100: bytes, as for K1 — each staged element is read once;
-// the output [S, G, n_slots] is small beside the columns.
+// the output [S, G, n_slots] is small beside the columns (a time bucket
+// reads two i32 planes more per kept doc and does a handful of integer
+// operations: still bytes).
 //
 // Design: grid (B members x blocks per segment, S), a single launch being
 // the B = 1 case (interp.cuh: the member axis), each
@@ -82,6 +91,7 @@ group_agg_kernel(const __grid_constant__ Args a, const double* __restrict__ para
   stage_block(a, params, mb.row(), P, sh);
   const int* code = sh.code;
   const int nslot = code[H_NSLOT], ngcol = code[H_NGCOL], mainf = code[H_MAIN];
+  const int tbhi = code[H_TBHI], tbpad = code[H_TBPAD];
   const int* slots = code + code[H_SLOT];
   const int* gcols = code + code[H_GCOL];
   const int entries = G * nslot;
@@ -99,10 +109,20 @@ group_agg_kernel(const __grid_constant__ Args a, const double* __restrict__ para
   const long long base = (long long)s * D;
   for (int d = start + threadIdx.x; d < end; d += blockDim.x) {
     const long long i = base + d;
+    if (!doc_valid(a, mb, i)) continue;  // superseded by an upsert
     if (mainf >= 0 && !eval_filter(a, sh, mainf, mb, i)) continue;
     int key = 0;
     for (int g = 0; g < ngcol; ++g)
       key += (int)load_col(a, code, mb.u(), gcols[2 * g], i) * gcols[2 * g + 1];
+    if (tbhi >= 0) {  // the fused time bucket: the key's lowest digit
+      const double* tp = sh.prm + code[H_TBPRM];
+      int bk;
+      if (!ts_bucket(((const int*)a.cols[mb.u()][tbhi])[i],
+                     ((const int*)a.cols[mb.u()][code[H_TBLO]])[i], (int)tp[0],
+                     (int)tp[1], (int)tp[2], (int)tp[3], tbpad, bk))
+        continue;
+      key += bk;
+    }
     if (key < 0 || key >= G) continue;  // as XLA drops out-of-range scatters
     double* row = my + (long long)key * nslot;
     DocCache c = {0u, 0u, 0u};

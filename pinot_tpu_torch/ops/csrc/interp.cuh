@@ -50,7 +50,7 @@
 
 enum { H_NLEAVES, H_NFILT, H_MAIN, H_NVAL, H_NSLOT, H_NACC, H_NGCOL, H_OUTW,
        H_NPARAM, H_LEAF, H_FILT, H_VAL, H_SLOT, H_GCOL, H_ACC, H_NCOL,
-       H_COLDT, H_LUTC, H_LEN };
+       H_COLDT, H_LUTC, H_LEN, H_TBHI, H_TBLO, H_TBPRM, H_TBPAD };
 enum { L_RANGE, L_NEQ, L_LUT, L_VRANGE, L_VRANGE64 };
 enum { F_LEAF, F_AND, F_OR, F_NOT };
 enum { V_COL, V_LIT, V_ADD, V_SUB, V_MUL, V_DIV, V_NEG, V_IDS };
@@ -63,17 +63,23 @@ enum { O_SCALAR, O_PLANE };
 #define ACC_W 3
 
 // Passed by value (__grid_constant__): the column pointers of each column
-// set, the LUT pointers, the program and the member-to-set map. 7360 bytes:
-// past the classic 4,096-byte kernel-parameter limit, inside the 32,764
-// bytes that CUDA 12.1 and later allow on sm_70 and later (the build uses
-// CUDA 12.8 for sm_90a), so no device-side pointer table is uploaded per
-// launch.
+// set, each set's upsert validity mask (a [S, D] block of one byte per doc,
+// nonzero = valid; null: the set has no mask), the LUT pointers, the
+// program and the member-to-set map. 7488 bytes: past the classic
+// 4,096-byte kernel-parameter limit, inside the 32,764 bytes that CUDA 12.1
+// and later allow on sm_70 and later (the build uses CUDA 12.8 for
+// sm_90a), so no device-side pointer table is uploaded per launch. Its
+// size is checked against the ctypes mirror (ops/_cuda.py `_Args`) when a
+// library loads (`pt_args_bytes`).
 struct Args {
   const void* cols[PT_MAX_SETS][PT_MAX_COLS];
+  const unsigned char* vmask[PT_MAX_SETS];
   const unsigned char* luts[PT_MAX_LUTS];
   int code[PT_MAX_CODE];
   int set_of[PT_MAX_MEMBERS];
 };
+
+extern "C" int pt_args_bytes() { return (int)sizeof(Args); }
 
 // Block-shared copy of the program and of this member's parameter row for
 // this segment.
@@ -136,6 +142,36 @@ __device__ __forceinline__ double load_col(const Args& a, const int* code,
     case 3: return (double)((const float*)p)[i];
     default: return ((const double*)p)[i];
   }
+}
+
+// The upsert validity of doc i for member mb (JAX kernels.py:565, :604
+// `valid & cols["vmask"]`): one byte read beside the num_docs bound, and
+// nothing where the member's column set carries no mask.
+template <typename M>
+__device__ __forceinline__ bool doc_valid(const Args& a, M mb, long long i) {
+  const unsigned char* v = a.vmask[mb.u()];
+  return v == nullptr || v[i] != 0;
+}
+
+// The fused time bucket of doc i (JAX timeseries_device.py:166
+// `bucket_ids`, called at kernels.py:496-506): from the timestamp's (hi, lo)
+// i32 planes and the member's tb:* cells (start's planes, step, count),
+// delta = (vhi - shi) * 2^24 + (vlo - slo) wrapping in 32 bits as XLA's i32
+// arithmetic does (computed in uint32: signed overflow is undefined in
+// CUDA C), b = floor(delta / step) (C division truncates toward zero, so
+// a negative inexact quotient steps down by one), then b clipped to
+// [0, count_pad). Returns the gate delta >= 0 && b < count: a doc outside
+// the window contributes to no slot, whatever its wrapped delta is.
+__device__ __forceinline__ bool ts_bucket(int vhi, int vlo, int shi, int slo,
+                                          int step, int count, int count_pad,
+                                          int& b) {
+  const unsigned ud = ((unsigned)vhi - (unsigned)shi) * (1u << 24) +
+                      ((unsigned)vlo - (unsigned)slo);
+  const int delta = (int)ud;
+  int q = delta / step;
+  if (delta % step != 0 && ((delta < 0) != (step < 0))) --q;
+  b = q < 0 ? 0 : (q > count_pad - 1 ? count_pad - 1 : q);
+  return delta >= 0 && q < count;
 }
 
 // Reductions that propagate NaN, as jnp.min / jnp.max and XLA's scatter-min

@@ -18,7 +18,8 @@
 // once; threads stride by the block size, so each column read is
 // coalesced at its own width. The block partition depends on D only, not
 // on B, so a member's bits equal its single launch's. Docs at or past num_docs[s] are never
-// read (padding costs nothing). Every accumulator word is a double per
+// read (padding costs nothing); a doc whose byte in the set's upsert
+// validity mask is 0 is skipped before the filter (interp.cuh doc_valid). Every accumulator word is a double per
 // thread: counts and isum planes stay exact integers (< 2^53), float sums
 // gain precision over the JAX float32 sum, min/max are exact. Blocks write
 // per-word partials to scratch [B, S, nb, n_acc]; a second kernel reduces
@@ -53,6 +54,7 @@ scan_agg_kernel(const __grid_constant__ Args a, const double* __restrict__ param
   const long long base = (long long)s * D;
   for (int d = start + threadIdx.x; d < end; d += blockDim.x) {
     const long long i = base + d;
+    if (!doc_valid(a, mb, i)) continue;  // superseded by an upsert
     if (mainf >= 0 && !eval_filter(a, sh, mainf, mb, i)) continue;
     acc[0] += 1.0;  // matched count
     DocCache c = {0u, 0u, 0u};

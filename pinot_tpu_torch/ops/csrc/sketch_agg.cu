@@ -15,7 +15,7 @@
 // Design: grid (blocks per segment, S) for a single launch, (B members x
 // blocks per segment, S) for a batch, 256 threads, each block over one
 // contiguous doc range of one segment for one member, as K1 (interp.cuh:
-// the member axis). The filter and the value IR
+// the member axis). The upsert validity mask, the filter and the value IR
 // run through interp.cuh. Each sketch slot whose table fits under
 // SKETCH_SMEM_WORDS (program.py places it: the slot row's `acc` field) keeps
 // a per-block uint32 table in dynamic shared memory: registers take
@@ -93,7 +93,8 @@ sketch_agg_kernel(const __grid_constant__ Args a,
   for (int d0 = start; d0 < end; d0 += blockDim.x) {
     const int d = d0 + threadIdx.x;
     const long long i = base + d;
-    if (d < end && (mainf < 0 || eval_filter(a, sh, mainf, mb, i))) {
+    if (d < end && doc_valid(a, mb, i) &&
+        (mainf < 0 || eval_filter(a, sh, mainf, mb, i))) {
       ++matched;
       DocCache c = {0u, 0u, 0u};
       T vc[PT_MAX_VALUES];

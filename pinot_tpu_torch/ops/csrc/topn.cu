@@ -3,7 +3,7 @@
 // the matched count, then the winners, -1 where a winner is unmatched.
 //
 // Replaces pinot_tpu/ops/kernels.py:583 `make_topn_kernel` (mask
-// :599-603, score :604-623, `lax.top_k` :625-627). The order is that of
+// :599-603, the upsert validity mask :604, score :604-623, `lax.top_k` :625-627). The order is that of
 // lax.top_k: score descending under the total order of the float's bits
 // (+0.0 above -0.0; a float compare holds them equal), ties toward the
 // lower doc. The score is the order value, negated for ASC, or -doc when
@@ -115,7 +115,8 @@ topn_keys(const __grid_constant__ Args a, const double* __restrict__ params,
     bool hit = false;
     if (d < end) {
       const long long i = base + d;
-      hit = d < n && (mainf < 0 || eval_filter(a, sh, mainf, mb, i));
+      hit = d < n && doc_valid(a, mb, i) &&
+            (mainf < 0 || eval_filter(a, sh, mainf, mb, i));
       K key = unmatched;
       if (hit) {
         T sc;

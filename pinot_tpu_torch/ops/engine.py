@@ -20,9 +20,9 @@ the `KernelDispatcher`, which coalesces concurrent launches of one plan and
 shape bucket into one launch of K1-K4 with a member axis and splits the
 result back per caller (`_prepare_agg` / `_prepare_topn` / `_prepare_startree`
 as JAX :390, :1396, :981; the pow2 segment bucket `_padded_S` :1963;
-`_batch_id` :3147, `_shape_sig` :3153, `_cols_key` :2261); star-tree
-launches coalesce on the same kind of key into one launch of K5 with a
-member axis (JAX :1034-1058).
+`_batch_id` :3147, `_shape_sig` :3153; `_cols_key` :2261 in `_launch`);
+star-tree launches coalesce on the same kind of key into one launch of K5
+with a member axis (JAX :1034-1058).
 
 Staging keeps three levels (JAX `_stacked` :2448-2600): host rows per
 (segment, column), each padded to the segment's own power-of-two bucket
@@ -36,8 +36,22 @@ K6 `row_assemble` then assembles the block on the card. Star-tree pre-agg
 pseudo-columns ride the same levels (admitted to the resident tier only
 under `pinot.server.startree.hbm.resident`). `invalidate_segment`,
 `drop_caches`, `prestage` and `residency_seeding` are the server's and
-warm-up's calls on these levels (JAX :2692-2790). No CLP, vector,
-time-series, upsert validity mask or mesh. The rules it keeps from the JAX
+warm-up's calls on these levels (JAX :2692-2790). A scan's per-query
+parameters (resolved leaf bounds and LUTs, histogram bounds, the time
+bucket's cells, num_docs) are cached per (segment batch, plan, filter), so
+a repeat query resolves and uploads nothing (JAX :2101-2117).
+
+Upsert segments (a `valid_doc_ids` Bitmap, segment/upsert.py) put a
+validity mask in the plan: the engine stages it as a one-byte-per-doc
+[S, D] `vmask` block through the same three levels, its rows keyed
+`vmask:<bitmap version>` so an in-place clear() addresses fresh keys and
+the superseded rows are purged (JAX `_stage_vmask` :2272), and K1-K4 AND
+it into the doc validity. A time-series leaf (`GROUP BY floor((t - start)
+/ step), tags` over a `t` window, JAX :282-292, :1650-1690) fuses the
+bucket id into K2's dense key as its lowest digit
+(ops/timeseries_device.py), its start / step / count in per-segment
+`tb:*` parameter cells beside the timestamp's split planes. No CLP,
+vector, compact group keys or mesh. The rules it keeps from the JAX
 engine:
 cardinality-aware i8/i16/i32 id staging, power-of-two doc padding masked by
 `num_docs`, the per-segment doc cap, the group-count and group-result-size
@@ -67,7 +81,8 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.ops import dispatch as dispatch_mod
-from pinot_tpu_torch.ops import kernels, program, startree_device
+from pinot_tpu_torch.ops import (kernels, program, startree_device,
+                                 timeseries_device)
 from pinot_tpu_torch.ops import residency as residency_mod
 #: most rows a selection fetches per segment (limit + offset)
 from pinot_tpu_torch.ops._cuda import TOPN_MAX_K
@@ -125,8 +140,11 @@ class TorchOperatorExecutor:
     `pinot.server.dispatch.*` keys (its dispatch ring),
     `pinot.server.startree.enabled` (answer aggregations from fitted
     star-trees; a query opts out with OPTION(useStarTree=false)), the
-    `pinot.server.hbm.*` keys (the resident-row tier) and
-    `pinot.server.startree.hbm.resident`.
+    `pinot.server.hbm.*` keys (the resident-row tier),
+    `pinot.server.startree.hbm.resident` and
+    `pinot.server.timeseries.bucket.enabled` (fuse a leading
+    floor((t - start) / step) group-by into K2's key; off, such a query is
+    refused).
     metrics_labels: labels of the engine's and dispatcher's meters and
     timers.
     """
@@ -137,7 +155,9 @@ class TorchOperatorExecutor:
     #: budget of the host rows (JAX pinot.server.host.row.cache.bytes'
     #: default), LRU-evicted
     HOST_ROW_BYTES = 16 << 30
-    #: star-tree selection masks kept per (segment batch, plan, filter)
+    #: per-query parameters kept per (segment batch, plan, filter, ...):
+    #: a scan's leaf, histogram and time-bucket cells with its num_docs, a
+    #: star-tree's selection mask and record counts
     PARAMS_CACHE_ENTRIES = 4096
     #: hard backstop on one wait for a launch's result
     LAUNCH_WAIT_CAP_S = dispatch_mod.DEFAULT_WAIT_CAP_S
@@ -154,6 +174,8 @@ class TorchOperatorExecutor:
             "pinot.server.startree.enabled", True)
         self._st_resident = cfg.get_bool(
             "pinot.server.startree.hbm.resident", True)
+        self._ts_bucket_enabled = cfg.get_bool(
+            "pinot.server.timeseries.bucket.enabled", True)
         self._metrics = get_registry("server")
         self._labels = metrics_labels
         resident_bytes = cfg.get_int("pinot.server.hbm.resident.bytes")
@@ -178,7 +200,8 @@ class TorchOperatorExecutor:
         self._host_bytes = 0
         self._params_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         #: the JAX engine's meters, keyed (name, reason):
-        #: ("startree_served", None) and ("startree_fallback", <reason>)
+        #: ("startree_served", None), ("startree_fallback", <reason>) and
+        #: ("timeseries_leaf_device", None)
         self.meters: Counter = Counter()
         self._dispatcher = dispatch_mod.KernelDispatcher(
             config=cfg, labels=metrics_labels)
@@ -225,8 +248,9 @@ class TorchOperatorExecutor:
         return self.missing_feature(ctx) is None
 
     def meter(self, name: str, reason: Optional[str] = None) -> int:
-        """A meter's count: `startree_served`, or `startree_fallback` with
-        its reason."""
+        """A meter's count: `startree_served`, `timeseries_leaf_device`
+        (time-series leaves staged with the fused bucket), or
+        `startree_fallback` with its reason."""
         return self.meters[(name, reason)]
 
     def _aggregation_missing(self, ctx: QueryContext) -> Optional[str]:
@@ -249,9 +273,16 @@ class TorchOperatorExecutor:
                                   and node.args[0].name == "*"):
                 if self._value_ir_shape(node.args[0]) is None:
                     return f"aggregation over expression {node.args[0]}"
-        for g in ctx.group_by:
-            if not isinstance(g, Identifier):
-                return f"group-by on expression {g} (time-series buckets)"
+        for i, g in enumerate(ctx.group_by):
+            if isinstance(g, Identifier):
+                continue
+            if i == 0 and self._ts_bucket_enabled \
+                    and timeseries_device.extract_bucket(g) is not None:
+                # the time-series leaf: the leading floor((t - start) /
+                # step) fuses into K2's key (its window and metadata are
+                # admitted in _plan)
+                continue
+            return f"group-by on expression {g}"
         return None
 
     def _distinct_missing(self, ctx: QueryContext) -> Optional[str]:
@@ -509,7 +540,15 @@ class TorchOperatorExecutor:
         CPU too: a plan K1-K4 cannot run fails alike on either device, and
         the codegen odometer (`kernel_retrace`) counts each new plan."""
         program.compile_plan(plan)
-        cols, params, num_docs, D = self._stage(segments, ctx, plan)
+        # the bitmaps' versions, read once: the mask block is staged under
+        # them and the launch's column-set identity carries them (JAX
+        # `_cols_key` :2261), so two coalesced members whose bitmaps moved
+        # between their stagings keep a column set each instead of sharing
+        # one member's mask
+        stamps = _mask_stamps(segments) if plan.valid_mask else None
+        cols, params, num_docs, D = self._stage(segments, ctx, plan, stamps)
+        cols_key = _batch_key(segments) if stamps is None \
+            else (_batch_key(segments), stamps)
         G = plan.num_groups
         batch_key = None
         if self._dispatcher.batch_max > 1:
@@ -521,7 +560,7 @@ class TorchOperatorExecutor:
         return dispatch_mod.Launch(
             call=lambda: kernel(cols, params, num_docs, D),
             cols=cols, params=params, num_docs=num_docs, D=D,
-            batch_key=batch_key, cols_key=_batch_key(segments),
+            batch_key=batch_key, cols_key=cols_key,
             batched=kernels.batched_kernel(plan, self.value_dtype),
             cancel_check=cancel_check,
             site_ctx={"table": ctx.table, "mode": mode},
@@ -581,13 +620,27 @@ class TorchOperatorExecutor:
                        if isinstance(c, tuple))
 
         hll_cols = self._hll_columns(segments, ctx)
+        # the fused time bucket: a leading floor((t - start) / step) over a
+        # bounded t window (missing_feature admitted the shape). Its
+        # timestamp stages only as split planes, so its raw range leaves
+        # are vrange64 in either value dtype (exact below 2^55)
+        tb_spec = None
+        if ctx.group_by and not isinstance(ctx.group_by[0], Identifier):
+            tb_spec = timeseries_device.plan_bucket(ctx.group_by[0],
+                                                    ctx.filter, segments)
+            if tb_spec is None:
+                raise NotOffloadable(
+                    f"time bucket {ctx.group_by[0]} without a bounded "
+                    "window at or after its start on an int timestamp "
+                    "below 2^55")
+        force64 = hll_cols | ({tb_spec.col} if tb_spec else set())
         # filter IR first: leaves fill in build order, so the main filter's
         # leaves precede agg-filter leaves (staging resolves in this order)
         leaves: List[DeviceLeaf] = []
         filter_ir = None
         if ctx.filter is not None:
             filter_ir = self._build_filter_ir(ctx.filter, segments, leaves,
-                                              classify, hll_cols)
+                                              classify, force64)
         agg_filter_irs: List[tuple] = []
         fidx_of_filter: Dict[Expression, int] = {}
         agg_fidx: List[Optional[int]] = []
@@ -598,12 +651,13 @@ class TorchOperatorExecutor:
             if f not in fidx_of_filter:
                 fidx_of_filter[f] = len(agg_filter_irs)
                 agg_filter_irs.append(self._build_filter_ir(
-                    f, segments, leaves, classify, hll_cols))
+                    f, segments, leaves, classify, force64))
             agg_fidx.append(fidx_of_filter[f])
-        # split-plane columns: big-int filter columns and HLL inputs; they
-        # carry no 'val:' block, so no value IR can read them
+        # split-plane columns: big-int filter columns, HLL inputs and the
+        # time bucket's timestamp; they carry no 'val:' block, so no value
+        # IR can read them
         raw64 = {lf.column for lf in leaves
-                 if lf.kind == "vrange64"} | hll_cols
+                 if lf.kind == "vrange64"} | force64
 
         agg_ops: List[Tuple[str, Optional[int], Optional[int]]] = []
         slot_index: Dict[Tuple[str, Optional[int], Optional[int]], int] = {}
@@ -663,9 +717,14 @@ class TorchOperatorExecutor:
         group_cols: List[str] = []
         group_strides: List[int] = []
         num_groups = 0
+        tbucket: Tuple = ()
         if ctx.group_by:
+            gb = list(ctx.group_by)
+            if tb_spec is not None:
+                tbucket = (tb_spec.col, tb_spec.count_pad)
+                gb = gb[1:]
             card_pads = []
-            for g in ctx.group_by:
+            for g in gb:
                 col = g.name  # Identifier, checked in missing_feature
                 if not classify(col) or \
                         not seg0.metadata.columns[col].has_dictionary:
@@ -675,10 +734,15 @@ class TorchOperatorExecutor:
                            for seg in segments)
                 group_cols.append(col)
                 card_pads.append(max(card, 1))
-            num_groups = int(np.prod(card_pads, dtype=object))
+            # the bucket is the key's lowest digit: count_pad seeds the
+            # mixed radix ahead of the tag cardinalities
+            num_groups = int(np.prod(card_pads, dtype=object)) \
+                * (tb_spec.count_pad if tb_spec else 1)
             if num_groups > MAX_DEVICE_GROUPS:
                 raise NotOffloadable(
-                    f"{num_groups} dense group keys (compact group keys)")
+                    f"{num_groups} dense group keys (compact group keys"
+                    + (", which never carry a time bucket)" if tb_spec
+                       else ")"))
             n_slots = len(agg_ops) + 1  # +1 guaranteed count slot
             if len(segments) * num_groups * n_slots * 8 \
                     > MAX_GROUP_RESULT_BYTES:
@@ -703,6 +767,8 @@ class TorchOperatorExecutor:
             dict_cols=tuple(sorted(dict_cols)),
             raw_cols=tuple(sorted(raw_cols - raw64)),
             raw64_cols=tuple(sorted(raw64)),
+            valid_mask=_needs_valid_mask(segments),
+            tbucket=tbucket,
         )
         return plan, slots_of_fn
 
@@ -763,7 +829,7 @@ class TorchOperatorExecutor:
             raw_cols=tuple(sorted(raw_cols - raw64)),
             raw64_cols=tuple(sorted(raw64)),
             mode="topn", topn_k=ctx.limit + ctx.offset,
-            topn_asc=bool(topn_asc))
+            topn_asc=bool(topn_asc), valid_mask=_needs_valid_mask(segments))
 
     @staticmethod
     def _hll_columns(segments, ctx: QueryContext) -> set:
@@ -911,7 +977,11 @@ class TorchOperatorExecutor:
             return _pow2(S_real, floor=1)
         return S_real
 
-    def _stage(self, segments, ctx: QueryContext, plan: DevicePlan):
+    def _stage(self, segments, ctx: QueryContext, plan: DevicePlan,
+               stamps: Optional[tuple] = None):
+        """The launch's column blocks, parameters, num_docs and D. stamps:
+        the versions of the batch's validity bitmaps to stage the mask
+        under (read here when not given)."""
         if max(s.num_docs for s in segments) > MAX_DOCS_PER_SEGMENT:
             raise NotOffloadable(
                 f"segment above {MAX_DOCS_PER_SEGMENT} docs")
@@ -957,7 +1027,33 @@ class TorchOperatorExecutor:
                 return vals.astype(vdt)
             cols["val:" + col] = self._block(segments, S, D, col, "val",
                                              fetch_values, vdt)
+        if plan.valid_mask:
+            cols["vmask"] = self._stage_vmask(
+                segments, S, D, stamps or _mask_stamps(segments))
+        if plan.tbucket:
+            self.meters[("timeseries_leaf_device", None)] += 1
+        # the per-query parameters through the params cache (JAX :2101-2117;
+        # filters are frozen expression trees, so they key the resolved
+        # literals exactly): a repeat query resolves and uploads nothing.
+        # The group-by joins the key where it carries the bucket: the same
+        # filter under another bucket expression must not alias
+        pkey = (_batch_key(segments), plan, ctx.filter,
+                tuple(ctx.agg_filters), S,
+                tuple(ctx.group_by) if plan.tbucket else None)
+        hit = self._params_cache.get(pkey)
+        if hit is not None and all(a is b for a, b in zip(hit[0], segments)):
+            self._params_cache.move_to_end(pkey)
+            return cols, dict(hit[1]), hit[2], D
         params = self._leaf_params(segments, ctx, plan, S)
+        if plan.tbucket:
+            # the fused bucket's cells: the only thing a sliding window
+            # changes (start moves; count_pad stays the plan's)
+            spec = timeseries_device.plan_bucket(ctx.group_by[0], ctx.filter,
+                                                 segments)
+            if spec is None or spec.count_pad != plan.tbucket[1]:
+                raise NotOffloadable(f"time bucket {ctx.group_by[0]}")
+            for key, arr in timeseries_device.leaf_params(spec, S).items():
+                params[key] = self._upload(arr)
         # histogram slots: bucket bounds from the batch's metadata; B / span
         # in Python double, rounded once to the value dtype
         for j, (op, vidx, _f) in enumerate(plan.agg_ops):
@@ -972,6 +1068,9 @@ class TorchOperatorExecutor:
         num_docs = self._upload(np.array(
             [s.num_docs for s in segments] + [0] * (S - len(segments)),
             dtype=np.int32))
+        self._params_cache[pkey] = (tuple(segments), dict(params), num_docs)
+        while len(self._params_cache) > self.PARAMS_CACHE_ENTRIES:
+            self._params_cache.popitem(last=False)
         return cols, params, num_docs, D
 
     @staticmethod
@@ -1099,6 +1198,51 @@ class TorchOperatorExecutor:
                     f"int column {col} beyond 2^24 under float32 values "
                     "(host executor)")
 
+    def _stage_vmask(self, segments, S, D, stamps: tuple) -> torch.Tensor:
+        """The uint8 [S, D] upsert validity block (1 = valid) of a batch
+        holding upsert segments, through the three staging levels (JAX
+        `_stage_vmask` :2272). Each row is keyed by its bitmap's version in
+        `stamps` (`vmask:<version>`; -1, an all-ones row, for a segment
+        with no bitmap): a bitmap mutates in place without its segment
+        changing, so an in-place clear() addresses fresh keys, and the
+        next staging uploads that segment's row alone. On a block miss the
+        rows and blocks of superseded versions are purged from the block
+        cache, the host rows and the resident tier: no query reaches them
+        again. A row read after its stamp was taken holds that version's
+        contents or newer (Bitmap bumps its version after each change); an
+        upsert that lands meanwhile shows in the next staging."""
+        kinds = [f"vmask:{st}" for st in stamps]
+        batch = _batch_key(segments)
+        col = ("__valid__", stamps)
+        hit = self._blocks.get((batch, "vmask", col, S, D,
+                                np.dtype(np.uint8).str))
+        if hit is None or not all(a is b for a, b in zip(hit[0], segments)):
+            for k in [k for k in self._blocks
+                      if k[0] == batch and k[1] == "vmask" and k[2] != col]:
+                _segs, gone = self._blocks.pop(k)
+                self._cached -= gone.numel() * gone.element_size()
+            for seg, kind in zip(segments, kinds):
+                self._residency.invalidate_superseded_kind(
+                    seg, "vmask:", kind, "__valid__")
+                for k in [k for k, v in self._host_rows.items()
+                          if v[0] is seg and k[1].startswith("vmask:")
+                          and k[1] != kind]:
+                    self._host_bytes -= self._host_rows.pop(k)[1].nbytes
+
+        def fetch_row(seg):
+            valid = getattr(seg, "valid_doc_ids", None)
+            if valid is None:
+                return np.ones(seg.num_docs, dtype=np.uint8)
+            m = valid.to_mask()[:seg.num_docs].astype(np.uint8)
+            # docs past the bitmap are not upsert-accounted yet: invalid
+            return np.concatenate(
+                [m, np.zeros(seg.num_docs - len(m), np.uint8)])
+
+        return self._cached_block(segments, S, D, "vmask", col,
+                                  ["__valid__"] * len(segments),
+                                  [fetch_row] * len(segments), np.uint8,
+                                  kinds=kinds)
+
     def _block(self, segments, S, D, col, kind, fetch,
                dtype) -> torch.Tensor:
         """The [S, D] device block of one column (see _cached_block)."""
@@ -1112,7 +1256,8 @@ class TorchOperatorExecutor:
 
     def _cached_block(self, segments, S, D, kind, col, names, fetchers,
                       dtype, resident: bool = True,
-                      pads: Optional[List[int]] = None) -> torch.Tensor:
+                      pads: Optional[List[int]] = None,
+                      kinds: Optional[List[str]] = None) -> torch.Tensor:
         """The zero-padded [S, D] device block `(kind, col)` of a segment
         batch, row s from fetchers[s](segments[s]) under the row name
         names[s] (rows past the segments are zero), through the three
@@ -1122,6 +1267,8 @@ class TorchOperatorExecutor:
         by default), uploaded, counted and offered to the resident tier,
         assembled on the card by K6. resident=False keeps the rows out of
         the tier (each block miss uploads them all), as does the tier off.
+        kinds[s]: row s's kind in the resident tier and the host rows
+        (`kind` by default; the validity mask's carry its version).
         Hits are confirmed by object identity at every level. Eviction only
         drops a reference: every launch, copy and fetch is on one stream,
         so the allocator reuses the memory only after a queued kernel read
@@ -1134,20 +1281,21 @@ class TorchOperatorExecutor:
             self._meter("hbm_block_hit")
             return hit[1]
         self._meter("hbm_block_miss")
-        rows = [self._residency.get(seg, kind, name, dtype_str)
+        kinds = kinds or [kind] * len(segments)
+        rows = [self._residency.get(seg, k, name, dtype_str)
                 if resident else None
-                for seg, name in zip(segments, names)]
+                for seg, k, name in zip(segments, kinds, names)]
         missing = [i for i, r in enumerate(rows) if r is None]
         # every host row first: a NotOffloadable surfaces before any upload
         # churns the resident tier
-        host = [self._host_row(segments[i], kind, names[i], fetchers[i],
+        host = [self._host_row(segments[i], kinds[i], names[i], fetchers[i],
                                dtype, None if pads is None else pads[i])
                 for i in missing]
         for i, arr in zip(missing, host):
             rows[i] = self._upload(arr, column=True)
             if resident:
-                self._residency.admit(segments[i], kind, names[i], dtype_str,
-                                      rows[i], arr.nbytes)
+                self._residency.admit(segments[i], kinds[i], names[i],
+                                      dtype_str, rows[i], arr.nbytes)
         dev = kernels.assemble_rows(rows, S, D)
         nbytes = dev.numel() * dev.element_size()
         old = self._blocks.pop(key, None)
@@ -1443,10 +1591,23 @@ class TorchOperatorExecutor:
 
 def _batch_key(segments) -> tuple:
     """A segment batch's identity in the block and params caches (hits are
-    confirmed by object identity), and the dispatcher's `cols_key` (JAX
-    `_batch_id` :3147, `_cols_key` :2261: the port stages no upsert
-    validity mask)."""
+    confirmed by object identity; JAX `_batch_id` :3147)."""
     return tuple((id(s), s.name) for s in segments)
+
+
+def _mask_stamps(segments) -> tuple:
+    """The version of each segment's validDocIds bitmap; -1 where it has
+    none (an all-ones row that never goes stale; JAX `_mask_stamp`
+    :2251)."""
+    return tuple(-1 if getattr(s, "valid_doc_ids", None) is None
+                 else s.valid_doc_ids.version for s in segments)
+
+
+def _needs_valid_mask(segments) -> bool:
+    """A batch holding an upsert segment stages the validity mask (JAX
+    :2257)."""
+    return any(getattr(s, "valid_doc_ids", None) is not None
+               for s in segments)
 
 
 def _shape_sig(cols: Dict[str, torch.Tensor],
@@ -1486,7 +1647,10 @@ def _segment_stats(seg, ctx: QueryContext, matched: int,
 def _group_keys(seg, plan: DevicePlan, counts: np.ndarray):
     """The dense keys with a nonzero count, and their group-key tuples
     (raw values): combined keys decoded by mixed radix into dictIds, keys
-    beyond this segment's cardinalities dropped."""
+    beyond this segment's cardinalities dropped. With a fused time bucket
+    the remainder after the tag strides is the bucket, the key's first
+    value, a float as the host's floor() over a double division gives it
+    (JAX `_assemble_group` :3002-3018)."""
     present = np.nonzero(counts > 0)[0]
     cards = [seg.metadata.columns[c].cardinality for c in plan.group_cols]
     rem = present.copy()
@@ -1499,6 +1663,8 @@ def _group_keys(seg, plan: DevicePlan, counts: np.ndarray):
         valid &= ids < card
     key_cols = [seg.data_source(c).dictionary.get_values(ids[valid]).tolist()
                 for c, ids in zip(plan.group_cols, ids_per_col)]
+    if plan.tbucket:
+        key_cols.insert(0, rem[valid].astype(np.float64).tolist())
     return present[valid], list(zip(*key_cols))
 
 

@@ -36,6 +36,13 @@ with a member axis: CUDA inputs launch K1-K4 once for all members
 plain versions (`plain_batched_kernel`). The output carries a leading [B]
 axis.
 
+A plan over upsert segments (`plan.valid_mask`) ANDs the staged `vmask`
+block into the doc validity (JAX kernels.py:565, :604), in every plain
+version here and in K1-K4. A group-by plan with a fused time bucket
+(`plan.tbucket`) adds `timeseries_device.bucket_ids` as the key's lowest
+digit and ANDs its gate into the match (JAX kernels.py:496-506); K2 does
+the same per doc.
+
 The value dtype (float32, the card's default, or float64) is an explicit
 argument, where the JAX package reads `jax_enable_x64`. Values and their
 products are computed in the value dtype, as in the JAX kernel; sums
@@ -49,7 +56,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pinot_tpu_torch.ops import _cuda
+from pinot_tpu_torch.ops import _cuda, timeseries_device
 from pinot_tpu_torch.ops.plan_ir import DevicePlan
 from pinot_tpu_torch.ops.program import (ISUM_PLANES, ISUM_U_BITS,
                                          is_sketch, plan_fingerprint,
@@ -345,6 +352,39 @@ def pack_flat(matched: torch.Tensor,
 # kernel assembly (kernels.py:468 `_compute_slots`, :537 `make_kernel`)
 # ---------------------------------------------------------------------------
 
+def doc_validity(plan: DevicePlan, cols: Tensors, num_docs: torch.Tensor,
+                 D: int) -> torch.Tensor:
+    """[S, D] bool: the real docs (below num_docs), and of those the valid
+    ones where the plan carries the upsert validity mask."""
+    valid = torch.arange(D, dtype=torch.int32,
+                         device=num_docs.device)[None, :] < num_docs[:, None]
+    if plan.valid_mask:
+        valid = valid & cols["vmask"].bool()
+    return valid
+
+
+def group_keys(plan: DevicePlan, cols: Tensors, params: Tensors,
+               shape) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The dense mixed-radix key [S, D] int32 of a group-by plan and the
+    time bucket's gate (None without a bucket): the bucket id is the key's
+    lowest digit."""
+    device = params["tb:step"].device if plan.tbucket else None
+    keys = None
+    for col, stride in zip(plan.group_cols, plan.group_strides):
+        k = cols["ids:" + col].to(torch.int32) * stride
+        keys = k if keys is None else keys + k
+        device = k.device
+    if keys is None:
+        keys = torch.zeros(shape, dtype=torch.int32, device=device)
+    if not plan.tbucket:
+        return keys, None
+    tcol, count_pad = plan.tbucket
+    b, gate = timeseries_device.bucket_ids(
+        cols["valhi:" + tcol], cols["vallo:" + tcol], params["tb:shi"],
+        params["tb:slo"], params["tb:step"], params["tb:count"], count_pad)
+    return keys + b, gate
+
+
 def compute_slots(plan: DevicePlan, cols: Tensors, params: Tensors,
                   valid: torch.Tensor, value_dtype: torch.dtype):
     """Filter + values + per-slot reductions over an [S, D] block. Returns
@@ -360,9 +400,9 @@ def compute_slots(plan: DevicePlan, cols: Tensors, params: Tensors,
               for ir in plan.value_irs]
     slots = []
     if plan.num_groups:
-        keys = torch.zeros(valid.shape, dtype=torch.int32, device=device)
-        for col, stride in zip(plan.group_cols, plan.group_strides):
-            keys = keys + cols["ids:" + col].to(torch.int32) * stride
+        keys, gate = group_keys(plan, cols, params, valid.shape)
+        if gate is not None:
+            mask = mask & gate
         for op, vidx, fidx in plan.agg_ops:
             m = mask if fidx is None else mask & agg_masks[fidx]
             vals = None if vidx is None else values[vidx]
@@ -395,9 +435,7 @@ def plain_kernel(plan: DevicePlan, value_dtype: torch.dtype = torch.float32):
     tensor, on whatever device its inputs lie."""
     def kernel(cols: Tensors, params: Tensors, num_docs: torch.Tensor,
                D: int) -> torch.Tensor:
-        valid = torch.arange(D, dtype=torch.int32,
-                             device=num_docs.device)[None, :] \
-            < num_docs[:, None]
+        valid = doc_validity(plan, cols, num_docs, D)
         slots, matched = compute_slots(plan, cols, params, valid,
                                        value_dtype)
         if plan.num_groups:
@@ -470,13 +508,13 @@ def order_keys(score: torch.Tensor) -> torch.Tensor:
 
 def topn_scores(plan: DevicePlan, cols: Tensors, params: Tensors,
                 num_docs: torch.Tensor, D: int, value_dtype: torch.dtype):
-    """(mask, score) of a top-N plan over [S, D]: mask = valid & filter;
+    """(mask, score) of a top-N plan over [S, D]: mask = valid (real docs,
+    and upsert-valid ones under a validity mask) & filter;
     score = the order value (negated for ASC) or -doc when unordered, NaN
     as the finite minimum, matched scores clipped to the finite range and
     unmatched ones -inf."""
     device = num_docs.device
-    valid = torch.arange(D, dtype=torch.int32, device=device)[None, :] \
-        < num_docs[:, None]
+    valid = doc_validity(plan, cols, num_docs, D)
     mask = valid if plan.filter_ir is None else \
         valid & eval_filter(plan.filter_ir, plan, cols, params)
     if plan.value_irs:
@@ -636,15 +674,15 @@ def abs_contributions(plan: DevicePlan, cols: Tensors, params: Tensors,
     version, port against the JAX package)."""
     f64 = {k: (v.double() if k.startswith("val:") else v)
            for k, v in cols.items()}
-    valid = torch.arange(D, device=num_docs.device)[None, :] \
-        < num_docs[:, None]
+    valid = doc_validity(plan, cols, num_docs, D)
     mask = valid if plan.filter_ir is None else \
         valid & eval_filter(plan.filter_ir, plan, f64, params)
     keys = None
     if plan.num_groups:
-        keys = torch.zeros_like(valid, dtype=torch.long)
-        for col, stride in zip(plan.group_cols, plan.group_strides):
-            keys = keys + cols["ids:" + col].long() * stride
+        keys, gate = group_keys(plan, cols, params, valid.shape)
+        keys = keys.long()
+        if gate is not None:
+            mask = mask & gate
     out = {}
     for j, (op, vidx, fidx) in enumerate(plan.agg_ops):
         if op not in ("sum", "sumsq", "sum3", "sum4"):

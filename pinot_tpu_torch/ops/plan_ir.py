@@ -1,8 +1,8 @@
 """Device plan IR: the hashable structure a kernel program is compiled from.
 
 Counterpart of pinot_tpu/ops/plan_ir.py, trimmed to the scan-aggregate,
-dense group-by and top-N plans of the port (no compact group keys, CLP
-leaves, upsert mask or time buckets yet).
+dense group-by and top-N plans of the port, with the upsert validity mask
+and the fused time bucket (no compact group keys or CLP leaves yet).
 
 Filter IR nodes (nested tuples, hashable):
     ('and', n1, n2, ...) / ('or', ...) / ('not', n)
@@ -65,3 +65,13 @@ class DevicePlan:
     mode: str = "agg"
     topn_k: int = 0
     topn_asc: bool = True
+    #: True: the batch holds a segment with a validDocIds bitmap (upsert):
+    #: the engine stages a one-byte-per-doc [S, D] 'vmask' block, keyed by
+    #: the bitmaps' version stamps, and every kernel ANDs it into the doc
+    #: validity, so superseded rows reach no slot (JAX plan_ir :94)
+    valid_mask: bool = False
+    #: the fused time bucket (ops/timeseries_device.py): (timestamp column,
+    #: count_pad). floor((t - start) / step) is the group key's LOWEST
+    #: digit, count_pad its width; start / step / count ride the 'tb:*'
+    #: parameter cells, so a sliding window keeps the plan (JAX :102)
+    tbucket: Tuple = ()

@@ -47,6 +47,15 @@ A top-N plan (mode 'topn', K4 csrc/topn.cu) has no slots and at most one
 value expression, the order value (none: the first docs in doc order); K4
 takes `topn_k` and `topn_asc` as launch arguments.
 
+The fused time bucket (plan.tbucket, K2 only): H_TBHI / H_TBLO are the
+timestamp's valhi / vallo column indexes (-1: no bucket), H_TBPRM the
+parameter index of the four consecutive cells tb:shi, tb:slo, tb:step,
+tb:count, and H_TBPAD count_pad, the bucket digit's width. count_pad is the
+only plan constant of the bucket: start, step and count are parameters, so
+a window that slides keeps its program. The upsert validity mask is not in
+the program: a launch passes each column set's `vmask` block pointer
+(null: no mask) in `Args`.
+
 Filter index 0 is the main WHERE tree when the plan has one
 (header H_MAIN = 0, else -1); agg FILTER trees follow. Each ungrouped
 kernel accumulator word ("acc") is one double per thread: word 0 is the
@@ -72,8 +81,8 @@ from pinot_tpu_torch.ops.plan_ir import DevicePlan
 # header slots
 H_NLEAVES, H_NFILT, H_MAIN, H_NVAL, H_NSLOT, H_NACC, H_NGCOL, H_OUTW, \
     H_NPARAM, H_LEAF, H_FILT, H_VAL, H_SLOT, H_GCOL, H_ACC, H_NCOL, \
-    H_COLDT, H_LUTC, H_LEN = range(19)
-HEADER = 19
+    H_COLDT, H_LUTC, H_LEN, H_TBHI, H_TBLO, H_TBPRM, H_TBPAD = range(23)
+HEADER = 23
 
 LEAF_W, SLOT_W, ACC_W = 5, 8, 3
 
@@ -365,6 +374,16 @@ def compile_plan(plan: DevicePlan) -> Program:
 
     gcols = [(col("ids:" + c), s)
              for c, s in zip(plan.group_cols, plan.group_strides)]
+    tb_hi = tb_lo = tb_prm = -1
+    tb_pad = 0
+    if plan.tbucket:
+        if not grouped:
+            raise ValueError("a time bucket needs a group-by plan")
+        tcol, tb_pad = plan.tbucket
+        tb_hi, tb_lo = col("valhi:" + tcol), col("vallo:" + tcol)
+        tb_prm = len(params)
+        params += [(f"tb:{n}", None) for n in ("shi", "slo", "step",
+                                               "count")]
 
     checks = ((len(cols), MAX_COLS, "staged columns"),
               (len(luts), MAX_LUTS, "LUT leaves"),
@@ -417,6 +436,8 @@ def compile_plan(plan: DevicePlan) -> Program:
     code[H_COLDT] = sections["coldt"]
     code[H_LUTC] = sections["lutc"]
     code[H_LEN] = len(code)
+    code[H_TBHI], code[H_TBLO], code[H_TBPRM], code[H_TBPAD] = (
+        tb_hi, tb_lo, tb_prm, tb_pad)
     note_trace(plan_fingerprint(plan))
     return Program(code=tuple(code), cols=tuple(cols), luts=tuple(luts),
                    params=tuple(params), n_acc=len(accs),

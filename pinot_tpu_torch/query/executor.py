@@ -37,7 +37,9 @@ class QueryExecutor:
         names; equal plans over different tables coalesce in the ring).
         device: None means "cuda", and raises RuntimeError when no CUDA
         device is present; pass "cpu" for the plain PyTorch kernels.
-        config: the engine's configuration (dispatch ring, star-tree)."""
+        config: the engine's configuration (dispatch ring, star-tree,
+        time-series keys); kept as `config`, which the time-series leaf
+        reads its group cap from."""
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -48,6 +50,7 @@ class QueryExecutor:
             self.tables = {t: list(segs) for t, segs in segments.items()}
             segments = []
         self.segments = list(segments)
+        self.config = config
         self.engine = TorchOperatorExecutor(dev, value_dtype, config=config)
         self._tls = threading.local()
 

@@ -9,7 +9,7 @@ functions. The port has no host executor: the device engine calls these to
 project the rows its top-N kernel picked, and to answer a selection with
 neither a filter nor an ORDER BY from the first docs of each segment, as
 the JAX engine leaves that shape to its host executor (ref
-SelectionOnlyOperator's early exit).
+SelectionOnlyOperator's early exit), skipping docs an upsert superseded.
 """
 from __future__ import annotations
 
@@ -80,14 +80,27 @@ def expand_star(seg: ImmutableSegment, ctx: QueryContext) -> List[str]:
 
 def select_first(seg: ImmutableSegment, ctx: QueryContext) -> SelectionResult:
     """Selection with neither a filter nor an ORDER BY: the first
-    limit + offset docs of the segment, projected on the host."""
-    doc_idx = np.arange(min(seg.num_docs, ctx.limit + ctx.offset))
+    limit + offset valid docs of the segment, projected on the host. An
+    upsert segment's superseded docs are not valid (the JAX executor's
+    `mask &= valid.to_mask()`, executor_cpu.py:71-77; docs past the
+    bitmap are not upsert-accounted yet)."""
+    fetch = ctx.limit + ctx.offset
+    valid = getattr(seg, "valid_doc_ids", None)
+    if valid is None:
+        doc_idx = np.arange(min(seg.num_docs, fetch))
+        scanned = seg.num_docs
+    else:
+        # docs past num_docs are never set (the bitmap holds num_docs bits)
+        doc_idx = valid.first_set(fetch)
+        doc_idx = doc_idx[doc_idx < seg.num_docs]
+        scanned = valid.cardinality() if valid.num_docs <= seg.num_docs \
+            else int(valid.to_mask()[:seg.num_docs].sum())
     stats = ExecutionStats(
-        num_docs_scanned=seg.num_docs,
+        num_docs_scanned=scanned,
         num_entries_scanned_post_filter=len(doc_idx) * max(len(ctx.select),
                                                            1),
         num_segments_processed=1,
-        num_segments_matched=1 if seg.num_docs else 0,
+        num_segments_matched=1 if scanned else 0,
         total_docs=seg.num_docs)
     return SelectionResult(_project_rows(seg, ctx.select, doc_idx),
                            columns=expand_star(seg, ctx), stats=stats)

@@ -34,6 +34,13 @@ KEYS: Dict[str, Any] = {
     "pinot.server.hbm.resident.bytes": 6 << 30,
     "pinot.server.hbm.admission.enabled": True,
     "pinot.server.hbm.admission.sample": 4096,
+    # time-series device leg (ops/timeseries_device.py): fuse
+    # floor((t-start)/step) into the group-by kernel's key
+    "pinot.server.timeseries.bucket.enabled": True,
+    # time-series leaf fetch cap: a leaf SQL may return at most
+    # count * this many group rows before the engine fails loud
+    # (silent truncation would corrupt downstream sums)
+    "pinot.timeseries.leaf.max.groups": 10_000,
 }
 
 

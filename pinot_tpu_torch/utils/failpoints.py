@@ -27,6 +27,10 @@ SITES: Dict[str, str] = {
         "per MEMBER inside the coalesced-batch path (ctx: table, mode, "
         "batch_size) — an erroring member fails only its own future; "
         "peers stay batched and complete",
+    "timeseries.leaf.fetch":
+        "time-series engine, before a leaf plan node issues its "
+        "GROUP-BY SQL (ctx: table) — an armed error fails that panel's "
+        "fetch whole, never a half-filled bucket grid",
 }
 
 

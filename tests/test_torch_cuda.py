@@ -509,3 +509,176 @@ def test_batched_startree_rejects_members_that_disagree(card):
                                        len(sets) > 1 else [0, 0], 2048,
                                        torch.float32)
     assert _cuda.STARTREE_AGG.batched_launches == before
+
+
+# ---------------------------------------------------------------------------
+# the upsert validity mask in K1-K4, the time bucket digit in K2
+# ---------------------------------------------------------------------------
+
+MASK_KINDS = {"scan": (lambda s: tp.random_spec(s, False), tp.random_inputs),
+              "group": (lambda s: tp.random_spec(s, True), tp.random_inputs),
+              "sketch": (lambda s: tp.random_sketch_spec(s, scalar=True),
+                         tp.sketch_inputs),
+              "topn": (lambda s: tp.topn_spec(s, "col", False, 100),
+                       tp.topn_inputs)}
+
+
+def _with_mask(card, cols, seed, S, D):
+    """A seeded [S, D] uint8 validity mask clearing about a third of docs."""
+    rng = np.random.default_rng(seed)
+    return dict(cols, vmask=torch.from_numpy(
+        (rng.random((S, D)) >= 1 / 3).astype(np.uint8)).to(card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(MASK_KINDS))
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_masked_kernels_match_plain_on_card(card, kind, seed, x64):
+    """K1-K4 with a validity mask against their plain versions: superseded
+    docs reach no slot and no top-N row."""
+    spec_fn, inputs = MASK_KINDS[kind]
+    spec = spec_fn(seed)
+    S, D = 6, 4000 + 37 * seed
+    vdt = torch.float64 if x64 else torch.float32
+    cols, params, nd = inputs(seed, spec, S, D,
+                              np.float64 if x64 else np.float32,
+                              pad_segments=2)
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    tc = _with_mask(card, tc, seed, S, D)
+    plan = DevicePlan(**spec, valid_mask=True)
+    if kind == "topn":
+        out = tk.make_topn_kernel(plan, vdt)(tc, tpar, tnd, D)
+        ref = tk.topn_kernel(plan, tc, tpar, tnd, D, vdt)
+        assert torch.equal(out, ref)
+        return
+    out = tk.make_kernel(plan, vdt)(tc, tpar, tnd, D)
+    ref = tk.plain_kernel(plan, vdt)(tc, tpar, tnd, D)
+    unmasked = tk.plain_kernel(DevicePlan(**spec), vdt)(tc, tpar, tnd, D)
+    scale = {j: v.cpu().numpy()
+             for j, v in tk.abs_contributions(plan, tc, tpar, tnd, D).items()}
+    tp.assert_packed_equal(spec, ref.cpu().numpy(), out.cpu().numpy(),
+                           scale, x64)
+    assert not torch.equal(ref, unmasked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["broadcast", "stacked"])
+def test_masked_batch_keeps_each_sets_mask_on_card(card, form):
+    """K1's member axis: member m reads the mask of its own column set."""
+    plan, spec, sets, plist, nds, idx, D, vdt = _batch_inputs(
+        card, "scan", 4, form, False)
+    S = nds[0].shape[0]
+    sets = [_with_mask(card, c, 40 + u, S, D) for u, c in enumerate(sets)]
+    plan = DevicePlan(**spec, valid_mask=True)
+    out = tk.batched_kernel(plan, vdt)(sets, plist, nds, idx, D)
+    for m, u in enumerate(idx):
+        single = tk.plain_kernel(plan, vdt)(sets[u], plist[m], nds[u], D)
+        scale = {j: v.cpu().numpy() for j, v in tk.abs_contributions(
+            plan, sets[u], plist[m], nds[u], D).items()}
+        tp.assert_packed_equal(spec, single.cpu().numpy(),
+                               out[m].cpu().numpy(), scale, False)
+
+
+def _bucket_case(card, seed, S, D, hosts, count, step, x64, start0=None):
+    """K2 inputs of a time-series leaf: a host id group column and a
+    window filter on it, the timestamp's (hi, lo) planes with in-window
+    docs, both window edges, negative and wrapping deltas, and per-segment
+    starts (a sliding window per segment)."""
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
+    rng = np.random.default_rng(seed)
+    pad = 8
+    while pad < count:
+        pad *= 2
+    start0 = 1451606400000 if start0 is None else start0
+    starts = start0 + step * np.arange(S, dtype=np.int64)
+    t = starts[:, None] + rng.integers(-3 * step, (count + 3) * step, (S, D))
+    edges = np.stack([starts, starts - 1, starts + step * count - 1,
+                      starts + step * count, starts + (1 << 31),
+                      starts - (1 << 31), starts + (1 << 40)], 1)
+    t[:, :edges.shape[1]] = edges
+    t = np.clip(t, 0, (1 << 55) - 1)
+    vnp = np.float64 if x64 else np.float32
+    cols = {"ids:h": torch.from_numpy(rng.integers(0, hosts, (S, D)).astype(
+                np.int16 if hosts > 127 else np.int8)),
+            "valhi:t": torch.from_numpy((t >> 24).astype(np.int32)),
+            "vallo:t": torch.from_numpy((t & 0xFFFFFF).astype(np.int32)),
+            "val:v": torch.from_numpy(rng.uniform(0, 100, (S, D)).astype(vnp))}
+    params = {"leaf0:lo": torch.zeros(S, dtype=torch.int32),
+              "leaf0:hi": torch.full((S,), max(hosts - 2, 0),
+                                     dtype=torch.int32),
+              "tb:shi": torch.from_numpy((starts >> 24).astype(np.int32)),
+              "tb:slo": torch.from_numpy((starts & 0xFFFFFF).astype(np.int32)),
+              "tb:step": torch.full((S,), step, dtype=torch.int32),
+              "tb:count": torch.full((S,), count, dtype=torch.int32)}
+    nd = torch.full((S,), D, dtype=torch.int32)
+    nd[-1] = D - 999
+    spec = dict(filter_ir=("leaf", 0), leaves=(DeviceLeaf("range", "h"),),
+                value_irs=(("col", "v"),),
+                agg_ops=(("max", 0, None), ("sum", 0, None),
+                         ("count", None, None)),
+                group_cols=("h",), group_strides=(pad,),
+                num_groups=hosts * pad, dict_cols=("h",), raw_cols=("v",),
+                raw64_cols=("t",), tbucket=("t", pad))
+    move = {k: v.to(card) for k, v in cols.items()}
+    return spec, move, {k: v.to(card) for k, v in params.items()}, nd.to(card)
+
+
+BUCKET_CASES = [(8, 12, 3_600_000), (4000, 12, 3_600_000), (1, 720, 60_000),
+                (50, 6, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hosts,count,step", BUCKET_CASES)
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_time_bucket_kernel_matches_plain_on_card(card, hosts, count, step,
+                                                  x64):
+    """K2 with the fused bucket digit (its table in shared memory, and past
+    it at 4000 hosts x 16) against the plain version: counts and max bit
+    for bit, the same present keys, sums within the stated tolerance."""
+    S, D = 5, 20_000
+    vdt = torch.float64 if x64 else torch.float32
+    start0 = 5 if step == 7 else None
+    spec, cols, params, nd = _bucket_case(card, 7, S, D, hosts, count, step,
+                                          x64, start0)
+    plan = DevicePlan(**spec)
+    before = _cuda.GROUP_AGG.launches
+    out = tk.make_kernel(plan, vdt)(cols, params, nd, D)
+    ref = tk.plain_kernel(plan, vdt)(cols, params, nd, D)
+    torch.cuda.synchronize()
+    assert _cuda.GROUP_AGG.launches == before + 1
+    scale = {j: v.cpu().numpy()
+             for j, v in tk.abs_contributions(plan, cols, params, nd, D).items()}
+    tp.assert_packed_equal(spec, ref.cpu().numpy(), out.cpu().numpy(), scale,
+                           x64)
+    assert int(ref[..., 2].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_time_bucket_batched_sliding_starts_on_card(card):
+    """K2's member axis at B = 8 over one column set (broadcast), each
+    member its own window start: against the plain batched version and its
+    own single launch."""
+    S, D, B = 4, 30_000, 8
+    spec, cols, params, nd = _bucket_case(card, 9, S, D, 40, 12, 3_600_000,
+                                          False)
+    plan = DevicePlan(**spec)
+    plist = []
+    for m in range(B):
+        p = dict(params)
+        start = (params["tb:shi"].long() << 24) + params["tb:slo"].long() \
+            + 60_000 * m
+        p["tb:shi"] = (start >> 24).to(torch.int32)
+        p["tb:slo"] = (start & 0xFFFFFF).to(torch.int32)
+        plist.append(p)
+    out = tk.batched_kernel(plan, torch.float32)([cols], plist, [nd],
+                                                 [0] * B, D)
+    ref = tk.plain_batched_kernel(plan, torch.float32)([cols], plist, [nd],
+                                                       [0] * B, D)
+    for m in range(B):
+        single = tk.make_kernel(plan, torch.float32)(cols, plist[m], nd, D)
+        scale = {j: v.cpu().numpy() for j, v in tk.abs_contributions(
+            plan, cols, plist[m], nd, D).items()}
+        for other in (ref[m], single):
+            tp.assert_packed_equal(spec, other.cpu().numpy(),
+                                   out[m].cpu().numpy(), scale, False)

@@ -54,6 +54,24 @@ assert [o[0][0] for o in outs] == [sum(m for m in range(100) if m % 7 > k)
 fut = ex.engine.execute_async(ex.segments, QueryContext.from_sql(
     "SELECT COUNT(*) FROM u WHERE a < 3"))
 assert int(fut.result(timeout=60)[0].intermediates[0]) == 44
+from pinot_tpu_torch.ops import timeseries_device
+from pinot_tpu_torch.segment.bitmap import Bitmap
+from pinot_tpu_torch.segment.upsert import PartitionUpsertMetadataManager
+from pinot_tpu_torch.timeseries.engine import query as ts_query
+d3 = tempfile.mkdtemp()
+SegmentCreator(TableConfig("m"), Schema("m", [
+    FieldSpec("ts", DataType.LONG), FieldSpec("h", DataType.INT),
+    FieldSpec("v", DataType.DOUBLE, FieldType.METRIC)])).build(
+        {"ts": np.arange(100, dtype=np.int64), "h": np.arange(100) % 2,
+         "v": np.ones(100)}, d3, "s")
+ex = QueryExecutor([load_segment(d3)], device="cpu")
+block = ts_query("fetch(m, v, ts, 0, 100, 10) | groupby(h) | sum(h)", ex)
+assert sorted(s.values.tolist() for s in block.series) == [[5.0] * 10] * 2
+assert ex.engine.meter("timeseries_leaf_device") == 1
+seg = ex.segments[0]
+PartitionUpsertMetadataManager(["h"], "ts").add_segment(seg)
+assert ex.execute("SELECT COUNT(*) FROM m").rows == [(2,)]
+assert ex.execute("SELECT ts FROM m LIMIT 5").rows == [(98,), (99,)]
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "pinot_tpu")
              or m.startswith(("jax.", "jaxlib.", "pinot_tpu.")))

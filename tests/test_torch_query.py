@@ -80,8 +80,9 @@ UNSUPPORTED = [
     ("SELECT COVAR_POP(doubleCol, intCol) FROM testTable", "host-only"),
     ("SELECT COUNT(*) FROM testTable WHERE intCol + 0 > 500", "expression"),
     ("SELECT COUNT(*) FROM testTable GROUP BY intCol / 10", "group-by"),
-    ("SELECT COUNT(*) FROM testTable GROUP BY FLOOR((longCol - 5) / 60)",
-     "time-series"),
+    # a time bucket that is not the leading group-by is no time-series leaf
+    ("SELECT COUNT(*) FROM testTable GROUP BY intCol, "
+     "FLOOR((longCol - 5) / 60)", "group-by on expression"),
     ("SELECT COUNT(*) FROM testTable "
      "WHERE vector_similarity(doubleCol, '[0.1, 0.2]', 5)", "vector"),
 ]
@@ -220,10 +221,13 @@ def test_unsupported_queries_name_the_feature(corpus_segs, sql, feature):
 
 
 #: shapes the capability check admits but the planner refuses on the
-#: segments at hand (here: a DISTINCT key space above MAX_DEVICE_GROUPS)
+#: segments at hand (a DISTINCT key space above MAX_DEVICE_GROUPS; a
+#: time-series bucket with no bounded window to size its grid)
 PLAN_TIME_REFUSALS = [
     ("SELECT DISTINCT longCol, intCol, doubleCol FROM testTable",
      "compact group keys"),
+    ("SELECT COUNT(*) FROM testTable GROUP BY FLOOR((longCol - 5) / 60)",
+     "time bucket"),
 ]
 
 
