@@ -6,7 +6,7 @@
 Phases, each of which exits non-zero on failure:
 
 1. Device: the card's name and power limit (nvidia-smi) and its torch name.
-2. Build: the six CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc,
+2. Build: the seven CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc,
    one process per source, in parallel.
 3. Kernels against their plain PyTorch versions, on the card, on seeded
    random inputs at the main path's shapes: K1 scan_agg at S=16, D=2^23
@@ -53,7 +53,13 @@ Phases, each of which exits non-zero on failure:
    library: torch.bincount(keys, weights) on precomputed keys). K1-K4
    again on their phase-3 inputs under a seeded uint8 validity mask
    clearing about a third of docs (the bound counts the mask's byte per
-   real doc).
+   real doc). K7 clp_match at the log leg's block, S = 32, D = 2^22
+   (clp_kernel_inputs: var-dictionary LUTs of 2^20, a quarter of the
+   dict-var slots at the sentinel), in mode 'a' (Kd = 2) and mode 'b'
+   (Kd = Ke = 2, 16 conditions with padding, 64 groups with padding,
+   equal and unequal (hi, lo) pairs), its masks bit for bit against its
+   plain version; bound: (1 + Kd + 2 Ke) x 4 + 1 bytes per doc and the
+   parameters once; library: none (no PyTorch call computes the match).
 3b. The query axis: K1-K4 with B = 8 members (8 seeded literal sets on
    phase 3's inputs, each column set its own seeded data) in three forms:
    broadcast (U = 1 column set), stacked (U = 8) and dedup (U = 3, member
@@ -69,7 +75,8 @@ Phases, each of which exits non-zero on failure:
    and dedup (rotations m mod 3); each member against the plain batched
    version and its own single launch, as phase 3 holds K5. K2's bucket
    case at B = 8 over ts.3's column set (broadcast), member m's window m
-   hours later.
+   hours later. K7's mode 'b' case at B = 8 over one column set, each
+   member's own tables, against the plain version and its single launch.
 4. Q1 leg: SSB-flat lineorder data (bench.py's column distributions), 16
    segments x 8M rows = 128M rows, built with the port's creator into a
    temp dir; SSB Q1.1 as bench.py runs it plus Q1.2- and Q1.3-shaped date
@@ -185,9 +192,33 @@ Phases, each of which exits non-zero on failure:
    TS_SLIDES refreshes of ts.3, each an hour later, with no codegen.
    9g: 8 closed-loop clients of ts.3-shaped panels (eight hosts each,
    seeded hour-aligned windows) on K2's member axis, as 9a-9f run.
+11. Log leg (after phase 10): CLP log search. LOG_SEGMENTS x LOG_DOCS
+   = 134,217,728 lines of bench.py:3377-3391's six templates with their
+   variable ranges, in time order (`ts` an epoch-millis LONG without a
+   dictionary, `message` a CLP column), generated in numpy as CLP parts
+   and written through the port's parts writer in spawned workers; a
+   seeded sample of each segment is rendered, encoded by the port's
+   encode_message into the generated parts and read back by
+   reader.get. log_queries() through QueryExecutor (float64 values: logs.5
+   orders by the raw timestamp), each against its numpy truth from the
+   generator's templates and variables (counts and keys exactly, rows in
+   order): logs.1 a bare substring (mode 'a', K1), logs.2 a dict-var
+   equality, logs.3 an encoded-var equality (K1), logs.4 ERROR lines per
+   minute over one hour (K2 with the bucket digit), logs.5 the last 100
+   lines of code 503 (K4), logs.6 an OR of two CLP leaves under a ts
+   bound (K1, both leaves in one K7 launch). Each query's cold run and
+   its plan / stage split cold and warm are printed. LOG_WILDCARD must
+   raise NotOffloadable with reason 'wildcard', counted in the engine's
+   clp_fallback meter, with no launch. K7 is then held against its plain
+   version on the inputs the engine staged for logs.2 and logs.6.
+   9h: bench.py:3531's coalesce pool, 8 closed-loop clients over
+   '%failed on host h<i>:%' (LOG_POOL), as 9a-9g run: batches of 2 or
+   more on K7's and K1's member axes, no codegen, every answer its numpy
+   truth.
 8. Launch counts: each kernel's counter is set to 0 just before a leg's
    timed queries and read just after them; the leg's kernels must have
-   launched once per query run, K6 once per block the leg assembled (the
+   launched once per query run (a CLP query: K7 once, then K1, K2 or K4
+   once), K6 once per block the leg assembled (the
    engines' hbm_block_miss meter), the others never, and no leg's peak
    device memory may pass 80 GB. Then a short
    torch.profiler trace of the same warm query gives the card's busy time
@@ -201,7 +232,9 @@ Phases, each of which exits non-zero on failure:
    bucket case and phase 10's K2 launches, `group_agg_tbucket_batched`
    phase 3b's bucket case and 9g's batched launches, `*_masked` phase
    3's masked cases and phase 4d's launches (each a subset of its
-   kernel's own entry).
+   kernel's own entry). `clp_match` carries phase 3's mode 'b' case and
+   the log leg's and 9h's single launches, `clp_match_batched` phase 3b's
+   B = 8 case and 9h's batched launches.
 
 Imports nothing of JAX or of pinot_tpu. Exits non-zero, printing no
 result, where torch sees no CUDA device or the port's package is missing.
@@ -405,6 +438,57 @@ TS_POOL = [(TS_T0 + TS_HOUR * int(h),
             sorted(int(x) for x in _TS_RNG.choice(TS_HOSTS, 8,
                                                   replace=False)))
            for h in _TS_RNG.integers(0, 60, 16)]
+#: phase 11: the log leg, bench.py:3377-3391's six templates (the
+#: workload behind BENCH_logs.json) at 32 x 2^22 lines in time order,
+#: one line every 2 ms plus a seeded 0/1 ms jitter from 2024-01-01
+LOG_SEGMENTS, LOG_DOCS = 32, 1 << 22
+LOG_T0 = 1704067200000  # 2024-01-01T00:00:00Z in epoch millis
+LOG_HOUR = 3_600_000
+#: logs.4's hour (the lines reach 74.6 h past LOG_T0)
+LOG_T4 = LOG_T0 + 20 * LOG_HOUR
+#: lines per segment rendered to hold the generator to the codec
+LOG_SAMPLE = 2000
+#: the dictionary-variable families of the templates, in code order:
+#: (name, count, rendering of value v)
+LOG_FAMILIES = (("req", 10**6, lambda v: f"req-{v}"),
+                ("host", 8, lambda v: f"h{v}"),
+                ("ip0", 32 * 256, lambda v: f"10.0.{v // 256}.{v % 256}"),
+                ("user", 500, lambda v: f"u{v}"),
+                ("ip1", 32 * 256, lambda v: f"10.1.{v // 256}.{v % 256}"),
+                ("task", 9999, lambda v: f"t{v}"),
+                ("disk", 4, lambda v: f"/dev/sd{'abcd'[v]}1"),
+                ("pct", 100, lambda v: f"{v}%"))
+#: per template: its dictionary and encoded variables per line
+LOG_DV, LOG_EV = (2, 0, 1, 2, 2, 2), (1, 2, 2, 0, 1, 0)
+
+
+def log_queries() -> dict:
+    """name -> (SQL, the kernel after K7) of the log leg."""
+    t4, t4_end = LOG_T4, LOG_T4 + LOG_HOUR
+    return {
+        "logs.1": ("SELECT COUNT(*) FROM logs WHERE message LIKE "
+                   "'%refused%'", "scan_agg"),
+        "logs.2": ("SELECT COUNT(*) FROM logs WHERE message LIKE "
+                   "'%failed on host h3:%'", "scan_agg"),
+        "logs.3": ("SELECT COUNT(*) FROM logs WHERE message LIKE "
+                   "'%served in 250 ms%'", "scan_agg"),
+        "logs.4": (f"SELECT floor((ts - {t4}) / 60000), COUNT(*) FROM logs "
+                   f"WHERE message LIKE 'ERROR%' AND ts >= {t4} AND "
+                   f"ts < {t4_end} GROUP BY floor((ts - {t4}) / 60000) "
+                   "LIMIT 100", "group_agg"),
+        "logs.5": ("SELECT ts, message FROM logs WHERE message LIKE "
+                   "'%code=503' ORDER BY ts DESC LIMIT 100", "topn"),
+        "logs.6": ("SELECT COUNT(*) FROM logs WHERE (message LIKE 'WARN%' OR "
+                   "message LIKE '%refused%') AND "
+                   f"ts < {LOG_T0 + 12 * LOG_HOUR}", "scan_agg"),
+    }
+
+
+#: a pattern the planner refuses: a wildcard cuts the number 25...
+LOG_WILDCARD = "SELECT COUNT(*) FROM logs WHERE message LIKE '%served in 25%'"
+#: 9h: bench.py:3531's coalesce pool, one host per pattern
+LOG_POOL = [f"SELECT COUNT(*) FROM logs WHERE message LIKE "
+            f"'%failed on host h{i}:%'" for i in range(8)]
 #: the upsert leg on phase 4's segments: segments 0-11 carry validDocIds
 #: with a seeded third of docs cleared, 12-15 stay append-only; then a
 #: seeded 1% of segment 3's valid docs is cleared
@@ -1911,7 +1995,8 @@ def device_busy(ex, sql: str, iters: int, tmp: str):
             for k, p in (("scan_agg", "scan_"), ("group_agg", "group_"),
                          ("sketch_agg", "sketch_"), ("topn", "topn_"),
                          ("startree_agg", "startree_"),
-                         ("row_assemble", "row_assemble"))}
+                         ("row_assemble", "row_assemble"),
+                         ("clp_match", "clp_match"))}
     return {"busy_ms_per_query": busy / 1e3 / iters,
             "traced_wall_ms_per_query": wall * 1e3 / iters,
             "device_ms_per_query": {n: v / 1e3 / iters for n, v in top},
@@ -2617,6 +2702,448 @@ def upsert_leg(segs, seed: int, kernels, none: dict, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the log leg (CLP); phase 3's K7 cases
+# ---------------------------------------------------------------------------
+
+class LogTokens:
+    """code -> dictionary-variable token over LOG_FAMILIES (the families'
+    codes concatenated in order): the parts writer renders only the codes
+    a segment uses."""
+
+    def __init__(self):
+        self.base, b = {}, 0
+        for name, n, _render in LOG_FAMILIES:
+            self.base[name] = b
+            b += n
+        self._starts = [self.base[name] for name, _n, _r in LOG_FAMILIES]
+
+    def __getitem__(self, code: int) -> str:
+        import bisect
+        f = bisect.bisect_right(self._starts, code) - 1
+        return LOG_FAMILIES[f][2](code - self._starts[f])
+
+
+def log_line(t: int, dv: list, ev: list) -> str:
+    """Template t of bench.py:3377-3391 rendered from its dictionary
+    variables' tokens and its encoded variables (a float as its IEEE bits,
+    rendered as Python renders the float)."""
+    import struct
+    if t == 0:
+        return f"INFO  request {dv[0]} served in {ev[0]} ms from host {dv[1]}"
+    if t == 1:
+        x = struct.unpack("<d", struct.pack("<q", ev[0]))[0]
+        return f"WARN  GC pause of {x} seconds detected at offset {ev[1]}"
+    if t == 2:
+        return (f"ERROR Connection to {dv[0]}:{ev[0]} refused after "
+                f"{ev[1]} retries")
+    if t == 3:
+        return f"INFO  user {dv[0]} logged in from {dv[1]}"
+    if t == 4:
+        return f"ERROR task {dv[0]} failed on host {dv[1]}: code={ev[0]}"
+    return f"WARN  disk {dv[0]} at {dv[1]} capacity"
+
+
+def log_columns(seed: int, i: int, n: int):
+    """Segment i's n lines: `ts` (one line every 2 ms from LOG_T0 plus a
+    seeded 0/1 ms jitter, so strictly increasing across segments) and the
+    message as its CLP parts, drawn in numpy from the template ranges of
+    bench.py:3377-3391 (the GC pause's seconds as hundredths in [0, 4],
+    as round(random * 4, 2) gives them). Returns (columns, per line: its
+    template, host (-1: none), served ms (-1: none), code (-1: none))."""
+    from pinot_tpu_torch.segment.clp import ClpParts, encode_message
+    rng = np.random.default_rng([seed, 1700, i])
+    g = i * n + np.arange(n, dtype=np.int64)
+    ts = LOG_T0 + 2 * g + rng.integers(0, 2, n)
+    tpl = rng.integers(0, 6, n)
+    tok = LogTokens()
+    dv = np.full((n, 2), -1, dtype=np.int64)
+    ev = np.zeros((n, 2), dtype=np.int64)
+    host = np.full(n, -1, dtype=np.int64)
+    served = np.full(n, -1, dtype=np.int64)
+    code = np.full(n, -1, dtype=np.int64)
+    for t in range(6):
+        k = np.nonzero(tpl == t)[0]
+        m = len(k)
+
+        def draw(lo, hi):
+            return rng.integers(lo, hi, m)
+        if t == 0:
+            h, served[k] = draw(0, 8), draw(1, 500)
+            host[k] = h
+            dv[k, 0] = tok.base["req"] + draw(0, 10**6)
+            dv[k, 1] = tok.base["host"] + h
+            ev[k, 0] = served[k]
+        elif t == 1:
+            ev[k, 0] = (draw(0, 401) / 100.0).view(np.int64)
+            ev[k, 1] = draw(0, 10**9)
+        elif t == 2:
+            dv[k, 0] = tok.base["ip0"] + draw(0, 32) * 256 + draw(1, 255)
+            ev[k, 0], ev[k, 1] = draw(1000, 9000), draw(1, 6)
+        elif t == 3:
+            dv[k, 0] = tok.base["user"] + draw(0, 500)
+            dv[k, 1] = tok.base["ip1"] + draw(0, 32) * 256 + draw(1, 255)
+        elif t == 4:
+            h, code[k] = draw(0, 8), draw(400, 600)
+            host[k] = h
+            dv[k, 0] = tok.base["task"] + draw(0, 9999)
+            dv[k, 1] = tok.base["host"] + h
+            ev[k, 0] = code[k]
+        else:
+            dv[k, 0] = tok.base["disk"] + draw(0, 4)
+            dv[k, 1] = tok.base["pct"] + draw(1, 99)
+    ndv = np.array(LOG_DV, dtype=np.int32)[tpl]
+    nev = np.array(LOG_EV, dtype=np.int32)[tpl]
+    # each template's logtype, from the codec itself
+    logtypes = []
+    for t in range(6):
+        d = int(np.nonzero(tpl == t)[0][0]) if (tpl == t).any() else None
+        sample_dv = [tok[int(c)] for c in dv[d, :LOG_DV[t]]] if d is not None \
+            else ["x1"] * LOG_DV[t]
+        sample_ev = ev[d, :LOG_EV[t]].tolist() if d is not None \
+            else [1] * LOG_EV[t]
+        logtypes.append(encode_message(log_line(t, sample_dv, sample_ev))[0])
+    parts = ClpParts(logtypes, tpl.astype(np.int32), ndv,
+                     dv[np.arange(2)[None, :] < ndv[:, None]], tok, nev,
+                     ev[np.arange(2)[None, :] < nev[:, None]])
+    return {"ts": ts, "message": parts}, (tpl, host, served, code)
+
+
+def log_message(cols: dict, d: int) -> str:
+    """Line d of a segment's generated message column, rendered."""
+    p = cols["message"]
+    dvo = int(np.sum(p.dv_counts[:d]))
+    evo = int(np.sum(p.ev_counts[:d]))
+    t = int(p.lt_ids[d])
+    dv = [p.dv_tokens[int(c)] for c in p.dv_codes[dvo:dvo + LOG_DV[t]]]
+    return log_line(t, dv, p.ev[evo:evo + LOG_EV[t]].tolist())
+
+
+def log_truth(cols: dict, lines) -> dict:
+    """One segment's part of the log leg's answers, from the generator's
+    templates and variables: logs.1-3 and logs.6 counts, logs.4's ERROR
+    lines per minute of its hour, logs.5's last 100 (ts, message) of
+    code 503 in the segment, and 9h's count per host."""
+    tpl, host, served, code = lines
+    ts = cols["ts"]
+    w = (tpl == 2) | (tpl == 4)
+    w &= (ts >= LOG_T4) & (ts < LOG_T4 + LOG_HOUR)
+    tail = np.nonzero((tpl == 4) & (code == 503))[0][-100:]
+    return {"logs.1": int((tpl == 2).sum()),
+            "logs.2": int(((tpl == 4) & (host == 3)).sum()),
+            "logs.3": int(((tpl == 0) & (served == 250)).sum()),
+            "logs.4": np.bincount((ts[w] - LOG_T4) // 60000, minlength=60),
+            "logs.5": [(int(ts[d]), log_message(cols, int(d)))
+                       for d in tail],
+            "logs.6": int((((tpl == 1) | (tpl == 5) | (tpl == 2))
+                           & (ts < LOG_T0 + 12 * LOG_HOUR)).sum()),
+            "pool": [int(((tpl == 4) & (host == h)).sum()) for h in range(8)]}
+
+
+def log_honest(cols: dict, lines, seg, seed: int, i: int):
+    """None where a seeded sample of the segment's lines, rendered, encodes
+    to the generated parts (the port's encode_message) and reads back
+    from the written segment (reader.get); else what differs."""
+    from pinot_tpu_torch.segment.clp import encode_message
+    p = cols["message"]
+    n = p.num_docs
+    rng = np.random.default_rng([seed, 1701, i])
+    dvo = np.concatenate([[0], np.cumsum(p.dv_counts)])
+    evo = np.concatenate([[0], np.cumsum(p.ev_counts)])
+    reader = seg.data_source("message").clp_reader
+    for d in sorted(int(x) for x in rng.choice(n, min(n, LOG_SAMPLE),
+                                               replace=False)):
+        t = int(p.lt_ids[d])
+        dv = [p.dv_tokens[int(c)] for c in p.dv_codes[dvo[d]:dvo[d + 1]]]
+        ev = p.ev[evo[d]:evo[d + 1]].tolist()
+        line = log_line(t, dv, ev)
+        if encode_message(line) != (p.logtypes[t], dv, ev):
+            return f"line {d} {line!r} encodes to {encode_message(line)}"
+        if reader.get(d) != line:
+            return f"line {d}: reader {reader.get(d)!r}, generated {line!r}"
+    return None
+
+
+def build_log_segment(job):
+    """Generate, fold the truth of, write and check log segment i (a worker
+    process: the truth and the check's finding come back)."""
+    root, seed, i, n = job
+    from pinot_tpu_torch.models import (DataType, FieldSpec, FieldType,
+                                        Schema, TableConfig)
+    from pinot_tpu_torch.segment.creator import SegmentCreator
+    from pinot_tpu_torch.segment.loader import load_segment
+    schema = Schema("logs", [
+        FieldSpec("ts", DataType.LONG, FieldType.DATE_TIME),
+        FieldSpec("message", DataType.STRING, FieldType.DIMENSION)])
+    tc = TableConfig("logs")
+    tc.indexing.no_dictionary_columns = ["ts"]
+    tc.indexing.clp_columns = ["message"]
+    tc.indexing.compression = "PASS_THROUGH"
+    cols, lines = log_columns(seed, i, n)
+    truth = log_truth(cols, lines)
+    out = os.path.join(root, f"logs_{i}")
+    SegmentCreator(tc, schema).build(cols, out, f"logs_{i}")
+    return out, truth, log_honest(cols, lines, load_segment(out), seed, i)
+
+
+def build_log_segments(root: str, seed: int, n_segments: int, docs: int,
+                       workers: int = 1):
+    """The log table's segments, built in `workers` spawned processes (1:
+    in this one): (segments, per-segment truths)."""
+    from pinot_tpu_torch.segment.loader import load_segment
+    jobs = [(root, seed, i, docs) for i in range(n_segments)]
+    if workers > 1:
+        import multiprocessing
+        with multiprocessing.get_context("spawn").Pool(workers) as pool:
+            done = pool.map(build_log_segment, jobs, chunksize=1)
+    else:
+        done = [build_log_segment(job) for job in jobs]
+    for i, (_o, _t, why) in enumerate(done):
+        if why is not None:
+            fail(f"log segment {i}: the generator disagrees with the codec: "
+                 f"{why}")
+    return [load_segment(out) for out, _t, _w in done], \
+        [t for _o, t, _w in done]
+
+
+def log_expected(truths: list, name: str):
+    """A log query's numpy truth over the segments, as result rows."""
+    if name == "logs.4":
+        per_min = np.sum([t["logs.4"] for t in truths], axis=0)
+        return [(float(m), int(c)) for m, c in enumerate(per_min) if c]
+    if name == "logs.5":
+        rows = sorted((r for t in truths for r in t["logs.5"]),
+                      reverse=True)
+        return rows[:100]
+    return [(sum(t[name] for t in truths),)]
+
+
+def log_rows(name: str, resp) -> list:
+    """A log query's result rows in the shape log_expected gives."""
+    if name == "logs.4":
+        return sorted((float(r[0]), int(r[1])) for r in resp.rows)
+    if name == "logs.5":
+        return [(int(r[0]), str(r[1])) for r in resp.rows]
+    return [(int(r[0]),) for r in resp.rows]
+
+
+def staged_clp(ex, sql: str):
+    """The inputs the engine stages for a CLP query, as on the main path:
+    (its CLP leaves [(i, leaf)], cols, params, D)."""
+    from pinot_tpu_torch.ops import kernels as kmod
+    from pinot_tpu_torch.query.context import QueryContext
+    ctx = QueryContext.from_sql(sql)
+    eng = ex.engine
+    with eng._engine_lock:
+        if ctx.aggregations:
+            plan, _ = eng._plan(ex.segments, ctx)
+        else:
+            plan = eng._plan_topn(ex.segments, ctx)
+        cols, params, _nd, D = eng._stage(ex.segments, ctx, plan)
+    (leaves,) = kmod.clp_leaves(plan).values()
+    return leaves, cols, params, D
+
+
+def check_clp(name: str, leaves, cols, params, D, B: int = 1) -> dict:
+    """K7 against its plain version on the card, bit for bit: one launch
+    over `leaves` (B = 1), or B members over one column set, each member's
+    masks also against its own single launch. Returns its times, bound and
+    error. Bound: the logtype id, the Kd dict-var and 2 Ke encoded-var
+    int32 blocks read once, a byte per doc and leaf and member written."""
+    import torch
+
+    from pinot_tpu_torch.ops import _cuda
+    from pinot_tpu_torch.ops import kernels as kmod
+    plist = params if B > 1 else [params]
+    out = _cuda.clp_match_batched(leaves, [cols], plist, [0] * B, D,
+                                  batched=B > 1)
+
+    def plain():
+        return torch.stack([torch.stack([kmod.clp_match(i, lf, cols, p)
+                                         for p in plist])
+                            for i, lf in leaves])
+    ref = plain()
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        bad = (out != ref).nonzero()[:5].tolist()
+        fail(f"{name}: K7 differs from its plain version at {bad}")
+    single_ms = None
+    if B > 1:
+        for m, p in enumerate(plist):
+            if not torch.equal(out[:, m], _cuda.clp_match(leaves, cols, p,
+                                                          D)):
+                fail(f"{name}: member {m} differs from its single launch")
+        single_ms = cuda_ms(lambda: _cuda.clp_match(leaves, cols, plist[0],
+                                                    D))
+    kd = max(lf.meta[1] for _i, lf in leaves)
+    ke = max(lf.meta[2] for _i, lf in leaves)
+    S = cols[f"clpid:{leaves[0][1].column}"].shape[0]
+    moved = S * D * ((1 + kd + 2 * ke) * 4 + len(leaves) * B) + sum(
+        v.numel() * v.element_size() for p in plist for k, v in p.items()
+        if k.split(":")[0] in {f"leaf{i}" for i, _lf in leaves})
+    entry = {"case": name, "S": S, "D": D, "B": B, "Kd": kd, "Ke": ke,
+             "leaves": len(leaves), "matched": int(out.sum()),
+             "ms": cuda_ms(lambda: _cuda.clp_match_batched(
+                 leaves, [cols], plist, [0] * B, D, batched=B > 1)),
+             "plain_ms": cuda_ms(plain, iters=1 if B > 1 else 3),
+             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved,
+             "bound_by": "bytes", "library_ms": None,
+             "library": "none: no single PyTorch call computes the match",
+             "max_abs_err": 0.0}
+    if B > 1:
+        entry.update(single_ms=single_ms, **{"8x_single_ms": B * single_ms})
+    return entry
+
+
+def clp_kernel_inputs(seed: int, mode: str, B: int = 1):
+    """K7's phase-3 cases at the log leg's block (S = 32, D = 2^22), made
+    on the card: (leaves, cols, params or B members' params, D). Logtype
+    ids 0-5 of an 8-wide LUT; var-dictionary cardinalities of 2^19 to 2^20
+    per segment (vp = 2^20, as 2^22 bench lines give), a quarter of the
+    dict-var slots at the sentinel (the cardinality); mode 'a' Kd = 2;
+    mode 'b' Kd = Ke = 2, encoded (hi, lo) pairs drawn from a few values
+    (negative lows included) so equal and unequal pairs both occur, 16
+    conditions (the last three padding, ck = 0) and 64 groups (the last 8
+    padding, glt = -1) over 8 dict LUT banks."""
+    import torch
+
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    S, D, vp, cp = LOG_SEGMENTS, LOG_DOCS, 1 << 20, 8
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev)
+    card = ints(1 << 19, vp - 1, (S,))
+    kd, ke = 2, 0 if mode == "a" else 2
+    cols = {"clpid:m": ints(0, 6, (S, D))}
+    for j in range(kd):
+        v = (rand((S, D)) * (card[:, None] + 1)).to(torch.int32)
+        cols[f"clpdv{j}:m"] = torch.where(rand((S, D)) < 0.25,
+                                          card[:, None], v)
+    for j in range(ke):
+        cols[f"clpehi{j}:m"] = ints(-2, 2, (S, D))
+        cols[f"clpelo{j}:m"] = ints(-3, 3, (S, D))
+    live = torch.arange(vp, device=dev)[None, :] < card[:, None]
+
+    def member():
+        p = {"leaf0:alut": rand((S, cp)) < 0.1}
+        if mode == "a":
+            p["leaf0:dvlut"] = (rand((S, vp)) < 0.2) & live
+            return p
+        ck = ints(0, 3, (S, 16)).to(torch.int8)
+        ck[:, 13:] = 0
+        glt = ints(0, 6, (S, 64))
+        glt[:, 56:] = -1
+        p.update({"leaf0:glt": glt, "leaf0:gmem": rand((S, 64, 16)) < 0.15,
+                  "leaf0:ck": ck, "leaf0:cs": ints(0, 2, (S, 16)),
+                  "leaf0:chi": ints(-2, 2, (S, 16)),
+                  "leaf0:clo": ints(-3, 3, (S, 16)),
+                  "leaf0:cl": ints(0, 8, (S, 16)),
+                  "leaf0:dlut": (rand((S, 8, vp)) < 0.5) & live[:, None]})
+        return p
+    leaves = [(0, DeviceLeaf("clp", "m", (mode, kd, ke)))]
+    params = member() if B == 1 else [member() for _ in range(B)]
+    return leaves, cols, params, D
+
+
+def log_leg(tmp: str, seed: int, kernels, none: dict, card: str):
+    """Phase 11: the log table (LOG_SEGMENTS x LOG_DOCS lines of bench.py's
+    templates, `ts` an epoch-millis LONG without a dictionary, `message` a
+    CLP column) built from the generator's parts, logs.1-logs.6 through
+    QueryExecutor against their numpy truth (float64 values: logs.5 orders
+    by the raw epoch-millis ts), the wildcard pattern refused with its
+    reason and no launch, K7 held against its plain version on the inputs
+    the engine staged for logs.2 and logs.6 (two leaves, one launch), then
+    9h. Returns (the leg's launches per kernel, 9h's window launches)."""
+    import torch
+
+    from pinot_tpu_torch.ops.engine import NotOffloadable
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    t0 = time.perf_counter()
+    segs, truths = build_log_segments(tmp, seed, LOG_SEGMENTS, LOG_DOCS,
+                                      BUILD_WORKERS)
+    rows = sum(s.num_docs for s in segs)
+    print(f"[logs] built {len(segs)} segments, {rows} lines in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ex = QueryExecutor(segs, value_dtype=torch.float64)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    legs, runs = [], Counter()
+    queries = log_queries()
+    for name, (sql, kname) in queries.items():
+        t1 = time.perf_counter()
+        resp = ex.execute(sql)
+        cold, cold_split = time.perf_counter() - t1, ex.last_stage_ms
+        lats, splits = [], []
+        for _ in range(ITERS):
+            t1 = time.perf_counter()
+            resp = ex.execute(sql)
+            lats.append(time.perf_counter() - t1)
+            splits.append(ex.last_stage_ms)
+        got, want = log_rows(name, resp), log_expected(truths, name)
+        if got != want:
+            fail(f"{name}: {got[:3]} ({len(got)} rows) vs numpy truth "
+                 f"{want[:3]} ({len(want)} rows)")
+        runs[kname] += 1 + ITERS
+        runs["clp_match"] += 1 + ITERS
+        legs.append({"query": name, "rows": rows, "result_rows": len(got),
+                     "p50_ms": statistics.median(lats) * 1e3,
+                     "cold_s": cold,
+                     "rows_per_s": rows / statistics.median(lats),
+                     "cold_stage_ms": cold_split,
+                     "stage_ms": {k: statistics.median(sp[k] for sp in splits)
+                                  for k in splits[0]}})
+    got = launches_of_leg("log leg", kernels, {**none, **runs})
+    served = ex.engine.meter("clp_served")
+    if served != sum(runs[k] for k in runs if k != "clp_match"):
+        fail(f"clp_served {served}, expected one per query run")
+    # the refused pattern: its reason, and no launch
+    zero_launches(kernels)
+    try:
+        ex.execute(LOG_WILDCARD)
+        fail(f"{LOG_WILDCARD} was not refused")
+    except NotOffloadable as e:
+        if e.reason != "wildcard" \
+                or ex.engine.meter("clp_fallback", "wildcard") != 1:
+            fail(f"{LOG_WILDCARD}: reason {e.reason!r}, meter "
+                 f"{ex.engine.meter('clp_fallback', 'wildcard')}")
+    launches_of_leg("the refused pattern", kernels, none)
+    peak = torch.cuda.max_memory_allocated()
+    for leg in legs:
+        leg["max_memory_allocated"] = peak
+        print(f"[logs] {json.dumps(leg)} | {card}", flush=True)
+    print(f"[logs] {json.dumps({'refused': LOG_WILDCARD, 'reason': 'wildcard', 'launches': 0})}"
+          f" | {card}", flush=True)
+    busy = device_busy(ex, queries["logs.2"][0], 3, tmp)
+    print(f"[logs] trace logs.2 {json.dumps(busy or 'not measured')} "
+          f"| {card}", flush=True)
+    # after the launch counts were read: these launches are the
+    # comparison's, not the main path's
+    for name in ("logs.2", "logs.6"):
+        case = check_clp(f"staged {name}", *staged_clp(
+            ex, queries[name][0]))
+        print(f"[kernel] clp_match {json.dumps(case)} | {card}", flush=True)
+
+    # phase 9h: bench.py:3531's coalesce pool under concurrency (K7, K1)
+    def pool_check(i, r):
+        want = sum(t["pool"][i] for t in truths)
+        return None if r == [(want,)] or r == [(float(want),)] else \
+            f"{r} vs numpy truth {want}"
+    leg = concurrency_leg(
+        "9h", modes_of(segs, pipelined=ex, value_dtype=torch.float64),
+        LOG_POOL, [list(range(len(LOG_POOL)))] * CLIENTS, pool_check, card,
+        tmp, kernels, ("scan_agg", "clp_match"))
+    del ex, segs
+    torch.cuda.empty_cache()
+    return got, leg["launches"]
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the concurrency leg
 # ---------------------------------------------------------------------------
 
@@ -2711,7 +3238,8 @@ def concurrency_leg(name: str, executors: dict, pool: list,
     alternating serialized and pipelined twice and one traced TRACE_S
     window per mode, with the launch counts of `kernels` set to 0 just
     before the windows and held just after them against the dispatchers'
-    own counts (`runs`: the one kernel the pool's queries launch). Prints
+    own counts (`runs`: the kernel the pool's queries launch, or a tuple
+    of kernels, each launched once per dispatch). Prints
     each mode's numbers; returns them, with the windows' launches."""
     from pinot_tpu_torch.utils.failpoints import failpoints
     alone = {}
@@ -2786,16 +3314,21 @@ def concurrency_leg(name: str, executors: dict, pool: list,
     return out
 
 
-def modes_of(segments, pipelined=None) -> dict:
+def modes_of(segments, pipelined=None, value_dtype=None) -> dict:
     """A QueryExecutor per dispatch mode over the same segments (one
     table's, or {table: segments}); `pipelined`: an executor of the
-    default (pipelined) configuration to reuse."""
+    default (pipelined) configuration to reuse; value_dtype: the
+    executors' (float32 by default)."""
+    import torch
+
     from pinot_tpu_torch.query.executor import QueryExecutor
     from pinot_tpu_torch.utils.config import PinotConfiguration
 
     def of(mode):
-        return QueryExecutor(segments, config=PinotConfiguration(
-            overrides={"pinot.server.dispatch.mode": mode}))
+        return QueryExecutor(
+            segments, value_dtype=value_dtype or torch.float32,
+            config=PinotConfiguration(
+                overrides={"pinot.server.dispatch.mode": mode}))
     return {"serialized": of("serialized"),
             "pipelined": pipelined or of("pipelined")}
 
@@ -2804,10 +3337,12 @@ def window_launches(name: str, kernels, runs: str, disps: list,
                     stats0: list) -> dict:
     """The launch counts of a sub-leg's windows (name -> [single,
     batched]), read just after them, against what the dispatchers `disps`
-    counted since `stats0`: kernel `runs` one single launch per inline or
-    single dispatch, one batched launch per broadcast, stacked or dedup
-    dispatch, as many batched members as those batches held; every other
-    kernel none."""
+    counted since `stats0`: the kernel `runs` (a name, or a tuple of the
+    names a query launches, K7 and K1 for a CLP query) one single launch
+    per inline or single dispatch, one batched launch per broadcast,
+    stacked or dedup dispatch, as many batched members as those batches
+    held; every other kernel none."""
+    runs = (runs,) if isinstance(runs, str) else tuple(runs)
     seen: Counter = Counter()
     for d, s0 in zip(disps, stats0):
         s = d.stats()
@@ -2819,7 +3354,7 @@ def window_launches(name: str, kernels, runs: str, disps: list,
                   if isinstance(k, tuple) and k[1] > 1)
     got = {k.name: (k.launches, k.batched_launches, k.batched_members)
            for k in kernels}
-    want = {k.name: (single, batched, members) if k.name == runs
+    want = {k.name: (single, batched, members) if k.name in runs
             else (0, 0, 0) for k in kernels}
     if got != want:
         fail(f"{name}: launches (single, batched, batched members) {got}, "
@@ -2939,6 +3474,16 @@ def main() -> None:
         del plan, cols, params, num_docs
         torch.cuda.empty_cache()
 
+    # K7 clp_match at the log leg's block, in both modes
+    k7_cases = {}
+    for mode in ("a", "b"):
+        k7_cases[mode] = check_clp(f"mode {mode}",
+                                   *clp_kernel_inputs(args.seed, mode))
+        print(f"[kernel] clp_match {json.dumps(k7_cases[mode])} | {card}",
+              flush=True)
+        torch.cuda.empty_cache()
+    k7 = dict(k7_cases["b"], launches=0)
+
     # phase 3b: the query axis against its plain version and the single
     # launches (K5's case runs in phase 7, on the blocks it stages)
     batched = {}
@@ -2956,6 +3501,12 @@ def main() -> None:
     kb_batched = check_bucket_batched(args.seed)
     print(f"[kernel] group_agg bucket batched {json.dumps(kb_batched)} "
           f"| {card}", flush=True)
+    torch.cuda.empty_cache()
+    k7_batched = check_clp("mode b, B = 8 over one column set",
+                           *clp_kernel_inputs(args.seed, "b", BATCH_B),
+                           B=BATCH_B)
+    print(f"[kernel] clp_match batched {json.dumps(k7_batched)} | {card}",
+          flush=True)
     torch.cuda.empty_cache()
     kernels = _cuda.KERNELS
     none = {k.name: 0 for k in kernels}
@@ -3312,6 +3863,14 @@ def main() -> None:
         k6["launches"] += k6_ts
         count_phase9(p9g, p9)
         kb_batched["launches"] = p9g["group_agg"][1]
+
+        # phase 11: the log leg (CLP log search on K7), with phase 9h
+        log_launches, p9h = log_leg(tmp, args.seed, kernels, none, card)
+        for kern, entry in ((_cuda.SCAN_AGG, k1), (_cuda.GROUP_AGG, k2),
+                            (_cuda.TOPN, k4), (_cuda.ROW_ASSEMBLE, k6),
+                            (_cuda.CLP_MATCH, k7)):
+            entry["launches"] += log_launches[kern.name]
+        count_phase9(p9h, p9)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3331,6 +3890,10 @@ def main() -> None:
             fail(f"phase 9 never launched {kern.name}'s batched form")
     if not k6["launches"]:
         fail("the main path never launched row_assemble")
+    k7["launches"] += p9["clp_match"][0]
+    k7_batched["launches"] = p9["clp_match"][1]
+    if not k7["launches"] or not k7_batched["launches"]:
+        fail("the main path never launched clp_match, single and batched")
     for name, entry in [("group_agg bucket", kb),
                         ("group_agg bucket batched", kb_batched),
                         *((f"{k} masked", e) for k, e in masked.items())]:
@@ -3344,7 +3907,8 @@ def main() -> None:
             (_cuda.TOPN, k4, "pinot_tpu/ops/kernels.py:583"),
             (_cuda.STARTREE_AGG, k5,
              "pinot_tpu/ops/startree_device.py:99,81"),
-            (_cuda.ROW_ASSEMBLE, k6, "pinot_tpu/ops/kernels.py:100")):
+            (_cuda.ROW_ASSEMBLE, k6, "pinot_tpu/ops/kernels.py:100"),
+            (_cuda.CLP_MATCH, k7, "pinot_tpu/ops/clp_device.py:700,757")):
         entries.append({
             "name": kern.name, "route": "cuda",
             "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",
@@ -3358,8 +3922,9 @@ def main() -> None:
             (_cuda.GROUP_AGG, "pinot_tpu/ops/kernels.py:793,823"),
             (_cuda.SKETCH_AGG, "pinot_tpu/ops/kernels.py:793,823"),
             (_cuda.TOPN, "pinot_tpu/ops/kernels.py:858"),
-            (_cuda.STARTREE_AGG, "pinot_tpu/ops/startree_device.py:152")):
-        entry = batched[kern.name]
+            (_cuda.STARTREE_AGG, "pinot_tpu/ops/startree_device.py:152"),
+            (_cuda.CLP_MATCH, "pinot_tpu/ops/clp_device.py:700,757")):
+        entry = k7_batched if kern is _cuda.CLP_MATCH else batched[kern.name]
         entries.append({
             "name": f"{kern.name}_batched", "route": "cuda",
             "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",

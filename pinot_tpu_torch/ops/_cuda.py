@@ -2,8 +2,9 @@
 
 K1 `scan_agg` (csrc/scan_agg.cu), K2 `group_agg` (csrc/group_agg.cu),
 K3 `sketch_agg` (csrc/sketch_agg.cu), K4 `topn` (csrc/topn.cu), K5
-`startree_agg` (csrc/startree_agg.cu) and K6 `row_assemble`
-(csrc/row_assemble.cu) are plain-C-interface shared libraries
+`startree_agg` (csrc/startree_agg.cu), K6 `row_assemble`
+(csrc/row_assemble.cu) and K7 `clp_match` (csrc/clp_match.cu) are
+plain-C-interface shared libraries
 built with `nvcc` for sm_90a at first use, into the git-ignored
 `build/kernels/` directory beside the package, and loaded with ctypes. All
 sources build at once, one `nvcc` each, in parallel. A library's file name carries a hash of its sources and flags, so
@@ -14,11 +15,11 @@ contiguity, allocate outputs and scratch with `torch.empty`, launch on the
 current stream, raise if the launch failed, and count their launches. They
 never fall back to the plain PyTorch version.
 
-K1-K5 carry a member axis (csrc/interp.cuh, csrc/startree_agg.cu): one
-launch computes B coalesced queries of one plan over U column sets, member
-m reading set idx[m]. `scan_agg`, `group_agg`, `sketch_agg`, `topn` and
-`startree_agg` are the single launch (B = U = 1); the `*_batched` forms
-take the members' column sets,
+K1-K5 and K7 carry a member axis (csrc/interp.cuh, csrc/startree_agg.cu,
+csrc/clp_match.cu): one launch computes B coalesced queries of one plan
+over U column sets, member m reading set idx[m]. `scan_agg`, `group_agg`,
+`sketch_agg`, `topn`, `startree_agg` and `clp_match` are the single launch
+(B = U = 1); the `*_batched` forms take the members' column sets,
 parameters, doc counts and member-to-set map and return [B, S, ...]. A
 kernel counts single launches in `launches`, batched ones in
 `batched_launches` and their members in `batched_members`, under a lock:
@@ -76,6 +77,12 @@ USUM_PLANES = 4
 ST_MAX_ACC = 1 + 2 * USUM_PLANES * ST_MAX_SLOTS
 #: block rows K6 takes per launch (csrc/row_assemble.cu RA_MAX_ROWS)
 RA_MAX_ROWS = 1024
+#: K7's leaves per launch, slot blocks per column, padded groups and
+#: conditions (csrc/clp_match.cu CLP_MAX_*)
+CLP_MAX_LEAVES = 4
+CLP_MAX_SLOTS = 16
+CLP_MAX_GROUPS = 64
+CLP_MAX_CONDS = 16
 
 
 class _Args(ctypes.Structure):
@@ -110,6 +117,33 @@ class _RowArgs(ctypes.Structure):
     value: each row's pointer and its length in bytes."""
     _fields_ = [("src", ctypes.c_void_p * RA_MAX_ROWS),
                 ("len", ctypes.c_longlong * RA_MAX_ROWS)]
+
+
+_PM = ctypes.c_void_p * MAX_MEMBERS
+_IM = ctypes.c_int * MAX_MEMBERS
+
+
+class _ClpLeaf(ctypes.Structure):
+    """csrc/clp_match.cu `struct ClpLeaf`: a leaf's mode and slot counts,
+    and per member its parameter tables and their widths."""
+    _fields_ = [("alut", _PM), ("vlut", _PM), ("glt", _PM), ("gmem", _PM),
+                ("ck", _PM), ("cs", _PM), ("chi", _PM), ("clo", _PM),
+                ("cl", _PM), ("cp", _IM), ("vp", _IM), ("gp", _IM),
+                ("ncp", _IM), ("nlp", _IM), ("mode_b", ctypes.c_int),
+                ("kd", ctypes.c_int), ("ke", ctypes.c_int),
+                ("pad_", ctypes.c_int)]
+
+
+class _ClpArgs(ctypes.Structure):
+    """csrc/clp_match.cu `struct ClpArgs`, passed to the kernel by value:
+    per column set the CLP column's pseudo-column blocks, the leaves, the
+    member-to-set map."""
+    _fields_ = [("id", ctypes.c_void_p * MAX_SETS),
+                ("dv", (ctypes.c_void_p * CLP_MAX_SLOTS) * MAX_SETS),
+                ("ehi", (ctypes.c_void_p * CLP_MAX_SLOTS) * MAX_SETS),
+                ("elo", (ctypes.c_void_p * CLP_MAX_SLOTS) * MAX_SETS),
+                ("leaf", _ClpLeaf * CLP_MAX_LEAVES),
+                ("set_of", ctypes.c_int * MAX_MEMBERS)]
 
 
 class CudaKernel:
@@ -200,7 +234,11 @@ ROW_ASSEMBLE = CudaKernel("row_assemble", "row_assemble.cu",
                           [ctypes.POINTER(_RowArgs), _I, _I, ctypes.c_longlong,
                            _P, _I, _P],
                           layout=(_RowArgs, "pt_row_assemble_args_bytes"))
-KERNELS = (SCAN_AGG, GROUP_AGG, SKETCH_AGG, TOPN, STARTREE_AGG, ROW_ASSEMBLE)
+CLP_MATCH = CudaKernel("clp_match", "clp_match.cu", "pt_clp_match",
+                       [ctypes.POINTER(_ClpArgs), _I, _I, _I, _I, _I, _P, _I,
+                        _P], layout=(_ClpArgs, "pt_clp_args_bytes"))
+KERNELS = (SCAN_AGG, GROUP_AGG, SKETCH_AGG, TOPN, STARTREE_AGG, ROW_ASSEMBLE,
+           CLP_MATCH)
 
 _build_lock = threading.Lock()
 
@@ -261,8 +299,21 @@ Tensors = Dict[str, torch.Tensor]
 
 
 def _stack(ts: List[torch.Tensor]) -> torch.Tensor:
-    """[n, ...] from n equal-shaped tensors (a view when n is 1)."""
-    return ts[0].unsqueeze(0) if len(ts) == 1 else torch.stack(ts)
+    """[n, ...] from n equal-shaped tensors: a view when n is 1 or when
+    they are consecutive contiguous slices of one storage (the members'
+    K7 masks), else a copy."""
+    t0 = ts[0]
+    if len(ts) == 1:
+        return t0.unsqueeze(0)
+    n = t0.numel()
+    if all(t.is_contiguous() and t.shape == t0.shape and t.dtype == t0.dtype
+           and t.untyped_storage().data_ptr()
+           == t0.untyped_storage().data_ptr()
+           and t.storage_offset() == t0.storage_offset() + m * n
+           for m, t in enumerate(ts)):
+        return t0.as_strided((len(ts),) + tuple(t0.shape),
+                             (n,) + tuple(t0.stride()))
+    return torch.stack(ts)
 
 
 class _Launch:
@@ -678,3 +729,104 @@ def row_assemble(rows: List[torch.Tensor], S: int, D: int) -> torch.Tensor:
             raise RuntimeError(f"row_assemble launch failed: cudaError {rc}")
         ROW_ASSEMBLE.count(1, batched=False)
     return out
+
+
+def clp_match_batched(leaves, col_sets: List[Tensors],
+                      params_list: List[Tensors], idx: List[int], D: int,
+                      batched: bool = True) -> torch.Tensor:
+    """K7 over B members: the [L, B, S, D] bool match masks of `leaves`
+    ((leaf index, DeviceLeaf) pairs, 'clp' leaves of one column, at most
+    CLP_MAX_LEAVES), member m over column set idx[m] with its own
+    parameters params_list[m]['leaf<i>:*'] (ops/clp_device.py
+    `leaf_params`)."""
+    B, U, L = len(params_list), len(col_sets), len(leaves)
+    if not 1 <= B <= MAX_MEMBERS or not 1 <= U <= MAX_SETS:
+        raise ValueError(f"{B} members over {U} column sets: a launch takes "
+                         f"1-{MAX_MEMBERS} members and 1-{MAX_SETS} sets")
+    if not 1 <= L <= CLP_MAX_LEAVES \
+            or len({lf.column for _i, lf in leaves}) != 1 \
+            or any(lf.kind != "clp" for _i, lf in leaves):
+        raise ValueError(f"K7 takes 1-{CLP_MAX_LEAVES} clp leaves of one "
+                         "column")
+    if len(idx) != B or any(not 0 <= int(u) < U for u in idx):
+        raise ValueError("a member-to-set index in [0, U) per member")
+    col = leaves[0][1].column
+    t0 = col_sets[0]["clpid:" + col]
+    device = t0.device
+    if device.type != "cuda":
+        raise ValueError(f"CUDA kernel given tensors on {device}")
+    if t0.dim() != 2 or t0.shape[1] != D or D <= 0 or D > (1 << 30):
+        raise ValueError(f"clpid:{col} must be [S, {D}]")
+    S = t0.shape[0]
+    kd = max(lf.meta[1] for _i, lf in leaves)
+    ke = max(lf.meta[2] for _i, lf in leaves)
+    if kd > CLP_MAX_SLOTS or ke > CLP_MAX_SLOTS:
+        raise ValueError(f"{kd} dict / {ke} encoded slots above "
+                         f"{CLP_MAX_SLOTS}")
+    args = _ClpArgs()
+
+    def block(cols, key, u):
+        _check(cols[key], f"{key} of set {u}", device, (torch.int32,), (S, D))
+        return cols[key].data_ptr()
+    for u, cols in enumerate(col_sets):
+        args.id[u] = block(cols, "clpid:" + col, u)
+        for j in range(kd):
+            args.dv[u][j] = block(cols, f"clpdv{j}:{col}", u)
+        for j in range(ke):
+            args.ehi[u][j] = block(cols, f"clpehi{j}:{col}", u)
+            args.elo[u][j] = block(cols, f"clpelo{j}:{col}", u)
+    for m, u in enumerate(idx):
+        args.set_of[m] = int(u)
+    for l, (i, leaf) in enumerate(leaves):
+        mode, lkd, lke = leaf.meta
+        la = args.leaf[l]
+        la.mode_b, la.kd, la.ke = int(mode == "b"), lkd, lke
+        for m, params in enumerate(params_list):
+            def table(name, dtypes, shape):
+                t = params[f"leaf{i}:{name}"]
+                _check(t, f"leaf{i}:{name} of member {m}", device, dtypes,
+                       (S,) + tuple(shape(t)))
+                return t.data_ptr()
+            alut = params[f"leaf{i}:alut"]
+            la.alut[m] = table("alut", (torch.bool,), lambda t: t.shape[1:])
+            la.cp[m] = max(1, alut.shape[1])
+            if mode == "a":
+                if lkd:
+                    la.vlut[m] = table("dvlut", (torch.bool,),
+                                       lambda t: t.shape[1:])
+                    la.vp[m] = params[f"leaf{i}:dvlut"].shape[1]
+                continue
+            ck = params[f"leaf{i}:ck"]
+            gp, ncp = params[f"leaf{i}:glt"].shape[1], ck.shape[1]
+            if gp > CLP_MAX_GROUPS or ncp > CLP_MAX_CONDS:
+                raise ValueError(f"leaf{i}: {gp} groups / {ncp} conditions "
+                                 f"above {CLP_MAX_GROUPS} / {CLP_MAX_CONDS}")
+            la.gp[m], la.ncp[m] = gp, ncp
+            la.glt[m] = table("glt", (torch.int32,), lambda t: (gp,))
+            la.gmem[m] = table("gmem", (torch.bool,), lambda t: (gp, ncp))
+            la.ck[m] = table("ck", (torch.int8,), lambda t: (ncp,))
+            for name in ("cs", "chi", "clo", "cl"):
+                getattr(la, name)[m] = table(name, (torch.int32,),
+                                             lambda t: (ncp,))
+            if lkd:
+                dlut = params[f"leaf{i}:dlut"]
+                la.vlut[m] = table("dlut", (torch.bool,),
+                                   lambda t: t.shape[1:])
+                la.nlp[m], la.vp[m] = dlut.shape[1], dlut.shape[2]
+    out = torch.empty((L, B, S, D), dtype=torch.bool, device=device)
+    ntile = max(1, min(MAX_BLOCKS_PER_SEGMENT,
+                       math.ceil(D / (THREADS * DOCS_PER_THREAD))))
+    rc = CLP_MATCH.fn()(ctypes.byref(args), S, D, B, L, ntile,
+                        out.data_ptr(), device.index,
+                        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"clp_match launch failed: cudaError {rc}")
+    CLP_MATCH.count(B, batched)
+    return out
+
+
+def clp_match(leaves, cols: Tensors, params: Tensors, D: int) -> torch.Tensor:
+    """K7: the [L, S, D] bool match masks of `leaves` (one column's 'clp'
+    leaves) over one column set."""
+    return clp_match_batched(leaves, [cols], [params], [0], D,
+                             batched=False)[:, 0]

@@ -77,7 +77,7 @@ __global__ void group_init(const __grid_constant__ Args a, long long n,
     table[e] = identity_of(slot_red(slots[(e % nslot) * SLOT_W]));
 }
 
-template <typename T, typename M>
+template <typename T, typename M, bool kMask>
 __global__ void __launch_bounds__(PT_THREADS)
 group_agg_kernel(const __grid_constant__ Args a, const double* __restrict__ params,
                  const int* __restrict__ num_docs, int S, int D, int P,
@@ -110,7 +110,7 @@ group_agg_kernel(const __grid_constant__ Args a, const double* __restrict__ para
   for (int d = start + threadIdx.x; d < end; d += blockDim.x) {
     const long long i = base + d;
     if (!doc_valid(a, mb, i)) continue;  // superseded by an upsert
-    if (mainf >= 0 && !eval_filter(a, sh, mainf, mb, i)) continue;
+    if (mainf >= 0 && !eval_filter<kMask>(a, sh, mainf, mb, i)) continue;
     int key = 0;
     for (int g = 0; g < ngcol; ++g)
       key += (int)load_col(a, code, mb.u(), gcols[2 * g], i) * gcols[2 * g + 1];
@@ -130,7 +130,7 @@ group_agg_kernel(const __grid_constant__ Args a, const double* __restrict__ para
     for (int j = 0; j < nslot; ++j) {
       const int* sl = slots + j * SLOT_W;
       const int op = sl[0], v = sl[1];
-      if (!slot_passes(a, sh, sl[2], mb, i, c)) continue;
+      if (!slot_passes<kMask>(a, sh, sl[2], mb, i, c)) continue;
       if (op == S_COUNT) {
         atomicAdd(row + j, 1.0);
         continue;
@@ -179,15 +179,23 @@ extern "C" int pt_group_agg(const Args* a, const double* params,
   const int use_smem = smem <= PT_SMEM_TABLE_BYTES;
   const dim3 grid(nb * B, S);
   const size_t dyn = use_smem ? smem : 0;
+  const bool mask = has_mask_leaf(a->code);
   group_init<<<flat, PT_THREADS, 0, st>>>(*a, n, table);
-  if (f64) {
-    group_agg_kernel<double, Mem><<<grid, PT_THREADS, dyn, st>>>(
+  if (f64 && mask)
+    group_agg_kernel<double, Mem, true><<<grid, PT_THREADS, dyn, st>>>(
         *a, params, num_docs, S, D, P, G, B, use_smem, table);
+  else if (f64)
+    group_agg_kernel<double, Mem, false><<<grid, PT_THREADS, dyn, st>>>(
+        *a, params, num_docs, S, D, P, G, B, use_smem, table);
+  else if (mask)
+    group_agg_kernel<float, Mem, true><<<grid, PT_THREADS, dyn, st>>>(
+        *a, params, num_docs, S, D, P, G, B, use_smem, table);
+  else
+    group_agg_kernel<float, Mem, false><<<grid, PT_THREADS, dyn, st>>>(
+        *a, params, num_docs, S, D, P, G, B, use_smem, table);
+  if (f64)
     group_finalize<double><<<flat, PT_THREADS, 0, st>>>(n, table, (double*)out);
-  } else {
-    group_agg_kernel<float, Mem><<<grid, PT_THREADS, dyn, st>>>(
-        *a, params, num_docs, S, D, P, G, B, use_smem, table);
+  else
     group_finalize<float><<<flat, PT_THREADS, 0, st>>>(n, table, (float*)out);
-  }
   return (int)cudaGetLastError();
 }

@@ -51,7 +51,7 @@
 enum { H_NLEAVES, H_NFILT, H_MAIN, H_NVAL, H_NSLOT, H_NACC, H_NGCOL, H_OUTW,
        H_NPARAM, H_LEAF, H_FILT, H_VAL, H_SLOT, H_GCOL, H_ACC, H_NCOL,
        H_COLDT, H_LUTC, H_LEN, H_TBHI, H_TBLO, H_TBPRM, H_TBPAD };
-enum { L_RANGE, L_NEQ, L_LUT, L_VRANGE, L_VRANGE64 };
+enum { L_RANGE, L_NEQ, L_LUT, L_VRANGE, L_VRANGE64, L_MASK };
 enum { F_LEAF, F_AND, F_OR, F_NOT };
 enum { V_COL, V_LIT, V_ADD, V_SUB, V_MUL, V_DIV, V_NEG, V_IDS };
 enum { S_COUNT, S_SUM, S_SUMSQ, S_SUM3, S_SUM4, S_MIN, S_MAX, S_ISUM,
@@ -222,7 +222,13 @@ __device__ void stage_block(const Args& a, const double* params,
   __syncthreads();
 }
 
-template <typename M>
+// kMask admits L_MASK, a CLP leaf: K7's [S, D] match mask (csrc/
+// clp_match.cu), read like a LUT of width D at the doc's own index, each
+// member its own rows. Only a program holding such a leaf takes that
+// instantiation (`has_mask_leaf`): the case cost K1's other programs 21%
+// on an H100 (80GB HBM3, 700 W; kernel_ab.py), as K4's V_IDS case would
+// have cost K1-K3 (kIds below).
+template <bool kMask, typename M>
 __device__ __forceinline__ bool eval_leaf(const Args& a, const Shared& sh,
                                           int li, M mb, long long i) {
   const int* L = sh.code + sh.code[H_LEAF] + li * LEAF_W;
@@ -244,6 +250,12 @@ __device__ __forceinline__ bool eval_leaf(const Args& a, const Shared& sh,
       return v >= p[0] && v <= p[1];
     }
     default: {  // L_VRANGE64: lexicographic compare on (hi, lo) planes
+      if constexpr (kMask) {
+        if (L[0] == L_MASK) {
+          const int C = sh.code[sh.code[H_LUTC] + L[4]];
+          return a.luts[L[4]][mb.row() * C + i % C] != 0;
+        }
+      }
       const double hi = load_col(a, sh.code, mb.u(), L[1], i);
       const double lo = load_col(a, sh.code, mb.u(), L[2], i);
       const bool ge = hi > p[0] || (hi == p[0] && lo >= p[1]);
@@ -253,9 +265,17 @@ __device__ __forceinline__ bool eval_leaf(const Args& a, const Shared& sh,
   }
 }
 
+// Whether a program holds a CLP mask leaf (L_MASK), on the host: its
+// launch takes the kernels' kMask instantiation.
+static inline bool has_mask_leaf(const int* code) {
+  for (int l = 0; l < code[H_NLEAVES]; ++l)
+    if (code[code[H_LEAF] + l * LEAF_W] == L_MASK) return true;
+  return false;
+}
+
 // Filter f over doc i. The bool stack is a shift register: bit 0 is the
 // top, so depth is bounded by 32 (program.py MAX_FILTER_DEPTH).
-template <typename M>
+template <bool kMask, typename M>
 __device__ bool eval_filter(const Args& a, const Shared& sh, int f, M mb,
                             long long i) {
   const int* F = sh.code + sh.code[H_FILT] + 2 * f;
@@ -265,7 +285,8 @@ __device__ bool eval_filter(const Args& a, const Shared& sh, int f, M mb,
   for (int k = 0; k < n; ++k) {
     const int op = ins[2 * k];
     if (op == F_LEAF) {
-      st = (st << 1) | (eval_leaf(a, sh, ins[2 * k + 1], mb, i) ? 1u : 0u);
+      st = (st << 1) | (eval_leaf<kMask>(a, sh, ins[2 * k + 1], mb, i) ? 1u
+                                                                       : 0u);
     } else if (op == F_NOT) {
       st ^= 1u;
     } else {
@@ -319,7 +340,7 @@ struct DocCache {
   unsigned fdone, fval, vdone;
 };
 
-template <typename M>
+template <bool kMask, typename M>
 __device__ __forceinline__ bool slot_passes(const Args& a, const Shared& sh,
                                             int f, M mb, long long i,
                                             DocCache& c) {
@@ -327,7 +348,7 @@ __device__ __forceinline__ bool slot_passes(const Args& a, const Shared& sh,
   const unsigned bit = 1u << f;
   if (!(c.fdone & bit)) {
     c.fdone |= bit;
-    if (eval_filter(a, sh, f, mb, i)) c.fval |= bit;
+    if (eval_filter<kMask>(a, sh, f, mb, i)) c.fval |= bit;
   }
   return (c.fval & bit) != 0;
 }

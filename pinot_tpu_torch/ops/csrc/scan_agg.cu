@@ -29,7 +29,7 @@
 // K1 skips them and leaves their output columns to K3.
 #include "interp.cuh"
 
-template <typename T, typename M>
+template <typename T, typename M, bool kMask>
 __global__ void __launch_bounds__(PT_THREADS)
 scan_agg_kernel(const __grid_constant__ Args a, const double* __restrict__ params,
                 const int* __restrict__ num_docs, int S, int D, int P,
@@ -55,7 +55,7 @@ scan_agg_kernel(const __grid_constant__ Args a, const double* __restrict__ param
   for (int d = start + threadIdx.x; d < end; d += blockDim.x) {
     const long long i = base + d;
     if (!doc_valid(a, mb, i)) continue;  // superseded by an upsert
-    if (mainf >= 0 && !eval_filter(a, sh, mainf, mb, i)) continue;
+    if (mainf >= 0 && !eval_filter<kMask>(a, sh, mainf, mb, i)) continue;
     acc[0] += 1.0;  // matched count
     DocCache c = {0u, 0u, 0u};
     T vc[PT_MAX_VALUES];
@@ -63,7 +63,7 @@ scan_agg_kernel(const __grid_constant__ Args a, const double* __restrict__ param
       const int* sl = slots + j * SLOT_W;
       const int op = sl[0], v = sl[1], w = sl[3];
       if (is_sketch(op)) continue;  // K3's slots
-      if (!slot_passes(a, sh, sl[2], mb, i, c)) continue;
+      if (!slot_passes<kMask>(a, sh, sl[2], mb, i, c)) continue;
       if (op == S_COUNT) {
         acc[w] += 1.0;
       } else if (op == S_ISUM) {
@@ -141,8 +141,12 @@ template <typename T, typename M>
 static void launch(const Args* a, const double* params, const int* num_docs,
                    int S, int D, int P, int nb, int B, double* partial,
                    T* out, cudaStream_t st) {
-  scan_agg_kernel<T, M><<<dim3(nb * B, S), PT_THREADS, 0, st>>>(
-      *a, params, num_docs, S, D, P, B, partial);
+  if (has_mask_leaf(a->code))
+    scan_agg_kernel<T, M, true><<<dim3(nb * B, S), PT_THREADS, 0, st>>>(
+        *a, params, num_docs, S, D, P, B, partial);
+  else
+    scan_agg_kernel<T, M, false><<<dim3(nb * B, S), PT_THREADS, 0, st>>>(
+        *a, params, num_docs, S, D, P, B, partial);
   scan_finalize<T><<<dim3(a->code[H_NACC], S, B), PT_THREADS, 0, st>>>(
       *a, partial, nb, out);
 }

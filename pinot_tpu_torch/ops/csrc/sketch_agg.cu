@@ -58,7 +58,7 @@ __device__ __forceinline__ int sketch_width(const int* sl) {
   return sl[0] == S_HLL ? (1 << sl[4]) : sl[4];
 }
 
-template <typename T, typename M>
+template <typename T, typename M, bool kMask>
 __global__ void __launch_bounds__(PT_THREADS)
 sketch_agg_kernel(const __grid_constant__ Args a,
                   const double* __restrict__ params,
@@ -94,7 +94,7 @@ sketch_agg_kernel(const __grid_constant__ Args a,
     const int d = d0 + threadIdx.x;
     const long long i = base + d;
     if (d < end && doc_valid(a, mb, i) &&
-        (mainf < 0 || eval_filter(a, sh, mainf, mb, i))) {
+        (mainf < 0 || eval_filter<kMask>(a, sh, mainf, mb, i))) {
       ++matched;
       DocCache c = {0u, 0u, 0u};
       T vc[PT_MAX_VALUES];
@@ -102,7 +102,7 @@ sketch_agg_kernel(const __grid_constant__ Args a,
         const int* sl = slots + j * SLOT_W;
         const int op = sl[0];
         if (!is_sketch(op)) continue;  // K1's slots
-        if (!slot_passes(a, sh, sl[2], mb, i, c)) continue;
+        if (!slot_passes<kMask>(a, sh, sl[2], mb, i, c)) continue;
         const int sm = sl[3];
         if (op == S_HLL) {
           const unsigned hi = (unsigned)((const int*)a.cols[mb.u()][sl[6]])[i];
@@ -188,21 +188,21 @@ sketch_finalize(const __grid_constant__ Args a,
   }
 }
 
-template <typename T, typename M>
+template <typename T, typename M, bool kMask>
 static int launch(const Args* a, const double* params, const int* num_docs,
                   int S, int D, int P, int nb, int B, int smem_words,
                   unsigned* partial, unsigned* gtab, T* out,
                   cudaStream_t st) {
   const size_t dyn = (size_t)smem_words * sizeof(unsigned);
   cudaError_t e = cudaFuncSetAttribute(
-      sketch_agg_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dyn);
+      sketch_agg_kernel<T, M, kMask>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (e != cudaSuccess) return (int)e;
   const int outw = a->code[H_OUTW];
   e = cudaMemsetAsync(gtab, 0, (size_t)B * S * outw * sizeof(unsigned),
                       st);
   if (e != cudaSuccess) return (int)e;
-  sketch_agg_kernel<T, M><<<dim3(nb * B, S), PT_THREADS, dyn, st>>>(
+  sketch_agg_kernel<T, M, kMask><<<dim3(nb * B, S), PT_THREADS, dyn, st>>>(
       *a, params, num_docs, S, D, P, B, smem_words, partial, gtab);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -210,6 +210,19 @@ static int launch(const Args* a, const double* params, const int* num_docs,
                        PT_THREADS, 0, st>>>(*a, partial, gtab, nb,
                                             smem_words, out);
   return (int)cudaGetLastError();
+}
+
+// K3 in the instantiation the program needs (a CLP mask leaf or not).
+template <typename T, typename M>
+static int launch_for(const Args* a, const double* params,
+                      const int* num_docs, int S, int D, int P, int nb, int B,
+                      int smem_words, unsigned* partial, unsigned* gtab,
+                      T* out, cudaStream_t st) {
+  return has_mask_leaf(a->code)
+             ? launch<T, M, true>(a, params, num_docs, S, D, P, nb, B,
+                                  smem_words, partial, gtab, out, st)
+             : launch<T, M, false>(a, params, num_docs, S, D, P, nb, B,
+                                   smem_words, partial, gtab, out, st);
 }
 
 // Launches K3 and its finalize pass on `stream` for B members. params:
@@ -228,16 +241,17 @@ extern "C" int pt_sketch_agg(const Args* a, const double* params,
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   const bool one = B == 1 && a->set_of[0] == 0;
-  if (f64 && one)
-    return launch<double, Single>(a, params, num_docs, S, D, P, nb, B,
-                                  smem_words, partial, gtab, (double*)out,
-                                  st);
   if (f64)
-    return launch<double, Mem>(a, params, num_docs, S, D, P, nb, B,
-                               smem_words, partial, gtab, (double*)out, st);
-  if (one)
-    return launch<float, Single>(a, params, num_docs, S, D, P, nb, B,
-                                 smem_words, partial, gtab, (float*)out, st);
-  return launch<float, Mem>(a, params, num_docs, S, D, P, nb, B, smem_words,
-                            partial, gtab, (float*)out, st);
+    return one ? launch_for<double, Single>(a, params, num_docs, S, D, P, nb,
+                                            B, smem_words, partial, gtab,
+                                            (double*)out, st)
+               : launch_for<double, Mem>(a, params, num_docs, S, D, P, nb, B,
+                                         smem_words, partial, gtab,
+                                         (double*)out, st);
+  return one ? launch_for<float, Single>(a, params, num_docs, S, D, P, nb, B,
+                                         smem_words, partial, gtab,
+                                         (float*)out, st)
+             : launch_for<float, Mem>(a, params, num_docs, S, D, P, nb, B,
+                                      smem_words, partial, gtab, (float*)out,
+                                      st);
 }

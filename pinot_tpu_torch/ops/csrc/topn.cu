@@ -89,7 +89,7 @@ __global__ void topn_init(long long* __restrict__ state, int R, int k) {
   st[ST_SLOT] = 0;
 }
 
-template <typename T, typename M>
+template <typename T, typename M, bool kMask>
 __global__ void __launch_bounds__(PT_THREADS)
 topn_keys(const __grid_constant__ Args a, const double* __restrict__ params,
           const int* __restrict__ num_docs, int S, int D, int P, int nmem,
@@ -116,7 +116,7 @@ topn_keys(const __grid_constant__ Args a, const double* __restrict__ params,
     if (d < end) {
       const long long i = base + d;
       hit = d < n && doc_valid(a, mb, i) &&
-            (mainf < 0 || eval_filter(a, sh, mainf, mb, i));
+            (mainf < 0 || eval_filter<kMask>(a, sh, mainf, mb, i));
       K key = unmatched;
       if (hit) {
         T sc;
@@ -351,8 +351,12 @@ static int launch(const Args* a, const double* params, const int* num_docs,
   PT_CHECK();
   cudaMemsetAsync(hist, 0, sizeof(int) * 256 * (size_t)R, st);
   PT_CHECK();
-  topn_keys<T, Mem><<<dim3(nb * B, S), PT_THREADS, 0, st>>>(
-      *a, params, num_docs, S, D, P, B, asc, keys, state);
+  if (has_mask_leaf(a->code))
+    topn_keys<T, Mem, true><<<dim3(nb * B, S), PT_THREADS, 0, st>>>(
+        *a, params, num_docs, S, D, P, B, asc, keys, state);
+  else
+    topn_keys<T, Mem, false><<<dim3(nb * B, S), PT_THREADS, 0, st>>>(
+        *a, params, num_docs, S, D, P, B, asc, keys, state);
   PT_CHECK();
   for (int shift = 8 * (int)sizeof(K) - 8; shift >= 0; shift -= 8) {
     topn_hist<K><<<grid, PT_THREADS, 0, st>>>(keys, D, shift, state, hist);

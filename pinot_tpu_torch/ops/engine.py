@@ -50,9 +50,17 @@ it into the doc validity. A time-series leaf (`GROUP BY floor((t - start)
 / step), tags` over a `t` window, JAX :282-292, :1650-1690) fuses the
 bucket id into K2's dense key as its lowest digit
 (ops/timeseries_device.py), its start / step / count in per-segment
-`tb:*` parameter cells beside the timestamp's split planes. No CLP,
-vector, compact group keys or mesh. The rules it keeps from the JAX
-engine:
+`tb:*` parameter cells beside the timestamp's split planes. A LIKE or
+REGEXP_LIKE over a CLP log column (JAX `_clp_leaf` :704,
+`_build_filter_ir` :1905-1911, staging :2038-2071 and :2199-2207) plans
+as a 'clp' leaf: the pattern compiles on the host against each segment's
+logtype dictionary (ops/clp_device.py), the column stages as its
+logtype-id and variable-slot pseudo-columns through the three levels,
+the leaf's tables through the params cache, and K7 `clp_match` computes
+the leaf's per-doc mask ahead of K1 / K2 / K4; a pattern the planner
+cannot push raises NotOffloadable with its reason, counted as
+`clp_fallback`. No vector, compact group keys or mesh. The rules it keeps
+from the JAX engine:
 cardinality-aware i8/i16/i32 id staging, power-of-two doc padding masked by
 `num_docs`, the per-segment doc cap, the group-count and group-result-size
 caps, the float32 precision guard, the exact-int-sum (isum) admission, the
@@ -81,8 +89,8 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.ops import dispatch as dispatch_mod
-from pinot_tpu_torch.ops import (kernels, program, startree_device,
-                                 timeseries_device)
+from pinot_tpu_torch.ops import (clp_device, kernels, program,
+                                 startree_device, timeseries_device)
 from pinot_tpu_torch.ops import residency as residency_mod
 #: most rows a selection fetches per segment (limit + offset)
 from pinot_tpu_torch.ops._cuda import TOPN_MAX_K
@@ -127,7 +135,13 @@ def _pow2(n: int, floor: int = 128) -> int:
 
 
 class NotOffloadable(NotImplementedError):
-    """The query or segment batch needs a feature this slice lacks."""
+    """The query or segment batch needs a feature this slice lacks.
+    `reason`: the structured fallback reason where the JAX engine meters
+    one (a CLP pattern's, ops/clp_device.FALLBACK_REASONS), else None."""
+
+    def __init__(self, message: str, reason: Optional[str] = None):
+        super().__init__(message)
+        self.reason = reason
 
 
 class TorchOperatorExecutor:
@@ -200,8 +214,9 @@ class TorchOperatorExecutor:
         self._host_bytes = 0
         self._params_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         #: the JAX engine's meters, keyed (name, reason):
-        #: ("startree_served", None), ("startree_fallback", <reason>) and
-        #: ("timeseries_leaf_device", None)
+        #: ("startree_served", None), ("startree_fallback", <reason>),
+        #: ("timeseries_leaf_device", None), ("clp_served", None) and
+        #: ("clp_fallback", <reason>)
         self.meters: Counter = Counter()
         self._dispatcher = dispatch_mod.KernelDispatcher(
             config=cfg, labels=metrics_labels)
@@ -249,8 +264,9 @@ class TorchOperatorExecutor:
 
     def meter(self, name: str, reason: Optional[str] = None) -> int:
         """A meter's count: `startree_served`, `timeseries_leaf_device`
-        (time-series leaves staged with the fused bucket), or
-        `startree_fallback` with its reason."""
+        (time-series leaves staged with the fused bucket), `clp_served`
+        (stagings of a plan with a CLP leaf), or `startree_fallback` /
+        `clp_fallback` with its reason."""
         return self.meters[(name, reason)]
 
     def _aggregation_missing(self, ctx: QueryContext) -> Optional[str]:
@@ -580,8 +596,6 @@ class TorchOperatorExecutor:
             m = seg0.metadata.columns[col]
             if not m.single_value:
                 return False
-            if "clp_forward" in m.indexes:
-                raise NotOffloadable(f"CLP log column {col}")
             if m.has_dictionary:
                 dict_cols.add(col)
                 return True
@@ -769,6 +783,7 @@ class TorchOperatorExecutor:
             raw64_cols=tuple(sorted(raw64)),
             valid_mask=_needs_valid_mask(segments),
             tbucket=tbucket,
+            clp_cols=clp_device.staged_cols(leaves),
         )
         return plan, slots_of_fn
 
@@ -829,7 +844,8 @@ class TorchOperatorExecutor:
             raw_cols=tuple(sorted(raw_cols - raw64)),
             raw64_cols=tuple(sorted(raw64)),
             mode="topn", topn_k=ctx.limit + ctx.offset,
-            topn_asc=bool(topn_asc), valid_mask=_needs_valid_mask(segments))
+            topn_asc=bool(topn_asc), valid_mask=_needs_valid_mask(segments),
+            clp_cols=clp_device.staged_cols(leaves))
 
     @staticmethod
     def _hll_columns(segments, ctx: QueryContext) -> set:
@@ -879,6 +895,11 @@ class TorchOperatorExecutor:
             return ("not", self._build_filter_ir(e.args[0], segments,
                                                  leaves, classify, force64))
         col = e.args[0].name
+        if clp_device.is_clp_column(segments[0], col):
+            # a CLP log column has no id or value block: LIKE / regex push
+            # down through their own leaf kind, against its pseudo-columns
+            leaves.append(self._clp_leaf(e, segments, col))
+            return ("leaf", len(leaves) - 1)
         if not classify(col):
             raise NotOffloadable(f"filter on column {col} with no device "
                                  "block")
@@ -902,6 +923,28 @@ class TorchOperatorExecutor:
                 kind = "vrange"
         leaves.append(DeviceLeaf(kind, col))
         return ("leaf", len(leaves) - 1)
+
+    def _clp_fallback(self, reason: str, what: str):
+        """Count a CLP pattern's fallback reason (JAX `_clp_fallback` :694)
+        and return the NotOffloadable that carries it."""
+        self.meters[("clp_fallback", reason)] += 1
+        return NotOffloadable(f"{what} over a CLP column ({reason})",
+                              reason=reason)
+
+    def _clp_leaf(self, e: Function, segments, col: str) -> DeviceLeaf:
+        """The 'clp' DeviceLeaf of a LIKE / REGEXP_LIKE over CLP column
+        `col` (JAX `_clp_leaf` :704). The pattern stays out of the leaf:
+        its constants resolve at staging, so queries whose patterns differ
+        share one program."""
+        if e.name not in ("like", "regexp_like") or len(e.args) != 2 \
+                or not isinstance(e.args[1], Literal):
+            raise self._clp_fallback("predicate", f"filter {e}")
+        pattern = str(e.args[1].value)
+        meta, reason = clp_device.plan_leaf(segments, col, pattern,
+                                            e.name == "like")
+        if meta is None:
+            raise self._clp_fallback(reason, f"{e.name} {pattern!r}")
+        return DeviceLeaf("clp", col, meta)
 
     @staticmethod
     def _int_filter_kind(segments, col: str) -> str:
@@ -1027,11 +1070,28 @@ class TorchOperatorExecutor:
                 return vals.astype(vdt)
             cols["val:" + col] = self._block(segments, S, D, col, "val",
                                              fetch_values, vdt)
+        for col, kd, ke in plan.clp_cols:
+            # a CLP column's pseudo-columns (JAX :2038-2071): the logtype
+            # id, kd dict-var slot ids, ke encoded-var (hi, lo) planes
+            fetches = [("clpid", clp_device.row_ids)]
+            fetches += [(f"clpdv{j}", lambda r, _j=j:
+                         clp_device.row_dict_slot(r, _j)) for j in range(kd)]
+            for j in range(ke):
+                fetches += [(f"clpehi{j}", lambda r, _j=j:
+                             clp_device.row_enc_hi(r, _j)),
+                            (f"clpelo{j}", lambda r, _j=j:
+                             clp_device.row_enc_lo(r, _j))]
+            for kind, fn in fetches:
+                cols[f"{kind}:{col}"] = self._block(
+                    segments, S, D, col, kind,
+                    lambda ds, _fn=fn: _fn(self._clp_reader(ds)), np.int32)
         if plan.valid_mask:
             cols["vmask"] = self._stage_vmask(
                 segments, S, D, stamps or _mask_stamps(segments))
         if plan.tbucket:
             self.meters[("timeseries_leaf_device", None)] += 1
+        if plan.clp_cols:
+            self.meters[("clp_served", None)] += 1
         # the per-query parameters through the params cache (JAX :2101-2117;
         # filters are frozen expression trees, so they key the resolved
         # literals exactly): a repeat query resolves and uploads nothing.
@@ -1073,6 +1133,12 @@ class TorchOperatorExecutor:
             self._params_cache.popitem(last=False)
         return cols, params, num_docs, D
 
+    def _clp_reader(self, ds):
+        reader = ds.clp_reader
+        if reader is None:
+            raise self._clp_fallback("staging", f"column {ds.metadata.name}")
+        return reader
+
     @staticmethod
     def _hist_bounds(segments, col: str) -> Tuple[float, float]:
         """(lo, span) of a histogram slot: the batch's metadata min and
@@ -1104,8 +1170,18 @@ class TorchOperatorExecutor:
                 seen.add(f)
                 leaf_exprs += _leaf_exprs(f)
         out: Dict[str, np.ndarray] = {}
+        padded: Dict[str, np.ndarray] = {}
         for i, (leaf, expr) in enumerate(zip(plan.leaves, leaf_exprs)):
-            if leaf.kind == "vrange":
+            if leaf.kind == "clp":
+                # the pattern's tables, padded to S_pad with never-match
+                # rows (JAX :2199-2207)
+                try:
+                    padded.update(clp_device.leaf_params(
+                        i, leaf, segments, str(expr.args[1].value),
+                        expr.name == "like", S_pad))
+                except ValueError:
+                    raise self._clp_fallback("staging", str(expr)) from None
+            elif leaf.kind == "vrange":
                 lo, hi = _vrange_bounds(expr, vdt)
                 out[f"leaf{i}:lo"] = np.full(S, lo, dtype=vdt)
                 out[f"leaf{i}:hi"] = np.full(S, hi, dtype=vdt)
@@ -1158,10 +1234,10 @@ class TorchOperatorExecutor:
                         table[s, p.ids] = False
                 out[f"leaf{i}:lut"] = table
         pad = S_pad - S
-        return {k: self._upload(np.concatenate(
-                    [v, np.zeros((pad,) + v.shape[1:], v.dtype)])
-                    if pad else v)
-                for k, v in out.items()}
+        out = {k: (np.concatenate([v, np.zeros((pad,) + v.shape[1:],
+                                               v.dtype)]) if pad else v)
+               for k, v in out.items()}
+        return {k: self._upload(v) for k, v in {**out, **padded}.items()}
 
     def _upload(self, arr: np.ndarray, column: bool = False) -> torch.Tensor:
         """A host array on the device, its bytes counted in the transfer

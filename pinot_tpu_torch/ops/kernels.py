@@ -36,6 +36,14 @@ with a member axis: CUDA inputs launch K1-K4 once for all members
 plain versions (`plain_batched_kernel`). The output carries a leading [B]
 axis.
 
+A CLP leaf (LIKE / REGEXP_LIKE over a CLP log column, ops/clp_device.py)
+is matched per doc by `clp_match`, the counterpart of JAX
+clp_device.py:700 `eval_leaf`, over the column's logtype and variable-slot
+pseudo-columns. On the card K7 (`ops/csrc/clp_match.cu`) computes every
+CLP leaf's [S, D] mask of a launch first (`with_clp_masks`: one launch of
+K7 per CLP column and launch, over all members of a batch), and K1 / K2 /
+K4 read each mask as the leaf's value (`leaf<i>:mask`).
+
 A plan over upsert segments (`plan.valid_mask`) ANDs the staged `vmask`
 block into the doc validity (JAX kernels.py:565, :604), in every plain
 version here and in K1-K4. A group-by plan with a fused time bucket
@@ -65,7 +73,7 @@ from pinot_tpu_torch.ops.program import (ISUM_PLANES, ISUM_U_BITS,
 
 __all__ = ["make_kernel", "plain_kernel", "make_topn_kernel", "topn_kernel",
            "plain_batched_kernel", "batched_kernel", "row_assemble",
-           "assemble_rows",
+           "assemble_rows", "clp_match", "with_clp_masks",
            "order_keys", "from_jax_staged", "slot_width", "is_sketch",
            "trace_count", "trace_count_by_plan", "plan_fingerprint",
            "ISUM_PLANES", "ISUM_U_BITS"]
@@ -120,7 +128,111 @@ def eval_filter(node, plan: DevicePlan, cols: Tensors,
         ge = (vhi > a_hi) | ((vhi == a_hi) & (vlo >= a_lo))
         le = (vhi < b_hi) | ((vhi == b_hi) & (vlo <= b_lo))
         return ge & le
+    if leaf.kind == "clp":
+        return clp_match(i, leaf, cols, params)
     raise ValueError(f"unknown leaf kind {leaf.kind}")
+
+
+# ---------------------------------------------------------------------------
+# CLP leaves (JAX clp_device.py:700 `eval_leaf`, :757 `make_match_kernel`)
+# ---------------------------------------------------------------------------
+
+def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[s, idx[s, d]] per segment row, idx clipped into the row (a
+    staged index is always inside it; K7 clips alike)."""
+    return torch.gather(table, 1, idx.long().clamp(0, table.shape[1] - 1))
+
+
+def clp_match(i: int, leaf, cols: Tensors, params: Tensors) -> torch.Tensor:
+    """The plain version of K7: the [S, D] bool match of CLP leaf i.
+    Padded docs give whatever their zero rows give (as in the JAX kernel):
+    the doc validity clips them.
+
+    Mode 'a': the logtype LUT at the doc's logtype id, OR the dict-var LUT
+    at each of its Kd dict-var slots. Mode 'b': each of the segment's
+    conditions is evaluated once into a bit of `ok` (padding, ck = 0,
+    holds; ck = 1 an encoded-var equality on the (hi, lo) pair of slot
+    cs; ck = 2 the dict-var bank LUT cl at the dict-var of slot cs), and
+    the doc matches when its logtype is a candidate or some group g has
+    glt[g] == its logtype and every member condition of g holds (gmem[g]
+    a subset of ok: the JAX f32 einsum counts the failures, exactly, at
+    these sizes)."""
+    mode, kd, ke = leaf.meta
+    col = leaf.column
+    ids = cols[f"clpid:{col}"]
+    match = _take(params[f"leaf{i}:alut"], ids)
+    if mode == "a":
+        for j in range(kd):
+            match = match | _take(params[f"leaf{i}:dvlut"],
+                                  cols[f"clpdv{j}:{col}"])
+        return match
+    glt = params[f"leaf{i}:glt"]
+    gmem = params[f"leaf{i}:gmem"]
+    ck = params[f"leaf{i}:ck"]
+    cs = params[f"leaf{i}:cs"]
+    S, NC = ck.shape
+    rows = torch.arange(S, device=ids.device)
+    if ke:
+        ehi = torch.stack([cols[f"clpehi{j}:{col}"] for j in range(ke)], 1)
+        elo = torch.stack([cols[f"clpelo{j}:{col}"] for j in range(ke)], 1)
+    if kd:
+        dv = torch.stack([cols[f"clpdv{j}:{col}"] for j in range(kd)], 1)
+        dlut = params[f"leaf{i}:dlut"]
+    ok = torch.zeros(ids.shape, dtype=torch.int64, device=ids.device)
+    for c in range(NC):
+        k = ck[:, c, None]
+        hold = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
+        if ke:
+            j = cs[:, c].long().clamp(0, ke - 1)
+            enc = (ehi[rows, j] == params[f"leaf{i}:chi"][:, c, None]) \
+                & (elo[rows, j] == params[f"leaf{i}:clo"][:, c, None])
+            hold = torch.where(k == 1, enc, hold)
+        if kd:
+            j = cs[:, c].long().clamp(0, kd - 1)
+            bank = dlut[rows, params[f"leaf{i}:cl"][:, c].long().clamp(
+                0, dlut.shape[1] - 1)]
+            hold = torch.where(k == 2, _take(bank, dv[rows, j]), hold)
+        ok |= hold.long() << c
+    need = (gmem.long() << torch.arange(NC, device=ids.device)).sum(-1)
+    grp = torch.zeros_like(match)
+    for g in range(glt.shape[1]):
+        lt = glt[:, g, None]
+        grp |= (lt >= 0) & (ids == lt) \
+            & ((ok & need[:, g, None]) == need[:, g, None])
+    return match | grp
+
+
+def clp_leaves(plan: DevicePlan) -> Dict[str, List[Tuple[int, object]]]:
+    """The plan's CLP leaves by column: column -> [(leaf index, leaf)]."""
+    out: Dict[str, List[Tuple[int, object]]] = {}
+    for i, leaf in enumerate(plan.leaves):
+        if leaf.kind == "clp":
+            out.setdefault(leaf.column, []).append((i, leaf))
+    return out
+
+
+def with_clp_masks(plan: DevicePlan, col_sets: Sequence[Tensors],
+                   plist: Sequence[Tensors], idx: Sequence[int], D: int,
+                   batched: bool) -> List[Tensors]:
+    """Each member's parameters with every CLP leaf's match mask
+    (`leaf<i>:mask`, [S, D] bool) added, from launches of K7 on the card:
+    one per CLP column, over all members and up to
+    `_cuda.CLP_MAX_LEAVES` leaves of that column. Member m's masks are
+    consecutive rows of one output, so K1-K4's launch reads them in place.
+    CUDA tensors only."""
+    by_col = clp_leaves(plan)
+    if not by_col:
+        return list(plist)
+    out = [dict(p) for p in plist]
+    for leaves in by_col.values():
+        for c0 in range(0, len(leaves), _cuda.CLP_MAX_LEAVES):
+            chunk = leaves[c0:c0 + _cuda.CLP_MAX_LEAVES]
+            masks = _cuda.clp_match_batched(chunk, col_sets, plist, idx, D,
+                                            batched=batched)
+            for l, (i, _leaf) in enumerate(chunk):
+                for m, p in enumerate(out):
+                    p[f"leaf{i}:mask"] = masks[l, m]
+    return out
 
 
 def clamp_to(arr: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -471,6 +583,8 @@ def make_kernel(plan: DevicePlan, value_dtype: torch.dtype = torch.float32):
         if G and G != plan.num_groups:
             raise ValueError("compact group keys are not in this port yet")
         if num_docs.device.type == "cuda":
+            params = with_clp_masks(plan, [cols], [params], [0], D,
+                                    batched=False)[0]
             if plan.num_groups:
                 return _cuda.group_agg(plan, cols, params, num_docs, D,
                                        value_dtype)
@@ -559,6 +673,8 @@ def make_topn_kernel(plan: DevicePlan,
     def kernel(cols: Tensors, params: Tensors, num_docs: torch.Tensor,
                D: int) -> torch.Tensor:
         if num_docs.device.type == "cuda":
+            params = with_clp_masks(plan, [cols], [params], [0], D,
+                                    batched=False)[0]
             return _cuda.topn(plan, cols, params, num_docs, D, value_dtype)
         if num_docs.device.type != "cpu":
             raise ValueError(f"no kernel for device {num_docs.device}")
@@ -602,10 +718,10 @@ def batched_kernel(plan: DevicePlan,
     factories (kernels.py:793 `make_batched_kernel`, :823
     `make_batched_dedup_kernel`, :858 `make_batched_topn_kernel`):
     broadcast is U = 1, stacked idx = 0..B-1, dedup a member-to-set map.
-    CUDA inputs launch the plan's kernels once for all members (K1 / K3 /
-    both, K2 or K4 with the member axis), CPU inputs run the plain
-    version. The kernels take B at run time, so nothing is built per
-    member count."""
+    CUDA inputs launch the plan's kernels once for all members (K7 first
+    for a plan with CLP leaves, then K1 / K3 / both, K2 or K4 with the
+    member axis), CPU inputs run the plain version. The kernels take B at
+    run time, so nothing is built per member count."""
     if value_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"value dtype {value_dtype} is not float32/64")
     plain = plain_batched_kernel(plan, value_dtype)
@@ -622,6 +738,7 @@ def batched_kernel(plan: DevicePlan,
             return plain(col_sets, plist, ndlist, idx, D)
         if device.type != "cuda":
             raise ValueError(f"no kernel for device {device}")
+        plist = with_clp_masks(plan, col_sets, plist, idx, D, batched=True)
         args = (plan, col_sets, plist, ndlist, idx, D, value_dtype)
         if plan.mode == "topn":
             return _cuda.topn_batched(*args)
@@ -706,9 +823,11 @@ def from_jax_staged(cols: Dict[str, np.ndarray], params: Dict[str, np.ndarray],
     """The JAX engine's staged `cols` / `params` / `num_docs` (as numpy
     arrays, read-only ones included) as the port's tensors, keys and dtypes
     unchanged: id blocks, value blocks, `valhi:`/`vallo:` split planes,
-    leaf parameters and `slot{j}:hlo/hscale` histogram bounds alike, and
-    the star-tree leg's `stid:`/`sthi:`/`stlo:`/`stval:` blocks and `sel`
-    mask."""
+    leaf parameters and `slot{j}:hlo/hscale` histogram bounds alike, the
+    star-tree leg's `stid:`/`sthi:`/`stlo:`/`stval:` blocks and `sel`
+    mask, and a CLP leaf's `clpid:` / `clpdv<j>:` / `clpehi<j>:` /
+    `clpelo<j>:` pseudo-columns and `leaf<i>:alut/dvlut/glt/gmem/ck/cs/
+    chi/clo/cl/dlut` parameters (bool LUTs stay bool, `ck` int8)."""
     def t(a):
         return torch.from_numpy(np.require(a, requirements=["C", "W"])
                                 ).to(device)

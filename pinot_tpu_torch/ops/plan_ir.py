@@ -1,8 +1,8 @@
 """Device plan IR: the hashable structure a kernel program is compiled from.
 
 Counterpart of pinot_tpu/ops/plan_ir.py, trimmed to the scan-aggregate,
-dense group-by and top-N plans of the port, with the upsert validity mask
-and the fused time bucket (no compact group keys or CLP leaves yet).
+dense group-by and top-N plans of the port, with the upsert validity mask,
+the fused time bucket and CLP leaves (no compact group keys yet).
 
 Filter IR nodes (nested tuples, hashable):
     ('and', n1, n2, ...) / ('or', ...) / ('not', n)
@@ -16,6 +16,11 @@ Leaf kinds (resolved per-segment into parameter arrays, see ops/engine.py):
     'vrange64': lohi/lolo/hihi/hilo[S] int32 -- exact closed-interval compare
               on big-int columns staged as (hi, lo) i32 split planes
               (hi = v >> 24, lo = v & 0xFFFFFF)
+    'clp'   : LIKE/regex over a CLP log column, matched per doc against
+              the column's logtype / variable-slot pseudo-columns
+              (ops/clp_device.py compiles the pattern to per-segment match
+              plans; meta = (mode, Kd, Ke)). K7 computes the [S, D] match
+              mask, which K1 / K2 / K4 read as the leaf's value.
 
 Value IR (aggregation inputs, top-N order values):
     ('col', name)       -- staged value block of a column
@@ -34,8 +39,10 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class DeviceLeaf:
-    kind: str         # 'range' | 'neq' | 'lut' | 'vrange' | 'vrange64'
+    kind: str         # 'range' | 'neq' | 'lut' | 'vrange' | 'vrange64' | 'clp'
     column: str
+    #: kind-specific structure ('clp': (mode, Kd, Ke), ops/clp_device.py)
+    meta: tuple = ()
 
 
 @dataclass(frozen=True)
@@ -75,3 +82,8 @@ class DevicePlan:
     #: digit, count_pad its width; start / step / count ride the 'tb:*'
     #: parameter cells, so a sliding window keeps the plan (JAX :102)
     tbucket: Tuple = ()
+    #: CLP log columns staged as (name, Kd, Ke) pseudo-column families:
+    #: the logtype-id block, Kd dict-var slot blocks and Ke encoded-var
+    #: (hi, lo) i32 split slot blocks (ops/clp_device.py), filter-only
+    #: (JAX plan_ir :81)
+    clp_cols: Tuple[Tuple[str, int, int], ...] = ()

@@ -56,6 +56,11 @@ a window that slides keeps its program. The upsert validity mask is not in
 the program: a launch passes each column set's `vmask` block pointer
 (null: no mask) in `Args`.
 
+A CLP leaf (kind 'clp', L_MASK) reads no column: its value is K7's match
+mask (csrc/clp_match.cu), passed as the LUT `leaf<i>:mask` of width D and
+read at the doc's own index, so each member of a batch reads its own mask
+rows.
+
 Filter index 0 is the main WHERE tree when the plan has one
 (header H_MAIN = 0, else -1); agg FILTER trees follow. Each ungrouped
 kernel accumulator word ("acc") is one double per thread: word 0 is the
@@ -87,9 +92,9 @@ HEADER = 23
 LEAF_W, SLOT_W, ACC_W = 5, 8, 3
 
 # leaf kinds
-L_RANGE, L_NEQ, L_LUT, L_VRANGE, L_VRANGE64 = range(5)
+L_RANGE, L_NEQ, L_LUT, L_VRANGE, L_VRANGE64, L_MASK = range(6)
 _LEAF_KIND = {"range": L_RANGE, "neq": L_NEQ, "lut": L_LUT,
-              "vrange": L_VRANGE, "vrange64": L_VRANGE64}
+              "vrange": L_VRANGE, "vrange64": L_VRANGE64, "clp": L_MASK}
 # filter ops
 F_LEAF, F_AND, F_OR, F_NOT = range(4)
 # value ops
@@ -249,16 +254,17 @@ def compile_plan(plan: DevicePlan) -> Program:
             a = col("ids:" + leaf.column)
         elif kind == L_VRANGE:
             a = col("val:" + leaf.column)
-        else:
+        elif kind == L_VRANGE64:
             a = col("valhi:" + leaf.column)
             b = col("vallo:" + leaf.column)
         names = {L_RANGE: ("lo", "hi"), L_NEQ: ("idx",), L_LUT: (),
                  L_VRANGE: ("lo", "hi"),
-                 L_VRANGE64: ("lohi", "lolo", "hihi", "hilo")}[kind]
+                 L_VRANGE64: ("lohi", "lolo", "hihi", "hilo"),
+                 L_MASK: ()}[kind]
         params += [(f"leaf{i}:{n}", None) for n in names]
-        if kind == L_LUT:
+        if kind in (L_LUT, L_MASK):
             lut = len(luts)
-            luts.append(f"leaf{i}:lut")
+            luts.append(f"leaf{i}:lut" if kind == L_LUT else f"leaf{i}:mask")
         leaves.append((kind, a, b, p, lut))
 
     instr: List[Tuple[int, int]] = []

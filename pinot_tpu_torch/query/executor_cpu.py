@@ -10,6 +10,9 @@ project the rows its top-N kernel picked, and to answer a selection with
 neither a filter nor an ORDER BY from the first docs of each segment, as
 the JAX engine leaves that shape to its host executor (ref
 SelectionOnlyOperator's early exit), skipping docs an upsert superseded.
+A CLP log column projects only the docs asked for, through its reader's
+random access: `values()` would decode the whole column (JAX loader.py
+:85-90), and the rows are the same either way.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ def evaluate(expr: Expression, seg: ImmutableSegment,
     if isinstance(expr, Literal):
         return expr.value
     if isinstance(expr, Identifier):
-        return seg.data_source(expr.name).values()[doc_idx]
+        return _column_values(seg, expr.name, doc_idx)
     if isinstance(expr, Function) and expr.name in _BINARY_NUMERIC \
             and len(expr.args) == 2:
         with np.errstate(all="ignore"):
@@ -47,6 +50,19 @@ def evaluate(expr: Expression, seg: ImmutableSegment,
                 evaluate(expr.args[0], seg, doc_idx),
                 evaluate(expr.args[1], seg, doc_idx))
     raise NotImplementedError(f"transform {expr} is not in this port yet")
+
+
+def _column_values(seg: ImmutableSegment, name: str,
+                   doc_idx: np.ndarray) -> np.ndarray:
+    """Column `name` at the docs `doc_idx`; a CLP column decodes only
+    those docs (ref CLPForwardIndexReaderV2.getString)."""
+    ds = seg.data_source(name)
+    reader = ds.clp_reader
+    if reader is None:
+        return ds.values()[doc_idx]
+    out = np.empty(len(doc_idx), dtype=object)
+    out[:] = [reader.get(int(d)) for d in doc_idx]
+    return out
 
 
 def _project_rows(seg: ImmutableSegment, exprs: List[Expression],
@@ -58,7 +74,7 @@ def _project_rows(seg: ImmutableSegment, exprs: List[Expression],
     for e in exprs:
         if isinstance(e, Identifier) and e.name == "*":
             for name in seg.column_names:
-                cols.append(seg.data_source(name).values()[doc_idx])
+                cols.append(_column_values(seg, name, doc_idx))
             continue
         vals = np.asarray(evaluate(e, seg, doc_idx))
         if vals.ndim == 0:

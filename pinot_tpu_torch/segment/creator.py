@@ -3,10 +3,11 @@
 Counterpart of pinot_tpu/segment/creator.py (ref pinot-segment-local
 SegmentIndexCreationDriverImpl.java:93,231), trimmed: single-value columns
 without nulls, written as a sorted dictionary plus a fixed-bit forward index,
-or as a raw chunked forward index for no-dictionary columns, plus the
+or as a raw chunked forward index for no-dictionary columns, CLP log
+columns as their logtype / variable split (segment/clp.py), plus the
 table's star-trees (segment/startree.py). The on-disk layout is the JAX
 package's, so its loader reads these segments; other auxiliary indexes
-(inverted, range, sorted, bloom, CLP, ...) are not written.
+(inverted, range, sorted, bloom, ...) are not written.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Dict, Sequence, Union
 import numpy as np
 
 from pinot_tpu_torch.models import DataType, FieldSpec, Schema, TableConfig
-from pinot_tpu_torch.segment import bitpack, fwd, index_types as it
+from pinot_tpu_torch.segment import bitpack, clp, fwd, index_types as it
 from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.meta import ColumnMetadata, SegmentMetadata
 from pinot_tpu_torch.segment.startree import build_star_trees
@@ -32,7 +33,8 @@ class SegmentCreator:
 
     def build(self, columns: Dict[str, ColumnData], out_dir: str,
               segment_name: str) -> str:
-        """columns: name -> flat array or list of single values (no None).
+        """columns: name -> flat array or list of single values (no None);
+        a CLP column's messages may also come as their `clp.ClpParts`.
         Returns out_dir."""
         num_docs = _num_docs(columns, self.schema)
         buffers: Dict[str, bytes] = {}
@@ -71,11 +73,29 @@ class SegmentCreator:
     def _build_sv(self, spec: FieldSpec, data: ColumnData, num_docs: int,
                   buffers: Dict[str, bytes]) -> ColumnMetadata:
         name = spec.name
-        values = _as_array(spec, data)
         meta = ColumnMetadata(name=name, data_type=spec.data_type,
                               field_type=spec.field_type, single_value=True,
                               total_entries=num_docs)
         idx_cfg = self.table_config.indexing
+        if name in idx_cfg.clp_columns:
+            # CLP log columns: template / variable split instead of a
+            # forward index (JAX creator.py:99-112, ref
+            # CLPForwardIndexCreatorV2)
+            if spec.data_type.stored_type is not DataType.STRING:
+                raise ValueError(f"CLP column {name!r} must be STRING-typed")
+            if isinstance(data, clp.ClpParts):
+                parts = data
+                meta.cardinality = clp.parts_cardinality(parts)
+            else:
+                values = _as_array(spec, data)
+                parts = clp.encode(values)
+                meta.cardinality = len(set(values.tolist()))
+            meta.has_dictionary = False
+            buffers[index_key(name, it.CLP)] = clp.pack_compressed(
+                clp.write_clp_parts(parts), idx_cfg.compression)
+            meta.indexes.append(it.CLP)
+            return meta
+        values = _as_array(spec, data)
         if name not in idx_cfg.no_dictionary_columns:
             dictionary, dict_ids = Dictionary.build(spec.data_type, values)
             card = dictionary.cardinality

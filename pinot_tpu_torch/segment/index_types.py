@@ -8,3 +8,4 @@ DICTIONARY = "dictionary"
 FORWARD = "forward_index"
 STARTREE = "startree_index"
 STARTREE_DATA = "startree_data"
+CLP = "clp_forward"  # y-scope CLP log-compressed forward index

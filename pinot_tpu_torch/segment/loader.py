@@ -4,9 +4,9 @@ Counterpart of pinot_tpu/segment/loader.py (ref pinot-segment-local
 ImmutableSegmentLoader.java:57 and pinot-segment-spi DataSource.java:41),
 trimmed to what the scan-aggregate, selection and star-tree paths read:
 metadata, the dictionary, dictIds and materialized values of single-value
-columns, and the star-trees. Index families the port does not read
-(inverted, range, sorted, bloom, null vectors, CLP, JSON, text, vector,
-geo, map) stay on disk untouched.
+columns, CLP log columns (`clp_reader`), and the star-trees. Index
+families the port does not read (inverted, range, sorted, bloom, null
+vectors, JSON, text, vector, geo, map) stay on disk untouched.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from pinot_tpu_torch.models.field_spec import DataType
-from pinot_tpu_torch.segment import fwd, index_types as it
+from pinot_tpu_torch.segment import clp, fwd, index_types as it
 from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.meta import ColumnMetadata, SegmentMetadata
 from pinot_tpu_torch.segment.startree import StarTreeReader
@@ -32,6 +32,7 @@ class DataSource:
         self._dictionary: Optional[Dictionary] = None
         self._dict_ids: Optional[np.ndarray] = None
         self._values: Optional[np.ndarray] = None
+        self._clp: Optional[clp.CLPForwardIndexReader] = None
 
     @property
     def dictionary(self) -> Optional[Dictionary]:
@@ -55,11 +56,23 @@ class DataSource:
                                               m.bits_per_element)
         return self._dict_ids
 
+    @property
+    def clp_reader(self) -> Optional[clp.CLPForwardIndexReader]:
+        """A CLP log column's reader (ref DataSource CLP getter); None for
+        other columns."""
+        if self._clp is None and it.CLP in self.metadata.indexes:
+            self._clp = clp.CLPForwardIndexReader(clp.unpack_compressed(
+                self._seg.dir.get_buffer(self.metadata.name, it.CLP)))
+        return self._clp
+
     def values(self) -> np.ndarray:
-        """Whole-column materialized values (dictionary take or raw decode)."""
+        """Whole-column materialized values (dictionary take, raw decode,
+        or a CLP column's whole decode)."""
         if self._values is None:
             m = self.metadata
-            if m.has_dictionary:
+            if it.CLP in m.indexes:
+                self._values = self.clp_reader.decode_all()
+            elif m.has_dictionary:
                 self._values = self.dictionary.get_values(self.dict_ids())
             elif it.FORWARD not in m.indexes or not m.single_value:
                 raise NotImplementedError(

@@ -682,3 +682,194 @@ def test_time_bucket_batched_sliding_starts_on_card(card):
         for other in (ref[m], single):
             tp.assert_packed_equal(spec, other.cpu().numpy(),
                                    out[m].cpu().numpy(), scale, False)
+
+
+# ---------------------------------------------------------------------------
+# K7 clp_match and the CLP mask leaf of K1 / K2 / K4
+# ---------------------------------------------------------------------------
+
+CLP_METAS = [("a", 2, 0), ("a", 0, 0), ("b", 2, 2), ("b", 0, 1),
+             ("b", 3, 0), ("b", 1, 4)]
+
+
+def _clp_case(card, seed, meta, S, D, i=0, **kw):
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
+    mode, kd, ke = meta
+    cols, params = tp.clp_inputs(seed, mode, S, D, i=i, kd=kd, ke=ke, **kw)
+    tc, tpar, _ = tk.from_jax_staged(cols, params, np.zeros(S, np.int32),
+                                     device=card)
+    return DeviceLeaf("clp", "m", meta), tc, tpar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("meta", CLP_METAS, ids=str)
+@pytest.mark.parametrize("seed", range(3))
+def test_clp_match_matches_plain_on_card(card, seed, meta):
+    """K7 bit for bit against its plain version (ragged D: partial
+    tiles), one launch counted."""
+    S, D = 5, 3000 + 37 * seed
+    leaf, cols, params = _clp_case(card, seed, meta, S, D)
+    before = _cuda.CLP_MATCH.launches
+    out = _cuda.clp_match([(0, leaf)], cols, params, D)
+    torch.cuda.synchronize()
+    assert _cuda.CLP_MATCH.launches == before + 1
+    assert out.shape == (1, S, D) and out.dtype == torch.bool
+    assert torch.equal(out[0], tk.clp_match(0, leaf, cols, params))
+
+
+@pytest.mark.cuda
+def test_clp_match_two_leaves_one_launch_on_card(card):
+    """A mode 'a' and a mode 'b' leaf of one column in one launch, each
+    against its plain version."""
+    S, D = 4, 5000
+    la, cols, pa = _clp_case(card, 1, ("a", 2, 0), S, D, i=0)
+    lb, cols_b, pb = _clp_case(card, 2, ("b", 2, 2), S, D, i=3)
+    cols = {**cols_b, **{k: v for k, v in cols.items() if "dv" not in k}}
+    params = {**pa, **pb}
+    before = _cuda.CLP_MATCH.launches
+    out = _cuda.clp_match([(0, la), (3, lb)], cols, params, D)
+    torch.cuda.synchronize()
+    assert _cuda.CLP_MATCH.launches == before + 1
+    assert torch.equal(out[0], tk.clp_match(0, la, cols, params))
+    assert torch.equal(out[1], tk.clp_match(3, lb, cols, params))
+
+
+@pytest.mark.cuda
+def test_clp_match_batched_members_own_widths_on_card(card):
+    """K7's member axis: 5 members over 2 column sets, each member's tables
+    at its own widths (groups, conditions, banks, LUT width), against the
+    plain version and each member's single launch."""
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
+    S, D = 4, 4096
+    leaf = DeviceLeaf("clp", "m", ("b", 2, 2))
+    sets = [tk.from_jax_staged(tp.clp_inputs(10 + u, "b", S, D, vp=256)[0],
+                               {}, np.zeros(S, np.int32), device=card)[0]
+            for u in range(2)]
+    widths = [(8, 8, 4, 256), (4, 16, 2, 512), (64, 16, 8, 256),
+              (1, 1, 1, 256), (16, 4, 4, 1024)]
+    plist = [tk.from_jax_staged({}, tp.clp_inputs(
+        20 + m, "b", S, 8, gp=gp, ncp=ncp, nlp=nlp, vp=vp)[1],
+        np.zeros(S, np.int32), device=card)[1]
+        for m, (gp, ncp, nlp, vp) in enumerate(widths)]
+    idx = [0, 1, 1, 0, 1]
+    before = _cuda.CLP_MATCH.batched_launches
+    out = _cuda.clp_match_batched([(0, leaf)], sets, plist, idx, D)
+    torch.cuda.synchronize()
+    assert _cuda.CLP_MATCH.batched_launches == before + 1
+    for m, u in enumerate(idx):
+        ref = tk.clp_match(0, leaf, sets[u], plist[m])
+        assert torch.equal(out[0, m], ref), m
+        assert torch.equal(out[0, m], _cuda.clp_match([(0, leaf)], sets[u],
+                                                      plist[m], D)[0]), m
+
+
+def _clp_plan_case(card, kind, seed=5, S=5, D=3000):
+    """A K1 / K2 / K4 plan whose filter ORs a CLP leaf with a NOT of a
+    range leaf, over seeded columns."""
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
+    leaf, cols, params = _clp_case(card, seed, ("b", 2, 2), S, D)
+    rng = np.random.default_rng(seed)
+    cols["ids:a"] = torch.from_numpy(rng.integers(0, 7, (S, D)).astype(
+        np.int8)).to(card)
+    cols["val:x"] = torch.from_numpy(rng.uniform(-50, 50, (S, D)).astype(
+        np.float32)).to(card)
+    params["leaf1:lo"] = torch.full((S,), 2, dtype=torch.int32, device=card)
+    params["leaf1:hi"] = torch.full((S,), 4, dtype=torch.int32, device=card)
+    nd = torch.full((S,), D, dtype=torch.int32, device=card)
+    nd[-1] = 0
+    nd[0] = D - 123
+    spec = dict(filter_ir=("or", ("leaf", 0), ("not", ("leaf", 1))),
+                leaves=(leaf, DeviceLeaf("range", "a")),
+                value_irs=(("col", "x"),), agg_ops=(
+                    ("count", None, None), ("sum", 0, None),
+                    ("max", 0, None)),
+                dict_cols=("a",), raw_cols=("x",),
+                clp_cols=(("m", 2, 2),))
+    if kind == "group":
+        spec.update(group_cols=("a",), group_strides=(1,), num_groups=7)
+    if kind == "topn":
+        spec.update(agg_ops=(), mode="topn", topn_k=50, topn_asc=False)
+    return spec, cols, params, nd, D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["scan", "group", "topn"])
+def test_clp_leaf_through_scan_group_topn_on_card(card, kind):
+    """K7's mask read as a filter leaf by K1, K2 and K4 (one K7 launch
+    each), against the plain versions, and at B = 3 members on the member
+    axis (one K7 and one K1 / K2 / K4 batched launch)."""
+    spec, cols, params, nd, D = _clp_plan_case(card, kind)
+    plan = DevicePlan(**spec)
+    vdt = torch.float32
+    before = _cuda.CLP_MATCH.launches
+    if kind == "topn":
+        out = tk.make_topn_kernel(plan, vdt)(cols, params, nd, D)
+        ref = tk.topn_kernel(plan, cols, params, nd, D, vdt)
+        assert torch.equal(out, ref)
+    else:
+        out = tk.make_kernel(plan, vdt)(cols, params, nd, D)
+        ref = tk.plain_kernel(plan, vdt)(cols, params, nd, D)
+        scale = {j: v.cpu().numpy() for j, v in tk.abs_contributions(
+            plan, cols, params, nd, D).items()}
+        tp.assert_packed_equal(spec, ref.cpu().numpy(), out.cpu().numpy(),
+                               scale, False)
+    assert _cuda.CLP_MATCH.launches == before + 1
+    plist = [params] + [dict(params, **{
+        k: v for k, v in _clp_case(card, 40 + m, ("b", 2, 2), nd.shape[0],
+                                   D)[2].items()}) for m in range(2)]
+    b0 = _cuda.CLP_MATCH.batched_launches
+    out = tk.batched_kernel(plan, vdt)([cols], plist, [nd], [0, 0, 0], D)
+    ref = tk.plain_batched_kernel(plan, vdt)([cols], plist, [nd], [0, 0, 0],
+                                            D)
+    assert _cuda.CLP_MATCH.batched_launches == b0 + 1
+    if kind == "topn":
+        assert torch.equal(out, ref)
+        return
+    for m in range(3):
+        scale = {j: v.cpu().numpy() for j, v in tk.abs_contributions(
+            plan, cols, plist[m], nd, D).items()}
+        tp.assert_packed_equal(spec, ref[m].cpu().numpy(),
+                               out[m].cpu().numpy(), scale, False)
+
+
+@pytest.mark.cuda
+def test_clp_queries_on_card_equal_the_cpu_engine(card, tmp_path):
+    """CLP SQL through QueryExecutor on the card against device='cpu' on
+    the same segments (the port's creator and loader): counts, groups and
+    selected rows equal."""
+    from pinot_tpu_torch.models import (DataType, FieldSpec, FieldType,
+                                        Schema, TableConfig)
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    from pinot_tpu_torch.segment.creator import SegmentCreator
+    from pinot_tpu_torch.segment.loader import load_segment
+    msgs = ["INFO task 1234 started on host web-01 in 0.5s",
+            "ERROR task 1234 failed on host web-01: code=500",
+            "ERROR task 777 failed on host db-01: code=503",
+            "INFO user alice logged in from 10.0.0.1",
+            "disk /dev/sda1 at 93% capacity", "GC pause 45 ms in region r7"]
+    schema = Schema("logs", [FieldSpec("ts", DataType.LONG,
+                                       FieldType.DATE_TIME),
+                             FieldSpec("message", DataType.STRING)])
+    tc = TableConfig("logs")
+    tc.indexing.clp_columns = ["message"]
+    tc.indexing.compression = "GZIP"
+    segs = []
+    for si in range(3):
+        lines = [msgs[(i * 7 + si) % len(msgs)] for i in range(500 + 91 * si)]
+        out = str(tmp_path / f"s{si}")
+        SegmentCreator(tc, schema).build(
+            {"ts": np.arange(len(lines), dtype=np.int64), "message": lines},
+            out, f"s{si}")
+        segs.append(load_segment(out))
+    on_card = QueryExecutor(segs)
+    on_cpu = QueryExecutor(segs, device="cpu")
+    for sql in [
+            "SELECT COUNT(*) FROM logs WHERE message LIKE '%failed%'",
+            "SELECT COUNT(*) FROM logs WHERE message LIKE '%code=503'",
+            "SELECT COUNT(*) FROM logs WHERE message LIKE 'ERROR%' OR "
+            "message LIKE '%capacity' AND ts < 300",
+            "SELECT ts, COUNT(*) FROM logs WHERE message LIKE '%web-01%' "
+            "GROUP BY ts ORDER BY ts LIMIT 7",
+            "SELECT ts, message FROM logs WHERE message LIKE '%user alice%' "
+            "ORDER BY ts DESC LIMIT 9"]:
+        assert on_card.execute(sql).rows == on_cpu.execute(sql).rows, sql

@@ -515,3 +515,57 @@ def assert_packed_equal(spec, a, b, scale, x64: bool, fma: bool = False):
         else:
             sc = scale[j] if grouped else scale[j][:, None]
             assert _close(x, y, F64_TOL if x64 else F32_SUM_TOL, sc), what
+
+
+def clp_inputs(seed: int, mode: str, S: int, D: int, i: int = 0,
+               kd: int = 2, ke: int = 2, col: str = "m", cp: int = 8,
+               vp: int = 64, gp: int = 8, ncp: int = 8, nlp: int = 4,
+               pad_segments: int = 1) -> Tuple[Dict[str, np.ndarray],
+                                               Dict[str, np.ndarray]]:
+    """Seeded inputs of one 'clp' leaf i over column `col` (ops/clp_device.py
+    layouts): logtype ids below cp, dict-var ids up to each segment's
+    var-dictionary cardinality (the sentinel, about a quarter of the
+    slots), encoded (hi, lo) pairs from a few values so equal and unequal
+    pairs both occur (negative lows included); the tables' last
+    conditions and groups padding (ck 0, glt -1) and the last
+    `pad_segments` rows never-match padding, as leaf_params pads them.
+    Mode 'a' reads Kd slots and takes no encoded slot (ke is ignored)."""
+    rng = np.random.default_rng(seed)
+    ke = 0 if mode == "a" else ke
+    card = rng.integers(vp // 2, vp - 1, S)
+    cols = {f"clpid:{col}": rng.integers(0, cp, (S, D)).astype(np.int32)}
+    for j in range(kd):
+        v = rng.integers(0, card[:, None] + 1, (S, D))
+        cols[f"clpdv{j}:{col}"] = np.where(
+            rng.random((S, D)) < 0.25, card[:, None], v).astype(np.int32)
+    for j in range(ke):
+        cols[f"clpehi{j}:{col}"] = rng.integers(-2, 2, (S, D)).astype(
+            np.int32)
+        cols[f"clpelo{j}:{col}"] = rng.integers(-3, 3, (S, D)).astype(
+            np.int32)
+    live = np.arange(vp)[None, :] < card[:, None]
+    params = {f"leaf{i}:alut": rng.random((S, cp)) < 0.1}
+    if mode == "a":
+        if kd:
+            params[f"leaf{i}:dvlut"] = (rng.random((S, vp)) < 0.2) & live
+    else:
+        ck = rng.integers(0, 3, (S, ncp)).astype(np.int8)
+        ck[:, ncp - max(1, ncp // 5):] = 0
+        glt = rng.integers(0, cp, (S, gp)).astype(np.int32)
+        glt[:, gp - max(1, gp // 8):] = -1
+        params.update({
+            f"leaf{i}:glt": glt,
+            f"leaf{i}:gmem": rng.random((S, gp, ncp)) < 0.2,
+            f"leaf{i}:ck": ck,
+            f"leaf{i}:cs": rng.integers(0, max(kd, ke, 1), (S, ncp)).astype(
+                np.int32),
+            f"leaf{i}:chi": rng.integers(-2, 2, (S, ncp)).astype(np.int32),
+            f"leaf{i}:clo": rng.integers(-3, 3, (S, ncp)).astype(np.int32),
+            f"leaf{i}:cl": rng.integers(0, nlp, (S, ncp)).astype(np.int32)})
+        if kd:
+            params[f"leaf{i}:dlut"] = (rng.random((S, nlp, vp)) < 0.5) \
+                & live[:, None]
+    for k, v in params.items():
+        if pad_segments:
+            v[S - pad_segments:] = -1 if k.endswith(":glt") else 0
+    return cols, params
