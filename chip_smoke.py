@@ -31,7 +31,10 @@ Phases, each of which exits non-zero on failure:
    mixed power-of-two lengths (three padded segments) and 16 full-length
    rows (the stack form), bit for bit against its plain version (which
    takes CPU tensors: the same rows copied to the host, timed by the host
-   clock); library: torch.stack on the full-length case.
+   clock); library: torch.stack on the full-length case. K6 runs first:
+   the TSBS and log segments (phases 10, 11) then build in BUILD_WORKERS
+   spawned processes beside the rest of phase 3 and 3b, whose times are
+   the card's, and phase 4 waits for them.
    Counts, exact-sum planes, min / max, registers, buckets and K4's whole
    output must match bit for bit; float sums within 1e-5 of the slot's sum
    of |contribution|. Times: CUDA events,
@@ -53,13 +56,16 @@ Phases, each of which exits non-zero on failure:
    library: torch.bincount(keys, weights) on precomputed keys). K1-K4
    again on their phase-3 inputs under a seeded uint8 validity mask
    clearing about a third of docs (the bound counts the mask's byte per
-   real doc). K7 clp_match at the log leg's block, S = 32, D = 2^22
-   (clp_kernel_inputs: var-dictionary LUTs of 2^20, a quarter of the
+   real doc). K7 clp_match at S = 32, D = 2^22 (K7_SEGMENTS; twice the
+   log leg's segments; clp_kernel_inputs: var-dictionary LUTs of 2^20, a
+   quarter of the
    dict-var slots at the sentinel), in mode 'a' (Kd = 2) and mode 'b'
    (Kd = Ke = 2, 16 conditions with padding, 64 groups with padding,
    equal and unequal (hi, lo) pairs), its masks bit for bit against its
    plain version; bound: (1 + Kd + 2 Ke) x 4 + 1 bytes per doc and the
-   parameters once; library: none (no PyTorch call computes the match).
+   table bytes K7 can read once (clp_table_bytes: of the var LUTs only the
+   dict banks that live conditions name, up to the largest dict-var id);
+   library: none (no PyTorch call computes the match).
 3b. The query axis: K1-K4 with B = 8 members (8 seeded literal sets on
    phase 3's inputs, each column set its own seeded data) in three forms:
    broadcast (U = 1 column set), stacked (U = 8) and dedup (U = 3, member
@@ -193,7 +199,7 @@ Phases, each of which exits non-zero on failure:
    9g: 8 closed-loop clients of ts.3-shaped panels (eight hosts each,
    seeded hour-aligned windows) on K2's member axis, as 9a-9f run.
 11. Log leg (after phase 10): CLP log search. LOG_SEGMENTS x LOG_DOCS
-   = 134,217,728 lines of bench.py:3377-3391's six templates with their
+   = 67,108,864 lines of bench.py:3377-3391's six templates with their
    variable ranges, in time order (`ts` an epoch-millis LONG without a
    dictionary, `message` a CLP column), generated in numpy as CLP parts
    and written through the port's parts writer in spawned workers; a
@@ -242,6 +248,7 @@ result, where torch sees no CUDA device or the port's package is missing.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import os
 import shutil
@@ -265,8 +272,9 @@ GB_SEGMENTS, GB_DOCS = 8, 4_000_000
 TAXI_SEGMENTS, TAXI_DOCS = 128, 8_000_000
 #: warm runs per query, after one cold run
 ITERS = 10
-#: processes that generate and write segments (the card's host has 8 cores)
-BUILD_WORKERS = max(1, min(7, (os.cpu_count() or 2) - 1))
+#: processes that generate and write segments (the card's host has 8 cores;
+#: the main process waits while they run)
+BUILD_WORKERS = max(1, min(8, os.cpu_count() or 1))
 
 #: phase 3b's members per launch, and each form's member-to-set map
 BATCH_B = 8
@@ -276,7 +284,7 @@ BATCH_FORMS = {"broadcast": [0] * BATCH_B,
 #: phase 9: closed-loop clients (bench.py:1744), window and traced-window
 #: lengths, and the seeded literal pools
 CLIENTS = 8
-WINDOW_S = 4.0
+WINDOW_S = 3.0
 TRACE_S = 1.5
 _POOL_RNG = np.random.default_rng(5150)
 _MONTHS = [y * 10000 + m * 100 for y in range(1992, 1999)
@@ -439,12 +447,15 @@ TS_POOL = [(TS_T0 + TS_HOUR * int(h),
                                                   replace=False)))
            for h in _TS_RNG.integers(0, 60, 16)]
 #: phase 11: the log leg, bench.py:3377-3391's six templates (the
-#: workload behind BENCH_logs.json) at 32 x 2^22 lines in time order,
-#: one line every 2 ms plus a seeded 0/1 ms jitter from 2024-01-01
-LOG_SEGMENTS, LOG_DOCS = 32, 1 << 22
+#: workload behind BENCH_logs.json) at 16 x 2^22 lines in time order (32
+#: segments cut to 16 for the run's time limit), one line every 2 ms plus
+#: a seeded 0/1 ms jitter from 2024-01-01
+LOG_SEGMENTS, LOG_DOCS = 16, 1 << 22
+#: phase 3's K7 block: 32 segments of 2^22 docs
+K7_SEGMENTS = 32
 LOG_T0 = 1704067200000  # 2024-01-01T00:00:00Z in epoch millis
 LOG_HOUR = 3_600_000
-#: logs.4's hour (the lines reach 74.6 h past LOG_T0)
+#: logs.4's hour (the lines reach 37.3 h past LOG_T0)
 LOG_T4 = LOG_T0 + 20 * LOG_HOUR
 #: lines per segment rendered to hold the generator to the codec
 LOG_SAMPLE = 2000
@@ -1970,20 +1981,24 @@ def device_busy(ex, sql: str, iters: int, tmp: str):
     """`iters` warm runs of `sql` under torch.profiler: the card's busy
     time per query (the union of the trace's kernel, copy and set
     intervals), the traced host wall per query, and the device time per
-    query of the busiest kernels. None if the trace holds no device
-    event."""
+    query of the busiest kernels. A trace that holds no device event (the
+    profiler drops one now and then) is taken once more; None if that one
+    holds none either."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     ex.execute(sql)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            ex.execute(sql)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy, by_name = trace_busy_us(prof, tmp)
+    for _attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                ex.execute(sql)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, by_name = trace_busy_us(prof, tmp)
+        if busy is not None:
+            break
     if busy is None:
         return None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
@@ -2296,6 +2311,43 @@ def residency_phase(segs, truths, kernels, none: dict, card: str) -> int:
 # phase 10: the time-series leg (TSBS cpu-only); phase 4d: upserts
 # ---------------------------------------------------------------------------
 
+def start_late_builds(tmp: str, seed: int):
+    """Start the time-series and log legs' segment builds in a pool of
+    BUILD_WORKERS spawned processes, to run while phase 3 times the
+    kernels by CUDA events; returns (the pool, {leg: (its async result,
+    its start time, [its end time])})."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(BUILD_WORKERS)
+    pending = {}
+    for leg, fn, jobs in (
+            ("tsbs", build_tsbs_segment,
+             [(tmp, seed, i) for i in range(TS_SEGMENTS)]),
+            ("logs", build_log_segment,
+             [(tmp, seed, i, LOG_DOCS) for i in range(LOG_SEGMENTS)])):
+        end = []
+        pending[leg] = (pool.map_async(
+            fn, jobs, chunksize=1,
+            callback=lambda _r, end=end: end.append(time.perf_counter())),
+            time.perf_counter(), end)
+    return pool, pending
+
+
+def finish_late_builds(pool, pending, card: str) -> dict:
+    """Wait for start_late_builds' pool and stop it: {leg: its builds'
+    results}, each leg's build time and the wait printed."""
+    t0 = time.perf_counter()
+    done = {leg: r.get() for leg, (r, _t, _e) in pending.items()}
+    pool.close()
+    pool.join()
+    # (a map over no jobs never calls its callback)
+    built = {leg: round((e or [t])[0] - t, 1)
+             for leg, (_r, t, e) in pending.items()}
+    print(f"[build] tsbs and logs segments, built beside phase 3 in "
+          f"{json.dumps(built)} s (from the pool's start), waited "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    return done
+
+
 def tsbs_host_tags(seed: int):
     """Each host's hostname, region and datacenter, fixed per host from a
     seeded draw (TSBS's tags: a region and one of its datacenters)."""
@@ -2432,22 +2484,18 @@ def ts_max_check(rows, maxima):
     return None
 
 
-def tsbs_leg(tmp: str, seed: int, kernels, none: dict, card: str):
+def tsbs_leg(tmp: str, seed: int, kernels, none: dict, card: str, done):
     """Phase 10: TSBS cpu-only at scale 4000 (103,680,000 rows in 25
-    segments), ts.1-ts.3 through QueryExecutor and ts.4 through the port's
-    time-series engine, each against its numpy truth; ts.3's sliding
-    refreshes with no codegen; then 9g. Returns (K2's single launches of
-    the leg, 9g's window launches, the leg's query lines)."""
+    segments, `done`: build_tsbs_segment's results), ts.1-ts.3 through
+    QueryExecutor and ts.4 through the port's time-series engine, each
+    against its numpy truth; ts.3's sliding refreshes with no codegen;
+    then 9g. Returns (K2's single launches of the leg, 9g's window
+    launches, the leg's query lines)."""
     import torch
 
     from pinot_tpu_torch.ops import kernels as kmod
     from pinot_tpu_torch.query.executor import QueryExecutor
     from pinot_tpu_torch.timeseries.engine import query as ts_query
-    t0 = time.perf_counter()
-    jobs = [(tmp, seed, i) for i in range(TS_SEGMENTS)]
-    import multiprocessing
-    with multiprocessing.get_context("spawn").Pool(BUILD_WORKERS) as pool:
-        done = pool.map(build_tsbs_segment, jobs, chunksize=1)
     from pinot_tpu_torch.segment.loader import load_segment
     segs = [load_segment(out) for out, _t in done]
     truths = [t for _o, t in done]
@@ -2455,8 +2503,6 @@ def tsbs_leg(tmp: str, seed: int, kernels, none: dict, card: str):
     if rows != TS_ROWS or segs[-1].num_docs != \
             TS_ROWS - (TS_SEGMENTS - 1) * TS_FLUSH:
         fail(f"tsbs: {rows} rows in {len(segs)} segments")
-    print(f"[tsbs] built {len(segs)} segments, {rows} rows in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
     hours = {}
     for t in truths:
         for h, (s, c) in t["hour"].items():
@@ -2580,6 +2626,22 @@ def upsert_truth(cols: dict, valid) -> dict:
             "first": [(int(date[d]), int(price[d])) for d in first]}
 
 
+def upsert_keep(seed: int, i: int, n: int):
+    """Segment i's seeded valid docs (a third cleared) for i <
+    UPSERT_SEGMENTS, else None (append-only)."""
+    if i >= UPSERT_SEGMENTS:
+        return None
+    return np.random.default_rng([seed, 77, i]).random(n) >= 1 / 3
+
+
+def upsert_segment_truth(job):
+    """Segment i's upsert truth from its regenerated Q1 columns and valid
+    docs (a worker process)."""
+    seed, i, n = job
+    cols = ssb_q1_columns(np.random.default_rng([seed, i]), n)
+    return upsert_truth(cols, upsert_keep(seed, i, n))
+
+
 def upsert_leg(segs, seed: int, kernels, none: dict, card: str):
     """Phase 4d: segments 0-11 of phase 4 carry validDocIds (the port's
     Bitmap) with a seeded third of docs cleared, 12-15 stay append-only;
@@ -2596,20 +2658,15 @@ def upsert_leg(segs, seed: int, kernels, none: dict, card: str):
     from pinot_tpu_torch.query.sketches import HyperLogLog
     from pinot_tpu_torch.segment.bitmap import Bitmap
     t0 = time.perf_counter()
-    valid = []
-    for i, seg in enumerate(segs):
-        if i < UPSERT_SEGMENTS:
-            keep = np.random.default_rng([seed, 77, i]).random(
-                seg.num_docs) >= 1 / 3
+    valid = [upsert_keep(seed, i, seg.num_docs) for i, seg in enumerate(segs)]
+    for seg, keep in zip(segs, valid):
+        if keep is not None:
             seg.valid_doc_ids = Bitmap.from_mask(keep)
-            valid.append(keep)
-        else:
-            valid.append(None)
-
-    def truths_of(i):
-        cols = ssb_q1_columns(np.random.default_rng([seed, i]), Q1_DOCS)
-        return upsert_truth(cols, valid[i])
-    truths = [truths_of(i) for i in range(len(segs))]
+    import multiprocessing
+    with multiprocessing.get_context("spawn").Pool(BUILD_WORKERS) as pool:
+        truths = pool.map(upsert_segment_truth,
+                          [(seed, i, seg.num_docs)
+                           for i, seg in enumerate(segs)], chunksize=1)
     print(f"[upsert] {UPSERT_SEGMENTS} of {len(segs)} segments masked, "
           f"truth in {time.perf_counter() - t0:.1f} s", flush=True)
     rows = sum(s.num_docs for s in segs)
@@ -2675,7 +2732,8 @@ def upsert_leg(segs, seed: int, kernels, none: dict, card: str):
     for d in victims:
         v3.clear(int(d))
     valid[3][victims] = False
-    truths[3] = truths_of(3)
+    truths[3] = upsert_truth(ssb_q1_columns(np.random.default_rng([seed, 3]),
+                                            segs[3].num_docs), valid[3])
     moved = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -2889,7 +2947,6 @@ def build_log_segments(root: str, seed: int, n_segments: int, docs: int,
                        workers: int = 1):
     """The log table's segments, built in `workers` spawned processes (1:
     in this one): (segments, per-segment truths)."""
-    from pinot_tpu_torch.segment.loader import load_segment
     jobs = [(root, seed, i, docs) for i in range(n_segments)]
     if workers > 1:
         import multiprocessing
@@ -2897,6 +2954,13 @@ def build_log_segments(root: str, seed: int, n_segments: int, docs: int,
             done = pool.map(build_log_segment, jobs, chunksize=1)
     else:
         done = [build_log_segment(job) for job in jobs]
+    return load_log_segments(done)
+
+
+def load_log_segments(done):
+    """The log segments that build_log_segment wrote, loaded in order, and
+    their truths; fails where a segment's generator check failed."""
+    from pinot_tpu_torch.segment.loader import load_segment
     for i, (_o, _t, why) in enumerate(done):
         if why is not None:
             fail(f"log segment {i}: the generator disagrees with the codec: "
@@ -2948,7 +3012,8 @@ def check_clp(name: str, leaves, cols, params, D, B: int = 1) -> dict:
     over `leaves` (B = 1), or B members over one column set, each member's
     masks also against its own single launch. Returns its times, bound and
     error. Bound: the logtype id, the Kd dict-var and 2 Ke encoded-var
-    int32 blocks read once, a byte per doc and leaf and member written."""
+    int32 blocks read once, a byte per doc and leaf and member written,
+    and the table bytes K7 can read (clp_table_bytes)."""
     import torch
 
     from pinot_tpu_torch.ops import _cuda
@@ -2978,8 +3043,7 @@ def check_clp(name: str, leaves, cols, params, D, B: int = 1) -> dict:
     ke = max(lf.meta[2] for _i, lf in leaves)
     S = cols[f"clpid:{leaves[0][1].column}"].shape[0]
     moved = S * D * ((1 + kd + 2 * ke) * 4 + len(leaves) * B) + sum(
-        v.numel() * v.element_size() for p in plist for k, v in p.items()
-        if k.split(":")[0] in {f"leaf{i}" for i, _lf in leaves})
+        clp_table_bytes(i, lf, cols, p) for i, lf in leaves for p in plist)
     entry = {"case": name, "S": S, "D": D, "B": B, "Kd": kd, "Ke": ke,
              "leaves": len(leaves), "matched": int(out.sum()),
              "ms": cuda_ms(lambda: _cuda.clp_match_batched(
@@ -2994,8 +3058,43 @@ def check_clp(name: str, leaves, cols, params, D, B: int = 1) -> dict:
     return entry
 
 
+def clp_table_bytes(i: int, leaf, cols, params) -> int:
+    """The bytes of leaf i's parameter tables that K7 can read for one
+    member: the logtype LUT, the condition and group rows whole; of each
+    var LUT row (mode 'a': the dict-var LUT; mode 'b': each dict LUT bank
+    named by a dict condition of a live group, ck = 2 and a member of a
+    group with glt >= 0), the entries up to the segment's largest staged
+    dict-var id, the most any doc can index."""
+    import torch
+    mode, kd, _ke = leaf.meta
+    tab = {k.split(":", 1)[1]: v for k, v in params.items()
+           if k.startswith(f"leaf{i}:")}
+
+    def size(t):
+        return t.numel() * t.element_size()
+    n = size(tab["alut"])
+    if mode == "b":
+        n += sum(size(tab[k]) for k in ("glt", "gmem", "ck", "cs", "chi",
+                                         "clo", "cl"))
+    if not kd:
+        return n
+    dv = torch.stack([cols[f"clpdv{j}:{leaf.column}"] for j in range(kd)])
+    reach = dv.amax(dim=(0, 2)).to(torch.int64) + 1  # [S]
+    if mode == "a":
+        return n + int(reach.clamp(max=tab["dvlut"].shape[1]).sum())
+    dlut = tab["dlut"]  # [S, nlp, vp]
+    nlp, vp = dlut.shape[1], dlut.shape[2]
+    live = ((tab["glt"] >= 0)[:, :, None] & tab["gmem"]).any(dim=1)
+    named = live & (tab["ck"] == 2)  # [S, ncp]
+    bank = tab["cl"].clamp(0, nlp - 1).to(torch.int64)
+    used = torch.zeros((dlut.shape[0], nlp), dtype=torch.int32,
+                       device=dlut.device)
+    used.scatter_add_(1, bank, named.to(torch.int32))
+    return n + int(((used > 0).sum(dim=1) * reach.clamp(max=vp)).sum())
+
+
 def clp_kernel_inputs(seed: int, mode: str, B: int = 1):
-    """K7's phase-3 cases at the log leg's block (S = 32, D = 2^22), made
+    """K7's phase-3 cases at S = K7_SEGMENTS = 32, D = 2^22, made
     on the card: (leaves, cols, params or B members' params, D). Logtype
     ids 0-5 of an 8-wide LUT; var-dictionary cardinalities of 2^19 to 2^20
     per segment (vp = 2^20, as 2^22 bench lines give), a quarter of the
@@ -3010,7 +3109,7 @@ def clp_kernel_inputs(seed: int, mode: str, B: int = 1):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    S, D, vp, cp = LOG_SEGMENTS, LOG_DOCS, 1 << 20, 8
+    S, D, vp, cp = K7_SEGMENTS, LOG_DOCS, 1 << 20, 8
 
     def ints(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=gen, device=dev,
@@ -3051,10 +3150,11 @@ def clp_kernel_inputs(seed: int, mode: str, B: int = 1):
     return leaves, cols, params, D
 
 
-def log_leg(tmp: str, seed: int, kernels, none: dict, card: str):
+def log_leg(tmp: str, seed: int, kernels, none: dict, card: str, done):
     """Phase 11: the log table (LOG_SEGMENTS x LOG_DOCS lines of bench.py's
     templates, `ts` an epoch-millis LONG without a dictionary, `message` a
-    CLP column) built from the generator's parts, logs.1-logs.6 through
+    CLP column) built from the generator's parts (`done`:
+    build_log_segment's results), logs.1-logs.6 through
     QueryExecutor against their numpy truth (float64 values: logs.5 orders
     by the raw epoch-millis ts), the wildcard pattern refused with its
     reason and no launch, K7 held against its plain version on the inputs
@@ -3064,12 +3164,8 @@ def log_leg(tmp: str, seed: int, kernels, none: dict, card: str):
 
     from pinot_tpu_torch.ops.engine import NotOffloadable
     from pinot_tpu_torch.query.executor import QueryExecutor
-    t0 = time.perf_counter()
-    segs, truths = build_log_segments(tmp, seed, LOG_SEGMENTS, LOG_DOCS,
-                                      BUILD_WORKERS)
+    segs, truths = load_log_segments(done)
     rows = sum(s.num_docs for s in segs)
-    print(f"[logs] built {len(segs)} segments, {rows} lines in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
     ex = QueryExecutor(segs, value_dtype=torch.float64)
     torch.cuda.reset_peak_memory_stats()
     zero_launches(kernels)
@@ -3119,7 +3215,7 @@ def log_leg(tmp: str, seed: int, kernels, none: dict, card: str):
         print(f"[logs] {json.dumps(leg)} | {card}", flush=True)
     print(f"[logs] {json.dumps({'refused': LOG_WILDCARD, 'reason': 'wildcard', 'launches': 0})}"
           f" | {card}", flush=True)
-    busy = device_busy(ex, queries["logs.2"][0], 3, tmp)
+    busy = device_busy(ex, queries["logs.2"][0], ITERS, tmp)
     print(f"[logs] trace logs.2 {json.dumps(busy or 'not measured')} "
           f"| {card}", flush=True)
     # after the launch counts were read: these launches are the
@@ -3384,6 +3480,14 @@ def main() -> None:
                     help="seed of every generated column and kernel input")
     args = ap.parse_args()
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def lap(what: str) -> None:
+        """Print the seconds since the last lap and since the start."""
+        now = time.perf_counter()
+        print(f"[time] {what} {now - marks[-1]:.1f} s (at "
+              f"{now - t_start:.1f} s)", flush=True)
+        marks.append(now)
 
     import torch
     if not torch.cuda.is_available():
@@ -3406,8 +3510,19 @@ def main() -> None:
     built = _cuda.build()
     print(f"[build] {built or 'cached'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    lap("phases 1-2")
 
     # phase 3: kernels against their plain versions
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    k6 = check_row_assemble(args.seed)
+    for name, case in k6.pop("cases").items():
+        print(f"[kernel] row_assemble {json.dumps(case)} | {card}",
+              flush=True)
+    # the last two legs' segments build on the host from here to phase 4:
+    # every check below is timed on the card (K6's plain version, timed
+    # on the host, ran above)
+    pool, pending = start_late_builds(tmp, args.seed)
     k1 = check_kernel("scan_agg", *kernel_inputs(args.seed, grouped=False))
     print(f"[kernel] scan_agg {json.dumps(k1)}", flush=True)
     k2 = check_kernel("group_agg", *kernel_inputs(args.seed, grouped=True))
@@ -3434,10 +3549,6 @@ def main() -> None:
         print(f"[kernel] startree_agg {json.dumps(k5_cases[name])}",
               flush=True)
     torch.cuda.empty_cache()
-    k6 = check_row_assemble(args.seed)
-    for name, case in k6.pop("cases").items():
-        print(f"[kernel] row_assemble {json.dumps(case)} | {card}",
-              flush=True)
     # K2 with the fused time bucket, at the time-series leg's shapes
     kb_cases = {}
     for name in BUCKET_CASES:
@@ -3512,8 +3623,10 @@ def main() -> None:
     none = {k.name: 0 for k in kernels}
     p9 = {k.name: [0, 0] for k in kernels}
     variants = {}
+    lap("phase 3")
+    late = finish_late_builds(pool, pending, card)
+    lap("wait for the late builds")
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         # phase 4: Q1 leg
         t0 = time.perf_counter()
@@ -3614,6 +3727,7 @@ def main() -> None:
             print(f"[sel] trace {name} {json.dumps(busy or 'not measured')} "
                   f"| {card}", flush=True)
 
+        lap("phases 4 and 4b")
         # phase 9a: Q1.1-shaped concurrency, broadcast batches (K1)
         execs = modes_of(segs, pipelined=ex)
         leg = concurrency_leg(
@@ -3640,6 +3754,7 @@ def main() -> None:
         count_phase9(leg["launches"], p9)
         del ex, execs
         torch.cuda.empty_cache()
+        lap("phases 9a and 9c")
 
         # phase 4c: the staging levels (residency) on the Q1 segments
         k6["launches"] += residency_phase(segs, truths, kernels, none,
@@ -3652,6 +3767,7 @@ def main() -> None:
         k6["launches"] += got["row_assemble"]
         del segs
         torch.cuda.empty_cache()
+        lap("phases 4c and 4d")
 
         # phase 5: group-by leg
         t0 = time.perf_counter()
@@ -3743,6 +3859,7 @@ def main() -> None:
         del ex, segs
         torch.cuda.empty_cache()
 
+        lap("phases 5 and 9d")
         # phase 6: config-#4 sketch leg
         t0 = time.perf_counter()
         segs, truths = build_segments(
@@ -3809,6 +3926,7 @@ def main() -> None:
         del ex, segs
         torch.cuda.empty_cache()
 
+        lap("phases 6 and 9e")
         # phase 7: star-tree leg (config #5 and bench.py --startree's
         # table), with phase 3b's K5 case and phase 9f
         got, leg_cases, batched["startree_agg"], p9f = startree_leg(
@@ -3824,6 +3942,7 @@ def main() -> None:
         k2["launches"] += got["group_agg"]
         k6["launches"] += got["row_assemble"]
 
+        lap("phases 7 and 9f")
         # phase 9b: batching_main's three tables, stacked and dedup (K1)
         t0 = time.perf_counter()
         tables, b9 = {}, {}
@@ -3856,16 +3975,20 @@ def main() -> None:
         del tables
         torch.cuda.empty_cache()
 
+        lap("phase 9b")
         # phase 10: the time-series leg (TSBS cpu-only), with phase 9g
         kb["launches"], k6_ts, p9g = tsbs_leg(tmp, args.seed, kernels, none,
-                                              card)
+                                              card, late.pop("tsbs"))
+        lap("phase 10 and 9g")
         k2["launches"] += kb["launches"]
         k6["launches"] += k6_ts
         count_phase9(p9g, p9)
         kb_batched["launches"] = p9g["group_agg"][1]
 
         # phase 11: the log leg (CLP log search on K7), with phase 9h
-        log_launches, p9h = log_leg(tmp, args.seed, kernels, none, card)
+        log_launches, p9h = log_leg(tmp, args.seed, kernels, none, card,
+                                    late.pop("logs"))
+        lap("phase 11 and 9h")
         for kern, entry in ((_cuda.SCAN_AGG, k1), (_cuda.GROUP_AGG, k2),
                             (_cuda.TOPN, k4), (_cuda.ROW_ASSEMBLE, k6),
                             (_cuda.CLP_MATCH, k7)):

@@ -299,21 +299,8 @@ Tensors = Dict[str, torch.Tensor]
 
 
 def _stack(ts: List[torch.Tensor]) -> torch.Tensor:
-    """[n, ...] from n equal-shaped tensors: a view when n is 1 or when
-    they are consecutive contiguous slices of one storage (the members'
-    K7 masks), else a copy."""
-    t0 = ts[0]
-    if len(ts) == 1:
-        return t0.unsqueeze(0)
-    n = t0.numel()
-    if all(t.is_contiguous() and t.shape == t0.shape and t.dtype == t0.dtype
-           and t.untyped_storage().data_ptr()
-           == t0.untyped_storage().data_ptr()
-           and t.storage_offset() == t0.storage_offset() + m * n
-           for m, t in enumerate(ts)):
-        return t0.as_strided((len(ts),) + tuple(t0.shape),
-                             (n,) + tuple(t0.stride()))
-    return torch.stack(ts)
+    """[n, ...] from n equal-shaped tensors (a view when n is 1)."""
+    return ts[0].unsqueeze(0) if len(ts) == 1 else torch.stack(ts)
 
 
 class _Launch:
@@ -321,11 +308,14 @@ class _Launch:
     (column pointers per set, LUT pointers, program, member-to-set map),
     the [B, S, P] float64 parameter matrix, the [U, S] doc counts and the
     [B, S, C] LUTs it points at (held here until the launch is
-    enqueued)."""
+    enqueued). `luts` holds LUTs already stacked over the members ([B, S,
+    C], the CLP leaves' K7 masks), by key, in place of the members' own
+    entries."""
 
     def __init__(self, plan: DevicePlan, col_sets: List[Tensors],
                  params_list: List[Tensors], num_docs_list: List[torch.Tensor],
-                 idx: List[int], D: int, value_dtype: torch.dtype):
+                 idx: List[int], D: int, value_dtype: torch.dtype,
+                 luts: Optional[Tensors] = None):
         B, U = len(params_list), len(col_sets)
         if not 1 <= B <= MAX_MEMBERS or not 1 <= U <= MAX_SETS:
             raise ValueError(f"{B} members over {U} column sets: a launch "
@@ -374,16 +364,23 @@ class _Launch:
                 args.vmask[u] = vm.data_ptr()
         self.luts, widths = [], []
         for k, key in enumerate(prog.luts):
-            ts = [p[key] for p in params_list]
-            if ts[0].dim() != 2:
-                raise ValueError(f"{key} must be [S, C]")
-            for m, t in enumerate(ts):
-                _check(t, f"{key} of member {m}", device, (torch.bool,),
-                       (S, ts[0].shape[1]))
-            lut = _stack(ts)
+            if luts and key in luts:
+                lut = luts[key]
+                if lut.dim() != 3:
+                    raise ValueError(f"{key} must be [B, S, C]")
+                _check(lut, key, device, (torch.bool,),
+                       (B, S, lut.shape[2]))
+            else:
+                ts = [p[key] for p in params_list]
+                if ts[0].dim() != 2:
+                    raise ValueError(f"{key} must be [S, C]")
+                for m, t in enumerate(ts):
+                    _check(t, f"{key} of member {m}", device, (torch.bool,),
+                           (S, ts[0].shape[1]))
+                lut = _stack(ts)
             self.luts.append(lut)
             args.luts[k] = lut.data_ptr()
-            widths.append(int(ts[0].shape[1]))
+            widths.append(int(lut.shape[2]))
         code = prog.for_launch(dtypes, widths)
         ctypes.memmove(args.code, code.ctypes.data, code.nbytes)
         for m, u in enumerate(idx):
@@ -428,13 +425,14 @@ def scan_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
                      params_list: List[Tensors],
                      num_docs_list: List[torch.Tensor], idx: List[int],
                      D: int, value_dtype: torch.dtype,
-                     batched: bool = True) -> torch.Tensor:
+                     batched: bool = True,
+                     luts: Optional[Tensors] = None) -> torch.Tensor:
     """K1 over B members: the ungrouped packed [B, S, 1 + sum(w)] result
-    of `plan`, member m over column set idx[m]."""
+    of `plan`, member m over column set idx[m] (`luts`: see _Launch)."""
     if plan.num_groups:
         raise ValueError("scan_agg takes ungrouped plans")
     L = _Launch(plan, col_sets, params_list, num_docs_list, idx, D,
-                value_dtype)
+                value_dtype, luts)
     partial = torch.empty((L.B, L.S, L.nb, L.prog.n_acc),
                           dtype=torch.float64, device=L.device)
     out = torch.empty((L.B, L.S, L.prog.out_width), dtype=value_dtype,
@@ -450,25 +448,26 @@ def scan_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
 
 
 def scan_agg(plan: DevicePlan, cols: Tensors, params: Tensors,
-             num_docs: torch.Tensor, D: int,
-             value_dtype: torch.dtype) -> torch.Tensor:
+             num_docs: torch.Tensor, D: int, value_dtype: torch.dtype,
+             luts: Optional[Tensors] = None) -> torch.Tensor:
     """K1: the ungrouped packed [S, 1 + sum(w)] result of `plan`."""
     return _single(scan_agg_batched, plan, cols, params, num_docs, D,
-                   value_dtype)
+                   value_dtype, luts=luts)
 
 
 def group_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
                       params_list: List[Tensors],
                       num_docs_list: List[torch.Tensor], idx: List[int],
                       D: int, value_dtype: torch.dtype,
-                      batched: bool = True) -> torch.Tensor:
+                      batched: bool = True,
+                      luts: Optional[Tensors] = None) -> torch.Tensor:
     """K2 over B members: the grouped packed [B, S, G, n_slots] result of
-    `plan`, member m over column set idx[m]."""
+    `plan`, member m over column set idx[m] (`luts`: see _Launch)."""
     G = plan.num_groups
     if not G:
         raise ValueError("group_agg takes group-by plans")
     L = _Launch(plan, col_sets, params_list, num_docs_list, idx, D,
-                value_dtype)
+                value_dtype, luts)
     shape = (L.B, L.S, G, L.prog.out_width)
     table = torch.empty(shape, dtype=torch.float64, device=L.device)
     out = torch.empty(shape, dtype=value_dtype, device=L.device)
@@ -483,11 +482,11 @@ def group_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
 
 
 def group_agg(plan: DevicePlan, cols: Tensors, params: Tensors,
-              num_docs: torch.Tensor, D: int,
-              value_dtype: torch.dtype) -> torch.Tensor:
+              num_docs: torch.Tensor, D: int, value_dtype: torch.dtype,
+              luts: Optional[Tensors] = None) -> torch.Tensor:
     """K2: the grouped packed [S, G, n_slots] result of `plan`."""
     return _single(group_agg_batched, plan, cols, params, num_docs, D,
-                   value_dtype)
+                   value_dtype, luts=luts)
 
 
 def sketch_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
@@ -495,15 +494,16 @@ def sketch_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
                        num_docs_list: List[torch.Tensor], idx: List[int],
                        D: int, value_dtype: torch.dtype,
                        batched: bool = True,
-                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       out: Optional[torch.Tensor] = None,
+                       luts: Optional[Tensors] = None) -> torch.Tensor:
     """K3 over B members: the matched count and the sketch slots' columns
     of the packed [B, S, 1 + sum(w)] result of `plan`, written into `out`
     (K1's output, on the same stream, for a plan that also has scalar
-    slots) or into a new tensor."""
+    slots) or into a new tensor (`luts`: see _Launch)."""
     if plan.num_groups:
         raise ValueError("sketch_agg takes ungrouped plans")
     L = _Launch(plan, col_sets, params_list, num_docs_list, idx, D,
-                value_dtype)
+                value_dtype, luts)
     for op, _v, _f in plan.agg_ops:
         if op.startswith("hll:"):
             col = op.split(":", 2)[2]
@@ -535,28 +535,32 @@ def sketch_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
 
 def sketch_agg(plan: DevicePlan, cols: Tensors, params: Tensors,
                num_docs: torch.Tensor, D: int, value_dtype: torch.dtype,
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+               out: Optional[torch.Tensor] = None,
+               luts: Optional[Tensors] = None) -> torch.Tensor:
     """K3: the matched count and the sketch slots' columns of the packed
     [S, 1 + sum(w)] result of `plan`, written into `out` or a new
     tensor."""
     return _single(sketch_agg_batched, plan, cols, params, num_docs, D,
-                   value_dtype, out=None if out is None else out[None])
+                   value_dtype, out=None if out is None else out[None],
+                   luts=luts)
 
 
 def topn_batched(plan: DevicePlan, col_sets: List[Tensors],
                  params_list: List[Tensors],
                  num_docs_list: List[torch.Tensor], idx: List[int], D: int,
                  value_dtype: torch.dtype,
-                 batched: bool = True) -> torch.Tensor:
+                 batched: bool = True,
+                 luts: Optional[Tensors] = None) -> torch.Tensor:
     """K4 over B members: the [B, S, 1 + k] int32 top-N of `plan`,
-    k = min(topn_k, D), member m over column set idx[m]."""
+    k = min(topn_k, D), member m over column set idx[m] (`luts`: see
+    _Launch)."""
     if plan.mode != "topn":
         raise ValueError("topn takes top-N plans")
     k = min(plan.topn_k, D)
     if not 1 <= k <= TOPN_MAX_K:
         raise ValueError(f"top-N k {k} outside [1, {TOPN_MAX_K}]")
     L = _Launch(plan, col_sets, params_list, num_docs_list, idx, D,
-                value_dtype)
+                value_dtype, luts)
     R = L.B * L.S
     if R > TOPN_MAX_ROWS:
         raise ValueError(f"{L.B} members x {L.S} segments exceed K4's "
@@ -582,11 +586,11 @@ def topn_batched(plan: DevicePlan, col_sets: List[Tensors],
 
 
 def topn(plan: DevicePlan, cols: Tensors, params: Tensors,
-         num_docs: torch.Tensor, D: int,
-         value_dtype: torch.dtype) -> torch.Tensor:
+         num_docs: torch.Tensor, D: int, value_dtype: torch.dtype,
+         luts: Optional[Tensors] = None) -> torch.Tensor:
     """K4: the [S, 1 + k] int32 top-N of `plan`, k = min(topn_k, D)."""
     return _single(topn_batched, plan, cols, params, num_docs, D,
-                   value_dtype)
+                   value_dtype, luts=luts)
 
 
 #: K5 slot op codes (csrc/startree_agg.cu OP_*)

@@ -40,9 +40,10 @@ A CLP leaf (LIKE / REGEXP_LIKE over a CLP log column, ops/clp_device.py)
 is matched per doc by `clp_match`, the counterpart of JAX
 clp_device.py:700 `eval_leaf`, over the column's logtype and variable-slot
 pseudo-columns. On the card K7 (`ops/csrc/clp_match.cu`) computes every
-CLP leaf's [S, D] mask of a launch first (`with_clp_masks`: one launch of
-K7 per CLP column and launch, over all members of a batch), and K1 / K2 /
-K4 read each mask as the leaf's value (`leaf<i>:mask`).
+CLP leaf's mask of a launch first (`clp_masks`: one launch of K7 per CLP
+column and launch, over all members of a batch, giving each leaf's [B, S,
+D] masks), and K1 / K2 / K4 read each mask as the leaf's value (the LUT
+`leaf<i>:mask`, passed to their wrappers already stacked).
 
 A plan over upsert segments (`plan.valid_mask`) ANDs the staged `vmask`
 block into the doc validity (JAX kernels.py:565, :604), in every plain
@@ -73,7 +74,7 @@ from pinot_tpu_torch.ops.program import (ISUM_PLANES, ISUM_U_BITS,
 
 __all__ = ["make_kernel", "plain_kernel", "make_topn_kernel", "topn_kernel",
            "plain_batched_kernel", "batched_kernel", "row_assemble",
-           "assemble_rows", "clp_match", "with_clp_masks",
+           "assemble_rows", "clp_match", "clp_masks",
            "order_keys", "from_jax_staged", "slot_width", "is_sketch",
            "trace_count", "trace_count_by_plan", "plan_fingerprint",
            "ISUM_PLANES", "ISUM_U_BITS"]
@@ -211,27 +212,22 @@ def clp_leaves(plan: DevicePlan) -> Dict[str, List[Tuple[int, object]]]:
     return out
 
 
-def with_clp_masks(plan: DevicePlan, col_sets: Sequence[Tensors],
-                   plist: Sequence[Tensors], idx: Sequence[int], D: int,
-                   batched: bool) -> List[Tensors]:
-    """Each member's parameters with every CLP leaf's match mask
-    (`leaf<i>:mask`, [S, D] bool) added, from launches of K7 on the card:
-    one per CLP column, over all members and up to
-    `_cuda.CLP_MAX_LEAVES` leaves of that column. Member m's masks are
-    consecutive rows of one output, so K1-K4's launch reads them in place.
-    CUDA tensors only."""
-    by_col = clp_leaves(plan)
-    if not by_col:
-        return list(plist)
-    out = [dict(p) for p in plist]
-    for leaves in by_col.values():
+def clp_masks(plan: DevicePlan, col_sets: Sequence[Tensors],
+              plist: Sequence[Tensors], idx: Sequence[int], D: int,
+              batched: bool) -> Tensors:
+    """Every CLP leaf's match masks over the members, `leaf<i>:mask` ->
+    [B, S, D] bool, from launches of K7 on the card: one per CLP column,
+    over all members and up to `_cuda.CLP_MAX_LEAVES` leaves of that
+    column. K1-K4's wrappers take them as stacked LUTs (`luts=`). CUDA
+    tensors only."""
+    out: Tensors = {}
+    for leaves in clp_leaves(plan).values():
         for c0 in range(0, len(leaves), _cuda.CLP_MAX_LEAVES):
             chunk = leaves[c0:c0 + _cuda.CLP_MAX_LEAVES]
             masks = _cuda.clp_match_batched(chunk, col_sets, plist, idx, D,
                                             batched=batched)
             for l, (i, _leaf) in enumerate(chunk):
-                for m, p in enumerate(out):
-                    p[f"leaf{i}:mask"] = masks[l, m]
+                out[f"leaf{i}:mask"] = masks[l]
     return out
 
 
@@ -583,18 +579,14 @@ def make_kernel(plan: DevicePlan, value_dtype: torch.dtype = torch.float32):
         if G and G != plan.num_groups:
             raise ValueError("compact group keys are not in this port yet")
         if num_docs.device.type == "cuda":
-            params = with_clp_masks(plan, [cols], [params], [0], D,
-                                    batched=False)[0]
+            args = (plan, cols, params, num_docs, D, value_dtype)
+            luts = clp_masks(plan, [cols], [params], [0], D, batched=False)
             if plan.num_groups:
-                return _cuda.group_agg(plan, cols, params, num_docs, D,
-                                       value_dtype)
+                return _cuda.group_agg(*args, luts=luts)
             if not any(sketch):
-                return _cuda.scan_agg(plan, cols, params, num_docs, D,
-                                      value_dtype)
-            out = None if all(sketch) else _cuda.scan_agg(
-                plan, cols, params, num_docs, D, value_dtype)
-            return _cuda.sketch_agg(plan, cols, params, num_docs, D,
-                                    value_dtype, out=out)
+                return _cuda.scan_agg(*args, luts=luts)
+            out = None if all(sketch) else _cuda.scan_agg(*args, luts=luts)
+            return _cuda.sketch_agg(*args, out=out, luts=luts)
         if num_docs.device.type != "cpu":
             raise ValueError(f"no kernel for device {num_docs.device}")
         return plain(cols, params, num_docs, D)
@@ -673,9 +665,9 @@ def make_topn_kernel(plan: DevicePlan,
     def kernel(cols: Tensors, params: Tensors, num_docs: torch.Tensor,
                D: int) -> torch.Tensor:
         if num_docs.device.type == "cuda":
-            params = with_clp_masks(plan, [cols], [params], [0], D,
-                                    batched=False)[0]
-            return _cuda.topn(plan, cols, params, num_docs, D, value_dtype)
+            luts = clp_masks(plan, [cols], [params], [0], D, batched=False)
+            return _cuda.topn(plan, cols, params, num_docs, D, value_dtype,
+                              luts=luts)
         if num_docs.device.type != "cpu":
             raise ValueError(f"no kernel for device {num_docs.device}")
         return topn_kernel(plan, cols, params, num_docs, D, value_dtype)
@@ -738,16 +730,17 @@ def batched_kernel(plan: DevicePlan,
             return plain(col_sets, plist, ndlist, idx, D)
         if device.type != "cuda":
             raise ValueError(f"no kernel for device {device}")
-        plist = with_clp_masks(plan, col_sets, plist, idx, D, batched=True)
+        luts = clp_masks(plan, col_sets, plist, idx, D, batched=True)
         args = (plan, col_sets, plist, ndlist, idx, D, value_dtype)
         if plan.mode == "topn":
-            return _cuda.topn_batched(*args)
+            return _cuda.topn_batched(*args, luts=luts)
         if plan.num_groups:
-            return _cuda.group_agg_batched(*args)
+            return _cuda.group_agg_batched(*args, luts=luts)
         if not any(sketch):
-            return _cuda.scan_agg_batched(*args)
-        out = None if all(sketch) else _cuda.scan_agg_batched(*args)
-        return _cuda.sketch_agg_batched(*args, out=out)
+            return _cuda.scan_agg_batched(*args, luts=luts)
+        out = None if all(sketch) else _cuda.scan_agg_batched(*args,
+                                                               luts=luts)
+        return _cuda.sketch_agg_batched(*args, out=out, luts=luts)
 
     return run
 

@@ -623,3 +623,46 @@ def test_chip_smoke_log_leg_on_the_cpu_engine(tmp_path, monkeypatch):
     rendered = [cs.log_message(cols, d) for d in range(0, 30_000, 997)]
     assert [segs[0].data_source("message").clp_reader.get(d)
             for d in range(0, 30_000, 997)] == rendered
+
+
+@pytest.mark.parametrize("mode", ["a", "b"])
+def test_chip_smoke_k7_bound_counts_only_readable_table_bytes(mode):
+    """chip_smoke.py's K7 bound counts, per member, the logtype LUT and the
+    condition and group rows whole, and of each var LUT row (mode 'b': each
+    dict bank that a dict condition of a live group names) only the
+    entries up to the segment's largest dict-var id, against a count doc
+    by doc."""
+    import chip_smoke as cs
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
+    rng = np.random.default_rng(11)
+    S, D, vp, nlp, ncp, gp, kd = 3, 50, 64, 8, 16, 10, 2
+    cols = {f"clpdv{j}:m": torch.from_numpy(
+        rng.integers(0, 40, (S, D)).astype(np.int32)) for j in range(kd)}
+    params = {"leaf0:alut": torch.zeros((S, 8), dtype=torch.bool)}
+    reach = [max(int(cols[f"clpdv{j}:m"][s].max()) for j in range(kd)) + 1
+             for s in range(S)]
+    want = S * 8
+    if mode == "a":
+        params["leaf0:dvlut"] = torch.zeros((S, vp), dtype=torch.bool)
+        want += sum(reach)
+    else:
+        glt = rng.integers(-1, 6, (S, gp)).astype(np.int32)
+        gmem = rng.random((S, gp, ncp)) < 0.2
+        ck = rng.integers(0, 3, (S, ncp)).astype(np.int8)
+        cl = rng.integers(-1, 10, (S, ncp)).astype(np.int32)
+        params.update({
+            "leaf0:glt": torch.from_numpy(glt),
+            "leaf0:gmem": torch.from_numpy(gmem),
+            "leaf0:ck": torch.from_numpy(ck), "leaf0:cl": torch.from_numpy(cl),
+            **{f"leaf0:{k}": torch.zeros((S, ncp), dtype=torch.int32)
+               for k in ("cs", "chi", "clo")},
+            "leaf0:dlut": torch.zeros((S, nlp, vp), dtype=torch.bool)})
+        want += S * gp * 4 + S * gp * ncp + S * ncp + 4 * S * ncp * 4
+        for s in range(S):
+            banks = {min(max(int(cl[s, c]), 0), nlp - 1)
+                     for c in range(ncp) if ck[s, c] == 2
+                     and any(glt[s, g] >= 0 and gmem[s, g, c]
+                             for g in range(gp))}
+            want += len(banks) * reach[s]
+    leaf = DeviceLeaf("clp", "m", (mode, kd, 0 if mode == "a" else 2))
+    assert cs.clp_table_bytes(0, leaf, cols, params) == want
