@@ -6,7 +6,7 @@
 Phases, each of which exits non-zero on failure:
 
 1. Device: the card's name and power limit (nvidia-smi) and its torch name.
-2. Build: the seven CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc,
+2. Build: the eight CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc,
    one process per source, in parallel.
 3. Kernels against their plain PyTorch versions, on the card, on seeded
    random inputs at the main path's shapes: K1 scan_agg at S=16, D=2^23
@@ -66,6 +66,17 @@ Phases, each of which exits non-zero on failure:
    table bytes K7 can read once (clp_table_bytes: of the var LUTs only the
    dict banks that live conditions name, up to the largest dict-var id);
    library: none (no PyTorch call computes the match).
+   K8 vector_topk at the vector leg's block (K8_SEGMENTS = 16 segments,
+   the first 10 real with 999,000 unit vectors of d = 96 zero-padded to
+   dim_pad 128, D = 2^20; made on the card from the seed) in four cases:
+   exact k = 10 and k = 100, IVF k = 10 (999 cells, 8 probed per segment)
+   and IVF k = 100 under a category filter and a uint8 validity mask
+   (vec.3's shape); its whole packed output (counts, ids, scores) bit for
+   bit against its plain version. Bound: each real doc's cell id (IVF),
+   the row (dim_pad x 4 bytes) of each doc a member scores, the filter's
+   columns and the mask at the winners, parameters and output once.
+   Library: torch.bmm + torch.topk on the same block (two calls, no tie
+   order: a time only).
 3b. The query axis: K1-K4 with B = 8 members (8 seeded literal sets on
    phase 3's inputs, each column set its own seeded data) in three forms:
    broadcast (U = 1 column set), stacked (U = 8) and dedup (U = 3, member
@@ -83,6 +94,10 @@ Phases, each of which exits non-zero on failure:
    case at B = 8 over ts.3's column set (broadcast), member m's window m
    hours later. K7's mode 'b' case at B = 8 over one column set, each
    member's own tables, against the plain version and its single launch.
+   K8 at B = 8 (IVF, k = 10: 9i's shape) broadcast over one column set and
+   stacked (member m over block rows m .. m + 15, its own column set),
+   each member's own query and probe cells, against the plain batched
+   version and its single launch.
 4. Q1 leg: SSB-flat lineorder data (bench.py's column distributions), 16
    segments x 8M rows = 128M rows, built with the port's creator into a
    temp dir; SSB Q1.1 as bench.py runs it plus Q1.2- and Q1.3-shaped date
@@ -96,6 +111,9 @@ Phases, each of which exits non-zero on failure:
    (a raw order value, a dictionary order value with OFFSET, unordered,
    an expression order value) and a DISTINCT on K2, every row equal to
    the numpy truth in order (selection_truth / selection_expected).
+   Then the MSE leaf: engine.filtered_doc_ids on the same segments (K4
+   with k = TOPN_MAX_K): MSE_FILTER's doc ids equal the numpy ones, and
+   MSE_WIDE, past TOPN_MAX_K in every segment, gives None.
 4c. Residency (after 9a and 9c): a fresh engine over the Q1 segments runs
    Q1.1 over segments 0-11, then over 4-15 (its column uploads must be
    exactly the rows of segments 12-15, by the transfer odometer), then 4-15
@@ -221,6 +239,28 @@ Phases, each of which exits non-zero on failure:
    '%failed on host h<i>:%' (LOG_POOL), as 9a-9g run: batches of 2 or
    more on K7's and K1's member axes, no codegen, every answer its numpy
    truth.
+12. Vector leg (after phase 11): ann-benchmarks' deep-image-96-angular
+   shape, 9,990,000 vectors of d = 96, angular, in VEC_SEGMENTS = 10
+   segments of 999,000 docs, each with its IVF layer of 999 cells,
+   generated by bench.py:4674-4700's clustered mixture at d = 96 with an
+   `id` and a `category` of 64 values, written through the port's creator
+   from the float32 block (the JSON column rendered by json_rows) in
+   VEC_WORKERS spawned processes at the lowest CPU priority from phase 3
+   on (host-clock numbers of phases 3-6 may carry their load); vecx, an
+   exact-path table
+   of 4 x 4,000 docs, built here. vec.1 (k = 10, LIMIT 100), vec.2 (k =
+   100, LIMIT 1000), vec.3 (k = 100 AND category = c: K before filter) and
+   vec.4 (on vecx) through QueryExecutor, each equal to the host search of
+   the same probe cells (VectorIndex.top_k's order; exact on vecx) outside
+   a band of scores within 2 VEC_TOL of a segment's cut; K8 once per query
+   run, K6 once per block assembled; the vector function under OR and
+   an ORDER BY refused with reason 'hybrid' and no launch; recall@10 of
+   VEC_RECALL queries against exact numpy ground truth printed (not
+   gated); K8 held to its plain version on the engine's staging of vec.1
+   and vec.3. 9i: 8 closed-loop clients over VEC_POOL vec.1-shaped
+   queries with other vectors, as 9a-9h run: batches of 2 or more on K8's
+   member axis, no codegen, every answer the query alone's and its host
+   truth.
 8. Launch counts: each kernel's counter is set to 0 just before a leg's
    timed queries and read just after them; the leg's kernels must have
    launched once per query run (a CLP query: K7 once, then K1, K2 or K4
@@ -240,7 +280,10 @@ Phases, each of which exits non-zero on failure:
    3's masked cases and phase 4d's launches (each a subset of its
    kernel's own entry). `clp_match` carries phase 3's mode 'b' case and
    the log leg's and 9h's single launches, `clp_match_batched` phase 3b's
-   B = 8 case and 9h's batched launches.
+   B = 8 case and 9h's batched launches. `vector_topk` carries phase 3's
+   IVF k = 10 case (vec.1's shape) and phase 12's and 9i's single
+   launches, `vector_topk_batched` phase 3b's broadcast case and 9i's
+   batched launches.
 
 Imports nothing of JAX or of pinot_tpu. Exits non-zero, printing no
 result, where torch sees no CUDA device or the port's package is missing.
@@ -472,6 +515,31 @@ LOG_FAMILIES = (("req", 10**6, lambda v: f"req-{v}"),
 #: per template: its dictionary and encoded variables per line
 LOG_DV, LOG_EV = (2, 0, 1, 2, 2, 2), (1, 2, 2, 0, 1, 0)
 
+#: phase 12: ann-benchmarks' deep-image-96-angular shape (9,990,000
+#: vectors of d = 96, angular) as 10 segments of 999,000 docs, each with
+#: its IVF layer (sqrt(999,000) = 999 cells), generated by
+#: bench.py:4674-4700's clustered mixture at d = 96 (32 centres)
+VEC_SEGMENTS, VEC_DOCS, VEC_DIM = 10, 999_000, 96
+VEC_CENTERS = 32
+VEC_CATEGORIES = 64
+#: vec.4's exact-path table: segments below VectorIndex.IVF_THRESHOLD
+VEC_EXACT_SEGMENTS, VEC_EXACT_DOCS = 4, 4000
+#: the spawned processes that build the vector segments at the lowest CPU
+#: priority from phase 3 on, each with its BLAS on one thread (a segment's
+#: k-means holds a [docs, cells] float32 block: 4 GB at 999,000 docs; a
+#: segment takes ~120 s on the card's host)
+VEC_WORKERS = 4
+_BLAS_THREADS = ("OPENBLAS_NUM_THREADS", "OMP_NUM_THREADS",
+                 "MKL_NUM_THREADS")
+#: queries of the printed recall@10 against exact numpy ground truth
+VEC_RECALL = 50
+#: 9i's pool: vec.1-shaped queries over other stored vectors
+VEC_POOL = 16
+#: K8's scores against a float64 sum: cosines of unit vectors, rounded in
+#: another order (numpy's BLAS, XLA's einsum) by a few ulps
+VEC_TOL = 2.0 ** -20
+#: phase 3's K8 block: the leg's 10 segments padded to 16, D = 2^20
+K8_SEGMENTS, K8_D = 16, 1 << 20
 
 def log_queries() -> dict:
     """name -> (SQL, the kernel after K7) of the log leg."""
@@ -805,6 +873,7 @@ def sel_pool_truth(cols: dict, d0, d1, c0, c1):
 
 def q1_leg_truth(cols: dict) -> dict:
     return {"q1": q1_truth(cols), "sel": selection_truth(cols),
+            "mse": mse_truth(cols),
             "mom": moments_truth(cols),
             "q1pool": [q1_window_truth(cols, *w) for w in Q1_POOL],
             "selpool": [sel_pool_truth(cols, *w) for w in SEL_POOL]}
@@ -2011,7 +2080,8 @@ def device_busy(ex, sql: str, iters: int, tmp: str):
                          ("sketch_agg", "sketch_"), ("topn", "topn_"),
                          ("startree_agg", "startree_"),
                          ("row_assemble", "row_assemble"),
-                         ("clp_match", "clp_match"))}
+                         ("clp_match", "clp_match"),
+                         ("vector_topk", "vec_"))}
     return {"busy_ms_per_query": busy / 1e3 / iters,
             "traced_wall_ms_per_query": wall * 1e3 / iters,
             "device_ms_per_query": {n: v / 1e3 / iters for n, v in top},
@@ -2324,26 +2394,53 @@ def start_late_builds(tmp: str, seed: int):
              [(tmp, seed, i) for i in range(TS_SEGMENTS)]),
             ("logs", build_log_segment,
              [(tmp, seed, i, LOG_DOCS) for i in range(LOG_SEGMENTS)])):
-        end = []
-        pending[leg] = (pool.map_async(
-            fn, jobs, chunksize=1,
-            callback=lambda _r, end=end: end.append(time.perf_counter())),
-            time.perf_counter(), end)
+        pending[leg] = _start_map(pool, fn, jobs)
     return pool, pending
 
 
-def finish_late_builds(pool, pending, card: str) -> dict:
-    """Wait for start_late_builds' pool and stop it: {leg: its builds'
-    results}, each leg's build time and the wait printed."""
+def start_vector_builds(tmp: str, seed: int):
+    """Start the vector leg's segment builds in a pool of VEC_WORKERS
+    spawned processes at the lowest CPU priority, each worker's BLAS on
+    one thread, to run on the cores the phases before phase 12 leave idle;
+    returns (the pool, {'vector': (its async result, its start time, [its
+    end time])})."""
+    import multiprocessing
+    saved = {k: os.environ.get(k) for k in _BLAS_THREADS}
+    os.environ.update({k: "1" for k in _BLAS_THREADS})
+    try:
+        pool = multiprocessing.get_context("spawn").Pool(
+            VEC_WORKERS, initializer=os.nice, initargs=(19,))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return pool, {"vector": _start_map(pool, build_vector_segment,
+                                       vector_jobs(tmp, seed))}
+
+
+def _start_map(pool, fn, jobs):
+    end = []
+    return (pool.map_async(
+        fn, jobs, chunksize=1,
+        callback=lambda _r: end.append(time.perf_counter())),
+        time.perf_counter(), end)
+
+
+def finish_late_builds(pool, pending, legs, card: str) -> dict:
+    """Wait for the builds of `legs` in `pool` (start_late_builds',
+    start_vector_builds') and stop the pool: {leg: its builds' results},
+    each leg's build time and the wait printed."""
     t0 = time.perf_counter()
-    done = {leg: r.get() for leg, (r, _t, _e) in pending.items()}
+    done = {leg: pending[leg][0].get() for leg in legs}
     pool.close()
     pool.join()
     # (a map over no jobs never calls its callback)
-    built = {leg: round((e or [t])[0] - t, 1)
-             for leg, (_r, t, e) in pending.items()}
-    print(f"[build] tsbs and logs segments, built beside phase 3 in "
-          f"{json.dumps(built)} s (from the pool's start), waited "
+    built = {leg: round((pending[leg][2] or [pending[leg][1]])[0]
+                        - pending[leg][1], 1) for leg in legs}
+    print(f"[build] {' and '.join(legs)} segments, built in "
+          f"{json.dumps(built)} s (from the pools' start), waited "
           f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
     return done
 
@@ -3240,6 +3337,571 @@ def log_leg(tmp: str, seed: int, kernels, none: dict, card: str, done):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the vector leg (K8); phase 3's K8 cases; the MSE leaf
+# ---------------------------------------------------------------------------
+
+def vector_columns(seed: int, i: int, n: int, offset: int) -> dict:
+    """Segment i of a vector table: bench.py:4674-4700's clustered mixture
+    at d = VEC_DIM (VEC_CENTERS centres drawn from seed 5999, scaled by
+    2.0; each doc a seeded centre plus 0.3 Gaussian noise), its global
+    `id`s from `offset` and a `category` of VEC_CATEGORIES values for the
+    residual filter."""
+    centers = np.random.default_rng(5999).normal(
+        size=(VEC_CENTERS, VEC_DIM)) * 2.0
+    rng = np.random.default_rng([seed, 12, i])
+    which = rng.integers(0, VEC_CENTERS, n)
+    vecs = (centers[which] + 0.3 * rng.normal(size=(n, VEC_DIM))
+            ).astype(np.float32)
+    return {"id": np.arange(offset, offset + n, dtype=np.int32),
+            "category": rng.integers(0, VEC_CATEGORIES, n).astype(np.int32),
+            "vec": vecs}
+
+
+def build_vector_segment(job):
+    """Generate and write segment i of vector table `table` with the port's
+    creator, the vector column given as its float32 block (the creator
+    renders its JSON arrays and builds the index, IVF cells from
+    IVF_THRESHOLD docs on); returns (its directory, the seconds it took).
+    Runs in a worker process."""
+    root, table, seed, i, n, offset = job
+    from pinot_tpu_torch.models import (DataType, FieldSpec, FieldType,
+                                        Schema, TableConfig)
+    from pinot_tpu_torch.segment.creator import SegmentCreator
+    t0 = time.perf_counter()
+    schema = Schema(table, [
+        FieldSpec("id", DataType.INT, FieldType.DIMENSION),
+        FieldSpec("category", DataType.INT, FieldType.DIMENSION),
+        FieldSpec("vec", DataType.STRING, FieldType.DIMENSION)])
+    tc = TableConfig(table)
+    tc.indexing.vector_index_columns = ["vec"]
+    tc.indexing.no_dictionary_columns = ["id", "vec"]
+    tc.indexing.compression = "PASS_THROUGH"
+    out = os.path.join(root, f"{table}_{i}")
+    SegmentCreator(tc, schema).build(vector_columns(seed, i, n, offset), out,
+                                     f"{table}_{i}")
+    return out, time.perf_counter() - t0
+
+
+def vector_jobs(root: str, seed: int, table: str = "vec",
+                n_segments: int = 0, docs: int = 0, first: int = 0) -> list:
+    """build_vector_segment's jobs: n_segments segments (VEC_SEGMENTS by
+    default) of `docs` docs (VEC_DOCS), generator streams from `first`."""
+    n_segments, docs = n_segments or VEC_SEGMENTS, docs or VEC_DOCS
+    return [(root, table, seed, first + i, docs, i * docs)
+            for i in range(n_segments)]
+
+
+def vec_query_vectors(indexes, seed: int, n: int, tag: int) -> list:
+    """n query vectors of the lookup workload (bench.py:4719-4724): a
+    seeded stored vector (normalized) plus 0.05 Gaussian noise."""
+    rng = np.random.default_rng([seed, 12, tag])
+    out = []
+    for _ in range(n):
+        ix = indexes[int(rng.integers(0, len(indexes)))]
+        base = ix.vectors[int(rng.integers(0, len(ix.vectors)))]
+        out.append((base + 0.05 * rng.normal(size=base.shape)
+                    ).astype(np.float32))
+    return out
+
+
+def vec_sql(qv, k: int, limit: int, table: str = "vec",
+            where: str = "") -> str:
+    lit = json.dumps([float(x) for x in qv])
+    return (f"SELECT id FROM {table} WHERE "
+            f"vector_similarity(vec, '{lit}', {k}){where} LIMIT {limit}")
+
+
+def vec_expected(segs, indexes, qv, k: int, limit: int, category=None):
+    """(rows, band) of a vector query from the host search: per segment
+    VectorIndex.top_k's search (score descending, ties toward the lower
+    doc) over the probe cells the engine stages for this query (IVF; every
+    doc without cells), its K winners in doc order, those of `category`
+    where given; segments in order, cut to `limit`. `band`: the ids whose
+    float64 score lies within 2 VEC_TOL of a segment's K-th, which sums in
+    another order may rank across the cut."""
+    from pinot_tpu_torch.ops.vector_device import NPROBE
+    q = (qv / max(float(np.linalg.norm(qv)), 1e-30)).astype(np.float32)
+    rows, band = [], set()
+    for seg, ix in zip(segs, indexes):
+        probe = ix.probe_cells(q, NPROBE)
+        cand = np.arange(len(ix.vectors)) if probe is None \
+            else np.nonzero(np.isin(ix.assignments, probe))[0]
+        scores = ix.vectors[cand] @ q
+        win = np.sort(cand[np.lexsort((cand, -scores))[:k]])
+        ids = seg.data_source("id").values()
+        if len(cand) > k:
+            exact = ix.vectors[cand].astype(np.float64) @ q.astype(np.float64)
+            t = np.sort(exact)[::-1][k - 1]
+            near = cand[np.abs(exact - t) <= 2 * VEC_TOL]
+            if len(near) > 1:
+                band |= set(ids[near].tolist())
+        if category is not None:
+            cat = seg.data_source("category").values()
+            win = win[cat[win] == category]
+        rows += [(int(ids[d]),) for d in win]
+    return rows[:limit], band
+
+
+def vec_rows_agree(got, want, band, limit: int) -> bool:
+    """got equals want, or, where a band of near-tied scores reaches a
+    segment's cut, the two agree outside the band (as far as the LIMIT
+    leaves both comparable)."""
+    if not band:
+        return got == want
+    g = [r for r in got if r[0] not in band]
+    w = [r for r in want if r[0] not in band]
+    if len(got) < limit and len(want) < limit:
+        return g == w
+    m = max(0, min(len(g), len(w)) - len(band))
+    return g[:m] == w[:m]
+
+
+def vec_recall(ex, segs, indexes, qvs, k: int = 10) -> float:
+    """recall@k of vec.1-shaped queries against the exact numpy ground
+    truth: each segment's exact top k over every doc, the union across
+    segments (bench.py's recall leg: vector_similarity is a per-segment
+    filter, and the LIMIT spans the union)."""
+    Q = np.stack([qv / max(float(np.linalg.norm(qv)), 1e-30) for qv in qvs]
+                 ).astype(np.float32)
+    want = [set() for _ in qvs]
+    for seg, ix in zip(segs, indexes):
+        ids = seg.data_source("id").values()
+        top = np.argpartition(-(Q @ ix.vectors.T), k, axis=1)[:, :k]
+        for j, w in enumerate(want):
+            w |= set(ids[top[j]].tolist())
+    hits = total = 0
+    for qv, w in zip(qvs, want):
+        got = {r[0] for r in ex.execute(vec_sql(qv, k, k * len(segs))).rows}
+        hits += len(got & w)
+        total += len(w)
+    return hits / total
+
+
+def vector_block(seed: int, rows: int):
+    """Phase 3's K8 inputs on the card, made from `seed`: `rows` rows of
+    K8_D docs, the first VEC_DOCS of each a unit vector of VEC_DIM
+    Gaussian values zero-padded to dim_pad 128 (the leg's shapes), with
+    IVF cells of 999 ids, a category of VEC_CATEGORIES values and a uint8
+    validity mask keeping about two thirds of docs."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vec = torch.zeros((rows, K8_D, 128), dtype=torch.float32, device=dev)
+    for r in range(rows):
+        v = torch.randn((VEC_DOCS, VEC_DIM), generator=g, device=dev)
+        vec[r, :VEC_DOCS, :VEC_DIM] = v / v.norm(dim=1, keepdim=True)
+        del v
+    cells = torch.randint(0, 999, (rows, K8_D), generator=g, device=dev,
+                          dtype=torch.int32)
+    cat = torch.randint(0, VEC_CATEGORIES, (rows, K8_D), generator=g,
+                        device=dev, dtype=torch.int8)
+    vmask = (torch.rand((rows, K8_D), generator=g, device=dev)
+             < 2 / 3).to(torch.uint8)
+    return {"vec": vec.view(rows, K8_D * 128), "vcell": cells,
+            "category": cat, "vmask": vmask}
+
+
+def vector_case(block, seed: int, k: int, ivf: bool, resid: bool,
+                B: int = 1, stacked: bool = False):
+    """(plan, column sets, member params, num_docs per set, member-to-set
+    map, D) of one K8 phase-3 case over `block`: K8_SEGMENTS segments, the
+    first VEC_SEGMENTS real (VEC_DOCS docs), the rest padding; member m
+    over rows m .. m + K8_SEGMENTS - 1 of the block when stacked (each its
+    own column set), over rows 0 .. K8_SEGMENTS - 1 otherwise; each
+    member's own query (one unit vector, zero-padded), K, probe cells
+    (IVF: NPROBE of 999 per real segment) and category."""
+    import torch
+
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan
+    from pinot_tpu_torch.ops.vector_device import NPROBE, _pow2
+    dev = block["vec"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S, D = K8_SEGMENTS, K8_D
+    plan = DevicePlan(
+        filter_ir=("leaf", 0) if resid else None,
+        leaves=(DeviceLeaf("range", "category"),) if resid else (),
+        value_irs=(), agg_ops=(),
+        dict_cols=("category",) if resid else (), mode="vector",
+        valid_mask=resid, vec_col="vec", dim_pad=128, k_pad=_pow2(k),
+        ivf=ivf, cells_pad=1024 if ivf else 0)
+    nd = torch.tensor([VEC_DOCS] * VEC_SEGMENTS
+                      + [0] * (S - VEC_SEGMENTS), dtype=torch.int32,
+                      device=dev)
+    sets = []
+    for u in range(B if stacked else 1):
+        cols = {"vec:vec": block["vec"][u:u + S]}
+        if ivf:
+            cols["vcell:vec"] = block["vcell"][u:u + S]
+        if resid:
+            cols["ids:category"] = block["category"][u:u + S]
+            cols["vmask"] = block["vmask"][u:u + S]
+        sets.append(cols)
+    plist = []
+    for _m in range(B):
+        q = torch.zeros(128, dtype=torch.float32, device=dev)
+        v = torch.randn(VEC_DIM, generator=g, device=dev)
+        q[:VEC_DIM] = v / v.norm()
+        p = {"vq:q": q.expand(S, 128).contiguous(),
+             "vq:k": torch.full((S,), k, dtype=torch.int32, device=dev)}
+        if ivf:
+            pick = torch.rand((S, 999), generator=g, device=dev).topk(
+                NPROBE, dim=1).indices
+            cells = torch.zeros((S, 1024), dtype=torch.bool, device=dev)
+            cells[:VEC_SEGMENTS].scatter_(1, pick[:VEC_SEGMENTS], True)
+            p["vq:cells"] = cells
+        if resid:
+            c = torch.randint(0, VEC_CATEGORIES, (S,), generator=g,
+                              device=dev, dtype=torch.int32)
+            p["leaf0:lo"], p["leaf0:hi"] = c, c.clone()
+        plist.append(p)
+    idx = list(range(B)) if stacked else [0] * B
+    return plan, sets, plist, [nd] * len(sets), idx, D
+
+
+def vector_bytes(plan, col_sets, plist, ndlist, idx, D, out) -> int:
+    """The bytes K8's function must move on these inputs: per column set,
+    the cell id of each real doc (IVF) and the row (dim_pad x 4 bytes) of
+    each doc some member over the set scores (every real doc without IVF,
+    those in a probed cell with it), once; the residual filter's columns
+    and the validity mask at each member's winners; each member's
+    parameters, each set's num_docs and the output once."""
+    import torch
+
+    from pinot_tpu_torch.ops import program
+    moved = winners = 0
+    kk = min(plan.k_pad, D)
+    for u, (cols, nd) in enumerate(zip(col_sets, ndlist)):
+        real = torch.arange(D, device=nd.device)[None, :] < nd[:, None]
+        scored = torch.zeros_like(real)
+        for p in [p for p, v in zip(plist, idx) if v == u]:
+            cand = real
+            if plan.ivf:
+                cell = cols["vcell:" + plan.vec_col].long().clamp(
+                    0, plan.cells_pad - 1)
+                cand = real & torch.gather(p["vq:cells"], 1, cell)
+            scored |= cand
+            winners += int(cand.sum(1).clamp(max=kk).sum())
+        if plan.ivf:
+            moved += int(real.sum()) * 4
+        moved += int(scored.sum()) * plan.dim_pad * 4
+        moved += nd.numel() * nd.element_size()
+    per_doc = sum(col_sets[0][c].element_size()
+                  for c in program.compile_plan(plan).cols) \
+        + (1 if plan.valid_mask else 0)
+    moved += winners * per_doc
+    moved += sum(v.numel() * v.element_size()
+                 for p in plist for v in p.values()) \
+        + out.numel() * out.element_size()
+    return moved
+
+
+def check_vector(name: str, plan, sets, plist, ndlist, idx, D) -> dict:
+    """K8 against its plain version on the card, bit for bit over the whole
+    [.., S, 1 + 2 kk] output (scores included): one launch (B = 1) or B
+    members, each member also against its own single launch. Returns the
+    case's entry: times, bound, the plain version's time and the
+    torch.bmm + torch.topk yardstick on the same block (two calls; topk
+    keeps no tie order: a time only; none where members read other
+    column sets)."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels
+    from pinot_tpu_torch.ops import vector_device as vd
+    B = len(plist)
+    if B == 1:
+        kern = kernels.make_vector_kernel(plan)
+
+        def run():
+            return kern(sets[0], plist[0], ndlist[0], D)
+
+        def plain():
+            return vd.vector_topk(plan, sets[0], plist[0], ndlist[0], D)
+    else:
+        batched = kernels.batched_kernel(plan)
+
+        def run():
+            return batched(sets, plist, ndlist, idx, D)
+
+        def plain():
+            return kernels.plain_batched_kernel(plan)(sets, plist, ndlist,
+                                                      idx, D)
+    out = run()
+    ref = plain()
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+        bad = (out.view(torch.int32) != ref.view(torch.int32)).nonzero()
+        fail(f"vector_topk {name}: K8 differs from its plain version at "
+             f"{bad[:5].tolist()}")
+    entry = {"case": name, "S": int(ndlist[0].shape[0]), "D": D, "B": B,
+             "k": int(plist[0]["vq:k"][0]), "kk": min(plan.k_pad, D),
+             "ivf": plan.ivf, "residual": plan.filter_ir is not None,
+             "kept": int(out[..., 0].sum())}
+    if B > 1:
+        single = kernels.make_vector_kernel(plan)
+        for m in range(B):
+            one = single(sets[idx[m]], plist[m], ndlist[idx[m]], D)
+            if not torch.equal(one.view(torch.int32),
+                               out[m].view(torch.int32)):
+                fail(f"vector_topk {name}: member {m} differs from its "
+                     "single launch")
+        entry["single_ms"] = cuda_ms(lambda: single(sets[0], plist[0],
+                                                    ndlist[0], D))
+        entry["8x_single_ms"] = B * entry["single_ms"]
+    moved = vector_bytes(plan, sets, plist, ndlist, idx, D, out)
+    kk = entry["kk"]
+    library_ms = None
+    if len(sets) == 1:
+        V = sets[0]["vec:" + plan.vec_col].view(-1, D, plan.dim_pad)
+        Q = torch.stack([p["vq:q"] for p in plist], 2)
+
+        def library():
+            return torch.topk(torch.bmm(V, Q), kk, dim=1)
+        library_ms = cuda_ms(library)
+    entry.update(
+        ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=1 if B > 1 else 3),
+        bound_ms=moved / HBM_BYTES_PER_S * 1e3, bytes=moved,
+        bound_by="bytes", library_ms=library_ms,
+        library="torch.bmm + torch.topk on the same block (two calls, no "
+                "tie order: a time only)" if library_ms is not None else
+                "none: no one PyTorch call reads the members' own blocks",
+        max_abs_err=max_abs_err(out, ref))
+    return entry
+
+
+#: phase 3's K8 single-launch cases and phase 3b's B = 8 forms: name ->
+#: (k, ivf, residual and validity mask, stacked)
+K8_CASES = {"exact k=10": (10, False, False, False),
+            "exact k=100": (100, False, False, False),
+            "ivf k=10": (10, True, False, False),
+            "ivf k=100 + residual + vmask": (100, True, True, False)}
+K8_BATCHED = {"broadcast ivf k=10": (10, True, False, False),
+              "stacked ivf k=10": (10, True, False, True)}
+
+
+def vector_kernel_cases(seed: int, card: str):
+    """Phase 3's K8 cases and phase 3b's B = 8 forms on one generated block
+    (K8_SEGMENTS + BATCH_B - 1 rows, so each stacked member reads its own
+    rows); returns ({case: entry}, {form: entry})."""
+    import torch
+    block = vector_block(seed, K8_SEGMENTS + BATCH_B - 1)
+    single, batched = {}, {}
+    for i, (name, (k, ivf, resid, _st)) in enumerate(K8_CASES.items()):
+        single[name] = check_vector(name, *vector_case(block, seed + i, k,
+                                                       ivf, resid))
+        print(f"[kernel] vector_topk {json.dumps(single[name])} | {card}",
+              flush=True)
+    for i, (name, (k, ivf, resid, st)) in enumerate(K8_BATCHED.items()):
+        batched[name] = check_vector(name, *vector_case(
+            block, seed + 10 + i, k, ivf, resid, B=BATCH_B, stacked=st))
+        print(f"[kernel] vector_topk batched {json.dumps(batched[name])} "
+              f"| {card}", flush=True)
+        torch.cuda.empty_cache()
+    del block
+    torch.cuda.empty_cache()
+    return single, batched
+
+
+def staged_vector(ex, sql: str):
+    """The inputs the engine stages for K8 on a vector query, as it stages
+    them on the main path: (plan, [cols], [params], [num_docs], [0], D)."""
+    from pinot_tpu_torch.query.context import QueryContext
+    ctx = QueryContext.from_sql(sql)
+    segs = ex.segments_of(ctx.table)
+    eng = ex.engine
+    with eng._engine_lock:
+        plan, (fn, qv, k), rctx = eng._plan_vector(segs, ctx, meter=False)
+        cols, params, nd, D = eng._stage_vector(segs, rctx, plan, fn, qv, k,
+                                                None)
+    return plan, [cols], [params], [nd], [0], D
+
+
+def load_vector_segments(done):
+    from pinot_tpu_torch.segment.loader import load_segment
+    segs = [load_segment(out) for out, _s in done]
+    return segs, [s.data_source("vec").vector_index for s in segs]
+
+
+def vector_queries(segs, indexes, xsegs, xindexes, seed: int) -> dict:
+    """vec.1-vec.4: name -> (sql, (rows, band) of the host search, LIMIT).
+    vec.3's category is the first query vector's nearest doc's."""
+    q1, q2, q3 = vec_query_vectors(indexes, seed, 3, 1)
+    (q4,) = vec_query_vectors(xindexes, seed, 1, 4)
+    ix = indexes[0]
+    c = int(segs[0].data_source("category").values()[
+        int(np.argmax(ix.vectors @ (q3 / np.linalg.norm(q3))))])
+    specs = {"vec.1": (segs, indexes, q1, 10, 100, None, "vec"),
+             "vec.2": (segs, indexes, q2, 100, 1000, None, "vec"),
+             "vec.3": (segs, indexes, q3, 100, 1000, c, "vec"),
+             "vec.4": (xsegs, xindexes, q4, 10, 100, None, "vecx")}
+    out = {}
+    for name, (ss, ixs, qv, k, limit, cat, table) in specs.items():
+        where = "" if cat is None else f" AND category = {cat}"
+        out[name] = (vec_sql(qv, k, limit, table, where),
+                     vec_expected(ss, ixs, qv, k, limit, cat), limit)
+    return out
+
+
+def vector_leg(tmp: str, seed: int, kernels, none: dict, card: str, done):
+    """Phase 12: the vector table (VEC_SEGMENTS x VEC_DOCS vectors of d =
+    VEC_DIM with their IVF cells, built beside phase 3: `done`) and the
+    exact-path table vecx (VEC_EXACT_SEGMENTS x VEC_EXACT_DOCS, below
+    IVF_THRESHOLD, built here) on one server; vec.1-vec.4 through
+    QueryExecutor, each equal to the host search of the same probe cells
+    (VectorIndex.top_k's; exact on vecx) up to a band of near-tied
+    scores; launches K8 once per query run, K6 once per block assembled;
+    an OR and an ORDER BY refused with reason 'hybrid' and no launch;
+    recall@10 of VEC_RECALL queries printed; K8 held to its plain version
+    on the engine's staging of vec.1 and vec.3; then 9i. Returns (the
+    leg's launches per kernel, 9i's window launches)."""
+    import torch
+
+    from pinot_tpu_torch.ops.engine import NotOffloadable
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    t0 = time.perf_counter()
+    segs, indexes = load_vector_segments(done)
+    xsegs, xindexes = load_vector_segments(
+        [build_vector_segment(j) for j in vector_jobs(
+            tmp, seed, "vecx", VEC_EXACT_SEGMENTS, VEC_EXACT_DOCS, 100)])
+    if any(ix.centroids is None for ix in indexes) \
+            or any(ix.centroids is not None for ix in xindexes):
+        fail("the vector tables do not have the IVF layer they need")
+    rows = sum(s.num_docs for s in segs)
+    print(f"[vector] loaded {len(segs)} segments, {rows} vectors "
+          f"({len(indexes[0].centroids)} cells each) and vecx in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    queries = vector_queries(segs, indexes, xsegs, xindexes, seed)
+    ex = QueryExecutor({"vec": segs, "vecx": xsegs})
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    legs = []
+    for name, (sql, (want, band), limit) in queries.items():
+        t1 = time.perf_counter()
+        resp = ex.execute(sql)
+        cold, cold_split = time.perf_counter() - t1, ex.last_stage_ms
+        lats, splits = [], []
+        for _ in range(ITERS):
+            t1 = time.perf_counter()
+            resp = ex.execute(sql)
+            lats.append(time.perf_counter() - t1)
+            splits.append(ex.last_stage_ms)
+        got = rows_of(resp)
+        if not vec_rows_agree(got, want, band, limit):
+            fail(f"{name}: {got[:5]} ({len(got)} rows) vs the host search "
+                 f"{want[:5]} ({len(want)} rows), band {sorted(band)[:5]}")
+        legs.append({"query": name, "rows": rows if name != "vec.4"
+                     else sum(s.num_docs for s in xsegs),
+                     "result_rows": len(got), "band": len(band),
+                     "p50_ms": statistics.median(lats) * 1e3,
+                     "cold_s": cold, "cold_stage_ms": cold_split,
+                     "stage_ms": {k: statistics.median(sp[k] for sp in splits)
+                                  for k in splits[0]}})
+    runs = len(queries) * (1 + ITERS)
+    got = launches_of_leg("vector leg", kernels,
+                          {**none, "vector_topk": runs})
+    if ex.engine.meter("vector_served") != runs:
+        fail(f"vector_served {ex.engine.meter('vector_served')}, expected "
+             "one per query run")
+    zero_launches(kernels)
+    q1 = json.loads(queries["vec.1"][0].split("'")[1])
+    for what, sql in (
+            ("OR", vec_sql(q1, 10, 100, where=" OR category = 3")),
+            ("ORDER BY", vec_sql(q1, 10, 100).replace(
+                " LIMIT", " ORDER BY id LIMIT"))):
+        try:
+            ex.execute(sql)
+            fail(f"a vector query under {what} was not refused")
+        except NotOffloadable as e:
+            if e.reason != "hybrid":
+                fail(f"a vector query under {what}: reason {e.reason!r}")
+    if ex.engine.meter("vector_fallback", "hybrid") != 2:
+        fail("the refused vector queries were not counted as 'hybrid'")
+    launches_of_leg("the refused vector queries", kernels, none)
+    peak = torch.cuda.max_memory_allocated()
+    for leg in legs:
+        leg["max_memory_allocated"] = peak
+        print(f"[vector] {json.dumps(leg)} | {card}", flush=True)
+    t1 = time.perf_counter()
+    recall = vec_recall(ex, segs, indexes,
+                        vec_query_vectors(indexes, seed, VEC_RECALL, 50))
+    line = {"recall@10": recall, "queries": VEC_RECALL, "nprobe": 8,
+            "seconds": time.perf_counter() - t1}
+    print(f"[vector] {json.dumps(line)} | {card}", flush=True)
+    busy = device_busy(ex, queries["vec.1"][0], ITERS, tmp)
+    print(f"[vector] trace vec.1 {json.dumps(busy or 'not measured')} "
+          f"| {card}", flush=True)
+    # after the launch counts were read: these launches are the
+    # comparison's, not the main path's
+    for name in ("vec.1", "vec.3"):
+        case = check_vector(f"staged {name}",
+                            *staged_vector(ex, queries[name][0]))
+        print(f"[kernel] vector_topk {json.dumps(case)} | {card}",
+              flush=True)
+
+    # phase 9i: vec.1-shaped queries with other vectors under concurrency
+    pool_q = vec_query_vectors(indexes, seed, VEC_POOL, 9)
+    pool = [vec_sql(qv, 10, 100) for qv in pool_q]
+    truth = [vec_expected(segs, indexes, qv, 10, 100) for qv in pool_q]
+
+    def pool_check(i, r):
+        want, band = truth[i]
+        return None if vec_rows_agree(r, want, band, 100) else \
+            f"{r[:3]} vs the host search {want[:3]}"
+    leg = concurrency_leg(
+        "9i", modes_of({"vec": segs, "vecx": xsegs}, pipelined=ex), pool,
+        [list(range(len(pool)))] * CLIENTS, pool_check, card, tmp, kernels,
+        "vector_topk")
+    del ex, segs, indexes
+    torch.cuda.empty_cache()
+    return got, leg["launches"]
+
+
+#: the MSE leaf's filters on phase 4's segments: a selective one (a day, a
+#: discount and a quantity: ~6 docs a segment) and one that keeps ~1/11
+#: of the docs, past TOPN_MAX_K
+MSE_FILTER = ("lo_orderdate = 19940101 AND lo_discount = 5 AND "
+              "lo_quantity = 10")
+MSE_WIDE = "lo_discount = 5"
+
+
+def mse_truth(cols: dict) -> dict:
+    """The doc ids MSE_FILTER keeps in one segment, and MSE_WIDE's
+    count."""
+    sel = (cols["lo_orderdate"] == 19940101) & (cols["lo_discount"] == 5) \
+        & (cols["lo_quantity"] == 10)
+    return {"docs": np.nonzero(sel)[0].astype(np.int64),
+            "wide": int((cols["lo_discount"] == 5).sum())}
+
+
+def mse_leaf(ex, segs, truths, kernels, none: dict, card: str) -> int:
+    """The MSE leaf's filtered doc ids (engine.filtered_doc_ids, K4 with
+    k = TOPN_MAX_K) on phase 4's segments: MSE_FILTER's equal the numpy
+    doc ids, MSE_WIDE (past TOPN_MAX_K in every segment) gives None. One
+    K4 launch each. Returns K4's launches."""
+    from pinot_tpu_torch.ops._cuda import TOPN_MAX_K
+    from pinot_tpu_torch.query.context import QueryContext
+
+    def expr(where):
+        return QueryContext.from_sql(
+            f"SELECT lo_discount FROM ssb WHERE {where}").filter
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    got = ex.engine.filtered_doc_ids(segs, expr(MSE_FILTER))
+    ms = (time.perf_counter() - t0) * 1e3
+    wide = ex.engine.filtered_doc_ids(segs, expr(MSE_WIDE))
+    launches_of_leg("MSE leaf", kernels, {**none, "topn": 2})
+    for s, (g, t) in enumerate(zip(got, truths)):
+        if g is None or not np.array_equal(g, t["mse"]["docs"]):
+            fail(f"MSE leaf: segment {s}: {g} vs numpy {t['mse']['docs']}")
+    if any(t["mse"]["wide"] <= TOPN_MAX_K for t in truths) \
+            or any(w is not None for w in wide):
+        fail(f"MSE leaf: {MSE_WIDE} past TOPN_MAX_K must give None")
+    line = {"filter": MSE_FILTER, "docs": sum(len(g) for g in got),
+            "ms": ms, "wide": MSE_WIDE, "wide_overflow": True}
+    print(f"[mse] {json.dumps(line)} | {card}", flush=True)
+    return 2
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the concurrency leg
 # ---------------------------------------------------------------------------
 
@@ -3523,6 +4185,10 @@ def main() -> None:
     # every check below is timed on the card (K6's plain version, timed
     # on the host, ran above)
     pool, pending = start_late_builds(tmp, args.seed)
+    # the vector segments build from here on at the lowest priority: on
+    # the card's 8-core host they finish by phase 6 (started after phase
+    # 3 instead, they overlap and slow phases 4-11; PERF.md)
+    vpool, vpending = start_vector_builds(tmp, args.seed)
     k1 = check_kernel("scan_agg", *kernel_inputs(args.seed, grouped=False))
     print(f"[kernel] scan_agg {json.dumps(k1)}", flush=True)
     k2 = check_kernel("group_agg", *kernel_inputs(args.seed, grouped=True))
@@ -3619,12 +4285,20 @@ def main() -> None:
     print(f"[kernel] clp_match batched {json.dumps(k7_batched)} | {card}",
           flush=True)
     torch.cuda.empty_cache()
+    # K8 vector_topk: phase 3's single-launch cases and phase 3b's forms
+    k8_cases, k8b_cases = vector_kernel_cases(args.seed, card)
+    # the kernels line carries vec.1's shape (IVF, k = 10) and the largest
+    # error over every case
+    k8 = dict(k8_cases["ivf k=10"], launches=0, max_abs_err=max(
+        c["max_abs_err"] for c in k8_cases.values()))
+    k8_batched = dict(k8b_cases["broadcast ivf k=10"], max_abs_err=max(
+        c["max_abs_err"] for c in k8b_cases.values()))
     kernels = _cuda.KERNELS
     none = {k.name: 0 for k in kernels}
     p9 = {k.name: [0, 0] for k in kernels}
     variants = {}
     lap("phase 3")
-    late = finish_late_builds(pool, pending, card)
+    late = finish_late_builds(pool, pending, ("tsbs", "logs"), card)
     lap("wait for the late builds")
 
     try:
@@ -3726,6 +4400,8 @@ def main() -> None:
             busy = device_busy(ex, SEL_QUERIES[name][0], ITERS, tmp)
             print(f"[sel] trace {name} {json.dumps(busy or 'not measured')} "
                   f"| {card}", flush=True)
+        # the MSE leaf's filtered doc ids on the same segments (K4)
+        k4["launches"] += mse_leaf(ex, segs, truths, kernels, none, card)
 
         lap("phases 4 and 4b")
         # phase 9a: Q1.1-shaped concurrency, broadcast batches (K1)
@@ -3994,6 +4670,19 @@ def main() -> None:
                             (_cuda.CLP_MATCH, k7)):
             entry["launches"] += log_launches[kern.name]
         count_phase9(p9h, p9)
+
+        # phase 12: the vector leg (K8), with phase 9i
+        done = finish_late_builds(vpool, vpending, ("vector",),
+                                  card)["vector"]
+        print(f"[build] a vector segment took "
+              f"{max(sec for _o, sec in done):.1f} s at most | {card}",
+              flush=True)
+        vec_launches, p9i = vector_leg(tmp, args.seed, kernels, none, card,
+                                       done)
+        lap("phase 12 and 9i")
+        k8["launches"] = vec_launches["vector_topk"]
+        k6["launches"] += vec_launches["row_assemble"]
+        count_phase9(p9i, p9)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4017,6 +4706,10 @@ def main() -> None:
     k7_batched["launches"] = p9["clp_match"][1]
     if not k7["launches"] or not k7_batched["launches"]:
         fail("the main path never launched clp_match, single and batched")
+    k8["launches"] += p9["vector_topk"][0]
+    k8_batched["launches"] = p9["vector_topk"][1]
+    if not k8["launches"] or not k8_batched["launches"]:
+        fail("the main path never launched vector_topk, single and batched")
     for name, entry in [("group_agg bucket", kb),
                         ("group_agg bucket batched", kb_batched),
                         *((f"{k} masked", e) for k, e in masked.items())]:
@@ -4031,7 +4724,8 @@ def main() -> None:
             (_cuda.STARTREE_AGG, k5,
              "pinot_tpu/ops/startree_device.py:99,81"),
             (_cuda.ROW_ASSEMBLE, k6, "pinot_tpu/ops/kernels.py:100"),
-            (_cuda.CLP_MATCH, k7, "pinot_tpu/ops/clp_device.py:700,757")):
+            (_cuda.CLP_MATCH, k7, "pinot_tpu/ops/clp_device.py:700,757"),
+            (_cuda.VECTOR_TOPK, k8, "pinot_tpu/ops/vector_device.py:104")):
         entries.append({
             "name": kern.name, "route": "cuda",
             "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",
@@ -4046,8 +4740,11 @@ def main() -> None:
             (_cuda.SKETCH_AGG, "pinot_tpu/ops/kernels.py:793,823"),
             (_cuda.TOPN, "pinot_tpu/ops/kernels.py:858"),
             (_cuda.STARTREE_AGG, "pinot_tpu/ops/startree_device.py:152"),
-            (_cuda.CLP_MATCH, "pinot_tpu/ops/clp_device.py:700,757")):
-        entry = k7_batched if kern is _cuda.CLP_MATCH else batched[kern.name]
+            (_cuda.CLP_MATCH, "pinot_tpu/ops/clp_device.py:700,757"),
+            (_cuda.VECTOR_TOPK, "pinot_tpu/ops/vector_device.py:163")):
+        entry = {_cuda.CLP_MATCH: k7_batched,
+                 _cuda.VECTOR_TOPK: k8_batched}.get(kern) \
+            or batched[kern.name]
         entries.append({
             "name": f"{kern.name}_batched", "route": "cuda",
             "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",

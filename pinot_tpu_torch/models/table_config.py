@@ -4,8 +4,8 @@ Counterpart of pinot_tpu/models/table_config.py (ref
 pinot-spi/src/main/java/org/apache/pinot/spi/config/table/TableConfig.java:38).
 The port's creator writes dictionaries, forward indexes and star-trees, so
 only the indexing fields that decide those (no-dictionary columns, raw-chunk
-compression, star-tree configs, CLP log columns) and the time column
-survive here. Upsert
+compression, star-tree configs, CLP log columns, vector index columns) and
+the time column survive here. Upsert
 state is not table configuration here: a
 `segment/upsert.PartitionUpsertMetadataManager` (FULL mode) attaches
 `valid_doc_ids` to the segments it registers, so the JAX package's upsert /
@@ -59,6 +59,9 @@ class IndexingConfig:
     star_tree_configs: List[StarTreeIndexConfig] = field(default_factory=list)
     #: STRING columns stored as CLP logtypes plus variables (segment/clp.py)
     clp_columns: List[str] = field(default_factory=list)
+    #: STRING columns of JSON float arrays that carry a vector index
+    #: (segment/vector_index.py): the VECTOR_SIMILARITY filter's columns
+    vector_index_columns: List[str] = field(default_factory=list)
     # Chunk compression for raw (no-dictionary) columns.
     compression: str = "LZ4"  # PASS_THROUGH | LZ4 | GZIP | ZSTANDARD
 

@@ -3,22 +3,24 @@
 K1 `scan_agg` (csrc/scan_agg.cu), K2 `group_agg` (csrc/group_agg.cu),
 K3 `sketch_agg` (csrc/sketch_agg.cu), K4 `topn` (csrc/topn.cu), K5
 `startree_agg` (csrc/startree_agg.cu), K6 `row_assemble`
-(csrc/row_assemble.cu) and K7 `clp_match` (csrc/clp_match.cu) are
-plain-C-interface shared libraries
+(csrc/row_assemble.cu), K7 `clp_match` (csrc/clp_match.cu) and K8
+`vector_topk` (csrc/vector_topk.cu) are plain-C-interface shared libraries
 built with `nvcc` for sm_90a at first use, into the git-ignored
 `build/kernels/` directory beside the package, and loaded with ctypes. All
-sources build at once, one `nvcc` each, in parallel. A library's file name carries a hash of its sources and flags, so
-an edited source rebuilds and an unchanged one is reused.
+sources build at once, one `nvcc` each, in parallel. A library's file name
+carries a hash of its source, the shared headers and the flags, so an
+edited source rebuilds and an unchanged one is reused.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, allocate outputs and scratch with `torch.empty`, launch on the
 current stream, raise if the launch failed, and count their launches. They
 never fall back to the plain PyTorch version.
 
-K1-K5 and K7 carry a member axis (csrc/interp.cuh, csrc/startree_agg.cu,
-csrc/clp_match.cu): one launch computes B coalesced queries of one plan
-over U column sets, member m reading set idx[m]. `scan_agg`, `group_agg`,
-`sketch_agg`, `topn`, `startree_agg` and `clp_match` are the single launch
+K1-K5, K7 and K8 carry a member axis (csrc/interp.cuh,
+csrc/startree_agg.cu, csrc/clp_match.cu, csrc/vector_topk.cu): one launch
+computes B coalesced queries of one plan over U column sets, member m
+reading set idx[m]. `scan_agg`, `group_agg`, `sketch_agg`, `topn`,
+`startree_agg`, `clp_match` and `vector_topk` are the single launch
 (B = U = 1); the `*_batched` forms take the members' column sets,
 parameters, doc counts and member-to-set map and return [B, S, ...]. A
 kernel counts single launches in `launches`, batched ones in
@@ -94,6 +96,14 @@ class _Args(ctypes.Structure):
                 ("luts", ctypes.c_void_p * prog_mod.MAX_LUTS),
                 ("code", ctypes.c_int * prog_mod.MAX_CODE),
                 ("set_of", ctypes.c_int * MAX_MEMBERS)]
+
+
+class _VecArgs(ctypes.Structure):
+    """csrc/vector_topk.cu `struct VecArgs`, passed to the kernel by value:
+    the residual filter's `Args`, then per column set the vector block's
+    and the IVF cell block's pointers (null: no cells)."""
+    _fields_ = [("a", _Args), ("vec", ctypes.c_void_p * MAX_SETS),
+                ("cell", ctypes.c_void_p * MAX_SETS)]
 
 
 class _StArgs(ctypes.Structure):
@@ -183,7 +193,8 @@ class CudaKernel:
     @property
     def library(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for f in (self.source, "interp.cuh"):
+        headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+        for f in (self.source, *headers):
             with open(os.path.join(_CSRC, f), "rb") as fh:
                 h.update(fh.read())
         return os.path.join(BUILD_DIR,
@@ -237,8 +248,12 @@ ROW_ASSEMBLE = CudaKernel("row_assemble", "row_assemble.cu",
 CLP_MATCH = CudaKernel("clp_match", "clp_match.cu", "pt_clp_match",
                        [ctypes.POINTER(_ClpArgs), _I, _I, _I, _I, _I, _P, _I,
                         _P], layout=(_ClpArgs, "pt_clp_args_bytes"))
+VECTOR_TOPK = CudaKernel("vector_topk", "vector_topk.cu", "pt_vector_topk",
+                         [ctypes.POINTER(_VecArgs), _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _P], layout=(_VecArgs, "pt_vec_args_bytes"))
 KERNELS = (SCAN_AGG, GROUP_AGG, SKETCH_AGG, TOPN, STARTREE_AGG, ROW_ASSEMBLE,
-           CLP_MATCH)
+           CLP_MATCH, VECTOR_TOPK)
 
 _build_lock = threading.Lock()
 
@@ -834,3 +849,82 @@ def clp_match(leaves, cols: Tensors, params: Tensors, D: int) -> torch.Tensor:
     leaves) over one column set."""
     return clp_match_batched(leaves, [cols], [params], [0], D,
                              batched=False)[:, 0]
+
+
+def vector_topk_batched(plan: DevicePlan, col_sets: List[Tensors],
+                        params_list: List[Tensors],
+                        num_docs_list: List[torch.Tensor], idx: List[int],
+                        D: int, batched: bool = True,
+                        luts: Optional[Tensors] = None) -> torch.Tensor:
+    """K8 over B members: the [B, S, 1 + 2 kk] float32 similarity top-K of
+    the vector plan `plan` (kk = min(k_pad, D)), member m over column set
+    idx[m] with its own query vector, K and probe cells
+    (params_list[m]['vq:q' / 'vq:k' / 'vq:cells']) and residual filter
+    parameters (`luts`: see _Launch)."""
+    if plan.mode != "vector":
+        raise ValueError("vector_topk takes vector plans")
+    kk = min(plan.k_pad, D)
+    if not 1 <= kk <= TOPN_MAX_K:
+        raise ValueError(f"vector top-K {kk} outside [1, {TOPN_MAX_K}]")
+    L = _Launch(plan, col_sets, params_list, num_docs_list, idx, D,
+                torch.float32, luts)
+    B, S, dev = L.B, L.S, L.device
+    R = B * S
+    if R > TOPN_MAX_ROWS:
+        raise ValueError(f"{B} members x {S} segments exceed K8's "
+                         f"{TOPN_MAX_ROWS} rows")
+    dp = plan.dim_pad
+    if dp < 8 or dp & (dp - 1):
+        raise ValueError(f"dim_pad {dp} is not a power of two >= 8")
+    va = _VecArgs()
+    va.a = L.args
+    for u, cols in enumerate(col_sets):
+        vec = cols["vec:" + plan.vec_col]
+        _check(vec, f"vec:{plan.vec_col} of set {u}", dev, (torch.float32,),
+               (S, D * dp))
+        if vec.data_ptr() % 16:
+            raise ValueError("the vector block must be 16-byte aligned")
+        va.vec[u] = vec.data_ptr()
+        if plan.ivf:
+            cell = cols["vcell:" + plan.vec_col]
+            _check(cell, f"vcell:{plan.vec_col} of set {u}", dev,
+                   (torch.int32,), (S, D))
+            va.cell[u] = cell.data_ptr()
+
+    def member(key, dtype, shape):
+        for m, p in enumerate(params_list):
+            _check(p[key], f"{key} of member {m}", dev, (dtype,), shape)
+        return _stack([p[key] for p in params_list]).contiguous()
+    q = member("vq:q", torch.float32, (S, dp))
+    kq = member("vq:k", torch.int32, (S,))
+    cells, cells_pad = None, 0
+    if plan.ivf:
+        cells_pad = plan.cells_pad
+        cells = member("vq:cells", torch.bool, (S, cells_pad))
+    keys = torch.empty((B, S, D), dtype=torch.int32, device=dev)
+    state = torch.empty((R, TOPN_STATE_WORDS), dtype=torch.int64, device=dev)
+    hist = torch.empty((R, 256), dtype=torch.int32, device=dev)
+    ties = torch.empty((R, L.nb), dtype=torch.int32, device=dev)
+    cand_key = torch.empty((R, kk), dtype=torch.int32, device=dev)
+    cand_doc = torch.empty((R, kk), dtype=torch.int32, device=dev)
+    out = torch.empty((B, S, 1 + 2 * kk), dtype=torch.float32, device=dev)
+    rc = VECTOR_TOPK.fn()(
+        ctypes.byref(va), L.pmat.data_ptr(), L.num_docs.data_ptr(),
+        q.data_ptr(), kq.data_ptr(),
+        None if cells is None else cells.data_ptr(), S, D, L.P, dp,
+        cells_pad, L.nb, B, kk, keys.data_ptr(), state.data_ptr(),
+        hist.data_ptr(), ties.data_ptr(), cand_key.data_ptr(),
+        cand_doc.data_ptr(), out.data_ptr(), dev.index, L.stream)
+    if rc != 0:
+        raise RuntimeError(f"vector_topk launch failed: cudaError {rc}")
+    VECTOR_TOPK.count(B, batched)
+    return out
+
+
+def vector_topk(plan: DevicePlan, cols: Tensors, params: Tensors,
+                num_docs: torch.Tensor, D: int,
+                luts: Optional[Tensors] = None) -> torch.Tensor:
+    """K8: the [S, 1 + 2 kk] float32 similarity top-K of the vector plan
+    `plan` over one column set."""
+    return vector_topk_batched(plan, [cols], [params], [num_docs], [0], D,
+                               batched=False, luts=luts)[0]

@@ -12,7 +12,8 @@ Port of pinot_tpu/ops/dispatch.py (`KernelDispatcher` :311, `Launch` :247,
     S, D, G, staged-array signature: the shape bucket, not the segment
     batch, so a dashboard fleet batches across tables). One launch of the
     plan's kernels with a member axis (ops/kernels.py `batched_kernel`,
-    K1-K4, K7 first for a plan with CLP leaves; ops/startree_device.py
+    K1-K4, K7 first for a plan with CLP leaves, K8 for a vector plan, whose
+    members differ in their query vectors; ops/startree_device.py
     `batched_kernel`, K5) carries exactly the batch's members, in one of
     three
     variants: broadcast (every member staged the same column blocks),

@@ -59,8 +59,20 @@ logtype-id and variable-slot pseudo-columns through the three levels,
 the leaf's tables through the params cache, and K7 `clp_match` computes
 the leaf's per-doc mask ahead of K1 / K2 / K4; a pattern the planner
 cannot push raises NotOffloadable with its reason, counted as
-`clp_fallback`. No vector, compact group keys or mesh. The rules it keeps
-from the JAX engine:
+`clp_fallback`. A selection filtered by `vector_similarity(col, '<json
+vector>', K)` (JAX routing :320-327 and :1444, `_plan_vector` :737,
+`_stage_vector_locked` :787, `_vec_block_locked` :828, `_prepare_vector`
+:892, `_execute_vector` :957) plans as a vector plan whose residual
+conjuncts are its filter (ops/vector_device.py); the vector block and the
+IVF cells stage as `__vec__/<col>/block` and `__vec__/<col>/cells` rows
+through the three levels (each row padded to the segment's own doc bucket
+times dim_pad), the query vector, K and probe cells through the params
+cache under the vector function's own key, and K8 `vector_topk` picks the
+K winners per segment before the residual filter and the validity mask
+apply; a refusal raises NotOffloadable with the JAX reason, counted as
+`vector_fallback`. `filtered_doc_ids` (JAX :1749) gives the MSE leaf's
+filtered doc ids per segment from K4. No compact group keys or mesh. The
+rules it keeps from the JAX engine:
 cardinality-aware i8/i16/i32 id staging, power-of-two doc padding masked by
 `num_docs`, the per-segment doc cap, the group-count and group-result-size
 caps, the float32 precision guard, the exact-int-sum (isum) admission, the
@@ -90,7 +102,8 @@ import torch
 
 from pinot_tpu_torch.ops import dispatch as dispatch_mod
 from pinot_tpu_torch.ops import (clp_device, kernels, program,
-                                 startree_device, timeseries_device)
+                                 startree_device, timeseries_device,
+                                 vector_device)
 from pinot_tpu_torch.ops import residency as residency_mod
 #: most rows a selection fetches per segment (limit + offset)
 from pinot_tpu_torch.ops._cuda import TOPN_MAX_K
@@ -122,8 +135,7 @@ _LEAF_RANGE_FUNCS = {
 }
 _LEAF_LUT_FUNCS = {"in", "not_in", "like", "regexp_like"}
 #: filter functions that later slices bring to the device, by feature
-_LATER_FILTERS = {"vector_similarity": "vector similarity",
-                  "text_match": "text index", "json_match": "JSON index",
+_LATER_FILTERS = {"text_match": "text index", "json_match": "JSON index",
                   "is_null": "null handling", "is_not_null": "null handling"}
 
 
@@ -155,10 +167,12 @@ class TorchOperatorExecutor:
     `pinot.server.startree.enabled` (answer aggregations from fitted
     star-trees; a query opts out with OPTION(useStarTree=false)), the
     `pinot.server.hbm.*` keys (the resident-row tier),
-    `pinot.server.startree.hbm.resident` and
+    `pinot.server.startree.hbm.resident`,
     `pinot.server.timeseries.bucket.enabled` (fuse a leading
     floor((t - start) / step) group-by into K2's key; off, such a query is
-    refused).
+    refused), `pinot.server.vector.enabled` (vector_similarity on K8; off,
+    such a query is refused with reason 'disabled') and
+    `pinot.server.vector.hbm.resident`.
     metrics_labels: labels of the engine's and dispatcher's meters and
     timers.
     """
@@ -190,6 +204,10 @@ class TorchOperatorExecutor:
             "pinot.server.startree.hbm.resident", True)
         self._ts_bucket_enabled = cfg.get_bool(
             "pinot.server.timeseries.bucket.enabled", True)
+        self._vector_enabled = cfg.get_bool("pinot.server.vector.enabled",
+                                            True)
+        self._vector_resident = cfg.get_bool(
+            "pinot.server.vector.hbm.resident", True)
         self._metrics = get_registry("server")
         self._labels = metrics_labels
         resident_bytes = cfg.get_int("pinot.server.hbm.resident.bytes")
@@ -215,8 +233,9 @@ class TorchOperatorExecutor:
         self._params_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         #: the JAX engine's meters, keyed (name, reason):
         #: ("startree_served", None), ("startree_fallback", <reason>),
-        #: ("timeseries_leaf_device", None), ("clp_served", None) and
-        #: ("clp_fallback", <reason>)
+        #: ("timeseries_leaf_device", None), ("clp_served", None),
+        #: ("clp_fallback", <reason>), ("vector_served", None) and
+        #: ("vector_fallback", <reason>)
         self.meters: Counter = Counter()
         self._dispatcher = dispatch_mod.KernelDispatcher(
             config=cfg, labels=metrics_labels)
@@ -265,8 +284,9 @@ class TorchOperatorExecutor:
     def meter(self, name: str, reason: Optional[str] = None) -> int:
         """A meter's count: `startree_served`, `timeseries_leaf_device`
         (time-series leaves staged with the fused bucket), `clp_served`
-        (stagings of a plan with a CLP leaf), or `startree_fallback` /
-        `clp_fallback` with its reason."""
+        (stagings of a plan with a CLP leaf), `vector_served` (vector
+        queries staged for K8), or `startree_fallback` / `clp_fallback` /
+        `vector_fallback` with its reason."""
         return self.meters[(name, reason)]
 
     def _aggregation_missing(self, ctx: QueryContext) -> Optional[str]:
@@ -316,7 +336,12 @@ class TorchOperatorExecutor:
     def _selection_missing(self, ctx: QueryContext) -> Optional[str]:
         """Selection with at most one ORDER BY key runs as a device top-K
         over the order value (JAX `_supports_selection`); neither a filter
-        nor an ORDER BY is the host's first-docs scan."""
+        nor an ORDER BY is the host's first-docs scan. A vector_similarity
+        filter routes to the vector leg, whose planner refuses with the
+        JAX fallback reasons."""
+        if vector_device.contains_vector(ctx.filter):
+            return None if ctx.limit + ctx.offset > 0 \
+                else "selection with LIMIT 0"
         if ctx.filter is not None:
             why = self._filter_missing(ctx.filter)
             if why is not None:
@@ -348,6 +373,8 @@ class TorchOperatorExecutor:
                 return None
             if e.name in _LATER_FILTERS:
                 return _LATER_FILTERS[e.name]
+            if e.name == "vector_similarity":
+                return "vector similarity outside a selection's filter"
             if e.name in _LEAF_RANGE_FUNCS | _LEAF_LUT_FUNCS \
                     | {"not_equals"} and e.args \
                     and isinstance(e.args[0], Identifier) \
@@ -469,7 +496,9 @@ class TorchOperatorExecutor:
                 prepared = self._prepare_agg(segments, ctx, cancel_check,
                                              distinct=True)
             elif not ctx.aggregations:
-                prepared = self._prepare_topn(segments, ctx, cancel_check)
+                prepared = self._prepare_vector(segments, ctx, cancel_check) \
+                    if _is_vector(ctx) else \
+                    self._prepare_topn(segments, ctx, cancel_check)
             else:
                 # the star-tree leg first: any fallback reason drops
                 # through to the scan path
@@ -581,6 +610,193 @@ class TorchOperatorExecutor:
             cancel_check=cancel_check,
             site_ctx={"table": ctx.table, "mode": mode},
             docs=sum(s.num_docs for s in segments))
+
+    # ------------------------------------------------------------------
+    # vector-similarity leg (ops/vector_device.py)
+    # ------------------------------------------------------------------
+    def _vector_refusal(self, reason: str, what: str,
+                        meter: bool = True) -> NotOffloadable:
+        """Count a vector query's fallback reason (JAX `_vector_fallback`
+        :727) and return the NotOffloadable that carries it."""
+        if meter:
+            self.meters[("vector_fallback", reason)] += 1
+        return NotOffloadable(f"vector similarity: {what} ({reason})",
+                              reason=reason)
+
+    def _plan_vector(self, segments, ctx: QueryContext, meter: bool = True):
+        """(vector plan, (vector fn, query vector, K), residual context) of
+        a vector_similarity selection (JAX `_plan_vector` :737); raises
+        NotOffloadable with the JAX fallback reason. The residual context
+        carries the non-vector conjuncts only: staging walks the leaves of
+        exactly the tree the plan's leaves were built from."""
+        def refuse(reason, what):
+            return self._vector_refusal(reason, what, meter)
+        if not self._vector_enabled:
+            raise refuse("disabled", "pinot.server.vector.enabled is off")
+        fn, residual, reason = vector_device.split_filter(ctx.filter)
+        if fn is None:
+            raise refuse(reason, f"filter {ctx.filter}")
+        if ctx.order_by:
+            # score order is the kernel's; an ORDER BY on top would need a
+            # second sort the leg does not do
+            raise refuse("hybrid", "ORDER BY")
+        try:
+            col, qvec, k = vector_device.parse_args(fn)
+        except (ValueError, TypeError):
+            raise refuse("hybrid", f"arguments of {fn}") from None
+        shape, reason = vector_device.admit(segments, col, qvec, k,
+                                            TOPN_MAX_K)
+        if shape is None:
+            raise refuse(reason, f"column {col}, K {k}")
+        dim_pad, ivf, cells_pad = shape
+        classify, dict_cols, raw_cols = self._make_classifier(segments[0])
+        leaves: List[DeviceLeaf] = []
+        filter_ir = None
+        if residual is not None:
+            try:
+                if self._filter_missing(residual) is not None:
+                    raise NotOffloadable(str(residual))
+                filter_ir = self._build_filter_ir(residual, segments, leaves,
+                                                  classify)
+            except NotOffloadable:
+                raise refuse("hybrid", f"residual {residual}") from None
+        raw64 = {lf.column for lf in leaves if lf.kind == "vrange64"}
+        plan = DevicePlan(
+            filter_ir=filter_ir, leaves=tuple(leaves), value_irs=(),
+            agg_ops=(), dict_cols=tuple(sorted(dict_cols)),
+            raw_cols=tuple(sorted(raw_cols - raw64)),
+            raw64_cols=tuple(sorted(raw64)), mode="vector",
+            valid_mask=_needs_valid_mask(segments),
+            clp_cols=clp_device.staged_cols(leaves), vec_col=col,
+            dim_pad=dim_pad, k_pad=vector_device._pow2(k), ivf=ivf,
+            cells_pad=cells_pad)
+        rctx = QueryContext(
+            table=ctx.table, select=ctx.select, aliases=ctx.aliases,
+            distinct=False, filter=residual, group_by=[], having=None,
+            order_by=[], limit=ctx.limit, offset=ctx.offset,
+            options=ctx.options)
+        return plan, (fn, qvec, k), rctx
+
+    def _stage_vector(self, segments, rctx: QueryContext, plan: DevicePlan,
+                      fn, qvec, k, stamps: Optional[tuple]):
+        """The residual filter's blocks and parameters through `_stage`,
+        the vector block and IVF cells as `__vec__/<col>/block` and
+        `__vec__/<col>/cells` rows through the staging levels (JAX
+        `_vec_block_locked` :828: each row padded to its segment's own
+        doc bucket, times dim_pad for the block, so every batch
+        composition shares the rows; K6 assembles a block on a miss;
+        resident rows under pinot.server.vector.hbm.resident), and the
+        query vector, K and probe cells through the params cache under the
+        vector function's own key (JAX :811), so two queries sharing a
+        residual but not a vector never alias."""
+        cols, params, num_docs, D = self._stage(segments, rctx, plan, stamps)
+        S = int(num_docs.shape[0])
+        dp, col, n = plan.dim_pad, plan.vec_col, len(segments)
+        cols["vec:" + col] = self._cached_block(
+            segments, S, D * dp, "vector", (col, "block"),
+            [f"__vec__/{col}/block"] * n,
+            [lambda seg: vector_device.vector_row(seg, col, dp,
+                                                  _pow2(seg.num_docs))] * n,
+            np.float32, resident=self._vector_resident,
+            pads=[_pow2(seg.num_docs) * dp for seg in segments])
+        if plan.ivf:
+            cols["vcell:" + col] = self._cached_block(
+                segments, S, D, "vector", (col, "cells"),
+                [f"__vec__/{col}/cells"] * n,
+                [lambda seg: vector_device.cell_row(
+                    seg, col, _pow2(seg.num_docs))] * n,
+                np.int32, resident=self._vector_resident)
+        pkey = (_batch_key(segments), plan, fn, "__vec__", S)
+        hit = self._params_cache.get(pkey)
+        if hit is not None and all(a is b for a, b in zip(hit[0], segments)):
+            self._params_cache.move_to_end(pkey)
+            params.update(hit[1])
+            return cols, params, num_docs, D
+        vparams = {key: self._upload(arr) for key, arr in
+                   vector_device.query_params(segments, plan, qvec, k,
+                                              S).items()}
+        params.update(vparams)
+        self._params_cache[pkey] = (tuple(segments), vparams, num_docs)
+        while len(self._params_cache) > self.PARAMS_CACHE_ENTRIES:
+            self._params_cache.popitem(last=False)
+        return cols, params, num_docs, D
+
+    def _prepare_vector(self, segments, ctx: QueryContext, cancel_check):
+        """A vector_similarity selection on K8 (JAX `_prepare_vector`
+        :892); caller holds the engine lock. The launch coalesces on JAX's
+        key (:934-942): (plan, padded S, D, 0, staged-array signature)
+        for doc buckets up to DOC_BUCKET_MAX, else the same segment batch,
+        so concurrent queries of one plan with other vectors make one
+        launch on K8's member axis."""
+        plan, (fn, qvec, k), rctx = self._plan_vector(segments, ctx)
+        self._tls.planned = time.perf_counter()
+        program.compile_plan(plan)
+        stamps = _mask_stamps(segments) if plan.valid_mask else None
+        try:
+            cols, params, num_docs, D = self._stage_vector(
+                segments, rctx, plan, fn, qvec, k, stamps)
+        except NotOffloadable as e:
+            raise self._vector_refusal("staging", str(e)) from None
+        self.meters[("vector_served", None)] += 1
+        kernel = kernels.make_vector_kernel(plan)
+        batch_key = None
+        if self._dispatcher.batch_max > 1:
+            if self._cross_table and D <= DOC_BUCKET_MAX:
+                batch_key = (plan, int(num_docs.shape[0]), D, 0,
+                             _shape_sig(cols, params))
+            else:
+                batch_key = (plan, _batch_key(segments), D, 0)
+        launch = dispatch_mod.Launch(
+            call=lambda: kernel(cols, params, num_docs, D),
+            cols=cols, params=params, num_docs=num_docs, D=D,
+            batch_key=batch_key,
+            cols_key=_batch_key(segments) if stamps is None
+            else (_batch_key(segments), stamps),
+            batched=kernels.batched_kernel(plan), cancel_check=cancel_check,
+            site_ctx={"table": ctx.table, "mode": "vector"},
+            docs=sum(s.num_docs for s in segments))
+        return launch, lambda packed: vector_device.assemble(
+            segments, ctx, plan, packed, len(segments))
+
+    def filtered_doc_ids(self, segments, filter_expr
+                         ) -> List[Optional[np.ndarray]]:
+        """The doc ids a filter keeps, per segment, for the MSE leaf's
+        scans (JAX `filtered_doc_ids` :1749, ref QueryRunner.java:258): K4
+        with the filter and k = TOPN_MAX_K gives the first TOPN_MAX_K
+        matching docs of each segment, sorted int64; None for a segment
+        with more matches, and for every segment where the engine refuses
+        the filter. The launch rides the ring with K4's coalesce key, so
+        concurrent leaf scans of one plan make one batched K4 launch."""
+        nothing: List[Optional[np.ndarray]] = [None] * len(segments)
+        if not segments or filter_expr is None \
+                or self._filter_missing(filter_expr) is not None:
+            return nothing
+        ctx = QueryContext(
+            table="", select=[], aliases=[], distinct=False,
+            filter=filter_expr, group_by=[], having=None, order_by=[],
+            limit=TOPN_MAX_K, offset=0, options={})
+        with self._dispatcher.active():
+            try:
+                with self._engine_lock:
+                    plan = self._plan_topn(segments, ctx)
+                    launch = self._launch(
+                        segments, ctx, plan,
+                        kernels.make_topn_kernel(plan, self.value_dtype),
+                        None, "doc_ids")
+            except NotOffloadable:
+                return nothing
+            packed = dispatch_mod.wait_result(
+                self._dispatcher.submit(launch),
+                max_wait_s=self.LAUNCH_WAIT_CAP_S)
+        out: List[Optional[np.ndarray]] = []
+        for s, seg in enumerate(segments):
+            if int(packed[s, 0]) > plan.topn_k:
+                out.append(None)  # more matches than K
+                continue
+            idx = packed[s, 1:]
+            out.append(np.sort(idx[(idx >= 0) & (idx < seg.num_docs)]
+                               .astype(np.int64)))
+        return out
 
     @staticmethod
     def _make_classifier(seg0):
@@ -1551,6 +1767,12 @@ class TorchOperatorExecutor:
                     plan, _needed, fits = st
                     self._stage_startree(segments, ctx, plan, fits)
                     return True
+                if _is_vector(ctx):
+                    plan, (fn, qvec, k), rctx = self._plan_vector(
+                        segments, ctx, meter=False)
+                    self._stage_vector(segments, rctx, plan, fn, qvec, k,
+                                       None)
+                    return True
                 if ctx.distinct:
                     ctx = _distinct_context(ctx)
                 if ctx.aggregations:
@@ -1698,6 +1920,12 @@ def _shape_sig(cols: Dict[str, torch.Tensor],
                          for k, v in cols.items())),
             tuple(sorted((k, tuple(v.shape), str(v.dtype))
                          for k, v in params.items())))
+
+
+def _is_vector(ctx: QueryContext) -> bool:
+    """A selection filtered by vector_similarity: the vector leg."""
+    return not ctx.aggregations and not ctx.distinct \
+        and vector_device.contains_vector(ctx.filter)
 
 
 def _first_docs(ctx: QueryContext) -> bool:

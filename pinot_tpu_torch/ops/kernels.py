@@ -45,6 +45,12 @@ column and launch, over all members of a batch, giving each leaf's [B, S,
 D] masks), and K1 / K2 / K4 read each mask as the leaf's value (the LUT
 `leaf<i>:mask`, passed to their wrappers already stacked).
 
+A vector plan (mode 'vector', ops/vector_device.py) is the similarity
+top-K of JAX vector_device.py:104 `make_vector_kernel`: `make_vector_kernel`
+hands CUDA tensors to K8 `vector_topk` (ops/csrc/vector_topk.cu; K7 first
+for CLP leaves in its residual filter) and CPU tensors to its plain version
+`vector_device.vector_topk`; `batched_kernel` takes vector plans too.
+
 A plan over upsert segments (`plan.valid_mask`) ANDs the staged `vmask`
 block into the doc validity (JAX kernels.py:565, :604), in every plain
 version here and in K1-K4. A group-by plan with a fused time bucket
@@ -73,6 +79,7 @@ from pinot_tpu_torch.ops.program import (ISUM_PLANES, ISUM_U_BITS,
                                          trace_count_by_plan)
 
 __all__ = ["make_kernel", "plain_kernel", "make_topn_kernel", "topn_kernel",
+           "make_vector_kernel",
            "plain_batched_kernel", "batched_kernel", "row_assemble",
            "assemble_rows", "clp_match", "clp_masks",
            "order_keys", "from_jax_staged", "slot_width", "is_sketch",
@@ -675,6 +682,27 @@ def make_topn_kernel(plan: DevicePlan,
     return kernel
 
 
+def make_vector_kernel(plan: DevicePlan):
+    """fn(cols, params, num_docs, D) -> [S, 1 + 2 kk] float32 similarity
+    top-K of a vector plan (JAX vector_device.py:104): CUDA inputs launch
+    K8 (`vector_topk`), CPU inputs run the plain version."""
+    if plan.mode != "vector":
+        raise ValueError("make_vector_kernel takes vector plans")
+    from pinot_tpu_torch.ops import vector_device
+
+    def kernel(cols: Tensors, params: Tensors, num_docs: torch.Tensor,
+               D: int) -> torch.Tensor:
+        if num_docs.device.type == "cuda":
+            luts = clp_masks(plan, [cols], [params], [0], D, batched=False)
+            return _cuda.vector_topk(plan, cols, params, num_docs, D,
+                                     luts=luts)
+        if num_docs.device.type != "cpu":
+            raise ValueError(f"no kernel for device {num_docs.device}")
+        return vector_device.vector_topk(plan, cols, params, num_docs, D)
+
+    return kernel
+
+
 # ---------------------------------------------------------------------------
 # batched kernels (kernels.py:793 `make_batched_kernel`, :823
 # `make_batched_dedup_kernel`, :858 `make_batched_topn_kernel`)
@@ -683,21 +711,25 @@ def make_topn_kernel(plan: DevicePlan,
 def plain_batched_kernel(plan: DevicePlan,
                          value_dtype: torch.dtype = torch.float32):
     """The plain batched version: fn(col_sets, plist, ndlist, idx, D) ->
-    [B, ...], each member's plain launch (`plain_kernel` or `topn_kernel`)
-    over column set idx[m], stacked; on whatever device its inputs lie."""
-    single = plain_kernel(plan, value_dtype) if plan.mode == "agg" else None
+    [B, ...], each member's plain launch (`plain_kernel`, `topn_kernel` or
+    `vector_device.vector_topk`) over column set idx[m], stacked; on
+    whatever device its inputs lie."""
+    if plan.mode == "agg":
+        single = plain_kernel(plan, value_dtype)
+    elif plan.mode == "vector":
+        from pinot_tpu_torch.ops import vector_device
+
+        def single(cols, params, num_docs, D):
+            return vector_device.vector_topk(plan, cols, params, num_docs, D)
+    else:
+        def single(cols, params, num_docs, D):
+            return topn_kernel(plan, cols, params, num_docs, D, value_dtype)
 
     def kernel(col_sets: Sequence[Tensors], plist: Sequence[Tensors],
                ndlist: Sequence[torch.Tensor], idx: Sequence[int],
                D: int) -> torch.Tensor:
-        outs = []
-        for params, u in zip(plist, idx):
-            if single is None:
-                outs.append(topn_kernel(plan, col_sets[u], params,
-                                        ndlist[u], D, value_dtype))
-            else:
-                outs.append(single(col_sets[u], params, ndlist[u], D))
-        return torch.stack(outs)
+        return torch.stack([single(col_sets[u], params, ndlist[u], D)
+                            for params, u in zip(plist, idx)])
 
     return kernel
 
@@ -711,9 +743,11 @@ def batched_kernel(plan: DevicePlan,
     `make_batched_dedup_kernel`, :858 `make_batched_topn_kernel`):
     broadcast is U = 1, stacked idx = 0..B-1, dedup a member-to-set map.
     CUDA inputs launch the plan's kernels once for all members (K7 first
-    for a plan with CLP leaves, then K1 / K3 / both, K2 or K4 with the
+    for a plan with CLP leaves, then K1 / K3 / both, K2, K4 or K8 with the
     member axis), CPU inputs run the plain version. The kernels take B at
-    run time, so nothing is built per member count."""
+    run time, so nothing is built per member count. JAX's
+    `make_batched_vector_kernel` (vector_device.py:163) is the vector
+    plan's broadcast and stacked forms."""
     if value_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"value dtype {value_dtype} is not float32/64")
     plain = plain_batched_kernel(plan, value_dtype)
@@ -734,6 +768,8 @@ def batched_kernel(plan: DevicePlan,
         args = (plan, col_sets, plist, ndlist, idx, D, value_dtype)
         if plan.mode == "topn":
             return _cuda.topn_batched(*args, luts=luts)
+        if plan.mode == "vector":
+            return _cuda.vector_topk_batched(*args[:6], luts=luts)
         if plan.num_groups:
             return _cuda.group_agg_batched(*args, luts=luts)
         if not any(sketch):

@@ -2,7 +2,10 @@
 
 Counterpart of pinot_tpu/ops/plan_ir.py, trimmed to the scan-aggregate,
 dense group-by and top-N plans of the port, with the upsert validity mask,
-the fused time bucket and CLP leaves (no compact group keys yet).
+the fused time bucket and CLP leaves (no compact group keys yet), and the
+vector leg's plan (mode 'vector', JAX ops/vector_device.py `VectorPlan`):
+its residual filter in the fields every plan has, so staging and the
+program compiler read it as they read a top-N plan's filter.
 
 Filter IR nodes (nested tuples, hashable):
     ('and', n1, n2, ...) / ('or', ...) / ('not', n)
@@ -66,9 +69,10 @@ class DevicePlan:
     raw_cols: Tuple[str, ...] = ()
     #: big-int columns staged as (hi, lo) i32 split planes, filter-only
     raw64_cols: Tuple[str, ...] = ()
-    #: 'agg' (scan-aggregate / group-by) or 'topn' (selection: per segment
+    #: 'agg' (scan-aggregate / group-by), 'topn' (selection: per segment
     #: the top topn_k doc ids by value_irs[0], or the first topn_k matched
-    #: docs when value_irs is empty; ascending negates the value)
+    #: docs when value_irs is empty; ascending negates the value) or
+    #: 'vector' (similarity top-K over vec_col, then the filter)
     mode: str = "agg"
     topn_k: int = 0
     topn_asc: bool = True
@@ -87,3 +91,13 @@ class DevicePlan:
     #: (hi, lo) i32 split slot blocks (ops/clp_device.py), filter-only
     #: (JAX plan_ir :81)
     clp_cols: Tuple[Tuple[str, int, int], ...] = ()
+    #: the vector leg (mode 'vector', ops/vector_device.py): the vector
+    #: column, the power-of-two buckets (floor 8) of its dimensionality
+    #: and of topK, and with IVF cells the bucket of the largest cell
+    #: count. The query vector, K and the probed cells ride parameters, so
+    #: queries that differ only in them share a plan (JAX VectorPlan)
+    vec_col: str = ""
+    dim_pad: int = 0
+    k_pad: int = 0
+    ivf: bool = False
+    cells_pad: int = 0

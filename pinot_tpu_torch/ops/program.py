@@ -45,7 +45,10 @@ each writes its own slots' columns, and both write the same matched count.
 
 A top-N plan (mode 'topn', K4 csrc/topn.cu) has no slots and at most one
 value expression, the order value (none: the first docs in doc order); K4
-takes `topn_k` and `topn_asc` as launch arguments.
+takes `topn_k` and `topn_asc` as launch arguments. A vector plan (mode
+'vector', K8 csrc/vector_topk.cu) has no slots and no value expression:
+its program is the residual filter alone, which K8 evaluates at each
+winner.
 
 The fused time bucket (plan.tbucket, K2 only): H_TBHI / H_TBLO are the
 timestamp's valhi / vallo column indexes (-1: no bucket), H_TBPRM the
@@ -231,6 +234,11 @@ def compile_plan(plan: DevicePlan) -> Program:
                 or plan.topn_k < 1:
             raise ValueError("a top-N plan takes no slots or groups, at "
                              "most one order value and k >= 1")
+    elif plan.mode == "vector":
+        if plan.agg_ops or plan.num_groups or plan.value_irs \
+                or plan.k_pad < 1 or plan.dim_pad < 8:
+            raise ValueError("a vector plan takes no slots, groups or "
+                             "values, k_pad >= 1 and dim_pad >= 8")
     elif plan.mode != "agg":
         raise ValueError(f"plan mode {plan.mode!r} is not in this port")
     grouped = bool(plan.num_groups)

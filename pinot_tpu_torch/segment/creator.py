@@ -4,13 +4,15 @@ Counterpart of pinot_tpu/segment/creator.py (ref pinot-segment-local
 SegmentIndexCreationDriverImpl.java:93,231), trimmed: single-value columns
 without nulls, written as a sorted dictionary plus a fixed-bit forward index,
 or as a raw chunked forward index for no-dictionary columns, CLP log
-columns as their logtype / variable split (segment/clp.py), plus the
-table's star-trees (segment/startree.py). The on-disk layout is the JAX
-package's, so its loader reads these segments; other auxiliary indexes
-(inverted, range, sorted, bloom, ...) are not written.
+columns as their logtype / variable split (segment/clp.py), the vector
+index of a vector column (segment/vector_index.py), plus the table's
+star-trees (segment/startree.py). The on-disk layout is the JAX package's,
+so its loader reads these segments; other auxiliary indexes (inverted,
+range, sorted, bloom, ...) are not written.
 """
 from __future__ import annotations
 
+import json
 import time
 from typing import Dict, Sequence, Union
 
@@ -22,6 +24,7 @@ from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.meta import ColumnMetadata, SegmentMetadata
 from pinot_tpu_torch.segment.startree import build_star_trees
 from pinot_tpu_torch.segment.store import index_key, write_segment
+from pinot_tpu_torch.segment.vector_index import VectorIndex, json_rows
 
 ColumnData = Union[np.ndarray, Sequence]
 
@@ -34,7 +37,9 @@ class SegmentCreator:
     def build(self, columns: Dict[str, ColumnData], out_dir: str,
               segment_name: str) -> str:
         """columns: name -> flat array or list of single values (no None);
-        a CLP column's messages may also come as their `clp.ClpParts`.
+        a CLP column's messages may also come as their `clp.ClpParts`, and
+        a vector column's JSON-array strings as their [n, d] float32 block
+        (rendered by `vector_index.json_rows` for the forward index).
         Returns out_dir."""
         num_docs = _num_docs(columns, self.schema)
         buffers: Dict[str, bytes] = {}
@@ -95,7 +100,38 @@ class SegmentCreator:
                 clp.write_clp_parts(parts), idx_cfg.compression)
             meta.indexes.append(it.CLP)
             return meta
-        values = _as_array(spec, data)
+        vector = None
+        if name in idx_cfg.vector_index_columns:
+            # the dense [n, d] block of a vector column's JSON arrays (JAX
+            # creator.py:186-195, ref HnswVectorIndexCreator), indexed
+            # before the strings render, so the build's k-means and the
+            # rendered text are never in memory together
+            if spec.data_type.stored_type is not DataType.STRING:
+                raise ValueError(f"vector column {name!r} must be "
+                                 "STRING-typed (JSON arrays)")
+            if isinstance(data, np.ndarray) and data.ndim == 2:
+                block = np.asarray(data, dtype=np.float32)
+                vector = VectorIndex.build(block).to_bytes()
+                data = json_rows(block)
+                del block
+            else:
+                vector = VectorIndex.build(np.asarray(
+                    [json.loads(v) if isinstance(v, (str, bytes)) else v
+                     for v in data], np.float32)).to_bytes()
+        meta = self._write_column(spec, meta, _as_array(spec, data),
+                                  num_docs, buffers)
+        if vector is not None:
+            buffers[index_key(name, it.VECTOR)] = vector
+            meta.indexes.append(it.VECTOR)
+        return meta
+
+    def _write_column(self, spec: FieldSpec, meta: ColumnMetadata,
+                      values: np.ndarray, num_docs: int,
+                      buffers: Dict[str, bytes]) -> ColumnMetadata:
+        """A dictionary plus a fixed-bit forward index, or a raw chunked
+        forward index for a no-dictionary column."""
+        name = spec.name
+        idx_cfg = self.table_config.indexing
         if name not in idx_cfg.no_dictionary_columns:
             dictionary, dict_ids = Dictionary.build(spec.data_type, values)
             card = dictionary.cardinality

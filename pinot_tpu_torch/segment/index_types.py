@@ -9,3 +9,4 @@ FORWARD = "forward_index"
 STARTREE = "startree_index"
 STARTREE_DATA = "startree_data"
 CLP = "clp_forward"  # y-scope CLP log-compressed forward index
+VECTOR = "vector_index"  # dense vector block + IVF cells

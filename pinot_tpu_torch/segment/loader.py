@@ -2,11 +2,12 @@
 
 Counterpart of pinot_tpu/segment/loader.py (ref pinot-segment-local
 ImmutableSegmentLoader.java:57 and pinot-segment-spi DataSource.java:41),
-trimmed to what the scan-aggregate, selection and star-tree paths read:
-metadata, the dictionary, dictIds and materialized values of single-value
-columns, CLP log columns (`clp_reader`), and the star-trees. Index
-families the port does not read (inverted, range, sorted, bloom, null
-vectors, JSON, text, vector, geo, map) stay on disk untouched.
+trimmed to what the scan-aggregate, selection, star-tree and vector paths
+read: metadata, the dictionary, dictIds and materialized values of
+single-value columns, CLP log columns (`clp_reader`), vector indexes
+(`vector_index`), and the star-trees. Index families the port does not
+read (inverted, range, sorted, bloom, null vectors, JSON, text, geo, map)
+stay on disk untouched.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.meta import ColumnMetadata, SegmentMetadata
 from pinot_tpu_torch.segment.startree import StarTreeReader
 from pinot_tpu_torch.segment.store import SegmentDirectory
+from pinot_tpu_torch.segment.vector_index import VectorIndex
 
 
 class DataSource:
@@ -33,6 +35,7 @@ class DataSource:
         self._dict_ids: Optional[np.ndarray] = None
         self._values: Optional[np.ndarray] = None
         self._clp: Optional[clp.CLPForwardIndexReader] = None
+        self._vector: Optional[VectorIndex] = None
 
     @property
     def dictionary(self) -> Optional[Dictionary]:
@@ -64,6 +67,15 @@ class DataSource:
             self._clp = clp.CLPForwardIndexReader(clp.unpack_compressed(
                 self._seg.dir.get_buffer(self.metadata.name, it.CLP)))
         return self._clp
+
+    @property
+    def vector_index(self) -> Optional[VectorIndex]:
+        """The column's vector index, read at first use (ref
+        DataSource.getVectorIndex; JAX loader.py:152-158); None without."""
+        if self._vector is None and it.VECTOR in self.metadata.indexes:
+            self._vector = VectorIndex.from_bytes(
+                self._seg.dir.get_buffer(self.metadata.name, it.VECTOR))
+        return self._vector
 
     def values(self) -> np.ndarray:
         """Whole-column materialized values (dictionary take, raw decode,

@@ -28,6 +28,11 @@ KEYS: Dict[str, Any] = {
     # pseudo-columns into the resident-row tier
     "pinot.server.startree.enabled": True,
     "pinot.server.startree.hbm.resident": True,
+    # vector-similarity leg (ops/vector_device.py): vector_similarity
+    # selections on K8; .hbm.resident admits the __vec__ pseudo-columns
+    # into the resident-row tier
+    "pinot.server.vector.enabled": True,
+    "pinot.server.vector.hbm.resident": True,
     # the per-(segment, column) resident-row tier (ops/residency.py): its
     # switch, its byte budget, TinyLFU admission and its sample window
     "pinot.server.hbm.resident.enabled": True,

@@ -1,8 +1,9 @@
-"""K1 scan_agg, K2 group_agg, K3 sketch_agg, K4 topn, K5 startree_agg and
-K6 row_assemble on the card against their plain PyTorch versions, over the
-seeded random plans of tests/torch_plans.py; K1-K5's query axis (B members
-over U column sets) against the plain batched version and each member's
-own single launch; and 8 threads through one engine.
+"""K1 scan_agg, K2 group_agg, K3 sketch_agg, K4 topn, K5 startree_agg, K6
+row_assemble, K7 clp_match and K8 vector_topk on the card against their
+plain PyTorch versions, over the seeded random plans and inputs of
+tests/torch_plans.py; the query axis (B members over U column sets)
+against the plain batched version and each member's own single launch;
+and 8 threads through one engine.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. On the card
 they run without the repo's conftest (which imports JAX):
@@ -20,7 +21,10 @@ sums within 1e-5 and float64 within 1e-9 of the slot's sum of
 equals its single launch bit for bit where the kernel reduces in a fixed
 order (K1, K3, K4, K5 flat); K2's and grouped K5's float sums, which take
 the atomics' order, within the same tolerance. K6's block is its plain
-version's bit for bit (it copies bytes).
+version's bit for bit (it copies bytes). K8's whole [S, 1 + 2 kk] output,
+scores included, bit-identical to its plain version on the card and on
+the CPU (the plain version adds in K8's order), and within
+torch_plans.VEC_TOL of the float64 truth.
 """
 import os
 import sys
@@ -34,6 +38,7 @@ from pinot_tpu_torch.ops import _cuda
 from pinot_tpu_torch.ops import program as prog_mod
 from pinot_tpu_torch.ops import kernels as tk
 from pinot_tpu_torch.ops import startree_device as tsd
+from pinot_tpu_torch.ops import vector_device as tvd
 from pinot_tpu_torch.ops.plan_ir import DevicePlan
 
 # by path: on the card's machine another installed 'tests' package can
@@ -873,3 +878,68 @@ def test_clp_queries_on_card_equal_the_cpu_engine(card, tmp_path):
             "SELECT ts, message FROM logs WHERE message LIKE '%user alice%' "
             "ORDER BY ts DESC LIMIT 9"]:
         assert on_card.execute(sql).rows == on_cpu.execute(sql).rows, sql
+
+
+VEC_CASES = {"exact": {}, "ivf": {"ivf": True},
+             "residual+vmask": {"resid": True, "vmask": True},
+             "ivf+residual": {"ivf": True, "resid": True},
+             "ties": {"special": "ties"},
+             "signed zeros": {"special": "zeros", "dim": 8},
+             "nan": {"special": "nan"},
+             "d=96 k=100": {"dim": 96, "k": 100},
+             "d=512 k=5": {"dim": 512, "k": 5},
+             "d=8 k=3": {"dim": 8, "k": 3}}
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(VEC_CASES))
+@pytest.mark.parametrize("D", [3000, 70_001])
+def test_vector_topk_matches_plain_on_card(card, case, D):
+    spec, cols, params, nd = tp.vector_case(7, S=5, D=D, **VEC_CASES[case])
+    plan = tp.vector_plan(spec)
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    n0 = _cuda.VECTOR_TOPK.launches
+    out = tk.make_vector_kernel(plan)(tc, tpar, tnd, D)
+    ref = tvd.vector_topk(plan, tc, tpar, tnd, D)
+    torch.cuda.synchronize()
+    assert _cuda.VECTOR_TOPK.launches == n0 + 1
+    assert torch.equal(_bits(out), _bits(ref))
+    cpu = tvd.vector_topk(plan, *tk.from_jax_staged(cols, params, nd), D)
+    assert torch.equal(_bits(out), _bits(cpu))
+    kk = min(spec["k_pad"], D)
+    for s, truth in enumerate(tp.vector_truth(spec, cols, params, nd)):
+        tp.check_vector_row(out[s].cpu().numpy(), *truth, kk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["broadcast", "stacked"])
+@pytest.mark.parametrize("case", ["exact", "ivf+residual"])
+def test_vector_topk_batched_matches_plain_and_single_on_card(card, form,
+                                                              case):
+    B, D = 4, 5000
+    members = [tp.vector_case(30 + m, S=5, D=D, **VEC_CASES[case])
+               for m in range(B)]
+    spec = members[0][0]
+    plan = tp.vector_plan(spec)
+    staged = [tk.from_jax_staged(c, p, nd, device=card)
+              for _s, c, p, nd in members]
+    if form == "broadcast":
+        sets, ndl, idx = [staged[0][0]], [staged[0][2]], [0] * B
+    else:
+        sets, ndl, idx = [x[0] for x in staged], [x[2] for x in staged], \
+            list(range(B))
+    plist = [x[1] for x in staged]
+    n0 = _cuda.VECTOR_TOPK.batched_launches
+    out = tk.batched_kernel(plan)(sets, plist, ndl, idx, D)
+    ref = tk.plain_batched_kernel(plan)(sets, plist, ndl, idx, D)
+    torch.cuda.synchronize()
+    assert _cuda.VECTOR_TOPK.batched_launches == n0 + 1
+    assert torch.equal(_bits(out), _bits(ref))
+    for m in range(B):
+        single = tk.make_vector_kernel(plan)(sets[idx[m]], plist[m],
+                                            ndl[idx[m]], D)
+        assert torch.equal(_bits(out[m]), _bits(single))

@@ -14,7 +14,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from pinot_tpu_torch.ops import program as pg
-from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
+from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan
 from pinot_tpu_torch.ops.program import slot_width
 
 #: tolerances of the kernel comparisons (reasons in test_torch_kernels.py):
@@ -569,3 +569,191 @@ def clp_inputs(seed: int, mode: str, S: int, D: int, i: int = 0,
         if pad_segments:
             v[S - pad_segments:] = -1 if k.endswith(":glt") else 0
     return cols, params
+
+
+# ---------------------------------------------------------------------------
+# the vector leg (K8 vector_topk, JAX vector_device.make_vector_kernel)
+# ---------------------------------------------------------------------------
+
+#: K8's scores against a sum in another order (XLA's einsum, numpy's BLAS,
+#: float64): cosines of unit vectors, so an absolute bound
+VEC_TOL = 2.0 ** -20
+
+
+def _pow2(n: int, floor: int) -> int:
+    p = floor
+    while p < n:
+        p *= 2
+    return p
+
+
+def vector_case(seed: int, S: int = 5, D: int = 1024, dim: int = 16,
+                k: int = 10, ivf: bool = False, n_cells: int = 37,
+                resid: bool = False, vmask: bool = False,
+                special: str = "", pad_segments: int = 1):
+    """(spec, cols, params, num_docs) of one vector top-K launch, numpy
+    arrays as the engine stages them: `spec` holds the plan fields both
+    packages' plans take (`vec_col` 'v'); cols 'vec:v' [S, D * dim_pad]
+    float32 (unit rows, zero padding), with IVF 'vcell:v' [S, D] int32
+    (some ids outside [0, n_cells), which the kernel clips), with `resid`
+    'ids:a' int8 under a range leaf, with `vmask` a bool 'vmask'; params
+    'vq:q' [S, dim_pad] (a query per segment), 'vq:k' (one segment's K
+    three below the others), 'vq:cells' with IVF, the leaf bounds.
+    special: 'ties' copies rows so scores tie exactly; 'zeros' (dim 8 =
+    dim_pad) gives docs scores of exactly +0.0 and -0.0 above every other;
+    'nan' puts NaN rows among the docs. The last pad_segments segments are
+    empty."""
+    rng = np.random.default_rng(seed)
+    dim_pad = _pow2(dim, 8)
+    nd = rng.integers(D // 2, D + 1, S).astype(np.int32)
+    nd[0] = D
+    if pad_segments:
+        nd[-pad_segments:] = 0
+    v = rng.normal(size=(S, D, dim))
+    q = rng.normal(size=(S, dim))
+    if special == "zeros":
+        if dim != 8:
+            raise ValueError("the signed-zero case needs dim = dim_pad = 8")
+        q[:, :4] = 0.5
+        q[:, 4:] = 0.0
+        v[:, :, :4] = -np.abs(v[:, :, :4])  # every other score < 0
+        zero = rng.random((S, D)) < 0.3
+        neg = rng.random((S, D)) < 0.5
+        v[zero] = 0.0
+        v[zero & neg, :4] = -0.0
+        v[zero & neg, 4:] = -0.5
+        v[zero & ~neg, 4:] = 0.5
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    v = v.astype(np.float32)
+    if special == "ties":
+        for s in range(S):
+            src = rng.integers(0, D, 40)
+            dst = rng.integers(0, D, 40)
+            v[s, dst] = v[s, src]
+    if special == "nan":
+        v[rng.random((S, D)) < 0.001] = np.nan
+    vp = np.zeros((S, D, dim_pad), np.float32)
+    vp[:, :, :dim] = v
+    qp = np.zeros((S, dim_pad), np.float32)
+    qp[:, :dim] = q
+    kq = np.full(S, k, np.int32)
+    kq[min(1, S - 1)] = max(1, k - 3)
+    cols = {"vec:v": vp.reshape(S, D * dim_pad)}
+    params = {"vq:q": qp, "vq:k": kq}
+    cells_pad = 0
+    if ivf:
+        cells_pad = _pow2(n_cells, 8)
+        cols["vcell:v"] = rng.integers(-1, n_cells + 2, (S, D)).astype(
+            np.int32)
+        params["vq:cells"] = rng.random((S, cells_pad)) < 0.3
+    spec = dict(vec_col="v", dim_pad=dim_pad, k_pad=_pow2(k, 8), ivf=ivf,
+                cells_pad=cells_pad, filter_ir=None, leaves=(),
+                dict_cols=(), valid_mask=vmask)
+    if resid:
+        cols["ids:a"] = rng.integers(0, 100, (S, D)).astype(np.int8)
+        params["leaf0:lo"] = rng.integers(0, 40, S).astype(np.int32)
+        params["leaf0:hi"] = (params["leaf0:lo"] + 50).astype(np.int32)
+        spec.update(filter_ir=("leaf", 0), leaves=(("range", "a"),),
+                    dict_cols=("a",))
+    if vmask:
+        cols["vmask"] = rng.random((S, D)) < 0.7
+    return spec, cols, params, nd
+
+
+def vector_plan(spec: dict) -> DevicePlan:
+    """The port's vector plan of a vector_case spec."""
+    return DevicePlan(
+        filter_ir=spec["filter_ir"],
+        leaves=tuple(DeviceLeaf(*lf) for lf in spec["leaves"]),
+        value_irs=(), agg_ops=(), dict_cols=spec["dict_cols"],
+        mode="vector", valid_mask=spec["valid_mask"],
+        vec_col=spec["vec_col"], dim_pad=spec["dim_pad"],
+        k_pad=spec["k_pad"], ivf=spec["ivf"], cells_pad=spec["cells_pad"])
+
+
+def vector_truth(spec: dict, cols, params, nd):
+    """Per segment (exact float64 scores [D], candidate mask [D], residual
+    mask [D], K) of a vector_case: the yardstick that a packed row is
+    checked against with `check_vector_row`."""
+    S = len(nd)
+    dp = spec["dim_pad"]
+    D = cols["vec:v"].shape[1] // dp
+    V = cols["vec:v"].reshape(S, D, dp).astype(np.float64)
+    out = []
+    for s in range(S):
+        exact = V[s] @ params["vq:q"][s].astype(np.float64)
+        real = np.arange(D) < nd[s]
+        cand = real.copy()
+        if spec["ivf"]:
+            c = np.clip(cols["vcell:v"][s], 0, spec["cells_pad"] - 1)
+            cand &= params["vq:cells"][s][c]
+        resid = real.copy()
+        if spec["valid_mask"]:
+            resid &= cols["vmask"][s].astype(bool)
+        if spec["filter_ir"] is not None:
+            a = cols["ids:a"][s]
+            resid &= (a >= params["leaf0:lo"][s]) \
+                & (a <= params["leaf0:hi"][s])
+        out.append((exact, cand, resid, int(params["vq:k"][s])))
+    return out
+
+
+def check_vector_row(row, exact, cand, resid, k: int, kk: int,
+                     tol: float = VEC_TOL) -> list:
+    """The kept (doc, score) pairs of packed row `row` [1 + 2 kk], after
+    checking it against the float64 truth: each kept doc a candidate that
+    passes the residual filter, its score within tol of the exact one,
+    the kept docs in score order (equal scores toward the lower doc), and
+    the winner set right up to tol: every doc whose exact score is more
+    than tol above the K-th best candidate's and passes the filter kept,
+    none kept more than tol below it. A NaN score is above every score
+    (K8's and XLA's order) and never kept."""
+    ids = np.asarray(row[1:1 + kk], np.float64)
+    sc = np.asarray(row[1 + kk:1 + 2 * kk], np.float32)
+    kept = ids >= 0
+    g_ids = ids[kept].astype(np.int64)
+    g_sc = sc[kept]
+    assert int(row[0]) == len(g_ids)
+    assert np.all(np.isneginf(sc[~kept]))
+    assert np.all(cand[g_ids]) and np.all(resid[g_ids])
+    assert np.all(np.abs(g_sc.astype(np.float64) - exact[g_ids]) <= tol)
+    for i in range(len(g_ids) - 1):
+        assert exact[g_ids[i]] >= exact[g_ids[i + 1]] - 2 * tol
+        if g_sc[i] == g_sc[i + 1]:
+            a, b = np.signbit(g_sc[i]), np.signbit(g_sc[i + 1])
+            # +0.0 ranks above -0.0; otherwise ties go to the lower doc
+            assert a <= b and (a != b or g_ids[i] < g_ids[i + 1])
+    pool = np.nonzero(cand)[0]
+    key = np.where(np.isnan(exact[pool]), np.inf, exact[pool])
+    order = pool[np.lexsort((pool, -key))]
+    n_win = min(k, kk, len(order))
+    if n_win:
+        t = exact[order[n_win - 1]]
+        t = np.inf if np.isnan(t) else t
+        sure = pool[(exact[pool] > t + 2 * tol) & resid[pool]]
+        assert set(sure.tolist()) <= set(g_ids.tolist())
+        assert np.all(exact[g_ids] >= t - 2 * tol)
+    return list(zip(g_ids.tolist(), g_sc.tolist()))
+
+
+def near_ties(exact, cand, k: int, kk: int, tol: float = VEC_TOL) -> bool:
+    """True when two of the first min(k, kk) + 1 candidates by exact score
+    lie within 2 tol of each other (a band where sums in other orders may
+    rank them either way, or swap them across the cut)."""
+    pool = np.nonzero(cand & ~np.isnan(exact))[0]
+    top = np.sort(exact[pool])[::-1][:min(k, kk) + 1]
+    return bool(np.any(np.abs(np.diff(top)) <= 2 * tol))
+
+
+def same_vector_rows(a, b, truth, kk: int, tol: float = VEC_TOL) -> None:
+    """Packed rows a and b (one launch each, [S, 1 + 2 kk]) both right by
+    `check_vector_row`; where no band of near-tied scores reaches the cut,
+    the same docs in the same order, scores within tol."""
+    for s, (exact, cand, resid, k) in enumerate(truth):
+        ga = check_vector_row(a[s], exact, cand, resid, k, kk, tol)
+        gb = check_vector_row(b[s], exact, cand, resid, k, kk, tol)
+        if not near_ties(exact, cand, k, kk, tol):
+            assert [d for d, _ in ga] == [d for d, _ in gb]
+            assert np.allclose([x for _, x in ga], [x for _, x in gb],
+                               atol=tol, rtol=0)
