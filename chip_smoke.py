@@ -6,7 +6,7 @@
 Phases, each of which exits non-zero on failure:
 
 1. Device: the card's name and power limit (nvidia-smi) and its torch name.
-2. Build: the eight CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc,
+2. Build: the nine CUDA kernels from pinot_tpu_torch/ops/csrc with nvcc,
    one process per source, in parallel.
 3. Kernels against their plain PyTorch versions, on the card, on seeded
    random inputs at the main path's shapes: K1 scan_agg at S=16, D=2^23
@@ -261,6 +261,35 @@ Phases, each of which exits non-zero on failure:
    queries with other vectors, as 9a-9h run: batches of 2 or more on K8's
    member axis, no codegen, every answer the query alone's and its host
    truth.
+3c. (after phase 3b) K9 mesh_fold bit for bit against its plain version
+   at the mesh leg's shapes: the doc fold of K1's and K3's packed Q1
+   partials (HLL 2^16 registers, 8192 histogram buckets; P = 2 doc
+   slices, S_loc = 4) at B = 1 and 8, and the remapped fold, with its
+   matched tail, of config-#3-shaped K2 partials over the 8 slots of a 4x2
+   mesh; CUDA-event times, the bound (the partials, the lists and the
+   output once) and the plain version's time.
+13. Mesh leg (after phase 9c), on phase 4's 128M Q1 rows, engines on a
+   logical 4x2 mesh over cuda:0 (MESH_SHAPE: 8 slots; with more than one
+   card, Q1.1 over a mesh of every card too). 13a: the sharded launch in
+   float32 with pinot.server.mesh.collective.merge off: Q1.1-Q1.3 exact
+   against numpy truth, MESH_SKETCH (K1 and K3 on each shard) equal to
+   the single card's answer; in phase 5, the config-#3 group-by (K2 on
+   each shard) against the single card's rows. 13b: the merge, float64
+   on all 128M rows (MESH_SKETCH's p95 within rel 0.02 of the single
+   card's: one digest of the batch's buckets), float32 on two segments
+   (16M docs, table ssb2), and the float32 full batch, which must count
+   mesh_merge_fallback{reason=precision}. 13c: row 14's
+   distributed_query_step at S = 16, D = 2^23 over float64
+   integer-valued measures, equal to its plain version and the numpy
+   truth. Each query: p50 of ITERS warm runs, cold_s, kernel_fetch, K1-K3
+   launched once per slot and K9 once per run, the merge meters, peak
+   device memory. The launch sequences of rows 7, 8c (B = 8 pool queries
+   broadcast) and 9 on the engines' own staging, and row 14's step,
+   against their plain versions, with CUDA-event times and bounds (each
+   shard's bytes as batch_bytes counts them, the partials once). 9j:
+   8 closed-loop clients over Q1_POOL on the sharded mesh engine, as 9a
+   runs: each dispatch one launch of K1 per slot (batched ones on its
+   member axis) and one K9.
 8. Launch counts: each kernel's counter is set to 0 just before a leg's
    timed queries and read just after them; the leg's kernels must have
    launched once per query run (a CLP query: K7 once, then K1, K2 or K4
@@ -283,7 +312,11 @@ Phases, each of which exits non-zero on failure:
    B = 8 case and 9h's batched launches. `vector_topk` carries phase 3's
    IVF k = 10 case (vec.1's shape) and phase 12's and 9i's single
    launches, `vector_topk_batched` phase 3b's broadcast case and 9i's
-   batched launches.
+   batched launches. `mesh_fold` carries phase 3c's doc fold at B = 1 and
+   phase 13's K9 launches, `mesh_fold_batched` the doc fold at B = 8 and
+   9j's batched launches; `mesh_sharded`, `mesh_sharded_batched`,
+   `mesh_merged` and `mesh_step` (rows 7, 8c, 9 and 14) each path's
+   whole launch sequence and the K9 launches of that path.
 
 Imports nothing of JAX or of pinot_tpu. Exits non-zero, printing no
 result, where torch sees no CUDA device or the port's package is missing.
@@ -3902,6 +3935,549 @@ def mse_leaf(ex, segs, truths, kernels, none: dict, card: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: K9 mesh_fold; phase 13: the mesh leg (with 9j)
+# ---------------------------------------------------------------------------
+
+#: phase 13's logical mesh: 4 segment slices x 2 doc slices, every slot on
+#: cuda:0 (a card fills more than one slot)
+MESH_SHAPE = (4, 2)
+#: phase 13's sketch query on the Q1 rows: K1 and K3 on every shard
+MESH_SKETCH = ("SELECT DISTINCTCOUNTHLL(lo_orderdate), "
+               "PERCENTILETDIGEST95(lo_extendedprice), COUNT(*) FROM ssb "
+               "WHERE lo_discount BETWEEN 1 AND 3")
+#: 13c: row 14's step at S = 16, D = 2^23 over this many group ids
+STEP_GROUPS = 64
+
+
+def logical_mesh():
+    from pinot_tpu_torch.parallel import make_mesh
+    n_seg, n_doc = MESH_SHAPE
+    return make_mesh(["cuda:0"] * (n_seg * n_doc), doc_axis=n_doc)
+
+
+def fold_bytes(fold, parts, out) -> int:
+    """K9's bytes: the partials read once (the rows its lists name), the
+    lists and the output once."""
+    B = parts[0].shape[0]
+    size = parts[0].element_size()
+    rows = len(fold.src) + (len(fold.tsrc) if fold.T else 0)
+    return rows * B * fold.W * size + fold.nbytes \
+        + out.numel() * out.element_size()
+
+
+def check_fold(name: str, parts, fold, batched: bool) -> dict:
+    """K9 against its plain version on the card, bit for bit (NaN where
+    NaN): its times, bound and error."""
+    import torch
+
+    from pinot_tpu_torch.ops import _cuda
+    from pinot_tpu_torch.ops import kernels as kmod
+    out = _cuda.mesh_fold(parts, fold, batched=batched)
+    ref = kmod.mesh_fold_plain(parts, fold)
+    torch.cuda.synchronize()
+    same = (out == ref) | (torch.isnan(out) & torch.isnan(ref))
+    if out.shape != ref.shape or not bool(same.all()):
+        fail(f"{name}: K9 differs from its plain version")
+    moved = fold_bytes(fold, parts, out)
+    return {"case": name, "B": parts[0].shape[0], "P": len(parts),
+            "R": fold.R, "W": fold.W, "T": fold.T,
+            "ms": cuda_ms(lambda: _cuda.mesh_fold(parts, fold,
+                                                  batched=batched)),
+            "plain_ms": cuda_ms(lambda: kmod.mesh_fold_plain(parts, fold),
+                                iters=3),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved,
+            "bound_by": "bytes", "library_ms": None,
+            "library": "none: no single PyTorch call folds columns of "
+                       "mixed op codes through a remap",
+            "max_abs_err": max_abs_err(out, ref)}
+
+
+def mesh_fold_cases(seed: int) -> dict:
+    """Phase 3c's K9 cases at the mesh leg's shapes: the doc fold of K1's
+    and K3's packed Q1 partials (count, sum, min, max, exact-sum planes,
+    HLL 2^16 registers and 8192 histogram buckets; P = 2 doc slices, S_loc
+    = 4) at B = 1 and 8, and the remapped fold, with its matched tail, of
+    config-#3-shaped K2 partials (G_local = 35, 4 slots) over the 8 slots
+    of a 4x2 mesh into 64 global groups."""
+    import torch
+
+    from pinot_tpu_torch.ops import collective
+    from pinot_tpu_torch.ops import kernels as kmod
+    from pinot_tpu_torch.ops.plan_ir import DevicePlan
+    from pinot_tpu_torch.parallel import make_mesh
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 13)
+    plan = DevicePlan(
+        filter_ir=None, leaves=(), value_irs=(("col", "x"),),
+        agg_ops=(("count", None, None), ("sum", 0, None), ("min", 0, None),
+                 ("max", 0, None), ("isum:u4", 0, None),
+                 ("hll:16:t", None, None), (f"hist:{HIST_BUCKETS}", 0, None)),
+        raw64_cols=("t",))
+    codes = kmod.packed_fold_codes(plan)
+    W = kmod.packed_width(plan)
+
+    def partials(B, rows, width, P):
+        out = []
+        for _ in range(P):
+            t = torch.randint(0, 1000, (B, rows, width), generator=g,
+                              device=dev).float()
+            t[:, :, 2:4] = torch.randn((B, rows, 2), generator=g,
+                                       device=dev) * 1e6
+            t[:, 0, 2] = float("nan")
+            t[:, 1, 3] = float("inf")
+            out.append(t)
+        return out
+    cases = {}
+    fold = kmod.doc_fold(1, 2, 4, 1, W, codes)
+    for B in (1, BATCH_B):
+        cases[f"doc fold B={B}"] = check_fold(
+            f"doc fold of Q1 K1+K3 partials, B={B}", partials(B, 4, W, 2),
+            fold, B > 1)
+    gplan = DevicePlan(
+        filter_ir=None, leaves=(), value_irs=(("col", "rev"),),
+        agg_ops=(("sum", 0, None), ("min", 0, None), ("max", 0, None),
+                 ("count", None, None)),
+        group_cols=("year", "cat"), group_strides=(5, 1), num_groups=35)
+    rng = np.random.default_rng(seed + 29)
+    remap = np.stack([rng.permutation(64)[:35] for _ in range(GB_SEGMENTS)])
+    remap[:, -3:] = -1  # local keys past a segment's cardinalities
+    mesh = make_mesh(["cuda:0"] * 8, doc_axis=2)
+    fold = collective.merged_plan(gplan, mesh, GB_SEGMENTS, 64, remap)
+    cases["remap P=8"] = check_fold(
+        "remapped fold of config-#3 K2 partials, P=8",
+        partials(1, GB_SEGMENTS // 4 * 35, 4, 8), fold, False)
+    return cases
+
+
+def staged_mesh(ex, sql: str):
+    """(plan, the Launch, the merge's minfo or None) that a mesh engine
+    stages for an aggregation, as on the main path (the merge where its
+    gates pass)."""
+    from pinot_tpu_torch.query.context import QueryContext
+    ctx = QueryContext.from_sql(sql)
+    eng = ex.engine
+    segs = ex.segments_of(ctx.table)
+    with eng._engine_lock:
+        plan, _ = eng._plan(segs, ctx)
+        minfo = None
+        if eng._explicit_mesh and eng._collective_merge:
+            S = eng._padded_S(len(segs), eng._padded_D(segs))
+            try:
+                minfo = eng._merged_prepare(segs, plan, S)
+            except Exception:  # noqa: BLE001 — a gate: the sharded launch
+                minfo = None
+        launch = eng._launch(segs, ctx, plan, None, None, "agg", minfo)
+    return plan, launch, minfo
+
+
+def column_ops(plan, merged: bool, S: int) -> list:
+    """Each output column's op, in the sharded (per-segment) or merged
+    layout: 'sum' columns compare within 1e-5, the others bit for bit."""
+    from pinot_tpu_torch.ops import kernels as kmod
+    ops = [] if merged else ["count"]
+    for op, _v, _f in plan.agg_ops:
+        ops += [op if op in ("sum", "sumsq", "sum3", "sum4") else "exact"] \
+            * kmod.slot_width(op)
+    return ops + (["exact"] * S if merged else [])
+
+
+def compare_mesh(name: str, plan, out, ref, merged: bool, S: int) -> None:
+    import torch
+    if out.shape != ref.shape:
+        fail(f"{name}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
+    ops = column_ops(plan, merged, S)
+    a, b = out.double().reshape(-1, len(ops)), ref.double().reshape(
+        -1, len(ops))
+    for c, op in enumerate(ops):
+        x, y = a[:, c], b[:, c]
+        same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+        if op == "exact" or op == "count":
+            if not bool(same.all()):
+                fail(f"{name}: column {c} not bit-identical")
+        elif not bool((same | ((x - y).abs() <= 1e-5 * y.abs())).all()):
+            fail(f"{name}: column {c} sum beyond rel 1e-5")
+
+
+def mesh_launch_bytes(plan, launch, minfo, out) -> int:
+    """The bytes a mesh launch must move: each slot's shard as its kernel
+    must read it (batch_bytes, its partial written once), the partials
+    read once by K9, the output once."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels as kmod
+    mesh = next(iter(launch.cols.values())).mesh
+    shards, s_loc, d_loc = kmod.mesh_shards(
+        mesh, [launch.cols], [launch.params], [launch.num_docs], launch.D)
+    part = torch.empty((s_loc, kmod.packed_width(plan)) if not plan.num_groups
+                       else (s_loc, plan.num_groups, len(plan.agg_ops)),
+                       dtype=out.dtype, device=out.device)
+    moved = 0
+    for cs, ps, ns in shards:
+        moved += batch_bytes(plan, cs, ps, ns, [0], d_loc, part)[0] \
+            + part.numel() * part.element_size()
+    return moved + out.numel() * out.element_size()
+
+
+def check_mesh_launch(name: str, ex, sql: str, B: int = 1,
+                      pool=()) -> dict:
+    """One mesh launch of the engine's own staging of `sql` (B > 1: B pool
+    queries of its plan as one batched launch over the same blocks)
+    against its plain version on the card: CUDA events around its whole
+    launch sequence (a launch per slot, then K9)."""
+    import torch
+
+    from pinot_tpu_torch.ops import collective
+    from pinot_tpu_torch.ops import kernels as kmod
+    plan, launch, minfo = staged_mesh(ex, sql)
+    mesh = next(iter(launch.cols.values())).mesh
+    vdt = ex.engine.value_dtype
+    S = int(launch.num_docs.shape[0])
+    if B > 1:
+        members = [launch] + [staged_mesh(ex, q)[1] for q in pool[:B - 1]]
+        args = ([launch.cols], [m.params for m in members],
+                [launch.num_docs], [0] * B, launch.D)
+
+        def run():
+            return launch.batched(*args)
+        plain_fn = kmod.plain_batched_sharded_kernel(plan, mesh, vdt)
+
+        def plain():
+            return plain_fn(*args)
+    else:
+        run = launch.call
+        if minfo is None:
+            pf = kmod.plain_sharded_kernel(plan, mesh, vdt)
+        else:
+            mf = collective.plain_merged_kernel(plan, mesh, vdt)
+
+            def pf(c, p, n, d):
+                return mf(c, p, n, d, minfo["G"], minfo["fold"])
+
+        def plain():
+            return pf(launch.cols, launch.params, launch.num_docs, launch.D)
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    compare_mesh(f"{name} vs plain", plan, out, ref, minfo is not None, S)
+    if B > 1:
+        for m, member in enumerate(members):
+            compare_mesh(f"{name} member {m} vs its single launch", plan,
+                         out[m], member.call(), False, S)
+    moved = mesh_launch_bytes(plan, launch, minfo, out)
+    if B > 1:
+        moved += sum(v.numel() * v.element_size()
+                     for m in members[1:] for v in m.params.values())
+    return {"case": name, "mesh": "x".join(map(str, MESH_SHAPE)),
+            "merged": minfo is not None, "B": B, "S": S, "D": launch.D,
+            "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, iters=3),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved,
+            "bound_by": "bytes", "library_ms": None,
+            "library": "none: no single PyTorch call folds columns of "
+                       "mixed op codes through a remap",
+            "max_abs_err": max_abs_err(out, ref)}
+
+
+def mesh_query(ex, name: str, sql: str, want, kernels, none: dict,
+               shard_kernels: tuple, card: str, label: str) -> dict:
+    """One phase-13 query: a cold run and ITERS warm runs through the
+    mesh engine, its rows held to `want` (rows -> None or what differs),
+    each run one launch of `shard_kernels` per slot and one K9 (the
+    launch counts set to 0 just before and read just after); prints the
+    p50, cold_s, kernel_fetch, launches, merges and peak memory."""
+    import torch
+
+    from pinot_tpu_torch.query.context import QueryContext
+    reset = dict(ex.engine.meters)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    resp, cold, lats, split = time_query(ex, sql, ITERS)
+    runs = 1 + ITERS
+    slots = MESH_SHAPE[0] * MESH_SHAPE[1]
+    got = launches_of_leg(
+        f"phase 13 {label} {name}", kernels,
+        {**none, **{k: slots * runs for k in shard_kernels},
+         "mesh_fold": runs})
+    why = want(rows_of(resp))
+    if why is not None:
+        fail(f"phase 13 {label} {name}: {why}")
+    meters = {f"{k[0]}{'{' + k[1] + '}' if k[1] else ''}": v - reset.get(k, 0)
+              for k, v in ex.engine.meters.items()
+              if k[0].startswith("mesh_merge") and v - reset.get(k, 0)}
+    table = QueryContext.from_sql(sql).table
+    leg = {"query": name, "leg": label,
+           "rows": sum(s.num_docs for s in ex.segments_of(table)),
+           "p50_ms": statistics.median(lats) * 1e3, "cold_s": cold,
+           "kernel_fetch_ms": split.get("kernel_fetch"),
+           "launches": {k: v for k, v in got.items() if v},
+           "meters": meters,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    print(f"[mesh] {json.dumps(leg)} | {card}", flush=True)
+    return {"launches": got, "meters": meters}
+
+
+def q1_want(truths, name: str, n_segs=None):
+    """rows -> None or what differs: Q1 query `name`'s (SUM, COUNT) equal
+    to the numpy truth of the first n_segs segments."""
+    ts = truths[:n_segs] if n_segs else truths
+    return lambda rows: exact_pair(rows, sum(t["q1"][name][0] for t in ts),
+                                   sum(t["q1"][name][1] for t in ts))
+
+
+def sketch_want(ref_rows, merged: bool):
+    """rows -> None or what differs: DISTINCTCOUNTHLL and COUNT equal to
+    the single card's; the p95 equal to it where each segment keeps its
+    digest (the sharded launch), within rel 0.02 (PERF.md's t-digest row)
+    where the merge builds one digest from the batch's buckets."""
+    def check(rows):
+        (h, p, c), (rh, rp, rc) = rows[0], ref_rows[0]
+        if int(h) != int(rh) or int(c) != int(rc):
+            return f"{rows[0]} vs the single card's {ref_rows[0]}"
+        if (abs(float(p) - float(rp)) > 0.02 * abs(float(rp))) if merged \
+                else float(p) != float(rp):
+            return f"p95 {p} vs the single card's {rp}"
+        return None
+    return check
+
+
+def mesh_leg(segs, truths, sketch_ref, kernels, none: dict, card: str,
+             tmp: str):
+    """Phase 13 and 9j on the Q1 leg's 16 x 8M rows (see the module
+    docstring). Returns (per-kernel launches of the leg, the kernels-line
+    entries of rows 7, 8c, 9 and 14, the 9j window launches)."""
+    import torch
+
+    from pinot_tpu_torch.ops import _cuda
+    from pinot_tpu_torch.parallel import make_mesh
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    from pinot_tpu_torch.utils.config import PinotConfiguration
+    mesh = logical_mesh()
+    n_cards = torch.cuda.device_count()
+    print(f"[mesh] {MESH_SHAPE[0]}x{MESH_SHAPE[1]} logical mesh over "
+          f"cuda:0; {n_cards} CUDA device(s) | {card}", flush=True)
+    total: Counter = Counter()
+    k9 = {"sharded": 0, "merged": 0, "step": 0}
+
+    def add(res, form):
+        total.update(res["launches"])
+        k9[form] += res["launches"]["mesh_fold"]
+
+    # 13a: the sharded launch, float32, the merge key off
+    off = PinotConfiguration({"pinot.server.mesh.collective.merge": False})
+    ex_a = QueryExecutor(segs, mesh=mesh, config=off)
+    for name, sql in Q1_QUERIES.items():
+        add(mesh_query(ex_a, name, sql, q1_want(truths, name), kernels,
+                       none, ("scan_agg",), card, "13a sharded f32"),
+            "sharded")
+    add(mesh_query(ex_a, "sketch", MESH_SKETCH,
+                   sketch_want(sketch_ref, merged=False), kernels, none,
+                   ("scan_agg", "sketch_agg"), card, "13a sharded f32"),
+        "sharded")
+    if ex_a.engine.meter("mesh_merge_fallback", "disabled") == 0:
+        fail("phase 13a: the merge-off engine counted no 'disabled'")
+    sharded = check_mesh_launch("row 7: q1.1 sharded", ex_a,
+                                Q1_QUERIES["q1.1"])
+    print(f"[kernel] mesh sharded {json.dumps(sharded)} | {card}",
+          flush=True)
+    batched = check_mesh_launch(
+        "row 8c: q1.1-shaped, B=8 broadcast", ex_a, q1_sql(*Q1_POOL[0]),
+        B=BATCH_B, pool=[q1_sql(*w) for w in Q1_POOL[1:]])
+    print(f"[kernel] mesh sharded batched {json.dumps(batched)} | {card}",
+          flush=True)
+    if n_cards > 1:
+        n_doc = 2 if n_cards % 2 == 0 else 1
+        ex_n = QueryExecutor(segs, mesh=make_mesh(doc_axis=n_doc))
+        why = q1_want(truths, "q1.1")(rows_of(ex_n.execute(
+            Q1_QUERIES["q1.1"])))
+        if why is not None:
+            fail(f"phase 13 over {n_cards} cards: {why}")
+        print(f"[mesh] q1.1 over {n_cards} cards equals its truth | {card}",
+              flush=True)
+        del ex_n
+
+    # 13b: the merge, float64 on all rows; float32 on two segments; the
+    # float32 full batch held back by the precision gate
+    ex_b = QueryExecutor(segs, value_dtype=torch.float64, mesh=mesh)
+    for name, sql in Q1_QUERIES.items():
+        add(mesh_query(ex_b, name, sql, q1_want(truths, name), kernels,
+                       none, ("scan_agg",), card, "13b merged f64"),
+            "merged")
+    add(mesh_query(ex_b, "sketch", MESH_SKETCH, sketch_want(sketch_ref, merged=True), kernels, none,
+                   ("scan_agg", "sketch_agg"), card, "13b merged f64"),
+        "merged")
+    if ex_b.engine.meter("mesh_merge_served") == 0:
+        fail("phase 13b: the float64 engine never merged")
+    merged = check_mesh_launch("row 9: q1.1 merged, float64", ex_b,
+                               Q1_QUERIES["q1.1"])
+    print(f"[kernel] mesh merged {json.dumps(merged)} | {card}", flush=True)
+    del ex_b
+    torch.cuda.empty_cache()
+    ex_c = QueryExecutor({"ssb": segs, "ssb2": segs[:2]}, mesh=mesh)
+    for name, sql in Q1_QUERIES.items():
+        add(mesh_query(ex_c, name, sql.replace(" FROM ssb ", " FROM ssb2 "),
+                       q1_want(truths, name, 2), kernels, none,
+                       ("scan_agg",), card, "13b merged f32, 2 segments"),
+            "merged")
+    served = ex_c.engine.meter("mesh_merge_served")
+    if served == 0:
+        fail("phase 13b: the float32 engine never merged two segments")
+    add(mesh_query(ex_c, "q1.1", Q1_QUERIES["q1.1"], q1_want(truths, "q1.1"),
+                   kernels, none, ("scan_agg",), card,
+                   "13b f32 full batch"), "sharded")
+    if ex_c.engine.meter("mesh_merge_fallback", "precision") == 0:
+        fail("phase 13b: the float32 full batch passed the precision gate")
+    del ex_c
+    torch.cuda.empty_cache()
+
+    # 13c: row 14's step
+    step, step_launches = step_case(mesh, kernels, none, card)
+    total.update(step_launches)
+    k9["step"] = step_launches["mesh_fold"]
+    step["launches"] = k9["step"]
+
+    # 9j: Q1.1-shaped queries under concurrency on the mesh engine
+    execs = modes_of(segs, pipelined=ex_a, mesh=mesh, config={
+        "pinot.server.mesh.collective.merge": False})
+    leg = concurrency_leg(
+        "9j", execs, [q1_sql(*w) for w in Q1_POOL],
+        [list(range(len(Q1_POOL)))] * CLIENTS,
+        lambda i, rows: exact_pair(
+            rows, sum(t["q1pool"][i][0] for t in truths),
+            sum(t["q1pool"][i][1] for t in truths)), card, tmp, kernels,
+        {"scan_agg": MESH_SHAPE[0] * MESH_SHAPE[1], "mesh_fold": 1})
+    del execs, ex_a
+    torch.cuda.empty_cache()
+    sharded["launches"] = k9["sharded"]
+    merged["launches"] = k9["merged"]
+    batched["launches"] = leg["launches"]["mesh_fold"][1]
+    if not batched["launches"]:
+        fail("phase 9j never launched K9's batched form")
+    for form, n in k9.items():
+        if not n:
+            fail(f"phase 13 never launched K9 on the {form} path")
+    if _cuda.MESH_FOLD.name not in total:
+        fail("phase 13 never launched mesh_fold")
+    return dict(total), {"sharded": sharded, "batched": batched,
+                         "merged": merged, "step": step}, leg["launches"]
+
+
+def step_case(mesh, kernels, none: dict, card: str):
+    """13c: row 14's step at S = 16, D = 2^23 on the logical mesh, over
+    float64 integer-valued measures (exact sums and counts): its answer
+    against its plain version and the numpy truth, ITERS + 1 host-clock
+    runs (the launch counts set to 0 just before), CUDA-event times of the
+    step and its plain version, and the bound (the inputs as the step must
+    read them, the partials once)."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels as kmod
+    from pinot_tpu_torch.parallel import distributed_query_step, shard_block
+    from pinot_tpu_torch.parallel.distributed_query import (
+        groups_plan, plain_distributed_query_step)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(131)
+    S, D, G = Q1_SEGMENTS, 1 << 23, STEP_GROUPS
+
+    def ints(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int64).to(dtype)
+    ids = ints(0, 100, (S, D), torch.int32)
+    vals = ints(0, 1000, (S, D), torch.float64)
+    gids = ints(0, G, (S, D), torch.int32)
+    lo = ints(0, 30, (S,), torch.int32)
+    hi = lo + ints(10, 60, (S,), torch.int32)
+    ndocs = torch.full((S,), Q1_DOCS, dtype=torch.int32, device=dev)
+    doc_pos = torch.arange(D, dtype=torch.int32, device=dev)[None]
+    # numpy truth, on the host
+    h_ids, h_vals, h_gids = ids.cpu().numpy(), vals.cpu().numpy(), \
+        gids.cpu().numpy()
+    mask = (h_ids >= lo.cpu().numpy()[:, None]) \
+        & (h_ids <= hi.cpu().numpy()[:, None])
+    mask[:, Q1_DOCS:] = False
+    kept = h_vals[mask]
+    want = (float(kept.sum()), float(mask.sum()),
+            np.bincount(h_gids[mask], weights=kept, minlength=G))
+    del h_ids, h_vals, h_gids, mask, kept
+    gplan = groups_plan(G)
+    cols = {"ids:ids": ids, "val:vals": vals, "ids:gids": gids}
+    params = {"leaf0:lo": lo, "leaf0:hi": hi}
+    inputs_bytes = batch_bytes(gplan, [cols], [params], [ndocs], [0], D,
+                               torch.empty(G, dtype=torch.float64,
+                                           device=dev))[0]
+    blocks = [shard_block(mesh, t) for t in (ids, vals, gids)]
+    del ids, vals, gids, cols
+    torch.cuda.empty_cache()
+    args = (*blocks, lo, hi, ndocs, doc_pos)
+    step = distributed_query_step(mesh)(G)
+    plain = plain_distributed_query_step(mesh)(G)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    lats = []
+    for _ in range(1 + ITERS):
+        t0 = time.perf_counter()
+        got = [float(x) if x.dim() == 0 else x.cpu().numpy()
+               for x in step(*args)]
+        lats.append(time.perf_counter() - t0)
+    slots = MESH_SHAPE[0] * MESH_SHAPE[1]
+    launches = launches_of_leg(
+        "phase 13c", kernels,
+        {**none, "scan_agg": slots * len(lats),
+         "group_agg": slots * len(lats), "mesh_fold": 2 * len(lats)})
+    if got[0] != want[0] or got[1] != want[1] \
+            or not np.array_equal(got[2], want[2]):
+        fail(f"phase 13c: step ({got[0]}, {got[1]}) vs numpy truth "
+             f"({want[0]}, {want[1]}), groups equal: "
+             f"{np.array_equal(got[2], want[2])}")
+    ref = [x.cpu() for x in plain(*args)]
+    out = [x.cpu() for x in step(*args)]
+    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+        fail("phase 13c: the step differs from its plain version")
+    s_loc, d_loc = S // MESH_SHAPE[0], D // MESH_SHAPE[1]
+    partial_bytes = slots * s_loc * (3 + G) * 8
+    moved = inputs_bytes + 2 * partial_bytes
+    entry = {"case": f"row 14: S={S}, D=2^23, G={G}",
+             "mesh": "x".join(map(str, MESH_SHAPE)),
+             "p50_ms": statistics.median(lats[1:]) * 1e3,
+             "cold_s": lats[0],
+             "ms": cuda_ms(lambda: step(*args)),
+             "plain_ms": cuda_ms(lambda: plain(*args), iters=3),
+             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved,
+             "bound_by": "bytes", "library_ms": None,
+             "library": "none: no single PyTorch call folds columns of "
+                        "mixed op codes through a remap",
+             "max_abs_err": max(float((a.double() - b.double()).abs().max())
+                                for a, b in zip(out, ref)),
+             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    print(f"[kernel] mesh step {json.dumps(entry)} | {card}", flush=True)
+    del blocks, args
+    torch.cuda.empty_cache()
+    return entry, launches
+
+
+def mesh_groupby(segs, want_rows, kernels, none: dict, card: str) -> dict:
+    """13a's config-#3 group-by on phase 5's rows: the sharded K2 (merge
+    key off) on the logical mesh, its group keys equal to the single
+    card's and its sums within rel 1e-6 of them (float32 sums of a group
+    past 2^24 round per doc slice). Returns the launches."""
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    from pinot_tpu_torch.utils.config import PinotConfiguration
+    ex = QueryExecutor(segs, mesh=logical_mesh(), config=PinotConfiguration(
+        {"pinot.server.mesh.collective.merge": False}))
+
+    def same(rows):
+        if [tuple(r[:2]) for r in rows] != [tuple(r[:2]) for r in want_rows]:
+            return f"group keys {rows[:3]} vs the single card's " \
+                f"{want_rows[:3]}"
+        for r, w in zip(rows, want_rows):
+            if abs(float(r[2]) - float(w[2])) > 1e-6 * abs(float(w[2])):
+                return f"group {r} vs the single card's {w}"
+        return None
+    res = mesh_query(ex, "groupby", GB_QUERY, same, kernels, none,
+                     ("group_agg",), card, "13a sharded f32, config #3")
+    return res["launches"]
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the concurrency leg
 # ---------------------------------------------------------------------------
 
@@ -4072,11 +4648,13 @@ def concurrency_leg(name: str, executors: dict, pool: list,
     return out
 
 
-def modes_of(segments, pipelined=None, value_dtype=None) -> dict:
+def modes_of(segments, pipelined=None, value_dtype=None, mesh=None,
+             config=None) -> dict:
     """A QueryExecutor per dispatch mode over the same segments (one
     table's, or {table: segments}); `pipelined`: an executor of the
     default (pipelined) configuration to reuse; value_dtype: the
-    executors' (float32 by default)."""
+    executors' (float32 by default); mesh and config (overrides): the
+    executors' mesh and further keys."""
     import torch
 
     from pinot_tpu_torch.query.executor import QueryExecutor
@@ -4084,9 +4662,10 @@ def modes_of(segments, pipelined=None, value_dtype=None) -> dict:
 
     def of(mode):
         return QueryExecutor(
-            segments, value_dtype=value_dtype or torch.float32,
+            segments, value_dtype=value_dtype or torch.float32, mesh=mesh,
             config=PinotConfiguration(
-                overrides={"pinot.server.dispatch.mode": mode}))
+                overrides={**(config or {}),
+                           "pinot.server.dispatch.mode": mode}))
     return {"serialized": of("serialized"),
             "pipelined": pipelined or of("pipelined")}
 
@@ -4099,8 +4678,10 @@ def window_launches(name: str, kernels, runs: str, disps: list,
     names a query launches, K7 and K1 for a CLP query) one single launch
     per inline or single dispatch, one batched launch per broadcast,
     stacked or dedup dispatch, as many batched members as those batches
-    held; every other kernel none."""
-    runs = (runs,) if isinstance(runs, str) else tuple(runs)
+    held (`runs` a dict: name -> launches per dispatch, a mesh launch's K1
+    once per slot); every other kernel none."""
+    mult = dict(runs) if isinstance(runs, dict) else \
+        {r: 1 for r in ((runs,) if isinstance(runs, str) else runs)}
     seen: Counter = Counter()
     for d, s0 in zip(disps, stats0):
         s = d.stats()
@@ -4112,7 +4693,8 @@ def window_launches(name: str, kernels, runs: str, disps: list,
                   if isinstance(k, tuple) and k[1] > 1)
     got = {k.name: (k.launches, k.batched_launches, k.batched_members)
            for k in kernels}
-    want = {k.name: (single, batched, members) if k.name in runs
+    want = {k.name: (single * mult[k.name], batched * mult[k.name],
+                     members * mult[k.name]) if k.name in mult
             else (0, 0, 0) for k in kernels}
     if got != want:
         fail(f"{name}: launches (single, batched, batched members) {got}, "
@@ -4298,6 +4880,16 @@ def main() -> None:
     p9 = {k.name: [0, 0] for k in kernels}
     variants = {}
     lap("phase 3")
+    # phase 3c: K9 mesh_fold against its plain version, bit for bit
+    k9_cases = mesh_fold_cases(args.seed)
+    for case in k9_cases.values():
+        print(f"[kernel] mesh_fold {json.dumps(case)} | {card}", flush=True)
+    k9 = dict(k9_cases["doc fold B=1"], launches=0, max_abs_err=max(
+        c["max_abs_err"] for c in k9_cases.values()))
+    k9_batched = dict(k9_cases[f"doc fold B={BATCH_B}"], launches=0)
+    torch.cuda.empty_cache()
+    mesh_total: Counter = Counter()
+    lap("phase 3c")
     late = finish_late_builds(pool, pending, ("tsbs", "logs"), card)
     lap("wait for the late builds")
 
@@ -4428,9 +5020,20 @@ def main() -> None:
             [list(range(len(SEL_POOL)))] * CLIENTS, sel_check, card, tmp,
             kernels, "topn")
         count_phase9(leg["launches"], p9)
+        # the single card's sketch answer on these rows, phase 13's
+        # reference
+        sketch_ref = rows_of(ex.execute(MESH_SKETCH))
         del ex, execs
         torch.cuda.empty_cache()
         lap("phases 9a and 9c")
+
+        # phase 13: the mesh leg on the Q1 rows, with 9j
+        got, mesh_entries, p9j = mesh_leg(segs, truths, sketch_ref, kernels,
+                                          none, card, tmp)
+        mesh_total.update(got)
+        count_phase9(p9j, p9)
+        torch.cuda.empty_cache()
+        lap("phase 13 and 9j")
 
         # phase 4c: the staging levels (residency) on the Q1 segments
         k6["launches"] += residency_phase(segs, truths, kernels, none,
@@ -4532,10 +5135,15 @@ def main() -> None:
             [list(range(len(GB_POOL)))] * CLIENTS, gb_check, card, tmp,
             kernels, "group_agg")
         count_phase9(leg["launches"], p9)
-        del ex, segs
+        del ex
+        # phase 13a's config-#3 group-by: the sharded K2 on these rows
+        got = mesh_groupby(segs, resp.rows, kernels, none, card)
+        mesh_total.update(got)
+        mesh_entries["sharded"]["launches"] += got["mesh_fold"]
+        del segs
         torch.cuda.empty_cache()
 
-        lap("phases 5 and 9d")
+        lap("phases 5, 9d and 13a's group-by")
         # phase 6: config-#4 sketch leg
         t0 = time.perf_counter()
         segs, truths = build_segments(
@@ -4710,6 +5318,15 @@ def main() -> None:
     k8_batched["launches"] = p9["vector_topk"][1]
     if not k8["launches"] or not k8_batched["launches"]:
         fail("the main path never launched vector_topk, single and batched")
+    # phase 13's launches (the mesh legs run K1-K3 and K6 as well)
+    for kern, entry in ((_cuda.SCAN_AGG, k1), (_cuda.GROUP_AGG, k2),
+                        (_cuda.SKETCH_AGG, k3), (_cuda.ROW_ASSEMBLE, k6),
+                        (_cuda.MESH_FOLD, k9)):
+        entry["launches"] += mesh_total[kern.name]
+    k9["launches"] += p9["mesh_fold"][0]
+    k9_batched["launches"] = p9["mesh_fold"][1]
+    if not k9["launches"] or not k9_batched["launches"]:
+        fail("the main path never launched mesh_fold, single and batched")
     for name, entry in [("group_agg bucket", kb),
                         ("group_agg bucket batched", kb_batched),
                         *((f"{k} masked", e) for k, e in masked.items())]:
@@ -4725,7 +5342,9 @@ def main() -> None:
              "pinot_tpu/ops/startree_device.py:99,81"),
             (_cuda.ROW_ASSEMBLE, k6, "pinot_tpu/ops/kernels.py:100"),
             (_cuda.CLP_MATCH, k7, "pinot_tpu/ops/clp_device.py:700,757"),
-            (_cuda.VECTOR_TOPK, k8, "pinot_tpu/ops/vector_device.py:104")):
+            (_cuda.VECTOR_TOPK, k8, "pinot_tpu/ops/vector_device.py:104"),
+            (_cuda.MESH_FOLD, k9, "pinot_tpu/ops/kernels.py:685,"
+             "pinot_tpu/ops/collective.py:131,167")):
         entries.append({
             "name": kern.name, "route": "cuda",
             "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",
@@ -4741,9 +5360,11 @@ def main() -> None:
             (_cuda.TOPN, "pinot_tpu/ops/kernels.py:858"),
             (_cuda.STARTREE_AGG, "pinot_tpu/ops/startree_device.py:152"),
             (_cuda.CLP_MATCH, "pinot_tpu/ops/clp_device.py:700,757"),
-            (_cuda.VECTOR_TOPK, "pinot_tpu/ops/vector_device.py:163")):
+            (_cuda.VECTOR_TOPK, "pinot_tpu/ops/vector_device.py:163"),
+            (_cuda.MESH_FOLD, "pinot_tpu/ops/kernels.py:893")):
         entry = {_cuda.CLP_MATCH: k7_batched,
-                 _cuda.VECTOR_TOPK: k8_batched}.get(kern) \
+                 _cuda.VECTOR_TOPK: k8_batched,
+                 _cuda.MESH_FOLD: k9_batched}.get(kern) \
             or batched[kern.name]
         entries.append({
             "name": f"{kern.name}_batched", "route": "cuda",
@@ -4771,6 +5392,27 @@ def main() -> None:
         entries.append({
             "name": name, "route": "cuda",
             "source": f"pinot_tpu_torch/ops/csrc/{kern.source}",
+            "replaces": replaces, "launches": entry["launches"],
+            "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
+            "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+            "bound_by": entry["bound_by"],
+            "library_ms": entry["library_ms"]})
+    # rows 7, 8c, 9 and 14: each mesh path's whole launch sequence on the
+    # logical 4x2 mesh (a launch per slot, then K9); launches are K9's on
+    # that path
+    for name, key, replaces in (
+            ("mesh_sharded", "sharded",
+             "pinot_tpu/ops/kernels.py:710,668,685"),
+            ("mesh_sharded_batched", "batched",
+             "pinot_tpu/ops/kernels.py:893"),
+            ("mesh_merged", "merged",
+             "pinot_tpu/ops/collective.py:187,234"),
+            ("mesh_step", "step",
+             "pinot_tpu/parallel/distributed_query.py:30")):
+        entry = mesh_entries[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"pinot_tpu_torch/ops/csrc/{_cuda.MESH_FOLD.source}",
             "replaces": replaces, "launches": entry["launches"],
             "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],

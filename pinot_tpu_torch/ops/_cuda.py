@@ -3,8 +3,9 @@
 K1 `scan_agg` (csrc/scan_agg.cu), K2 `group_agg` (csrc/group_agg.cu),
 K3 `sketch_agg` (csrc/sketch_agg.cu), K4 `topn` (csrc/topn.cu), K5
 `startree_agg` (csrc/startree_agg.cu), K6 `row_assemble`
-(csrc/row_assemble.cu), K7 `clp_match` (csrc/clp_match.cu) and K8
-`vector_topk` (csrc/vector_topk.cu) are plain-C-interface shared libraries
+(csrc/row_assemble.cu), K7 `clp_match` (csrc/clp_match.cu), K8
+`vector_topk` (csrc/vector_topk.cu) and K9 `mesh_fold`
+(csrc/mesh_fold.cu) are plain-C-interface shared libraries
 built with `nvcc` for sm_90a at first use, into the git-ignored
 `build/kernels/` directory beside the package, and loaded with ctypes. All
 sources build at once, one `nvcc` each, in parallel. A library's file name
@@ -22,7 +23,9 @@ computes B coalesced queries of one plan over U column sets, member m
 reading set idx[m]. `scan_agg`, `group_agg`, `sketch_agg`, `topn`,
 `startree_agg`, `clp_match` and `vector_topk` are the single launch
 (B = U = 1); the `*_batched` forms take the members' column sets,
-parameters, doc counts and member-to-set map and return [B, S, ...]. A
+parameters, doc counts and member-to-set map and return [B, S, ...].
+`mesh_fold` folds a mesh's per-slot partials, each with the query axis
+it carries, through host-built lists (ops/kernels.py `MeshFold`). A
 kernel counts single launches in `launches`, batched ones in
 `batched_launches` and their members in `batched_members`, under a lock:
 pool threads launch concurrently, and ctypes releases the GIL for the call.
@@ -156,6 +159,16 @@ class _ClpArgs(ctypes.Structure):
                 ("set_of", ctypes.c_int * MAX_MEMBERS)]
 
 
+#: partials one K9 launch folds (csrc/mesh_fold.cu MF_MAX_PARTS)
+MF_MAX_PARTS = 64
+
+
+class _FoldArgs(ctypes.Structure):
+    """csrc/mesh_fold.cu `struct FoldArgs`, passed to the kernel by value:
+    the partials' pointers, in mesh order."""
+    _fields_ = [("part", ctypes.c_void_p * MF_MAX_PARTS)]
+
+
 class CudaKernel:
     """One hand-written kernel: its source, its entry point and the number
     of times it was launched, single and batched. `layout`: the ctypes
@@ -252,8 +265,12 @@ VECTOR_TOPK = CudaKernel("vector_topk", "vector_topk.cu", "pt_vector_topk",
                          [ctypes.POINTER(_VecArgs), _P, _P, _P, _P, _P, _I, _I,
                           _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                           _I, _P], layout=(_VecArgs, "pt_vec_args_bytes"))
+MESH_FOLD = CudaKernel("mesh_fold", "mesh_fold.cu", "pt_mesh_fold",
+                       [ctypes.POINTER(_FoldArgs), _P, _P, _P, _P, _P, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+                       layout=(_FoldArgs, "pt_mesh_fold_args_bytes"))
 KERNELS = (SCAN_AGG, GROUP_AGG, SKETCH_AGG, TOPN, STARTREE_AGG, ROW_ASSEMBLE,
-           CLP_MATCH, VECTOR_TOPK)
+           CLP_MATCH, VECTOR_TOPK, MESH_FOLD)
 
 _build_lock = threading.Lock()
 
@@ -747,6 +764,47 @@ def row_assemble(rows: List[torch.Tensor], S: int, D: int) -> torch.Tensor:
         if rc != 0:
             raise RuntimeError(f"row_assemble launch failed: cudaError {rc}")
         ROW_ASSEMBLE.count(1, batched=False)
+    return out
+
+
+def mesh_fold(parts: List[torch.Tensor], fold,
+              batched: bool = False) -> torch.Tensor:
+    """K9: the [B, R * W + T] fold of P partials (one per mesh slot, each
+    [B, ...] of fold.rows_in x fold.win values in the value dtype, on one
+    card) through `fold`'s lists (ops/kernels.py `MeshFold`). `batched`:
+    the partials carry a query axis of B coalesced members."""
+    if not 1 <= len(parts) <= MF_MAX_PARTS:
+        raise ValueError(f"{len(parts)} partials: K9 folds 1-{MF_MAX_PARTS}")
+    t0 = parts[0]
+    device, dtype = t0.device, t0.dtype
+    if device.type != "cuda":
+        raise ValueError(f"CUDA kernel given tensors on {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"partials of dtype {dtype}, not float32/64")
+    B = t0.shape[0]
+    if t0.numel() != B * fold.rows_in * fold.win:
+        raise ValueError(f"partial of shape {tuple(t0.shape)} is not "
+                         f"[B, {fold.rows_in} rows of {fold.win}]")
+    args = _FoldArgs()
+    for p, t in enumerate(parts):
+        _check(t, f"partial {p}", device, (dtype,), tuple(t0.shape))
+        args.part[p] = t.data_ptr()
+    if fold.parts > len(parts):
+        raise ValueError(f"the fold reads {fold.parts} partials, "
+                         f"given {len(parts)}")
+    ops, off, src, toff, tsrc = fold.on(device)
+    out = torch.empty((B, fold.R * fold.W + fold.T), dtype=dtype,
+                      device=device)
+    rc = MESH_FOLD.fn()(
+        ctypes.byref(args), ops.data_ptr(), off.data_ptr(), src.data_ptr(),
+        toff.data_ptr() if fold.T else None,
+        tsrc.data_ptr() if fold.T else None, fold.R, fold.W, fold.T,
+        fold.col0, fold.tail_col, fold.rows_in, fold.win, B,
+        int(dtype == torch.float64), out.data_ptr(), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mesh_fold launch failed: cudaError {rc}")
+    MESH_FOLD.count(B, batched)
     return out
 
 

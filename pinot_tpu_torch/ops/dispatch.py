@@ -39,8 +39,14 @@ that launch's future, and the launch leaves its batch before the kernel
 runs. Chaos tests hook the ring with the `server.dispatch.before`
 failpoint (every dispatch, ring and inline) and the per-member
 `server.dispatch.batch` failpoint (an erroring member fails only its own
-future). Not ported: the CPU collective lock and the mesh variants
-(multi-GPU slice), spans (no tracing layer yet).
+future). A mesh engine's launches carry its batched sharded or merged
+kernels (ops/kernels.py `batched_sharded_kernel`, ops/collective.py
+`batched_merged_kernel`: a launch per slot with the member axis, then one
+K9) and the mesh's shape in their key, so they coalesce only with
+launches of the same mesh and merge (JAX :497-514). Not
+ported: the CPU collective lock, a deadlock guard for XLA collectives on
+host devices (the port runs no collectives), and spans (no tracing layer
+yet).
 
 Knobs (utils/config.py): pinot.server.dispatch.mode and .batch.max (at
 most the kernels' 16 members); the engine reads .batch.cross.table.

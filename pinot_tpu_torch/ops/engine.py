@@ -71,8 +71,29 @@ cache under the vector function's own key, and K8 `vector_topk` picks the
 K winners per segment before the residual filter and the validity mask
 apply; a refusal raises NotOffloadable with the JAX reason, counted as
 `vector_fallback`. `filtered_doc_ids` (JAX :1749) gives the MSE leaf's
-filtered doc ids per segment from K4. No compact group keys or mesh. The
-rules it keeps from the JAX engine:
+filtered doc ids per segment from K4.
+
+A mesh engine (`mesh=`, a parallel.mesh.Mesh over (segments, docs); or
+`devices=`, a segments-only mesh; JAX :74-105) pads S to the mesh's
+segment multiple and D to its doc multiple (JAX `_padded_S` :1963,
+`_padded_D` :1979), assembles each block on the lead device and keeps its
+[S_loc, D_loc] shards in the block cache, one per slot (JAX
+`_reshard_block` :2611), and launches `kernels.sharded_kernel`: K1-K3
+per slot, then K9 `mesh_fold` over the doc slices. On an explicit mesh of
+more than one slot an aggregation merges instead (JAX :455-496,
+ops/collective.py): one K9 folds every slot's partials into one row for
+the batch, through the host-built remap of dense group keys
+(`_merged_group_params`, cached per segment batch); the float32
+precision gate, the group caps and the config key
+`pinot.server.mesh.collective.merge` keep the sharded launch and the
+host fold, counted as `mesh_merge_fallback{reason}`, a merge as
+`mesh_merge_served`. The mesh's shape and the merge ride the coalesce
+key. A selection, the MSE leaf's doc ids, a CLP leaf, a star-tree query
+on a segments-only mesh and a time bucket on an explicit mesh raise
+NotOffloadable with reason 'mesh', counted as `mesh_refused{mode}`; a
+vector search on a doc-sharded mesh is JAX's 'staging' fallback; a
+star-tree query on a doc-sharded mesh takes the scan leg (JAX :674). No
+compact group keys. The rules it keeps from the JAX engine:
 cardinality-aware i8/i16/i32 id staging, power-of-two doc padding masked by
 `num_docs`, the per-segment doc cap, the group-count and group-result-size
 caps, the float32 precision guard, the exact-int-sum (isum) admission, the
@@ -101,13 +122,14 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.ops import dispatch as dispatch_mod
-from pinot_tpu_torch.ops import (clp_device, kernels, program,
+from pinot_tpu_torch.ops import (clp_device, collective, kernels, program,
                                  startree_device, timeseries_device,
                                  vector_device)
 from pinot_tpu_torch.ops import residency as residency_mod
 #: most rows a selection fetches per segment (limit + offset)
 from pinot_tpu_torch.ops._cuda import TOPN_MAX_K
 from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan
+from pinot_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_block
 from pinot_tpu_torch.query import executor_cpu
 from pinot_tpu_torch.query.context import QueryContext
 from pinot_tpu_torch.query.expressions import (
@@ -162,6 +184,10 @@ class TorchOperatorExecutor:
 
     value_dtype: float32 (the card's default: f32 value blocks, exact int
     sums through isum planes) or float64 (f64 blocks, no isum).
+    device: the engine's device; None means "cuda", or the mesh's lead
+    device on a mesh engine (which must be the lead device if given).
+    mesh: a parallel.mesh.Mesh over (segments, docs); devices: a list of
+    devices for a segments-only mesh (one: that device), not both.
     config: a utils.config.PinotConfiguration; the engine reads the
     `pinot.server.dispatch.*` keys (its dispatch ring),
     `pinot.server.startree.enabled` (answer aggregations from fitted
@@ -172,7 +198,9 @@ class TorchOperatorExecutor:
     floor((t - start) / step) group-by into K2's key; off, such a query is
     refused), `pinot.server.vector.enabled` (vector_similarity on K8; off,
     such a query is refused with reason 'disabled') and
-    `pinot.server.vector.hbm.resident`.
+    `pinot.server.vector.hbm.resident` and
+    `pinot.server.mesh.collective.merge` (merge a segment batch's partials
+    on an explicit mesh; off, the sharded launch and the host fold).
     metrics_labels: labels of the engine's and dispatcher's meters and
     timers.
     """
@@ -190,10 +218,37 @@ class TorchOperatorExecutor:
     #: hard backstop on one wait for a launch's result
     LAUNCH_WAIT_CAP_S = dispatch_mod.DEFAULT_WAIT_CAP_S
 
-    def __init__(self, device="cuda", value_dtype=torch.float32,
+    #: cap on the host-built remap lists of a merged group-by per (segment
+    #: batch, plan): past this the lists would rival the partials they
+    #: fold, and the per-segment launch and the host fold serve it (JAX
+    #: `GMAP_MAX_BYTES` :533)
+    GMAP_MAX_BYTES = 1 << 26
+    GMAP_CACHE_ENTRIES = 64
+
+    def __init__(self, device=None, value_dtype=torch.float32,
                  config: Optional[PinotConfiguration] = None,
-                 metrics_labels: Optional[Dict[str, str]] = None):
+                 metrics_labels: Optional[Dict[str, str]] = None,
+                 mesh: Optional[Mesh] = None, devices=None):
+        if mesh is not None and devices is not None:
+            raise ValueError("pass a mesh or devices, not both")
+        #: the collective merge engages only on an explicit mesh (JAX
+        #: :87-91); devices= spans a segments-only mesh whose launches keep
+        #: per-segment partials
+        self._explicit_mesh = mesh is not None
+        if mesh is None and devices is not None:
+            devices = list(devices)
+            if len(devices) > 1:
+                mesh = make_mesh(devices, doc_axis=1)
+            elif devices and device is None:
+                device = devices[0]
+        self._mesh = mesh
+        self._doc_axis = mesh.shape[1] if mesh is not None else 1
+        if device is None:
+            device = mesh.lead if mesh is not None else "cuda"
         self.device = torch.device(device)
+        if mesh is not None and not _same_device(self.device, mesh.lead):
+            raise ValueError(f"engine device {self.device} is not the "
+                             f"mesh's lead device {mesh.lead}")
         if value_dtype not in (torch.float32, torch.float64):
             raise ValueError(f"value dtype {value_dtype} is not float32/64")
         self.value_dtype = value_dtype
@@ -208,6 +263,11 @@ class TorchOperatorExecutor:
                                             True)
         self._vector_resident = cfg.get_bool(
             "pinot.server.vector.hbm.resident", True)
+        self._collective_merge = cfg.get_bool(
+            "pinot.server.mesh.collective.merge", True)
+        #: (segment batch, plan, S) -> the merged group-by's fold, its group
+        #: pad, real group count and key decode (JAX `_gmap_cache` :228)
+        self._gmap_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._metrics = get_registry("server")
         self._labels = metrics_labels
         resident_bytes = cfg.get_int("pinot.server.hbm.resident.bytes")
@@ -234,8 +294,9 @@ class TorchOperatorExecutor:
         #: the JAX engine's meters, keyed (name, reason):
         #: ("startree_served", None), ("startree_fallback", <reason>),
         #: ("timeseries_leaf_device", None), ("clp_served", None),
-        #: ("clp_fallback", <reason>), ("vector_served", None) and
-        #: ("vector_fallback", <reason>)
+        #: ("clp_fallback", <reason>), ("vector_served", None),
+        #: ("vector_fallback", <reason>), ("mesh_merge_served", None),
+        #: ("mesh_merge_fallback", <reason>) and ("mesh_refused", <mode>)
         self.meters: Counter = Counter()
         self._dispatcher = dispatch_mod.KernelDispatcher(
             config=cfg, labels=metrics_labels)
@@ -286,7 +347,11 @@ class TorchOperatorExecutor:
         (time-series leaves staged with the fused bucket), `clp_served`
         (stagings of a plan with a CLP leaf), `vector_served` (vector
         queries staged for K8), or `startree_fallback` / `clp_fallback` /
-        `vector_fallback` with its reason."""
+        `vector_fallback` with its reason; on a mesh, `mesh_merge_served`
+        (merged launches staged), `mesh_merge_fallback` with its reason
+        ('disabled', 'precision', 'groups') and `mesh_refused` with the
+        refused mode ('topn', 'doc_ids', 'vector', 'clp', 'startree',
+        'tbucket')."""
         return self.meters[(name, reason)]
 
     def _aggregation_missing(self, ctx: QueryContext) -> Optional[str]:
@@ -496,6 +561,8 @@ class TorchOperatorExecutor:
                 prepared = self._prepare_agg(segments, ctx, cancel_check,
                                              distinct=True)
             elif not ctx.aggregations:
+                if self._mesh is not None:
+                    raise self._selection_refusal(ctx)
                 prepared = self._prepare_vector(segments, ctx, cancel_check) \
                     if _is_vector(ctx) else \
                     self._prepare_topn(segments, ctx, cancel_check)
@@ -519,12 +586,21 @@ class TorchOperatorExecutor:
             ctx = _distinct_context(ctx)
         plan, slots_of_fn = self._plan(segments, ctx)
         self._tls.planned = time.perf_counter()
+        minfo, why = self._merge_gate(segments, plan) \
+            if self._mesh is not None and not distinct else (None, None)
         launch = self._launch(
             segments, ctx, plan, kernels.make_kernel(plan, self.value_dtype),
-            cancel_check, "distinct" if distinct else "agg")
+            cancel_check, "distinct" if distinct else "agg", minfo)
+        if minfo is not None:
+            self.meters[("mesh_merge_served", None)] += 1
+        elif why is not None:
+            self.meters[("mesh_merge_fallback", why)] += 1
         if distinct:
             return launch, lambda packed: self._assemble_distinct(
                 segments, ctx, plan, packed)
+        if minfo is not None:
+            return launch, lambda packed: self._assemble_merged(
+                segments, ctx, plan, packed, slots_of_fn, minfo)
         return launch, lambda packed: self._assemble(
             segments, ctx, plan, packed, slots_of_fn)
 
@@ -548,9 +624,13 @@ class TorchOperatorExecutor:
         segment batch; its column-set identity carries the fitted trees, so
         members that fit different trees of one segment stack rather than
         share a block."""
-        st = self._plan_startree(segments, ctx)
+        st = self._plan_startree(segments, ctx, meter=self._mesh is None)
         if st is None:
             return None
+        if self._mesh is not None:
+            # a segments-only mesh (a doc-sharded one takes the scan leg,
+            # `_startree_candidate`): K5 has no sharded form
+            raise self._mesh_refusal("startree", "a star-tree query")
         plan, needed, fits = st
         self._tls.planned = time.perf_counter()
         kernel = startree_device.make_startree_kernel(plan, self.value_dtype)
@@ -576,14 +656,20 @@ class TorchOperatorExecutor:
             segments, ctx, plan, needed, fits, packed)
 
     def _launch(self, segments, ctx: QueryContext, plan: DevicePlan, kernel,
-                cancel_check, mode: str) -> dispatch_mod.Launch:
+                cancel_check, mode: str,
+                minfo: Optional[dict] = None) -> dispatch_mod.Launch:
         """Stage a K1-K4 plan and wrap it for the ring, with its coalesce
         key: (plan, padded S, D, G, staged-array signature) for doc
         buckets up to DOC_BUCKET_MAX, so equal plans over other tables
         share it; the same segment batch only above (JAX :500-527). The
         plan's device program compiles here once per plan (cached), on the
         CPU too: a plan K1-K4 cannot run fails alike on either device, and
-        the codegen odometer (`kernel_retrace`) counts each new plan."""
+        the codegen odometer (`kernel_retrace`) counts each new plan. On a
+        mesh the launch is the sharded kernel, or the merged one where
+        `minfo` (`_merge_gate`) says the merge engages, and the mesh's
+        shape, the merge and a grouped merge's remap ride the key (JAX
+        :497-514 `mesh_sig`): launches never pair across differently
+        sharded engines, merged with unmerged, or over two remaps."""
         program.compile_plan(plan)
         # the bitmaps' versions, read once: the mask block is staged under
         # them and the launch's column-set identity carries them (JAX
@@ -595,25 +681,164 @@ class TorchOperatorExecutor:
         cols_key = _batch_key(segments) if stamps is None \
             else (_batch_key(segments), stamps)
         G = plan.num_groups
+        batched = kernels.batched_kernel(plan, self.value_dtype)
+        mesh_sig: tuple = ()
+        if self._mesh is not None:
+            vdt, mesh = self.value_dtype, self._mesh
+            if minfo is None:
+                kernel = kernels.sharded_kernel(plan, mesh, vdt)
+                batched = kernels.batched_sharded_kernel(plan, mesh, vdt)
+            else:
+                G, fold = minfo["G"], minfo["fold"]
+                merged = collective.merged_kernel(plan, mesh, vdt)
+                kernel = (lambda c, p, nd, d, _m=merged, _g=G, _f=fold:
+                          _m(c, p, nd, d, _g, _f))
+                batched = collective.batched_merged_kernel(plan, mesh, vdt,
+                                                           G, fold)
+            mesh_sig = (("mesh", mesh.key, minfo is not None,
+                         id(minfo["fold"]) if minfo and plan.group_cols
+                         else None),)
         batch_key = None
         if self._dispatcher.batch_max > 1:
             if self._cross_table and D <= DOC_BUCKET_MAX:
                 batch_key = (plan, int(num_docs.shape[0]), D, G,
-                             _shape_sig(cols, params))
+                             _shape_sig(cols, params)) + mesh_sig
             else:
-                batch_key = (plan, _batch_key(segments), D, G)
+                batch_key = (plan, _batch_key(segments), D, G) + mesh_sig
         return dispatch_mod.Launch(
             call=lambda: kernel(cols, params, num_docs, D),
             cols=cols, params=params, num_docs=num_docs, D=D,
-            batch_key=batch_key, cols_key=cols_key,
-            batched=kernels.batched_kernel(plan, self.value_dtype),
+            batch_key=batch_key, cols_key=cols_key, batched=batched,
             cancel_check=cancel_check,
             site_ctx={"table": ctx.table, "mode": mode},
             docs=sum(s.num_docs for s in segments))
 
     # ------------------------------------------------------------------
+    # collective merge (ops/collective.py; JAX :455-496, :529-656)
+    # ------------------------------------------------------------------
+    def _merge_gate(self, segments, plan: DevicePlan):
+        """(minfo, None) where the merge engages: an explicit mesh of more
+        than one slot, the config key on, and the gates of
+        `_merged_prepare` passed; else (None, the reason an eligible launch
+        keeps the per-segment sharded kernel and the host fold, JAX :536),
+        or (None, None) where no merge is eligible. The caller counts it
+        once the launch is staged: `mesh_merge_served`, or
+        `mesh_merge_fallback{reason}`. Caller holds the engine lock."""
+        if not self._explicit_mesh or self._mesh.size < 2:
+            return None, None
+        if not self._collective_merge:
+            return None, "disabled"
+        S = self._padded_S(len(segments), self._padded_D(segments))
+        try:
+            return self._merged_prepare(segments, plan, S), None
+        except _MergeFallback as e:
+            return None, e.reason
+
+    def _merged_prepare(self, segments, plan: DevicePlan, S: int) -> dict:
+        """Gates and group keys of the merge (JAX `_merged_prepare` :545):
+        {S, G, fold} ungrouped, and n_real and decode grouped; raises
+        _MergeFallback(reason)."""
+        if self.value_dtype == torch.float32:
+            # merged counts and exact-sum halves add across segments: exact
+            # in float32 only while the batch holds < 2^24 docs and < 4096
+            # segments (the per-segment path needs it per segment)
+            total = sum(int(seg.num_docs) for seg in segments)
+            if total >= MAX_DOCS_PER_SEGMENT or len(segments) >= 4096:
+                raise _MergeFallback("precision")
+        if not plan.group_cols:
+            return {"S": S, "G": 0,
+                    "fold": collective.ungrouped_plan(plan, self._mesh, S)}
+        fold, G_m, n_real, decode = self._merged_group_params(
+            segments, plan, S)
+        return {"S": S, "G": G_m, "fold": fold, "n_real": n_real,
+                "decode": decode}
+
+    def _merged_group_params(self, segments, plan: DevicePlan, S: int):
+        """A global key space over the batch (JAX `_merged_group_params`
+        :566, dense keys): per group column the union of the segments'
+        dictionary values, the global mixed-radix strides over the union
+        cardinalities, and the [S, G_local] map from each segment's local
+        dense key to its global index (-1 past the segment's
+        cardinalities, and for padded segments), turned into K9's lists
+        (`collective.merged_plan`). Cached per (segment batch, plan, S);
+        returns (fold, G pad, real group count, (strides, cards,
+        unions))."""
+        key = (_batch_key(segments), plan, S)
+        ent = self._gmap_cache.get(key)
+        if ent is not None and all(a is b for a, b in zip(ent[0], segments)):
+            self._gmap_cache.move_to_end(key)
+            return ent[1]
+        G_local = plan.num_groups
+        n_slots = max(len(plan.agg_ops), 1)
+        if 16 * self._doc_axis * S * G_local > self.GMAP_MAX_BYTES:
+            raise _MergeFallback("groups")
+        unions, per_col = [], []
+        for col in plan.group_cols:
+            vals = []
+            for seg in segments:
+                card = max(int(seg.metadata.columns[col].cardinality), 1)
+                vals.append(np.asarray(seg.data_source(col).dictionary
+                                       .get_values(np.arange(card))))
+            per_col.append(vals)
+            unions.append(np.unique(np.concatenate(vals)))
+        cards = [len(u) for u in unions]
+        n_real = 1
+        for c in cards:
+            n_real *= max(c, 1)
+            if n_real > MAX_DEVICE_GROUPS:
+                raise _MergeFallback("groups")
+        G_m = _pow2(max(n_real, 1), floor=8)
+        if G_m > MAX_DEVICE_GROUPS \
+                or S * G_m * n_slots * 8 > MAX_GROUP_RESULT_BYTES:
+            raise _MergeFallback("groups")
+        strides, st = [], n_real
+        for c in cards:
+            st //= max(c, 1)
+            strides.append(st)
+        remap = np.full((S, G_local), -1, dtype=np.int64)
+        local = np.arange(G_local, dtype=np.int64)
+        for s in range(len(segments)):
+            g = np.zeros(G_local, dtype=np.int64)
+            ok = np.ones(G_local, dtype=bool)
+            rem = local
+            for ci, lst in enumerate(plan.group_strides):
+                ids = rem // lst
+                rem = rem % lst
+                index = np.searchsorted(unions[ci], per_col[ci][s])
+                ok &= ids < len(index)
+                g += index[np.minimum(ids, len(index) - 1)] * strides[ci]
+            remap[s] = np.where(ok, g, -1)
+        fold = collective.merged_plan(plan, self._mesh, S, G_m, remap)
+        out = (fold, G_m, n_real, (tuple(strides), tuple(cards),
+                                   tuple(unions)))
+        self._gmap_cache[key] = (tuple(segments), out)
+        while len(self._gmap_cache) > self.GMAP_CACHE_ENTRIES:
+            self._gmap_cache.popitem(last=False)
+        return out
+
+    # ------------------------------------------------------------------
     # vector-similarity leg (ops/vector_device.py)
     # ------------------------------------------------------------------
+    def _mesh_refusal(self, mode: str, what: str) -> NotOffloadable:
+        """Count a mode this slice does not shard (`mesh_refused{mode}`)
+        and return the NotOffloadable, reason 'mesh', that refuses it."""
+        self.meters[("mesh_refused", mode)] += 1
+        where = "a doc-sharded mesh" if self._doc_axis > 1 \
+            else "a segments-only mesh"
+        return NotOffloadable(f"{what} on {where} (mesh)", reason="mesh")
+
+    def _selection_refusal(self, ctx: QueryContext) -> NotOffloadable:
+        """A selection on a mesh engine: a vector search on a doc-sharded
+        mesh is JAX's 'staging' fallback (:963), counted as
+        `vector_fallback`; every other one (a top-N across doc shards is
+        JAX's host path, :1446) is a mesh refusal."""
+        if _is_vector(ctx) and self._doc_axis > 1:
+            return self._vector_refusal(
+                "staging", "vector blocks on a doc-sharded mesh")
+        return self._mesh_refusal("vector" if _is_vector(ctx) else "topn",
+                                  "a vector search" if _is_vector(ctx)
+                                  else "a selection (top-N)")
+
     def _vector_refusal(self, reason: str, what: str,
                         meter: bool = True) -> NotOffloadable:
         """Count a vector query's fallback reason (JAX `_vector_fallback`
@@ -768,6 +993,9 @@ class TorchOperatorExecutor:
         the filter. The launch rides the ring with K4's coalesce key, so
         concurrent leaf scans of one plan make one batched K4 launch."""
         nothing: List[Optional[np.ndarray]] = [None] * len(segments)
+        if self._mesh is not None:
+            # JAX returns no ids on a doc-sharded mesh (:1758)
+            raise self._mesh_refusal("doc_ids", "the MSE leaf's doc ids")
         if not segments or filter_expr is None \
                 or self._filter_missing(filter_expr) is not None:
             return nothing
@@ -856,6 +1084,10 @@ class TorchOperatorExecutor:
         # are vrange64 in either value dtype (exact below 2^55)
         tb_spec = None
         if ctx.group_by and not isinstance(ctx.group_by[0], Identifier):
+            if self._explicit_mesh:
+                # the JAX engine serves the fused bucket on its implicit
+                # segments-only mesh, not on an explicit one (:282-292)
+                raise self._mesh_refusal("tbucket", "a time bucket")
             tb_spec = timeseries_device.plan_bucket(ctx.group_by[0],
                                                     ctx.filter, segments)
             if tb_spec is None:
@@ -1152,6 +1384,8 @@ class TorchOperatorExecutor:
         `col` (JAX `_clp_leaf` :704). The pattern stays out of the leaf:
         its constants resolve at staging, so queries whose patterns differ
         share one program."""
+        if self._mesh is not None:
+            raise self._mesh_refusal("clp", f"the CLP leaf {e.name}")
         if e.name not in ("like", "regexp_like") or len(e.args) != 2 \
                 or not isinstance(e.args[1], Literal):
             raise self._clp_fallback("predicate", f"filter {e}")
@@ -1231,10 +1465,22 @@ class TorchOperatorExecutor:
         """The segment axis: a power of two where cross-table coalescing
         is on and D is within DOC_BUCKET_MAX, so equal plans over other
         tables land in one shape bucket (padded segments carry num_docs 0
-        and zero rows, which every kernel reads as empty); else S_real."""
-        if self._cross_table and D <= DOC_BUCKET_MAX:
-            return _pow2(S_real, floor=1)
-        return S_real
+        and zero rows, which every kernel reads as empty); else S_real.
+        Then rounded up to the mesh's segment multiple (JAX `_padded_S`
+        :1963)."""
+        S = _pow2(S_real, floor=1) \
+            if self._cross_table and D <= DOC_BUCKET_MAX else S_real
+        if self._mesh is not None:
+            n = self._mesh.shape[0]
+            S = -(-S // n) * n
+        return S
+
+    def _padded_D(self, segments) -> int:
+        """The doc bucket: the power of two of the largest segment, rounded
+        up so the doc slices of a mesh tile it evenly (JAX `_padded_D`
+        :1979)."""
+        D = _pow2(max(s.num_docs for s in segments))
+        return -(-D // self._doc_axis) * self._doc_axis
 
     def _stage(self, segments, ctx: QueryContext, plan: DevicePlan,
                stamps: Optional[tuple] = None):
@@ -1244,7 +1490,7 @@ class TorchOperatorExecutor:
         if max(s.num_docs for s in segments) > MAX_DOCS_PER_SEGMENT:
             raise NotOffloadable(
                 f"segment above {MAX_DOCS_PER_SEGMENT} docs")
-        D = _pow2(max(s.num_docs for s in segments))
+        D = self._padded_D(segments)
         S = self._padded_S(len(segments), D)
         vdt = self._vdt
         cols: Dict[str, torch.Tensor] = {}
@@ -1589,6 +1835,11 @@ class TorchOperatorExecutor:
                 self._residency.admit(segments[i], kinds[i], names[i],
                                       dtype_str, rows[i], arr.nbytes)
         dev = kernels.assemble_rows(rows, S, D)
+        if self._mesh is not None:
+            # the block assembles on the lead device, then its [S_loc,
+            # D_loc] shards move to their slots and the cache keeps them
+            # (JAX `_reshard_block` :2611)
+            dev = shard_block(self._mesh, dev)
         nbytes = dev.numel() * dev.element_size()
         old = self._blocks.pop(key, None)
         if old is not None:
@@ -1636,8 +1887,9 @@ class TorchOperatorExecutor:
         one getattr per segment and the fallback meter counts only batches
         a tree could serve. A partially valid upsert bitmap keeps the scan
         path: pre-agg records include retracted rows, which no selection
-        over the pre-agg table can subtract."""
-        if not self._startree_enabled:
+        over the pre-agg table can subtract. A doc-sharded mesh takes the
+        scan leg (JAX :674)."""
+        if not self._startree_enabled or self._doc_axis > 1:
             return False
         for s in segments:
             reader = getattr(s, "star_tree", None)
@@ -1761,7 +2013,11 @@ class TorchOperatorExecutor:
         with self._engine_lock:
             try:
                 st = None
-                if ctx.aggregations and not ctx.distinct:
+                if self._mesh is not None and not ctx.aggregations \
+                        and not ctx.distinct:
+                    return False  # selections are refused on a mesh
+                if ctx.aggregations and not ctx.distinct \
+                        and self._mesh is None:
                     st = self._plan_startree(segments, ctx, meter=False)
                 if st is not None:
                     plan, _needed, fits = st
@@ -1866,6 +2122,83 @@ class TorchOperatorExecutor:
                 set(keys), _segment_stats(seg, gctx, matched, 0)))
         return results
 
+    def _assemble_merged(self, segments, ctx: QueryContext, plan: DevicePlan,
+                         packed: np.ndarray, mappings: List[Dict[str, int]],
+                         minfo: dict) -> List[Any]:
+        """ONE result for the whole segment batch from the merged row
+        (layout in ops/collective.py; JAX `_assemble_merged` :3029). The
+        [S] matched tail carries the per-segment counts the host fold
+        would have summed, so the ExecutionStats equal the folded
+        per-segment stats."""
+        S_real = len(segments)
+        matched_i = [int(round(float(m)))
+                     for m in np.asarray(packed[-minfo["S"]:][:S_real])]
+        total = sum(matched_i)
+        n_valued_aggs = sum(
+            1 for node in ctx.aggregations
+            if node.args and not (isinstance(node.args[0], Identifier)
+                                  and node.args[0].name == "*"))
+        docs = sum(seg.num_docs for seg in segments)
+        stats = ExecutionStats(
+            num_docs_scanned=total,
+            num_entries_scanned_in_filter=(
+                docs * len(set(ctx.filter_columns()))
+                if ctx.filter is not None else 0),
+            num_entries_scanned_post_filter=total * n_valued_aggs,
+            num_segments_processed=S_real,
+            num_segments_matched=sum(1 for m in matched_i if m),
+            total_docs=docs)
+        if plan.group_cols:
+            return [self._assemble_merged_group(ctx, plan, packed, mappings,
+                                                minfo, stats)]
+        widths = [kernels.slot_width(op) for op, _v, _f in plan.agg_ops]
+        offsets = np.concatenate([[0], np.cumsum(widths)]).astype(int)
+        hist_bounds = {j: self._hist_bounds(segments, plan.value_irs[v][1])
+                       for j, (op, v, _f) in enumerate(plan.agg_ops)
+                       if op.startswith("hist:")}
+        inters = []
+        for fn, mapping in zip(ctx.agg_functions, mappings):
+            slots = {}
+            for op, j in mapping.items():
+                off, w = int(offsets[j]), widths[j]
+                planes = packed[off:off + w]
+                plan_op = plan.agg_ops[j][0]
+                if plan_op == "isum":
+                    slots[op] = isum_value(planes)
+                elif plan_op.startswith("isum:u"):
+                    slots[op] = isum_u_value(planes)
+                elif w > 1:
+                    slots[op] = planes
+                    if op.startswith("hist:"):
+                        lo, span = hist_bounds[j]
+                        slots["hist_lo"] = lo
+                        slots["hist_width"] = span / w
+                else:
+                    slots[op] = packed[off]
+            inters.append(fn.from_device_slots(slots))
+        return [AggregationResult(inters, stats)]
+
+    @staticmethod
+    def _assemble_merged_group(ctx, plan: DevicePlan, packed, mappings,
+                               minfo: dict, stats) -> GroupByResult:
+        """The merged [G, n_slots] block's present global keys, decoded by
+        the union strides (JAX `_assemble_merged_group` :3088)."""
+        G, n_slots = minfo["G"], len(plan.agg_ops)
+        gp = np.asarray(packed[:G * n_slots]).reshape(G, n_slots)
+        count_j = collective.find_count_slot(plan)
+        present = np.nonzero(gp[:, count_j] > 0)[0]
+        present = present[present < minfo["n_real"]]
+        strides, cards, unions = minfo["decode"]
+        cols = [unions[ci][(present // strides[ci]) % cards[ci]].tolist()
+                for ci in range(len(plan.group_cols))]
+        groups: Dict[tuple, list] = {}
+        for key, g in zip(zip(*cols), present):
+            groups[key] = [
+                fn.from_device_slots({op: gp[g, j]
+                                      for op, j in mapping.items()})
+                for fn, mapping in zip(ctx.agg_functions, mappings)]
+        return GroupByResult(groups, stats)
+
     @staticmethod
     def _assemble_topn(segments, ctx: QueryContext,
                        packed: np.ndarray) -> List[SelectionResult]:
@@ -1885,6 +2218,21 @@ class TorchOperatorExecutor:
                 rows, order_values=order_values,
                 columns=executor_cpu.expand_star(seg, ctx), stats=stats))
         return results
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """One device, "cuda" naming card 0."""
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
+
+
+class _MergeFallback(Exception):
+    """A collective-merge gate tripped; the launch keeps the per-segment
+    sharded kernel and the host fold (its reason feeds
+    mesh_merge_fallback)."""
+
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
 
 
 def _batch_key(segments) -> tuple:

@@ -66,6 +66,7 @@ adds in the value dtype), in these plain versions and in the kernels alike.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -77,12 +78,17 @@ from pinot_tpu_torch.ops.program import (ISUM_PLANES, ISUM_U_BITS,
                                          is_sketch, plan_fingerprint,
                                          slot_width, trace_count,
                                          trace_count_by_plan)
+from pinot_tpu_torch.parallel.mesh import (Mesh, ShardedBlock, local_shape,
+                                           shard_segments)
 
 __all__ = ["make_kernel", "plain_kernel", "make_topn_kernel", "topn_kernel",
            "make_vector_kernel",
            "plain_batched_kernel", "batched_kernel", "row_assemble",
            "assemble_rows", "clp_match", "clp_masks",
            "order_keys", "from_jax_staged", "slot_width", "is_sketch",
+           "DOC_COMBINE", "MeshFold", "doc_fold", "mesh_fold",
+           "mesh_fold_plain", "sharded_kernel", "batched_sharded_kernel",
+           "plain_sharded_kernel", "plain_batched_sharded_kernel",
            "trace_count", "trace_count_by_plan", "plan_fingerprint",
            "ISUM_PLANES", "ISUM_U_BITS"]
 
@@ -334,8 +340,9 @@ def masked_reduce(op: str, vals: Optional[torch.Tensor], mask: torch.Tensor,
 def grouped_reduce(op: str, vals: Optional[torch.Tensor], keys: torch.Tensor,
                    mask: torch.Tensor, valid: torch.Tensor, num_groups: int,
                    value_dtype: torch.dtype) -> torch.Tensor:
-    """[S, D] + keys [S, D] -> [S, G] per-group partials."""
-    m = mask & valid
+    """[S, D] + keys [S, D] -> [S, G] per-group partials; a key outside
+    [0, G) is dropped, as K2 and XLA's scatters drop it."""
+    m = mask & valid & (keys >= 0) & (keys < num_groups)
     S = m.shape[0]
     safe_keys = torch.where(m, keys, 0).long()
     init = torch.zeros((S, num_groups), dtype=torch.float64, device=m.device)
@@ -777,6 +784,284 @@ def batched_kernel(plan: DevicePlan,
         out = None if all(sketch) else _cuda.scan_agg_batched(*args,
                                                                luts=luts)
         return _cuda.sketch_agg_batched(*args, out=out, luts=luts)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# the mesh (kernels.py:656 `_DOC_COMBINE`, :668 `_shard_one`, :685
+# `_shard_combine_pack`, :710 `make_sharded_kernel`, :893
+# `make_batched_sharded_kernel`)
+# ---------------------------------------------------------------------------
+
+#: how a slot's partials combine across doc shards, segments and slots
+DOC_COMBINE = {"sum": "psum", "count": "psum", "sumsq": "psum",
+               "sum3": "psum", "sum4": "psum",
+               "min": "pmin", "max": "pmax",
+               "hll": "pmax",   # register maxima merge across shards
+               "hist": "psum",  # bucket counts add across shards
+               "isum": "psum"}  # exact-sum planes add (halves stay small)
+#: K9's op codes (csrc/mesh_fold.cu)
+FOLD_CODES = {"psum": 0, "pmin": 1, "pmax": 2}
+
+
+def doc_combine(op: str) -> str:
+    return DOC_COMBINE[op.split(":")[0]]
+
+
+def slot_fold_codes(plan: DevicePlan) -> Tuple[int, ...]:
+    """K9's op code of each column of a slot's packed partial: one per
+    column of the slot's width."""
+    out: List[int] = []
+    for op, _v, _f in plan.agg_ops:
+        out += [FOLD_CODES[doc_combine(op)]] * slot_width(op)
+    return tuple(out)
+
+
+def packed_fold_codes(plan: DevicePlan) -> Tuple[int, ...]:
+    """K9's op code of each column of K1-K3's packed output: [S, 1 +
+    sum(w)] ungrouped (the matched count adds), [S, G, n_slots] grouped
+    (one per slot)."""
+    if plan.num_groups:
+        return tuple(FOLD_CODES[doc_combine(op)] for op, _v, _f in
+                     plan.agg_ops)
+    return (FOLD_CODES["psum"],) + slot_fold_codes(plan)
+
+
+class MeshFold:
+    """The lists of one K9 fold (csrc/mesh_fold.cu), built on the host:
+    output row o of width W folds column col0 + w of the partial rows
+    src[off[o]:off[o + 1]] (each (slot << 32) | row, rows of `win`
+    values, `rows_in` rows per member and slot) by ops[w]; T tail
+    elements add column tail_col of their rows tsrc[toff[t]:toff[t +
+    1]]. Device copies are made once per device."""
+
+    def __init__(self, R: int, W: int, col0: int, rows_in: int, win: int,
+                 ops, off: np.ndarray, src: np.ndarray, tail_col: int = 0,
+                 toff: Optional[np.ndarray] = None,
+                 tsrc: Optional[np.ndarray] = None):
+        self.R, self.W, self.col0 = R, W, col0
+        self.rows_in, self.win, self.tail_col = rows_in, win, tail_col
+        self.ops = np.asarray(ops, dtype=np.int8)
+        self.off = np.ascontiguousarray(off, dtype=np.int64)
+        self.src = np.ascontiguousarray(src, dtype=np.int64)
+        self.toff = None if toff is None else \
+            np.ascontiguousarray(toff, dtype=np.int64)
+        self.tsrc = None if tsrc is None else \
+            np.ascontiguousarray(tsrc, dtype=np.int64)
+        self.T = 0 if toff is None else len(toff) - 1
+        if len(self.ops) != W or len(self.off) != R + 1 \
+                or col0 + W > win:
+            raise ValueError("fold lists out of shape")
+        srcs = [self.src] + ([self.tsrc] if self.T else [])
+        self.parts = max((int(s.max() >> 32) + 1 for s in srcs if len(s)),
+                         default=1)
+        self._dev: Dict[str, tuple] = {}
+
+    @property
+    def nbytes(self) -> int:
+        return sum(a.nbytes for a in (self.ops, self.off, self.src,
+                                      self.toff, self.tsrc) if a is not None)
+
+    def on(self, device: torch.device) -> tuple:
+        """(ops, off, src, toff, tsrc) on `device` (toff and tsrc None
+        without a tail)."""
+        key = str(device)
+        hit = self._dev.get(key)
+        if hit is None:
+            hit = tuple(None if a is None else torch.from_numpy(a).to(device)
+                        for a in (self.ops, self.off, self.src, self.toff,
+                                  self.tsrc))
+            self._dev[key] = hit
+        return hit
+
+
+def _fold_lists(vals: torch.Tensor, off: np.ndarray, rows: torch.Tensor,
+                ops: torch.Tensor) -> torch.Tensor:
+    """[B, R, W] float64: row o of the fold of vals[:, rows[off[o]:off[o +
+    1]], :] (vals [B, N, W] float64) by ops[w], element by element in list
+    order, from the identities."""
+    B, _N, W = vals.shape
+    R = len(off) - 1
+    lens = off[1:] - off[:-1]
+    acc = torch.where(ops == 0, 0.0, torch.where(ops == 1, float("inf"),
+                                                 float("-inf")))
+    acc = acc.to(vals.device, torch.float64).expand(B, R, W).clone()
+    for k in range(int(lens.max(initial=0))):
+        o = np.nonzero(lens > k)[0]
+        v = vals[:, rows[torch.from_numpy(off[o] + k)]]
+        a = acc[:, torch.from_numpy(o)]
+        nan = torch.isnan(v)
+        acc[:, torch.from_numpy(o)] = torch.where(
+            ops == 0, a + v, torch.where(
+                ops == 1, torch.where((v < a) | nan, v, a),
+                torch.where((v > a) | nan, v, a)))
+    return acc
+
+
+def mesh_fold_plain(parts: Sequence[torch.Tensor],
+                    fold: MeshFold) -> torch.Tensor:
+    """The plain version of K9: [B, R * W + T] in the partials' dtype,
+    each output element folded in float64 over its list in order and
+    rounded once, as K9 folds it; on whatever device the partials lie."""
+    B = parts[0].shape[0]
+    x = torch.stack([p.reshape(B, fold.rows_in, fold.win) for p in parts])
+    flat = x.transpose(0, 1).reshape(B, -1, fold.win).double()
+    ops = torch.from_numpy(fold.ops.astype(np.int64)).to(flat.device)
+
+    def rows(src: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy((src >> 32) * fold.rows_in
+                                + (src & 0xFFFFFFFF)).to(flat.device)
+
+    main = _fold_lists(flat[:, :, fold.col0:fold.col0 + fold.W], fold.off,
+                       rows(fold.src), ops[:fold.W])
+    out = [main.reshape(B, fold.R * fold.W)]
+    if fold.T:
+        tail = _fold_lists(flat[:, :, fold.tail_col:fold.tail_col + 1],
+                           fold.toff, rows(fold.tsrc),
+                           torch.zeros(1, dtype=torch.int64,
+                                       device=flat.device))
+        out.append(tail.reshape(B, fold.T))
+    return torch.cat(out, 1).to(parts[0].dtype)
+
+
+def mesh_fold(parts: Sequence[torch.Tensor], fold: MeshFold,
+              batched: bool = False) -> torch.Tensor:
+    """[B, R * W + T]: CUDA partials launch K9 (`mesh_fold`), CPU ones run
+    the plain version."""
+    device = parts[0].device
+    if device.type == "cuda":
+        return _cuda.mesh_fold(list(parts), fold, batched=batched)
+    if device.type != "cpu":
+        raise ValueError(f"no kernel for device {device}")
+    return mesh_fold_plain(parts, fold)
+
+
+@functools.lru_cache(maxsize=256)
+def doc_fold(n_seg: int, n_doc: int, s_loc: int, per_seg: int, win: int,
+             ops: Tuple[int, ...]) -> MeshFold:
+    """The fold over the `docs` axis of per-slot partials [B, s_loc,
+    (per_seg,) win]: output row (i, r, g) of segment slice i, local
+    segment r (and group g) from the same row of slots (i, 0..n_doc - 1),
+    in that order. The output is [B, S (x per_seg) x win]."""
+    rows_in = s_loc * per_seg
+    o = np.arange(n_seg * rows_in, dtype=np.int64)
+    i, r = o // rows_in, o % rows_in
+    src = ((i[:, None] * n_doc + np.arange(n_doc)) << 32) | r[:, None]
+    off = np.arange(len(o) + 1, dtype=np.int64) * n_doc
+    return MeshFold(len(o), win, 0, rows_in, win, ops, off, src.ravel())
+
+
+def packed_width(plan: DevicePlan) -> int:
+    """Columns of K1-K3's packed output row: n_slots grouped, 1 + sum(w)
+    ungrouped."""
+    if plan.num_groups:
+        return len(plan.agg_ops)
+    return 1 + sum(slot_width(op) for op, _v, _f in plan.agg_ops)
+
+
+def mesh_shards(mesh: Mesh, col_sets: Sequence[Dict[str, ShardedBlock]],
+                plist: Sequence[Tensors], ndlist: Sequence[torch.Tensor],
+                D: int):
+    """Per mesh slot, its members' inputs: (column sets, parameters, doc
+    counts) of its [S_loc, D_loc] shard on its device, with (S_loc,
+    D_loc). A slot's doc counts are clamp(num_docs - doc0, 0, D_loc), doc0
+    its doc slice's first global doc: K1-K3 mask docs from 0 up to them,
+    as the JAX kernel masks global doc positions (`_shard_one`)."""
+    n_doc = mesh.shape[1]
+    s_loc, d_loc = local_shape(mesh, ndlist[0].shape[0], D)
+    pslices = [{k: shard_segments(mesh, v) for k, v in pr.items()}
+               for pr in plist]
+    nslices = [shard_segments(mesh, nd) for nd in ndlist]
+    out = []
+    for p in range(mesh.size):
+        doc0 = (p % n_doc) * d_loc
+        out.append(([{k: v.shards[p] for k, v in cs.items()}
+                     for cs in col_sets],
+                    [{k: s[p] for k, s in ps.items()} for ps in pslices],
+                    [(ns[p] - doc0).clamp_(0, d_loc) for ns in nslices]))
+    return out, s_loc, d_loc
+
+
+def sharded_kernel(plan: DevicePlan, mesh: Mesh,
+                   value_dtype: torch.dtype = torch.float32):
+    """fn(cols, params, num_docs, D, G=0) -> the packed [S, ...] result of
+    `plan` over a mesh (JAX `make_sharded_kernel`, kernels.py:710), in the
+    single-device kernel's layout. cols: 'name' -> ShardedBlock of the
+    global [S, D] block; params and num_docs: the global [S, ...] arrays
+    on the lead device. Each slot runs `make_kernel` on its shard (K1, K3
+    or K2 on a card, the plain version on the CPU), its partial moves to
+    the lead device, and one K9 folds the doc slices (`DOC_COMBINE`)."""
+    return _sharded(plan, mesh, make_kernel(plan, value_dtype), mesh_fold)
+
+
+def plain_sharded_kernel(plan: DevicePlan, mesh: Mesh,
+                         value_dtype: torch.dtype = torch.float32):
+    """The plain version of `sharded_kernel`, on whatever device its
+    inputs lie: `plain_kernel` per slot, `mesh_fold_plain` for the fold."""
+    return _sharded(plan, mesh, plain_kernel(plan, value_dtype),
+                    lambda parts, fold, batched=False:
+                    mesh_fold_plain(parts, fold))
+
+
+def _sharded(plan, mesh, single, fold_fn):
+    codes = packed_fold_codes(plan)
+
+    def kernel(cols: Dict[str, ShardedBlock], params: Tensors,
+               num_docs: torch.Tensor, D: int, G: int = 0) -> torch.Tensor:
+        shards, s_loc, d_loc = mesh_shards(mesh, [cols], [params],
+                                           [num_docs], D)
+        parts = [single(cs[0], ps[0], ns[0], d_loc).to(
+            mesh.lead, non_blocking=True)[None] for cs, ps, ns in shards]
+        return _doc_folded(plan, mesh, parts, s_loc, codes, False,
+                           fold_fn)[0]
+
+    return kernel
+
+
+def _doc_folded(plan, mesh, parts, s_loc, codes, batched, fold_fn):
+    """[B, S, ...] from the slots' [B, S_loc, ...] partials: one K9 over
+    the doc slices."""
+    G = plan.num_groups
+    win = packed_width(plan)
+    fold = doc_fold(mesh.shape[0], mesh.shape[1], s_loc, G or 1, win, codes)
+    out = fold_fn(parts, fold, batched=batched)
+    B, S = out.shape[0], mesh.shape[0] * s_loc
+    return out.view(B, S, G, win) if G else out.view(B, S, win)
+
+
+def batched_sharded_kernel(plan: DevicePlan, mesh: Mesh,
+                           value_dtype: torch.dtype = torch.float32):
+    """fn(col_sets, plist, ndlist, idx, D) -> [B, S, ...]: B coalesced
+    queries of one plan over a mesh (JAX `make_batched_sharded_kernel`,
+    kernels.py:893). Each slot launches its kernels once for all members
+    (`batched_kernel`'s member axis over the members' column sets: one,
+    broadcast; one per member, stacked; or a member-to-set map), then one
+    K9 folds the doc slices of every member. The kernels take B at run
+    time, as `batched_kernel`'s do."""
+    return _batched_sharded(plan, mesh, batched_kernel(plan, value_dtype),
+                            mesh_fold)
+
+
+def plain_batched_sharded_kernel(plan: DevicePlan, mesh: Mesh,
+                                 value_dtype: torch.dtype = torch.float32):
+    """The plain version of `batched_sharded_kernel`, on whatever device
+    its inputs lie."""
+    return _batched_sharded(plan, mesh,
+                            plain_batched_kernel(plan, value_dtype),
+                            lambda parts, fold, batched=False:
+                            mesh_fold_plain(parts, fold))
+
+
+def _batched_sharded(plan, mesh, members, fold_fn):
+    codes = packed_fold_codes(plan)
+
+    def run(col_sets, plist, ndlist, idx, D):
+        shards, s_loc, d_loc = mesh_shards(mesh, col_sets, plist, ndlist, D)
+        parts = [members(cs, ps, ns, idx, d_loc).to(mesh.lead,
+                                                    non_blocking=True)
+                 for cs, ps, ns in shards]
+        return _doc_folded(plan, mesh, parts, s_loc, codes, True, fold_fn)
 
     return run
 

@@ -31,7 +31,7 @@ class QueryExecutor:
     def __init__(self, segments: Union[Sequence[ImmutableSegment],
                                        Mapping[str, Sequence[ImmutableSegment]]],
                  device=None, value_dtype: torch.dtype = torch.float32,
-                 config: Optional[PinotConfiguration] = None):
+                 config: Optional[PinotConfiguration] = None, mesh=None):
         """segments: one table's segments, or {table name: segments} for a
         server holding several tables (a query reads the table its FROM
         names; equal plans over different tables coalesce in the ring).
@@ -39,7 +39,13 @@ class QueryExecutor:
         device is present; pass "cpu" for the plain PyTorch kernels.
         config: the engine's configuration (dispatch ring, star-tree,
         time-series keys); kept as `config`, which the time-series leaf
-        reads its group cap from."""
+        reads its group cap from.
+        mesh: a parallel.mesh.Mesh over (segments, docs): the engine
+        shards each staged block over it and folds the partials (and,
+        on more than one slot, merges the segment batch into one row);
+        device then defaults to the mesh's lead device."""
+        if device is None and mesh is not None:
+            device = mesh.lead
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -51,7 +57,8 @@ class QueryExecutor:
             segments = []
         self.segments = list(segments)
         self.config = config
-        self.engine = TorchOperatorExecutor(dev, value_dtype, config=config)
+        self.engine = TorchOperatorExecutor(dev, value_dtype, config=config,
+                                            mesh=mesh)
         self._tls = threading.local()
 
     @property

@@ -39,6 +39,10 @@ KEYS: Dict[str, Any] = {
     "pinot.server.hbm.resident.bytes": 6 << 30,
     "pinot.server.hbm.admission.enabled": True,
     "pinot.server.hbm.admission.sample": 4096,
+    # collective merge on a mesh engine (ops/collective.py): fold a segment
+    # batch's partials into one row on the device; off = the per-segment
+    # sharded launch and the host fold
+    "pinot.server.mesh.collective.merge": True,
     # time-series device leg (ops/timeseries_device.py): fuse
     # floor((t-start)/step) into the group-by kernel's key
     "pinot.server.timeseries.bucket.enabled": True,

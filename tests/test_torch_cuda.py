@@ -1,9 +1,11 @@
 """K1 scan_agg, K2 group_agg, K3 sketch_agg, K4 topn, K5 startree_agg, K6
-row_assemble, K7 clp_match and K8 vector_topk on the card against their
-plain PyTorch versions, over the seeded random plans and inputs of
-tests/torch_plans.py; the query axis (B members over U column sets)
-against the plain batched version and each member's own single launch;
-and 8 threads through one engine.
+row_assemble, K7 clp_match, K8 vector_topk and K9 mesh_fold on the card
+against their plain PyTorch versions, over the seeded random plans and
+inputs of tests/torch_plans.py; the query axis (B members over U column
+sets) against the plain batched version and each member's own single
+launch; 8 threads through one engine; and the sharded and merged kernels,
+a mesh engine and the sharded query step on a logical 4x2 mesh over
+cuda:0 against the same calls on CPU tensors.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. On the card
 they run without the repo's conftest (which imports JAX):
@@ -24,7 +26,8 @@ the atomics' order, within the same tolerance. K6's block is its plain
 version's bit for bit (it copies bytes). K8's whole [S, 1 + 2 kk] output,
 scores included, bit-identical to its plain version on the card and on
 the CPU (the plain version adds in K8's order), and within
-torch_plans.VEC_TOL of the float64 truth.
+torch_plans.VEC_TOL of the float64 truth. K9's output bit-identical to
+its plain version (both fold each list in order in double).
 """
 import os
 import sys
@@ -943,3 +946,173 @@ def test_vector_topk_batched_matches_plain_and_single_on_card(card, form,
         single = tk.make_vector_kernel(plan)(sets[idx[m]], plist[m],
                                             ndl[idx[m]], D)
         assert torch.equal(_bits(out[m]), _bits(single))
+
+
+# ---------------------------------------------------------------------------
+# K9 mesh_fold and the logical mesh (parallel/mesh.py, ops/collective.py)
+# ---------------------------------------------------------------------------
+
+def _fold_parts(seed, P, B, rows, win, dtype, device):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(P):
+        a = rng.normal(0, 1000, (B, rows, win)).astype(dtype)
+        a[rng.random(a.shape) < 0.01] = np.nan
+        a[rng.random(a.shape) < 0.01] = np.inf
+        a[rng.random(a.shape) < 0.01] = -np.inf
+        out.append(torch.from_numpy(a).to(device))
+    return out
+
+
+def _fold_case(kind):
+    """(fold, P): the doc fold of K1/K3-shaped partials, the ungrouped
+    merge, and the remapped merge of K2-shaped partials with its tail."""
+    from pinot_tpu_torch.ops import collective as tco
+    from pinot_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(["cpu"] * 8, doc_axis=2)
+    agg = (("sum", 0, None), ("min", 0, None), ("max", 0, None),
+           ("count", None, None))
+    if kind == "doc":
+        return tk.doc_fold(4, 2, 3, 1, 7, (0, 0, 1, 2, 2, 0, 1)), 8
+    if kind == "merged":
+        plan = DevicePlan(filter_ir=None, leaves=(),
+                          value_irs=(("col", "x"),), agg_ops=agg)
+        return tco.merged_plan(plan, mesh, 12), 8
+    plan = DevicePlan(filter_ir=None, leaves=(), value_irs=(("col", "x"),),
+                      agg_ops=agg, group_cols=("a",), group_strides=(1,),
+                      num_groups=35)
+    remap = np.random.default_rng(5).integers(-1, 64, (12, 35))
+    return tco.merged_plan(plan, mesh, 12, 64, remap), 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["doc", "merged", "remap"])
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_mesh_fold_matches_plain_on_card(card, kind, B, x64):
+    """K9 bit for bit against mesh_fold_plain, every op code, with and
+    without the remap and the tail, NaN and infinities included."""
+    fold, P = _fold_case(kind)
+    parts = _fold_parts(7, P, B, fold.rows_in, fold.win,
+                        np.float64 if x64 else np.float32, card)
+    before = (_cuda.MESH_FOLD.launches, _cuda.MESH_FOLD.batched_launches)
+    out = tk.mesh_fold(parts, fold, batched=B > 1)
+    ref = tk.mesh_fold_plain(parts, fold)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.equal(out.nan_to_num(nan=7.0), ref.nan_to_num(nan=7.0))
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    after = (_cuda.MESH_FOLD.launches, _cuda.MESH_FOLD.batched_launches)
+    assert after[int(B > 1)] == before[int(B > 1)] + 1
+    cpu = tk.mesh_fold_plain([p.cpu() for p in parts], fold)
+    assert torch.equal(cpu.nan_to_num(nan=7.0),
+                       out.cpu().nan_to_num(nan=7.0))
+
+
+def _mesh_inputs(seed, grouped, S, D):
+    spec = tp.random_spec(seed, grouped)
+    cols, params, nd = tp.random_inputs(seed, spec, S, D, np.float32,
+                                        pad_segments=1)
+    nd[0] = 700
+    return spec, DevicePlan(**spec), cols, params, nd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [False, True])
+def test_sharded_and_merged_on_a_logical_mesh_equal_the_cpu(card, grouped):
+    """sharded_kernel and merged_kernel on a logical 4x2 mesh over cuda:0
+    (K1-K3 per slot, then K9) equal the same calls on CPU tensors (the
+    plain versions): counts, exact-sum planes, min / max and tails bit for
+    bit, float sums within 1e-5 of the slot's sum of |contribution|."""
+    from pinot_tpu_torch.ops import collective as tco
+    from pinot_tpu_torch.parallel.mesh import make_mesh, shard_block
+    S, D = 8, 4096
+    spec, plan, cols, params, nd = _mesh_inputs(3, grouped, S, D)
+    gmesh = make_mesh(["cuda:0"] * 8, doc_axis=2)
+    cmesh = make_mesh(["cpu"] * 8, doc_axis=2)
+    out = {}
+    for name, mesh, dev in (("card", gmesh, card), ("cpu", cmesh, "cpu")):
+        tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=dev)
+        sc = {k: shard_block(mesh, v) for k, v in tc.items()}
+        k1 = _cuda.SCAN_AGG.launches + _cuda.GROUP_AGG.launches
+        k9 = _cuda.MESH_FOLD.launches
+        sh = tk.sharded_kernel(plan, mesh, torch.float32)(sc, tpar, tnd, D)
+        G = 64 if grouped else 0
+        remap = np.tile(np.arange(plan.num_groups), (S, 1)) % 64 \
+            if grouped else None
+        fold = tco.merged_plan(plan, mesh, S, G, remap)
+        mg = tco.merged_kernel(plan, mesh, torch.float32)(sc, tpar, tnd, D,
+                                                          G, fold)
+        if name == "card":
+            torch.cuda.synchronize()
+            assert _cuda.SCAN_AGG.launches + _cuda.GROUP_AGG.launches \
+                == k1 + 16
+            assert _cuda.MESH_FOLD.launches == k9 + 2
+        out[name] = (sh.cpu().numpy(), mg.cpu().numpy())
+        scale = {j: v.cpu().numpy() for j, v in tk.abs_contributions(
+            plan, *tk.from_jax_staged(cols, params, nd), D).items()}
+    (sh_g, mg_g), (sh_c, mg_c) = out["card"], out["cpu"]
+    tp.assert_packed_equal(spec, sh_g, sh_c, scale, False)
+    assert np.array_equal(mg_g[-S:], mg_c[-S:])
+    assert np.allclose(mg_g, mg_c, rtol=1e-5, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_mesh_engine_on_card_equals_the_cpu_engine(card, tmp_path):
+    """SQL through a logical 4x2 mesh engine on cuda:0 (merged and
+    sharded) equals the CPU mesh engine's rows."""
+    from pinot_tpu_torch.models import (DataType, FieldSpec, FieldType,
+                                        Schema, TableConfig)
+    from pinot_tpu_torch.parallel.mesh import make_mesh
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    from pinot_tpu_torch.segment.creator import SegmentCreator
+    from pinot_tpu_torch.segment.loader import load_segment
+    from pinot_tpu_torch.utils.config import PinotConfiguration
+    rng = np.random.default_rng(2)
+    segs = []
+    for i in range(6):
+        n = 3000 + 100 * i
+        out = str(tmp_path / f"m{i}")
+        SegmentCreator(TableConfig("t"), Schema("t", [
+            FieldSpec("a", DataType.INT), FieldSpec("g", DataType.STRING),
+            FieldSpec("m", DataType.INT, FieldType.METRIC)])).build(
+                {"a": rng.integers(0, 50, n).astype(np.int32),
+                 "g": np.array([f"g{k}" for k in rng.integers(0, 9, n)],
+                               object),
+                 "m": rng.integers(0, 1000, n).astype(np.int32)}, out, "s")
+        segs.append(load_segment(out))
+    sqls = ["SELECT SUM(m), COUNT(*), MIN(m), MAX(m) FROM t WHERE a > 10",
+            "SELECT g, SUM(m), COUNT(*) FROM t WHERE a < 40 GROUP BY g "
+            "ORDER BY g LIMIT 100",
+            "SELECT DISTINCTCOUNTHLL(a), COUNT(*) FROM t"]
+    for merge in (True, False):
+        cfg = PinotConfiguration(
+            {"pinot.server.mesh.collective.merge": merge})
+        gpu = QueryExecutor(segs, config=cfg,
+                            mesh=make_mesh(["cuda:0"] * 8, doc_axis=2))
+        cpu = QueryExecutor(segs, device="cpu", config=cfg,
+                            mesh=make_mesh(["cpu"] * 8, doc_axis=2))
+        for sql in sqls:
+            assert gpu.execute(sql).rows == cpu.execute(sql).rows, sql
+        assert gpu.engine.meter("mesh_merge_served") == (3 if merge else 0)
+
+
+@pytest.mark.cuda
+def test_distributed_query_step_on_card_equals_the_cpu(card):
+    from pinot_tpu_torch.parallel import distributed_query_step
+    from pinot_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(4)
+    S, D, G = 8, 4096, 16
+    args = [rng.integers(0, 100, (S, D)).astype(np.int32),
+            rng.integers(0, 1000, (S, D)).astype(np.float64),
+            rng.integers(0, G + 3, (S, D)).astype(np.int32),
+            rng.integers(0, 30, S).astype(np.int32),
+            rng.integers(40, 90, S).astype(np.int32),
+            rng.integers(1000, D, S).astype(np.int32),
+            np.arange(D, dtype=np.int32)[None]]
+    got = distributed_query_step(make_mesh(["cuda:0"] * 8, doc_axis=2))(G)(
+        *(torch.from_numpy(a).to(card) for a in args))
+    want = distributed_query_step(make_mesh(["cpu"] * 8, doc_axis=2))(G)(
+        *(torch.from_numpy(a) for a in args))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)  # integer-valued float64: exact

@@ -72,6 +72,17 @@ seg = ex.segments[0]
 PartitionUpsertMetadataManager(["h"], "ts").add_segment(seg)
 assert ex.execute("SELECT COUNT(*) FROM m").rows == [(2,)]
 assert ex.execute("SELECT ts FROM m LIMIT 5").rows == [(98,), (99,)]
+from pinot_tpu_torch.parallel import make_mesh, distributed_query_step
+import torch
+mex = QueryExecutor(ex.segments * 3, device="cpu",
+                    mesh=make_mesh(["cpu"] * 4, doc_axis=2))
+assert mex.execute("SELECT COUNT(*) FROM m").rows == [(6,)]
+assert mex.engine.meter("mesh_merge_served") == 1
+z = torch.zeros((2, 256), dtype=torch.int32)
+tot = distributed_query_step(make_mesh(["cpu"] * 4, doc_axis=2))(4)(
+    z, z.double() + 1, z, z[:, 0], z[:, 0], z[:, 0] + 256,
+    torch.arange(256)[None])
+assert float(tot[1]) == 512.0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "pinot_tpu")
              or m.startswith(("jax.", "jaxlib.", "pinot_tpu.")))
@@ -114,9 +125,13 @@ def test_port_sources_import_no_jax_and_no_pinot_tpu():
 
 
 def test_dispatch_modules_stand_alone():
-    """The dispatch ring and the utils it reads import nothing of JAX or
-    pinot_tpu, each in a fresh interpreter."""
-    for mod in ("pinot_tpu_torch.ops.dispatch", "pinot_tpu_torch.utils.config",
+    """The dispatch ring, the mesh modules and the utils they read import
+    nothing of JAX or pinot_tpu, each in a fresh interpreter."""
+    for mod in ("pinot_tpu_torch.ops.dispatch", "pinot_tpu_torch.parallel",
+                "pinot_tpu_torch.parallel.mesh",
+                "pinot_tpu_torch.parallel.distributed_query",
+                "pinot_tpu_torch.ops.collective",
+                "pinot_tpu_torch.utils.config",
                 "pinot_tpu_torch.utils.failpoints",
                 "pinot_tpu_torch.utils.metrics",
                 "pinot_tpu_torch.utils.accounting"):
