@@ -53,8 +53,19 @@ Phases, each of which exits non-zero on failure:
    planes under a vrange64 window, per-segment sliding starts, negative
    and wrapping deltas and both grid edges reaching the gate (counts,
    keys and max bit for bit, sums within 1e-5 of sum|contribution|;
-   library: torch.bincount(keys, weights) on precomputed keys). K1-K4
-   again on their phase-3 inputs under a seeded uint8 validity mask
+   library: torch.bincount(keys, weights) on precomputed keys). K2 with
+   compact keys (COMPACT_CASES) at phase 14's block, S = 8, D = 2^20: a
+   seeded int32 gkey block (each segment's own tuple count between G/2
+   and G, skewed toward low codes) at phase 14's G = 2^16 (CB_G) with
+   cb.3's unfiltered SUM / MIN / MAX / COUNT slots (MIN and MAX through
+   the global table's CAS loops), and at G = 2^17 and G = 2^20 (the
+   cap) with a SUM and a COUNT slot under a neq leaf (cb.2's `<> ''`),
+   all past the shared table; the bound counts the columns and the
+   output as every K2 row does, and `scratch_bytes` gives the float64
+   scratch table's init write and finalize read beside it (16 bytes per
+   B x S x G x n_slots entry); library: torch.Tensor.index_add_ of the
+   kept values at precomputed keys. K1-K4 again on their phase-3 inputs under a seeded uint8
+   validity mask
    clearing about a third of docs (the bound counts the mask's byte per
    real doc). K7 clp_match at S = 32, D = 2^22 (K7_SEGMENTS; twice the
    log leg's segments; clp_kernel_inputs: var-dictionary LUTs of 2^20, a
@@ -92,7 +103,9 @@ Phases, each of which exits non-zero on failure:
    and dedup (rotations m mod 3); each member against the plain batched
    version and its own single launch, as phase 3 holds K5. K2's bucket
    case at B = 8 over ts.3's column set (broadcast), member m's window m
-   hours later. K7's mode 'b' case at B = 8 over one column set, each
+   hours later. K2's compact cases at B = 8 (G = 2^16, 2^17, 2^20) over
+   one column set (broadcast), member m excluding phrase id m, with the
+   launch's peak device memory. K7's mode 'b' case at B = 8 over one column set, each
    member's own tables, against the plain version and its single launch.
    K8 at B = 8 (IVF, k = 10: 9i's shape) broadcast over one column set and
    stacked (member m over block rows m .. m + 15, its own column set),
@@ -140,8 +153,9 @@ Phases, each of which exits non-zero on failure:
    GB_MOM_QUERY (the moment and boolean aggregations GROUP BY d_year on
    K2), held as MOM_QUERY is.
 6. Config-#4 leg: BASELINE config #4 (NYC-taxi-shaped trip_id LONG and
-   fare DOUBLE, bench_extra.py:200-209's draws) at 128 segments x 8M rows
-   = 1,024M rows, generated, written and folded into the truth one
+   fare DOUBLE, bench_extra.py:200-209's draws) at 64 segments x 8M rows
+   = 512M rows (half the config's 128 segments: the run's time limit),
+   generated, written and folded into the truth one
    segment at a time; DISTINCTCOUNTHLL(trip_id) + PERCENTILETDIGEST95(fare)
    unfiltered (bench_extra.py:211-212), under a fare range and under a
    trip_id range. The HLL value must equal the port's numpy HyperLogLog
@@ -181,7 +195,7 @@ Phases, each of which exits non-zero on failure:
    whatever the timing); 9c sel.1-shaped top-N with seeded filters on the
    128M rows (K4's batched form: its key scratch is [B, S, D]); 9d
    config-#3-shaped group-bys on phase 5's 32M rows; 9e config #4's three
-   sketch queries on phase 6's 1,024M rows; 9f st5.1-shaped star-tree
+   sketch queries on phase 6's 512M rows; 9f st5.1-shaped star-tree
    queries (a p_category and a d_year range from a seeded pool, all
    filters on the tree's dimensions) on phase 7's ssbst segments, K5's
    member axis. Each pool query runs alone
@@ -290,6 +304,30 @@ Phases, each of which exits non-zero on failure:
    8 closed-loop clients over Q1_POOL on the sharded mesh engine, as 9a
    runs: each dispatch one launch of K1 per slot (batched ones on its
    member axis) and one K9.
+14. Compact group keys (after phase 12): ClickBench's `hits`
+   (github.com/ClickHouse/ClickBench, queries.sql), generated from
+   CB_POOL_SEED's pools and --seed: UserID (LONG, zipf-skewed over
+   CB_USERS users), SearchPhrase (STRING, '' in 70% of the rows, else one
+   of the user's phrases), RegionID (INT, the user's home region but for
+   3% of the rows) and ResolutionWidth (INT, raw), CB_SEGMENTS x CB_DOCS
+   = 8,388,608 rows built in the vector pool from phase 3 on; every
+   query plans compact keys (each segment 2^15-2^16 tuples, G = 2^16 =
+   CB_G, phase 3's compact case; another G fails the run; the dense
+   products far above 2^20). cb.1 and cb.2 (ClickBench's, verbatim),
+   cb.3 (its shape over (RegionID, UserID) with SUM / MIN / MAX, not
+   ClickBench's) and cb.4 (DISTINCT UserID, SearchPhrase LIMIT 100000)
+   through QueryExecutor: cold s, p50 of CB_ITERS warm runs, the stage
+   split, G and the tuples per segment, peak device memory; each answer
+   equal to the numpy truth folded from the segments (counts, integer
+   sums, min / max and keys exact; at a tie at the 10th count, the keys
+   tied there). K2 once per run. Then CB_BURST cb.1-shaped queries over
+   one region each, held in the ring until all are queued: one batched
+   K2 launch of them all at equal G, each equal to its single run. Then
+   cb.1 and cb.3 once through the logical 4x2 mesh engines of phase 13
+   (sharded float32 with the merge key off, merged float64): equal to one
+   card's answer (up to the keys tied at the 10th count), K2 once per
+   slot and K9 once per query, `mesh_merge_fallback{disabled}` and
+   `mesh_merge_served` counting.
 8. Launch counts: each kernel's counter is set to 0 just before a leg's
    timed queries and read just after them; the leg's kernels must have
    launched once per query run (a CLP query: K7 once, then K1, K2 or K4
@@ -305,7 +343,10 @@ Phases, each of which exits non-zero on failure:
    9's windows; K6's entry the full float32 case of phase 3 and its
    launches in phases 4-7. `group_agg_tbucket` carries phase 3's ts.3
    bucket case and phase 10's K2 launches, `group_agg_tbucket_batched`
-   phase 3b's bucket case and 9g's batched launches, `*_masked` phase
+   phase 3b's bucket case and 9g's batched launches, `group_agg_compact`
+   phase 3's compact G = 2^16 case (cb.3's slots) and phase 14's K2
+   launches, `group_agg_compact_batched` phase 3b's compact G = 2^16 case
+   and phase 14's burst, `*_masked` phase
    3's masked cases and phase 4d's launches (each a subset of its
    kernel's own entry). `clp_match` carries phase 3's mode 'b' case and
    the log leg's and 9h's single launches, `clp_match_batched` phase 3b's
@@ -325,6 +366,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import functools
 import json
 import os
 import shutil
@@ -344,8 +386,9 @@ SECTOR = 32  # bytes: the unit in which the card reads device memory
 #: bench.py NUM_SEGMENTS x DOCS_PER_SEGMENT and bench_extra.py config #3
 Q1_SEGMENTS, Q1_DOCS = 16, 8_000_000
 GB_SEGMENTS, GB_DOCS = 8, 4_000_000
-#: BASELINE config #4 at its own scale: 128 x 8M = 1,024M rows
-TAXI_SEGMENTS, TAXI_DOCS = 128, 8_000_000
+#: BASELINE config #4 (128 x 8M = 1,024M rows) cut to half its segments,
+#: 512M rows, to keep the run inside its time limit
+TAXI_SEGMENTS, TAXI_DOCS = 64, 8_000_000
 #: warm runs per query, after one cold run
 ITERS = 10
 #: processes that generate and write segments (the card's host has 8 cores;
@@ -573,6 +616,55 @@ VEC_POOL = 16
 VEC_TOL = 2.0 ** -20
 #: phase 3's K8 block: the leg's 10 segments padded to 16, D = 2^20
 K8_SEGMENTS, K8_D = 16, 1 << 20
+
+#: phase 14: ClickBench's `hits` (github.com/ClickHouse/ClickBench,
+#: queries.sql), generated (its data cannot be downloaded): 8 segments of
+#: 2^20 rows, cut from ~100M rows because the host decodes and reduces
+#: every present group in Python (the JAX package's design)
+CB_SEGMENTS, CB_DOCS = 8, 1 << 20
+#: the user pool, drawn zipf-skewed (p ~ rank^-CB_ZIPF: the busiest user
+#: holds ~0.4% of the rows, so a grouped float32 SUM stays below 2^24 in a
+#: segment); each user searches CB_USER_PHRASES phrases of the pool in
+#: CB_PHRASE_SHARE of its rows (SearchPhrase '' otherwise) and stays in
+#: one home region but for CB_AWAY of its rows: every segment holds
+#: 2^15-2^16 (UserID, SearchPhrase) and (RegionID, UserID) tuples (G =
+#: 2^16), while the dense products stay far above 2^20
+CB_USERS, CB_ZIPF = 1 << 14, 0.5
+CB_PHRASES, CB_USER_PHRASES, CB_PHRASE_SHARE = 50_000, 2, 0.3
+CB_REGIONS, CB_AWAY = 3000, 0.03
+CB_WIDTHS = (1366, 1920, 1280, 1440, 1536, 1600, 1024, 360, 375, 414, 390,
+             768)
+#: the pools' seed (the rows' seeds are [--seed, segment])
+CB_POOL_SEED = 20_260
+#: warm runs per query after the cold one
+CB_ITERS = 3
+CB_QUERIES = {
+    # ClickBench queries.sql, verbatim
+    "cb.1": "SELECT UserID, SearchPhrase, COUNT(*) FROM hits GROUP BY "
+            "UserID, SearchPhrase ORDER BY COUNT(*) DESC LIMIT 10",
+    "cb.2": "SELECT UserID, SearchPhrase, COUNT(*) FROM hits WHERE "
+            "SearchPhrase <> '' GROUP BY UserID, SearchPhrase ORDER BY "
+            "COUNT(*) DESC LIMIT 10",
+    # not ClickBench's: its shape with (RegionID, UserID) keys and the
+    # MIN / MAX / SUM slots
+    "cb.3": "SELECT RegionID, UserID, SUM(ResolutionWidth), "
+            "MIN(ResolutionWidth), MAX(ResolutionWidth), COUNT(*) FROM hits "
+            "GROUP BY RegionID, UserID ORDER BY COUNT(*) DESC LIMIT 10",
+    "cb.4": "SELECT DISTINCT UserID, SearchPhrase FROM hits LIMIT 100000",
+}
+#: phase 14's burst: CB_BURST cb.1-shaped queries over one region each,
+#: held in the ring until all are queued (one batch at equal G)
+CB_BURST = 8
+CB_BURST_SQL = ("SELECT UserID, SearchPhrase, COUNT(*) FROM hits WHERE "
+                "RegionID = {} GROUP BY UserID, SearchPhrase ORDER BY "
+                "COUNT(*) DESC, UserID, SearchPhrase LIMIT 10")
+#: the G every phase-14 query plans (checked there)
+CB_G = 1 << 16
+#: phase 3's compact-key K2 cases at phase 14's block (S = 8, D = 2^20):
+#: name -> (G, cb.3's slots: else cb.2's filtered SUM and COUNT)
+COMPACT_CASES = {"G=2^16 (phase 14's; cb.3's slots)": (CB_G, True),
+                 "G=2^17": (1 << 17, False),
+                 "G=2^20 (the cap)": (1 << 20, False)}
 
 def log_queries() -> dict:
     """name -> (SQL, the kernel after K7) of the log leg."""
@@ -1296,27 +1388,32 @@ def histc_ms(plan, cols, params, num_docs) -> float:
                                        max=hi))
 
 
-def check_kernel(name: str, plan, cols, params, num_docs, D) -> dict:
-    """One kernel against its plain version on the card: returns its
-    entry of the `kernels` line (launches filled in by the legs)."""
+def check_kernel(name: str, plan, cols, params, num_docs, D,
+                 G: int = 0) -> dict:
+    """One kernel against its plain version on the card (G: a compact-key
+    plan's group count): returns its entry of the `kernels` line
+    (launches filled in by the legs)."""
     import torch
 
     from pinot_tpu_torch.ops import kernels
     kern = kernels.make_kernel(plan, torch.float32)
     plain = kernels.plain_kernel(plan, torch.float32)
-    out = kern(cols, params, num_docs, D)
-    ref = plain(cols, params, num_docs, D)
-    scales = kernels.abs_contributions(plan, cols, params, num_docs, D)
+    out = kern(cols, params, num_docs, D, G)
+    ref = plain(cols, params, num_docs, D, G)
+    scales = kernels.abs_contributions(plan, cols, params, num_docs, D, G)
     torch.cuda.synchronize()
     compare_packed(name, plan, out, ref, scales)
     moved, matched = bytes_needed(plan, cols, params, num_docs, D, out)
-    ms = cuda_ms(lambda: kern(cols, params, num_docs, D))
-    plain_ms = cuda_ms(lambda: plain(cols, params, num_docs, D))
-    return {"max_abs_err": max_abs_err(out, ref), "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None, "rows": int(num_docs.sum()),
-            "matched": matched, "bytes": moved}
+    ms = cuda_ms(lambda: kern(cols, params, num_docs, D, G))
+    plain_ms = cuda_ms(lambda: plain(cols, params, num_docs, D, G))
+    entry = {"max_abs_err": max_abs_err(out, ref), "ms": ms,
+             "plain_ms": plain_ms,
+             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "library_ms": None, "rows": int(num_docs.sum()),
+             "matched": matched, "bytes": moved}
+    if plan.group_compact:
+        entry["scratch_bytes"] = scratch_bytes(out)
+    return entry
 
 
 def compare_packed(name: str, plan, out, ref, scales) -> None:
@@ -1327,6 +1424,7 @@ def compare_packed(name: str, plan, out, ref, scales) -> None:
     import torch
 
     from pinot_tpu_torch.ops import kernels
+    from pinot_tpu_torch.ops.plan_ir import is_grouped
     if out.shape != ref.shape:
         fail(f"{name}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
     if plan.mode == "topn":
@@ -1334,16 +1432,17 @@ def compare_packed(name: str, plan, out, ref, scales) -> None:
             bad = (out != ref).nonzero()[:5].tolist()
             fail(f"{name}: differs at {bad}")
         return
-    col = 0 if plan.num_groups else 1
-    if not plan.num_groups and not torch.equal(out[:, 0], ref[:, 0]):
+    grouped = is_grouped(plan)
+    col = 0 if grouped else 1
+    if not grouped and not torch.equal(out[:, 0], ref[:, 0]):
         fail(f"{name}: matched counts differ")
     for j, (op, _v, _f) in enumerate(plan.agg_ops):
         w = kernels.slot_width(op)
-        a = out[..., j] if plan.num_groups else out[:, col:col + w]
-        b = ref[..., j] if plan.num_groups else ref[:, col:col + w]
+        a = out[..., j] if grouped else out[:, col:col + w]
+        b = ref[..., j] if grouped else ref[:, col:col + w]
         col += w
         if op == "sum":
-            scale = scales[j] if plan.num_groups else scales[j][:, None]
+            scale = scales[j] if grouped else scales[j][:, None]
             same = (a == b) | (torch.isnan(a) & torch.isnan(b))
             err = torch.where(same, 0.0, (a.double() - b.double()).abs())
             if not bool((err <= 1e-5 * scale + 1e-30).all()):
@@ -1369,6 +1468,14 @@ def leaf_columns(leaf) -> tuple:
     if leaf.kind == "vrange64":
         return ("valhi:" + leaf.column, "vallo:" + leaf.column)
     return ("ids:" + leaf.column,)
+
+
+def scratch_bytes(out) -> int:
+    """A compact-key K2 launch's scratch traffic, reported beside its
+    bound and not in it (the table is the kernel's design, not the
+    function's): the float64 table's init write and its finalize read,
+    B x S x G x n_slots entries each."""
+    return 2 * 8 * out.numel()
 
 
 def bytes_needed(plan, cols, params, num_docs, D, out):
@@ -2010,6 +2117,122 @@ def check_bucket_batched(seed: int) -> dict:
             "library_ms": None,
             "library": "none: no single PyTorch call computes it",
             "bytes": moved, "matched": matched}
+
+
+def compact_kernel_inputs(seed: int, G: int, neq=None, cb3: bool = False):
+    """K2 with compact keys at phase 14's block (S = CB_SEGMENTS, D =
+    CB_DOCS), made on the card: an int32 gkey block whose segment s holds
+    its own tuple count (between G/2 and G) skewed toward the low codes,
+    as zipf-drawn users make them; ResolutionWidth as f32 values. cb3:
+    cb.3's plan, unfiltered SUM / MIN / MAX / COUNT slots; else an int32
+    phrase-id column (a third of the docs at id 0, '') under cb.2's
+    `<> ''` as a neq leaf (`neq`: a member's id per segment instead), a
+    SUM and a COUNT slot. Returns (plan, cols, params, num_docs, D, G)."""
+    import torch
+
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 11)
+    S, D = CB_SEGMENTS, CB_DOCS
+    held = torch.randint(G // 2 + 1, G + 1, (S, 1), generator=g, device=dev)
+    u = torch.rand((S, D), generator=g, device=dev) ** 2
+    gkey = torch.minimum((u * held).long(), held - 1).to(torch.int32)
+    phrase = torch.randint(0, 1 << 16, (S, D), generator=g, device=dev)
+    phrase[torch.rand((S, D), generator=g, device=dev) < 1 / 3] = 0
+    widths = torch.tensor(CB_WIDTHS, dtype=torch.float32, device=dev)
+    width = widths[torch.randint(0, len(CB_WIDTHS), (S, D), generator=g,
+                                 device=dev)]
+    num_docs = torch.full((S,), D, dtype=torch.int32, device=dev)
+    num_docs[-1] = D - 12_345  # a ragged last segment
+    if cb3:
+        plan = DevicePlan(filter_ir=None, leaves=(),
+                          value_irs=(("col", "width"),),
+                          agg_ops=(("sum", 0, None), ("min", 0, None),
+                                   ("max", 0, None), ("count", None, None)),
+                          group_cols=("region", "user"), group_compact=True,
+                          raw_cols=("width",))
+        return plan, {"gkey": gkey, "val:width": width}, {}, num_docs, D, G
+    cols = {"gkey": gkey, "ids:phrase": phrase.to(torch.int32),
+            "val:width": width}
+    plan = DevicePlan(filter_ir=("leaf", 0),
+                      leaves=(DeviceLeaf("neq", "phrase"),),
+                      value_irs=(("col", "width"),),
+                      agg_ops=(("sum", 0, None), ("count", None, None)),
+                      group_cols=("user", "phrase"), group_compact=True,
+                      dict_cols=("phrase",), raw_cols=("width",))
+    idx = torch.zeros(S, dtype=torch.int32, device=dev) if neq is None \
+        else torch.full((S,), neq, dtype=torch.int32, device=dev)
+    return plan, cols, {"leaf0:idx": idx}, num_docs, D, G
+
+
+def index_add_ms(plan, cols, params, num_docs, D, G) -> float:
+    """torch.Tensor.index_add_ of the kept docs' widths at their
+    precomputed flat (segment, code) keys into an [S x G] table: the
+    scatter-add alone, the PyTorch call nearest K2's sum slot (no filter,
+    count or key load)."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels
+    mask = kernels.doc_validity(plan, cols, num_docs, D)
+    if plan.filter_ir is not None:
+        mask = mask & kernels.eval_filter(plan.filter_ir, plan, cols, params)
+    seg = torch.arange(mask.shape[0], device=mask.device)[:, None]
+    flat = (seg * G + cols["gkey"].long())[mask]
+    w = cols["val:width"][mask]
+    table = torch.zeros(mask.shape[0] * G, dtype=torch.float32,
+                        device=mask.device)
+    return cuda_ms(lambda: table.index_add_(0, flat, w))
+
+
+def check_compact_batched(seed: int, G: int) -> dict:
+    """Phase 3b's compact case: K2's member axis at B = 8 over one column
+    set (broadcast) at G, member m excluding phrase id m, against the
+    plain batched version and each member's single launch; returns the
+    time, 8 x single, the bound, the scratch table's traffic and the
+    launch's peak device memory."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels
+    plan, cols, params, num_docs, D, G = compact_kernel_inputs(seed, G)
+    plist = [compact_kernel_inputs(seed, G, neq=m)[2]
+             for m in range(BATCH_B)]
+    idx = BATCH_FORMS["broadcast"]
+    args = ([cols], plist, [num_docs], idx, D)
+    run = kernels.batched_kernel(plan, torch.float32)
+    plain = kernels.plain_batched_kernel(plan, torch.float32)
+    single = kernels.make_kernel(plan, torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = run(*args, G)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ref = plain(*args, G)
+    torch.cuda.synchronize()
+    for m in range(BATCH_B):
+        scales = kernels.abs_contributions(plan, cols, plist[m], num_docs, D,
+                                           G)
+        compare_packed(f"K2 compact G={G} batched member {m} vs plain",
+                       plan, out[m], ref[m], scales)
+        compare_packed(f"K2 compact G={G} batched member {m} vs its single "
+                       "launch", plan, out[m],
+                       single(cols, plist[m], num_docs, D, G), scales)
+    moved, matched = batch_bytes(plan, *args, out)
+    single_ms = cuda_ms(lambda: single(cols, plist[0], num_docs, D, G))
+    entry = {"case": f"G={G} x {BATCH_B} members (broadcast)",
+             "B": BATCH_B, "G": G, "max_abs_err": max_abs_err(out, ref),
+             "ms": cuda_ms(lambda: run(*args, G)), "single_ms": single_ms,
+             "8x_single_ms": BATCH_B * single_ms,
+             "plain_ms": cuda_ms(lambda: plain(*args, G), iters=3),
+             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "library_ms": None,
+             "library": "none: no single PyTorch call computes it",
+             "bytes": moved, "scratch_bytes": scratch_bytes(out),
+             "matched": matched, "launch_peak_bytes": peak}
+    del out, ref
+    torch.cuda.empty_cache()
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -4478,6 +4701,335 @@ def mesh_groupby(segs, want_rows, kernels, none: dict, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: compact group keys on ClickBench's hits (K2 at compact G)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def cb_pools() -> dict:
+    """The hits generator's pools, from CB_POOL_SEED: user ids (distinct
+    positive longs) with each user's home region and phrases, the phrase
+    strings ('' first, then strings that sort in index order), and the
+    zipf draw (users by rank, cumulative weights)."""
+    rng = np.random.default_rng(CB_POOL_SEED)
+    ids = np.unique(rng.integers(1, 1 << 62, 2 * CB_USERS))
+    ids = rng.permutation(ids)[:CB_USERS]
+    words = ("weather", "news", "maps", "video", "music", "games", "shop",
+             "recipes", "cars", "flights")
+    phrases = np.array([""] + [f"q{k:05d} {words[k % len(words)]}"
+                               for k in range(1, CB_PHRASES)], dtype=object)
+    w = np.arange(1, CB_USERS + 1, dtype=np.float64) ** -CB_ZIPF
+    return {"ids": ids, "ids_sorted": np.sort(ids),
+            "home": rng.integers(0, CB_REGIONS, CB_USERS),
+            "phrase_of": rng.integers(1, CB_PHRASES,
+                                      (CB_USERS, CB_USER_PHRASES)),
+            "phrases": phrases, "rank_user": rng.permutation(CB_USERS),
+            "cdf": np.cumsum(w) / w.sum()}
+
+
+def hits_columns(rng, n: int) -> dict:
+    """One segment of hits: UserID (LONG) zipf-drawn, SearchPhrase
+    (STRING) one of the user's phrases in CB_PHRASE_SHARE of the rows,
+    RegionID (INT) the user's home region but for CB_AWAY of the rows,
+    ResolutionWidth (INT, raw) one of CB_WIDTHS."""
+    P = cb_pools()
+    user = P["rank_user"][np.minimum(
+        np.searchsorted(P["cdf"], rng.random(n), side="right"),
+        CB_USERS - 1)]
+    pick = rng.integers(0, CB_USER_PHRASES, n)
+    phrase = np.where(rng.random(n) < CB_PHRASE_SHARE,
+                      P["phrase_of"][user, pick], 0)
+    region = np.where(rng.random(n) < CB_AWAY,
+                      rng.integers(0, CB_REGIONS, n), P["home"][user])
+    width = np.asarray(CB_WIDTHS, np.int32)[
+        rng.integers(0, len(CB_WIDTHS), n)]
+    return {"UserID": P["ids"][user], "SearchPhrase": P["phrases"][phrase],
+            "RegionID": region.astype(np.int32), "ResolutionWidth": width}
+
+
+def _cb_keys(cols: dict):
+    """(user rank in the sorted ids, phrase index) of each row."""
+    P = cb_pools()
+    uid = np.searchsorted(P["ids_sorted"], cols["UserID"])
+    pid = np.searchsorted(P["phrases"], cols["SearchPhrase"])
+    return uid.astype(np.int64), pid.astype(np.int64)
+
+
+def hits_truth(cols: dict) -> dict:
+    """One segment's truth, folded by key: (UserID, SearchPhrase) counts
+    ('up', key uid * CB_PHRASES + phrase) and (RegionID, UserID) counts,
+    width sums, minima and maxima ('ru', key region * CB_USERS + uid)."""
+    uid, pid = _cb_keys(cols)
+    up, up_n = np.unique(uid * CB_PHRASES + pid, return_counts=True)
+    key = cols["RegionID"].astype(np.int64) * CB_USERS + uid
+    order = np.argsort(key, kind="stable")
+    k, w = key[order], cols["ResolutionWidth"][order].astype(np.int64)
+    ru, start, ru_n = np.unique(k, return_index=True, return_counts=True)
+    return {"up": (up, up_n),
+            "ru": (ru, ru_n, np.add.reduceat(w, start),
+                   np.minimum.reduceat(w, start),
+                   np.maximum.reduceat(w, start))}
+
+
+def cb_merged(truths: list) -> dict:
+    """The whole table's truth from the segments': 'up' (keys, counts)
+    and 'ru' (keys, counts, sums, minima, maxima)."""
+    k = np.concatenate([t["up"][0] for t in truths])
+    up, inv = np.unique(k, return_inverse=True)
+    up_n = np.bincount(inv, np.concatenate([t["up"][1] for t in truths]))
+    k = np.concatenate([t["ru"][0] for t in truths])
+    ru, inv = np.unique(k, return_inverse=True)
+    parts = [np.concatenate([t["ru"][j] for t in truths]) for j in (1, 2)]
+    mins = np.full(len(ru), np.iinfo(np.int64).max)
+    maxs = np.full(len(ru), np.iinfo(np.int64).min)
+    np.minimum.at(mins, inv, np.concatenate([t["ru"][3] for t in truths]))
+    np.maximum.at(maxs, inv, np.concatenate([t["ru"][4] for t in truths]))
+    return {"up": (up, up_n.astype(np.int64)),
+            "ru": (ru, np.bincount(inv, parts[0]).astype(np.int64),
+                   np.bincount(inv, parts[1]).astype(np.int64), mins, maxs)}
+
+
+def cb_row_keys(name: str, rows) -> np.ndarray:
+    """Each cb row's truth key, from its decoded values (-1 for a value
+    the generator never made)."""
+    P = cb_pools()
+    if not rows:
+        return np.zeros(0, np.int64)
+    cols = list(zip(*rows))
+    ucol = 1 if name == "cb.3" else 0
+    users = np.array(cols[ucol], np.int64)
+    uid = np.minimum(np.searchsorted(P["ids_sorted"], users), CB_USERS - 1)
+    ok = P["ids_sorted"][uid] == users
+    if name == "cb.3":
+        keys = np.array(cols[0], np.int64) * CB_USERS + uid
+    else:
+        text = np.array(cols[1], object)
+        pid = np.minimum(np.searchsorted(P["phrases"], text),
+                         CB_PHRASES - 1)
+        ok &= P["phrases"][pid] == text
+        keys = uid * CB_PHRASES + pid
+    return np.where(ok, keys, -1)
+
+
+def cb_check(name: str, rows, truth: dict):
+    """None, or what differs from the numpy truth: a top-10 by COUNT(*)
+    holds every key counted above the 10th count and only keys tied at
+    it, in count order, each count (and cb.3's sum, min and max) exact;
+    cb.4 the distinct pairs (all of them when they number at most its
+    LIMIT), each once."""
+    if name == "cb.4":
+        keys = cb_row_keys(name, rows).tolist()
+        want = truth["up"][0]
+        if len(set(keys)) != len(keys) or min(keys, default=0) < 0:
+            return "a DISTINCT pair repeats or is not a generated pair"
+        if len(keys) != min(len(want), 100_000) \
+                or not set(keys) <= set(want.tolist()):
+            return f"{len(keys)} pairs vs {len(want)} distinct in the truth"
+        return None
+    keys_all, counts = truth["ru" if name == "cb.3" else "up"][:2]
+    sel = np.ones(len(keys_all), bool)
+    if name == "cb.2":
+        sel = keys_all % CB_PHRASES != 0
+    keys_all, counts = keys_all[sel], counts[sel]
+    c10 = np.sort(counts)[::-1][9]
+    above = set(keys_all[counts > c10].tolist())
+    tied = set(keys_all[counts == c10].tolist())
+    got = cb_row_keys(name, rows).tolist()
+    if len(rows) != 10 or not above <= set(got) \
+            or not set(got) <= above | tied:
+        return f"top keys {got} vs {len(above)} above and {len(tied)} tied"
+    pos = {k: i for i, k in enumerate(keys_all.tolist())}
+    prev = None
+    for r, k in zip(rows, got):
+        i = pos[k]
+        n = int(r[-1])
+        if n != int(counts[i]) or (prev is not None and n > prev):
+            return f"row {r}: count {n} vs the truth's {int(counts[i])}"
+        prev = n
+        if name == "cb.3":
+            j = int(np.searchsorted(truth["ru"][0], k))
+            want = tuple(int(truth["ru"][c][j]) for c in (2, 3, 4))
+            if (float(r[2]), float(r[3]), float(r[4])) != tuple(
+                    map(float, want)):
+                return f"row {r}: (sum, min, max) vs the truth's {want}"
+    return None
+
+
+def cb_same(name: str, rows, ref) -> bool:
+    """Two answers to one cb query equal up to the order and choice of
+    the keys tied at the 10th count."""
+    if name == "cb.4":
+        return sorted(map(tuple, rows)) == sorted(map(tuple, ref))
+    c10 = int(ref[-1][-1])
+    strip = [[tuple(r) for r in x if int(r[-1]) > c10] for x in (rows, ref)]
+    return strip[0] == strip[1] and [int(r[-1]) for r in rows] == \
+        [int(r[-1]) for r in ref]
+
+
+def cb_groups(ex, sql: str):
+    """(G, key tuples per segment) of a cb query's compact plan."""
+    from pinot_tpu_torch.ops.engine import _distinct_context
+    from pinot_tpu_torch.query.context import QueryContext
+    eng = ex.engine
+    ctx = QueryContext.from_sql(sql)
+    if ctx.distinct:
+        ctx = _distinct_context(ctx)
+    segs = ex.segments_of(ctx.table)
+    with eng._engine_lock:
+        plan, _ = eng._plan(segs, ctx)
+        if not plan.group_compact:
+            fail(f"phase 14: {sql!r} did not plan compact keys")
+        D = eng._padded_D(segs)
+        G = eng._compact_groups(segs, plan, eng._padded_S(len(segs), D))
+        held = [int(eng._gkey_table(seg, plan).shape[0])
+                for seg in segs]
+    return G, held
+
+
+def queue_depth(disp) -> int:
+    """The ring's pending launches: its `dispatch_queue_depth` gauge."""
+    return int(disp._metrics.gauge("dispatch_queue_depth",
+                                   labels=disp._labels) or 0)
+
+
+def cb_burst(ex, sqls: list):
+    """sqls run concurrently, the ring held until all are queued (a bound
+    hold of the dispatch site, which ends once the holds' firings plus the
+    ring's depth reach their number), with one more active caller so none
+    takes the inline path: one batch of them all at equal G. Returns the
+    rows of each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pinot_tpu_torch.utils.failpoints import failpoints
+    disp = ex.engine.dispatcher
+    seen = []
+
+    def queued() -> bool:
+        if not seen and fp.fired + queue_depth(disp) >= len(sqls):
+            seen.append(True)
+        return bool(seen)
+    fp = failpoints.arm("server.dispatch.before", delay=30.0, times=2,
+                        until=queued)
+    try:
+        with disp.active(), ThreadPoolExecutor(len(sqls)) as pool:
+            return [rows_of(f.result(timeout=300)) for f in
+                    [pool.submit(ex.execute, q) for q in sqls]]
+    finally:
+        failpoints.disarm("server.dispatch.before")
+
+
+def hits_jobs(tmp: str, seed: int) -> list:
+    """build_one_segment's jobs for phase 14's segments."""
+    fields = [("UserID", "LONG", False), ("SearchPhrase", "STRING", False),
+              ("RegionID", "INT", False), ("ResolutionWidth", "INT", True)]
+    return [(tmp, "hits", fields, ["ResolutionWidth"], CB_DOCS,
+             hits_columns, hits_truth, seed, i, None)
+            for i in range(CB_SEGMENTS)]
+
+
+def cb_leg(segs, truths, kernels, none: dict, card: str):
+    """Phase 14 (see the module docstring). Returns (its launches per
+    kernel, the burst's batched K2 launches); every K2 single launch of
+    the phase is a compact-key one."""
+    import torch
+
+    from pinot_tpu_torch.ops import _cuda
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    from pinot_tpu_torch.utils.config import PinotConfiguration
+    t0 = time.perf_counter()
+    truth = cb_merged(truths)
+    rows_n = sum(s.num_docs for s in segs)
+    print(f"[cb] {len(segs)} segments, {rows_n} rows; truth folded in "
+          f"{time.perf_counter() - t0:.1f} s: {len(truth['up'][0])} "
+          f"(UserID, SearchPhrase) pairs, {len(truth['ru'][0])} "
+          f"(RegionID, UserID) pairs | {card}", flush=True)
+    ex = QueryExecutor(segs)
+    total: Counter = Counter()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    answers = {}
+    for name, sql in CB_QUERIES.items():
+        resp, cold, lats, split = time_query(ex, sql, CB_ITERS)
+        rows = rows_of(resp)
+        why = cb_check(name, rows, truth)
+        if why is not None:
+            fail(f"phase 14 {name}: {why}")
+        answers[name] = rows
+        G, held = cb_groups(ex, sql)
+        if G != CB_G:
+            fail(f"phase 14 {name}: G = {G}, not phase 3's compact case's "
+                 f"{CB_G}")
+        leg = {"query": name, "rows": rows_n, "G": G,
+               "tuples_per_segment": held,
+               "p50_ms": statistics.median(lats) * 1e3, "cold_s": cold,
+               "rows_per_s": rows_n / statistics.median(lats),
+               "stage_ms": split,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        print(f"[cb] {json.dumps(leg)} | {card}", flush=True)
+    runs = len(CB_QUERIES) * (1 + CB_ITERS)
+    launches_of_leg("phase 14", kernels, {**none, "group_agg": runs})
+
+    # the burst: one batch of cb.1-shaped queries over eight regions, each
+    # equal to its own single run
+    P = cb_pools()
+    regions = [int(P["home"][P["rank_user"][r]]) for r in range(CB_BURST)]
+    sqls = [CB_BURST_SQL.format(r) for r in regions]
+    if {cb_groups(ex, q)[0] for q in sqls} != {CB_G}:
+        fail(f"phase 14 burst: G is not phase 3b's compact case's {CB_G}")
+    alone = [rows_of(ex.execute(q)) for q in sqls]
+    before = (_cuda.GROUP_AGG.batched_launches,
+              _cuda.GROUP_AGG.batched_members)
+    held_rows = cb_burst(ex, sqls)
+    batched = _cuda.GROUP_AGG.batched_launches - before[0]
+    members = _cuda.GROUP_AGG.batched_members - before[1]
+    if held_rows != alone or batched != 1 or members != CB_BURST:
+        fail(f"phase 14 burst: {batched} batched launches of {members} "
+             f"members; rows equal alone: {held_rows == alone}")
+    print(f"[cb] burst: {CB_BURST} cb.1-shaped queries in {batched} "
+          f"batched K2 launch of {members} members, each equal to its "
+          f"single run | {card}", flush=True)
+    # the one-card runs' launches: the timed queries', the burst's alone
+    total.update({k.name: k.launches for k in kernels})
+    del ex
+    torch.cuda.empty_cache()
+
+    # cb.1 and cb.3 once more on the logical 4x2 mesh: sharded float32
+    # (the merge key off) and merged float64
+    off = PinotConfiguration({"pinot.server.mesh.collective.merge": False})
+    for label, kw, kern in (
+            ("sharded f32", {"config": off}, "mesh_merge_fallback"),
+            ("merged f64", {"value_dtype": torch.float64},
+             "mesh_merge_served")):
+        mx = QueryExecutor(segs, mesh=logical_mesh(), **kw)
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(kernels)
+        for name in ("cb.1", "cb.3"):
+            t0 = time.perf_counter()
+            rows = rows_of(mx.execute(CB_QUERIES[name]))
+            leg = {"query": name, "leg": label,
+                   "cold_s": time.perf_counter() - t0,
+                   "stage_ms": mx.last_stage_ms}
+            why = cb_check(name, rows, truth)
+            if why is None and not cb_same(name, rows, answers[name]):
+                why = "differs from one card's answer"
+            if why is not None:
+                fail(f"phase 14 {label} {name}: {why}")
+            leg["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            print(f"[cb] {json.dumps(leg)} | {card}", flush=True)
+        slots = MESH_SHAPE[0] * MESH_SHAPE[1]
+        got = launches_of_leg(f"phase 14 {label}", kernels,
+                              {**none, "group_agg": 2 * slots,
+                               "mesh_fold": 2})
+        total.update(got)
+        meter = mx.engine.meter(kern, "disabled" if kern.endswith(
+            "fallback") else None)
+        if meter != 2:
+            fail(f"phase 14 {label}: {kern} counted {meter}, not 2")
+        del mx
+        torch.cuda.empty_cache()
+    return dict(total), batched
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the concurrency leg
 # ---------------------------------------------------------------------------
 
@@ -4771,6 +5323,10 @@ def main() -> None:
     # the card's 8-core host they finish by phase 6 (started after phase
     # 3 instead, they overlap and slow phases 4-11; PERF.md)
     vpool, vpending = start_vector_builds(tmp, args.seed)
+    # phase 14's segments build in the same low-priority pool, after the
+    # vector segments
+    vpending["hits"] = _start_map(vpool, build_one_segment,
+                                  hits_jobs(tmp, args.seed))
     k1 = check_kernel("scan_agg", *kernel_inputs(args.seed, grouped=False))
     print(f"[kernel] scan_agg {json.dumps(k1)}", flush=True)
     k2 = check_kernel("group_agg", *kernel_inputs(args.seed, grouped=True))
@@ -4812,6 +5368,21 @@ def main() -> None:
         torch.cuda.empty_cache()
     kb = dict(kb_cases["ts.3: G=64,000 (global memory)"],
               max_abs_err=max(c["max_abs_err"] for c in kb_cases.values()))
+    # K2 with compact keys at phase 14's block, below and at the cap
+    kc_cases = {}
+    for name, (G, cb3) in COMPACT_CASES.items():
+        inputs = compact_kernel_inputs(args.seed, G, cb3=cb3)
+        kc_cases[name] = dict(
+            check_kernel(f"group_agg compact {name}", *inputs), case=name,
+            G=G, library_ms=index_add_ms(*inputs),
+            library="torch.Tensor.index_add_ of the kept docs' values at "
+                    "precomputed keys: the scatter alone")
+        print(f"[kernel] group_agg compact {json.dumps(kc_cases[name])} "
+              f"| {card}", flush=True)
+        del inputs
+        torch.cuda.empty_cache()
+    kc = dict(next(iter(kc_cases.values())),
+              max_abs_err=max(c["max_abs_err"] for c in kc_cases.values()))
     # K1-K4 under an upsert validity mask clearing about a third of docs
     masked = {}
     for kname, inputs_fn in (
@@ -4861,6 +5432,13 @@ def main() -> None:
     print(f"[kernel] group_agg bucket batched {json.dumps(kb_batched)} "
           f"| {card}", flush=True)
     torch.cuda.empty_cache()
+    kcb_cases = {}
+    for name, (G, _cb3) in COMPACT_CASES.items():
+        kcb_cases[name] = check_compact_batched(args.seed, G)
+        print(f"[kernel] group_agg compact batched "
+              f"{json.dumps(kcb_cases[name])} | {card}", flush=True)
+    kc_batched = dict(next(iter(kcb_cases.values())), max_abs_err=max(
+        c["max_abs_err"] for c in kcb_cases.values()))
     k7_batched = check_clp("mode b, B = 8 over one column set",
                            *clp_kernel_inputs(args.seed, "b", BATCH_B),
                            B=BATCH_B)
@@ -5291,6 +5869,19 @@ def main() -> None:
         k8["launches"] = vec_launches["vector_topk"]
         k6["launches"] += vec_launches["row_assemble"]
         count_phase9(p9i, p9)
+
+        # phase 14: compact group keys on ClickBench's hits (its segments
+        # built in the vector pool, which phase 12 closed)
+        from pinot_tpu_torch.segment.loader import load_segment
+        done = vpending["hits"][0].get()
+        cb_launches, kc_batched["launches"] = cb_leg(
+            [load_segment(out) for out, _t in done], [t for _o, t in done],
+            kernels, none, card)
+        lap("phase 14")
+        kc["launches"] = cb_launches["group_agg"]
+        for kern, entry in ((_cuda.GROUP_AGG, k2), (_cuda.ROW_ASSEMBLE, k6),
+                            (_cuda.MESH_FOLD, k9)):
+            entry["launches"] += cb_launches[kern.name]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5308,6 +5899,7 @@ def main() -> None:
         batched[kern.name]["launches"] = batch
         if not batch:
             fail(f"phase 9 never launched {kern.name}'s batched form")
+    batched["group_agg"]["launches"] += kc_batched["launches"]
     if not k6["launches"]:
         fail("the main path never launched row_assemble")
     k7["launches"] += p9["clp_match"][0]
@@ -5329,6 +5921,8 @@ def main() -> None:
         fail("the main path never launched mesh_fold, single and batched")
     for name, entry in [("group_agg bucket", kb),
                         ("group_agg bucket batched", kb_batched),
+                        ("group_agg compact", kc),
+                        ("group_agg compact batched", kc_batched),
                         *((f"{k} masked", e) for k, e in masked.items())]:
         if not entry["launches"]:
             fail(f"the main path never launched {name}")
@@ -5374,15 +5968,20 @@ def main() -> None:
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"],
             "library_ms": entry["library_ms"]})
-    # the time bucket (K2's digit) and the validity mask (K1-K4): launches
-    # are those of the legs whose every launch carries them (phase 10 and
-    # 9g; phase 4d), a subset of the kernel's own entry above
+    # the time bucket (K2's digit), compact keys (K2's key block) and the
+    # validity mask (K1-K4): launches are those of the legs whose every
+    # launch carries them (phase 10 and 9g; phase 14; phase 4d), a subset
+    # of the kernel's own entry above
     for name, kern, entry, replaces in (
             ("group_agg_tbucket", _cuda.GROUP_AGG, kb,
              "pinot_tpu/ops/timeseries_device.py:166"),
             ("group_agg_tbucket_batched", _cuda.GROUP_AGG, kb_batched,
              "pinot_tpu/ops/timeseries_device.py:166,"
              "pinot_tpu/ops/kernels.py:793"),
+            ("group_agg_compact", _cuda.GROUP_AGG, kc,
+             "pinot_tpu/ops/kernels.py:488"),
+            ("group_agg_compact_batched", _cuda.GROUP_AGG, kc_batched,
+             "pinot_tpu/ops/kernels.py:488,793"),
             *((f"{k}_masked", kern, masked[k], f"pinot_tpu/ops/kernels.py:"
                f"{604 if k == 'topn' else 565}")
               for k, kern in (("scan_agg", _cuda.SCAN_AGG),
@@ -5406,7 +6005,7 @@ def main() -> None:
             ("mesh_sharded_batched", "batched",
              "pinot_tpu/ops/kernels.py:893"),
             ("mesh_merged", "merged",
-             "pinot_tpu/ops/collective.py:187,234"),
+             "pinot_tpu/ops/collective.py:187,234,68"),
             ("mesh_step", "step",
              "pinot_tpu/parallel/distributed_query.py:30")):
         entry = mesh_entries[key]

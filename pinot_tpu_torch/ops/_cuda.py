@@ -44,7 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from pinot_tpu_torch.ops import program as prog_mod
-from pinot_tpu_torch.ops.plan_ir import DevicePlan
+from pinot_tpu_torch.ops.plan_ir import DevicePlan, is_grouped
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 #: <repo>/build/kernels — listed in .gitignore
@@ -62,6 +62,10 @@ MAX_BLOCKS_PER_SEGMENT = 1024
 #: table write-out stays small beside its scan
 SKETCH_BLOCKS = 1056
 SKETCH_MIN_DOCS = 1 << 16
+#: K2's largest group count: the int key and its [B, S, G, n_slots] table
+#: offsets (csrc/group_agg.cu); the engine caps G at 2^20 (JAX's
+#: MAX_DEVICE_GROUPS)
+MAX_GROUPS = 1 << 24
 #: K4 sorts its k candidates in one block's shared memory (csrc/topn.cu)
 TOPN_MAX_K = 8192
 #: K4's per-segment state words (csrc/topn.cu ST_*)
@@ -461,7 +465,7 @@ def scan_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
                      luts: Optional[Tensors] = None) -> torch.Tensor:
     """K1 over B members: the ungrouped packed [B, S, 1 + sum(w)] result
     of `plan`, member m over column set idx[m] (`luts`: see _Launch)."""
-    if plan.num_groups:
+    if is_grouped(plan):
         raise ValueError("scan_agg takes ungrouped plans")
     L = _Launch(plan, col_sets, params_list, num_docs_list, idx, D,
                 value_dtype, luts)
@@ -492,14 +496,23 @@ def group_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
                       num_docs_list: List[torch.Tensor], idx: List[int],
                       D: int, value_dtype: torch.dtype,
                       batched: bool = True,
-                      luts: Optional[Tensors] = None) -> torch.Tensor:
+                      luts: Optional[Tensors] = None,
+                      G: int = 0) -> torch.Tensor:
     """K2 over B members: the grouped packed [B, S, G, n_slots] result of
-    `plan`, member m over column set idx[m] (`luts`: see _Launch)."""
-    G = plan.num_groups
-    if not G:
+    `plan`, member m over column set idx[m] (`luts`: see _Launch). G: the
+    group count of a compact-key plan, whose 'gkey' int32 [S, D] blocks
+    hold each doc's code in [0, G); a dense plan's is its num_groups."""
+    if not is_grouped(plan):
         raise ValueError("group_agg takes group-by plans")
+    G = plan.num_groups or G
+    if not 1 <= G <= MAX_GROUPS:
+        raise ValueError(f"group count {G} outside [1, {MAX_GROUPS}]")
     L = _Launch(plan, col_sets, params_list, num_docs_list, idx, D,
                 value_dtype, luts)
+    if plan.group_compact:
+        for u, cols in enumerate(col_sets):
+            _check(cols["gkey"], f"gkey of set {u}", L.device,
+                   (torch.int32,), (L.S, D))
     shape = (L.B, L.S, G, L.prog.out_width)
     table = torch.empty(shape, dtype=torch.float64, device=L.device)
     out = torch.empty(shape, dtype=value_dtype, device=L.device)
@@ -515,10 +528,11 @@ def group_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
 
 def group_agg(plan: DevicePlan, cols: Tensors, params: Tensors,
               num_docs: torch.Tensor, D: int, value_dtype: torch.dtype,
-              luts: Optional[Tensors] = None) -> torch.Tensor:
-    """K2: the grouped packed [S, G, n_slots] result of `plan`."""
+              luts: Optional[Tensors] = None, G: int = 0) -> torch.Tensor:
+    """K2: the grouped packed [S, G, n_slots] result of `plan` (G: see
+    group_agg_batched)."""
     return _single(group_agg_batched, plan, cols, params, num_docs, D,
-                   value_dtype, luts=luts)
+                   value_dtype, luts=luts, G=G)
 
 
 def sketch_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
@@ -532,7 +546,7 @@ def sketch_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
     of the packed [B, S, 1 + sum(w)] result of `plan`, written into `out`
     (K1's output, on the same stream, for a plan that also has scalar
     slots) or into a new tensor (`luts`: see _Launch)."""
-    if plan.num_groups:
+    if is_grouped(plan):
         raise ValueError("sketch_agg takes ungrouped plans")
     L = _Launch(plan, col_sets, params_list, num_docs_list, idx, D,
                 value_dtype, luts)

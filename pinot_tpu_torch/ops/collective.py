@@ -22,19 +22,23 @@ module's:
                the unfiltered count slot (`find_count_slot`).
   batched:     [B, L], the batch axis leading, the same L per member.
 
-Group keys are global: dictIds are segment-local, so the host factorizes
-a global key space over the union of the segments' dictionary values
-(engine `_merged_group_params`, dense keys). The JAX kernel remaps every
-doc's key through per-column tables (`gmap<i>`, `gstride`) before its
-group-by; here K2 groups by the local dense key as on one device, and K9
-remaps its [S_loc, G_local, n_slots] partials: `merged_plan` turns the
-[S, G_local] map (local key -> global index, -1 for none) into inverse
-lists, and each global group folds its (slot, segment, local key)
-partials in that order. Sum, min and max are associative and the remap is
-a function of the local key, so the algebra is the JAX kernel's; a local
-key past a segment's cardinalities holds identities, so it adds nothing.
-The cost is S * G_local reads of partials in place of a gather per doc
-and group column.
+Group keys are global: dictIds and compact codes are segment-local, so
+the host factorizes a global key space once (engine
+`_merged_group_params`): dense keys over the union of the segments'
+dictionary values, compact keys over the sorted union of the key tuples
+the segments hold. The JAX kernel remaps every doc's key before its
+group-by, through per-column tables (`gmap<i>`, `gstride`) or, compact,
+one [S, G_local] code -> global index table (`gmap`, `_global_keys`
+:68-73); here K2 groups by the local key (dense, or the compact code) as
+on one device, and K9 remaps its [S_loc, G_local, n_slots] partials:
+`merged_plan` turns the [S, G_local] map (local key -> global index, -1
+for none: a dense key past a segment's cardinalities, a compact code past
+its table, a padded segment) into inverse lists, and each global group
+folds its (slot, segment, local key) partials in that order. Sum, min and
+max are associative and the remap is a function of the local key, so the
+algebra is the JAX kernel's; a local key no doc holds keeps identities,
+so it adds nothing. The cost is S * G_local reads of partials in place of
+a gather per doc and group column.
 
 Each slot's combine rides `kernels.DOC_COMBINE`, as across doc shards:
 sums, counts, moments, exact-sum planes and histogram buckets add; min
@@ -70,11 +74,24 @@ def find_count_slot(plan: DevicePlan) -> Optional[int]:
 
 def compose_remap(plan: DevicePlan, gparams: Dict[str, np.ndarray],
                   S: int) -> np.ndarray:
-    """The [S, G_local] int64 map, local dense key -> global index, from
-    the JAX engine's remap parameters: per group column i `gmap<i>` [S,
-    C] (local dictId -> index into the union of the column's values) and
-    `gstride` [S, k] (the global mixed-radix strides). The local key's
-    digits come from the plan's strides."""
+    """The [S, G_local] int64 map, local key -> global index, from the JAX
+    engine's remap parameters. Compact keys: `gmap` [S, G_local] (local
+    code -> global index), where the JAX engine leaves 0 at the codes
+    past a segment's table; a segment's codes number its tuples in sorted
+    order, as the global indexes number the union's, so its real codes
+    map strictly increasing, and a 0 past code 0 marks a code no doc
+    holds: -1 here, so K9 reads no list entry for it. Dense keys: per
+    group column i `gmap<i>` [S, C] (local dictId -> index into the
+    union of the column's values) and `gstride` [S, k] (the global
+    mixed-radix strides), the local key's digits from the plan's
+    strides."""
+    if plan.group_compact:
+        gmap = np.asarray(gparams["gmap"], dtype=np.int64)
+        if gmap.ndim != 2 or gmap.shape[0] != S:
+            raise ValueError(f"compact gmap of shape {gmap.shape} for {S} "
+                             "segments")
+        pad = (gmap == 0) & (np.arange(gmap.shape[1]) > 0)
+        return np.where(pad, -1, gmap)
     G_local = plan.num_groups
     key = np.arange(G_local, dtype=np.int64)
     out = np.zeros((S, G_local), dtype=np.int64)
@@ -97,9 +114,10 @@ def merged_plan(plan: DevicePlan, mesh: Mesh, S: int, G: int = 0,
     slot's [S_loc, 1 + sum(w)] partial, slot by slot, segment by segment.
     Grouped: G output rows of n_slots columns, row g folding the (slot,
     segment, local key) partials whose remap[segment, key] is g, in that
-    order; remap -1 folds nowhere. The [S] tail adds each segment's
-    matched count over its doc slices (and its local keys); tail=False
-    leaves it out."""
+    order; remap -1 folds nowhere. G_local is the remap's width: the
+    plan's num_groups for dense keys, the launch's G for compact ones. The
+    [S] tail adds each segment's matched count over its doc slices (and
+    its local keys); tail=False leaves it out."""
     n_seg, n_doc = mesh.shape
     s_loc = S // n_seg
     P = mesh.size
@@ -116,10 +134,10 @@ def merged_plan(plan: DevicePlan, mesh: Mesh, S: int, G: int = 0,
             np.array([0, P * s_loc]), src, 0,
             *((np.arange(S + 1, dtype=np.int64) * n_doc, tsrc.ravel())
               if tail else ()))
-    G_local = plan.num_groups
     n = len(plan.agg_ops)
     remap = np.asarray(remap, dtype=np.int64)
-    if remap.shape != (S, G_local):
+    G_local = remap.shape[-1] if plan.group_compact else plan.num_groups
+    if remap.shape != (S, G_local) or not G_local:
         raise ValueError(f"remap of shape {remap.shape}, expected "
                          f"{(S, G_local)}")
     if remap.size and remap.max() >= G:
@@ -149,14 +167,15 @@ def merged_plan(plan: DevicePlan, mesh: Mesh, S: int, G: int = 0,
 
 def _fold_of(plan: DevicePlan, mesh: Mesh, S: int, G: int, fold, plist):
     """The launch's fold: `fold` as given; else, ungrouped, the batch
-    geometry's; grouped, the one the members' `gmap<i>` / `gstride`
-    parameters compose, which they must share."""
+    geometry's; grouped, the one the members' `gmap` (compact) or
+    `gmap<i>` / `gstride` (dense) parameters compose, which they must
+    share."""
     if fold is not None:
         return fold
     if not plan.group_cols:
         return ungrouped_plan(plan, mesh, S)
-    names = [f"gmap{ci}" for ci in range(len(plan.group_cols))] \
-        + ["gstride"]
+    names = ["gmap"] if plan.group_compact else \
+        [f"gmap{ci}" for ci in range(len(plan.group_cols))] + ["gstride"]
     maps = [compose_remap(plan, {k: p[k].cpu().numpy() for k in names}, S)
             for p in plist]
     if any(not np.array_equal(m, maps[0]) for m in maps[1:]):
@@ -191,14 +210,22 @@ def plain_merged_kernel(plan: DevicePlan, mesh: Mesh,
                    lambda parts, fold: kernels.mesh_fold_plain(parts, fold))
 
 
+def _local_groups(plan: DevicePlan, fold: kernels.MeshFold,
+                  s_loc: int) -> int:
+    """The slots' group count: the fold reads [s_loc, G_local] partial
+    rows per slot (0 ungrouped)."""
+    return fold.rows_in // s_loc if plan.group_cols else 0
+
+
 def _merged(plan, mesh, single, fold_fn):
     def kernel(cols, params: Tensors, num_docs: torch.Tensor, D: int,
                G: int = 0, fold: Optional[kernels.MeshFold] = None):
         S = num_docs.shape[0]
         f = _fold_of(plan, mesh, S, G, fold, [params])
-        shards, _s_loc, d_loc = kernels.mesh_shards(
+        shards, s_loc, d_loc = kernels.mesh_shards(
             mesh, [cols], [params], [num_docs], D)
-        parts = [single(cs[0], ps[0], ns[0], d_loc).to(
+        g_local = _local_groups(plan, f, s_loc)
+        parts = [single(cs[0], ps[0], ns[0], d_loc, g_local).to(
             mesh.lead, non_blocking=True)[None] for cs, ps, ns in shards]
         return fold_fn(parts, f)[0]
 
@@ -218,11 +245,11 @@ def batched_merged_kernel(plan: DevicePlan, mesh: Mesh,
     def run(col_sets, plist, ndlist, idx, D):
         S = ndlist[0].shape[0]
         f = _fold_of(plan, mesh, S, G, fold, plist)
-        shards, _s_loc, d_loc = kernels.mesh_shards(mesh, col_sets, plist,
-                                                    ndlist, D)
-        parts = [members(cs, ps, ns, idx, d_loc).to(mesh.lead,
-                                                    non_blocking=True)
-                 for cs, ps, ns in shards]
+        shards, s_loc, d_loc = kernels.mesh_shards(mesh, col_sets, plist,
+                                                   ndlist, D)
+        g_local = _local_groups(plan, f, s_loc)
+        parts = [members(cs, ps, ns, idx, d_loc, g_local).to(
+            mesh.lead, non_blocking=True) for cs, ps, ns in shards]
         return kernels.mesh_fold(parts, f, batched=True)
 
     return run

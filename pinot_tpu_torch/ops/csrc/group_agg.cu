@@ -1,12 +1,20 @@
 // K2 group_agg: fused filter + value expressions + per-group reductions over
-// stacked segment blocks [S, D] with dense mixed-radix keys, packed as
-// [S, G, n_slots].
+// stacked segment blocks [S, D] with dense mixed-radix keys or compact
+// per-segment key codes, packed as [S, G, n_slots].
 //
 // Replaces the grouped branch of pinot_tpu/ops/kernels.py:537
 // `make_kernel`: keys from `_compute_slots` :490-495, `_grouped_reduce`
 // :252, `_scatter_sum` :287, `_vmap_scatter` :316. The JAX kernel's one-hot
 // matmul for small key spaces (:299-311) was a device for the TPU's matrix
 // unit; the function is a scatter-sum, and here it is one.
+//
+// Also replaces the compact-key branch, kernels.py:488-491: where the
+// dense key space exceeds 2^20 the engine stages an int32 [S, D] `gkey`
+// block of per-segment codes over the key tuples present, and the program
+// names it as the key's only digit at stride 1, so each kept doc's key is
+// one load of its code. G (8 to 2^20) comes with the launch; past the
+// 40 KB shared table (G x n_slots x 8 bytes) docs update the float64
+// table in global memory directly, the common case for compact keys.
 //
 // Also replaces pinot_tpu/ops/timeseries_device.py:166 `bucket_ids` (the
 // fused time bucket, kernels.py:496-506): where the plan carries one, each
@@ -18,7 +26,11 @@
 // Bound on an H100: bytes, as for K1 — each staged element is read once;
 // the output [S, G, n_slots] is small beside the columns (a time bucket
 // reads two i32 planes more per kept doc and does a handful of integer
-// operations: still bytes).
+// operations: still bytes). At compact G the float64 table's init write
+// and finalize read (B x S x G x n_slots entries) are no longer small
+// beside the columns; they are this design's scratch, not the function's
+// traffic, so the bound leaves them out and chip_smoke.py reports them
+// beside it.
 //
 // Design: grid (B members x blocks per segment, S), a single launch being
 // the B = 1 case (interp.cuh: the member axis), each

@@ -92,8 +92,20 @@ key. A selection, the MSE leaf's doc ids, a CLP leaf, a star-tree query
 on a segments-only mesh and a time bucket on an explicit mesh raise
 NotOffloadable with reason 'mesh', counted as `mesh_refused{mode}`; a
 vector search on a doc-sharded mesh is JAX's 'staging' fallback; a
-star-tree query on a doc-sharded mesh takes the scan leg (JAX :674). No
-compact group keys. The rules it keeps from the JAX engine:
+star-tree query on a doc-sharded mesh takes the scan leg (JAX :674).
+
+A GROUP BY or DISTINCT over dictionary columns whose dense key space
+exceeds MAX_DEVICE_GROUPS plans compact keys (JAX :1688-1694): each
+segment's key tuples present are factorized once on the host
+(`factorize_keys`, cached in the host rows per (segment, group columns)),
+their int32 codes stage as the `gkey` column through the three levels,
+K2 groups by them at G, the power of two of the most tuples a segment
+holds (a launch argument, in the coalesce key), and assembly decodes the
+codes through each segment's table; a merge remaps them through the
+sorted union of the batch's tuples (`_merged_group_params`). A G past
+MAX_DEVICE_GROUPS or the group-result cap raises NotOffloadable, reason
+'groups', where JAX goes to its host. The rules it keeps from the JAX
+engine:
 cardinality-aware i8/i16/i32 id staging, power-of-two doc padding masked by
 `num_docs`, the per-segment doc cap, the group-count and group-result-size
 caps, the float32 precision guard, the exact-int-sum (isum) admission, the
@@ -112,6 +124,7 @@ missing feature: the port has no host executor to hand it to.
 """
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from collections import Counter, OrderedDict
@@ -128,7 +141,7 @@ from pinot_tpu_torch.ops import (clp_device, collective, kernels, program,
 from pinot_tpu_torch.ops import residency as residency_mod
 #: most rows a selection fetches per segment (limit + offset)
 from pinot_tpu_torch.ops._cuda import TOPN_MAX_K
-from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan
+from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan, is_grouped
 from pinot_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_block
 from pinot_tpu_torch.query import executor_cpu
 from pinot_tpu_torch.query.context import QueryContext
@@ -286,7 +299,8 @@ class TorchOperatorExecutor:
         self._blocks: "OrderedDict[tuple, Tuple[tuple, torch.Tensor]]" = \
             OrderedDict()
         self._cached = 0
-        #: (id(segment), kind, column, row length, dtype) -> (segment, row)
+        #: (id(segment), kind, column, row length, dtype) -> (segment, row);
+        #: (id(segment), "gkey_table", group columns) -> (segment, table)
         self._host_rows: "OrderedDict[tuple, Tuple[Any, np.ndarray]]" = \
             OrderedDict()
         self._host_bytes = 0
@@ -680,7 +694,12 @@ class TorchOperatorExecutor:
         cols, params, num_docs, D = self._stage(segments, ctx, plan, stamps)
         cols_key = _batch_key(segments) if stamps is None \
             else (_batch_key(segments), stamps)
-        G = plan.num_groups
+        # a compact-key plan's G comes from its staging (the cached tables)
+        # and rides the launch, the batched kernel and the coalesce key:
+        # members coalesce only at equal G (JAX :500-527)
+        G = self._compact_groups(segments, plan, int(num_docs.shape[0])) \
+            if plan.group_compact else plan.num_groups
+        gkw = {"G": G} if plan.group_compact else {}
         batched = kernels.batched_kernel(plan, self.value_dtype)
         mesh_sig: tuple = ()
         if self._mesh is not None:
@@ -689,6 +708,7 @@ class TorchOperatorExecutor:
                 kernel = kernels.sharded_kernel(plan, mesh, vdt)
                 batched = kernels.batched_sharded_kernel(plan, mesh, vdt)
             else:
+                gkw = {}
                 G, fold = minfo["G"], minfo["fold"]
                 merged = collective.merged_kernel(plan, mesh, vdt)
                 kernel = (lambda c, p, nd, d, _m=merged, _g=G, _f=fold:
@@ -698,6 +718,8 @@ class TorchOperatorExecutor:
             mesh_sig = (("mesh", mesh.key, minfo is not None,
                          id(minfo["fold"]) if minfo and plan.group_cols
                          else None),)
+        if gkw:
+            batched = functools.partial(batched, **gkw)
         batch_key = None
         if self._dispatcher.batch_max > 1:
             if self._cross_table and D <= DOC_BUCKET_MAX:
@@ -706,7 +728,7 @@ class TorchOperatorExecutor:
             else:
                 batch_key = (plan, _batch_key(segments), D, G) + mesh_sig
         return dispatch_mod.Launch(
-            call=lambda: kernel(cols, params, num_docs, D),
+            call=lambda: kernel(cols, params, num_docs, D, **gkw),
             cols=cols, params=params, num_docs=num_docs, D=D,
             batch_key=batch_key, cols_key=cols_key, batched=batched,
             cancel_check=cancel_check,
@@ -755,20 +777,26 @@ class TorchOperatorExecutor:
 
     def _merged_group_params(self, segments, plan: DevicePlan, S: int):
         """A global key space over the batch (JAX `_merged_group_params`
-        :566, dense keys): per group column the union of the segments'
-        dictionary values, the global mixed-radix strides over the union
-        cardinalities, and the [S, G_local] map from each segment's local
-        dense key to its global index (-1 past the segment's
-        cardinalities, and for padded segments), turned into K9's lists
-        (`collective.merged_plan`). Cached per (segment batch, plan, S);
-        returns (fold, G pad, real group count, (strides, cards,
-        unions))."""
+        :566): per group column the union of the segments' dictionary
+        values, the mixed-radix strides over the union cardinalities, and
+        the [S, G_local] map from each segment's local key to its global
+        index (-1 for none: a dense key past the segment's cardinalities,
+        a compact code past its table, a padded segment), turned into K9's
+        lists (`collective.merged_plan`). Dense keys: the global key is the
+        mixed-radix key itself. Compact keys (JAX :583-607): the sorted
+        union of the key tuples the segments hold, numbered in order; each
+        segment's table maps its codes to dictIds, its dictionary those to
+        union indexes, whose mixed-radix keys sort as the value tuples do.
+        Cached per (segment batch, plan, S); returns (fold, G pad, real
+        group count, decode): (strides, cards, unions), plus the union's
+        sorted keys for compact plans."""
         key = (_batch_key(segments), plan, S)
         ent = self._gmap_cache.get(key)
         if ent is not None and all(a is b for a, b in zip(ent[0], segments)):
             self._gmap_cache.move_to_end(key)
             return ent[1]
-        G_local = plan.num_groups
+        G_local = self._compact_groups(segments, plan, S) \
+            if plan.group_compact else plan.num_groups
         n_slots = max(len(plan.agg_ops), 1)
         if 16 * self._doc_axis * S * G_local > self.GMAP_MAX_BYTES:
             raise _MergeFallback("groups")
@@ -781,36 +809,52 @@ class TorchOperatorExecutor:
                                        .get_values(np.arange(card))))
             per_col.append(vals)
             unions.append(np.unique(np.concatenate(vals)))
-        cards = [len(u) for u in unions]
-        n_real = 1
+        cards = [max(len(u), 1) for u in unions]
+        prod = int(np.prod(cards, dtype=object))
+        if prod > (MAX_DEVICE_GROUPS if not plan.group_compact
+                   else 1 << 62):  # dense: G; compact: int64 keys
+            raise _MergeFallback("groups")
+        strides, st = [], prod
         for c in cards:
-            n_real *= max(c, 1)
-            if n_real > MAX_DEVICE_GROUPS:
-                raise _MergeFallback("groups")
+            st //= c
+            strides.append(st)
+        remap = np.full((S, G_local), -1, dtype=np.int64)
+        decode: tuple = (tuple(strides), tuple(cards), tuple(unions))
+        if plan.group_compact:
+            seg_keys = []
+            for s, seg in enumerate(segments):
+                table = self._gkey_table(seg, plan)
+                k = np.zeros(table.shape[0], dtype=np.int64)
+                for ci, stride in enumerate(strides):
+                    index = np.searchsorted(unions[ci], per_col[ci][s])
+                    k += index[table[:, ci]].astype(np.int64) * stride
+                seg_keys.append(k)
+            ukeys = np.unique(np.concatenate(seg_keys))
+            for s, k in enumerate(seg_keys):
+                remap[s, :len(k)] = np.searchsorted(ukeys, k)
+            n_real = len(ukeys)
+            decode += (ukeys,)
+        else:
+            local = np.arange(G_local, dtype=np.int64)
+            for s in range(len(segments)):
+                g = np.zeros(G_local, dtype=np.int64)
+                ok = np.ones(G_local, dtype=bool)
+                rem = local
+                for ci, lst in enumerate(plan.group_strides):
+                    ids = rem // lst
+                    rem = rem % lst
+                    index = np.searchsorted(unions[ci], per_col[ci][s])
+                    ok &= ids < len(index)
+                    g += index[np.minimum(ids, len(index) - 1)] \
+                        * strides[ci]
+                remap[s] = np.where(ok, g, -1)
+            n_real = prod
         G_m = _pow2(max(n_real, 1), floor=8)
         if G_m > MAX_DEVICE_GROUPS \
                 or S * G_m * n_slots * 8 > MAX_GROUP_RESULT_BYTES:
             raise _MergeFallback("groups")
-        strides, st = [], n_real
-        for c in cards:
-            st //= max(c, 1)
-            strides.append(st)
-        remap = np.full((S, G_local), -1, dtype=np.int64)
-        local = np.arange(G_local, dtype=np.int64)
-        for s in range(len(segments)):
-            g = np.zeros(G_local, dtype=np.int64)
-            ok = np.ones(G_local, dtype=bool)
-            rem = local
-            for ci, lst in enumerate(plan.group_strides):
-                ids = rem // lst
-                rem = rem % lst
-                index = np.searchsorted(unions[ci], per_col[ci][s])
-                ok &= ids < len(index)
-                g += index[np.minimum(ids, len(index) - 1)] * strides[ci]
-            remap[s] = np.where(ok, g, -1)
         fold = collective.merged_plan(plan, self._mesh, S, G_m, remap)
-        out = (fold, G_m, n_real, (tuple(strides), tuple(cards),
-                                   tuple(unions)))
+        out = (fold, G_m, n_real, decode)
         self._gmap_cache[key] = (tuple(segments), out)
         while len(self._gmap_cache) > self.GMAP_CACHE_ENTRIES:
             self._gmap_cache.popitem(last=False)
@@ -1179,6 +1223,7 @@ class TorchOperatorExecutor:
         group_cols: List[str] = []
         group_strides: List[int] = []
         num_groups = 0
+        group_compact = False
         tbucket: Tuple = ()
         if ctx.group_by:
             gb = list(ctx.group_by)
@@ -1190,8 +1235,9 @@ class TorchOperatorExecutor:
                 col = g.name  # Identifier, checked in missing_feature
                 if not classify(col) or \
                         not seg0.metadata.columns[col].has_dictionary:
+                    # the JAX planner sends it to its host executor (:1672)
                     raise NotOffloadable(
-                        f"group-by on raw column {col} (compact group keys)")
+                        f"group-by on raw column {col} (no dictionary)")
                 card = max(seg.metadata.columns[col].cardinality
                            for seg in segments)
                 group_cols.append(col)
@@ -1200,22 +1246,39 @@ class TorchOperatorExecutor:
             # mixed radix ahead of the tag cardinalities
             num_groups = int(np.prod(card_pads, dtype=object)) \
                 * (tb_spec.count_pad if tb_spec else 1)
-            if num_groups > MAX_DEVICE_GROUPS:
+            if tb_spec is not None and num_groups > MAX_DEVICE_GROUPS:
+                # compact keys cannot carry the fused bucket digit: the
+                # JAX planner sends such a panel to its host (:1684-1687)
                 raise NotOffloadable(
-                    f"{num_groups} dense group keys (compact group keys"
-                    + (", which never carry a time bucket)" if tb_spec
-                       else ")"))
-            n_slots = len(agg_ops) + 1  # +1 guaranteed count slot
-            if len(segments) * num_groups * n_slots * 8 \
-                    > MAX_GROUP_RESULT_BYTES:
-                raise NotOffloadable("group-by result above the device cap")
-            stride = num_groups
-            for c in card_pads:
-                stride //= c
-                group_strides.append(stride)
+                    f"{num_groups} dense group keys (above "
+                    f"{MAX_DEVICE_GROUPS}; compact keys never carry a time "
+                    "bucket)")
+            if num_groups > MAX_DEVICE_GROUPS:
+                # a sparse key space: per-segment codes over the key
+                # tuples present replace the dense product (JAX
+                # :1688-1694); their count G is resolved at staging
+                group_compact = True
+                num_groups = 0
+            else:
+                n_slots = len(agg_ops) + 1  # +1 guaranteed count slot
+                if len(segments) * num_groups * n_slots * 8 \
+                        > MAX_GROUP_RESULT_BYTES:
+                    raise NotOffloadable(
+                        "group-by result above the device cap")
+                stride = num_groups
+                for c in card_pads:
+                    stride //= c
+                    group_strides.append(stride)
             # group-by always needs an unfiltered count slot to detect
             # present groups
             slot(("count", None, None))
+        if group_compact:
+            # the gkey block replaces the id blocks of the columns only
+            # the group-by reads (JAX :1723-1729)
+            needed = {lf.column for lf in leaves}
+            for ir in value_irs:
+                needed |= _ir_cols(ir)
+            dict_cols -= set(group_cols) - needed
 
         plan = DevicePlan(
             filter_ir=filter_ir,
@@ -1226,6 +1289,7 @@ class TorchOperatorExecutor:
             group_cols=tuple(group_cols),
             group_strides=tuple(group_strides),
             num_groups=num_groups,
+            group_compact=group_compact,
             dict_cols=tuple(sorted(dict_cols)),
             raw_cols=tuple(sorted(raw_cols - raw64)),
             raw64_cols=tuple(sorted(raw64)),
@@ -1494,6 +1558,16 @@ class TorchOperatorExecutor:
         S = self._padded_S(len(segments), D)
         vdt = self._vdt
         cols: Dict[str, torch.Tensor] = {}
+        if plan.group_compact:
+            # the key codes first: G's caps raise before any upload (JAX
+            # :2378-2382), and the codes ride the three levels as a column
+            # (a host-row miss factorizes)
+            self._compact_groups(segments, plan, S)
+            sig = ",".join(plan.group_cols)
+            cols["gkey"] = self._cached_block(
+                segments, S, D, "gkey", sig, [sig] * len(segments),
+                [lambda seg: factorize_keys(seg, plan.group_cols)[0]]
+                * len(segments), np.int32)
         for col in plan.dict_cols:
             # cardinality-aware id width: bytes read are the bound, so an
             # 11-value dictionary column reads 4x fewer bytes as i8
@@ -1870,13 +1944,54 @@ class TorchOperatorExecutor:
         raw = fetch(seg)
         arr = np.zeros(Dr, dtype=dtype)
         arr[:len(raw)] = raw
+        self._keep_host_row(rkey, seg, arr)
+        return arr
+
+    def _keep_host_row(self, rkey, seg, arr: np.ndarray) -> None:
+        """Cache a host row and evict the oldest past HOST_ROW_BYTES."""
         self._host_rows[rkey] = (seg, arr)
         self._host_bytes += arr.nbytes
         while self._host_bytes > self.HOST_ROW_BYTES \
                 and len(self._host_rows) > 1:
             _k, (_s, gone) = self._host_rows.popitem(last=False)
             self._host_bytes -= gone.nbytes
-        return arr
+
+    def _compact_groups(self, segments, plan: DevicePlan, S: int) -> int:
+        """A compact-key plan's G over a batch of S (padded) segments: the
+        power of two (floor 8) of the most key tuples a segment holds.
+        Raises NotOffloadable, reason 'groups', past MAX_DEVICE_GROUPS or
+        the group-result cap (JAX sends such a batch to its host)."""
+        n = max(self._gkey_table(seg, plan).shape[0] for seg in segments)
+        G = _pow2(n, floor=8)
+        if G > MAX_DEVICE_GROUPS \
+                or S * G * len(plan.agg_ops) * 8 > MAX_GROUP_RESULT_BYTES:
+            raise NotOffloadable(
+                f"{n} key tuples in a segment: compact group keys past the "
+                f"device's {MAX_DEVICE_GROUPS} or its group-result cap",
+                reason="groups")
+        return G
+
+    def _gkey_table(self, seg, plan: DevicePlan) -> np.ndarray:
+        """The decode table [G_s, k] int32 dictIds of one segment's compact
+        group keys (JAX `_segment_gkey` :2389), cached in the host rows per
+        (segment, group columns). A miss factorizes and keeps the codes as
+        the segment's `gkey` host row too (the staged column's), so a
+        repeat query factorizes nothing; factorizing is deterministic, so
+        a row rebuilt after an eviction equals it. Takes the engine lock:
+        assembly calls it outside."""
+        with self._engine_lock:
+            sig = ",".join(plan.group_cols)
+            rkey = (id(seg), "gkey_table", sig)
+            hit = self._host_rows.get(rkey)
+            if hit is not None and hit[0] is seg:
+                self._host_rows.move_to_end(rkey)
+                self._meter("host_row_hit")
+                return hit[1]
+            self._meter("host_row_miss")
+            codes, table = factorize_keys(seg, plan.group_cols)
+            self._host_row(seg, "gkey", sig, lambda _s: codes, np.int32)
+            self._keep_host_row(rkey, seg, table)
+            return table
 
     # ------------------------------------------------------------------
     # star-tree leg (ops/startree_device.py)
@@ -1984,9 +2099,10 @@ class TorchOperatorExecutor:
                 self._cached -= gone.numel() * gone.element_size()
             for k in [k for k, v in self._host_rows.items() if stale(v[0])]:
                 self._host_bytes -= self._host_rows.pop(k)[1].nbytes
-            for k in [k for k, v in self._params_cache.items()
-                      if any(stale(x) for x in v[0])]:
-                del self._params_cache[k]
+            for cache in (self._params_cache, self._gmap_cache):
+                for k in [k for k, v in cache.items()
+                          if any(stale(x) for x in v[0])]:
+                    del cache[k]
             self._residency.invalidate_segment(name, keep=keep)
 
     def drop_caches(self, host: bool = True) -> None:
@@ -1998,6 +2114,7 @@ class TorchOperatorExecutor:
             self._params_cache.clear()
             self._residency.drop_all()
             if host:
+                self._gmap_cache.clear()
                 self._host_rows.clear()
                 self._host_bytes = 0
 
@@ -2055,7 +2172,8 @@ class TorchOperatorExecutor:
         widths = [kernels.slot_width(op) for op, _v, _f in plan.agg_ops]
         offsets = np.concatenate([[0], np.cumsum(widths)]).astype(int)
         count_j = None
-        if plan.num_groups:
+        grouped = is_grouped(plan)
+        if grouped:
             count_j = plan.agg_ops.index(("count", None, None))
         # histogram bounds are batch-global: once per slot
         hist_bounds = {j: self._hist_bounds(segments, plan.value_irs[v][1])
@@ -2063,13 +2181,13 @@ class TorchOperatorExecutor:
                        if op.startswith("hist:")}
         results = []
         for s, seg in enumerate(segments):
-            if plan.num_groups:
+            if grouped:
                 matched = int(round(float(packed[s, :, count_j].sum())))
             else:
                 matched = int(round(float(packed[s, 0])))
             stats = _segment_stats(seg, ctx, matched,
                                    matched * n_valued_aggs)
-            if plan.num_groups:
+            if grouped:
                 results.append(self._assemble_group(
                     seg, s, ctx, plan, packed, count_j, mappings, stats))
                 continue
@@ -2096,9 +2214,15 @@ class TorchOperatorExecutor:
             results.append(AggregationResult(inters, stats))
         return results
 
+    def _decode_table(self, seg, plan: DevicePlan) -> Optional[np.ndarray]:
+        """A compact-key plan's decode table of the segment (code ->
+        dictIds), else None."""
+        return self._gkey_table(seg, plan) if plan.group_compact else None
+
     def _assemble_group(self, seg, s, ctx, plan, packed, count_j, mappings,
                         stats) -> GroupByResult:
-        present, keys = _group_keys(seg, plan, packed[s, :, count_j])
+        present, keys = _group_keys(seg, plan, packed[s, :, count_j],
+                                    self._decode_table(seg, plan))
         groups: Dict[tuple, list] = {}
         for key, g in zip(keys, present):
             groups[key] = [
@@ -2107,8 +2231,8 @@ class TorchOperatorExecutor:
                 for fn, mapping in zip(ctx.agg_functions, mappings)]
         return GroupByResult(groups, stats)
 
-    @staticmethod
-    def _assemble_distinct(segments, gctx: QueryContext, plan: DevicePlan,
+    def _assemble_distinct(self, segments, gctx: QueryContext,
+                           plan: DevicePlan,
                            packed: np.ndarray) -> List[DistinctResult]:
         """The present group keys of a DISTINCT's group-by, as
         DistinctResults (no per-group intermediates)."""
@@ -2116,7 +2240,8 @@ class TorchOperatorExecutor:
         results = []
         for s, seg in enumerate(segments):
             counts = packed[s, :, count_j]
-            _present, keys = _group_keys(seg, plan, counts)
+            _present, keys = _group_keys(seg, plan, counts,
+                                         self._decode_table(seg, plan))
             matched = int(round(float(counts.sum())))
             results.append(DistinctResult(
                 set(keys), _segment_stats(seg, gctx, matched, 0)))
@@ -2182,14 +2307,18 @@ class TorchOperatorExecutor:
     def _assemble_merged_group(ctx, plan: DevicePlan, packed, mappings,
                                minfo: dict, stats) -> GroupByResult:
         """The merged [G, n_slots] block's present global keys, decoded by
-        the union strides (JAX `_assemble_merged_group` :3088)."""
+        the union strides, a compact key through the union's mixed-radix
+        keys first (JAX `_assemble_merged_group` :3088)."""
         G, n_slots = minfo["G"], len(plan.agg_ops)
         gp = np.asarray(packed[:G * n_slots]).reshape(G, n_slots)
         count_j = collective.find_count_slot(plan)
         present = np.nonzero(gp[:, count_j] > 0)[0]
         present = present[present < minfo["n_real"]]
-        strides, cards, unions = minfo["decode"]
-        cols = [unions[ci][(present // strides[ci]) % cards[ci]].tolist()
+        strides, cards, unions = minfo["decode"][:3]
+        # compact: global index -> the union's mixed-radix key (JAX
+        # :3102-3104 decodes through the tuple union)
+        keys = minfo["decode"][3][present] if plan.group_compact else present
+        cols = [unions[ci][(keys // strides[ci]) % cards[ci]].tolist()
                 for ci in range(len(plan.group_cols))]
         groups: Dict[tuple, list] = {}
         for key, g in zip(zip(*cols), present):
@@ -2296,14 +2425,23 @@ def _segment_stats(seg, ctx: QueryContext, matched: int,
         total_docs=seg.num_docs)
 
 
-def _group_keys(seg, plan: DevicePlan, counts: np.ndarray):
-    """The dense keys with a nonzero count, and their group-key tuples
-    (raw values): combined keys decoded by mixed radix into dictIds, keys
-    beyond this segment's cardinalities dropped. With a fused time bucket
-    the remainder after the tag strides is the bucket, the key's first
-    value, a float as the host's floor() over a double division gives it
-    (JAX `_assemble_group` :3002-3018)."""
+def _group_keys(seg, plan: DevicePlan, counts: np.ndarray,
+                table: Optional[np.ndarray] = None):
+    """The keys with a nonzero count, and their group-key tuples (raw
+    values). Compact keys: each code's dictIds from the segment's decode
+    `table`, codes at or past its length dropped (JAX :2987-2993). Dense
+    keys: combined keys decoded by mixed radix into dictIds, keys beyond
+    this segment's cardinalities dropped; with a fused time bucket the
+    remainder after the tag strides is the bucket, the key's first value,
+    a float as the host's floor() over a double division gives it (JAX
+    `_assemble_group` :3002-3018)."""
     present = np.nonzero(counts > 0)[0]
+    if plan.group_compact:
+        present = present[present < table.shape[0]]
+        key_cols = [seg.data_source(c).dictionary.get_values(
+            table[present, j]).tolist()
+            for j, c in enumerate(plan.group_cols)]
+        return present, list(zip(*key_cols))
     cards = [seg.metadata.columns[c].cardinality for c in plan.group_cols]
     rem = present.copy()
     ids_per_col = []
@@ -2318,6 +2456,45 @@ def _group_keys(seg, plan: DevicePlan, counts: np.ndarray):
     if plan.tbucket:
         key_cols.insert(0, rem[valid].astype(np.float64).tolist())
     return present[valid], list(zip(*key_cols))
+
+
+def factorize_keys(seg, group_cols) -> Tuple[np.ndarray, np.ndarray]:
+    """One segment's compact group keys (JAX `_segment_gkey_locked`
+    :2400): each doc's code among the key tuples the segment holds, in
+    [0, G_s), as int32 [num_docs], and the decode table int32 [G_s, k] of
+    their per-column dictIds, codes in mixed-radix order of the dictIds.
+    A dense remap where the key space is small beside the docs, else a
+    sort (np.unique)."""
+    cards, prod = [], 1
+    for col in group_cols:
+        if not seg.has_column(col):
+            raise NotOffloadable(f"column {col} missing in {seg.name}")
+        card = max(int(seg.metadata.columns[col].cardinality), 1)
+        cards.append(card)
+        prod *= card
+    if prod > (1 << 62):
+        raise NotOffloadable(f"group keys over {list(group_cols)} overflow "
+                             "a 64-bit mixed radix", reason="groups")
+    combined = np.zeros(seg.num_docs, np.int64)
+    for col, card in zip(group_cols, cards):
+        combined = combined * card \
+            + seg.data_source(col).dict_ids().astype(np.int64)
+    if prod <= (1 << 26) and prod <= 16 * max(seg.num_docs, 1):
+        # O(docs + key space) for a first query over a small key space
+        present = np.zeros(prod, dtype=bool)
+        present[combined] = True
+        uniq = np.flatnonzero(present).astype(np.int64)
+        remap = np.empty(prod, dtype=np.int32)  # only hit entries read
+        remap[uniq] = np.arange(len(uniq), dtype=np.int32)
+        inv = remap[combined]
+    else:
+        uniq, inv = np.unique(combined, return_inverse=True)
+    table = np.empty((len(uniq), len(group_cols)), np.int32)
+    rem = uniq.copy()
+    for j in range(len(group_cols) - 1, -1, -1):
+        table[:, j] = rem % cards[j]
+        rem //= cards[j]
+    return inv.reshape(-1).astype(np.int32), table
 
 
 def isum_value(planes: np.ndarray) -> float:

@@ -56,7 +56,11 @@ block into the doc validity (JAX kernels.py:565, :604), in every plain
 version here and in K1-K4. A group-by plan with a fused time bucket
 (`plan.tbucket`) adds `timeseries_device.bucket_ids` as the key's lowest
 digit and ANDs its gate into the match (JAX kernels.py:496-506); K2 does
-the same per doc.
+the same per doc. A compact-key plan (`plan.group_compact`) reads each
+doc's key from the staged int32 `gkey` block of per-segment codes (JAX
+kernels.py:488-491), K2 as one load per doc; its num_groups is 0, so every
+grouped kernel here takes the group count G as its launch argument (JAX's
+static G), and a dense plan's G is its num_groups.
 
 The value dtype (float32, the card's default, or float64) is an explicit
 argument, where the JAX package reads `jax_enable_x64`. Values and their
@@ -73,7 +77,7 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.ops import _cuda, timeseries_device
-from pinot_tpu_torch.ops.plan_ir import DevicePlan
+from pinot_tpu_torch.ops.plan_ir import DevicePlan, is_grouped
 from pinot_tpu_torch.ops.program import (ISUM_PLANES, ISUM_U_BITS,
                                          is_sketch, plan_fingerprint,
                                          slot_width, trace_count,
@@ -487,9 +491,11 @@ def doc_validity(plan: DevicePlan, cols: Tensors, num_docs: torch.Tensor,
 
 def group_keys(plan: DevicePlan, cols: Tensors, params: Tensors,
                shape) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The dense mixed-radix key [S, D] int32 of a group-by plan and the
-    time bucket's gate (None without a bucket): the bucket id is the key's
-    lowest digit."""
+    """The key [S, D] int32 of a group-by plan and the time bucket's gate
+    (None without a bucket): the compact codes of the `gkey` block, or
+    the dense mixed-radix key, the bucket id its lowest digit."""
+    if plan.group_compact:
+        return cols["gkey"].to(torch.int32), None
     device = params["tb:step"].device if plan.tbucket else None
     keys = None
     for col, stride in zip(plan.group_cols, plan.group_strides):
@@ -507,10 +513,20 @@ def group_keys(plan: DevicePlan, cols: Tensors, params: Tensors,
     return keys + b, gate
 
 
+def group_count(plan: DevicePlan, G: int = 0) -> int:
+    """A grouped plan's G: its dense key space, else the launch's G (JAX
+    `plan.num_groups or G`); 0 for an ungrouped plan."""
+    n = plan.num_groups or (G if plan.group_compact else 0)
+    if plan.group_compact and n < 1:
+        raise ValueError("a compact-key plan needs its group count G")
+    return n
+
+
 def compute_slots(plan: DevicePlan, cols: Tensors, params: Tensors,
-                  valid: torch.Tensor, value_dtype: torch.dtype):
-    """Filter + values + per-slot reductions over an [S, D] block. Returns
-    ([(op, [S]- or [S, G]-tensor)], matched [S] or None)."""
+                  valid: torch.Tensor, value_dtype: torch.dtype, G: int = 0):
+    """Filter + values + per-slot reductions over an [S, D] block (G: the
+    group count of a compact-key plan). Returns ([(op, [S]- or [S,
+    G]-tensor)], matched [S] or None)."""
     device = valid.device
     if plan.filter_ir is not None:
         mask = eval_filter(plan.filter_ir, plan, cols, params)
@@ -521,7 +537,8 @@ def compute_slots(plan: DevicePlan, cols: Tensors, params: Tensors,
     values = [eval_value(ir, cols, value_dtype, device)
               for ir in plan.value_irs]
     slots = []
-    if plan.num_groups:
+    num_groups = group_count(plan, G)
+    if num_groups:
         keys, gate = group_keys(plan, cols, params, valid.shape)
         if gate is not None:
             mask = mask & gate
@@ -529,7 +546,7 @@ def compute_slots(plan: DevicePlan, cols: Tensors, params: Tensors,
             m = mask if fidx is None else mask & agg_masks[fidx]
             vals = None if vidx is None else values[vidx]
             slots.append((op, grouped_reduce(op, vals, keys, m, valid,
-                                             plan.num_groups, value_dtype)))
+                                             num_groups, value_dtype)))
         return slots, None
     matched = (mask & valid).sum(1).to(value_dtype)
     for j, (op, vidx, fidx) in enumerate(plan.agg_ops):
@@ -553,14 +570,14 @@ def compute_slots(plan: DevicePlan, cols: Tensors, params: Tensors,
 
 
 def plain_kernel(plan: DevicePlan, value_dtype: torch.dtype = torch.float32):
-    """The plain PyTorch version: fn(cols, params, num_docs, D) -> packed
-    tensor, on whatever device its inputs lie."""
+    """The plain PyTorch version: fn(cols, params, num_docs, D, G=0) ->
+    packed tensor, on whatever device its inputs lie."""
     def kernel(cols: Tensors, params: Tensors, num_docs: torch.Tensor,
-               D: int) -> torch.Tensor:
+               D: int, G: int = 0) -> torch.Tensor:
         valid = doc_validity(plan, cols, num_docs, D)
         slots, matched = compute_slots(plan, cols, params, valid,
-                                       value_dtype)
-        if plan.num_groups:
+                                       value_dtype, G)
+        if is_grouped(plan):
             return torch.stack([s for _, s in slots], -1)
         return pack_flat(matched, slots)
 
@@ -578,8 +595,8 @@ def make_kernel(plan: DevicePlan, value_dtype: torch.dtype = torch.float32):
               'valhi:'/'vallo:<col>' i32 [S, D]
     params:   per-leaf arrays ('leaf<i>:lo/hi/idx/lut/...')
     num_docs: int32 [S] real docs per segment (padding mask)
-    G:        accepted for the JAX signature; this slice plans dense keys
-              only, so the group count is plan.num_groups
+    G:        the group count of a compact-key plan ('gkey' int32 [S, D]
+              codes in [0, G)); a dense plan's is its num_groups
     """
     if value_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"value dtype {value_dtype} is not float32/64")
@@ -590,20 +607,19 @@ def make_kernel(plan: DevicePlan, value_dtype: torch.dtype = torch.float32):
 
     def kernel(cols: Tensors, params: Tensors, num_docs: torch.Tensor,
                D: int, G: int = 0) -> torch.Tensor:
-        if G and G != plan.num_groups:
-            raise ValueError("compact group keys are not in this port yet")
+        G = group_count(plan, G)
         if num_docs.device.type == "cuda":
             args = (plan, cols, params, num_docs, D, value_dtype)
             luts = clp_masks(plan, [cols], [params], [0], D, batched=False)
-            if plan.num_groups:
-                return _cuda.group_agg(*args, luts=luts)
+            if G:
+                return _cuda.group_agg(*args, luts=luts, G=G)
             if not any(sketch):
                 return _cuda.scan_agg(*args, luts=luts)
             out = None if all(sketch) else _cuda.scan_agg(*args, luts=luts)
             return _cuda.sketch_agg(*args, out=out, luts=luts)
         if num_docs.device.type != "cpu":
             raise ValueError(f"no kernel for device {num_docs.device}")
-        return plain(cols, params, num_docs, D)
+        return plain(cols, params, num_docs, D, G)
 
     return kernel
 
@@ -717,25 +733,25 @@ def make_vector_kernel(plan: DevicePlan):
 
 def plain_batched_kernel(plan: DevicePlan,
                          value_dtype: torch.dtype = torch.float32):
-    """The plain batched version: fn(col_sets, plist, ndlist, idx, D) ->
-    [B, ...], each member's plain launch (`plain_kernel`, `topn_kernel` or
-    `vector_device.vector_topk`) over column set idx[m], stacked; on
-    whatever device its inputs lie."""
+    """The plain batched version: fn(col_sets, plist, ndlist, idx, D,
+    G=0) -> [B, ...], each member's plain launch (`plain_kernel`,
+    `topn_kernel` or `vector_device.vector_topk`) over column set idx[m],
+    stacked; on whatever device its inputs lie."""
     if plan.mode == "agg":
         single = plain_kernel(plan, value_dtype)
     elif plan.mode == "vector":
         from pinot_tpu_torch.ops import vector_device
 
-        def single(cols, params, num_docs, D):
+        def single(cols, params, num_docs, D, G=0):
             return vector_device.vector_topk(plan, cols, params, num_docs, D)
     else:
-        def single(cols, params, num_docs, D):
+        def single(cols, params, num_docs, D, G=0):
             return topn_kernel(plan, cols, params, num_docs, D, value_dtype)
 
     def kernel(col_sets: Sequence[Tensors], plist: Sequence[Tensors],
                ndlist: Sequence[torch.Tensor], idx: Sequence[int],
-               D: int) -> torch.Tensor:
-        return torch.stack([single(col_sets[u], params, ndlist[u], D)
+               D: int, G: int = 0) -> torch.Tensor:
+        return torch.stack([single(col_sets[u], params, ndlist[u], D, G)
                             for params, u in zip(plist, idx)])
 
     return kernel
@@ -743,10 +759,11 @@ def plain_batched_kernel(plan: DevicePlan,
 
 def batched_kernel(plan: DevicePlan,
                    value_dtype: torch.dtype = torch.float32):
-    """fn(col_sets, plist, ndlist, idx, D) -> [B, ...]: B = len(plist)
+    """fn(col_sets, plist, ndlist, idx, D, G=0) -> [B, ...]: B = len(plist)
     members over U = len(col_sets) column sets (ndlist: num_docs per set),
-    member m over set idx[m]. One function serves JAX's three batched
-    factories (kernels.py:793 `make_batched_kernel`, :823
+    member m over set idx[m], G a compact-key plan's group count (the
+    members share it: it rides the coalesce key). One function serves
+    JAX's three batched factories (kernels.py:793 `make_batched_kernel`, :823
     `make_batched_dedup_kernel`, :858 `make_batched_topn_kernel`):
     broadcast is U = 1, stacked idx = 0..B-1, dedup a member-to-set map.
     CUDA inputs launch the plan's kernels once for all members (K7 first
@@ -760,15 +777,16 @@ def batched_kernel(plan: DevicePlan,
     plain = plain_batched_kernel(plan, value_dtype)
     sketch = [is_sketch(op) for op, _v, _f in plan.agg_ops]
 
-    def run(col_sets, plist, ndlist, idx, D):
+    def run(col_sets, plist, ndlist, idx, D, G=0):
         if len(ndlist) != len(col_sets) or len(idx) != len(plist) \
                 or not all(0 <= u < len(col_sets) for u in idx):
             raise ValueError(
                 f"{len(plist)} members with {len(idx)} set indexes over "
                 f"{len(col_sets)} column sets and {len(ndlist)} num_docs")
+        G = group_count(plan, G)
         device = ndlist[0].device
         if device.type == "cpu":
-            return plain(col_sets, plist, ndlist, idx, D)
+            return plain(col_sets, plist, ndlist, idx, D, G)
         if device.type != "cuda":
             raise ValueError(f"no kernel for device {device}")
         luts = clp_masks(plan, col_sets, plist, idx, D, batched=True)
@@ -777,8 +795,8 @@ def batched_kernel(plan: DevicePlan,
             return _cuda.topn_batched(*args, luts=luts)
         if plan.mode == "vector":
             return _cuda.vector_topk_batched(*args[:6], luts=luts)
-        if plan.num_groups:
-            return _cuda.group_agg_batched(*args, luts=luts)
+        if G:
+            return _cuda.group_agg_batched(*args, luts=luts, G=G)
         if not any(sketch):
             return _cuda.scan_agg_batched(*args, luts=luts)
         out = None if all(sketch) else _cuda.scan_agg_batched(*args,
@@ -822,7 +840,7 @@ def packed_fold_codes(plan: DevicePlan) -> Tuple[int, ...]:
     """K9's op code of each column of K1-K3's packed output: [S, 1 +
     sum(w)] ungrouped (the matched count adds), [S, G, n_slots] grouped
     (one per slot)."""
-    if plan.num_groups:
+    if is_grouped(plan):
         return tuple(FOLD_CODES[doc_combine(op)] for op, _v, _f in
                      plan.agg_ops)
     return (FOLD_CODES["psum"],) + slot_fold_codes(plan)
@@ -917,12 +935,31 @@ def mesh_fold_plain(parts: Sequence[torch.Tensor],
                        rows(fold.src), ops[:fold.W])
     out = [main.reshape(B, fold.R * fold.W)]
     if fold.T:
-        tail = _fold_lists(flat[:, :, fold.tail_col:fold.tail_col + 1],
-                           fold.toff, rows(fold.tsrc),
-                           torch.zeros(1, dtype=torch.int64,
-                                       device=flat.device))
-        out.append(tail.reshape(B, fold.T))
+        tail = _add_lists(flat[:, rows(fold.tsrc), fold.tail_col],
+                          fold.toff)
+        out.append(torch.from_numpy(tail).to(flat.device))
     return torch.cat(out, 1).to(parts[0].dtype)
+
+
+def _add_lists(vals: torch.Tensor, off: np.ndarray) -> np.ndarray:
+    """[B, T] float64: element t the sum of vals[:, off[t]:off[t + 1]]
+    (vals [B, N] float64), added in order from 0.0, as K9 adds a tail. A
+    grouped tail's list holds every local key of its segment (thousands
+    of entries at compact G), so the lists are padded with zeros, which
+    leave a sum started at +0.0 unchanged, into one [B, T, L] array whose
+    running sums numpy takes in order."""
+    x = vals.cpu().numpy()
+    B, T = x.shape[0], len(off) - 1
+    lens = np.diff(off)
+    L = int(lens.max(initial=0))
+    if not L:
+        return np.zeros((B, T))
+    pos = np.arange(L)
+    held = pos[None, :] < lens[:, None]
+    grid = np.zeros((B, T, L))
+    grid[:, held] = x[:, (off[:-1, None] + pos[None, :])[held]]
+    with np.errstate(invalid="ignore"):  # inf + -inf is NaN, as in K9
+        return np.add.accumulate(grid, axis=2)[:, :, -1]
 
 
 def mesh_fold(parts: Sequence[torch.Tensor], fold: MeshFold,
@@ -955,7 +992,7 @@ def doc_fold(n_seg: int, n_doc: int, s_loc: int, per_seg: int, win: int,
 def packed_width(plan: DevicePlan) -> int:
     """Columns of K1-K3's packed output row: n_slots grouped, 1 + sum(w)
     ungrouped."""
-    if plan.num_groups:
+    if is_grouped(plan):
         return len(plan.agg_ops)
     return 1 + sum(slot_width(op) for op, _v, _f in plan.agg_ops)
 
@@ -991,7 +1028,9 @@ def sharded_kernel(plan: DevicePlan, mesh: Mesh,
     global [S, D] block; params and num_docs: the global [S, ...] arrays
     on the lead device. Each slot runs `make_kernel` on its shard (K1, K3
     or K2 on a card, the plain version on the CPU), its partial moves to
-    the lead device, and one K9 folds the doc slices (`DOC_COMBINE`)."""
+    the lead device, and one K9 folds the doc slices (`DOC_COMBINE`). G:
+    a compact-key plan's group count, as `make_kernel` takes it; the
+    'gkey' block shards with the other columns."""
     return _sharded(plan, mesh, make_kernel(plan, value_dtype), mesh_fold)
 
 
@@ -1009,20 +1048,20 @@ def _sharded(plan, mesh, single, fold_fn):
 
     def kernel(cols: Dict[str, ShardedBlock], params: Tensors,
                num_docs: torch.Tensor, D: int, G: int = 0) -> torch.Tensor:
+        G = group_count(plan, G)
         shards, s_loc, d_loc = mesh_shards(mesh, [cols], [params],
                                            [num_docs], D)
-        parts = [single(cs[0], ps[0], ns[0], d_loc).to(
+        parts = [single(cs[0], ps[0], ns[0], d_loc, G).to(
             mesh.lead, non_blocking=True)[None] for cs, ps, ns in shards]
         return _doc_folded(plan, mesh, parts, s_loc, codes, False,
-                           fold_fn)[0]
+                           fold_fn, G)[0]
 
     return kernel
 
 
-def _doc_folded(plan, mesh, parts, s_loc, codes, batched, fold_fn):
-    """[B, S, ...] from the slots' [B, S_loc, ...] partials: one K9 over
-    the doc slices."""
-    G = plan.num_groups
+def _doc_folded(plan, mesh, parts, s_loc, codes, batched, fold_fn, G):
+    """[B, S, ...] from the slots' [B, S_loc, ...] partials (G groups, 0
+    ungrouped): one K9 over the doc slices."""
     win = packed_width(plan)
     fold = doc_fold(mesh.shape[0], mesh.shape[1], s_loc, G or 1, win, codes)
     out = fold_fn(parts, fold, batched=batched)
@@ -1032,7 +1071,7 @@ def _doc_folded(plan, mesh, parts, s_loc, codes, batched, fold_fn):
 
 def batched_sharded_kernel(plan: DevicePlan, mesh: Mesh,
                            value_dtype: torch.dtype = torch.float32):
-    """fn(col_sets, plist, ndlist, idx, D) -> [B, S, ...]: B coalesced
+    """fn(col_sets, plist, ndlist, idx, D, G=0) -> [B, S, ...]: B coalesced
     queries of one plan over a mesh (JAX `make_batched_sharded_kernel`,
     kernels.py:893). Each slot launches its kernels once for all members
     (`batched_kernel`'s member axis over the members' column sets: one,
@@ -1056,12 +1095,14 @@ def plain_batched_sharded_kernel(plan: DevicePlan, mesh: Mesh,
 def _batched_sharded(plan, mesh, members, fold_fn):
     codes = packed_fold_codes(plan)
 
-    def run(col_sets, plist, ndlist, idx, D):
+    def run(col_sets, plist, ndlist, idx, D, G=0):
+        G = group_count(plan, G)
         shards, s_loc, d_loc = mesh_shards(mesh, col_sets, plist, ndlist, D)
-        parts = [members(cs, ps, ns, idx, d_loc).to(mesh.lead,
-                                                    non_blocking=True)
+        parts = [members(cs, ps, ns, idx, d_loc, G).to(mesh.lead,
+                                                       non_blocking=True)
                  for cs, ps, ns in shards]
-        return _doc_folded(plan, mesh, parts, s_loc, codes, True, fold_fn)
+        return _doc_folded(plan, mesh, parts, s_loc, codes, True, fold_fn,
+                           G)
 
     return run
 
@@ -1098,18 +1139,21 @@ def assemble_rows(rows: Sequence[torch.Tensor], S: int,
 
 
 def abs_contributions(plan: DevicePlan, cols: Tensors, params: Tensors,
-                      num_docs: torch.Tensor, D: int) -> Dict[int, torch.Tensor]:
+                      num_docs: torch.Tensor, D: int,
+                      G: int = 0) -> Dict[int, torch.Tensor]:
     """For each sum-family slot j of `plan`, the float64 sum of
-    |contribution| per segment ([S]) or per group ([S, G]): the yardstick
-    that float-sum tolerances are stated against (kernel against plain
-    version, port against the JAX package)."""
+    |contribution| per segment ([S]) or per group ([S, G]; G as
+    `make_kernel` takes it): the yardstick that float-sum tolerances are
+    stated against (kernel against plain version, port against the JAX
+    package)."""
+    G = group_count(plan, G)
     f64 = {k: (v.double() if k.startswith("val:") else v)
            for k, v in cols.items()}
     valid = doc_validity(plan, cols, num_docs, D)
     mask = valid if plan.filter_ir is None else \
         valid & eval_filter(plan.filter_ir, plan, f64, params)
     keys = None
-    if plan.num_groups:
+    if G:
         keys, gate = group_keys(plan, cols, params, valid.shape)
         keys = keys.long()
         if gate is not None:
@@ -1126,9 +1170,11 @@ def abs_contributions(plan: DevicePlan, cols: Tensors, params: Tensors,
         if keys is None:
             out[j] = c.sum(1)
         else:
-            g = torch.zeros((m.shape[0], plan.num_groups),
-                            dtype=torch.float64, device=m.device)
-            out[j] = g.scatter_add_(1, torch.where(m, keys, 0), c)
+            g = torch.zeros((m.shape[0], G), dtype=torch.float64,
+                            device=m.device)
+            ok = m & (keys >= 0) & (keys < G)
+            out[j] = g.scatter_add_(1, torch.where(ok, keys, 0),
+                                    torch.where(ok, c, 0.0))
     return out
 
 

@@ -1,9 +1,9 @@
 """Device plan IR: the hashable structure a kernel program is compiled from.
 
-Counterpart of pinot_tpu/ops/plan_ir.py, trimmed to the scan-aggregate,
-dense group-by and top-N plans of the port, with the upsert validity mask,
-the fused time bucket and CLP leaves (no compact group keys yet), and the
-vector leg's plan (mode 'vector', JAX ops/vector_device.py `VectorPlan`):
+Counterpart of pinot_tpu/ops/plan_ir.py: the scan-aggregate, group-by
+(dense or compact keys) and top-N plans of the port, with the upsert
+validity mask, the fused time bucket and CLP leaves, and the vector leg's
+plan (mode 'vector', JAX ops/vector_device.py `VectorPlan`):
 its residual filter in the fields every plan has, so staging and the
 program compiler read it as they read a top-N plan's filter.
 
@@ -63,6 +63,14 @@ class DevicePlan:
     group_cols: Tuple[str, ...] = ()
     group_strides: Tuple[int, ...] = ()   # mixed-radix strides over cards
     num_groups: int = 0                   # combined-key space (0 = no group-by)
+    #: True: the dense mixed-radix key space exceeds MAX_DEVICE_GROUPS, so
+    #: each doc's key is read from a staged int32 [S, D] 'gkey' block of
+    #: per-segment compact codes over the key tuples present (the host
+    #: factorizes them once per (segment, group columns) and caches the
+    #: codes and their decode table; ref DictionaryBasedGroupKeyGenerator's
+    #: map modes). num_groups is then 0 and the group count G, which
+    #: depends on the data, is a launch argument (JAX plan_ir :65-71)
+    group_compact: bool = False
     #: columns staged as dictIds with a dictionary value table
     dict_cols: Tuple[str, ...] = ()
     #: columns staged as raw numeric value blocks
@@ -101,3 +109,9 @@ class DevicePlan:
     k_pad: int = 0
     ivf: bool = False
     cells_pad: int = 0
+
+
+def is_grouped(plan) -> bool:
+    """A group-by plan: dense keys (num_groups > 0) or compact keys, whose
+    num_groups is 0 and whose G comes with the launch."""
+    return bool(plan.num_groups or plan.group_compact)

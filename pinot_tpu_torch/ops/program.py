@@ -14,7 +14,8 @@ Layout of `Program.code` (all int32; offsets are absolute indexes into it):
     values  n_values  x (start, len)    postfix, 2 ints per instruction
     slots   n_slots   x SLOT_W          (op, value, filter, acc, n, out,
                                          c0, c1)
-    gcols   n_gcols   x (col, stride)   dense mixed-radix group key
+    gcols   n_gcols   x (col, stride)   dense mixed-radix group key, or
+                                        the compact key block at stride 1
     accs    n_acc     x ACC_W           (reduction, out kind, out column)
     coldt   n_cols                      dtype code of each staged column
     lutc    n_luts                      width C of each [S, C] LUT
@@ -50,6 +51,10 @@ takes `topn_k` and `topn_asc` as launch arguments. A vector plan (mode
 its program is the residual filter alone, which K8 evaluates at each
 winner.
 
+A compact-key plan (plan.group_compact, K2 only) has one gcols row, the
+int32 `gkey` block at stride 1: each doc's key is one load of its
+per-segment code (JAX kernels.py:488-491), and G comes with the launch.
+
 The fused time bucket (plan.tbucket, K2 only): H_TBHI / H_TBLO are the
 timestamp's valhi / vallo column indexes (-1: no bucket), H_TBPRM the
 parameter index of the four consecutive cells tb:shi, tb:slo, tb:step,
@@ -84,7 +89,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from pinot_tpu_torch.ops.plan_ir import DevicePlan
+from pinot_tpu_torch.ops.plan_ir import DevicePlan, is_grouped
 
 # header slots
 H_NLEAVES, H_NFILT, H_MAIN, H_NVAL, H_NSLOT, H_NACC, H_NGCOL, H_OUTW, \
@@ -230,18 +235,18 @@ def slot_width(op: str) -> int:
 @functools.lru_cache(maxsize=256)
 def compile_plan(plan: DevicePlan) -> Program:
     if plan.mode == "topn":
-        if plan.agg_ops or plan.num_groups or len(plan.value_irs) > 1 \
+        if plan.agg_ops or is_grouped(plan) or len(plan.value_irs) > 1 \
                 or plan.topn_k < 1:
             raise ValueError("a top-N plan takes no slots or groups, at "
                              "most one order value and k >= 1")
     elif plan.mode == "vector":
-        if plan.agg_ops or plan.num_groups or plan.value_irs \
+        if plan.agg_ops or is_grouped(plan) or plan.value_irs \
                 or plan.k_pad < 1 or plan.dim_pad < 8:
             raise ValueError("a vector plan takes no slots, groups or "
                              "values, k_pad >= 1 and dim_pad >= 8")
     elif plan.mode != "agg":
         raise ValueError(f"plan mode {plan.mode!r} is not in this port")
-    grouped = bool(plan.num_groups)
+    grouped = is_grouped(plan)
     cols: List[str] = []
     luts: List[str] = []
     params: List[Tuple[Optional[str], Optional[float]]] = []
@@ -386,13 +391,18 @@ def compile_plan(plan: DevicePlan) -> Program:
         out_col += 1
     n_sketch = sum(1 for sl in slots if sl[0] in SKETCH_OPS)
 
-    gcols = [(col("ids:" + c), s)
-             for c, s in zip(plan.group_cols, plan.group_strides)]
+    if plan.group_compact:
+        if plan.num_groups or plan.group_strides:
+            raise ValueError("a compact-key plan has no dense key space")
+        gcols = [(col("gkey"), 1)]
+    else:
+        gcols = [(col("ids:" + c), s)
+                 for c, s in zip(plan.group_cols, plan.group_strides)]
     tb_hi = tb_lo = tb_prm = -1
     tb_pad = 0
     if plan.tbucket:
-        if not grouped:
-            raise ValueError("a time bucket needs a group-by plan")
+        if not plan.num_groups:
+            raise ValueError("a time bucket needs a dense group-by plan")
         tcol, tb_pad = plan.tbucket
         tb_hi, tb_lo = col("valhi:" + tcol), col("vallo:" + tcol)
         tb_prm = len(params)

@@ -8,16 +8,24 @@ lookup. A policy is armed per site with seeded, replayable behaviour:
   failpoints.arm(site, error=FailpointError("chaos"), probability=0.5,
                  seed=7)
   failpoints.arm(site, delay=0.1, where={"table": "t1"})
+  failpoints.arm(site, delay=10.0,
+                 until=lambda: metrics.gauge("dispatch_queue_depth") >= 7)
 
-Every matched hit appends (fired, delay) to the policy's ``decisions``, so
-two runs with the same seed can be asserted identical.
+A delay with `until` is a bounded hold (not in the reference's
+registry): it ends as soon as the predicate holds, at the latest after
+`delay`. Every matched hit appends (fired, delay) to the policy's
+``decisions``, so two runs with the same seed can be asserted
+identical.
 """
 from __future__ import annotations
 
 import random
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+#: how often a bounded hold polls its predicate
+HOLD_POLL_S = 1e-3
 
 #: the sites the port fires, with the reference catalog's contracts
 SITES: Dict[str, str] = {
@@ -44,9 +52,11 @@ class Failpoint:
     def __init__(self, site: str, delay: float = 0.0,
                  error: Optional[BaseException] = None,
                  times: Optional[int] = None, probability: float = 1.0,
-                 seed: int = 0, where: Optional[Dict[str, Any]] = None):
+                 seed: int = 0, where: Optional[Dict[str, Any]] = None,
+                 until: Optional[Callable[[], bool]] = None):
         self.site = site
         self.delay = float(delay)
+        self.until = until
         self.error = error
         self.times = times
         self.probability = float(probability)
@@ -73,8 +83,12 @@ class Failpoint:
             self.fired += 1
             wait = self.delay
             self.decisions.append((True, wait))
-        if wait:
+        if wait and self.until is None:
             time.sleep(wait)
+        elif wait:
+            deadline = time.monotonic() + wait
+            while not self.until() and time.monotonic() < deadline:
+                time.sleep(HOLD_POLL_S)
         if self.error is not None:
             raise self.error
 

@@ -3,9 +3,13 @@ row_assemble, K7 clp_match, K8 vector_topk and K9 mesh_fold on the card
 against their plain PyTorch versions, over the seeded random plans and
 inputs of tests/torch_plans.py; the query axis (B members over U column
 sets) against the plain batched version and each member's own single
-launch; 8 threads through one engine; and the sharded and merged kernels,
+launch; 8 threads through one engine; the sharded and merged kernels,
 a mesh engine and the sharded query step on a logical 4x2 mesh over
-cuda:0 against the same calls on CPU tensors.
+cuda:0 against the same calls on CPU tensors; and K2 with compact keys
+(the gkey block at the launch's G: below and past the 40 KB shared table
+and at the 2^20 cap, B = 1 and 8, with the validity mask), K9 through a
+compact remap, and wide GROUP BY / DISTINCT SQL on the card alone and on
+the mesh against the CPU engine.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. On the card
 they run without the repo's conftest (which imports JAX):
@@ -1116,3 +1120,179 @@ def test_distributed_query_step_on_card_equals_the_cpu(card):
         *(torch.from_numpy(a) for a in args))
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)  # integer-valued float64: exact
+
+
+# ---------------------------------------------------------------------------
+# K2 with compact keys (the gkey block at the launch's G) and K9's compact
+# remap
+# ---------------------------------------------------------------------------
+
+#: G below the 40 KB shared table, past it, and the cap
+COMPACT_GS = [64, 8192, 1 << 20]
+
+
+def _compact_case(card, seed, G, S, D, x64, mask=False):
+    spec = tp.compact_spec(seed)
+    vnp = np.float64 if x64 else np.float32
+    cols, params, nd = tp.random_inputs(seed, spec, S, D, vnp,
+                                        nan=seed % 3 == 0, pad_segments=1)
+    cols["gkey"] = tp.compact_gkey(seed, S, D, G)
+    if mask:
+        cols["vmask"] = np.random.default_rng(seed + 3).random((S, D)) < 0.6
+        spec = dict(spec, valid_mask=True)
+    return spec, DevicePlan(**spec), tk.from_jax_staged(cols, params, nd,
+                                                        device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", COMPACT_GS)
+@pytest.mark.parametrize("mask", [False, True], ids=["plain", "vmask"])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_compact_kernel_matches_plain_on_card(card, G, mask, x64):
+    """K2 at compact G (shared table, global table, the cap), with and
+    without the validity mask, against its plain version."""
+    S, D = 5, 20_000
+    spec, plan, (tc, tpar, tnd) = _compact_case(card, 4, G, S, D, x64, mask)
+    vdt = torch.float64 if x64 else torch.float32
+    before = _cuda.GROUP_AGG.launches
+    out = tk.make_kernel(plan, vdt)(tc, tpar, tnd, D, G)
+    ref = tk.plain_kernel(plan, vdt)(tc, tpar, tnd, D, G)
+    torch.cuda.synchronize()
+    assert _cuda.GROUP_AGG.launches == before + 1
+    assert out.shape == (S, G, len(plan.agg_ops))
+    scale = {j: v.cpu().numpy() for j, v in tk.abs_contributions(
+        plan, tc, tpar, tnd, D, G).items()}
+    tp.assert_packed_equal(spec, ref.cpu().numpy(), out.cpu().numpy(),
+                           scale, x64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", COMPACT_GS)
+@pytest.mark.parametrize("B", [1, 8])
+def test_compact_batched_matches_plain_and_single_on_card(card, G, B):
+    """K2's member axis at compact G, B members over one column set each
+    with its own literals, under the validity mask: each member against
+    the plain batched version and its single launch."""
+    S, D = 4, 12_000
+    spec, plan, (tc, tpar, tnd) = _compact_case(card, 6, G, S, D, False,
+                                                mask=True)
+    plist = [tk.from_jax_staged(*tp.random_inputs(40 + m, spec, S, D,
+                                                  np.float32),
+                                device=card)[1] for m in range(B)]
+    idx = [0] * B
+    before = (_cuda.GROUP_AGG.launches, _cuda.GROUP_AGG.batched_launches)
+    out = tk.batched_kernel(plan, torch.float32)([tc], plist, [tnd], idx,
+                                                 D, G)
+    ref = tk.plain_batched_kernel(plan, torch.float32)([tc], plist, [tnd],
+                                                       idx, D, G)
+    torch.cuda.synchronize()
+    assert (_cuda.GROUP_AGG.launches, _cuda.GROUP_AGG.batched_launches) \
+        == (before[0], before[1] + 1)
+    single = tk.make_kernel(plan, torch.float32)
+    for m in range(B):
+        scale = {j: v.cpu().numpy() for j, v in tk.abs_contributions(
+            plan, tc, plist[m], tnd, D, G).items()}
+        got = out[m].cpu().numpy()
+        tp.assert_packed_equal(spec, ref[m].cpu().numpy(), got, scale, False)
+        tp.assert_packed_equal(spec, single(tc, plist[m], tnd, D,
+                                            G).cpu().numpy(), got, scale,
+                               False)
+
+
+@pytest.mark.cuda
+def test_compact_wrapper_checks_G_and_the_key_block(card):
+    """group_agg refuses a compact plan without G, past its largest G,
+    or with a key block that is not int32; scan_agg and sketch_agg refuse
+    compact plans."""
+    S, D, G = 3, 4096, 256
+    _spec, plan, (tc, tpar, tnd) = _compact_case(card, 1, G, S, D, False)
+    with pytest.raises(ValueError, match="group count"):
+        _cuda.group_agg(plan, tc, tpar, tnd, D, torch.float32)
+    with pytest.raises(ValueError, match="group count"):
+        _cuda.group_agg(plan, tc, tpar, tnd, D, torch.float32,
+                        G=_cuda.MAX_GROUPS + 1)
+    bad = dict(tc, gkey=tc["gkey"].to(torch.int16))
+    with pytest.raises(ValueError, match="gkey"):
+        _cuda.group_agg(plan, bad, tpar, tnd, D, torch.float32, G=G)
+    with pytest.raises(ValueError, match="ungrouped"):
+        _cuda.scan_agg(plan, tc, tpar, tnd, D, torch.float32)
+    with pytest.raises(ValueError, match="ungrouped"):
+        _cuda.sketch_agg(plan, tc, tpar, tnd, D, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5])
+def test_compact_remap_fold_matches_plain_on_card(card, B):
+    """K9 through a compact remap (local code -> global index, -1 past a
+    segment's tuples and for a padded segment), its tail over every local
+    code, bit for bit against its plain version on the card and the CPU."""
+    from pinot_tpu_torch.ops import collective as tco
+    from pinot_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(["cpu"] * 8, doc_axis=2)
+    S, G_local, G = 8, 4096, 8192
+    plan = DevicePlan(filter_ir=None, leaves=(), value_irs=(("col", "x"),),
+                      agg_ops=(("sum", 0, None), ("min", 0, None),
+                               ("max", 0, None), ("count", None, None)),
+                      group_cols=("a", "b"), group_compact=True)
+    rng = np.random.default_rng(9)
+    remap = np.full((S, G_local), -1, np.int64)
+    for s in range(S - 1):
+        held = int(rng.integers(G_local // 2, G_local + 1))
+        remap[s, :held] = np.sort(rng.choice(G, held, replace=False))
+    fold = tco.merged_plan(plan, mesh, S, G, remap)
+    parts = _fold_parts(11, 8, B, fold.rows_in, fold.win, np.float32, card)
+    out = tk.mesh_fold(parts, fold, batched=B > 1)
+    ref = tk.mesh_fold_plain(parts, fold)
+    torch.cuda.synchronize()
+    assert out.shape == (B, G * 4 + S)
+    assert torch.equal(out.nan_to_num(nan=7.0), ref.nan_to_num(nan=7.0))
+    cpu = tk.mesh_fold_plain([p.cpu() for p in parts], fold)
+    assert torch.equal(cpu.nan_to_num(nan=7.0),
+                       out.cpu().nan_to_num(nan=7.0))
+
+
+@pytest.mark.cuda
+def test_compact_sql_on_card_equals_the_cpu(card, tmp_path):
+    """A wide GROUP BY and DISTINCT (compact keys) through the engine on
+    the card, alone, on a logical 4x2 mesh (merged and sharded), equal the
+    CPU engine's rows."""
+    from pinot_tpu_torch.models import (DataType, FieldSpec, FieldType,
+                                        Schema, TableConfig)
+    from pinot_tpu_torch.parallel.mesh import make_mesh
+    from pinot_tpu_torch.query.context import QueryContext
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    from pinot_tpu_torch.segment.creator import SegmentCreator
+    from pinot_tpu_torch.segment.loader import load_segment
+    from pinot_tpu_torch.utils.config import PinotConfiguration
+    rng = np.random.default_rng(8)
+    segs = []
+    for i in range(4):
+        n = 20_000 + 500 * i
+        out = str(tmp_path / f"c{i}")
+        SegmentCreator(TableConfig("t"), Schema("t", [
+            FieldSpec("a", DataType.INT), FieldSpec("b", DataType.LONG),
+            FieldSpec("c", DataType.INT),
+            FieldSpec("m", DataType.INT, FieldType.METRIC)])).build(
+                {"a": rng.integers(0, 1000, n).astype(np.int32),
+                 "b": rng.integers(0, 1 << 40, n).astype(np.int64) % 1500,
+                 "c": rng.integers(0, 900, n).astype(np.int32),
+                 "m": rng.integers(0, 1000, n).astype(np.int32)}, out, "s")
+        segs.append(load_segment(out))
+    sqls = ["SELECT a, b, c, COUNT(*), SUM(m), MIN(m) FROM t WHERE m < 700 "
+            "GROUP BY a, b, c ORDER BY COUNT(*) DESC, a, b, c LIMIT 50",
+            "SELECT DISTINCT a, b, c FROM t WHERE c < 90 "
+            "ORDER BY a, b, c LIMIT 100000"]
+    want = QueryExecutor(segs, device="cpu")
+    runs = [QueryExecutor(segs)]
+    for merge in (True, False):
+        cfg = PinotConfiguration(
+            {"pinot.server.mesh.collective.merge": merge})
+        runs.append(QueryExecutor(segs, config=cfg, mesh=make_mesh(
+            ["cuda:0"] * 8, doc_axis=2)))
+    for sql in sqls:
+        rows = want.execute(sql).rows
+        for ex in runs:
+            assert ex.execute(sql).rows == rows, sql
+    plan, _ = runs[0].engine._plan(segs, QueryContext.from_sql(sqls[0]))
+    assert plan.group_compact
+    assert runs[1].engine.meter("mesh_merge_served") == 1

@@ -18,10 +18,11 @@ Pinned here:
     meter);
   * launches overlap across threads, and 8 threads get correct answers.
 
-Determinism: a delay failpoint on server.dispatch.before (times=2: a
-racing thread's inline fast path may take the first) holds the ring on its
-first pop while the other threads stage and enqueue, so the batch's
-composition is exact.
+Determinism: a bounded hold on server.dispatch.before (times=2: a racing
+thread's inline fast path may take the first) holds the ring on its first
+pop until every other job has staged and enqueued (the hold's firings plus
+the ring's depth reach the job count; HOLD_S caps it), so the batch's
+composition is exact however slowly the threads stage.
 """
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -51,7 +52,7 @@ from pinot_tpu_torch.utils.accounting import (BrokerTimeoutError,
 from pinot_tpu_torch.utils.config import PinotConfiguration
 from pinot_tpu_torch.utils.failpoints import FailpointError, failpoints
 
-HOLD_S = 0.25  # ring hold: long enough for peers to stage and enqueue
+HOLD_S = 30.0  # cap on a ring hold, which ends once every job is queued
 POSTURES = pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
 
 
@@ -122,10 +123,33 @@ def jax_values(jsegs, sqls, x64):
     return out
 
 
+def queue_depth(disp) -> int:
+    """The ring's pending launches: its `dispatch_queue_depth` gauge."""
+    return int(disp._metrics.gauge("dispatch_queue_depth",
+                                   labels=disp._labels) or 0)
+
+
+def hold_until_queued(eng, n, cap=HOLD_S):
+    """Arm a hold of the dispatch site (times=2: the ring's first pop,
+    and an inline fast path that may fire first) that ends once all `n`
+    launches reached it or the ring (its firings plus the ring's depth),
+    at the latest after `cap` s. The condition latches: once one holder
+    sees it, the ring drains and the other holder must still let go."""
+    seen = []
+
+    def queued() -> bool:
+        if not seen and fp.fired + queue_depth(eng.dispatcher) >= n:
+            seen.append(True)
+        return bool(seen)
+    fp = failpoints.arm("server.dispatch.before", delay=cap, times=2,
+                        until=queued)
+    return fp
+
+
 def run_concurrent(eng, jobs, hold=HOLD_S):
     """jobs: [(segments, sql), ...] run concurrently with the ring held on
-    its first pop, so every job is enqueued before coalescing."""
-    failpoints.arm("server.dispatch.before", delay=hold, times=2)
+    its first pop until every job is enqueued (`hold` caps the wait)."""
+    hold_until_queued(eng, len(jobs), hold)
     try:
         with ThreadPoolExecutor(len(jobs)) as pool:
             futs = [pool.submit(eng.execute, s, QueryContext.from_sql(q))
@@ -237,7 +261,7 @@ class TestCancelAndDeadline:
         def cancelled():
             raise QueryCancelledError("cancelled by test")
 
-        failpoints.arm("server.dispatch.before", delay=HOLD_S, times=2)
+        hold_until_queued(eng, len(sqls))
         try:
             with ThreadPoolExecutor(4) as pool:
                 futs = [pool.submit(eng.execute, port,

@@ -145,13 +145,14 @@ def test_nan_propagates_through_min_max():
 # numpy mirror of the CUDA interpreter, driven by the compiled program
 # ---------------------------------------------------------------------------
 
-def run_program(plan, cols, params, num_docs, D, vdt):
-    """What K1 / K2 / K3 compute, per the program `compile_plan` emits."""
+def run_program(plan, cols, params, num_docs, D, vdt, G=0):
+    """What K1 / K2 / K3 compute, per the program `compile_plan` emits (G:
+    a compact-key plan's group count)."""
     pm = tp.ProgramMirror(plan, cols, params, num_docs, D)
     code, colarr = pm.code, pm.colarr
     Sn = len(num_docs)
     T = np.dtype(vdt).type
-    G = plan.num_groups
+    G = plan.num_groups or G
     if G:
         out = np.zeros((Sn, G, code[pg.H_OUTW]), np.float64)
     else:

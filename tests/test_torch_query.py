@@ -70,6 +70,12 @@ CORPUS = [
     "ORDER BY SUM(intCol) DESC LIMIT 3",
     "SELECT groupCol, COUNT(*) FILTER (WHERE intCol < 100) FROM testTable "
     "GROUP BY groupCol ORDER BY groupCol LIMIT 100",
+    # dense key spaces above 2^20: compact group keys
+    "SELECT DISTINCT longCol, intCol, doubleCol FROM testTable "
+    "ORDER BY longCol, intCol, doubleCol LIMIT 10000",
+    "SELECT longCol, intCol, doubleCol, COUNT(*), SUM(intCol) "
+    "FROM testTable WHERE intCol < 500 GROUP BY longCol, intCol, doubleCol "
+    "ORDER BY longCol, intCol LIMIT 10000",
 ]
 
 UNSUPPORTED = [
@@ -221,11 +227,10 @@ def test_unsupported_queries_name_the_feature(corpus_segs, sql, feature):
 
 
 #: shapes the capability check admits but the planner refuses on the
-#: segments at hand (a DISTINCT key space above MAX_DEVICE_GROUPS; a
+#: segments at hand (a DISTINCT over a column without a dictionary; a
 #: time-series bucket with no bounded window to size its grid)
 PLAN_TIME_REFUSALS = [
-    ("SELECT DISTINCT longCol, intCol, doubleCol FROM testTable",
-     "compact group keys"),
+    ("SELECT DISTINCT rawIntCol, intCol FROM testTable", "raw column"),
     ("SELECT COUNT(*) FROM testTable GROUP BY FLOOR((longCol - 5) / 60)",
      "time bucket"),
 ]
@@ -238,14 +243,17 @@ def test_plan_time_refusals_name_the_feature(corpus_segs, sql, feature):
         ex.execute(sql)
 
 
-def test_engine_caps_raise(corpus_segs):
+def test_engine_caps_raise(corpus_segs, monkeypatch):
     """Batches beyond the slice's caps raise instead of running on a host
     path the port does not have: a long column beyond 2^24 under float32
-    values (the JAX engine's precision guard) and a dense group space above
-    MAX_DEVICE_GROUPS."""
+    values (the JAX engine's precision guard) and a segment holding more
+    key tuples than MAX_DEVICE_GROUPS (patched down to 2^10 here: the
+    corpus's segments hold 2000 tuples each)."""
+    from pinot_tpu_torch.ops import engine as eng_mod
     ex = QueryExecutor(corpus_segs[1], device="cpu")
     with pytest.raises(NotOffloadable, match="2\\^24"):
         ex.execute("SELECT SUM(longCol) FROM testTable")
+    monkeypatch.setattr(eng_mod, "MAX_DEVICE_GROUPS", 1 << 10)
     with pytest.raises(NotOffloadable, match="compact group keys"):
         ex.execute("SELECT longCol, intCol, doubleCol, COUNT(*) "
                    "FROM testTable GROUP BY longCol, intCol, doubleCol")

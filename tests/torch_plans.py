@@ -104,6 +104,26 @@ def random_spec(seed: int, grouped: bool, isum: bool = True) -> dict:
     return spec
 
 
+def compact_spec(seed: int) -> dict:
+    """A random group-by plan with compact keys: `random_spec`'s grouped
+    plan whose keys come from a 'gkey' block (num_groups 0, no
+    strides)."""
+    spec = random_spec(seed, grouped=True)
+    spec.update(group_compact=True, num_groups=0, group_strides=())
+    return spec
+
+
+def compact_gkey(seed: int, S: int, D: int, G: int) -> np.ndarray:
+    """A seeded int32 [S, D] block of compact codes in [0, G): each
+    segment holds a prefix of the codes (its own tuple count), skewed
+    toward the low ones."""
+    rng = np.random.default_rng(seed + 104729)
+    held = rng.integers(G // 2, G + 1, S)
+    u = rng.random((S, D)) ** 2
+    return np.minimum((u * held[:, None]).astype(np.int64),
+                      held[:, None] - 1).astype(np.int32)
+
+
 def random_inputs(seed: int, spec: dict, S: int, D: int, value_dtype,
                   nan: bool = False, pad_segments: int = 1
                   ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray],
@@ -492,7 +512,7 @@ def assert_packed_equal(spec, a, b, scale, x64: bool, fma: bool = False):
     x64: float64 posture (everything within F64_TOL). fma: one side is the
     JAX kernel on the CPU, whose min/max of a contractible expression may
     differ in the last bits (see `contractible`)."""
-    grouped = bool(spec.get("num_groups"))
+    grouped = bool(spec.get("num_groups") or spec.get("group_compact"))
     assert a.shape == b.shape
     col = 0 if grouped else 1
     if not grouped:
