@@ -42,14 +42,17 @@ Phases, each of which exits non-zero on failure:
    these inputs (the filter's columns in full, the other columns, split
    planes and order values included, only in the 32-byte sectors holding
    a doc the filter keeps, parameters and output once) over 3.35 TB/s.
-   Library: torch.histc over K3's histogram input, unfiltered (nearly
-   K3's histogram; no PyTorch call computes HLL); torch.topk over K4's
-   masked score block (it keeps no tie order: a time only); none for K5
+   Library: torch.Tensor.index_add_ of K2's kept values at their
+   precomputed keys (the scatter alone); torch.histc over K3's histogram
+   input, unfiltered (nearly K3's histogram; no PyTorch call computes
+   HLL); torch.topk over K4's masked score block (it keeps no tie order: a
+   time only; K4's cases also give the launch's peak device memory, its
+   candidate lists sized for every doc); none for K5
    (no one PyTorch call computes its count, exact-sum planes and float
    slots together).
    K2 with the fused time bucket (BUCKET_CASES) at the time-series leg's
-   block, S = 25, D = 2^22: ts.3's G = 16 x 4000 = 64,000 (past shared
-   memory) and ts.1's G = 1024 (inside it), the timestamp's (hi, lo)
+   block, S = 25, D = 2^22: ts.3's G = 16 x 4000 = 64,000 (K2's global
+   tier) and ts.1's G = 1024 (its block tier), the timestamp's (hi, lo)
    planes under a vrange64 window, per-segment sliding starts, negative
    and wrapping deltas and both grid edges reaching the gate (counts,
    keys and max bit for bit, sums within 1e-5 of sum|contribution|;
@@ -57,13 +60,13 @@ Phases, each of which exits non-zero on failure:
    compact keys (COMPACT_CASES) at phase 14's block, S = 8, D = 2^20: a
    seeded int32 gkey block (each segment's own tuple count between G/2
    and G, skewed toward low codes) at phase 14's G = 2^16 (CB_G) with
-   cb.3's unfiltered SUM / MIN / MAX / COUNT slots (MIN and MAX through
-   the global table's CAS loops), and at G = 2^17 and G = 2^20 (the
-   cap) with a SUM and a COUNT slot under a neq leaf (cb.2's `<> ''`),
-   all past the shared table; the bound counts the columns and the
-   output as every K2 row does, and `scratch_bytes` gives the float64
-   scratch table's init write and finalize read beside it (16 bytes per
-   B x S x G x n_slots entry); library: torch.Tensor.index_add_ of the
+   cb.3's unfiltered SUM / MIN / MAX / COUNT slots, and at G = 2^17 and
+   G = 2^20 (the cap) with a SUM and a COUNT slot under a neq leaf (cb.2's
+   `<> ''`), all in K2's global tier;
+   every K2 entry names its tier (`tier`); the bound counts the columns
+   and the output as every K2 row does, and `scratch_bytes` gives the
+   u64 table's memset and decode read beside it (16 bytes per B x S x G
+   x n_slots word); library: torch.Tensor.index_add_ of the
    kept values at precomputed keys. K1-K4 again on their phase-3 inputs under a seeded uint8
    validity mask
    clearing about a third of docs (the bound counts the mask's byte per
@@ -1396,6 +1399,7 @@ def check_kernel(name: str, plan, cols, params, num_docs, D,
     import torch
 
     from pinot_tpu_torch.ops import kernels
+    from pinot_tpu_torch.ops.plan_ir import is_grouped
     kern = kernels.make_kernel(plan, torch.float32)
     plain = kernels.plain_kernel(plan, torch.float32)
     out = kern(cols, params, num_docs, D, G)
@@ -1411,14 +1415,23 @@ def check_kernel(name: str, plan, cols, params, num_docs, D,
              "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
              "library_ms": None, "rows": int(num_docs.sum()),
              "matched": matched, "bytes": moved}
+    if is_grouped(plan):
+        entry["tier"] = group_tier_of(plan, out.shape[-2])
     if plan.group_compact:
         entry["scratch_bytes"] = scratch_bytes(out)
     return entry
 
 
+def group_tier_of(plan, G: int) -> str:
+    """K2's table tier for a float32 launch of `plan` at G."""
+    from pinot_tpu_torch.ops import _cuda
+    return _cuda.group_tier([op for op, _v, _f in plan.agg_ops], G, False)
+
+
 def compare_packed(name: str, plan, out, ref, scales) -> None:
     """A kernel's packed output against its reference: counts, exact-sum
-    planes, min / max, registers and buckets bit for bit, float sums
+    planes, min / max (the sign of a zero and a NaN's bits too),
+    registers and buckets bit for bit, float sums
     within 1e-5 of the slot's sum of |contribution| (`scales`); a top-N
     output whole, bit for bit."""
     import torch
@@ -1448,8 +1461,16 @@ def compare_packed(name: str, plan, out, ref, scales) -> None:
             if not bool((err <= 1e-5 * scale + 1e-30).all()):
                 fail(f"{name}: slot {j} sum beyond 1e-5 of sum|contrib|: "
                      f"max err {float(err.max())}")
-        elif not torch.equal(a, b):
+        elif not torch.equal(bits(a), bits(b)):
             fail(f"{name}: slot {j} {op} not bit-identical")
+
+
+def bits(t):
+    """A float tensor's bits as integers: a bit-for-bit compare that tells
+    -0.0 from +0.0 and holds a NaN equal to the same NaN."""
+    import torch
+    t = t.contiguous()
+    return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
 
 
 def filter_leaves(node) -> set:
@@ -1473,8 +1494,8 @@ def leaf_columns(leaf) -> tuple:
 def scratch_bytes(out) -> int:
     """A compact-key K2 launch's scratch traffic, reported beside its
     bound and not in it (the table is the kernel's design, not the
-    function's): the float64 table's init write and its finalize read,
-    B x S x G x n_slots entries each."""
+    function's): the u64 table's memset and its decode pass's read,
+    B x S x G x n_slots words each."""
     return 2 * 8 * out.numel()
 
 
@@ -1609,7 +1630,7 @@ def check_topn(name: str, plan, cols, params, num_docs, D) -> dict:
     def plain():
         return kernels.topn_kernel(plan, cols, params, num_docs, D,
                                    torch.float32)
-    out = kern(cols, params, num_docs, D)
+    out, peak = with_peak(lambda: kern(cols, params, num_docs, D))
     ref = plain()
     torch.cuda.synchronize()
     compare_packed(f"topn {name}", plan, out, ref, None)
@@ -1627,7 +1648,19 @@ def check_topn(name: str, plan, cols, params, num_docs, D) -> dict:
             "library": "torch.topk over the masked score block (no tie "
                        "order: time only)",
             "rows": int(num_docs.sum()), "matched": matched, "k": k,
-            "bytes": moved}
+            "bytes": moved, "launch_peak_bytes": peak}
+
+
+def with_peak(fn):
+    """fn()'s result and the device memory it allocated at its peak, over
+    what was allocated before (its scratch and output)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
 
 
 def batched_inputs(inputs_fn, seed: int):
@@ -1661,7 +1694,7 @@ def check_batched(name: str, plan, sets, plist, ndlist, D) -> dict:
     for form, idx in BATCH_FORMS.items():
         U = max(idx) + 1
         args = (sets[:U], plist, ndlist[:U], idx, D)
-        out = run(*args)
+        out, peak = with_peak(lambda: run(*args))
         ref = plain(*args)
         torch.cuda.synchronize()
         for m, u in enumerate(idx):
@@ -1677,7 +1710,8 @@ def check_batched(name: str, plan, sets, plist, ndlist, D) -> dict:
         forms[form] = {"U": U, "ms": cuda_ms(lambda: run(*args)),
                        "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
                        "bytes": moved, "matched": matched,
-                       "max_abs_err": max_abs_err(out, ref)}
+                       "max_abs_err": max_abs_err(out, ref),
+                       "launch_peak_bytes": peak}
         del out, ref
     args = (sets[:1], plist, ndlist[:1], BATCH_FORMS["broadcast"], D)
     single_ms = cuda_ms(lambda: single(sets[0], plist[0], ndlist[0], D))
@@ -1989,8 +2023,8 @@ def with_mask(plan, cols, seed: int):
 
 #: phase 3's time-bucket cases at the time-series leg's shapes: name ->
 #: (tag cardinality, buckets, step ms); G = cardinality x count_pad
-BUCKET_CASES = {"ts.3: G=64,000 (global memory)": (4000, 12, 3_600_000),
-                "ts.1: G=1024 (shared memory)": (1, 720, 60_000)}
+BUCKET_CASES = {"ts.3: G=64,000 (global tier)": (4000, 12, 3_600_000),
+                "ts.1: G=1024 (block tier)": (1, 720, 60_000)}
 
 
 def bucket_kernel_inputs(seed: int, case: str, starts=None):
@@ -2085,7 +2119,7 @@ def check_bucket_batched(seed: int) -> dict:
     import torch
 
     from pinot_tpu_torch.ops import kernels
-    case = "ts.3: G=64,000 (global memory)"
+    case = "ts.3: G=64,000 (global tier)"
     plan, cols, params, num_docs, D = bucket_kernel_inputs(seed, case)
     plist = []
     for m in range(BATCH_B):
@@ -2166,20 +2200,25 @@ def compact_kernel_inputs(seed: int, G: int, neq=None, cb3: bool = False):
     return plan, cols, {"leaf0:idx": idx}, num_docs, D, G
 
 
-def index_add_ms(plan, cols, params, num_docs, D, G) -> float:
-    """torch.Tensor.index_add_ of the kept docs' widths at their
-    precomputed flat (segment, code) keys into an [S x G] table: the
-    scatter-add alone, the PyTorch call nearest K2's sum slot (no filter,
-    count or key load)."""
+def index_add_ms(plan, cols, params, num_docs, D, G=0) -> float:
+    """torch.Tensor.index_add_ of the kept docs' values (the first value
+    column) at their precomputed flat (segment, key) keys into an [S x G]
+    table: the scatter-add alone, the PyTorch call nearest K2's sum slot
+    (no filter, count, min / max or key load); dense keys or compact
+    codes."""
     import torch
 
     from pinot_tpu_torch.ops import kernels
     mask = kernels.doc_validity(plan, cols, num_docs, D)
     if plan.filter_ir is not None:
         mask = mask & kernels.eval_filter(plan.filter_ir, plan, cols, params)
+    keys, gate = kernels.group_keys(plan, cols, params, mask.shape)
+    if gate is not None:
+        mask = mask & gate
+    G = kernels.group_count(plan, G)
     seg = torch.arange(mask.shape[0], device=mask.device)[:, None]
-    flat = (seg * G + cols["gkey"].long())[mask]
-    w = cols["val:width"][mask]
+    flat = (seg * G + keys.long())[mask]
+    w = cols["val:" + plan.value_irs[0][1]][mask]
     table = torch.zeros(mask.shape[0] * G, dtype=torch.float32,
                         device=mask.device)
     return cuda_ms(lambda: table.index_add_(0, flat, w))
@@ -2202,12 +2241,7 @@ def check_compact_batched(seed: int, G: int) -> dict:
     run = kernels.batched_kernel(plan, torch.float32)
     plain = kernels.plain_batched_kernel(plan, torch.float32)
     single = kernels.make_kernel(plan, torch.float32)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    out = run(*args, G)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
+    out, peak = with_peak(lambda: run(*args, G))
     ref = plain(*args, G)
     torch.cuda.synchronize()
     for m in range(BATCH_B):
@@ -5329,8 +5363,13 @@ def main() -> None:
                                   hits_jobs(tmp, args.seed))
     k1 = check_kernel("scan_agg", *kernel_inputs(args.seed, grouped=False))
     print(f"[kernel] scan_agg {json.dumps(k1)}", flush=True)
-    k2 = check_kernel("group_agg", *kernel_inputs(args.seed, grouped=True))
+    k2_inputs = kernel_inputs(args.seed, grouped=True)
+    k2 = check_kernel("group_agg", *k2_inputs)
+    k2["library_ms"] = index_add_ms(*k2_inputs)
+    k2["library"] = ("torch.Tensor.index_add_ of the kept docs' values at "
+                     "precomputed keys: the scatter alone")
     print(f"[kernel] group_agg {json.dumps(k2)}", flush=True)
+    del k2_inputs
     k3_inputs = sketch_kernel_inputs(args.seed)
     k3 = check_kernel("sketch_agg", *k3_inputs)
     k3["library_ms"] = histc_ms(*k3_inputs[:4])
@@ -5366,7 +5405,7 @@ def main() -> None:
               f"| {card}", flush=True)
         del inputs
         torch.cuda.empty_cache()
-    kb = dict(kb_cases["ts.3: G=64,000 (global memory)"],
+    kb = dict(kb_cases["ts.3: G=64,000 (global tier)"],
               max_abs_err=max(c["max_abs_err"] for c in kb_cases.values()))
     # K2 with compact keys at phase 14's block, below and at the cap
     kc_cases = {}

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K1-K4's phase-3 single-launch times and the main path's single-query
+"""K1-K4's phase-3 and 3b launch times and the main path's single-query
 p50 of two checkouts, in turns, on one card.
 
     python3 kernel_ab.py PARENT_DIR CHANGE_DIR [--seed N] [--iters N]
@@ -8,15 +8,23 @@ p50 of two checkouts, in turns, on one card.
 Runs the turns parent / change / change / parent, each in a fresh process
 whose working directory is that checkout: it builds the checkout's CUDA
 kernels (pinot_tpu_torch/ops/_cuda.py `build`), makes chip_smoke.py's
-phase-3 inputs with that checkout's generators (K1 and K2
-`kernel_inputs`, K3 `sketch_kernel_inputs`, K4 `topn_kernel_inputs` case
-(a), the case on the kernels line) and times each kernel's single launch
-by CUDA events (chip_smoke `cuda_ms`, median of --iters). The first turn
+phase-3 and 3b inputs with that checkout's generators and times each
+case's launch by CUDA events (chip_smoke `cuda_ms`, median of --iters):
+K1 and K2's dense case (`kernel_inputs`), K2's time-bucket cases ts.3
+and ts.1 (`bucket_kernel_inputs`) and its compact cases
+(`compact_kernel_inputs` over COMPACT_CASES), K2's B = 8 broadcast forms
+(the dense case over `batched_inputs`' first column set, ts.3 with member
+m's window m hours later, each compact case with member m excluding
+phrase id m), K3 (`sketch_kernel_inputs`), K4's cases (a)-(d)
+(`topn_kernel_inputs`; "topn" is case (a), the kernels line's) and K4's
+B = 8 broadcast form of case (a). The first turn
 of each checkout also prints `nvcc -Xptxas -v`'s registers, spills and
-stack per kernel function of K1-K4. Then (unless --no-queries) each turn
-builds chip_smoke.py's legs of phases 4-7 with that checkout's generators
-and creator — SSB Q1 at 16 x 8M rows, the config-#3 group-by at 8 x 4M,
-config #4 at 128 x 8M, config #5's star-tree table at 8 x 4M — and takes
+stack per kernel function of K1-K4, and the atomic instructions each
+function of K2 and K4 compiled to (`cuobjdump -sass`). Then (unless
+--no-queries) each turn builds chip_smoke.py's legs of phases 4-7 with
+that checkout's generators and creator — SSB Q1 at 16 x 8M rows, the
+config-#3 group-by at 8 x 4M, config #4 at 64 x 8M, config #5's
+star-tree table at 8 x 4M — and takes
 each leg query's p50 over 20 warm runs alone through its QueryExecutor
 (chip_smoke `time_query`; host clock, the result on the host); with
 --splits each turn also records each query's median host-clock stage
@@ -69,17 +77,118 @@ if ptxas:
             if m and fn:
                 regs.setdefault(fn, {})["registers"] = int(m.group(1))
     out["ptxas"] = regs
-cases = (("scan_agg", lambda: cs.kernel_inputs(seed, grouped=False)),
-         ("group_agg", lambda: cs.kernel_inputs(seed, grouped=True)),
-         ("sketch_agg", lambda: cs.sketch_kernel_inputs(seed)),
-         ("topn", lambda: cs.topn_kernel_inputs(seed)[
-             "a: raw value DESC k=10"]))
-for name, make in cases:
-    plan, cols, params, nd, D = make()
-    kern = kernels.make_topn_kernel(plan, torch.float32) \
-        if name == "topn" else kernels.make_kernel(plan, torch.float32)
-    out[name] = cs.cuda_ms(lambda: kern(cols, params, nd, D), iters)
-    del plan, cols, params, nd, kern
+    # the atomic instructions each K2 / K4 function compiled to
+    # (cuobjdump -sass: a shared-memory CAS loop shows as ATOMS.CAS*)
+    cuobj = os.path.join(os.path.dirname(_cuda.nvcc()), "cuobjdump")
+    sass = {}
+    for k in (_cuda.GROUP_AGG, _cuda.TOPN):
+        r = subprocess.run([cuobj, "-sass", k.library], capture_output=True,
+                           text=True)
+        fn = None
+        for line in r.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)",
+                          line)
+            if m and fn:
+                ops = sass.setdefault(fn, {})
+                ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    out["sass_atomics"] = sass
+F32 = torch.float32
+
+
+def single(make):
+    # A single launch's timer over inputs (plan, cols, params, num_docs,
+    # D[, G]).
+    def build():
+        inputs = make()
+        plan, cols, params, nd, D = inputs[:5]
+        G = inputs[5] if len(inputs) > 5 else 0
+        if plan.mode == "topn":
+            kern = kernels.make_topn_kernel(plan, F32)
+            return lambda: kern(cols, params, nd, D)
+        kern = kernels.make_kernel(plan, F32)
+        return lambda: kern(cols, params, nd, D, G)
+    return build
+
+
+def broadcast(make_members, G=0):
+    # A B = 8 broadcast launch's timer: members (plan, col set, params per
+    # member, num_docs, D) over one column set.
+    def build():
+        plan, cols, plist, nd, D = make_members()
+        run = kernels.batched_kernel(plan, F32)
+        idx = cs.BATCH_FORMS["broadcast"]
+        return lambda: run([cols], plist, [nd], idx, D, G)
+    return build
+
+
+def first_members(inputs_fn):
+    # Phase 3b's members over the first column set (the broadcast form).
+    def make():
+        plan, sets, plist, ndlist, D = cs.batched_inputs(inputs_fn, seed)
+        return plan, sets[0], plist, ndlist[0], D
+    return make
+
+
+def bucket_case(prefix):
+    return next(k for k in cs.BUCKET_CASES if k.startswith(prefix))
+
+
+def bucket_members():
+    # Phase 3b's bucket case: ts.3's column set, member m's window m hours
+    # later.
+    case = bucket_case("ts.3")
+    plan, cols, _p, nd, D = cs.bucket_kernel_inputs(seed, case)
+    plist = [cs.bucket_kernel_inputs(
+        seed, case, [cs.TS_T0 + 3_600_000 * (s % 48 + m)
+                     for s in range(cs.TS_SEGMENTS)])[2]
+        for m in range(cs.BATCH_B)]
+    return plan, cols, plist, nd, D
+
+
+def compact_members(G):
+    # Phase 3b's compact case at G: member m excluding phrase id m.
+    def make():
+        plan, cols, _p, nd, D, _G = cs.compact_kernel_inputs(seed, G)
+        plist = [cs.compact_kernel_inputs(seed, G, neq=m)[2]
+                 for m in range(cs.BATCH_B)]
+        return plan, cols, plist, nd, D
+    return make
+
+
+def topn_case(letter):
+    def make():
+        cases = cs.topn_kernel_inputs(seed)
+        return cases[next(k for k in cases if k.startswith(letter + ":"))]
+    return make
+
+
+grouped = lambda s: cs.kernel_inputs(s, grouped=True)  # noqa: E731
+cases = [("scan_agg", single(lambda: cs.kernel_inputs(seed, grouped=False))),
+         ("group_agg", single(lambda: grouped(seed))),
+         ("group_agg ts.3", single(lambda: cs.bucket_kernel_inputs(
+             seed, bucket_case("ts.3")))),
+         ("group_agg ts.1", single(lambda: cs.bucket_kernel_inputs(
+             seed, bucket_case("ts.1"))))]
+for cname, (G, cb3) in cs.COMPACT_CASES.items():
+    cases.append((f"group_agg compact {cname}", single(
+        lambda G=G, cb3=cb3: cs.compact_kernel_inputs(seed, G, cb3=cb3))))
+cases += [("group_agg x8", broadcast(first_members(grouped))),
+          ("group_agg x8 ts.3", broadcast(bucket_members))]
+for cname, (G, _cb3) in cs.COMPACT_CASES.items():
+    cases.append((f"group_agg x8 compact {cname}",
+                  broadcast(compact_members(G), G)))
+cases += [("sketch_agg", single(lambda: cs.sketch_kernel_inputs(seed)))]
+cases += [("topn" if c == "a" else f"topn {c}", single(topn_case(c)))
+          for c in "abcd"]
+cases.append(("topn x8", broadcast(first_members(
+    lambda s: cs.topn_kernel_inputs(s)["a: raw value DESC k=10"]))))
+for name, build in cases:
+    fn = build()
+    out[name] = cs.cuda_ms(fn, iters)
+    del fn
     torch.cuda.empty_cache()
 if queries:
     import shutil, statistics, tempfile
@@ -173,7 +282,7 @@ def main() -> None:
 
     ratio = {k: mean("change", lambda t: t[k]) / mean("parent",
                                                       lambda t: t[k])
-             for k in ("scan_agg", "group_agg", "sketch_agg", "topn")}
+             for k, v in turns[0].items() if isinstance(v, float)}
     for q in turns[0].get("p50_ms", {}):
         ratio[q] = mean("change", lambda t: t["p50_ms"][q]) \
             / mean("parent", lambda t: t["p50_ms"][q])

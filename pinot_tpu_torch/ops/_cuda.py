@@ -66,10 +66,19 @@ SKETCH_MIN_DOCS = 1 << 16
 #: offsets (csrc/group_agg.cu); the engine caps G at 2^20 (JAX's
 #: MAX_DEVICE_GROUPS)
 MAX_GROUPS = 1 << 24
+#: K2's table tiers (csrc/group_agg.cu K2_*), chosen from the bytes of one
+#: on-chip copy of the [G, n_slots] table alone (`group_table_bytes`): a
+#: private copy per warp up to GROUP_WARP_BYTES, one per block up to
+#: GROUP_BLOCK_BYTES, else the global table
+GROUP_TIERS = ("warp", "block", "global")
+GROUP_WARP_BYTES = 4096
+GROUP_BLOCK_BYTES = 100 * 1024
 #: K4 sorts its k candidates in one block's shared memory (csrc/topn.cu)
 TOPN_MAX_K = 8192
-#: K4's per-segment state words (csrc/topn.cu ST_*)
+#: K8's per-row radix-select state words (csrc/topk_select.cuh ST_*)
 TOPN_STATE_WORDS = 5
+#: K4's per-row state words (csrc/topn.cu TS_*)
+TOPN_ROW_WORDS = 7
 #: column sets and members of one K1-K4 launch (csrc/interp.cuh
 #: PT_MAX_SETS, PT_MAX_MEMBERS)
 MAX_SETS = 16
@@ -189,7 +198,8 @@ class CudaKernel:
         self.launches = 0
         self.batched_launches = 0
         self.batched_members = 0
-        self._fn = None
+        self._fn = self._lib = None
+        self._symbols: Dict[str, object] = {}
         self._lock = threading.Lock()
 
     def count(self, members: int, batched: bool) -> None:
@@ -217,11 +227,23 @@ class CudaKernel:
         return os.path.join(BUILD_DIR,
                             f"lib{self.name}-{h.hexdigest()[:16]}.so")
 
+    def symbol(self, name: str, argtypes: list):
+        """Another C function of the kernel's library (int result), bound
+        once."""
+        self.fn()
+        with self._lock:
+            f = self._symbols.get(name)
+            if f is None:
+                f = getattr(self._lib, name)
+                f.argtypes, f.restype = argtypes, ctypes.c_int
+                self._symbols[name] = f
+            return f
+
     def fn(self):
         with self._lock:
             if self._fn is None:
                 build([self])
-                lib = ctypes.CDLL(self.library)
+                lib = self._lib = ctypes.CDLL(self.library)
                 f = getattr(lib, self.entry)
                 f.argtypes = self.argtypes
                 f.restype = ctypes.c_int
@@ -245,7 +267,7 @@ SCAN_AGG = CudaKernel("scan_agg", "scan_agg.cu", "pt_scan_agg",
                        _P, _P, _I, _P], layout=_ARGS)
 GROUP_AGG = CudaKernel("group_agg", "group_agg.cu", "pt_group_agg",
                        [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _P, _P, _I, _P], layout=_ARGS)
+                        _P, _P, _I, _P], layout=_ARGS)
 SKETCH_AGG = CudaKernel("sketch_agg", "sketch_agg.cu", "pt_sketch_agg",
                         [ctypes.POINTER(_Args), _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _P, _P, _P, _I, _P], layout=_ARGS)
@@ -514,16 +536,43 @@ def group_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
             _check(cols["gkey"], f"gkey of set {u}", L.device,
                    (torch.int32,), (L.S, D))
     shape = (L.B, L.S, G, L.prog.out_width)
-    table = torch.empty(shape, dtype=torch.float64, device=L.device)
+    tier = group_tier([op for op, _v, _f in plan.agg_ops], G, L.f64)
+    got = GROUP_AGG.symbol("pt_group_tier", [_P, _I, _I])(
+        ctypes.addressof(L.args.code), G, L.f64)
+    if GROUP_TIERS[got] != tier:
+        raise RuntimeError(f"group_agg chose tier {GROUP_TIERS[got]}, its "
+                           f"mirror {tier}")
+    table = torch.empty(shape, dtype=torch.int64, device=L.device)
     out = torch.empty(shape, dtype=value_dtype, device=L.device)
     rc = GROUP_AGG.fn()(ctypes.byref(L.args), L.pmat.data_ptr(),
-                        L.num_docs.data_ptr(), L.S, D, L.P, G, L.nb, L.B,
-                        L.f64, table.data_ptr(), out.data_ptr(),
-                        L.device.index, L.stream)
+                        L.num_docs.data_ptr(), L.S, D, L.P, G, L.B, L.f64,
+                        table.data_ptr(), out.data_ptr(), L.device.index,
+                        L.stream)
     if rc != 0:
         raise RuntimeError(f"group_agg launch failed: cudaError {rc}")
     GROUP_AGG.count(L.B, batched)
     return out
+
+
+def group_table_bytes(ops: List[str], G: int, f64: bool) -> int:
+    """Bytes of one on-chip copy of K2's [G, n_slots] table: per slot a
+    column of G words (4 bytes for a count and a float32 min / max, else
+    8) padded to 8 bytes (csrc/group_agg.cu `slot_offsets`)."""
+    def word(op):
+        if op == "count" or (op in ("min", "max") and not f64):
+            return 4
+        return 8
+    return sum((G * word(op) + 7) // 8 * 8 for op in ops)
+
+
+def group_tier(ops: List[str], G: int, f64: bool) -> str:
+    """K2's tier for a table of these slot ops at G: the mirror of
+    csrc/group_agg.cu `choose_tier`, which the wrapper checks it against on
+    every launch."""
+    tb = group_table_bytes(ops, G, f64)
+    if tb <= GROUP_WARP_BYTES:
+        return "warp"
+    return "block" if tb <= GROUP_BLOCK_BYTES else "global"
 
 
 def group_agg(plan: DevicePlan, cols: Tensors, params: Tensors,
@@ -613,17 +662,18 @@ def topn_batched(plan: DevicePlan, col_sets: List[Tensors],
                          f"{TOPN_MAX_ROWS} rows")
     dev = L.device
     kdt = torch.int64 if value_dtype == torch.float64 else torch.int32
-    keys = torch.empty((L.B, L.S, D), dtype=kdt, device=dev)
-    state = torch.empty((R, TOPN_STATE_WORDS), dtype=torch.int64, device=dev)
+    # the two candidate lists, each room for every doc of every row
+    keys = torch.empty((2, L.B, L.S, D), dtype=kdt, device=dev)
+    docs = torch.empty((2, L.B, L.S, D), dtype=torch.int32, device=dev)
+    state = torch.empty((R, TOPN_ROW_WORDS), dtype=torch.int64, device=dev)
     hist = torch.empty((R, 256), dtype=torch.int32, device=dev)
-    ties = torch.empty((R, L.nb), dtype=torch.int32, device=dev)
     cand_key = torch.empty((R, k), dtype=kdt, device=dev)
     cand_doc = torch.empty((R, k), dtype=torch.int32, device=dev)
     out = torch.empty((L.B, L.S, 1 + k), dtype=torch.int32, device=dev)
     rc = TOPN.fn()(ctypes.byref(L.args), L.pmat.data_ptr(),
                    L.num_docs.data_ptr(), L.S, D, L.P, L.nb, L.B, L.f64, k,
-                   int(plan.topn_asc), keys.data_ptr(), state.data_ptr(),
-                   hist.data_ptr(), ties.data_ptr(), cand_key.data_ptr(),
+                   int(plan.topn_asc), keys.data_ptr(), docs.data_ptr(),
+                   state.data_ptr(), hist.data_ptr(), cand_key.data_ptr(),
                    cand_doc.data_ptr(), out.data_ptr(), dev.index, L.stream)
     if rc != 0:
         raise RuntimeError(f"topn launch failed: cudaError {rc}")

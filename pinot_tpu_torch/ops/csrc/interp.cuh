@@ -174,13 +174,27 @@ __device__ __forceinline__ bool ts_bucket(int vhi, int vlo, int shi, int slo,
   return delta >= 0 && q < count;
 }
 
+// A double's bits as a signed integer in the total order of the bits:
+// -inf < ... < -0.0 < +0.0 < ... < +inf (ops/kernels.py `order_keys`).
+__device__ __forceinline__ long long order_key(double x) {
+  const long long b = __double_as_longlong(x);
+  return b ^ ((b >> 63) & 0x7FFFFFFFFFFFFFFFll);
+}
+// The quiet NaN a min / max over a NaN gives, in every kernel and in the
+// plain versions (torch's float("nan")); it narrows to float32's.
+#define PT_QNAN __longlong_as_double(0x7FF8000000000000ll)
+
 // Reductions that propagate NaN, as jnp.min / jnp.max and XLA's scatter-min
-// and scatter-max do (fmin/fmax would drop it).
+// and scatter-max do (fmin/fmax would drop it), and rank -0.0 below +0.0
+// as they do, whatever the order of the operands (a float compare holds
+// the two zeros equal).
 __device__ __forceinline__ double nan_min(double x, double y) {
-  return (x != x) ? x : ((y != y) ? y : (y < x ? y : x));
+  return (x != x || y != y) ? PT_QNAN
+                            : (order_key(y) < order_key(x) ? y : x);
 }
 __device__ __forceinline__ double nan_max(double x, double y) {
-  return (x != x) ? x : ((y != y) ? y : (y > x ? y : x));
+  return (x != x || y != y) ? PT_QNAN
+                            : (order_key(y) > order_key(x) ? y : x);
 }
 __device__ __forceinline__ double combine(int r, double x, double y) {
   return r == R_ADD ? x + y : (r == R_MIN ? nan_min(x, y) : nan_max(x, y));

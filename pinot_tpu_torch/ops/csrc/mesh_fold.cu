@@ -20,7 +20,8 @@
 //                       part[p_k][b, r_k, col0 + w]    with op[w]
 //
 // where src[k] = (p_k << 32) | r_k, op 0 adds, 1 takes the minimum and 2
-// the maximum (NaN propagating, as XLA's min / max); an empty list gives
+// the maximum (NaN propagating, -0.0 below +0.0, as XLA's min / max; the
+// plain version's `minmax_combine`); an empty list gives
 // the identity (0, +inf, -inf). The nt tail elements add column tail_col
 // of their own source lists (toff, tsrc) the same way: the collective
 // merge's per-segment matched counts.
@@ -48,10 +49,19 @@ struct FoldArgs {
   const void* part[MF_MAX_PARTS];
 };
 
+// A double's bits as a signed integer in their total order (-0.0 below
+// +0.0), as interp.cuh `order_key`.
+__device__ __forceinline__ long long order_key(double x) {
+  const long long b = __double_as_longlong(x);
+  return b ^ ((b >> 63) & 0x7FFFFFFFFFFFFFFFll);
+}
+
 __device__ __forceinline__ double combine(int op, double acc, double v) {
   if (op == 0) return acc + v;
-  if (op == 1) return (v < acc || v != v) ? v : acc;  // NaN sticks
-  return (v > acc || v != v) ? v : acc;
+  if (acc != acc || v != v)  // NaN sticks, as the quiet NaN
+    return __longlong_as_double(0x7FF8000000000000ll);
+  if (op == 1) return order_key(v) < order_key(acc) ? v : acc;
+  return order_key(v) > order_key(acc) ? v : acc;
 }
 
 __device__ __forceinline__ double identity_of(int op) {

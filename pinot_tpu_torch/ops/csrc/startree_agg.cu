@@ -91,32 +91,38 @@ __device__ __forceinline__ double identity_of(int op) {
   return op == OP_MIN ? INFINITY : op == OP_MAX ? -INFINITY : 0.0;
 }
 
+// A double's bits as a signed integer in their total order (-0.0 below
+// +0.0), as interp.cuh `order_key`.
+__device__ __forceinline__ long long order_key(double x) {
+  const long long b = __double_as_longlong(x);
+  return b ^ ((b >> 63) & 0x7FFFFFFFFFFFFFFFll);
+}
+#define ST_QNAN __longlong_as_double(0x7FF8000000000000ll)
+
+// min / max as XLA takes them (ops/kernels.py `minmax_combine`): NaN
+// sticks as the quiet NaN, and -0.0 ranks below +0.0 in either order.
 __device__ __forceinline__ double combine(int op, double x, double v) {
-  if (op == OP_MIN) return x != x ? x : (v != v || v < x) ? v : x;
-  if (op == OP_MAX) return x != x ? x : (v != v || v > x) ? v : x;
+  if (op == OP_MIN || op == OP_MAX) {
+    if (x != x || v != v) return ST_QNAN;
+    const bool pick = op == OP_MIN ? order_key(v) < order_key(x)
+                                   : order_key(v) > order_key(x);
+    return pick ? v : x;
+  }
   return x + v;
 }
 
-__device__ __forceinline__ void atomic_min_nan(double* addr, double v) {
+// The same through compare-and-swap on a table entry: a NaN entry is
+// final; a value replaces the entry only when it ranks past it.
+__device__ __forceinline__ void atomic_minmax(int op, double* addr, double v) {
   unsigned long long* p = (unsigned long long*)addr;
   unsigned long long old = *(volatile unsigned long long*)p;
-  while (true) {
-    const double cur = __longlong_as_double(old);
-    if (cur != cur) return;              // NaN is sticky
-    if (v == v && !(v < cur)) return;    // not smaller
-    const unsigned long long seen = atomicCAS(p, old, __double_as_longlong(v));
-    if (seen == old) return;
-    old = seen;
-  }
-}
-
-__device__ __forceinline__ void atomic_max_nan(double* addr, double v) {
-  unsigned long long* p = (unsigned long long*)addr;
-  unsigned long long old = *(volatile unsigned long long*)p;
+  if (v != v) v = ST_QNAN;
   while (true) {
     const double cur = __longlong_as_double(old);
     if (cur != cur) return;
-    if (v == v && !(v > cur)) return;
+    if (v == v && !(op == OP_MIN ? order_key(v) < order_key(cur)
+                                 : order_key(v) > order_key(cur)))
+      return;
     const unsigned long long seen = atomicCAS(p, old, __double_as_longlong(v));
     if (seen == old) return;
     old = seen;
@@ -124,8 +130,7 @@ __device__ __forceinline__ void atomic_max_nan(double* addr, double v) {
 }
 
 __device__ __forceinline__ void atomic_combine(int op, double* addr, double v) {
-  if (op == OP_MIN) atomic_min_nan(addr, v);
-  else if (op == OP_MAX) atomic_max_nan(addr, v);
+  if (op == OP_MIN || op == OP_MAX) atomic_minmax(op, addr, v);
   else atomicAdd(addr, v);
 }
 

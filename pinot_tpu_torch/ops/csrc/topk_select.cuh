@@ -1,7 +1,9 @@
-// Shared by K4 (topn.cu) and K8 (vector_topk.cu): the exact top-k of each
-// row of a [R, D] block of ordered integer keys (a float's bits with the
-// sign flip, csrc/topn.cu), in (key descending, doc ascending) order, the
-// order XLA's top_k gives floats. R rows are (member, segment) pairs.
+// K8 (vector_topk.cu): the exact top-k of each row of a [R, D] block of
+// ordered integer keys (a float's bits with the sign flip), in (key
+// descending, doc ascending) order, the order XLA's top_k gives floats. R
+// rows are (member, segment) pairs. K4 (topn.cu) selects with its own
+// compacting passes and takes from here the key map (KeyOf), the block
+// range and the final sort (bitonic_sort, sort_width).
 //
 //   threshold: an MSB-first radix select over the keys, 8-bit digits. Per
 //      digit a histogram pass counts the digits of the keys that share the

@@ -89,7 +89,8 @@ __all__ = ["make_kernel", "plain_kernel", "make_topn_kernel", "topn_kernel",
            "make_vector_kernel",
            "plain_batched_kernel", "batched_kernel", "row_assemble",
            "assemble_rows", "clp_match", "clp_masks",
-           "order_keys", "from_jax_staged", "slot_width", "is_sketch",
+           "order_keys", "from_order_keys", "minmax_combine",
+           "from_jax_staged", "slot_width", "is_sketch",
            "DOC_COMBINE", "MeshFold", "doc_fold", "mesh_fold",
            "mesh_fold_plain", "sharded_kernel", "batched_sharded_kernel",
            "plain_sharded_kernel", "plain_batched_sharded_kernel",
@@ -334,10 +335,12 @@ def masked_reduce(op: str, vals: Optional[torch.Tensor], mask: torch.Tensor,
     if op in ("sum", "sumsq", "sum3", "sum4"):
         return torch.where(m, _powered(op, v), 0).sum(
             1, dtype=torch.float64).to(value_dtype)
-    if op == "min":
-        return torch.where(m, v, float("inf")).amin(1)
-    if op == "max":
-        return torch.where(m, v, float("-inf")).amax(1)
+    if op in ("min", "max"):
+        fill = float("inf") if op == "min" else float("-inf")
+        x = torch.where(m, v, fill)
+        k = order_keys(x)
+        k = k.amin(1) if op == "min" else k.amax(1)
+        return _nan_where(torch.isnan(x).any(1), from_order_keys(k))
     raise ValueError(f"unknown reduction {op!r}")
 
 
@@ -358,11 +361,34 @@ def grouped_reduce(op: str, vals: Optional[torch.Tensor], keys: torch.Tensor,
         return init.scatter_add_(1, safe_keys, contrib).to(value_dtype)
     if op in ("min", "max"):
         fill = float("inf") if op == "min" else float("-inf")
-        init = torch.full((S, num_groups), fill, dtype=v.dtype,
-                          device=m.device)
-        return init.scatter_reduce_(1, safe_keys, torch.where(m, v, fill),
-                                    "a" + op, include_self=True)
+        x = torch.where(m, v, fill)
+        init = order_keys(torch.full((S, num_groups), fill, dtype=x.dtype,
+                                     device=m.device))
+        k = init.scatter_reduce_(1, safe_keys, order_keys(x), "a" + op,
+                                 include_self=True)
+        nan = torch.zeros((S, num_groups), dtype=torch.int32,
+                          device=m.device).scatter_add_(
+            1, safe_keys, torch.isnan(x).int())
+        return _nan_where(nan > 0, from_order_keys(k))
     raise ValueError(f"unknown grouped reduction {op!r}")
+
+
+def _nan_where(nan: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x with the quiet NaN of its dtype wherever `nan` holds: a min / max
+    over a NaN is NaN, as XLA's is (the kernels write the same bits)."""
+    return torch.where(nan, torch.tensor(float("nan"), dtype=x.dtype,
+                                         device=x.device), x)
+
+
+def minmax_combine(op: str, acc: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """One step of a min / max fold, element by element: NaN sticks and
+    -0.0 ranks below +0.0, whatever the order of the operands, as XLA's
+    min / max and its scatter-min / -max rank them."""
+    ka, kv = order_keys(acc), order_keys(v)
+    pick = kv < ka if op == "min" else kv > ka
+    return _nan_where(torch.isnan(acc) | torch.isnan(v),
+                      torch.where(pick, v, acc))
 
 
 def isum_slot(vi: torch.Tensor, mv: torch.Tensor,
@@ -642,6 +668,17 @@ def order_keys(score: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"score dtype {score.dtype} is not float32/64")
 
 
+def from_order_keys(keys: torch.Tensor) -> torch.Tensor:
+    """The floats of `order_keys` (the map is its own inverse on the
+    bits): int32 keys give float32, int64 keys float64."""
+    if keys.dtype == torch.int32:
+        return (keys ^ ((keys >> 31) & 0x7FFFFFFF)).view(torch.float32)
+    if keys.dtype == torch.int64:
+        return (keys ^ ((keys >> 63) & 0x7FFFFFFFFFFFFFFF)).view(
+            torch.float64)
+    raise ValueError(f"key dtype {keys.dtype} is not int32/64")
+
+
 def topn_scores(plan: DevicePlan, cols: Tensors, params: Tensors,
                 num_docs: torch.Tensor, D: int, value_dtype: torch.dtype):
     """(mask, score) of a top-N plan over [S, D]: mask = valid (real docs,
@@ -898,7 +935,7 @@ def _fold_lists(vals: torch.Tensor, off: np.ndarray, rows: torch.Tensor,
                 ops: torch.Tensor) -> torch.Tensor:
     """[B, R, W] float64: row o of the fold of vals[:, rows[off[o]:off[o +
     1]], :] (vals [B, N, W] float64) by ops[w], element by element in list
-    order, from the identities."""
+    order, from the identities (min / max: `minmax_combine`)."""
     B, _N, W = vals.shape
     R = len(off) - 1
     lens = off[1:] - off[:-1]
@@ -909,11 +946,10 @@ def _fold_lists(vals: torch.Tensor, off: np.ndarray, rows: torch.Tensor,
         o = np.nonzero(lens > k)[0]
         v = vals[:, rows[torch.from_numpy(off[o] + k)]]
         a = acc[:, torch.from_numpy(o)]
-        nan = torch.isnan(v)
         acc[:, torch.from_numpy(o)] = torch.where(
             ops == 0, a + v, torch.where(
-                ops == 1, torch.where((v < a) | nan, v, a),
-                torch.where((v > a) | nan, v, a)))
+                ops == 1, minmax_combine("min", a, v),
+                minmax_combine("max", a, v)))
     return acc
 
 

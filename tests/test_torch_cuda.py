@@ -5,11 +5,14 @@ inputs of tests/torch_plans.py; the query axis (B members over U column
 sets) against the plain batched version and each member's own single
 launch; 8 threads through one engine; the sharded and merged kernels,
 a mesh engine and the sharded query step on a logical 4x2 mesh over
-cuda:0 against the same calls on CPU tensors; and K2 with compact keys
-(the gkey block at the launch's G: below and past the 40 KB shared table
-and at the 2^20 cap, B = 1 and 8, with the validity mask), K9 through a
-compact remap, and wide GROUP BY / DISTINCT SQL on the card alone and on
-the mesh against the CPU engine.
+cuda:0 against the same calls on CPU tensors; K2 with compact keys (the
+gkey block at the launch's G: in its warp tier, past it and at the 2^20
+cap, B = 1 and 8, with the validity mask), K9 through a compact remap,
+and wide GROUP BY / DISTINCT SQL on the card alone and on the mesh
+against the CPU engine; and K2 at each table tier's edge, every doc on
+one key and the bucket under the mask, counts and min / max bit for bit
+(+-0.0 and NaN included), and K4's compacting select at ties across
+blocks, filters keeping k, no or every doc, and B = 8 stacked.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. On the card
 they run without the repo's conftest (which imports JAX):
@@ -1127,7 +1130,8 @@ def test_distributed_query_step_on_card_equals_the_cpu(card):
 # remap
 # ---------------------------------------------------------------------------
 
-#: G below the 40 KB shared table, past it, and the cap
+#: G in K2's warp tier, its global tier and at the cap for
+#: tp.compact_spec's slots (`_cuda.group_tier`)
 COMPACT_GS = [64, 8192, 1 << 20]
 
 
@@ -1296,3 +1300,242 @@ def test_compact_sql_on_card_equals_the_cpu(card, tmp_path):
     plan, _ = runs[0].engine._plan(segs, QueryContext.from_sql(sqls[0]))
     assert plan.group_compact
     assert runs[1].engine.meter("mesh_merge_served") == 1
+
+
+# ---------------------------------------------------------------------------
+# K2's table tiers (warp, block, global: csrc/group_agg.cu) and
+# K4's compacting select (csrc/topn.cu), bit for bit against the plain
+# versions: counts, min / max (+-0.0 and NaN included) and top-N rows
+# exact, sums within the tolerance above
+# ---------------------------------------------------------------------------
+
+TIER_OPS = ("sum", "min", "max", "count")
+
+
+def _tier_last(t: int, f64: bool) -> int:
+    """The largest G whose TIER_OPS table takes tier index t or below."""
+    lo, hi = 1, _cuda.MAX_GROUPS
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        tier = _cuda.group_tier(list(TIER_OPS), mid, f64)
+        if _cuda.GROUP_TIERS.index(tier) <= t:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _tier_edges(f64: bool) -> list:
+    """G at each tier's edge: the largest warp and block tables, and one
+    group past each."""
+    out = []
+    for t in range(2):
+        g = _tier_last(t, f64)
+        out += [g, g + 1]
+    return out
+
+
+def _word_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int64 if t.dtype == torch.float64
+                               else torch.int32)
+
+
+def _assert_group_exact(spec, ref, out, scale, x64):
+    """Sums within the tolerance; counts and min / max bit for bit, the
+    sign of a zero and a NaN's bits included."""
+    tp.assert_packed_equal(spec, ref.cpu().numpy(), out.cpu().numpy(), scale,
+                           x64)
+    for j, (op, _v, _f) in enumerate(spec["agg_ops"]):
+        if op in ("count", "min", "max"):
+            assert torch.equal(_word_bits(out[..., j]),
+                               _word_bits(ref[..., j])), (j, op)
+
+
+def _tier_case(card, G, S, D, x64, seed, one_key=False):
+    """A compact-key SUM / MIN / MAX / COUNT plan under a neq filter and the
+    validity mask: values with a third at +-0.0 and some NaN, the keys
+    skewed low (or every doc on the last key)."""
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
+    rng = np.random.default_rng(seed)
+    vnp = np.float64 if x64 else np.float32
+    x = rng.uniform(-50, 50, (S, D))
+    zero = rng.random((S, D)) < 1 / 3
+    x[zero] = rng.choice(np.array([0.0, -0.0]), int(zero.sum()))
+    x[rng.random((S, D)) < 0.001] = np.nan
+    gkey = np.full((S, D), G - 1, np.int32) if one_key else \
+        tp.compact_gkey(seed, S, D, G)
+    cols = {"gkey": gkey, "ids:f": rng.integers(0, 10, (S, D)).astype(
+                np.int8), "val:x": x.astype(vnp),
+            "vmask": rng.random((S, D)) < 0.8}
+    nd = np.full(S, D, np.int32)
+    nd[-1] = D - 777
+    spec = dict(filter_ir=("leaf", 0), leaves=(DeviceLeaf("neq", "f"),),
+                value_irs=(("col", "x"),),
+                agg_ops=tuple((op, None if op == "count" else 0, None)
+                              for op in TIER_OPS),
+                group_cols=("a",), group_compact=True, dict_cols=("f",),
+                raw_cols=("x",), valid_mask=True)
+    params = {"leaf0:idx": np.full(S, 3, np.int32)}
+    return spec, tk.from_jax_staged(cols, params, nd, device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", range(4), ids=["warp", "warp+1", "block",
+                                                 "block+1"])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_group_agg_tier_edges_on_card(card, edge, B, x64):
+    """K2 at each tier's edge (the largest warp and block tables and one
+    group past each), B = 1 and 8 members over one column set, each its
+    own neq literal: against the plain (batched) version and, at B = 8,
+    each member's single launch."""
+    G = _tier_edges(x64)[edge]
+    want = ("warp", "block", "global")[(edge + 1) // 2]
+    assert _cuda.group_tier(list(TIER_OPS), G, x64) == want
+    S, D = 3, max(20_000, 3 * G)
+    spec, (tc, tpar, tnd) = _tier_case(card, G, S, D, x64, 11 + edge)
+    plan = DevicePlan(**spec)
+    vdt = torch.float64 if x64 else torch.float32
+    plist = [dict(tpar, **{"leaf0:idx": torch.full(
+        (S,), m, dtype=torch.int32, device=card)}) for m in range(B)]
+    out = tk.batched_kernel(plan, vdt)([tc], plist, [tnd], [0] * B, D, G)
+    ref = tk.plain_batched_kernel(plan, vdt)([tc], plist, [tnd], [0] * B,
+                                             D, G)
+    torch.cuda.synchronize()
+    single = tk.make_kernel(plan, vdt)
+    for m in range(B):
+        scale = {j: v.cpu().numpy() for j, v in tk.abs_contributions(
+            plan, tc, plist[m], tnd, D, G).items()}
+        _assert_group_exact(spec, ref[m], out[m], scale, x64)
+        if B > 1:
+            _assert_group_exact(spec, single(tc, plist[m], tnd, D, G),
+                                out[m], scale, x64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [35, 1024, 65536, 1 << 20],
+                         ids=["warp", "block", "global", "global-cap"])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_group_agg_every_doc_on_one_key_on_card(card, G, x64):
+    """Every doc on the last key: each warp's 32 lanes share it, so its
+    leader folds the whole warp."""
+    S, D = 3, 300_000
+    spec, (tc, tpar, tnd) = _tier_case(card, G, S, D, x64, 5, one_key=True)
+    plan = DevicePlan(**spec)
+    vdt = torch.float64 if x64 else torch.float32
+    out = tk.make_kernel(plan, vdt)(tc, tpar, tnd, D, G)
+    ref = tk.plain_kernel(plan, vdt)(tc, tpar, tnd, D, G)
+    scale = {j: v.cpu().numpy() for j, v in tk.abs_contributions(
+        plan, tc, tpar, tnd, D, G).items()}
+    _assert_group_exact(spec, ref, out, scale, x64)
+    assert int(out[:, G - 1, 3].sum()) > 0 and int(out[:, :G - 1, 3].sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hosts,count", [(4000, 12), (1, 720)],
+                         ids=["ts.3-global", "ts.1-block"])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_time_bucket_with_validity_mask_on_card(card, hosts, count, x64):
+    """K2's fused bucket under the validity mask, in the global tier (4000
+    hosts x 16 buckets) and the block tier (1 x 1024), max and count bit
+    for bit."""
+    S, D = 4, 60_000
+    spec, cols, params, nd = _bucket_case(card, 3, S, D, hosts, count,
+                                          3_600_000 if count == 12
+                                          else 60_000, x64)
+    cols = _with_mask(card, cols, 8, S, D)
+    spec = dict(spec, valid_mask=True)
+    plan = DevicePlan(**spec)
+    vdt = torch.float64 if x64 else torch.float32
+    out = tk.make_kernel(plan, vdt)(cols, params, nd, D)
+    ref = tk.plain_kernel(plan, vdt)(cols, params, nd, D)
+    scale = {j: v.cpu().numpy()
+             for j, v in tk.abs_contributions(plan, cols, params, nd, D).items()}
+    _assert_group_exact(spec, ref, out, scale, x64)
+
+
+def _topn_check(card, spec, cols, params, nd, D, x64):
+    vdt = torch.float64 if x64 else torch.float32
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    plan = DevicePlan(**spec)
+    out = tk.make_topn_kernel(plan, vdt)(tc, tpar, tnd, D)
+    ref = tk.topn_kernel(plan, tc, tpar, tnd, D, vdt)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    return out.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_topn_ties_at_the_threshold_across_blocks_on_card(card, x64):
+    """Most docs tie at the k-th key, across many blocks of a segment:
+    the winners are the docs above it and then the lowest tied docs, in
+    doc order."""
+    S, D, k = 3, 300_003, 1000
+    spec = tp.topn_spec(0, "col", False, k, filtered=False)
+    rng = np.random.default_rng(4)
+    x = np.where(rng.random((S, D)) < 0.7, 5.0, 1.0)
+    top = rng.random((S, D)) < 0.001  # about 300 above the tie
+    x[top] = 6.0
+    vnp = np.float64 if x64 else np.float32
+    nd = np.array([D, D - 5, 0], np.int32)
+    got = _topn_check(card, spec, {"val:x": x.astype(vnp)}, {}, nd, D, x64)
+    for s in range(2):
+        xs = x[s, :nd[s]]
+        above = np.flatnonzero(xs == 6.0)
+        tied = np.flatnonzero(xs == 5.0)[:k - len(above)]
+        assert got[s, 0] == nd[s]
+        assert list(got[s, 1:]) == list(above) + list(tied)
+    assert got[2, 0] == 0 and (got[2, 1:] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", ["exactly-k", "none", "every"])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_topn_filter_keeps_k_none_or_every_doc_on_card(card, keep, x64):
+    """A range filter keeping exactly k docs, none or every doc: the
+    matched count, the winners and the -1 past them."""
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
+    S, D, k = 3, 100_003, 1000
+    rng = np.random.default_rng(9)
+    ids = np.zeros((S, D), np.int8)
+    for s in range(S):
+        ids[s, rng.choice(D, k, replace=False)] = 1
+    lo = {"exactly-k": 1, "none": 2, "every": 0}[keep]
+    spec = dict(tp.topn_spec(0, "col", True, k, filtered=False),
+                filter_ir=("leaf", 0), leaves=(DeviceLeaf("range", "a"),),
+                dict_cols=("a",))
+    vnp = np.float64 if x64 else np.float32
+    cols = {"ids:a": ids, "val:x": rng.integers(-3, 4, (S, D)).astype(vnp)}
+    params = {"leaf0:lo": np.full(S, lo, np.int32),
+              "leaf0:hi": np.full(S, 1, np.int32)}
+    got = _topn_check(card, spec, cols, params, np.full(S, D, np.int32), D,
+                      x64)
+    want = {"exactly-k": k, "none": 0, "every": D}[keep]
+    assert (got[:, 0] == want).all()
+    assert ((got[:, 1:] >= 0).sum(1) == min(want, k)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_topn_stacked_eight_members_on_card(card, x64):
+    """K4's member axis at B = 8 stacked (each member its own column set)
+    over many blocks a segment: each member against the plain batched
+    version and its single launch."""
+    B, S, D = 8, 4, 120_001
+    spec = tp.topn_spec(1, "col", True, 1000)
+    vnp = np.float64 if x64 else np.float32
+    vdt = torch.float64 if x64 else torch.float32
+    sets = [tk.from_jax_staged(*tp.topn_inputs(20 + u, spec, S, D, vnp),
+                               device=card) for u in range(B)]
+    plan = DevicePlan(**spec)
+    cols = [c for c, _p, _n in sets]
+    plist = [p for _c, p, _n in sets]
+    nds = [n for _c, _p, n in sets]
+    out = tk.batched_kernel(plan, vdt)(cols, plist, nds, list(range(B)), D)
+    ref = tk.plain_batched_kernel(plan, vdt)(cols, plist, nds,
+                                             list(range(B)), D)
+    assert torch.equal(out, ref)
+    single = tk.make_topn_kernel(plan, vdt)
+    for m in range(B):
+        assert torch.equal(out[m], single(cols[m], plist[m], nds[m], D))
