@@ -3391,7 +3391,40 @@ def staged_clp(ex, sql: str):
             plan = eng._plan_topn(ex.segments, ctx)
         cols, params, _nd, D = eng._stage(ex.segments, ctx, plan)
     (leaves,) = kmod.clp_leaves(plan).values()
-    return leaves, cols, params, D
+    return leaves, cols, dict(params, **bool_banks(params)), D
+
+
+def bool_banks(params) -> dict:
+    """The bool dict-var LUTs the plain version reads, from the packed ones
+    an engine on the card stages for K7 (`clp_device.pack_banks`): each
+    packed row's bits. The bits past the bool table's width repeat its last
+    entry, so the plain version's clip into the wider row reads the same."""
+    import torch
+
+    from pinot_tpu_torch.ops import clp_device
+    out = {}
+    for name, packed in clp_device.PACKED_BANKS.items():
+        for key, t in params.items():
+            leaf, _, suffix = key.partition(":")
+            if suffix == packed:
+                bits = torch.arange(8, dtype=torch.uint8, device=t.device)
+                out[f"{leaf}:{name}"] = ((t[..., None] >> bits) & 1).bool(
+                    ).flatten(-2)
+    return out
+
+
+def packed_banks(params) -> dict:
+    """K7's packed dict-var LUTs of the bool tables in `params`, packed
+    from a host copy as an engine on the card packs its staging
+    (`clp_device.pack_banks`), on the tables' device."""
+    import torch
+
+    from pinot_tpu_torch.ops import clp_device
+    banks = {k: t for k, t in params.items()
+             if k.partition(":")[2] in clp_device.PACKED_BANKS}
+    dev = next(iter(banks.values())).device
+    return {k: torch.from_numpy(v).to(dev) for k, v in clp_device.pack_banks(
+        {k: t.cpu().numpy() for k, t in banks.items()}).items()}
 
 
 def check_clp(name: str, leaves, cols, params, D, B: int = 1) -> dict:
@@ -3450,8 +3483,10 @@ def clp_table_bytes(i: int, leaf, cols, params) -> int:
     member: the logtype LUT, the condition and group rows whole; of each
     var LUT row (mode 'a': the dict-var LUT; mode 'b': each dict LUT bank
     named by a dict condition of a live group, ck = 2 and a member of a
-    group with glt >= 0), the entries up to the segment's largest staged
-    dict-var id, the most any doc can index."""
+    group with glt >= 0), the bytes of its packed row (one bit per entry,
+    `clp_device.pack_banks`, what K7 reads) that hold the entries up to
+    the segment's largest staged dict-var id, the most any doc can
+    index."""
     import torch
     mode, kd, _ke = leaf.meta
     tab = {k.split(":", 1)[1]: v for k, v in params.items()
@@ -3466,9 +3501,10 @@ def clp_table_bytes(i: int, leaf, cols, params) -> int:
     if not kd:
         return n
     dv = torch.stack([cols[f"clpdv{j}:{leaf.column}"] for j in range(kd)])
-    reach = dv.amax(dim=(0, 2)).to(torch.int64) + 1  # [S]
+    reach = dv.amax(dim=(0, 2)).to(torch.int64) + 1  # [S] entries
     if mode == "a":
-        return n + int(reach.clamp(max=tab["dvlut"].shape[1]).sum())
+        vp = tab["dvlut"].shape[1]
+        return n + int(((reach.clamp(max=vp) + 7) // 8).sum())
     dlut = tab["dlut"]  # [S, nlp, vp]
     nlp, vp = dlut.shape[1], dlut.shape[2]
     live = ((tab["glt"] >= 0)[:, :, None] & tab["gmem"]).any(dim=1)
@@ -3477,7 +3513,8 @@ def clp_table_bytes(i: int, leaf, cols, params) -> int:
     used = torch.zeros((dlut.shape[0], nlp), dtype=torch.int32,
                        device=dlut.device)
     used.scatter_add_(1, bank, named.to(torch.int32))
-    return n + int(((used > 0).sum(dim=1) * reach.clamp(max=vp)).sum())
+    return n + int(((used > 0).sum(dim=1)
+                    * ((reach.clamp(max=vp) + 7) // 8)).sum())
 
 
 def clp_kernel_inputs(seed: int, mode: str, B: int = 1):
@@ -3532,8 +3569,12 @@ def clp_kernel_inputs(seed: int, mode: str, B: int = 1):
                   "leaf0:cl": ints(0, 8, (S, 16)),
                   "leaf0:dlut": (rand((S, 8, vp)) < 0.5) & live[:, None]})
         return p
+
+    def packed(p):  # K7's packed banks, staged once as the engine does
+        return dict(p, **packed_banks(p)) if kd else p
     leaves = [(0, DeviceLeaf("clp", "m", (mode, kd, ke)))]
-    params = member() if B == 1 else [member() for _ in range(B)]
+    params = packed(member()) if B == 1 else [packed(member())
+                                               for _ in range(B)]
     return leaves, cols, params, D
 
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""K1-K4's phase-3 and 3b launch times and the main path's single-query
-p50 of two checkouts, in turns, on one card.
+"""K1-K4's and K7's phase-3 and 3b launch times and the main path's
+single-query p50 of two checkouts, in turns, on one card.
 
     python3 kernel_ab.py PARENT_DIR CHANGE_DIR [--seed N] [--iters N]
-                         [--no-queries] [--splits]
+                         [--no-queries] [--splits] [--logs]
 
 Runs the turns parent / change / change / parent, each in a fresh process
 whose working directory is that checkout: it builds the checkout's CUDA
@@ -17,10 +17,19 @@ and ts.1 (`bucket_kernel_inputs`) and its compact cases
 m's window m hours later, each compact case with member m excluding
 phrase id m), K3 (`sketch_kernel_inputs`), K4's cases (a)-(d)
 (`topn_kernel_inputs`; "topn" is case (a), the kernels line's) and K4's
-B = 8 broadcast form of case (a). The first turn
+B = 8 broadcast form of case (a), K1 under phase 3's validity mask
+(`with_mask`), K1 on a plan at program.py's limits together on phase 3's
+scan columns ("scan_agg widest": 64 accumulator words, 32 filter trees,
+the filter 32 and a value 16 deep), K1's B = 8 broadcast, stacked and
+dedup forms (`batched_inputs`), K7's mode 'a', mode 'b' and B = 8 cases
+(`clp_kernel_inputs`), and K6 against `torch.stack` on phase 3's full
+float32 rows (`RA_S` x `RA_D`), in turns within the process. The first
+turn
 of each checkout also prints `nvcc -Xptxas -v`'s registers, spills and
-stack per kernel function of K1-K4, and the atomic instructions each
-function of K2 and K4 compiled to (`cuobjdump -sass`). Then (unless
+stack per kernel function of K1-K4 and K7, the atomic instructions each
+function of K2 and K4 compiled to, and the constant loads at a register
+offset (LDC ...c[..][R..]) and local loads and stores (LDL, STL) in each
+function of K1 and K7 (`cuobjdump -sass`). Then (unless
 --no-queries) each turn builds chip_smoke.py's legs of phases 4-7 with
 that checkout's generators and creator — SSB Q1 at 16 x 8M rows, the
 config-#3 group-by at 8 x 4M, config #4 at 64 x 8M, config #5's
@@ -29,6 +38,10 @@ each leg query's p50 over 20 warm runs alone through its QueryExecutor
 (chip_smoke `time_query`; host clock, the result on the host); with
 --splits each turn also records each query's median host-clock stage
 split (`stage_ms`: parse, plan, stage, kernel_fetch, assemble, reduce).
+With --logs, the log leg's segments (phase 11's, 16 x 2^22 lines) are
+built once before the turns, and each turn also takes logs.1-logs.6's
+p50 (each held to its numpy truth) and runs phase 9h's windows (8
+clients over LOG_POOL, serialized and pipelined: their QPS).
 One JSON line per turn, then the change's time over the parent's per
 kernel and per query (the mean of its two turns over theirs), beside the
 card's name and power limit. Needs a CUDA card; builds the kernels into each
@@ -40,8 +53,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 TURN = r"""
 import json, os, re, subprocess, sys
@@ -51,12 +66,14 @@ import chip_smoke as cs
 from pinot_tpu_torch.ops import _cuda, kernels
 seed, iters, ptxas = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3] == "1"
 queries = sys.argv[4] == "1"
-splits = len(sys.argv) > 5 and sys.argv[5] == "1"
+splits = sys.argv[5] == "1"
+logs = sys.argv[6]
 _cuda.build()
 out = {}
 if ptxas:
     regs = {}
-    for k in (_cuda.SCAN_AGG, _cuda.GROUP_AGG, _cuda.SKETCH_AGG, _cuda.TOPN):
+    for k in (_cuda.SCAN_AGG, _cuda.GROUP_AGG, _cuda.SKETCH_AGG, _cuda.TOPN,
+              _cuda.CLP_MATCH):
         flags = [f for f in _cuda.NVCC_FLAGS if f != "-shared"]
         r = subprocess.run([_cuda.nvcc(), *flags, "-c", "-Xptxas", "-v",
                             "-o", os.devnull,
@@ -64,7 +81,10 @@ if ptxas:
                            capture_output=True, text=True)
         fn = None
         for line in (r.stdout + r.stderr).splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
+            # a device function's properties (a __noinline__ callee's) come
+            # under its own name, not the kernel's
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)'?", line)
             if m:
                 fn = m.group(1)
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
@@ -95,6 +115,28 @@ if ptxas:
                 ops = sass.setdefault(fn, {})
                 ops[m.group(1)] = ops.get(m.group(1), 0) + 1
     out["sass_atomics"] = sass
+    # K1's and K7's constant loads at a register offset (a run-time index
+    # into the argument struct, serialized where it differs across a
+    # warp's lanes) and local-memory loads and stores
+    sass = {}
+    for k in (_cuda.SCAN_AGG, _cuda.CLP_MATCH):
+        r = subprocess.run([cuobj, "-sass", k.library], capture_output=True,
+                           text=True)
+        fn = None
+        for line in r.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                sass.setdefault(fn, {"LDC[R]": 0, "LDL": 0, "STL": 0})
+                continue
+            if fn is None:
+                continue
+            if re.search(r"\bLDC(\.\S+)?\s+\S+,\s*c\[0x[0-9a-f]+\]\[R", line):
+                sass[fn]["LDC[R]"] += 1
+            for op in ("LDL", "STL"):
+                if re.search(r"\b" + op + r"(\.\S+)?\s", line):
+                    sass[fn][op] += 1
+    out["sass_k1_k7"] = sass
 F32 = torch.float32
 
 
@@ -185,11 +227,92 @@ cases += [("topn" if c == "a" else f"topn {c}", single(topn_case(c)))
           for c in "abcd"]
 cases.append(("topn x8", broadcast(first_members(
     lambda s: cs.topn_kernel_inputs(s)["a: raw value DESC k=10"]))))
+
+
+def masked(inputs_fn):
+    # A single launch's timer over inputs under phase 3's validity mask.
+    def make():
+        plan, cols, params, nd, D = inputs_fn(seed)
+        plan, cols = cs.with_mask(plan, cols, seed)
+        return plan, cols, params, nd, D
+    return make
+
+
+def scan_form(form):
+    # K1's B = 8 launch in one of phase 3b's forms (BATCH_FORMS).
+    def build():
+        plan, sets, plist, ndl, D = cs.batched_inputs(
+            lambda s: cs.kernel_inputs(s, grouped=False), seed)
+        idx = cs.BATCH_FORMS[form]
+        U = max(idx) + 1
+        run = kernels.batched_kernel(plan, F32)
+        return lambda: run(sets[:U], plist, ndl[:U], idx, D)
+    return build
+
+
+def clp_case(mode, B=1):
+    # K7's phase-3 (mode 'a' / 'b') or 3b (B = 8) launch.
+    def build():
+        leaves, cols, params, D = cs.clp_kernel_inputs(seed, mode, B)
+        plist = params if B > 1 else [params]
+        return lambda: _cuda.clp_match_batched(leaves, [cols], plist,
+                                               [0] * B, D, batched=B > 1)
+    return build
+
+
+def widest():
+    # K1 at program.py's limits together (64 accumulator words, 32 filter
+    # trees, the main one 32 deep, a value 16 deep) on phase 3's scan
+    # columns and leaves
+    from pinot_tpu_torch.ops.plan_ir import DevicePlan
+    plan, cols, params, nd, D = cs.kernel_inputs(seed, grouped=False)
+    deep = ("leaf", 0)
+    for k in range(31):
+        deep = ("or" if k % 2 else "and", ("leaf", (k + 1) % 3), deep)
+    value = ("col", "disc")
+    for k in range(15):
+        value = ("sub" if k % 2 else "add",
+                 ("col", "price" if k % 2 else "disc"), value)
+    ops = [("isum", 0, f) for f in range(9)]
+    ops += [(op, 1, 9 + k)
+            for k, op in enumerate(("sum", "min", "max", "sumsq"))]
+    ops += [("count", None, 13 + k) for k in range(5)]
+    plan = DevicePlan(
+        filter_ir=deep, leaves=plan.leaves,
+        agg_filter_irs=tuple(("leaf", k % 3) if k % 2
+                             else ("not", ("leaf", k % 3))
+                             for k in range(31)),
+        value_irs=(value, ("col", "price")), agg_ops=tuple(ops),
+        dict_cols=plan.dict_cols, raw_cols=plan.raw_cols)
+    return plan, cols, params, nd, D
+
+
+cases += [("scan_agg masked",
+           single(masked(lambda s: cs.kernel_inputs(s, grouped=False)))),
+          ("scan_agg widest", single(widest))]
+cases += [(f"scan_agg x8 {form}", scan_form(form)) for form in cs.BATCH_FORMS]
+cases += [("clp_match a", clp_case("a")), ("clp_match b", clp_case("b")),
+          ("clp_match x8", clp_case("b", cs.BATCH_B))]
 for name, build in cases:
     fn = build()
     out[name] = cs.cuda_ms(fn, iters)
     del fn
     torch.cuda.empty_cache()
+# K6 and torch.stack on phase 3's full float32 rows, in turns within the
+# process (K6, stack, K6, stack)
+gen = torch.Generator(device="cuda")
+gen.manual_seed(seed + 4)
+rows = [torch.randn(cs.RA_D, generator=gen, device="cuda")
+        for _ in range(cs.RA_S)]
+k6 = {"row_assemble": [], "torch.stack": []}
+for _ in range(2):
+    k6["row_assemble"].append(cs.cuda_ms(
+        lambda: kernels.assemble_rows(rows, cs.RA_S, cs.RA_D), iters))
+    k6["torch.stack"].append(cs.cuda_ms(lambda: torch.stack(rows), iters))
+out.update({k: sum(v) / len(v) for k, v in k6.items()})
+out["k6_turns"] = k6
+del rows
+torch.cuda.empty_cache()
 if queries:
     import shutil, statistics, tempfile
     from pinot_tpu_torch.query.executor import QueryExecutor
@@ -235,8 +358,50 @@ if queries:
     out["p50_ms"] = p50
     if splits:
         out["stage_ms"] = stage_ms
+if logs:
+    # the log leg on the segments built once for every turn: logs.1-6
+    # against their numpy truth and their p50, then 9h's windows
+    import pickle, statistics, tempfile
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    with open(logs, "rb") as fh:
+        segs, truths = cs.load_log_segments(pickle.load(fh))
+    ex = QueryExecutor(segs, value_dtype=torch.float64)
+    p50 = out.setdefault("p50_ms", {})
+    for name, (sql, _k) in cs.log_queries().items():
+        resp, _cold, lats, _split = cs.time_query(ex, sql, 20)
+        if cs.log_rows(name, resp) != cs.log_expected(truths, name):
+            sys.exit(f"{name}: differs from its numpy truth")
+        p50[name] = statistics.median(lats) * 1e3
+
+    def pool_check(i, r):
+        want = sum(t["pool"][i] for t in truths)
+        return None if r in ([(want,)], [(float(want),)]) else f"{r}"
+    leg = cs.concurrency_leg(
+        "9h", cs.modes_of(segs, pipelined=ex, value_dtype=torch.float64),
+        cs.LOG_POOL, [list(range(len(cs.LOG_POOL)))] * cs.CLIENTS,
+        pool_check, cs.card_line(), tempfile.mkdtemp(prefix="kernel_ab_"),
+        _cuda.KERNELS, ("scan_agg", "clp_match"))
+    out["9h_qps"] = {mode: leg[mode]["qps"]
+                     for mode in ("serialized", "pipelined")}
 print("TURN " + json.dumps(out))
 """
+
+
+def build_logs(tmp: str, seed: int) -> str:
+    """The log leg's segments (chip_smoke.py's phase 11), built once in
+    spawned workers with this checkout's generator and creator; returns
+    the path of their pickled build results, which every turn loads."""
+    import multiprocessing
+    import pickle
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke as cs
+    jobs = [(tmp, seed, i, cs.LOG_DOCS) for i in range(cs.LOG_SEGMENTS)]
+    with multiprocessing.get_context("spawn").Pool(cs.BUILD_WORKERS) as pool:
+        done = pool.map(cs.build_log_segment, jobs, chunksize=1)
+    path = os.path.join(tmp, "logs.pkl")
+    with open(path, "wb") as fh:
+        pickle.dump(done, fh)
+    return path
 
 
 def card_line() -> str:
@@ -256,8 +421,12 @@ def main() -> None:
                     help="time the kernels only")
     ap.add_argument("--splits", action="store_true",
                     help="also record each query's host-clock stage split")
+    ap.add_argument("--logs", action="store_true",
+                    help="also time the log leg's queries and 9h's windows")
     args = ap.parse_args()
     card = card_line()
+    tmp = tempfile.mkdtemp(prefix="kernel_ab_logs_")
+    logs = build_logs(tmp, args.seed) if args.logs else ""
     turns = []
     for label in ("parent", "change", "change", "parent"):
         tree = os.path.abspath(getattr(args, label))
@@ -265,7 +434,7 @@ def main() -> None:
         r = subprocess.run(
             [sys.executable, "-c", TURN, str(args.seed), str(args.iters),
              "1" if first else "0", "0" if args.no_queries else "1",
-             "1" if args.splits else "0"],
+             "1" if args.splits else "0", logs],
             cwd=tree, capture_output=True, text=True, timeout=1800)
         line = next((x for x in r.stdout.splitlines()
                      if x.startswith("TURN ")), None)
@@ -286,6 +455,11 @@ def main() -> None:
     for q in turns[0].get("p50_ms", {}):
         ratio[q] = mean("change", lambda t: t["p50_ms"][q]) \
             / mean("parent", lambda t: t["p50_ms"][q])
+    for mode in turns[0].get("9h_qps", {}):
+        ratio[f"9h {mode} qps"] = \
+            mean("change", lambda t: sum(t["9h_qps"][mode])) \
+            / mean("parent", lambda t: sum(t["9h_qps"][mode]))
+    shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"change_over_parent": ratio}) + f" | {card}")
 
 

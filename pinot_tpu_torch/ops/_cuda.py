@@ -54,8 +54,11 @@ BUILD_DIR = os.path.join(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 THREADS = 256
-#: each thread of K1/K2 walks about this many docs of its segment
+#: each thread of K2-K4 walks about this many docs of its segment
 DOCS_PER_THREAD = 32
+#: and each thread of K1 about this many, PT_TILE (16) at a time
+#: (csrc/scan_agg.cu), so a block's staging is spread over more docs
+SCAN_DOCS_PER_THREAD = 512
 MAX_BLOCKS_PER_SEGMENT = 1024
 #: K3's grid: about this many blocks over the launch (8 per SM of an H100),
 #: each over at least SKETCH_MIN_DOCS docs of its segment, so a block's
@@ -491,12 +494,14 @@ def scan_agg_batched(plan: DevicePlan, col_sets: List[Tensors],
         raise ValueError("scan_agg takes ungrouped plans")
     L = _Launch(plan, col_sets, params_list, num_docs_list, idx, D,
                 value_dtype, luts)
-    partial = torch.empty((L.B, L.S, L.nb, L.prog.n_acc),
+    nb = max(1, min(MAX_BLOCKS_PER_SEGMENT,
+                    math.ceil(D / (THREADS * SCAN_DOCS_PER_THREAD))))
+    partial = torch.empty((L.B, L.S, nb, L.prog.n_acc),
                           dtype=torch.float64, device=L.device)
     out = torch.empty((L.B, L.S, L.prog.out_width), dtype=value_dtype,
                       device=L.device)
     rc = SCAN_AGG.fn()(ctypes.byref(L.args), L.pmat.data_ptr(),
-                       L.num_docs.data_ptr(), L.S, D, L.P, L.nb, L.B, L.f64,
+                       L.num_docs.data_ptr(), L.S, D, L.P, nb, L.B, L.f64,
                        partial.data_ptr(), out.data_ptr(), L.device.index,
                        L.stream)
     if rc != 0:
@@ -879,7 +884,8 @@ def clp_match_batched(leaves, col_sets: List[Tensors],
     ((leaf index, DeviceLeaf) pairs, 'clp' leaves of one column, at most
     CLP_MAX_LEAVES), member m over column set idx[m] with its own
     parameters params_list[m]['leaf<i>:*'] (ops/clp_device.py
-    `leaf_params`)."""
+    `leaf_params`), the dict-var LUTs packed ('leaf<i>:dvlutp' /
+    'leaf<i>:dlutp', `clp_device.pack_banks`)."""
     B, U, L = len(params_list), len(col_sets), len(leaves)
     if not 1 <= B <= MAX_MEMBERS or not 1 <= U <= MAX_SETS:
         raise ValueError(f"{B} members over {U} column sets: a launch takes "
@@ -933,9 +939,9 @@ def clp_match_batched(leaves, col_sets: List[Tensors],
             la.cp[m] = max(1, alut.shape[1])
             if mode == "a":
                 if lkd:
-                    la.vlut[m] = table("dvlut", (torch.bool,),
+                    la.vlut[m] = table("dvlutp", (torch.uint8,),
                                        lambda t: t.shape[1:])
-                    la.vp[m] = params[f"leaf{i}:dvlut"].shape[1]
+                    la.vp[m] = 8 * params[f"leaf{i}:dvlutp"].shape[1]
                 continue
             ck = params[f"leaf{i}:ck"]
             gp, ncp = params[f"leaf{i}:glt"].shape[1], ck.shape[1]
@@ -950,10 +956,10 @@ def clp_match_batched(leaves, col_sets: List[Tensors],
                 getattr(la, name)[m] = table(name, (torch.int32,),
                                              lambda t: (ncp,))
             if lkd:
-                dlut = params[f"leaf{i}:dlut"]
-                la.vlut[m] = table("dlut", (torch.bool,),
+                la.vlut[m] = table("dlutp", (torch.uint8,),
                                    lambda t: t.shape[1:])
-                la.nlp[m], la.vp[m] = dlut.shape[1], dlut.shape[2]
+                _S, la.nlp[m], vpb = params[f"leaf{i}:dlutp"].shape
+                la.vp[m] = 8 * vpb
     out = torch.empty((L, B, S, D), dtype=torch.bool, device=device)
     ntile = max(1, min(MAX_BLOCKS_PER_SEGMENT,
                        math.ceil(D / (THREADS * DOCS_PER_THREAD))))

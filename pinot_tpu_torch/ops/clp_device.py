@@ -43,6 +43,10 @@ conditions) has its logtype and every condition holds.
 
 The pattern never enters the leaf: its constants resolve at staging
 (`leaf_params`), so queries whose constants differ share one program.
+K7 reads the dict-var LUTs packed, one bit per entry (`pack_banks`: an
+engine on the card packs them once, in place of the bool tables, when it
+stages the leaf's parameters into its params cache); the plain version,
+which an engine on the CPU runs, reads the bool tables.
 Patterns the planner cannot push raise NotOffloadable in the engine, the
 reason metered as ``clp_fallback{reason=}``:
 
@@ -686,4 +690,29 @@ def leaf_params(i: int, leaf, segments, pattern: str, is_like: bool,
             if len(sp.luts):
                 dlut[s, :len(sp.luts), :sp.card] = sp.luts
         out[f"leaf{i}:dlut"] = dlut
+    return out
+
+
+#: the dict-var LUTs K7 reads packed: the bool table's key suffix -> the
+#: packed table's
+PACKED_BANKS = {"dvlut": "dvlutp", "dlut": "dlutp"}
+
+
+def pack_banks(params: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """`params` with each CLP leaf's dict-var LUT packed as K7 reads it: a
+    `leaf<i>:dvlut` [S, vp] / `leaf<i>:dlut` [S, nlp, vp] bool table becomes
+    `leaf<i>:dvlutp` / `leaf<i>:dlutp`, uint8 of width ceil(vp / 8), entry x
+    as bit x % 8 of byte x // 8 (numpy's packbits in little bit order). The
+    bits past vp repeat entry vp - 1, so K7, which clips an index into the
+    packed row's bits, reads what the plain version's clip into [0, vp)
+    reads."""
+    out: Dict[str, np.ndarray] = {}
+    for key, t in params.items():
+        leaf, _, name = key.partition(":")
+        if not leaf.startswith("leaf") or name not in PACKED_BANKS:
+            out[key] = t
+            continue
+        pad = [(0, 0)] * (t.ndim - 1) + [(0, (-t.shape[-1]) % 8)]
+        out[f"{leaf}:{PACKED_BANKS[name]}"] = np.packbits(
+            np.pad(t, pad, mode="edge"), axis=-1, bitorder="little")
     return out

@@ -1712,11 +1712,16 @@ class TorchOperatorExecutor:
                 # the pattern's tables, padded to S_pad with never-match
                 # rows (JAX :2199-2207)
                 try:
-                    padded.update(clp_device.leaf_params(
+                    tables = clp_device.leaf_params(
                         i, leaf, segments, str(expr.args[1].value),
-                        expr.name == "like", S_pad))
+                        expr.name == "like", S_pad)
                 except ValueError:
                     raise self._clp_fallback("staging", str(expr)) from None
+                if self.device.type == "cuda":
+                    # K7 reads the dict-var LUTs packed: packed once,
+                    # cached with the rest
+                    tables = clp_device.pack_banks(tables)
+                padded.update(tables)
             elif leaf.kind == "vrange":
                 lo, hi = _vrange_bounds(expr, vdt)
                 out[f"leaf{i}:lo"] = np.full(S, lo, dtype=vdt)

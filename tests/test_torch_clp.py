@@ -391,6 +391,78 @@ def test_plain_match_equals_jax_kernel_on_jax_staging(segs, pattern):
         assert torch.equal(pp[k], v[:S]), k
 
 
+@pytest.mark.parametrize("pattern", KERNEL_PATTERNS)
+def test_packed_banks_hold_the_jax_tables_bits(segs, pattern):
+    """K7's packed dict-var LUTs: the port's staging on the CPU holds the
+    JAX engine's bool tables (leaf<i>:dvlut / dlut) and no packed ones;
+    `pack_banks` of them, as an engine on the card stages them, replaces
+    each by its packed bytes (entry x = bit x % 8 of byte x // 8, numpy's
+    packbits in little bit order), which unpack to the JAX tables, and
+    keeps every other table as it is."""
+    port, jaxs, _ = segs
+    sql = f"SELECT COUNT(*) FROM logs WHERE message LIKE '{pattern}'"
+    with jax.enable_x64(False):
+        eng = TpuOperatorExecutor(config=JaxConfig())
+        jctx = JaxContext.from_sql(sql)
+        jplan, _ = eng._plan(jaxs, jctx)
+        _c, params, _nd, _s, _D, _g = eng._stage(jaxs, jctx, jplan)
+        params = {k: np.asarray(v) for k, v in params.items()}
+    teng = TorchOperatorExecutor("cpu", torch.float32)
+    ctx = QueryContext.from_sql(sql)
+    tplan, _ = teng._plan(port, ctx)
+    _pc, pp, _pn, _pD = teng._stage(port, ctx, tplan)
+    S = pp["leaf0:alut"].shape[0]
+    banks = [k for k in params if k.split(":")[1] in tcd.PACKED_BANKS]
+    assert banks == [k for k in pp if k.split(":")[1] in tcd.PACKED_BANKS]
+    assert not [k for k in pp
+                if k.split(":")[1] in tcd.PACKED_BANKS.values()]
+    host = {k: v.numpy() for k, v in pp.items() if k.startswith("leaf")}
+    packed = tcd.pack_banks(host)
+    assert sorted(packed) == sorted(
+        k if k not in banks
+        else f"{k.split(':')[0]}:{tcd.PACKED_BANKS[k.split(':')[1]]}"
+        for k in host)
+    for key in host:
+        if key not in banks:
+            assert packed[key] is host[key]
+            continue
+        leaf, name = key.split(":")
+        got = packed[f"{leaf}:{tcd.PACKED_BANKS[name]}"]
+        n = params[key].shape[-1]
+        assert got.dtype == np.uint8 and got.shape[-1] == (n + 7) // 8
+        bits = np.unpackbits(got, axis=-1, count=n,
+                             bitorder="little").astype(bool)
+        np.testing.assert_array_equal(bits, params[key][:S])
+
+
+@pytest.mark.parametrize("shape", [(3, 2), (3, 4), (2, 8), (2, 5, 1024),
+                                   (4, 3, 13)], ids=str)
+def test_pack_banks_pad_with_the_rows_last_entry(shape):
+    """pack_banks at every width a staged table takes (vp a power of two
+    >= 2, or any width): ceil(vp / 8) bytes a row, each entry's bit where
+    K7 reads it, and the bits past vp repeating entry vp - 1, so that K7's
+    clip into the packed row's bits reads at every index, negative ones
+    and ones past vp included, what the plain version's clip into [0, vp)
+    reads."""
+    rng = np.random.default_rng(sum(shape))
+    b = rng.random(shape) < 0.5
+    b[..., -1] = rng.random(shape[:-1]) < 0.5  # the edge: true in some rows
+    key = "leaf0:dvlut" if len(shape) == 2 else "leaf2:dlut"
+    name = key.split(":")[0] + ":" + tcd.PACKED_BANKS[key.split(":")[1]]
+    pn = tcd.pack_banks({key: b})
+    assert list(pn) == [name]
+    vp, nb = shape[-1], (shape[-1] + 7) // 8
+    assert pn[name].shape == shape[:-1] + (nb,)
+    x = np.arange(-3, 8 * nb + 5)
+    kx = np.clip(x, 0, 8 * nb - 1)  # K7's clip into the packed row
+    got = (pn[name].reshape(-1, nb)[:, kx >> 3] >> (kx & 7)) & 1
+    rows = torch.from_numpy(b.reshape(-1, vp))
+    plain = tk._take(rows, torch.from_numpy(x).expand(rows.shape[0], -1))
+    np.testing.assert_array_equal(got.astype(bool), plain.numpy())
+    np.testing.assert_array_equal(got[:, 3:3 + vp].astype(bool),
+                                  b.reshape(-1, vp))
+
+
 @pytest.mark.parametrize("meta", [("a", 2, 0), ("a", 0, 0), ("b", 2, 2),
                                   ("b", 0, 1), ("b", 4, 0), ("b", 1, 4)],
                          ids=str)
@@ -561,9 +633,11 @@ def test_repeat_pattern_stages_nothing(segs):
 
 def test_eight_patterns_coalesce_in_one_held_batch(segs):
     """bench.py:3531's coalesce pool shape: 8 constant-different LIKE
-    queries of one plan, the ring held on its first pop: one broadcast
-    batch of 8, each answer bit-identical to the query alone, and the
-    batch compiles no program beyond the plan's one."""
+    queries of one plan, the ring held on its first pop until all 8 are
+    queued (at most 30 s; a fixed delay let a loaded host split the
+    batch): one broadcast batch of 8, each answer bit-identical to the
+    query alone, and the batch compiles no program beyond the plan's
+    one."""
     port, _j, allm = segs
     eng = TorchOperatorExecutor("cpu", torch.float32)
     hosts = ["web-01", "web-02", "db-01", "alice", "bob42", "10.0.0.1",
@@ -576,8 +650,18 @@ def test_eight_patterns_coalesce_in_one_held_batch(segs):
     assert program.trace_count() - codegen0 <= 1
     before = eng.dispatcher.stats()
     compiled = program.trace_count()
+    disp = eng.dispatcher
+    seen = []
+
+    def queued() -> bool:  # latched: the ring's holders all let go
+        depth = int(disp._metrics.gauge("dispatch_queue_depth",
+                                        labels=disp._labels) or 0)
+        if not seen and fp.fired + depth >= len(sqls):
+            seen.append(True)
+        return bool(seen)
     with eng.dispatcher.active():
-        failpoints.arm("server.dispatch.before", delay=0.3, times=2)
+        fp = failpoints.arm("server.dispatch.before", delay=30.0, times=2,
+                            until=queued)
         try:
             with ThreadPoolExecutor(len(sqls)) as pool:
                 futs = [pool.submit(eng.execute, port,
@@ -629,9 +713,9 @@ def test_chip_smoke_log_leg_on_the_cpu_engine(tmp_path, monkeypatch):
 def test_chip_smoke_k7_bound_counts_only_readable_table_bytes(mode):
     """chip_smoke.py's K7 bound counts, per member, the logtype LUT and the
     condition and group rows whole, and of each var LUT row (mode 'b': each
-    dict bank that a dict condition of a live group names) only the
-    entries up to the segment's largest dict-var id, against a count doc
-    by doc."""
+    dict bank that a dict condition of a live group names) only the bytes
+    of its packed row (one bit per entry, what K7 reads) up to the
+    segment's largest dict-var id, against a count doc by doc."""
     import chip_smoke as cs
     from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
     rng = np.random.default_rng(11)
@@ -644,7 +728,7 @@ def test_chip_smoke_k7_bound_counts_only_readable_table_bytes(mode):
     want = S * 8
     if mode == "a":
         params["leaf0:dvlut"] = torch.zeros((S, vp), dtype=torch.bool)
-        want += sum(reach)
+        want += sum((r + 7) // 8 for r in reach)
     else:
         glt = rng.integers(-1, 6, (S, gp)).astype(np.int32)
         gmem = rng.random((S, gp, ncp)) < 0.2
@@ -663,6 +747,6 @@ def test_chip_smoke_k7_bound_counts_only_readable_table_bytes(mode):
                      for c in range(ncp) if ck[s, c] == 2
                      and any(glt[s, g] >= 0 and gmem[s, g, c]
                              for g in range(gp))}
-            want += len(banks) * reach[s]
+            want += len(banks) * ((reach[s] + 7) // 8)
     leaf = DeviceLeaf("clp", "m", (mode, kd, 0 if mode == "a" else 2))
     assert cs.clp_table_bytes(0, leaf, cols, params) == want

@@ -12,7 +12,15 @@ and wide GROUP BY / DISTINCT SQL on the card alone and on the mesh
 against the CPU engine; and K2 at each table tier's edge, every doc on
 one key and the bucket under the mask, counts and min / max bit for bit
 (+-0.0 and NaN included), and K4's compacting select at ties across
-blocks, filters keeping k, no or every doc, and B = 8 stacked.
+blocks, filters keeping k, no or every doc, and B = 8 stacked; K1's
+tiles at their edges (ragged, one-doc and empty segments, every id dtype
+and LUT path, f32 / f64 and vrange64 leaves, the validity mask and K7's
+mask leaf inside a tile, all and no docs kept, 16 members in groups, a
+plan at program.py's limits together, which takes a narrower block) and
+K7 at the edges of its logtype lookup (a logtype no group names, 64
+groups on one logtype, padding groups, ids past cp and negative, Kd / Ke
+at 0 and 16, dict-var ids past a table of 4 entries read through its
+packed row), in full 16-byte tiles and scalar ones.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. On the card
 they run without the repo's conftest (which imports JAX):
@@ -44,7 +52,7 @@ import numpy as np
 import pytest
 import torch
 
-from pinot_tpu_torch.ops import _cuda
+from pinot_tpu_torch.ops import _cuda, clp_device
 from pinot_tpu_torch.ops import program as prog_mod
 from pinot_tpu_torch.ops import kernels as tk
 from pinot_tpu_torch.ops import startree_device as tsd
@@ -711,6 +719,7 @@ def _clp_case(card, seed, meta, S, D, i=0, **kw):
     from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
     mode, kd, ke = meta
     cols, params = tp.clp_inputs(seed, mode, S, D, i=i, kd=kd, ke=ke, **kw)
+    params.update(clp_device.pack_banks(params))  # as the engine stages them
     tc, tpar, _ = tk.from_jax_staged(cols, params, np.zeros(S, np.int32),
                                      device=card)
     return DeviceLeaf("clp", "m", meta), tc, tpar
@@ -762,10 +771,13 @@ def test_clp_match_batched_members_own_widths_on_card(card):
             for u in range(2)]
     widths = [(8, 8, 4, 256), (4, 16, 2, 512), (64, 16, 8, 256),
               (1, 1, 1, 256), (16, 4, 4, 1024)]
-    plist = [tk.from_jax_staged({}, tp.clp_inputs(
-        20 + m, "b", S, 8, gp=gp, ncp=ncp, nlp=nlp, vp=vp)[1],
-        np.zeros(S, np.int32), device=card)[1]
-        for m, (gp, ncp, nlp, vp) in enumerate(widths)]
+    plist = []
+    for m, (gp, ncp, nlp, vp) in enumerate(widths):
+        p = tp.clp_inputs(20 + m, "b", S, 8, gp=gp, ncp=ncp, nlp=nlp,
+                          vp=vp)[1]
+        p.update(clp_device.pack_banks(p))
+        plist.append(tk.from_jax_staged({}, p, np.zeros(S, np.int32),
+                                        device=card)[1])
     idx = [0, 1, 1, 0, 1]
     before = _cuda.CLP_MATCH.batched_launches
     out = _cuda.clp_match_batched([(0, leaf)], sets, plist, idx, D)
@@ -1539,3 +1551,290 @@ def test_topn_stacked_eight_members_on_card(card, x64):
     single = tk.make_topn_kernel(plan, vdt)
     for m in range(B):
         assert torch.equal(out[m], single(cols[m], plist[m], nds[m], D))
+
+
+# ---------------------------------------------------------------------------
+# K1's tile evaluator and K7's per-logtype lookup at their edges
+# ---------------------------------------------------------------------------
+
+#: K1 tile cases: D a multiple of PT_TILE (full tiles take 16-byte loads)
+#: or not (every doc a scalar load), one block a segment or several
+TILE_DS = [4096, 4099, 196_608]
+
+
+def _tile_case(card, D, kept, x64, mask, seed=3):
+    """A K1 plan whose leaves read every staged dtype through each path of
+    the tile evaluator: an i8 range, an i16 neq, an i32 LUT of 64 entries
+    (a bit set), an i8 LUT of 128 (a row in shared memory), an i16 LUT of
+    8192 (global memory), a float vrange (f32 or f64) and a vrange64 over
+    i32 planes, under a filter three levels deep; value, exact-sum, COUNT
+    and agg FILTER slots. Segments hold D - 5, 1, 0, D, 17 and D // 2 + 3
+    docs (ragged tails, a one-doc and an empty segment). `kept`: 'some',
+    'all' (a range holding every id) or 'none' (an empty range) for the
+    main filter."""
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
+    rng = np.random.default_rng(seed)
+    S = 6
+    vnp = np.float64 if x64 else np.float32
+    nd = np.array([D - 5, 1, 0, D, 17, D // 2 + 3], np.int32)
+    t = rng.integers(-(1 << 40), 1 << 40, (S, D)).astype(np.int64)
+    cols = {"ids:a": rng.integers(0, 128, (S, D)).astype(np.int8),
+            "ids:b": rng.integers(0, 8192, (S, D)).astype(np.int16),
+            "ids:d": rng.integers(0, 64, (S, D)).astype(np.int32),
+            "val:x": (rng.uniform(-100, 100, (S, D))).astype(vnp),
+            "val:u": rng.integers(0, 100_000, (S, D)).astype(vnp),
+            "val:i": rng.integers(-5000, 5000, (S, D)).astype(vnp),
+            "valhi:t": (t >> 24).astype(np.int32),
+            "vallo:t": (t & 0xFFFFFF).astype(np.int32)}
+    leaves = (DeviceLeaf("range", "a"), DeviceLeaf("neq", "b"),
+              DeviceLeaf("lut", "d"), DeviceLeaf("lut", "a"),
+              DeviceLeaf("lut", "b"), DeviceLeaf("vrange", "x"),
+              DeviceLeaf("vrange64", "t"))
+    lo = rng.integers(-10, 60, S)
+    a = rng.integers(-(1 << 40), 0, S)
+    b = a + rng.integers(0, 1 << 41, S)
+    params = {"leaf0:lo": lo.astype(np.int32),
+              "leaf0:hi": (lo + 50).astype(np.int32),
+              "leaf1:idx": rng.integers(0, 8192, S).astype(np.int32),
+              "leaf2:lut": rng.random((S, 64)) < 0.6,
+              "leaf3:lut": rng.random((S, 128)) < 0.6,
+              "leaf4:lut": rng.random((S, 8192)) < 0.6,
+              "leaf5:lo": rng.uniform(-100, 0, S).astype(vnp),
+              "leaf5:hi": rng.uniform(0, 100, S).astype(vnp),
+              "leaf6:lohi": (a >> 24).astype(np.int32),
+              "leaf6:lolo": (a & 0xFFFFFF).astype(np.int32),
+              "leaf6:hihi": (b >> 24).astype(np.int32),
+              "leaf6:hilo": (b & 0xFFFFFF).astype(np.int32)}
+    params["leaf1:idx"][0] = 1 << 20  # no i16 id equals it: all kept
+    some = ("and", ("or", ("leaf", 0), ("not", ("leaf", 2))),
+            ("or", ("leaf", 1), ("leaf", 3), ("leaf", 4)),
+            ("not", ("and", ("leaf", 5), ("leaf", 6))))
+    if kept != "some":  # clamped to the i8 column: [-128, 127] or empty
+        params["leaf0:lo"][:] = -(2**31) if kept == "all" else 5
+        params["leaf0:hi"][:] = 2**31 - 1 if kept == "all" else 4
+    spec = dict(
+        filter_ir=some if kept == "some" else ("leaf", 0), leaves=leaves,
+        agg_filter_irs=(("or", ("leaf", 2), ("leaf", 6)),),
+        value_irs=(("col", "x"),
+                   ("add", ("mul", ("col", "u"), ("lit", 3.0)),
+                    ("lit", 7.0)),
+                   ("mul", ("sub", ("col", "i"), ("col", "u")),
+                    ("lit", 2.0)),
+                   ("mul", ("col", "x"), ("neg", ("col", "x")))),
+        agg_ops=(("count", None, None), ("sum", 0, None), ("min", 0, None),
+                 ("max", 3, None), ("isum:u3", 1, None), ("isum", 2, 0),
+                 ("count", None, 0), ("sum", 3, 0), ("sumsq", 0, None)))
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    if mask:
+        tc = _with_mask(card, tc, seed, S, D)
+    return spec, tc, tpar, tnd
+
+
+def _assert_scan_exact(spec, plan, cols, params, nd, D, vdt, out, x64):
+    ref = tk.plain_kernel(plan, vdt)(cols, params, nd, D)
+    scale = {j: v.cpu().numpy()
+             for j, v in tk.abs_contributions(plan, cols, params, nd,
+                                              D).items()}
+    tp.assert_packed_equal(spec, ref.cpu().numpy(), out.cpu().numpy(),
+                           scale, x64)
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", TILE_DS)
+@pytest.mark.parametrize("kept", ["some", "all", "none"])
+@pytest.mark.parametrize("mask", [False, True], ids=["plain", "vmask"])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_scan_tile_edges_on_card(card, D, kept, mask, x64):
+    """K1's tiles against its plain version: ragged, one-doc and empty
+    segments, every id dtype and LUT path, f32 / f64 and vrange64 leaves,
+    the validity mask inside a tile, all docs kept and none; counts,
+    exact-sum planes and min / max bit for bit."""
+    spec, cols, params, nd = _tile_case(card, D, kept, x64, mask)
+    plan = DevicePlan(**spec, valid_mask=mask)
+    vdt = torch.float64 if x64 else torch.float32
+    before = _cuda.SCAN_AGG.launches
+    out = tk.make_kernel(plan, vdt)(cols, params, nd, D)
+    torch.cuda.synchronize()
+    assert _cuda.SCAN_AGG.launches == before + 1
+    ref = _assert_scan_exact(spec, plan, cols, params, nd, D, vdt, out, x64)
+    valid = tk.doc_validity(plan, cols, nd, D).sum(1)
+    if kept == "all":
+        assert torch.equal(ref[:, 0].double(), valid.double().to(card))
+    if kept == "none":
+        assert not ref[:, 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["broadcast", "stacked", "dedup"])
+def test_scan_sixteen_members_in_groups_on_card(card, form):
+    """K1's member axis at B = 16 on a plan of 21 accumulator words, so
+    a block holds fewer members than share a column set: each member bit
+    for bit against its own single launch and within tolerance of the
+    plain version."""
+    B, D = 16, 196_608
+    U = {"broadcast": 1, "stacked": B, "dedup": 3}[form]
+    idx = [0] * B if form == "broadcast" else \
+        list(range(B)) if form == "stacked" else [m % U for m in range(B)]
+    cases = [_tile_case(card, D, "some", False, False, seed=30 + u)
+             for u in range(U)]
+    spec = cases[0][0]
+    plan = DevicePlan(**spec)
+    sets = [c[1] for c in cases]
+    nds = [c[3] for c in cases]
+    plist = [_tile_case(card, D, "some", False, False, seed=60 + m)[2]
+             for m in range(B)]
+    before = _cuda.SCAN_AGG.batched_launches
+    out = tk.batched_kernel(plan, torch.float32)(sets, plist, nds, idx, D)
+    torch.cuda.synchronize()
+    assert _cuda.SCAN_AGG.batched_launches == before + 1
+    single = tk.make_kernel(plan, torch.float32)
+    for m, u in enumerate(idx):
+        one = single(sets[u], plist[m], nds[u], D)
+        assert torch.equal(_bits(out[m]), _bits(one)), m
+        _assert_scan_exact(spec, plan, sets[u], plist[m], nds[u], D,
+                           torch.float32, out[m], False)
+
+
+def _widest_case(card, D, seed):
+    """A K1 plan at program.py's limits together: 64 accumulator words
+    (9 exact-sum slots of 6 planes, sum / min / max / sumsq, 5 counts),
+    32 filter trees with the main one MAX_FILTER_DEPTH deep and a value
+    MAX_VALUE_DEPTH deep, over an i8 range, an i32 LUT and an f32 vrange.
+    At 256 threads a block one member's accumulators, lists and stacks
+    would need more shared memory than an H100 has; K1 takes a narrower
+    block."""
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
+    rng = np.random.default_rng(seed)
+    S = 4
+    nd = np.array([D, D - 7, 1, D // 2], np.int32)
+    cols = {"ids:a": rng.integers(0, 128, (S, D)).astype(np.int8),
+            "ids:d": rng.integers(0, 64, (S, D)).astype(np.int32),
+            "val:x": rng.uniform(-100, 100, (S, D)).astype(np.float32),
+            "val:u": rng.integers(0, 1000, (S, D)).astype(np.float32),
+            "val:i": rng.integers(-500, 500, (S, D)).astype(np.float32)}
+    params = {"leaf0:lo": rng.integers(0, 40, S).astype(np.int32),
+              "leaf0:hi": rng.integers(60, 128, S).astype(np.int32),
+              "leaf1:lut": rng.random((S, 64)) < 0.7,
+              "leaf2:lo": rng.uniform(-100, -50, S).astype(np.float32),
+              "leaf2:hi": rng.uniform(50, 100, S).astype(np.float32)}
+    deep = ("leaf", 0)
+    for k in range(prog_mod.MAX_FILTER_DEPTH - 1):
+        deep = ("or" if k % 2 else "and", ("leaf", (k + 1) % 3), deep)
+    value = ("col", "u")
+    for k in range(prog_mod.MAX_VALUE_DEPTH - 1):
+        value = ("sub" if k % 2 else "add", ("col", "i" if k % 2 else "u"),
+                 value)
+    aggf = tuple(("leaf", k % 3) if k % 2 else ("not", ("leaf", k % 3))
+                 for k in range(prog_mod.MAX_FILTERS - 1))
+    ops = [("isum", 0, f) for f in range(9)]
+    ops += [(op, 1, 9 + k) for k, op in enumerate(("sum", "min", "max",
+                                                   "sumsq"))]
+    ops += [("count", None, 13 + k) for k in range(5)]
+    spec = dict(filter_ir=deep, leaves=(DeviceLeaf("range", "a"),
+                                        DeviceLeaf("lut", "d"),
+                                        DeviceLeaf("vrange", "x")),
+                agg_filter_irs=aggf, value_irs=(value, ("col", "x")),
+                agg_ops=tuple(ops))
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    return spec, tc, tpar, tnd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [4096, 4099])
+def test_scan_widest_plan_on_card(card, D):
+    """K1 at program.py's limits together (64 words, 32 filters, the
+    deepest filter and value programs), where 256 threads a block do not
+    fit the card's shared memory: against its plain version, and at B = 3
+    broadcast each member bit for bit against its single launch."""
+    spec, cols, params, nd = _widest_case(card, D, 9)
+    plan = DevicePlan(**spec)
+    prog = prog_mod.compile_plan(plan)
+    assert prog.n_acc == prog_mod.MAX_ACC
+    vdt = torch.float32
+    single = tk.make_kernel(plan, vdt)
+    out = single(cols, params, nd, D)
+    torch.cuda.synchronize()
+    _assert_scan_exact(spec, plan, cols, params, nd, D, vdt, out, False)
+    plist = [params] + [_widest_case(card, D, 10 + m)[2] for m in range(2)]
+    got = tk.batched_kernel(plan, vdt)([cols], plist, [nd], [0] * 3, D)
+    torch.cuda.synchronize()
+    for m, p in enumerate(plist):
+        assert torch.equal(_bits(got[m]), _bits(single(cols, p, nd, D))), m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [4096, 4099])
+def test_clp_mask_leaf_and_vmask_in_tiles_on_card(card, D):
+    """K7's mask read by K1 as a leaf beside the validity mask, in full
+    16-byte tiles (D = 4096) and scalar ones (4099)."""
+    spec, cols, params, nd, _D = _clp_plan_case(card, "scan", D=D)
+    plan = DevicePlan(**spec, valid_mask=True)
+    cols = _with_mask(card, cols, 7, nd.shape[0], D)
+    vdt = torch.float32
+    out = tk.make_kernel(plan, vdt)(cols, params, nd, D)
+    _assert_scan_exact(spec, plan, cols, params, nd, D, vdt, out, False)
+
+
+#: K7 edges: (mode, Kd, Ke) and how the tables are bent
+CLP_EDGES = {"no group names the logtype": ("b", 2, 2),
+             "64 groups on one logtype": ("b", 2, 2),
+             "padding groups": ("b", 2, 2),
+             "ids past cp and negative": ("b", 2, 2),
+             "Kd = Ke = 0": ("b", 0, 0),
+             "Kd = Ke = 16": ("b", 16, 16),
+             "mode a, Kd = 16": ("a", 16, 0),
+             "mode a, Kd = 0": ("a", 0, 0),
+             "dict-var ids past vp = 4": ("b", 2, 2),
+             "mode a, dict-var ids past vp = 4": ("a", 2, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", list(CLP_EDGES))
+@pytest.mark.parametrize("D", [4096, 4099])
+def test_clp_match_edges_on_card(card, edge, D):
+    """K7 bit for bit against its plain version at the edges of its
+    logtype lookup and slot counts, 64 groups over 16 conditions, in full
+    tiles (D = 4096) and scalar ones (4099); mode 'a' docs at the dict-var
+    sentinel (clp_inputs puts a quarter there); dict-var ids past a bool
+    table of 4 entries (any of them true) and negative, which K7 reads
+    through the packed row's 8 bits, clipped."""
+    from pinot_tpu_torch.ops.plan_ir import DeviceLeaf
+    mode, kd, ke = CLP_EDGES[edge]
+    S, cp = 5, 8
+    vp = 4 if "past vp" in edge else 64
+    cols, params = tp.clp_inputs(17, mode, S, D, kd=kd, ke=ke, cp=cp,
+                                 gp=64, ncp=16, nlp=4, vp=vp)
+    if "past vp" in edge:
+        rng = np.random.default_rng(5)
+        for key in ("leaf0:dvlut", "leaf0:dlut"):
+            if key in params:
+                params[key][:] = rng.random(params[key].shape) < 0.5
+        for j in range(kd):
+            cols[f"clpdv{j}:m"] = rng.integers(-2, vp + 6, (S, D)).astype(
+                np.int32)
+    if mode == "b":
+        glt = params["leaf0:glt"]
+        if edge == "no group names the logtype":
+            glt[glt >= 0] %= 3  # logtypes 3-7 name no group
+            params["leaf0:alut"][:, 3:] = False
+        elif edge == "64 groups on one logtype":
+            glt[:S - 1] = 3
+            params["leaf0:alut"][:] = False
+        elif edge == "padding groups":
+            glt[:, 40:] = -1
+    if edge == "ids past cp and negative":
+        rng = np.random.default_rng(4)
+        ids = cols["clpid:m"]
+        ids[rng.random(ids.shape) < 0.2] = cp + 3
+        ids[rng.random(ids.shape) < 0.1] = -2
+        params["leaf0:glt"][:, :4] = cp + 3
+    leaf = DeviceLeaf("clp", "m", (mode, kd, ke))
+    params.update(clp_device.pack_banks(params))
+    tc, tpar, _ = tk.from_jax_staged(cols, params, np.zeros(S, np.int32),
+                                     device=card)
+    out = _cuda.clp_match([(0, leaf)], tc, tpar, D)
+    ref = tk.clp_match(0, leaf, tc, tpar)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], ref)
+    assert bool(ref.any())
