@@ -85,7 +85,9 @@ Phases, each of which exits non-zero on failure:
    dim_pad 128, D = 2^20; made on the card from the seed) in four cases:
    exact k = 10 and k = 100, IVF k = 10 (999 cells, 8 probed per segment)
    and IVF k = 100 under a category filter and a uint8 validity mask
-   (vec.3's shape); its whole packed output (counts, ids, scores) bit for
+   (vec.3's shape), each member's host-side bound on a row's candidates
+   ('vq:nc', as the engine stages it) beside its parameters; its whole
+   packed output (counts, ids, scores) bit for
    bit against its plain version. Bound: each real doc's cell id (IVF),
    the row (dim_pad x 4 bytes) of each doc a member scores, the filter's
    columns and the mask at the winners, parameters and output once.
@@ -2340,9 +2342,10 @@ def device_busy(ex, sql: str, iters: int, tmp: str):
     """`iters` warm runs of `sql` under torch.profiler: the card's busy
     time per query (the union of the trace's kernel, copy and set
     intervals), the traced host wall per query, and the device time per
-    query of the busiest kernels. A trace that holds no device event (the
-    profiler drops one now and then) is taken once more; None if that one
-    holds none either."""
+    query of the busiest kernels and of each port kernel's passes (K8's
+    score + compact and select passes also apart). A trace that holds no
+    device event (the profiler drops one now and then) is taken once more;
+    None if that one holds none either."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     ex.execute(sql)
@@ -2371,7 +2374,9 @@ def device_busy(ex, sql: str, iters: int, tmp: str):
                          ("startree_agg", "startree_"),
                          ("row_assemble", "row_assemble"),
                          ("clp_match", "clp_match"),
-                         ("vector_topk", "vec_"))}
+                         ("vector_topk", "vec_"),
+                         ("vector_topk compact", "vec_compact"),
+                         ("vector_topk select", "vec_select"))}
     return {"busy_ms_per_query": busy / 1e3 / iters,
             "traced_wall_ms_per_query": wall * 1e3 / iters,
             "device_ms_per_query": {n: v / 1e3 / iters for n, v in top},
@@ -3886,6 +3891,10 @@ def vector_case(block, seed: int, k: int, ivf: bool, resid: bool,
             p["leaf0:lo"], p["leaf0:hi"] = c, c.clone()
         plist.append(p)
     idx = list(range(B)) if stacked else [0] * B
+    from pinot_tpu_torch.ops.vector_device import candidates
+    for p, u in zip(plist, idx):  # the engine's host-side bound, 'vq:nc'
+        p["vq:nc"] = candidates(plan, sets[u], p, nd, D).sum(1).to(
+            torch.int32).cpu()
     return plan, sets, plist, [nd] * len(sets), idx, D
 
 
@@ -3921,7 +3930,7 @@ def vector_bytes(plan, col_sets, plist, ndlist, idx, D, out) -> int:
         + (1 if plan.valid_mask else 0)
     moved += winners * per_doc
     moved += sum(v.numel() * v.element_size()
-                 for p in plist for v in p.values()) \
+                 for p in plist for v in p.values() if v.is_cuda) \
         + out.numel() * out.element_size()
     return moved
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""K1-K4's and K7's phase-3 and 3b launch times and the main path's
+"""K1-K4's, K7's and K8's phase-3 and 3b launch times and the main path's
 single-query p50 of two checkouts, in turns, on one card.
 
     python3 kernel_ab.py PARENT_DIR CHANGE_DIR [--seed N] [--iters N]
-                         [--no-queries] [--splits] [--logs]
+                         [--no-queries] [--splits] [--logs] [--vector]
 
 Runs the turns parent / change / change / parent, each in a fresh process
 whose working directory is that checkout: it builds the checkout's CUDA
@@ -22,12 +22,14 @@ B = 8 broadcast form of case (a), K1 under phase 3's validity mask
 scan columns ("scan_agg widest": 64 accumulator words, 32 filter trees,
 the filter 32 and a value 16 deep), K1's B = 8 broadcast, stacked and
 dedup forms (`batched_inputs`), K7's mode 'a', mode 'b' and B = 8 cases
-(`clp_kernel_inputs`), and K6 against `torch.stack` on phase 3's full
-float32 rows (`RA_S` x `RA_D`), in turns within the process. The first
-turn
-of each checkout also prints `nvcc -Xptxas -v`'s registers, spills and
-stack per kernel function of K1-K4 and K7, the atomic instructions each
-function of K2 and K4 compiled to, and the constant loads at a register
+(`clp_kernel_inputs`), K8's phase-3 cases and phase 3b's B = 8 forms
+(`vector_case` over `vector_block`: K8_CASES, K8_BATCHED), and K6
+against `torch.stack` on phase 3's full float32 rows (`RA_S` x `RA_D`),
+in turns within the process. The first
+turn of each checkout also prints `nvcc -Xptxas -v`'s registers,
+spills and stack per kernel function of K1-K4, K6, K7 and K8, the atomic
+instructions each function of K2 and K4 compiled to, and the constant
+loads at a register
 offset (LDC ...c[..][R..]) and local loads and stores (LDL, STL) in each
 function of K1 and K7 (`cuobjdump -sass`). Then (unless
 --no-queries) each turn builds chip_smoke.py's legs of phases 4-7 with
@@ -41,7 +43,12 @@ split (`stage_ms`: parse, plan, stage, kernel_fetch, assemble, reduce).
 With --logs, the log leg's segments (phase 11's, 16 x 2^22 lines) are
 built once before the turns, and each turn also takes logs.1-logs.6's
 p50 (each held to its numpy truth) and runs phase 9h's windows (8
-clients over LOG_POOL, serialized and pipelined: their QPS).
+clients over LOG_POOL, serialized and pipelined: their QPS). With
+--vector, the vector leg's segments (phase 12's vec and vecx tables) are
+built once before the turns, and each turn also takes vec.1-vec.4's p50
+(each held to its host search) and runs phase 9i's windows (8 clients
+over VEC_POOL: their QPS), and times K8 alone on the engine's staging
+of vec.1 and vec.4 (chip_smoke `staged_vector`).
 One JSON line per turn, then the change's time over the parent's per
 kernel and per query (the mean of its two turns over theirs), beside the
 card's name and power limit. Needs a CUDA card; builds the kernels into each
@@ -68,12 +75,13 @@ seed, iters, ptxas = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3] == "1"
 queries = sys.argv[4] == "1"
 splits = sys.argv[5] == "1"
 logs = sys.argv[6]
+vector = sys.argv[7]
 _cuda.build()
 out = {}
 if ptxas:
     regs = {}
     for k in (_cuda.SCAN_AGG, _cuda.GROUP_AGG, _cuda.SKETCH_AGG, _cuda.TOPN,
-              _cuda.CLP_MATCH):
+              _cuda.ROW_ASSEMBLE, _cuda.CLP_MATCH, _cuda.VECTOR_TOPK):
         flags = [f for f in _cuda.NVCC_FLAGS if f != "-shared"]
         r = subprocess.run([_cuda.nvcc(), *flags, "-c", "-Xptxas", "-v",
                             "-o", os.devnull,
@@ -298,6 +306,28 @@ for name, build in cases:
     out[name] = cs.cuda_ms(fn, iters)
     del fn
     torch.cuda.empty_cache()
+# K8's phase-3 cases and phase 3b's B = 8 forms on phase 3's block, with
+# chip_smoke's seeds (vector_kernel_cases)
+block = cs.vector_block(seed, cs.K8_SEGMENTS + cs.BATCH_B - 1)
+k8 = []
+for i, (name, (k, ivf, resid, _st)) in enumerate(cs.K8_CASES.items()):
+    plan, sets, plist, ndl, _idx, D = cs.vector_case(block, seed + i, k,
+                                                     ivf, resid)
+    kern = kernels.make_vector_kernel(plan)
+    k8.append((f"vector_topk {name}",
+               lambda kern=kern, sets=sets, plist=plist, ndl=ndl, D=D:
+               kern(sets[0], plist[0], ndl[0], D)))
+for i, (name, (k, ivf, resid, st)) in enumerate(cs.K8_BATCHED.items()):
+    plan, sets, plist, ndl, idx, D = cs.vector_case(
+        block, seed + 10 + i, k, ivf, resid, B=cs.BATCH_B, stacked=st)
+    run = kernels.batched_kernel(plan)
+    k8.append((f"vector_topk x8 {name}",
+               lambda run=run, sets=sets, plist=plist, ndl=ndl, idx=idx,
+               D=D: run(sets, plist, ndl, idx, D)))
+for name, fn in k8:
+    out[name] = cs.cuda_ms(fn, iters)
+del block, k8
+torch.cuda.empty_cache()
 # K6 and torch.stack on phase 3's full float32 rows, in turns within the
 # process (K6, stack, K6, stack)
 gen = torch.Generator(device="cuda")
@@ -383,6 +413,47 @@ if logs:
         _cuda.KERNELS, ("scan_agg", "clp_match"))
     out["9h_qps"] = {mode: leg[mode]["qps"]
                      for mode in ("serialized", "pipelined")}
+if vector:
+    # the vector leg on the segments built once for every turn: vec.1-4
+    # held to their host search and their p50, then 9i's windows
+    import pickle, statistics, tempfile
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    with open(vector, "rb") as fh:
+        done, xdone = pickle.load(fh)
+    segs, indexes = cs.load_vector_segments(done)
+    xsegs, xindexes = cs.load_vector_segments(xdone)
+    queries = cs.vector_queries(segs, indexes, xsegs, xindexes, seed)
+    ex = QueryExecutor({"vec": segs, "vecx": xsegs})
+    p50 = out.setdefault("p50_ms", {})
+    for name, (sql, (want, band), limit) in queries.items():
+        resp, _cold, lats, _split = cs.time_query(ex, sql, 20)
+        if not cs.vec_rows_agree(cs.rows_of(resp), want, band, limit):
+            sys.exit(f"{name}: differs from the host search")
+        p50[name] = statistics.median(lats) * 1e3
+    # K8 alone on the engine's staging of vec.1 (IVF) and vec.4 (exact
+    # search over vecx's short segments): [S, D, kk] beside each time
+    for name in ("vec.1", "vec.4"):
+        plan, sets, plist, ndl, _idx, D = cs.staged_vector(
+            ex, queries[name][0])
+        kern = kernels.make_vector_kernel(plan)
+        out[f"vector_topk staged {name}"] = cs.cuda_ms(
+            lambda: kern(sets[0], plist[0], ndl[0], D), iters)
+        out[f"vector_topk staged {name} shape"] = [
+            int(ndl[0].shape[0]), D, min(plan.k_pad, D)]
+        del plan, sets, plist, ndl, kern
+    pool_q = cs.vec_query_vectors(indexes, seed, cs.VEC_POOL, 9)
+    pool = [cs.vec_sql(qv, 10, 100) for qv in pool_q]
+    truth = [cs.vec_expected(segs, indexes, qv, 10, 100) for qv in pool_q]
+
+    def vec_check(i, r):
+        want, band = truth[i]
+        return None if cs.vec_rows_agree(r, want, band, 100) else f"{r[:3]}"
+    leg = cs.concurrency_leg(
+        "9i", cs.modes_of({"vec": segs, "vecx": xsegs}, pipelined=ex), pool,
+        [list(range(len(pool)))] * cs.CLIENTS, vec_check, cs.card_line(),
+        tempfile.mkdtemp(prefix="kernel_ab_"), _cuda.KERNELS, "vector_topk")
+    out["9i_qps"] = {mode: leg[mode]["qps"]
+                     for mode in ("serialized", "pipelined")}
 print("TURN " + json.dumps(out))
 """
 
@@ -401,6 +472,37 @@ def build_logs(tmp: str, seed: int) -> str:
     path = os.path.join(tmp, "logs.pkl")
     with open(path, "wb") as fh:
         pickle.dump(done, fh)
+    return path
+
+
+def build_vector(tmp: str, seed: int) -> str:
+    """The vector leg's segments (chip_smoke.py's phase 12: the vec table
+    and the exact-path vecx), built once in spawned workers, one a core,
+    each with its BLAS on one thread, with this checkout's generator and
+    creator; returns the path of their pickled build results, which every
+    turn loads."""
+    import multiprocessing
+    import pickle
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke as cs
+    saved = {k: os.environ.get(k) for k in cs._BLAS_THREADS}
+    os.environ.update({k: "1" for k in cs._BLAS_THREADS})
+    try:
+        with multiprocessing.get_context("spawn").Pool(
+                min(cs.VEC_SEGMENTS, os.cpu_count() or 1)) as pool:
+            done = pool.map(cs.build_vector_segment,
+                            cs.vector_jobs(tmp, seed), chunksize=1)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    xdone = [cs.build_vector_segment(j) for j in cs.vector_jobs(
+        tmp, seed, "vecx", cs.VEC_EXACT_SEGMENTS, cs.VEC_EXACT_DOCS, 100)]
+    path = os.path.join(tmp, "vector.pkl")
+    with open(path, "wb") as fh:
+        pickle.dump((done, xdone), fh)
     return path
 
 
@@ -423,10 +525,14 @@ def main() -> None:
                     help="also record each query's host-clock stage split")
     ap.add_argument("--logs", action="store_true",
                     help="also time the log leg's queries and 9h's windows")
+    ap.add_argument("--vector", action="store_true",
+                    help="also time the vector leg's queries and 9i's "
+                         "windows")
     args = ap.parse_args()
     card = card_line()
     tmp = tempfile.mkdtemp(prefix="kernel_ab_logs_")
     logs = build_logs(tmp, args.seed) if args.logs else ""
+    vector = build_vector(tmp, args.seed) if args.vector else ""
     turns = []
     for label in ("parent", "change", "change", "parent"):
         tree = os.path.abspath(getattr(args, label))
@@ -434,7 +540,7 @@ def main() -> None:
         r = subprocess.run(
             [sys.executable, "-c", TURN, str(args.seed), str(args.iters),
              "1" if first else "0", "0" if args.no_queries else "1",
-             "1" if args.splits else "0", logs],
+             "1" if args.splits else "0", logs, vector],
             cwd=tree, capture_output=True, text=True, timeout=1800)
         line = next((x for x in r.stdout.splitlines()
                      if x.startswith("TURN ")), None)
@@ -455,10 +561,11 @@ def main() -> None:
     for q in turns[0].get("p50_ms", {}):
         ratio[q] = mean("change", lambda t: t["p50_ms"][q]) \
             / mean("parent", lambda t: t["p50_ms"][q])
-    for mode in turns[0].get("9h_qps", {}):
-        ratio[f"9h {mode} qps"] = \
-            mean("change", lambda t: sum(t["9h_qps"][mode])) \
-            / mean("parent", lambda t: sum(t["9h_qps"][mode]))
+    for leg in ("9h", "9i"):
+        for mode in turns[0].get(f"{leg}_qps", {}):
+            ratio[f"{leg} {mode} qps"] = \
+                mean("change", lambda t: sum(t[f"{leg}_qps"][mode])) \
+                / mean("parent", lambda t: sum(t[f"{leg}_qps"][mode]))
     shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"change_over_parent": ratio}) + f" | {card}")
 

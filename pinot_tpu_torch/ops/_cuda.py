@@ -65,6 +65,12 @@ MAX_BLOCKS_PER_SEGMENT = 1024
 #: table write-out stays small beside its scan
 SKETCH_BLOCKS = 1056
 SKETCH_MIN_DOCS = 1 << 16
+#: K8's score + compact pass over short segments: enough blocks a segment
+#: for about this many over the launch's rows (2 per SM of an H100), each
+#: over at least VECTOR_MIN_DOCS docs (a 64-doc tile for each of its 8
+#: warps: csrc/vector_topk.cu VT_TILE), where DOCS_PER_THREAD gives fewer
+VECTOR_BLOCKS = 264
+VECTOR_MIN_DOCS = 512
 #: K2's largest group count: the int key and its [B, S, G, n_slots] table
 #: offsets (csrc/group_agg.cu); the engine caps G at 2^20 (JAX's
 #: MAX_DEVICE_GROUPS)
@@ -78,9 +84,7 @@ GROUP_WARP_BYTES = 4096
 GROUP_BLOCK_BYTES = 100 * 1024
 #: K4 sorts its k candidates in one block's shared memory (csrc/topn.cu)
 TOPN_MAX_K = 8192
-#: K8's per-row radix-select state words (csrc/topk_select.cuh ST_*)
-TOPN_STATE_WORDS = 5
-#: K4's per-row state words (csrc/topn.cu TS_*)
+#: K4's and K8's per-row select state words (csrc/topk_select.cuh TS_*)
 TOPN_ROW_WORDS = 7
 #: column sets and members of one K1-K4 launch (csrc/interp.cuh
 #: PT_MAX_SETS, PT_MAX_MEMBERS)
@@ -292,8 +296,9 @@ CLP_MATCH = CudaKernel("clp_match", "clp_match.cu", "pt_clp_match",
                         _P], layout=(_ClpArgs, "pt_clp_args_bytes"))
 VECTOR_TOPK = CudaKernel("vector_topk", "vector_topk.cu", "pt_vector_topk",
                          [ctypes.POINTER(_VecArgs), _P, _P, _P, _P, _P, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _P], layout=(_VecArgs, "pt_vec_args_bytes"))
+                          _I, _I, _I, _I, _I, _I, ctypes.c_longlong, _P, _P,
+                          _P, _P, _P, _P, _P, _I, _P],
+                         layout=(_VecArgs, "pt_vec_args_bytes"))
 MESH_FOLD = CudaKernel("mesh_fold", "mesh_fold.cu", "pt_mesh_fold",
                        [ctypes.POINTER(_FoldArgs), _P, _P, _P, _P, _P, _I, _I,
                         _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
@@ -979,6 +984,27 @@ def clp_match(leaves, cols: Tensors, params: Tensors, D: int) -> torch.Tensor:
                              batched=False)[:, 0]
 
 
+def vector_local_cap(kk: int) -> int:
+    """The candidates K8 selects from in one block's shared memory at kk
+    (csrc/vector_topk.cu `pt_vec_local_cap`): a launch whose rows hold at
+    most this many runs three passes, else K4's sift passes as well."""
+    return VECTOR_TOPK.symbol("pt_vec_local_cap", [_I])(kk)
+
+
+def vector_cap(params_list: List[Tensors], D: int) -> int:
+    """The bound on any row's candidates that sizes K8's lists: the largest
+    of the members' host-side counts ('vq:nc', [S] int32 on the CPU:
+    ops/vector_device.py `candidate_counts`), D where a member has none;
+    at least 1. Read on the host: no synchronization with the card."""
+    cap = D
+    if all("vq:nc" in p for p in params_list):
+        for m, p in enumerate(params_list):
+            if p["vq:nc"].device.type != "cpu":
+                raise ValueError(f"vq:nc of member {m} must lie on the host")
+        cap = max(int(p["vq:nc"].max()) for p in params_list)
+    return max(1, min(cap, D))
+
+
 def vector_topk_batched(plan: DevicePlan, col_sets: List[Tensors],
                         params_list: List[Tensors],
                         num_docs_list: List[torch.Tensor], idx: List[int],
@@ -988,7 +1014,8 @@ def vector_topk_batched(plan: DevicePlan, col_sets: List[Tensors],
     the vector plan `plan` (kk = min(k_pad, D)), member m over column set
     idx[m] with its own query vector, K and probe cells
     (params_list[m]['vq:q' / 'vq:k' / 'vq:cells']) and residual filter
-    parameters (`luts`: see _Launch)."""
+    parameters (`luts`: see _Launch); the lists are sized by `vector_cap`
+    (each member's 'vq:nc')."""
     if plan.mode != "vector":
         raise ValueError("vector_topk takes vector plans")
     kk = min(plan.k_pad, D)
@@ -1001,6 +1028,8 @@ def vector_topk_batched(plan: DevicePlan, col_sets: List[Tensors],
     if R > TOPN_MAX_ROWS:
         raise ValueError(f"{B} members x {S} segments exceed K8's "
                          f"{TOPN_MAX_ROWS} rows")
+    nb = max(L.nb, min(MAX_BLOCKS_PER_SEGMENT, math.ceil(D / VECTOR_MIN_DOCS),
+                       math.ceil(VECTOR_BLOCKS / R)))
     dp = plan.dim_pad
     if dp < 8 or dp & (dp - 1):
         raise ValueError(f"dim_pad {dp} is not a power of two >= 8")
@@ -1029,19 +1058,22 @@ def vector_topk_batched(plan: DevicePlan, col_sets: List[Tensors],
     if plan.ivf:
         cells_pad = plan.cells_pad
         cells = member("vq:cells", torch.bool, (S, cells_pad))
-    keys = torch.empty((B, S, D), dtype=torch.int32, device=dev)
-    state = torch.empty((R, TOPN_STATE_WORDS), dtype=torch.int64, device=dev)
-    hist = torch.empty((R, 256), dtype=torch.int32, device=dev)
-    ties = torch.empty((R, L.nb), dtype=torch.int32, device=dev)
-    cand_key = torch.empty((R, kk), dtype=torch.int32, device=dev)
-    cand_doc = torch.empty((R, kk), dtype=torch.int32, device=dev)
+    cap = vector_cap(params_list, D)
+    lists = 2 if cap > vector_local_cap(kk) else 1
+    keys = torch.empty((lists, R, cap), dtype=torch.int32, device=dev)
+    docs = torch.empty((lists, R, cap), dtype=torch.int32, device=dev)
+    state = torch.empty((R, TOPN_ROW_WORDS), dtype=torch.int64, device=dev)
+    rk = R if lists == 2 else 1  # read only by the sift passes
+    hist = torch.empty((rk, 256), dtype=torch.int32, device=dev)
+    cand_key = torch.empty((rk, kk), dtype=torch.int32, device=dev)
+    cand_doc = torch.empty((rk, kk), dtype=torch.int32, device=dev)
     out = torch.empty((B, S, 1 + 2 * kk), dtype=torch.float32, device=dev)
     rc = VECTOR_TOPK.fn()(
         ctypes.byref(va), L.pmat.data_ptr(), L.num_docs.data_ptr(),
         q.data_ptr(), kq.data_ptr(),
         None if cells is None else cells.data_ptr(), S, D, L.P, dp,
-        cells_pad, L.nb, B, kk, keys.data_ptr(), state.data_ptr(),
-        hist.data_ptr(), ties.data_ptr(), cand_key.data_ptr(),
+        cells_pad, nb, B, kk, cap, keys.data_ptr(), docs.data_ptr(),
+        state.data_ptr(), hist.data_ptr(), cand_key.data_ptr(),
         cand_doc.data_ptr(), out.data_ptr(), dev.index, L.stream)
     if rc != 0:
         raise RuntimeError(f"vector_topk launch failed: cudaError {rc}")

@@ -357,8 +357,8 @@ static cudaError_t launch_tier(const Args* a, const double* params,
                                int nb, unsigned long long* table,
                                cudaStream_t st) {
   auto kern = group_agg_kernel<T, kMask, kTier>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned> limit_set{0};
+  cudaError_t err = pt_smem_limit_max(kern, &limit_set);
   if (err != cudaSuccess) return err;
   kern<<<dim3(nb * B, S), K2_THREADS, (size_t)smem, st>>>(
       *a, params, num_docs, S, D, P, G, B, (int)copy, table);

@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "smem_limit.cuh"
+
 #define PT_MAX_CODE 768
 #define PT_MAX_COLS 32
 #define PT_MAX_LUTS 16

@@ -12,11 +12,17 @@
 // 8-byte values).
 //
 // Bound on an H100: bytes (each row read once, the block written once; no
-// arithmetic). Design: grid (blocks per row, rows); each thread moves 16
-// bytes at a time (uint4) where the row's source, its destination, its
-// length and the row width are 16-byte aligned, which holds for every
-// block the engine stages (rows are power-of-two buckets of at least 128
-// elements, tensors start 512-byte aligned), and single bytes otherwise.
+// arithmetic). Design: grid (blocks per row, rows), each thread one 16-byte
+// unit of its row where the row's source, its length and the row width
+// are 16-byte aligned (every block the engine stages: rows are
+// power-of-two buckets of at least 128 elements, tensors start 512-byte
+// aligned), neighbouring threads on neighbouring units; the zero padding
+// and padded rows are stores only; other rows are copied a byte at a
+// time. Many short blocks in address order were the fastest of the
+// layouts timed on an H100 (PERF.md §6, K6's design points): one wave of
+// the card's resident blocks striding over the rows, several loads in
+// flight a thread, non-allocating loads and streaming stores were each
+// slower, and so were equal contiguous shares of the block.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,9 +46,8 @@ row_assemble(const __grid_constant__ RowArgs a, int rows, long long row_bytes,
   unsigned char* dst = out + (long long)r * row_bytes;
   const long long step = (long long)gridDim.x * blockDim.x;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool vec = ((((uintptr_t)src) | ((uintptr_t)dst) | (uintptr_t)len |
-                     (uintptr_t)row_bytes) & 15) == 0;
-  if (vec) {
+  if (((((uintptr_t)src) | ((uintptr_t)dst) | (uintptr_t)len |
+        (uintptr_t)row_bytes) & 15) == 0) {
     const uint4* s4 = (const uint4*)src;
     uint4* d4 = (uint4*)dst;
     const long long n = row_bytes >> 4, l = len >> 4;
@@ -65,12 +70,11 @@ extern "C" int pt_row_assemble(const RowArgs* a, int rows, int S,
                                long long row_bytes, void* out, int dev,
                                void* stream) {
   cudaSetDevice(dev);
-  long long per_row = (row_bytes / 16 + RA_THREADS * 8 - 1) /
-                      (RA_THREADS * 8);
+  // a block per 256 16-byte units of a row
+  long long per_row = (row_bytes + RA_THREADS * 16 - 1) / (RA_THREADS * 16);
   if (per_row < 1) per_row = 1;
-  if (per_row > 4096) per_row = 4096;
-  const dim3 grid((unsigned)per_row, (unsigned)S);
-  row_assemble<<<grid, RA_THREADS, 0, (cudaStream_t)stream>>>(
-      *a, rows, row_bytes, (unsigned char*)out);
+  row_assemble<<<dim3((unsigned)per_row, (unsigned)S), RA_THREADS, 0,
+                 (cudaStream_t)stream>>>(*a, rows, row_bytes,
+                                         (unsigned char*)out);
   return (int)cudaGetLastError();
 }

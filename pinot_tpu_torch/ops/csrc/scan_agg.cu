@@ -487,8 +487,8 @@ static int launch(const Args* a, const double* params, const int* num_docs,
   const int smem = k1_layout(a, D, P, B, optin - (int)fa.sharedSizeBytes, ly);
   if (smem < 0) return (int)cudaErrorInvalidConfiguration;
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(
-        scan_agg_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    static std::atomic<unsigned> limit_set{0};
+    e = pt_smem_limit_max(scan_agg_kernel<T>, &limit_set);
     if (e != cudaSuccess) return (int)e;
   }
   scan_agg_kernel<T><<<dim3(nb * ly.groups, S), ly.threads, smem, st>>>(

@@ -194,9 +194,9 @@ static int launch(const Args* a, const double* params, const int* num_docs,
                   unsigned* partial, unsigned* gtab, T* out,
                   cudaStream_t st) {
   const size_t dyn = (size_t)smem_words * sizeof(unsigned);
-  cudaError_t e = cudaFuncSetAttribute(
-      sketch_agg_kernel<T, M, kMask>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  static std::atomic<unsigned> limit_set{0};
+  cudaError_t e =
+      pt_smem_limit_max(sketch_agg_kernel<T, M, kMask>, &limit_set);
   if (e != cudaSuccess) return (int)e;
   const int outw = a->code[H_OUTW];
   e = cudaMemsetAsync(gtab, 0, (size_t)B * S * outw * sizeof(unsigned),

@@ -55,6 +55,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "smem_limit.cuh"
+
 #define ST_THREADS 256
 #define ST_MAX_SLOTS 16
 #define ST_MAX_DIMS 8
@@ -341,9 +343,9 @@ static int launch(const StArgs* a, const int* nrec, int S, int D, int G,
   const size_t smem = (size_t)G * A * sizeof(double);
   const int use_smem = smem <= ST_SMEM_TABLE_BYTES;
   if (use_smem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        startree_group<T, BATCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    static std::atomic<unsigned> limit_set{0};
+    const cudaError_t e =
+        pt_smem_limit_max(startree_group<T, BATCH>, &limit_set);
     if (e != cudaSuccess) return (int)e;
   }
   startree_group_init<<<flat, ST_THREADS, 0, st>>>(*a, n, A, scratch);

@@ -1,26 +1,39 @@
-// K8 (vector_topk.cu): the exact top-k of each row of a [R, D] block of
-// ordered integer keys (a float's bits with the sign flip), in (key
+// The compacting top-k select that K4 (topn.cu) and K8 (vector_topk.cu)
+// share: the exact k largest of each row's (key, doc) candidates in (key
 // descending, doc ascending) order, the order XLA's top_k gives floats. R
-// rows are (member, segment) pairs. K4 (topn.cu) selects with its own
-// compacting passes and takes from here the key map (KeyOf), the block
-// range and the final sort (bitonic_sort, sort_width).
+// rows are (member, segment) pairs; keys are ordered integers (a float's
+// bits with the sign flip: KeyOf).
 //
-//   threshold: an MSB-first radix select over the keys, 8-bit digits. Per
-//      digit a histogram pass counts the digits of the keys that share the
-//      higher digits found so far (per-warp shared histograms,
-//      warp-aggregated with __match_any_sync), and a one-block pass per row
-//      picks the digit holding the k-th key. At the end T is the k-th
-//      largest key, c_gt the count of keys above it and k_eq = k - c_gt the
-//      ties at T that make the cut.
-//   candidates: a count pass records each block's ties at T; a collect pass
-//      writes every key above T (at a slot from an atomic counter: the final
-//      sort fixes their order) and the first k_eq ties in doc order (a tie's
-//      rank = the ties of earlier blocks + its rank in its block, from warp
-//      ballots, tile by tile in doc order).
-//   sort: `bitonic_sort` orders one row's k candidates in dynamic shared
-//      memory with the block's threads; the caller's kernel loads them
-//      (`load_candidates`) and writes its own output row.
-// Every pass is deterministic, so a row's result is the same bits every run.
+// The select is an MSB-first radix select, 8 bits a digit, on the
+// composite (key, ~doc): the key and then the complemented doc id, so no
+// two candidates tie, and the k largest composites are the k winners in
+// top_k's order whatever order the candidates were compacted in.
+//   compact (the caller's kernel): each candidate appends its (key, doc)
+//      pair to its row's list (`stage_append`: a slot from a warp ballot
+//      into the warp's shared stage of PT_WSTAGE pairs, the stage appended
+//      with one atomic when full) and counts the key's first digit into
+//      per-warp shared histograms (`count_bin`), merged per block into the
+//      row's [256] histogram (`flush_hist`). The list's length is the
+//      row's candidate count (TS_N0).
+//   pick (`topn_pick_digit`, one block per row): the digit holding the
+//      k-th largest composite among the row's candidates, and how many of
+//      that bucket's candidates still make the cut. Where every candidate
+//      makes it (k or fewer left, or the bucket exactly fills the cut) the
+//      row is settled: no candidate passes on. A row whose list holds at
+//      most `local` pairs is left to the caller (TS_LOCAL: K8 selects it
+//      in one block's shared memory).
+//   sift (`topn_sift`): each candidate of the row's list above the picked
+//      digit is a winner (appended to the row's k winners); one in the
+//      picked bucket passes on to the next list (two lists, ping-pong) and
+//      counts its next digit; the rest drop. Then pick again, for each of
+//      the composite's 8 (u32 keys) or 12 (u64) digits (`sift_passes`);
+//      the last sift takes the picked bucket's one candidate as the k-th
+//      winner. After the compact pass only the candidates still in the
+//      running are read.
+//   sort (`bitonic_sort`): one block orders a row's winners in dynamic
+//      shared memory; the caller's kernel writes its own output row.
+// Every pass gives the same winners whatever the order of its atomics, and
+// the sort orders them, so a row's result is the same bits every run.
 #pragma once
 
 #include "interp.cuh"
@@ -31,8 +44,14 @@
 #define PT_TOPN_MAX_K 8192
 #define PT_SORT_THREADS 1024
 #define PT_WARPS (PT_THREADS / 32)
-// per-row state words (ops/_cuda.py TOPN_STATE_WORDS)
-enum { ST_PREFIX, ST_KREM, ST_CGT, ST_MATCHED, ST_SLOT, ST_WORDS };
+// pairs a warp stages in shared memory before it appends them to its row's
+// list (8 KB a block for u32 keys, 12 KB for u64)
+#define PT_WSTAGE 128
+// per-row state words (ops/_cuda.py TOPN_ROW_WORDS)
+enum { TS_DIGIT, TS_KREM, TS_MATCHED, TS_SLOT, TS_N0, TS_N1, TS_SETTLED,
+       TS_WORDS };
+// TS_SETTLED: 0 running, 1 settled, TS_LOCAL left to the caller's select
+#define TS_LOCAL 2
 
 template <typename T> struct KeyOf;
 template <> struct KeyOf<float> {
@@ -62,60 +81,117 @@ __device__ __forceinline__ void block_range(int D, int b, int nb, int& start,
   end = min(D, start + per);
 }
 
-__global__ void topn_init(long long* __restrict__ state, int R, int k) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= R) return;
-  long long* st = state + (long long)s * ST_WORDS;
-  st[ST_PREFIX] = 0;
-  st[ST_KREM] = k;
-  st[ST_CGT] = 0;
-  st[ST_MATCHED] = 0;
-  st[ST_SLOT] = 0;
+// Digit p (0 = the most significant) of the composite (key, ~doc).
+template <typename K>
+__device__ __forceinline__ int digit_of(K key, int doc, int p) {
+  constexpr int KB = (int)sizeof(K);
+  if (p < KB) return (int)((key >> (8 * (KB - 1 - p))) & 0xFF);
+  return (int)(((unsigned)~doc >> (8 * (3 - (p - KB)))) & 0xFFu);
 }
 
-// The digit at `shift` of every key that shares the digits above it with
-// the prefix found so far, counted into hist [R, 256].
+__global__ void topn_start(long long* __restrict__ state, int R, int k) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= R) return;
+  long long* st = state + (long long)s * TS_WORDS;
+  st[TS_DIGIT] = 0;
+  st[TS_KREM] = k;
+  st[TS_MATCHED] = 0;
+  st[TS_SLOT] = 0;
+  st[TS_N0] = 0;
+  st[TS_N1] = 0;
+  st[TS_SETTLED] = 0;
+}
+
+// Appends a warp's flagged (key, doc) pairs to list `lk` / `ld` at slots
+// from the counter `*n` (one atomic per warp); returns after the warp's
+// writes are issued.
 template <typename K>
-__global__ void __launch_bounds__(PT_THREADS)
-topn_hist(const K* __restrict__ keys, int D, int shift,
-          const long long* __restrict__ state, int* __restrict__ hist) {
-  __shared__ int wh[PT_WARPS][256];
-  const int s = blockIdx.y;
-  for (int e = threadIdx.x; e < PT_WARPS * 256; e += blockDim.x)
-    (&wh[0][0])[e] = 0;
-  __syncthreads();
-  const int hi = shift + 8;
-  const K prefix = (K)state[(long long)s * ST_WORDS + ST_PREFIX];
-  const bool all = hi >= (int)(8 * sizeof(K));
-  const K want = all ? (K)0 : (prefix >> hi);
-  int start, end;
-  block_range(D, blockIdx.x, gridDim.x, start, end);
-  const long long base = (long long)s * D;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int t0 = start; t0 < end; t0 += blockDim.x) {
-    const int d = t0 + threadIdx.x;
-    int bin = -1;
-    if (d < end) {
-      const K key = keys[base + d];
-      if (all || (key >> hi) == want) bin = (int)((key >> shift) & 0xFF);
+__device__ __forceinline__ void append(bool put, K key, int doc,
+                                       long long* n, K* lk, int* ld,
+                                       int* wslot) {
+  const unsigned bal = __ballot_sync(0xFFFFFFFFu, put);
+  const int lane = threadIdx.x & 31;
+  if (bal) {
+    if (lane == __ffs(bal) - 1)
+      *wslot = (int)atomicAdd((unsigned long long*)n,
+                              (unsigned long long)__popc(bal));
+    __syncwarp();
+    if (put) {
+      const int at = *wslot + __popc(bal & ((1u << lane) - 1u));
+      lk[at] = key;
+      ld[at] = doc;
     }
-    // one shared-memory add per distinct bin of the warp
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, bin);
-    if (bin >= 0 && lane == __ffs(peers) - 1)
-      wh[w][bin] += __popc(peers);
     __syncwarp();
   }
+}
+
+// A warp's flagged (key, doc) pairs into its shared stage (wk, wd:
+// PT_WSTAGE pairs; `fill` of them held, the same in every lane), and, once
+// the stage has less than a warp's room left (or at `flush`), the stage
+// onto the row's list at a slot from one atomic on *n: one atomic per
+// stage-full where one per warp step would serialize on the row's counter
+// when most docs are kept. With kCap the list holds `cap` pairs: *n still
+// counts the pairs past it, which are not written (K8's lists, sized by
+// the host's bound); without, the caller's list has room for them all.
+// Every lane of the warp calls it.
+template <typename K, bool kCap = false>
+__device__ __forceinline__ void stage_append(bool put, K key, int doc, K* wk,
+                                             int* wd, int& fill,
+                                             long long* n, K* lk, int* ld,
+                                             long long cap, bool flush) {
+  const unsigned bal = __ballot_sync(0xFFFFFFFFu, put);
+  const int lane = threadIdx.x & 31;
+  if (put) {
+    const int at = fill + __popc(bal & ((1u << lane) - 1u));
+    wk[at] = key;
+    wd[at] = doc;
+  }
+  fill += __popc(bal);
+  if (flush ? fill > 0 : fill > PT_WSTAGE - 32) {
+    __syncwarp();
+    unsigned long long b0 = 0;
+    if (lane == 0)
+      b0 = atomicAdd((unsigned long long*)n, (unsigned long long)fill);
+    b0 = __shfl_sync(0xFFFFFFFFu, b0, 0);
+    for (int i = lane; i < fill; i += 32) {
+      if (!kCap || (long long)b0 + i < cap) {
+        lk[b0 + i] = wk[i];
+        ld[b0 + i] = wd[i];
+      }
+    }
+    __syncwarp();
+    fill = 0;
+  }
+}
+
+// Adds bin (or nothing, for -1) to the warp's shared histogram: one add per
+// distinct bin of the warp.
+__device__ __forceinline__ void count_bin(int bin, int* wh) {
+  const unsigned peers = __match_any_sync(0xFFFFFFFFu, bin);
+  if (bin >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)
+    wh[bin] += __popc(peers);
+  __syncwarp();
+}
+
+// The block's per-warp histograms into the row's.
+__device__ __forceinline__ void flush_hist(int (*wh)[256], int* row) {
   __syncthreads();
   for (int bin = threadIdx.x; bin < 256; bin += blockDim.x) {
     int c = 0;
     for (int j = 0; j < PT_WARPS; ++j) c += wh[j][bin];
-    if (c) atomicAdd(hist + (long long)s * 256 + bin, c);
+    if (c) atomicAdd(row + bin, c);
   }
 }
 
-// One block per row: the digit holding the k-th key; clears hist.
-__global__ void topn_pick(int* __restrict__ hist,
-                          long long* __restrict__ state, int shift) {
+// One block per row, after the pass that counted digit p: picks the digit
+// of the k-th largest composite left, settles the row where every
+// candidate left makes the cut, clears the histogram and the counter of
+// the list the next sift writes. At p = 0 it records the row's candidate
+// count (TS_MATCHED) and leaves a row of at most `local` candidates to the
+// caller (TS_LOCAL; -1: none).
+__global__ void topn_pick_digit(int* __restrict__ hist,
+                                long long* __restrict__ state, int p,
+                                long long local) {
   __shared__ int h[256];
   const int s = blockIdx.x;
   int* row = hist + (long long)s * 256;
@@ -125,121 +201,115 @@ __global__ void topn_pick(int* __restrict__ hist,
   }
   __syncthreads();
   if (threadIdx.x != 0) return;
-  long long* st = state + (long long)s * ST_WORDS;
-  const long long krem = st[ST_KREM];
+  long long* st = state + (long long)s * TS_WORDS;
+  if (p == 0) {
+    st[TS_MATCHED] = st[TS_N0];
+    if (st[TS_N0] <= local) st[TS_SETTLED] = TS_LOCAL;
+  }
+  st[TS_N0 + ((p + 1) & 1)] = 0;
+  if (st[TS_SETTLED]) return;
+  const long long krem = st[TS_KREM];
   long long cum = 0;
   for (int b = 255; b >= 0; --b) {
     if (cum + h[b] >= krem) {
-      st[ST_PREFIX] = (long long)((unsigned long long)st[ST_PREFIX] |
-                                  ((unsigned long long)b << shift));
-      st[ST_KREM] = krem - cum;
-      st[ST_CGT] += cum;
+      st[TS_DIGIT] = b;
+      st[TS_KREM] = krem - cum;
+      if (h[b] == krem - cum) st[TS_SETTLED] = 1;  // the bucket fills the cut
       return;
     }
     cum += h[b];
   }
+  st[TS_DIGIT] = -1;  // k or fewer left: every one wins
+  st[TS_KREM] = krem - cum;
+  st[TS_SETTLED] = 1;
 }
 
-// Each block's count of keys equal to T, into ties [R, nb].
+// Sift p (1 <= p <= npass): the row's list from the sift before (or the
+// compact pass), classified by digit p - 1 against the picked digit. Lists
+// hold `stride` pairs a row.
 template <typename K>
 __global__ void __launch_bounds__(PT_THREADS)
-topn_count(const K* __restrict__ keys, int D,
-           const long long* __restrict__ state, int* __restrict__ ties) {
-  const int s = blockIdx.y;
-  const K T = (K)state[(long long)s * ST_WORDS + ST_PREFIX];
-  int start, end;
-  block_range(D, blockIdx.x, gridDim.x, start, end);
-  const long long base = (long long)s * D;
-  int c = 0;
-  for (int t0 = start; t0 < end; t0 += blockDim.x) {
-    const int d = t0 + threadIdx.x;
-    c += __syncthreads_count(d < end && keys[base + d] == T);
-  }
-  if (threadIdx.x == 0) ties[(long long)s * gridDim.x + blockIdx.x] = c;
-}
-
-template <typename K>
-__global__ void __launch_bounds__(PT_THREADS)
-topn_collect(const K* __restrict__ keys, int D, int k,
-             long long* __restrict__ state, const int* __restrict__ ties,
-             K* __restrict__ cand_key, int* __restrict__ cand_doc) {
-  __shared__ int wsum[PT_WARPS];
-  __shared__ int before_sh;
-  const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
-  long long* st = state + (long long)s * ST_WORDS;
-  const K T = (K)st[ST_PREFIX];
-  const int keq = (int)st[ST_KREM], cgt = (int)st[ST_CGT];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  // ties in the blocks before this one, in block order
-  int c = 0;
-  for (int j = threadIdx.x; j < b; j += blockDim.x)
-    c += ties[(long long)s * nb + j];
-  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xFFFFFFFFu, c, o);
-  if (threadIdx.x == 0) before_sh = 0;
+topn_sift(const K* __restrict__ inkey, const int* __restrict__ indoc,
+          K* __restrict__ outkey, int* __restrict__ outdoc, int stride,
+          int k, int p, int npass, long long* __restrict__ state,
+          int* __restrict__ hist, K* __restrict__ cand_key,
+          int* __restrict__ cand_doc) {
+  __shared__ int wh[PT_WARPS][256];
+  __shared__ int wslot[PT_WARPS];
+  __shared__ K wk[PT_WARPS][PT_WSTAGE];
+  __shared__ int wd[PT_WARPS][PT_WSTAGE];
+  const long long s = blockIdx.y;
+  long long* st = state + s * TS_WORDS;
+  if (st[TS_SETTLED] == TS_LOCAL) return;
+  for (int e = threadIdx.x; e < PT_WARPS * 256; e += blockDim.x)
+    (&wh[0][0])[e] = 0;
   __syncthreads();
-  if (lane == 0) atomicAdd(&before_sh, c);
-  __syncthreads();
-  int run = before_sh;
-  int start, end;
-  block_range(D, b, nb, start, end);
-  const long long base = (long long)s * D;
-  K* ck = cand_key + (long long)s * k;
-  int* cd = cand_doc + (long long)s * k;
-  for (int t0 = start; t0 < end; t0 += blockDim.x) {
-    const int d = t0 + threadIdx.x;
+  const long long n = min(st[TS_N0 + ((p - 1) & 1)], (long long)stride);
+  const int dig = (int)st[TS_DIGIT];
+  const bool settled = st[TS_SETTLED] != 0, last = p == npass;
+  const K* ik = inkey + s * stride;
+  const int* id = indoc + s * stride;
+  const int w = threadIdx.x >> 5;
+  int fill = 0;
+  for (long long i0 = (long long)blockIdx.x * blockDim.x; i0 < n;
+       i0 += (long long)gridDim.x * blockDim.x) {
+    const long long i = i0 + threadIdx.x;
+    const bool in = i < n;
     K key = 0;
-    if (d < end) key = keys[base + d];
-    const bool gt = d < end && key > T;
-    const bool eq = d < end && key == T;
-    if (gt) {
-      const int slot = (int)atomicAdd(
-          (unsigned long long*)(st + ST_SLOT), 1ull);
-      ck[slot] = key;
-      cd[slot] = d;
+    int doc = 0, g = -1;
+    if (in) {
+      key = ik[i];
+      doc = id[i];
+      g = digit_of<K>(key, doc, p - 1);
     }
-    const unsigned bal = __ballot_sync(0xFFFFFFFFu, eq);
-    if (lane == 0) wsum[w] = __popc(bal);
-    __syncthreads();
-    int off = run, total = 0;
-    for (int j = 0; j < PT_WARPS; ++j) {
-      if (j < w) off += wsum[j];
-      total += wsum[j];
+    const bool win = in && (g > dig || (g == dig && (settled || last)));
+    const bool keep = in && !win && g == dig;
+    append<K>(win, key, doc, st + TS_SLOT, cand_key + s * k,
+              cand_doc + s * k, &wslot[w]);
+    if (!last) {
+      stage_append<K>(keep, key, doc, wk[w], wd[w], fill,
+                      st + TS_N0 + (p & 1), outkey + s * stride,
+                      outdoc + s * stride, stride, false);
+      count_bin(keep ? digit_of<K>(key, doc, p) : -1, wh[w]);
     }
-    if (eq) {
-      const int rank = off + __popc(bal & ((1u << lane) - 1u));
-      if (rank < keq) {
-        ck[cgt + rank] = key;
-        cd[cgt + rank] = d;
-      }
-    }
-    run += total;
-    __syncthreads();
   }
+  if (!last) {
+    stage_append<K>(false, (K)0, 0, wk[w], wd[w], fill,
+                    st + TS_N0 + (p & 1), outkey + s * stride,
+                    outdoc + s * stride, stride, true);
+    flush_hist(wh, hist + s * 256);
+  }
+}
+
+// The pick and sift passes over R rows' two lists (keys / docs [2, R,
+// stride], list 0 filled by the compact pass, its first digit counted in
+// hist) on `st`, nbl blocks a row per sift: cand_key / cand_doc [R, k]
+// then hold each row's winners in no order, TS_SLOT of them. Rows of at
+// most `local` candidates are left to the caller (-1: none). Returns the
+// first nonzero cudaGetLastError().
+template <typename K>
+static int sift_passes(K* keys, int* docs, int R, int stride, int nbl,
+                       int k, long long local, long long* state, int* hist,
+                       K* cand_key, int* cand_doc, cudaStream_t st) {
+  cudaError_t err;
+  const long long RD = (long long)R * stride;
+  const int npass = (int)sizeof(K) + 4;  // the composite's digits
+  for (int p = 1; p <= npass; ++p) {
+    topn_pick_digit<<<R, 256, 0, st>>>(hist, state, p - 1, local);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const long long in = ((p - 1) & 1) * RD, outo = (p & 1) * RD;
+    topn_sift<K><<<dim3(nbl, R), PT_THREADS, 0, st>>>(
+        keys + in, docs + in, keys + outo, docs + outo, stride, k, p, npass,
+        state, hist, cand_key, cand_doc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // x before y in the output: key descending, then doc ascending.
 template <typename K>
 __device__ __forceinline__ bool before(K kx, int dx, K ky, int dy) {
   return kx > ky || (kx == ky && dx < dy);
-}
-
-
-// Row s's k candidates into shared memory, padded to n2 (a power of two)
-// with entries below every real key (0 is the key of a negative NaN).
-template <typename K>
-__device__ __forceinline__ void load_candidates(
-    const K* __restrict__ cand_key, const int* __restrict__ cand_doc, int k,
-    int n2, long long s, K* sk, int* sd) {
-  for (int i = threadIdx.x; i < n2; i += blockDim.x) {
-    if (i < k) {
-      sk[i] = cand_key[s * k + i];
-      sd[i] = cand_doc[s * k + i];
-    } else {
-      sk[i] = 0;
-      sd[i] = 0x7FFFFFFF;
-    }
-  }
-  __syncthreads();
 }
 
 // Sorts n2 (key, doc) pairs in shared memory by before(), with every
@@ -269,28 +339,4 @@ static inline int sort_width(int k) {
   int n2 = 1;
   while (n2 < k) n2 <<= 1;
   return n2;
-}
-
-// The threshold and candidate passes over keys [R, D] on `st`, after
-// topn_init and a zeroed hist: cand_key / cand_doc [R, k] then hold each
-// row's k winners in no order. Returns the first nonzero
-// cudaGetLastError().
-template <typename K>
-static int select_candidates(const K* keys, int R, int D, int nb, int k,
-                             long long* state, int* hist, int* ties,
-                             K* cand_key, int* cand_doc, cudaStream_t st) {
-  cudaError_t err;
-  const dim3 grid(nb, R);
-  for (int shift = 8 * (int)sizeof(K) - 8; shift >= 0; shift -= 8) {
-    topn_hist<K><<<grid, PT_THREADS, 0, st>>>(keys, D, shift, state, hist);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    topn_pick<<<R, 256, 0, st>>>(hist, state, shift);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  topn_count<K><<<grid, PT_THREADS, 0, st>>>(keys, D, state, ties);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  topn_collect<K><<<grid, PT_THREADS, 0, st>>>(keys, D, k, state, ties,
-                                               cand_key, cand_doc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return 0;
 }

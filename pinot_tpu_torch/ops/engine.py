@@ -957,7 +957,8 @@ class TorchOperatorExecutor:
         resident rows under pinot.server.vector.hbm.resident), and the
         query vector, K and probe cells through the params cache under the
         vector function's own key (JAX :811), so two queries sharing a
-        residual but not a vector never alias."""
+        residual but not a vector never alias; beside them, on the host,
+        each row's candidate count ('vq:nc', which sizes K8's lists)."""
         cols, params, num_docs, D = self._stage(segments, rctx, plan, stamps)
         S = int(num_docs.shape[0])
         dp, col, n = plan.dim_pad, plan.vec_col, len(segments)
@@ -981,9 +982,11 @@ class TorchOperatorExecutor:
             self._params_cache.move_to_end(pkey)
             params.update(hit[1])
             return cols, params, num_docs, D
-        vparams = {key: self._upload(arr) for key, arr in
-                   vector_device.query_params(segments, plan, qvec, k,
-                                              S).items()}
+        host = vector_device.query_params(segments, plan, qvec, k, S)
+        vparams = {key: self._upload(arr) for key, arr in host.items()}
+        # K8's bound on a row's candidates stays on the host
+        vparams["vq:nc"] = torch.from_numpy(vector_device.candidate_counts(
+            segments, plan, host.get("vq:cells"), S))
         params.update(vparams)
         self._params_cache[pkey] = (tuple(segments), vparams, num_docs)
         while len(self._params_cache) > self.PARAMS_CACHE_ENTRIES:

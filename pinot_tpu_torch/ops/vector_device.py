@@ -49,7 +49,7 @@ NotOffloadable and counts as `vector_fallback`:
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -222,6 +222,30 @@ def query_params(segments, plan: DevicePlan, qvec: np.ndarray, k: int,
     return out
 
 
+def candidate_counts(segments, plan: DevicePlan, cells: Optional[np.ndarray],
+                     S: int) -> np.ndarray:
+    """Each row's candidate count ([S] int32), known on the host at
+    planning: with IVF the doc counts of the probed cells of `cells` (the
+    query's 'vq:cells' mask; every cell where a segment has no coarse
+    layer or its probe fell back to every cell, so num_docs), num_docs
+    without; 0 for padded rows. K8 sizes its candidate lists by the
+    largest (ops/_cuda.py `vector_cap`), so a launch never reads the card
+    to learn it. Where the cells' counts could miss a candidate (an
+    assignment row shorter than the segment, whose other docs `cell_row`
+    puts in cell 0, or more cells than the probe mask's width, which the
+    kernel clips into its last) the row's bound is num_docs."""
+    out = np.zeros(S, np.int32)
+    for s, seg in enumerate(segments):
+        index = _index_of(seg, plan.vec_col) if plan.ivf else None
+        out[s] = seg.num_docs
+        if index is not None and index.centroids is not None:
+            counts = index.cell_doc_counts()
+            if (len(index.assignments) == seg.num_docs
+                    and len(counts) <= cells.shape[1]):
+                out[s] = int(counts[cells[s, :len(counts)]].sum())
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the plain version of K8 (JAX make_vector_kernel :104, batched :163)
 # ---------------------------------------------------------------------------
@@ -253,6 +277,19 @@ def score_keys(score: torch.Tensor) -> torch.Tensor:
                        torch.iinfo(torch.int32).max, kernels.order_keys(score))
 
 
+def candidates(plan: DevicePlan, cols: Tensors, params: Tensors,
+               num_docs: torch.Tensor, D: int) -> torch.Tensor:
+    """[S, D] bool: the docs that compete, the real docs (d < num_docs) and,
+    with IVF, those whose cell (clipped into [0, cells_pad)) is probed."""
+    cand = torch.arange(D, dtype=torch.int32, device=num_docs.device
+                        )[None, :] < num_docs[:, None]
+    if plan.ivf:
+        cell = cols["vcell:" + plan.vec_col].long().clamp(0,
+                                                          plan.cells_pad - 1)
+        cand = cand & torch.gather(params["vq:cells"], 1, cell)
+    return cand
+
+
 def vector_topk(plan: DevicePlan, cols: Tensors, params: Tensors,
                 num_docs: torch.Tensor, D: int) -> torch.Tensor:
     """The plain K8: [S, 1 + 2 kk] float32, kk = min(k_pad, D): the kept
@@ -265,13 +302,7 @@ def vector_topk(plan: DevicePlan, cols: Tensors, params: Tensors,
     device = num_docs.device
     V = cols["vec:" + plan.vec_col].view(S, D, dp)
     q = params["vq:q"]
-    real = torch.arange(D, dtype=torch.int32,
-                        device=device)[None, :] < num_docs[:, None]
-    cand = real
-    if plan.ivf:
-        cell = cols["vcell:" + plan.vec_col].long().clamp(0,
-                                                          plan.cells_pad - 1)
-        cand = cand & torch.gather(params["vq:cells"], 1, cell)
+    cand = candidates(plan, cols, params, num_docs, D)
     score = torch.full((S, D), float("-inf"), dtype=torch.float32,
                        device=device)
     for s, n in enumerate(num_docs.clamp(0, D).tolist()):
@@ -300,7 +331,13 @@ def vector_topk(plan: DevicePlan, cols: Tensors, params: Tensors,
 
 def unpack(packed_row: np.ndarray):
     """(doc ids int64 score descending, scores float32) of one segment's
-    packed row: the kept winners before doc-order materialization."""
+    packed row: the kept winners before doc-order materialization. A
+    count below 0 is K8's mark of a row whose candidates outgrew the
+    host's bound ('vq:nc'), whose winners it could not select: an error,
+    never an empty row."""
+    if packed_row[0] < 0:
+        raise RuntimeError("vector_topk: a row's candidates outgrew the "
+                           "bound that sized its list ('vq:nc')")
     kk = (len(packed_row) - 1) // 2
     ids = np.asarray(packed_row[1:1 + kk], np.float64)
     scores = np.asarray(packed_row[1 + kk:1 + 2 * kk], np.float32)

@@ -118,13 +118,18 @@ class VectorIndex:
         cell_scores = self.centroids @ q
         probe = np.argsort(cell_scores)[::-1][:nprobe]
         # any doc in the probed cells (JAX: np.isin over every doc's cell),
-        # from the cells' doc counts, counted once per index
+        # from the cells' doc counts
+        if not self.cell_doc_counts()[probe].any():
+            return None
+        return probe
+
+    def cell_doc_counts(self) -> np.ndarray:
+        """The docs in each coarse cell (int64 [n_cells]), counted once per
+        index; requires the coarse layer."""
         if self._cell_docs is None:
             self._cell_docs = np.bincount(
                 self.assignments, minlength=len(self.centroids))
-        if not self._cell_docs[probe].any():
-            return None
-        return probe
+        return self._cell_docs
 
     def to_bytes(self) -> bytes:
         n, d = self.vectors.shape

@@ -454,6 +454,33 @@ def test_row_assemble_chunks_past_its_row_capacity(card):
                                                    S, D))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["16-byte rows", "odd units",
+                                  "wide odd units"])
+def test_row_assemble_grid_edges_on_card(card, case):
+    """K6's grid at its edges, bit for bit: 37 rows of 16 bytes (0-4
+    float32 each, one thread's unit a row), and rows whose bytes are no
+    multiple of a block's 4096 (256 threads x one 16-byte unit), so a
+    row's last block is partly idle and rows end inside a unit's block: 7
+    int32 rows of mixed lengths in a [9, 1000] block, and 5 float64 rows
+    in a [6, 2^20 + 6] block."""
+    g = torch.Generator().manual_seed(8)
+    if case == "16-byte rows":
+        S, D, dtype = 37, 4, torch.float32
+        lens = [s % 5 for s in range(S)]
+    elif case == "odd units":
+        S, D, dtype = 9, 1000, torch.int32
+        lens = [1000, 4, 996, 0, 1000, 512, 12]
+    else:
+        S, D, dtype = 6, (1 << 20) + 6, torch.float64
+        lens = [D, 2, D - 2, 1 << 19, 1000]
+    rows = [torch.randint(-1000, 1000, (n,), generator=g).to(dtype).to(card)
+            for n in lens]
+    out = tk.assemble_rows(rows, S, D)
+    ref = tk.row_assemble([r.cpu() for r in rows], S, D)
+    assert torch.equal(out.cpu().view(torch.uint8), ref.view(torch.uint8))
+
+
 ST_BATCH_CASES = [(group, B, form) for group in tp.ST_GROUPS
                   for B in (2, 8) for form in ("broadcast", "stacked",
                                                "dedup")]
@@ -955,6 +982,204 @@ def test_vector_topk_batched_matches_plain_and_single_on_card(card, form,
         sets, ndl, idx = [x[0] for x in staged], [x[2] for x in staged], \
             list(range(B))
     plist = [x[1] for x in staged]
+    n0 = _cuda.VECTOR_TOPK.batched_launches
+    out = tk.batched_kernel(plan)(sets, plist, ndl, idx, D)
+    ref = tk.plain_batched_kernel(plan)(sets, plist, ndl, idx, D)
+    torch.cuda.synchronize()
+    assert _cuda.VECTOR_TOPK.batched_launches == n0 + 1
+    assert torch.equal(_bits(out), _bits(ref))
+    for m in range(B):
+        single = tk.make_vector_kernel(plan)(sets[idx[m]], plist[m],
+                                            ndl[idx[m]], D)
+        assert torch.equal(_bits(out[m]), _bits(single))
+
+
+def _with_bound(plan, cols, params, nd, D):
+    """params plus 'vq:nc', each row's candidate count on the host (the
+    engine's vector_device.candidate_counts), from the plain version's
+    candidates."""
+    nc = tvd.candidates(plan, cols, params, nd, D).sum(1).to(torch.int32)
+    return dict(params, **{"vq:nc": nc.cpu()})
+
+
+def _vector_both_ways(plan, cols, params, nd, D):
+    """K8 with and without the host bound, each bit for bit against the
+    plain version on the card; returns the bounded launch's output."""
+    ref = tvd.vector_topk(plan, cols, params, nd, D)
+    outs = []
+    for p in (_with_bound(plan, cols, params, nd, D), params):
+        n0 = _cuda.VECTOR_TOPK.launches
+        outs.append(tk.make_vector_kernel(plan)(cols, p, nd, D))
+        torch.cuda.synchronize()
+        assert _cuda.VECTOR_TOPK.launches == n0 + 1
+        assert torch.equal(_bits(outs[-1]), _bits(ref))
+    return outs[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", ["no candidate", "fewer than kk"])
+@pytest.mark.parametrize("D", [3000, 70_001])
+def test_vector_topk_empty_and_short_rows_on_card(card, edge, D):
+    """Rows with no candidate (real segments probing no cell, and padded
+    segments: count 0, -1 / -inf throughout) and rows with fewer
+    candidates than kk (k = 100 over one probed cell of 30 docs), with and
+    without the host's bound."""
+    spec, cols, params, nd = tp.vector_case(
+        11, S=5, D=D, ivf=True, n_cells=100 if edge == "fewer than kk"
+        else 37, k=100 if edge == "fewer than kk" else 10, pad_segments=2)
+    cells = np.zeros_like(params["vq:cells"])
+    if edge == "fewer than kk":  # cell 5 holds each segment's first 30 docs
+        cells[:, 5] = True
+        cols["vcell:v"][:] = 6
+        cols["vcell:v"][:, :30] = 5
+    params["vq:cells"] = cells
+    plan = tp.vector_plan(spec)
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    out = _vector_both_ways(plan, tc, tpar, tnd, D)
+    nc = _with_bound(plan, tc, tpar, tnd, D)["vq:nc"]
+    kk = min(spec["k_pad"], D)
+    if edge == "no candidate":
+        assert not nc.any() and not out[:, 0].any()
+    else:
+        assert 0 < int(nc.max()) < kk
+    for s in range(5):
+        assert torch.equal(out[s, 1 + int(nc[s]):1 + kk].cpu(),
+                           torch.full((kk - int(nc[s]),), -1.0))
+        assert torch.isneginf(out[s, 1 + kk + int(nc[s]):]).all()
+    assert not out[3:, 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [0, 1])
+def test_vector_topk_at_the_shared_memory_capacity_on_card(card, over):
+    """Rows of exactly pt_vec_local_cap(kk) candidates (selected in one
+    block's shared memory) and, with over = 1, a row one past it (K4's sift
+    passes, in the same launch), beside a short and a padded row."""
+    kk = 16
+    cap = _cuda.vector_local_cap(kk)
+    D = cap + 64
+    spec, cols, params, nd = tp.vector_case(12, S=4, D=D, dim=8, k=10,
+                                            pad_segments=1)
+    nd[:3] = [cap, cap + over, 500]
+    plan = tp.vector_plan(spec)
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    assert int(_with_bound(plan, tc, tpar, tnd, D)["vq:nc"].max()) \
+        == cap + over
+    out = _vector_both_ways(plan, tc, tpar, tnd, D)
+    for s, truth in enumerate(tp.vector_truth(spec, cols, params, nd)):
+        tp.check_vector_row(out[s].cpu().numpy(), *truth, kk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["shared memory", "sift"])
+def test_vector_topk_bound_one_short_raises_on_card(card, path):
+    """A host bound ('vq:nc') one below a row's true candidate count: K8
+    marks that row (count -1) and its unpacking raises, while the other
+    rows stay bit for bit the plain version's; in one block's shared
+    memory and, past pt_vec_local_cap(kk), on the sift passes."""
+    kk = 16
+    local = _cuda.vector_local_cap(kk)
+    D = 3000 if path == "shared memory" else local + 64
+    spec, cols, params, nd = tp.vector_case(14, S=3, D=D, dim=8, k=10,
+                                            pad_segments=1)
+    nd[:2] = [D, 500]
+    plan = tp.vector_plan(spec)
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    p = _with_bound(plan, tc, tpar, tnd, D)
+    p["vq:nc"][0] -= 1
+    assert (_cuda.vector_cap([p], D) > local) == (path == "sift")
+    out = tk.make_vector_kernel(plan)(tc, p, tnd, D).cpu()
+    ref = tvd.vector_topk(plan, tc, tpar, tnd, D).cpu()
+    assert out[0, 0] == -1
+    assert torch.equal(_bits(out[1:]), _bits(ref[1:]))
+    with pytest.raises(RuntimeError, match="outgrew"):
+        tvd.unpack(out[0].numpy())
+    with pytest.raises(RuntimeError, match="outgrew"):
+        tvd.merge_top_k(out.numpy(), 2, 10)
+
+
+@pytest.mark.cuda
+def test_vector_topk_concurrent_bounds_on_card(card):
+    """K8 launched from 8 host threads at once, half on a bound that sizes
+    its select's shared memory near the top (one row of 20,000
+    candidates), half near the bottom (rows of 400 and 300): every launch
+    bit for bit the plain version's, as the serialized dispatch ring's
+    clients launch inline on their own threads."""
+    D = 20_000
+    inputs = []
+    for seed, rows in ((15, [D, 500]), (16, [400, 300])):
+        spec, cols, params, nd = tp.vector_case(seed, S=3, D=D, dim=8, k=10,
+                                                pad_segments=1)
+        nd[:2] = rows
+        plan = tp.vector_plan(spec)
+        tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+        p = _with_bound(plan, tc, tpar, tnd, D)
+        ref = _bits(tvd.vector_topk(plan, tc, tpar, tnd, D))
+        inputs.append((tk.make_vector_kernel(plan), tc, p, tnd, ref))
+    assert [int(x[2]["vq:nc"].max()) for x in inputs] == [D, 400]
+
+    def run(i):
+        kern, tc, p, tnd, ref = inputs[i % 2]
+        for _ in range(25):
+            out = kern(tc, p, tnd, D)
+            torch.cuda.current_stream().synchronize()
+            assert torch.equal(_bits(out), ref)
+    with ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(run, i) for i in range(8)]:
+            f.result()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("special", ["ties", "zeros", "nan"])
+@pytest.mark.parametrize("ivf", [False, True])
+@pytest.mark.parametrize("D", [3000, 70_001])
+def test_vector_topk_order_on_the_compacted_lists_on_card(card, special,
+                                                          ivf, D):
+    """Exact ties, +-0.0 scores and NaN rows through the compacted lists,
+    with the host's bound (one block's select at D = 3000 and with IVF,
+    the sift passes on exact search at D = 70,001): bit for bit."""
+    spec, cols, params, nd = tp.vector_case(
+        13, S=5, D=D, ivf=ivf, special=special,
+        dim=8 if special == "zeros" else 16, k=100)
+    plan = tp.vector_plan(spec)
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    _vector_both_ways(plan, tc, tpar, tnd, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["broadcast", "stacked"])
+def test_vector_topk_batch_bounds_on_both_sides_on_card(card, form):
+    """B = 8 IVF members whose bounds fall on both sides of the
+    shared-memory capacity: over 4 cells (doc d in cell d mod 4), odd
+    members probe every cell of a full segment (cap + 1024 candidates),
+    even ones three (about 3/4 of them, below cap). One launch, bit for
+    bit against the plain batched version and each member's single
+    launch."""
+    B, kk = 8, 16
+    cap = _cuda.vector_local_cap(kk)
+    D = cap + 1024
+    members = []
+    for m in range(B):
+        spec, cols, params, nd = tp.vector_case(40 + m, S=3, D=D, dim=8,
+                                                k=10, ivf=True, n_cells=4,
+                                                pad_segments=1)
+        nd[:2] = [D, 300 + m]
+        cols["vcell:v"][:] = np.arange(D, dtype=np.int32) % 4
+        params["vq:cells"][:] = False
+        params["vq:cells"][:, :4 if m % 2 else 3] = True
+        members.append((spec, cols, params, nd))
+    plan = tp.vector_plan(members[0][0])
+    staged = [tk.from_jax_staged(c, p, nd, device=card)
+              for _s, c, p, nd in members]
+    if form == "broadcast":
+        sets, ndl, idx = [staged[0][0]], [staged[0][2]], [0] * B
+    else:
+        sets, ndl, idx = [x[0] for x in staged], [x[2] for x in staged], \
+            list(range(B))
+    plist = [_with_bound(plan, sets[idx[m]], x[1], ndl[idx[m]], D)
+             for m, x in enumerate(staged)]
+    bounds = [int(p["vq:nc"].max()) for p in plist]
+    assert max(bounds[1::2]) == D and max(bounds[::2]) <= cap
     n0 = _cuda.VECTOR_TOPK.batched_launches
     out = tk.batched_kernel(plan)(sets, plist, ndl, idx, D)
     ref = tk.plain_batched_kernel(plan)(sets, plist, ndl, idx, D)
@@ -1761,6 +1986,48 @@ def test_scan_widest_plan_on_card(card, D):
     torch.cuda.synchronize()
     for m, p in enumerate(plist):
         assert torch.equal(_bits(got[m]), _bits(single(cols, p, nd, D))), m
+
+
+@pytest.mark.cuda
+def test_shared_memory_limits_under_concurrent_launches_on_card(card):
+    """K1 and K4 launched from 8 host threads at once, each at two dynamic
+    shared-memory sizes: K1 on the widest plan and on the same plan with
+    4 of its 9 exact-sum slots (both past 48 KB, at different block
+    widths and sizes), K4 at k = 8192 (a 64 KB sort) and k = 10. A
+    kernel's shared-memory limit is the function's, shared by the
+    threads, as the dispatch ring's clients launch inline on their own:
+    every launch equals the plain version bit for bit."""
+    D = 4096
+    spec, cols, params, nd = _widest_case(card, D, 9)
+    jobs = []
+    for ops in (spec["agg_ops"], spec["agg_ops"][5:]):
+        s = dict(spec, agg_ops=ops)
+        plan = DevicePlan(**s)
+        kern = tk.make_kernel(plan, torch.float32)
+        out = kern(cols, params, nd, D)
+        torch.cuda.synchronize()
+        _assert_scan_exact(s, plan, cols, params, nd, D, torch.float32, out,
+                           False)
+        jobs.append((kern, (cols, params, nd, D), _bits(out)))
+    for seed, k in ((0, 10), (2, 8192)):
+        s = tp.topn_spec(seed, "col", seed == 2, k)
+        c, p, n = tp.topn_inputs(seed, s, 5, 20_000, np.float32,
+                                 pad_segments=2)
+        tc, tpar, tnd = tk.from_jax_staged(c, p, n, device=card)
+        plan = DevicePlan(**s)
+        ref = tk.topn_kernel(plan, tc, tpar, tnd, 20_000, torch.float32)
+        jobs.append((tk.make_topn_kernel(plan, torch.float32),
+                     (tc, tpar, tnd, 20_000), _bits(ref)))
+
+    def run(i):
+        kern, args, ref = jobs[i % len(jobs)]
+        for _ in range(25):
+            out = kern(*args)
+            torch.cuda.current_stream().synchronize()
+            assert torch.equal(_bits(out), ref), i
+    with ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(run, i) for i in range(8)]:
+            f.result()
 
 
 @pytest.mark.cuda

@@ -587,6 +587,122 @@ def test_host_half_matches_jax(segs):
         assert tvd.merge_top_k(packed, 3, k) == jvd.merge_top_k(packed, 3, k)
 
 
+@pytest.mark.parametrize("table,probe", [
+    ("emb", "staged"), ("emb", "every cell"), ("emb", "no cell"),
+    ("embx", "staged")])
+def test_candidate_bound_equals_the_plain_candidates(segs, table, probe):
+    """K8's host-side bound ('vq:nc', vector_device.candidate_counts) is
+    each row's candidate count as the plain version finds it: the probed
+    cells' docs on the IVF segment, every doc on the exact one and under
+    the every-cell fall-back, none on padded rows."""
+    tsegs, _j = segs[table]
+    (qv,) = _queries(tsegs, 1, 94)
+    eng = TorchOperatorExecutor("cpu", torch.float32)
+    with eng._engine_lock:
+        plan, (fn, q, k), rctx = eng._plan_vector(
+            tsegs, QueryContext.from_sql(_sql(qv, table=table)))
+        cols, params, nd, D = eng._stage_vector(tsegs, rctx, plan, fn, q, k,
+                                                None)
+    S = int(nd.shape[0])
+    assert params["vq:nc"].device.type == "cpu"
+    ivf = [s.data_source("vec").vector_index.centroids is not None
+           for s in tsegs]
+    assert plan.ivf == any(ivf)
+    if probe != "staged":
+        # the IVF segment's row: every cell (the fall-back) or none
+        cells = params["vq:cells"].clone()
+        for s, has in enumerate(ivf):
+            if has:
+                cells[s] = probe == "every cell"
+        params = dict(params, **{"vq:cells": cells})
+    cells = params["vq:cells"].numpy() if plan.ivf else None
+    got = tvd.candidate_counts(tsegs, plan, cells, S)
+    want = tvd.candidates(plan, cols, params, nd, D).sum(1).numpy()
+    assert got.dtype == np.int32 and got.shape == (S,)
+    assert np.array_equal(got, want)
+    if probe == "staged":
+        assert np.array_equal(params["vq:nc"].numpy(), want)
+    assert not got[len(tsegs):].any()
+    if probe == "every cell":
+        assert list(got[:len(tsegs)]) == [s.num_docs for s in tsegs]
+    if probe == "no cell":
+        assert list(got[:len(tsegs)]) == [0 if has else s.num_docs
+                                          for s, has in zip(tsegs, ivf)]
+
+
+class _StubSeg:
+    """A segment reduced to what `candidate_counts` reads: num_docs and a
+    vector index with cells."""
+
+    def __init__(self, num_docs, assignments, n_cells):
+        a = np.asarray(assignments, np.int32)
+        counts = np.bincount(a, minlength=n_cells)
+        self.num_docs = num_docs
+        self.index = type("Ix", (), dict(
+            centroids=np.zeros((n_cells, 2), np.float32), assignments=a,
+            cell_doc_counts=lambda _self: counts))()
+
+    def data_source(self, col):
+        return type("Ds", (), {"vector_index": self.index})()
+
+
+def test_candidate_bound_never_undercounts():
+    """Where an index's cells could miss a candidate the plain version
+    counts, the bound is num_docs: an assignment row shorter than its
+    segment (`cell_row` stages the other docs in cell 0) and cell ids past
+    the probe mask's width (clipped into its last cell); otherwise the
+    probed cells' counts, equal to the plain count."""
+    D, cells_pad = 16, 8
+    segs = [_StubSeg(12, np.arange(12) % 4, 4),
+            _StubSeg(12, np.arange(8) % 4, 4),
+            _StubSeg(12, np.arange(12) % 10, 10)]
+    plan = DevicePlan(filter_ir=None, leaves=(), value_irs=(), agg_ops=(),
+                      dict_cols=(), mode="vector", valid_mask=False,
+                      vec_col="vec", dim_pad=8, k_pad=8, ivf=True,
+                      cells_pad=cells_pad)
+    cells = np.zeros((4, cells_pad), bool)
+    cells[:3, [0, 7]] = True
+    got = tvd.candidate_counts(segs, plan, cells, 4)
+    vcell = np.stack([tvd.cell_row(s, "vec", D) for s in segs]
+                     + [np.zeros(D, np.int32)])
+    nd = torch.tensor([12, 12, 12, 0], dtype=torch.int32)
+    want = tvd.candidates(plan, {"vcell:vec": torch.from_numpy(vcell)},
+                          {"vq:cells": torch.from_numpy(cells)}, nd,
+                          D).sum(1).numpy()
+    assert list(want) == [3, 6, 5, 0]
+    assert list(got) == [3, 12, 12, 0]
+
+
+@pytest.mark.parametrize("reader", ["unpack", "merge_top_k"])
+def test_an_overflowed_row_raises(reader):
+    """A packed row whose count is -1 (K8's mark of a list that outgrew
+    its bound) raises where the host reads it, never passing as a row
+    with no winners."""
+    kk = 4
+    good = np.array([1, 3, -1, -1, -1, 0.5, -np.inf, -np.inf, -np.inf],
+                    np.float32)
+    bad = np.array([-1] * (1 + kk) + [-np.inf] * kk, np.float32)
+    with pytest.raises(RuntimeError, match="outgrew"):
+        if reader == "unpack":
+            tvd.unpack(bad)
+        else:
+            tvd.merge_top_k(np.stack([good, bad]), 2, 3)
+    assert tvd.merge_top_k(good[None], 1, 3) == [(0, 3, 0.5)]
+
+
+def test_vector_cap_takes_the_largest_member_bound():
+    """The wrapper's list size (ops/_cuda.py `vector_cap`), computed on the
+    host: the largest 'vq:nc' over the members, clipped to [1, D]; D
+    where a member carries none."""
+    from pinot_tpu_torch.ops import _cuda
+    nc = [torch.tensor(v, dtype=torch.int32)
+          for v in ([5, 900, 0], [7, 3, 0], [0, 0, 0])]
+    assert _cuda.vector_cap([{"vq:nc": nc[0]}, {"vq:nc": nc[1]}], 4096) == 900
+    assert _cuda.vector_cap([{"vq:nc": nc[0]}], 512) == 512
+    assert _cuda.vector_cap([{"vq:nc": nc[2]}], 512) == 1
+    assert _cuda.vector_cap([{"vq:nc": nc[0]}, {}], 4096) == 4096
+
+
 # ---------------------------------------------------------------------------
 # refusals
 # ---------------------------------------------------------------------------
