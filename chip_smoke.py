@@ -167,7 +167,11 @@ Phases, each of which exits non-zero on failure:
    over the (filtered) trip_ids, the p95 the per-segment
    TDigest.from_histogram of a numpy histogram built with the kernel's
    float32 formula merged in segment order, and within rel 0.02 of the
-   exact percentile.
+   exact percentile. After the leg's launches are counted, K3 is timed
+   alone on the engine's own staging of q4.1 (64 x 2^23) and held bit for
+   bit against its plain version on its first STAGED_SKETCH_SEGMENTS
+   segments (the plain version's int64 hashes of all 64 would not fit
+   beside the leg).
 7. Star-tree leg (BASELINE config #5): two tables built with the port's
    creator, star-trees included, 8 x 4M = 32M rows each: `ssbst`, config
    #5 verbatim (bench_extra.py:224-234: the SSB-flat columns, no raw
@@ -185,7 +189,13 @@ Phases, each of which exits non-zero on failure:
    is held against its plain version on the very inputs the engine staged
    for each query (S=8 segments of D=128 or 2048 pre-agg records: one
    block per segment, fewer records than a block has threads), as in
-   phase 3; the kernels line carries config #5's query.
+   phase 3; the kernels line carries config #5's query, with K5's pace on
+   its staged blocks beside the card's floor for one call
+   (`launch_pace`): its device time a call in a torch.profiler trace
+   (`device_ms`), its host wall a call over 200 calls back to back
+   (`wall_ms`), and the same for an empty kernel launched through the same
+   route (`launch_floor_ms` by CUDA events, `launch_floor_device_ms`,
+   `launch_floor_wall_ms`).
 9. Concurrency leg: 8 closed-loop clients (bench.py:1744 batching_main)
    through one QueryExecutor per dispatch mode, `serialized` then
    `pipelined`, alternated twice in windows of WINDOW_S seconds, each
@@ -1378,6 +1388,52 @@ def sketch_kernel_inputs(seed: int):
     return plan, cols, params, num_docs, D
 
 
+#: segments of q4.1's staging on which K3 is held against its plain
+#: version (the plain version's int64 hashes of all 64 would not fit the
+#: card beside the leg)
+STAGED_SKETCH_SEGMENTS = 8
+
+
+def staged_sketch(ex, sql: str):
+    """The inputs the engine stages for K3 on a sketch query, as on the
+    main path: (plan, cols, params, num_docs, D)."""
+    from pinot_tpu_torch.query.context import QueryContext
+    ctx = QueryContext.from_sql(sql)
+    eng = ex.engine
+    with eng._engine_lock:
+        plan, _ = eng._plan(ex.segments, ctx)
+        cols, params, nd, D = eng._stage(ex.segments, ctx, plan)
+    return plan, cols, params, nd, D
+
+
+def check_staged_sketch(name: str, ex, sql: str, n: int) -> dict:
+    """K3 on the engine's own staging of `sql`, timed over every segment
+    and held against its plain version on the first n: matched counts,
+    registers and buckets bit for bit."""
+    import torch
+
+    from pinot_tpu_torch.ops import kernels
+    plan, cols, params, nd, D = staged_sketch(ex, sql)
+    vdt = ex.engine.value_dtype
+    kern = kernels.make_kernel(plan, vdt)
+    plain = kernels.plain_kernel(plan, vdt)
+    out = kern(cols, params, nd, D)
+    pc = {k: v[:n] for k, v in cols.items()}
+    pp = {k: v[:n] for k, v in params.items()}
+    ref = plain(pc, pp, nd[:n], D)
+    scales = kernels.abs_contributions(plan, pc, pp, nd[:n], D)
+    torch.cuda.synchronize()
+    compare_packed(f"sketch_agg staged {name}", plan, out[:n], ref, scales)
+    moved, matched = bytes_needed(plan, cols, params, nd, D, out)
+    return {"case": f"staged {name}", "segments": int(nd.numel()),
+            "checked_segments": n, "max_abs_err": max_abs_err(out[:n], ref),
+            "ms": cuda_ms(lambda: kern(cols, params, nd, D)),
+            "plain_ms_checked_segments": cuda_ms(
+                lambda: plain(pc, pp, nd[:n], D), iters=3),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "rows": int(nd.sum()), "matched": matched, "bytes": moved}
+
+
 def histc_ms(plan, cols, params, num_docs) -> float:
     """torch.histc over the histogram slot's input, every real doc,
     unfiltered: the PyTorch call nearest K3's histogram (its edges and its
@@ -2384,18 +2440,24 @@ def device_busy(ex, sql: str, iters: int, tmp: str):
                                          if v}}
 
 
-def trace_busy_us(prof, tmp: str):
-    """The card's busy time in a torch.profiler trace (the union of its
-    kernel, copy and set intervals, us) and each device function's time;
-    (None, {}) if the trace holds no device event."""
+def trace_spans(prof, tmp: str) -> list:
+    """The device events of a torch.profiler trace (its kernels, copies and
+    sets) as (start us, end us, name), in order of start."""
     path = os.path.join(tmp, "trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
-                    e.get("name", "")) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                   and "dur" in e)
+    return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                   e.get("name", "")) for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and "dur" in e)
+
+
+def trace_busy_us(prof, tmp: str):
+    """The card's busy time in a torch.profiler trace (the union of its
+    kernel, copy and set intervals, us) and each device function's time;
+    (None, {}) if the trace holds no device event."""
+    spans = trace_spans(prof, tmp)
     if not spans:
         return None, {}
     busy, end, by_name = 0.0, float("-inf"), {}
@@ -2405,6 +2467,67 @@ def trace_busy_us(prof, tmp: str):
             end = b
         by_name[name[:80]] = by_name.get(name[:80], 0.0) + (b - a)
     return busy, by_name
+
+
+def traced_calls(fn, iters: int, tmp: str) -> list:
+    """The device events (`trace_spans`) of `iters` calls of fn, after one
+    call outside the trace; a trace that holds no device event (the
+    profiler drops one now and then) is taken once more, and [] is
+    returned if that one holds none either."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = trace_spans(prof, tmp)
+        if spans:
+            return spans
+    return []
+
+
+def trace_device_ms(fn, prefix: str, iters: int, tmp: str):
+    """fn's device time a call: the time of its device functions whose
+    names start with `prefix`, in a trace of `iters` calls
+    (`traced_calls`), over `iters`; None if the trace holds no device
+    event."""
+    spans = traced_calls(fn, iters, tmp)
+    if not spans:
+        return None
+    return sum(b - a for a, b, n in spans
+               if n.removeprefix("void ").startswith(prefix)) / 1e3 / iters
+
+
+def wall_ms(fn, iters: int = 200) -> float:
+    """The host clock a call over `iters` calls of fn back to back, then
+    one synchronize: the host's time a call where the host paces the
+    calls, else the card's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def launch_pace(fn, prefix: str, tmp: str) -> dict:
+    """A kernel's call on the inputs of fn beside the card's floor for one
+    call: its device time a call in a trace and its host wall a call back
+    to back, and the same two times and the CUDA-event time of an empty
+    kernel launched through the same route (`_cuda.empty_launch`)."""
+    from pinot_tpu_torch.ops import _cuda
+    return {"device_ms": trace_device_ms(fn, prefix, 50, tmp),
+            "wall_ms": wall_ms(fn),
+            "launch_floor_ms": cuda_ms(_cuda.empty_launch),
+            "launch_floor_device_ms": trace_device_ms(
+                _cuda.empty_launch, "pt_empty", 50, tmp),
+            "launch_floor_wall_ms": wall_ms(_cuda.empty_launch)}
 
 
 def staged_startree(ex, sql: str, segments=None):
@@ -2433,6 +2556,7 @@ def startree_leg(tmp: str, seed: int, kernels, none: dict, card: str):
     import torch
 
     from pinot_tpu_torch.ops import residency
+    from pinot_tpu_torch.ops import startree_device as sd
     from pinot_tpu_torch.query.context import QueryContext
     from pinot_tpu_torch.query.executor import QueryExecutor
     launches = {k.name: 0 for k in kernels}
@@ -2504,9 +2628,17 @@ def startree_leg(tmp: str, seed: int, kernels, none: dict, card: str):
                 # after the launch counts were read: these launches are
                 # the comparison's, not the main path's
                 for name, (sql, _g) in queries.items():
+                    staged = staged_startree(ex, sql)
                     cases[name] = check_startree(
-                        f"{table} {name}", *staged_startree(ex, sql),
+                        f"{table} {name}", *staged,
                         value_dtype=ex.engine.value_dtype)
+                    if name == "st5.1":
+                        # the kernels line's K5 entry: its pace beside
+                        # the floor of one call
+                        kern = sd.make_startree_kernel(
+                            staged[0], ex.engine.value_dtype)
+                        cases[name].update(launch_pace(
+                            lambda: kern(*staged[1:]), "startree_", tmp))
                     print(f"[kernel] startree_agg {json.dumps(cases[name])}"
                           f" | {card}", flush=True)
             else:
@@ -5855,6 +5987,13 @@ def main() -> None:
             leg["max_memory_allocated"] = peak
             leg["stage_ms"] = splits[leg["query"]]
             print(f"[config4] {json.dumps(leg)} | {card}", flush=True)
+        # after the launch counts and the leg's peak were read: K3 alone on
+        # the engine's staging of q4.1, against its plain version on a
+        # slice
+        k3_staged = check_staged_sketch("q4.1", ex, TAXI_QUERIES["q4.1"],
+                                        STAGED_SKETCH_SEGMENTS)
+        print(f"[kernel] sketch_agg {json.dumps(k3_staged)} | {card}",
+              flush=True)
         for name, sql in TAXI_QUERIES.items():
             busy = device_busy(ex, sql, ITERS, tmp)
             print(f"[config4] trace {name} "
@@ -6036,6 +6175,11 @@ def main() -> None:
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"],
             "library_ms": entry["library_ms"]})
+    # K5's pace beside the floor of one call (phase 7, st5.1's blocks)
+    next(e for e in entries if e["name"] == "startree_agg").update(
+        {k: k5[k] for k in (
+            "device_ms", "wall_ms", "launch_floor_ms",
+            "launch_floor_device_ms", "launch_floor_wall_ms")})
     for kern, replaces in (
             (_cuda.SCAN_AGG, "pinot_tpu/ops/kernels.py:793,823"),
             (_cuda.GROUP_AGG, "pinot_tpu/ops/kernels.py:793,823"),

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""K1-K4's, K7's and K8's phase-3 and 3b launch times and the main path's
+"""K1-K5's, K7's and K8's phase-3 and 3b launch times and the main path's
 single-query p50 of two checkouts, in turns, on one card.
 
     python3 kernel_ab.py PARENT_DIR CHANGE_DIR [--seed N] [--iters N]
                          [--no-queries] [--splits] [--logs] [--vector]
+                         [--only REGEX]
 
 Runs the turns parent / change / change / parent, each in a fresh process
 whose working directory is that checkout: it builds the checkout's CUDA
@@ -15,7 +16,10 @@ and ts.1 (`bucket_kernel_inputs`) and its compact cases
 (`compact_kernel_inputs` over COMPACT_CASES), K2's B = 8 broadcast forms
 (the dense case over `batched_inputs`' first column set, ts.3 with member
 m's window m hours later, each compact case with member m excluding
-phrase id m), K3 (`sketch_kernel_inputs`), K4's cases (a)-(d)
+phrase id m), K3 (`sketch_kernel_inputs`; "sketch_agg split ...": the
+same inputs with the plan cut to each sketch slot alone, HLL log2m 12,
+log2m 16 and the histogram, with and without the filter, and all three
+without it; "sketch_agg x8": its B = 8 broadcast form), K4's cases (a)-(d)
 (`topn_kernel_inputs`; "topn" is case (a), the kernels line's) and K4's
 B = 8 broadcast form of case (a), K1 under phase 3's validity mask
 (`with_mask`), K1 on a plan at program.py's limits together on phase 3's
@@ -23,11 +27,18 @@ scan columns ("scan_agg widest": 64 accumulator words, 32 filter trees,
 the filter 32 and a value 16 deep), K1's B = 8 broadcast, stacked and
 dedup forms (`batched_inputs`), K7's mode 'a', mode 'b' and B = 8 cases
 (`clp_kernel_inputs`), K8's phase-3 cases and phase 3b's B = 8 forms
-(`vector_case` over `vector_block`: K8_CASES, K8_BATCHED), and K6
-against `torch.stack` on phase 3's full float32 rows (`RA_S` x `RA_D`),
-in turns within the process. The first
+(`vector_case` over `vector_block`: K8_CASES, K8_BATCHED), K5's three
+phase-3 cases (`startree_kernel_inputs`), each also by its device time a
+call in a torch.profiler trace ("... device") and by the host clock a
+call over 200 calls back to back ("... wall"), the same three times of
+one empty kernel launched through a wrapper ("empty launch":
+`_cuda.empty_launch`, where the checkout has it), and K6 against
+`torch.stack` on phase 3's full float32 rows (`RA_S` x `RA_D`), in turns
+within the process; --only times only the cases whose names it finds,
+and builds a query leg below only where it finds the leg's table (ssb,
+ssbgb, taxi, ssbst) or a case timed on the leg's staging. The first
 turn of each checkout also prints `nvcc -Xptxas -v`'s registers,
-spills and stack per kernel function of K1-K4, K6, K7 and K8, the atomic
+spills and stack per kernel function of K1-K8, the atomic
 instructions each function of K2 and K4 compiled to, and the constant
 loads at a register
 offset (LDC ...c[..][R..]) and local loads and stores (LDL, STL) in each
@@ -40,6 +51,11 @@ each leg query's p50 over 20 warm runs alone through its QueryExecutor
 (chip_smoke `time_query`; host clock, the result on the host); with
 --splits each turn also records each query's median host-clock stage
 split (`stage_ms`: parse, plan, stage, kernel_fetch, assemble, reduce).
+Each such turn also times K3 alone on the engine's own staging of q4.1
+and q4.3 (64 x 2^23) and K5 alone on the blocks it stages for st5.1 and
+for eight 9f pool queries in one broadcast launch (chip_smoke
+`staged_startree`, `staged_startree_batch`), K5 by its three times as
+above.
 With --logs, the log leg's segments (phase 11's, 16 x 2^22 lines) are
 built once before the turns, and each turn also takes logs.1-logs.6's
 p50 (each held to its numpy truth) and runs phase 9h's windows (8
@@ -66,7 +82,7 @@ import sys
 import tempfile
 
 TURN = r"""
-import json, os, re, subprocess, sys
+import json, os, re, subprocess, sys, tempfile
 sys.path.insert(0, os.getcwd())
 import torch
 import chip_smoke as cs
@@ -76,12 +92,15 @@ queries = sys.argv[4] == "1"
 splits = sys.argv[5] == "1"
 logs = sys.argv[6]
 vector = sys.argv[7]
+only = re.compile(sys.argv[8])
+trace_dir = tempfile.TemporaryDirectory(prefix="kernel_ab_trace_")
 _cuda.build()
 out = {}
 if ptxas:
     regs = {}
     for k in (_cuda.SCAN_AGG, _cuda.GROUP_AGG, _cuda.SKETCH_AGG, _cuda.TOPN,
-              _cuda.ROW_ASSEMBLE, _cuda.CLP_MATCH, _cuda.VECTOR_TOPK):
+              _cuda.STARTREE_AGG, _cuda.ROW_ASSEMBLE, _cuda.CLP_MATCH,
+              _cuda.VECTOR_TOPK):
         flags = [f for f in _cuda.NVCC_FLAGS if f != "-shared"]
         r = subprocess.run([_cuda.nvcc(), *flags, "-c", "-Xptxas", "-v",
                             "-o", os.devnull,
@@ -231,6 +250,36 @@ for cname, (G, _cb3) in cs.COMPACT_CASES.items():
     cases.append((f"group_agg x8 compact {cname}",
                   broadcast(compact_members(G), G)))
 cases += [("sketch_agg", single(lambda: cs.sketch_kernel_inputs(seed)))]
+
+
+def sketch_split(slot, filtered):
+    # K3 on phase 3's inputs with the plan cut to one sketch slot (None:
+    # all three), with or without its filter
+    def make():
+        import dataclasses
+        plan, cols, params, nd, D = cs.sketch_kernel_inputs(seed)
+        ops = plan.agg_ops if slot is None else (plan.agg_ops[slot],)
+        params = dict(params)
+        if slot is not None and ops[0][0].startswith("hist:"):
+            for n in ("hlo", "hscale"):
+                params[f"slot0:{n}"] = params[f"slot{slot}:{n}"]
+        plan = dataclasses.replace(
+            plan, agg_ops=ops,
+            filter_ir=plan.filter_ir if filtered else None)
+        return plan, cols, params, nd, D
+    return make
+
+
+for slot in (None, 0, 1, 2):
+    for filtered in (True, False):
+        if slot is None and filtered:
+            continue
+        what = "all" if slot is None else ("hll:12", "hll:16", "hist")[slot]
+        cases.append((f"sketch_agg split {what} "
+                      f"{'filtered' if filtered else 'unfiltered'}",
+                      single(sketch_split(slot, filtered))))
+cases.append(("sketch_agg x8", broadcast(first_members(
+    cs.sketch_kernel_inputs))))
 cases += [("topn" if c == "a" else f"topn {c}", single(topn_case(c)))
           for c in "abcd"]
 cases.append(("topn x8", broadcast(first_members(
@@ -301,16 +350,60 @@ cases += [("scan_agg masked",
 cases += [(f"scan_agg x8 {form}", scan_form(form)) for form in cs.BATCH_FORMS]
 cases += [("clp_match a", clp_case("a")), ("clp_match b", clp_case("b")),
           ("clp_match x8", clp_case("b", cs.BATCH_B))]
-for name, build in cases:
-    fn = build()
+
+
+def startree_timed(name, fn):
+    # K5's three times: CUDA events, device time in a trace, host wall a
+    # call back to back
     out[name] = cs.cuda_ms(fn, iters)
+    out[name + " device"] = cs.trace_device_ms(fn, "startree_", 50,
+                                               trace_dir.name)
+    out[name + " wall"] = cs.wall_ms(fn)
+
+
+def startree_case(name):
+    # K5's phase-3 case `name` (chip_smoke STARTREE_CASES)
+    def build():
+        from pinot_tpu_torch.ops import startree_device as sd
+        plan, cols, params, nd, D = cs.startree_kernel_inputs(seed)[name]
+        kern = sd.make_startree_kernel(plan, F32)
+        return lambda: kern(cols, params, nd, D)
+    return build
+
+
+cases += [(f"startree_agg {name}", startree_case(name))
+          for name in cs.STARTREE_CASES]
+for name, build in cases:
+    if not only.search(name):
+        continue
+    fn = build()
+    if name.startswith("startree_agg"):
+        startree_timed(name, fn)
+    else:
+        out[name] = cs.cuda_ms(fn, iters)
     del fn
+    torch.cuda.empty_cache()
+if only.search("empty launch") and hasattr(_cuda, "empty_launch"):
+    # the card's floor for one launch through a kernel wrapper: an empty
+    # kernel, by events and in the trace
+    out["empty launch"] = cs.cuda_ms(_cuda.empty_launch, iters)
+    out["empty launch device"] = cs.trace_device_ms(
+        _cuda.empty_launch, "pt_empty", 50, trace_dir.name)
+    out["empty launch wall"] = cs.wall_ms(_cuda.empty_launch)
+# K9's phase-3c cases (chip_smoke `mesh_fold_cases`, each checked bit for
+# bit there), by their own CUDA-event times
+if only.search("mesh_fold"):
+    for name, case in cs.mesh_fold_cases(seed).items():
+        out[f"mesh_fold {name}"] = case["ms"]
     torch.cuda.empty_cache()
 # K8's phase-3 cases and phase 3b's B = 8 forms on phase 3's block, with
 # chip_smoke's seeds (vector_kernel_cases)
-block = cs.vector_block(seed, cs.K8_SEGMENTS + cs.BATCH_B - 1)
+block = cs.vector_block(seed, cs.K8_SEGMENTS + cs.BATCH_B - 1) \
+    if only.search("vector_topk") else None
 k8 = []
 for i, (name, (k, ivf, resid, _st)) in enumerate(cs.K8_CASES.items()):
+    if block is None:
+        break
     plan, sets, plist, ndl, _idx, D = cs.vector_case(block, seed + i, k,
                                                      ivf, resid)
     kern = kernels.make_vector_kernel(plan)
@@ -318,6 +411,8 @@ for i, (name, (k, ivf, resid, _st)) in enumerate(cs.K8_CASES.items()):
                lambda kern=kern, sets=sets, plist=plist, ndl=ndl, D=D:
                kern(sets[0], plist[0], ndl[0], D)))
 for i, (name, (k, ivf, resid, st)) in enumerate(cs.K8_BATCHED.items()):
+    if block is None:
+        break
     plan, sets, plist, ndl, idx, D = cs.vector_case(
         block, seed + 10 + i, k, ivf, resid, B=cs.BATCH_B, stacked=st)
     run = kernels.batched_kernel(plan)
@@ -335,16 +430,18 @@ gen.manual_seed(seed + 4)
 rows = [torch.randn(cs.RA_D, generator=gen, device="cuda")
         for _ in range(cs.RA_S)]
 k6 = {"row_assemble": [], "torch.stack": []}
-for _ in range(2):
+for _ in range(2 if only.search("row_assemble") else 0):
     k6["row_assemble"].append(cs.cuda_ms(
         lambda: kernels.assemble_rows(rows, cs.RA_S, cs.RA_D), iters))
     k6["torch.stack"].append(cs.cuda_ms(lambda: torch.stack(rows), iters))
-out.update({k: sum(v) / len(v) for k, v in k6.items()})
-out["k6_turns"] = k6
+if k6["row_assemble"]:
+    out.update({k: sum(v) / len(v) for k, v in k6.items()})
+    out["k6_turns"] = k6
 del rows
 torch.cuda.empty_cache()
 if queries:
     import shutil, statistics, tempfile
+    from pinot_tpu_torch.query.context import QueryContext
     from pinot_tpu_torch.query.executor import QueryExecutor
     ssb = [("lo_orderdate", "INT", False), ("lo_discount", "INT", False),
            ("lo_quantity", "INT", False), ("lo_extendedprice", "INT", True)]
@@ -371,8 +468,15 @@ if queries:
     tmp = tempfile.mkdtemp(prefix="kernel_ab_")
     p50, stage_ms = {}, {}
     try:
+        staged = {"taxi": ("sketch_agg staged q4.1",
+                           "sketch_agg staged q4.3"),
+                  "ssbst": ("startree_agg staged st5.1",
+                            "startree_agg staged x8")}
         for table, fields, no_dict, n, docs, cols_fn, truth_fn, tree, \
                 sqls in legs:
+            if not any(only.search(c)
+                       for c in (table, *staged.get(table, ()))):
+                continue
             segs, _truths = cs.build_segments(
                 tmp, table, fields, no_dict, n, docs, cols_fn, truth_fn,
                 seed, cs.BUILD_WORKERS, star_tree=tree)
@@ -381,6 +485,39 @@ if queries:
                 _resp, _cold, lats, split = cs.time_query(ex, sql, 20)
                 p50[name] = statistics.median(lats) * 1e3
                 stage_ms[name] = split
+            vdt = ex.engine.value_dtype
+            for q in ("q4.1", "q4.3") if table == "taxi" else ():
+                # K3 alone on the engine's own staging of the query
+                if not only.search(f"sketch_agg staged {q}"):
+                    continue
+                ctx = QueryContext.from_sql(sqls[q])
+                with ex.engine._engine_lock:
+                    plan, _ = ex.engine._plan(ex.segments, ctx)
+                    cols, params, nd, D = ex.engine._stage(ex.segments, ctx,
+                                                           plan)
+                kern = kernels.make_kernel(plan, vdt)
+                out[f"sketch_agg staged {q}"] = cs.cuda_ms(
+                    lambda: kern(cols, params, nd, D), iters)
+                out[f"sketch_agg staged {q} shape"] = list(
+                    cols[next(iter(cols))].shape)
+                del plan, cols, params, nd, kern
+            if table == "ssbst" and only.search("startree_agg staged"):
+                # K5 alone on the blocks the engine stages for st5.1, and
+                # for eight 9f pool queries in one broadcast launch
+                from pinot_tpu_torch.ops import startree_device as sd
+                plan, cols, params, nd, D = cs.staged_startree(
+                    ex, sqls["st5.1"])
+                kern = sd.make_startree_kernel(plan, vdt)
+                startree_timed("startree_agg staged st5.1",
+                               lambda: kern(cols, params, nd, D))
+                pool = [cs.st_pool_sql(*w) for w in cs.ST_POOL]
+                every = tuple(range(len(ex.segments)))
+                plan, sets, plist, nds, idx, D = cs.staged_startree_batch(
+                    ex, pool[:cs.BATCH_B], [every] * cs.BATCH_B)
+                run = sd.batched_kernel(plan, vdt)
+                startree_timed("startree_agg staged x8",
+                               lambda: run(sets, plist, nds, idx, D))
+                del plan, cols, params, nd, sets, plist, nds
             del ex, segs
             torch.cuda.empty_cache()
     finally:
@@ -528,6 +665,9 @@ def main() -> None:
     ap.add_argument("--vector", action="store_true",
                     help="also time the vector leg's queries and 9i's "
                          "windows")
+    ap.add_argument("--only", default="",
+                    help="time only the kernel cases whose name this "
+                         "regular expression finds (default: every case)")
     args = ap.parse_args()
     card = card_line()
     tmp = tempfile.mkdtemp(prefix="kernel_ab_logs_")
@@ -540,7 +680,7 @@ def main() -> None:
         r = subprocess.run(
             [sys.executable, "-c", TURN, str(args.seed), str(args.iters),
              "1" if first else "0", "0" if args.no_queries else "1",
-             "1" if args.splits else "0", logs, vector],
+             "1" if args.splits else "0", logs, vector, args.only],
             cwd=tree, capture_output=True, text=True, timeout=1800)
         line = next((x for x in r.stdout.splitlines()
                      if x.startswith("TURN ")), None)
@@ -557,7 +697,8 @@ def main() -> None:
 
     ratio = {k: mean("change", lambda t: t[k]) / mean("parent",
                                                       lambda t: t[k])
-             for k, v in turns[0].items() if isinstance(v, float)}
+             for k in turns[0]
+             if all(isinstance(t.get(k), float) for t in turns)}
     for q in turns[0].get("p50_ms", {}):
         ratio[q] = mean("change", lambda t: t["p50_ms"][q]) \
             / mean("parent", lambda t: t["p50_ms"][q])

@@ -1,8 +1,8 @@
 // Shared by K1 (scan_agg.cu), K2 (group_agg.cu), K3 (sketch_agg.cu) and K4
-// (topn.cu): the launch arguments and the per-document interpreter of the plan program that
-// pinot_tpu_torch/ops/program.py compiles, which K2-K4 run, and at the
-// end the tile evaluator of the same program, which K1 runs. The layout
-// constants below must match program.py.
+// (topn.cu): the launch arguments and the per-document interpreter of the
+// plan program that pinot_tpu_torch/ops/program.py compiles, which K2 and
+// K4 run, and at the end the tile evaluator of the same program, which K1
+// and K3 run. The layout constants below must match program.py.
 //
 // One program per plan replaces the JAX package's per-plan jit trace
 // (pinot_tpu/ops/kernels.py:643): every thread walks the same postfix code,
@@ -402,9 +402,10 @@ __device__ __forceinline__ double slot_contrib(int op, T x) {
 }
 
 // ---------------------------------------------------------------------------
-// The tile evaluator (K1, csrc/scan_agg.cu). A thread takes PT_TILE
-// consecutive docs of one segment at a time, and each filter instruction is
-// dispatched once for the tile, not once per doc: a leaf reads its column
+// The tile evaluator (K1 csrc/scan_agg.cu, K3 csrc/sketch_agg.cu). A
+// thread takes PT_TILE consecutive docs of one segment at a time, and each
+// filter instruction is dispatched once for the tile, not once per doc:
+// a leaf reads its column
 // for the whole tile (16-byte loads in a full, aligned tile: one for i8,
 // two for i16, four for i32 / f32, eight for f64; docs outside `lim` are
 // not read in a partial one) and returns a PT_TILE-bit mask, bit d for doc

@@ -486,11 +486,12 @@ static int launch(const Args* a, const double* params, const int* num_docs,
   K1Layout ly;
   const int smem = k1_layout(a, D, P, B, optin - (int)fa.sharedSizeBytes, ly);
   if (smem < 0) return (int)cudaErrorInvalidConfiguration;
-  if (smem > 48 * 1024) {
-    static std::atomic<unsigned> limit_set{0};
-    e = pt_smem_limit_max(scan_agg_kernel<T>, &limit_set);
-    if (e != cudaSuccess) return (int)e;
-  }
+  // raised whatever this launch's size: without the raise a launch may
+  // take 48 KB less the kernel's static arrays, not 48 KB (a launch of
+  // 44-48 KB first in its process failed with cudaErrorInvalidValue)
+  static std::atomic<unsigned> limit_set{0};
+  e = pt_smem_limit_max(scan_agg_kernel<T>, &limit_set);
+  if (e != cudaSuccess) return (int)e;
   scan_agg_kernel<T><<<dim3(nb * ly.groups, S), ly.threads, smem, st>>>(
       *a, ly, params, num_docs, S, D, P, partial);
   scan_finalize<T><<<dim3(a->code[H_NACC], S, B), PT_THREADS, 0, st>>>(

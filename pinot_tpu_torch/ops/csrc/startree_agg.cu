@@ -29,10 +29,25 @@
 //
 // Bound on an H100: bytes. A record reads its 1-byte mask and, where
 // selected, 4-8 bytes per staged column, against a few integer operations
-// per plane: far below the card's compute rate.
+// per plane: far below the card's compute rate. At the star-tree leg's
+// own shapes (8 segments of at most 128-2048 pre-agg records) those bytes
+// take nanoseconds, and what a call costs is its launches: the first
+// design ran two kernels flat and three grouped (an init, the pass, a
+// finalize) for a few blocks of work, and the host's wrapper paces the
+// calls (PERF.md §6, K5's findings).
 //
-// Design, a first one that is right: grid (blocks per segment, S), 256
-// threads, each block over one contiguous record range of one segment.
+// Design: grid (blocks per segment, S), 256 threads, each block over one
+// contiguous record range of one segment. Where a segment takes one block
+// (nb = 1, the leg's shapes) and the launch is flat or its [G, A] table
+// fits shared memory (`one_pass`), the call is one kernel: the block
+// initialises its table, aggregates its segment and writes its packed
+// rows in the value dtype itself, with no init kernel, finalize kernel,
+// memset or scratch. Several blocks a segment (phase 3's S = 16, D = 2^20
+// cases) or a table past shared memory (G = 2^14) keep a second pass:
+// flat, the blocks' partials and a finalize kernel; grouped, an init
+// kernel, the pass and a finalize kernel. The wrapper builds StArgs' plan
+// constants (slot ops, strides, the accumulator map) once a plan and sets
+// only the pointers a call (ops/_cuda.py `_st_layout`).
 // - Flat: one pass per slot over the block's records, the lanes stepping
 //   together and a rejected record contributing the slot's identity (no
 //   `continue`); accumulators in registers (int planes, double sums,
@@ -50,8 +65,9 @@
 //   directly. Counts and planes are integers below 2^53 in
 //   double, so their atomic sums are exact in any order; min / max are
 //   order-free; float sums take the order of the atomics (a tolerance). A
-//   finalize pass writes the value dtype, empty groups keeping the
-//   identities (0, +inf for min, -inf for max), as the plain version's fill.
+//   finalize pass (or, in one pass, the block) writes the value dtype,
+//   empty groups keeping the identities (0, +inf for min, -inf for max),
+//   as the plain version's fill.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -151,13 +167,28 @@ __device__ void block_store(int op, double v, double* wbuf, double* dst) {
   __syncthreads();
 }
 
-// nrec: [U, S] record counts; partial: [B, S, nb, A].
-template <typename T, bool BATCH>
+// Writes accumulator value r of column c into an output row.
+template <typename T>
+__device__ __forceinline__ void put(const StArgs& a, int c, double r, T* o) {
+  const int col = a.acc_out[c];
+  if (a.acc_op[c] == OP_USUM) {
+    const int v = (int)r;
+    o[col] = (T)(v >> 12);
+    o[col + 1] = (T)(v & 4095);
+  } else {
+    o[col] = (T)r;
+  }
+}
+
+// nrec: [U, S] record counts. ONE (a block a segment): the block writes
+// its row of out [B, S, W] itself; else its row of partial [B, S, nb, A].
+template <typename T, bool BATCH, bool ONE>
 __global__ void __launch_bounds__(ST_THREADS)
 startree_flat(const __grid_constant__ StArgs a,
-              const int* __restrict__ nrec, int D, int A,
-              double* __restrict__ partial) {
+              const int* __restrict__ nrec, int D, int A, int W,
+              double* __restrict__ partial, T* __restrict__ out) {
   __shared__ double wbuf[ST_THREADS / 32];
+  __shared__ double res[ST_MAX_ACC];
   const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x, S = gridDim.y;
   const int m = BATCH ? (int)blockIdx.z : 0;
   const int u = BATCH ? a.set_of[m] : 0;
@@ -166,7 +197,8 @@ startree_flat(const __grid_constant__ StArgs a,
   const int start = min(n, b * per), end = min(n, start + per);
   const long long base = (long long)s * D;
   const unsigned char* srow = a.sel[m] + base;
-  double* prow = partial + (((long long)m * S + s) * nb + b) * A;
+  double* prow =
+      ONE ? res : partial + (((long long)m * S + s) * nb + b) * A;
 
   int cnt = 0;
   for (int d = start + threadIdx.x; d < end; d += ST_THREADS)
@@ -206,18 +238,10 @@ startree_flat(const __grid_constant__ StArgs a,
       off += 1;
     }
   }
-}
-
-// Writes accumulator value r of column c into an output row.
-template <typename T>
-__device__ __forceinline__ void put(const StArgs& a, int c, double r, T* o) {
-  const int col = a.acc_out[c];
-  if (a.acc_op[c] == OP_USUM) {
-    const int v = (int)r;
-    o[col] = (T)(v >> 12);
-    o[col + 1] = (T)(v & 4095);
-  } else {
-    o[col] = (T)r;
+  if (ONE) {  // block_store's last barrier published res
+    T* o = out + ((long long)m * S + s) * W;
+    for (int c = threadIdx.x; c < A; c += ST_THREADS)
+      put<T>(a, c, res[c], o);
   }
 }
 
@@ -245,18 +269,22 @@ __global__ void startree_group_init(const __grid_constant__ StArgs a,
     table[e] = identity_of(a.acc_op[e % A]);
 }
 
-// nrec: [U, S]; table: [B, S, G, A].
-template <typename T, bool BATCH>
+// nrec: [U, S]; table: [B, S, G, A]. ONE (a block a segment, its table
+// in shared memory): the block writes its rows of out [B, S, G, W] itself,
+// and `table` is not read.
+template <typename T, bool BATCH, bool ONE>
 __global__ void __launch_bounds__(ST_THREADS)
 startree_group(const __grid_constant__ StArgs a,
-               const int* __restrict__ nrec, int D, int G, int A,
-               int use_smem, double* __restrict__ table) {
+               const int* __restrict__ nrec, int D, int G, int A, int W,
+               int use_smem, double* __restrict__ table,
+               T* __restrict__ out) {
   extern __shared__ double tab[];
   const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x, S = gridDim.y;
   const int m = BATCH ? (int)blockIdx.z : 0;
   const int u = BATCH ? a.set_of[m] : 0;
   const long long entries = (long long)G * A;
-  double* seg_table = table + ((long long)m * S + s) * entries;
+  double* seg_table =
+      ONE ? nullptr : table + ((long long)m * S + s) * entries;
   double* my = use_smem ? tab : seg_table;
   if (use_smem) {
     for (int e = threadIdx.x; e < entries; e += blockDim.x)
@@ -304,7 +332,12 @@ startree_group(const __grid_constant__ StArgs a,
     __syncwarp();
   }
 
-  if (use_smem) {
+  if (ONE) {  // the whole segment's table: the packed rows, identities kept
+    __syncthreads();
+    T* o = out + ((long long)m * S + s) * G * W;
+    for (int e = threadIdx.x; e < entries; e += blockDim.x)
+      put<T>(a, e % A, tab[e], o + (e / A) * W);
+  } else if (use_smem) {
     __syncthreads();
     for (int e = threadIdx.x; e < entries; e += blockDim.x) {
       const int c = e % A;
@@ -325,34 +358,70 @@ __global__ void startree_group_finalize(const __grid_constant__ StArgs a,
     put<T>(a, (int)(e % A), table[e], out + (e / A) * W);
 }
 
+// Whether a launch runs in one pass (one kernel, no scratch): a block a
+// segment, flat or with its [G, A] table in shared memory. The wrapper
+// asks it through `pt_startree_one_pass` before it sizes the scratch.
+static bool one_pass(int G, int nb, int A) {
+  return nb == 1 && (size_t)G * A * sizeof(double) <= ST_SMEM_TABLE_BYTES;
+}
+
+extern "C" int pt_startree_one_pass(int G, int nb, int A) {
+  return one_pass(G, nb, A) ? 1 : 0;
+}
+
 template <typename T, bool BATCH>
 static int launch(const StArgs* a, const int* nrec, int S, int D, int G,
                   int nb, int A, int W, int B, double* scratch, T* out,
                   cudaStream_t st) {
   const dim3 grid(nb, S, B);
+  const bool one = one_pass(G, nb, A);
+  if (!one && scratch == nullptr) return (int)cudaErrorInvalidValue;
   if (G == 0) {
-    startree_flat<T, BATCH><<<grid, ST_THREADS, 0, st>>>(*a, nrec, D, A,
-                                                         scratch);
+    if (one) {
+      startree_flat<T, BATCH, true><<<grid, ST_THREADS, 0, st>>>(
+          *a, nrec, D, A, W, scratch, out);
+      return (int)cudaGetLastError();
+    }
+    startree_flat<T, BATCH, false><<<grid, ST_THREADS, 0, st>>>(
+        *a, nrec, D, A, W, scratch, out);
     startree_flat_finalize<T><<<dim3(S, B), 128, 0, st>>>(*a, scratch, nb, A,
                                                          W, out);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)G * A * sizeof(double);
+  const int use_smem = smem <= ST_SMEM_TABLE_BYTES;
+  if (use_smem) {  // each function's own flag: a limit is a function's
+    static std::atomic<unsigned> one_set{0}, two_set{0};
+    const cudaError_t e =
+        one ? pt_smem_limit_max(startree_group<T, BATCH, true>, &one_set)
+            : pt_smem_limit_max(startree_group<T, BATCH, false>, &two_set);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (one) {
+    startree_group<T, BATCH, true><<<grid, ST_THREADS, smem, st>>>(
+        *a, nrec, D, G, A, W, use_smem, scratch, out);
     return (int)cudaGetLastError();
   }
   const long long n = (long long)B * S * G * A;
   const long long tb = (n + ST_THREADS - 1) / ST_THREADS;
   const int flat = (int)(tb < 4096 ? (tb > 0 ? tb : 1) : 4096);
-  const size_t smem = (size_t)G * A * sizeof(double);
-  const int use_smem = smem <= ST_SMEM_TABLE_BYTES;
-  if (use_smem) {
-    static std::atomic<unsigned> limit_set{0};
-    const cudaError_t e =
-        pt_smem_limit_max(startree_group<T, BATCH>, &limit_set);
-    if (e != cudaSuccess) return (int)e;
-  }
   startree_group_init<<<flat, ST_THREADS, 0, st>>>(*a, n, A, scratch);
-  startree_group<T, BATCH><<<grid, ST_THREADS, use_smem ? smem : 0, st>>>(
-      *a, nrec, D, G, A, use_smem, scratch);
+  startree_group<T, BATCH, false>
+      <<<grid, ST_THREADS, use_smem ? smem : 0, st>>>(*a, nrec, D, G, A, W,
+                                                      use_smem, scratch, out);
   startree_group_finalize<T><<<flat, ST_THREADS, 0, st>>>(*a, n, A, W,
                                                           scratch, out);
+  return (int)cudaGetLastError();
+}
+
+// The floor of one call: an empty kernel, launched as K5's entry point
+// launches (device set, the caller's stream). Not a port of anything:
+// measurement scripts time it beside K5.
+__global__ void pt_empty_kernel() {}
+
+extern "C" int pt_empty_launch(int dev, void* stream) {
+  cudaSetDevice(dev);
+  pt_empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 
@@ -363,7 +432,8 @@ extern "C" int pt_startree_args_bytes() { return (int)sizeof(StArgs); }
 // Launches K5 on `stream` for B members (B = 1: the single launch, on its
 // own body). nrec: [U, S] int32 record counts; G: group count (0: flat);
 // nb: blocks per segment; A / W: accumulator / output columns; scratch:
-// [B, S, nb, A] (flat) or [B, S, G, A] (grouped) float64; out: [B, S, W] or
+// [B, S, nb, A] (flat) or [B, S, G, A] (grouped) float64, null for a
+// launch in one pass (`one_pass`); out: [B, S, W] or
 // [B, S, G, W] in the value dtype (f64 != 0: float64, else float32); dev:
 // the tensors' device. Returns cudaGetLastError().
 extern "C" int pt_startree_agg(const StArgs* a, const int* nrec, int S, int D,

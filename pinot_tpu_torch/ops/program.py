@@ -33,9 +33,11 @@ A slot row: `value` is the value-expression index (-1: none), `filter`
 the agg FILTER tree (-1: none), `n` the isum plane count, HLL log2m or
 histogram bucket count, and `out` the slot's first column in the packed
 ungrouped output. `acc` is a scalar slot's first accumulator word; for a
-sketch slot, which has none, it is the offset of the slot's table in K3's
-shared memory, or -1 where the tables before it leave no room under
-SKETCH_SMEM_WORDS (the slot then updates its global table with atomics).
+sketch slot, which has none, it is the byte offset of the slot's table in
+K3's shared memory (a byte a HLL register, a uint32 word a histogram
+bucket: `sketch_table_bytes`; each table 16-byte aligned), or -1 where the
+tables before it leave no room under SKETCH_SMEM_BYTES (the slot then
+updates its global uint32 table with atomics).
 `c0`/`c1` are the HLL slot's valhi/vallo column indexes, or the histogram
 slot's `hlo`/`hscale` parameter indexes.
 
@@ -139,10 +141,13 @@ ISUM_U_BITS = 7
 HLL_LOG2M_RANGE = (4, 16)
 MAX_HIST_BUCKETS = 1 << 16
 MAX_SKETCH_SLOTS = 8
-#: 32-bit words of K3's shared-memory sketch tables (96 KB of the 227 KB a
-#: block may opt into): one HLL at log2m 12 (4096) and one 8192-bucket
-#: histogram fit, log2m 16 (65536) goes to global atomics
-SKETCH_SMEM_WORDS = 24576
+#: bytes of K3's shared-memory sketch tables (csrc/sketch_agg.cu): a byte
+#: an HLL register, a word a histogram bucket. 104 KB leaves two blocks an
+#: SM of an H100 (228 KB) room for the rest of a block's shared memory, and
+#: holds an HLL at log2m 16 (64 KB) beside one at log2m 12 (4 KB) and an
+#: 8192-bucket histogram (32 KB); a second log2m-16 HLL goes to global
+#: atomics
+SKETCH_SMEM_BYTES = 104 * 1024
 
 
 # ---------------------------------------------------------------------------
@@ -199,8 +204,8 @@ class Program:
     params: Tuple[Tuple[Optional[str], Optional[float]], ...]
     n_acc: int
     out_width: int
-    #: 32-bit words of K3's shared-memory tables (0: no sketch slot there)
-    sketch_smem_words: int = 0
+    #: bytes of K3's shared-memory tables (0: no sketch slot there)
+    sketch_smem_bytes: int = 0
 
     def for_launch(self, dtypes: List[str],
                    lut_widths: List[int]) -> np.ndarray:
@@ -215,6 +220,12 @@ class Program:
 def is_sketch(op: str) -> bool:
     """A K3 slot: HLL registers or histogram buckets."""
     return op.startswith(("hll:", "hist:"))
+
+
+def sketch_table_bytes(op: str) -> int:
+    """Bytes of a sketch slot's table in K3's shared memory: a byte an HLL
+    register (a rank is at most 33), a uint32 word a histogram bucket."""
+    return slot_width(op) * (1 if op.startswith("hll:") else 4)
 
 
 def slot_width(op: str) -> int:
@@ -352,8 +363,9 @@ def compile_plan(plan: DevicePlan) -> Program:
             if grouped:
                 raise ValueError("sketch slots are ungrouped only")
             width = slot_width(op)
-            sm = smem if smem + width <= SKETCH_SMEM_WORDS else -1
-            smem += width if sm >= 0 else 0
+            nbytes = sketch_table_bytes(op)
+            sm = smem if smem + nbytes <= SKETCH_SMEM_BYTES else -1
+            smem += -(-nbytes // 16) * 16 if sm >= 0 else 0
             if op.startswith("hll:"):
                 _, log2m, column = op.split(":", 2)
                 lo_m, hi_m = HLL_LOG2M_RANGE
@@ -465,4 +477,4 @@ def compile_plan(plan: DevicePlan) -> Program:
     note_trace(plan_fingerprint(plan))
     return Program(code=tuple(code), cols=tuple(cols), luts=tuple(luts),
                    params=tuple(params), n_acc=len(accs),
-                   out_width=code[H_OUTW], sketch_smem_words=smem)
+                   out_width=code[H_OUTW], sketch_smem_bytes=smem)

@@ -16,11 +16,17 @@ blocks, filters keeping k, no or every doc, and B = 8 stacked; K1's
 tiles at their edges (ragged, one-doc and empty segments, every id dtype
 and LUT path, f32 / f64 and vrange64 leaves, the validity mask and K7's
 mask leaf inside a tile, all and no docs kept, 16 members in groups, a
-plan at program.py's limits together, which takes a narrower block) and
+plan at program.py's limits together, which takes a narrower block; a
+first launch in a fresh process between 48 KB less its static arrays
+and 48 KB of shared memory) and
 K7 at the edges of its logtype lookup (a logtype no group names, 64
 groups on one logtype, padding groups, ids past cp and negative, Kd / Ke
 at 0 and 16, dict-var ids past a table of 4 entries read through its
-packed row), in full 16-byte tiles and scalar ones.
+packed row), in full 16-byte tiles and scalar ones; K3 on config #4's
+plan (its tile loaders and its kept lists, B = 8 members equal to their
+single launches), log2m 16 on chip, several log2m-16 slots reaching the
+global tier, every doc on one register; K5 at the star-tree leg's shapes
+running one device kernel a call (counted in a torch.profiler trace).
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. On the card
 they run without the repo's conftest (which imports JAX):
@@ -61,7 +67,10 @@ from pinot_tpu_torch.ops.plan_ir import DevicePlan
 
 # by path: on the card's machine another installed 'tests' package can
 # shadow this repo's, and this file runs there without the repo's conftest
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+sys.path[:0] = [HERE, ROOT]
+import chip_smoke as cs  # noqa: E402
 import torch_plans as tp  # noqa: E402
 
 
@@ -147,11 +156,111 @@ def test_sketch_kernel_matches_plain_on_card(card, seed, x64):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
-def test_sketch_kernel_global_atomics_path(card, x64):
-    """log2m 16 does not fit beside the others in shared memory: K3
-    updates that slot's global table with atomics."""
+def test_sketch_kernel_log2m16_beside_log2m12_on_chip(card, x64):
+    """log2m 16 (64 KB of byte registers) beside log2m 12 and the
+    histogram, all three tables in K3's shared memory."""
     spec = tp.random_sketch_spec(21, log2ms=(12, 16), scalar=False)
+    assert all(tp.code_at(prog_mod.compile_plan(DevicePlan(**spec)).code,
+                          prog_mod.H_SLOT, j, prog_mod.SLOT_W)[3] >= 0
+               for j in range(len(spec["agg_ops"])))
     _sketch_case(card, spec, x64, 5, 70_000, 21)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2ms", [(16, 16), (16, 16, 16)],
+                         ids=["two", "three"])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_sketch_kernel_global_tier_several_log2m16(card, log2ms, x64):
+    """Several log2m-16 HLLs do not fit K3's shared memory together: the
+    first on chip, the others in the global table, read before raised."""
+    spec = tp.random_sketch_spec(23, log2ms=log2ms, scalar=False)
+    rows = [tp.code_at(prog_mod.compile_plan(DevicePlan(**spec)).code,
+                       prog_mod.H_SLOT, j, prog_mod.SLOT_W)
+            for j in range(len(spec["agg_ops"]))]
+    assert [r[3] < 0 for r in rows if r[0] == prog_mod.S_HLL] \
+        == [False] + [True] * (len(log2ms) - 1)
+    _sketch_case(card, spec, x64, 5, 70_000, 23)
+
+
+def _q4_spec(log2m: int = 12) -> dict:
+    """Config #4's plan shape: DISTINCTCOUNTHLL and an 8192-bucket
+    histogram, no filter."""
+    return dict(filter_ir=None, leaves=(), value_irs=(("col", "x"),),
+                agg_ops=((f"hll:{log2m}:t", None, None),
+                         ("hist:8192", 0, None)),
+                agg_filter_irs=(), raw64_cols=("t",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1 << 16, 70_003, 1 << 20],
+                         ids=["full tiles", "ragged", "many blocks"])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_sketch_kernel_q4_plan_unfiltered_on_card(card, D, x64):
+    """K3 on Q4's plan shape (log2m 12 and 8192 buckets, no filter): every
+    doc kept, full tiles read through the tile loaders (float32), ragged
+    ones and float64 values through the kept lists."""
+    _sketch_case(card, _q4_spec(), x64, 4, D, 31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("word", [False, True], ids=["one register",
+                                                     "one word"])
+@pytest.mark.parametrize("filtered", [False, True])
+def test_sketch_kernel_every_doc_on_one_register(card, word, filtered):
+    """A column whose every doc hashes to one register (or to the four
+    registers of one 32-bit word), their ranks spread: every lane of a
+    warp raising one register's cached byte and its global word at once,
+    the worst case for K3's raises."""
+    spec = _q4_spec(12) if not filtered else tp.random_sketch_spec(
+        8, scalar=False)
+    assert not filtered or spec["filter_ir"] is not None
+    S, D = 4, 1 << 17
+    cols, params, nd = tp.sketch_inputs(9, spec, S, D, np.float32)
+    rng = np.random.default_rng(9)
+    cand = rng.integers(-(1 << 54), 1 << 54, 1 << 22, dtype=np.int64)
+    h1, _h2 = tk.hash32_pair(torch.from_numpy((cand >> 24).astype(np.int32)),
+                             torch.from_numpy((cand & 0xFFFFFF).astype(
+                                 np.int32)))
+    want = 0xFFC if word else 0xFFF
+    pick = cand[(h1.numpy() & want) == 0]
+    assert len(pick) >= 64
+    t = rng.choice(pick, (S, D))
+    cols["valhi:t"] = (t >> 24).astype(np.int32)
+    cols["vallo:t"] = (t & 0xFFFFFF).astype(np.int32)
+    plan = DevicePlan(**spec)
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    out = tk.make_kernel(plan, torch.float32)(tc, tpar, tnd, D)
+    ref = tk.plain_kernel(plan, torch.float32)(tc, tpar, tnd, D)
+    torch.cuda.synchronize()
+    tp.assert_packed_equal(spec, ref.cpu().numpy(), out.cpu().numpy(), {},
+                           False)
+    regs = out[:, 1:1 + 4096].cpu().numpy()
+    assert (regs[:, (4 if word else 1):] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1 << 16, 70_003], ids=["full", "ragged"])
+def test_sketch_kernel_q4_batch_equals_single_launches(card, D):
+    """B = 8 members of Q4's plan over one column set and over eight, each
+    bit for bit its own single launch (counts, registers and buckets are
+    integers: exact whatever the grid)."""
+    spec = _q4_spec()
+    plan = DevicePlan(**spec)
+    S = 4
+    sets = [tk.from_jax_staged(*tp.sketch_inputs(40 + u, spec, S, D,
+                                                 np.float32), device=card)
+            for u in range(8)]
+    for idx in ([0] * 8, list(range(8))):
+        U = max(idx) + 1
+        cols = [c for c, _p, _n in sets[:U]]
+        plist = [sets[m][1] for m in range(8)]
+        nds = [n for _c, _p, n in sets[:U]]
+        out = tk.batched_kernel(plan, torch.float32)(cols, plist, nds, idx,
+                                                     D)
+        for m, u in enumerate(idx):
+            single = tk.make_kernel(plan, torch.float32)(cols[u], plist[m],
+                                                         nds[u], D)
+            assert torch.equal(out[m], single), (idx, m)
 
 
 TOPN_CASES = [(seed, order, asc, k)
@@ -258,6 +367,60 @@ def test_startree_kernel_one_block_per_segment_on_card(card, dims, D, x64):
                              tp.F64_TOL if x64 else tp.F32_SUM_TOL)
 
 
+def _device_kernels(fn, n: int, tmp_path) -> list:
+    """The names of the device kernels, copies and sets that n calls of fn
+    ran, from a torch.profiler trace (taken once more where the profiler
+    dropped every device event)."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        path = tmp_path / f"trace{attempt}.json"
+        prof.export_chrome_trace(str(path))
+        names = [e.get("name", "") for e in
+                 json.loads(path.read_text()).get("traceEvents", [])
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if names:
+            return names
+    return names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,D", [((("a", 7),), 128), ((), 2048),
+                                    ((("a", 6),), 2048),
+                                    ((("a", 7), ("b", 5)), 128)],
+                         ids=["G=7 D=128", "flat D=2048", "G=6 D=2048",
+                              "G=35 D=128"])
+@pytest.mark.parametrize("B", [1, 8])
+def test_startree_one_device_kernel_per_call_on_card(card, dims, D, B,
+                                                     tmp_path):
+    """K5 at the star-tree leg's shapes (a block a segment, flat or its
+    table in shared memory) runs one device kernel a call, no memset and
+    no second pass, single and with B = 8 members; counted in a
+    torch.profiler trace."""
+    fields = tp.startree_spec("flat", dims)
+    S = 8
+    cols, params, nd = tp.startree_inputs(D, fields, S, D, np.float32)
+    tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+    plan = tsd.StarTreePlan(**fields)
+    if B == 1:
+        kern = tsd.make_startree_kernel(plan, torch.float32)
+        fn = lambda: kern(tc, tpar, tnd, D)  # noqa: E731
+    else:
+        run = tsd.batched_kernel(plan, torch.float32)
+        fn = lambda: run([tc], [tpar] * B, [tnd], [0] * B, D)  # noqa: E731
+    names = [n for _a, _b, n in cs.traced_calls(fn, 5, str(tmp_path))]
+    assert len(names) == 5, names
+    assert all(n.removeprefix("void ").startswith("startree_")
+               for n in names), names
+
+
 BATCH_KERNELS = {"scan": _cuda.SCAN_AGG, "group": _cuda.GROUP_AGG,
                  "sketch": _cuda.SKETCH_AGG, "topn": _cuda.TOPN}
 BATCH_CASES = [(kind, B, form) for kind in BATCH_KERNELS for B in (2, 8)
@@ -325,6 +488,28 @@ def test_batched_kernel_matches_plain_and_single_on_card(card, kind, B,
         tp.assert_packed_equal(spec, single.cpu().numpy(), got, scale, x64)
         if kind != "group":
             assert np.array_equal(got, single.cpu().numpy(), equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_first_scan_launch_in_a_process_on_card(card):
+    """K1's first launch in a fresh process, B = 2 broadcast members of
+    random_sketch_spec(5) in float32: its dynamic shared memory is past 48
+    KB less the kernel's static arrays and within 48 KB, so it runs only
+    where K1 raised its limit before the launch. Run as the first launch
+    of its own process (in this file's run an earlier test has raised the
+    limit already), and held to the plain version and its single
+    launches as the batched test holds it."""
+    import subprocess
+    code = ("import sys, torch; sys.path.insert(0, sys.argv[1]); "
+            "import test_torch_cuda as t; "
+            "t.test_batched_kernel_matches_plain_and_single_on_card("
+            "torch.device('cuda'), 'sketch', 2, 'broadcast', False); "
+            "print('K1 batched launches', t._cuda.SCAN_AGG.batched_launches)")
+    r = subprocess.run([sys.executable, "-c", code, HERE], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    assert r.stdout.strip().splitlines()[-1] == "K1 batched launches 1", \
+        r.stdout
 
 
 @pytest.mark.cuda

@@ -270,16 +270,42 @@ def test_program_interpreter_matches_plain_sketches(seed, x64):
 
 def test_sketch_tables_fit_shared_memory():
     """program.py places each sketch table in K3's shared memory while the
-    tables before it leave room, back to back, else in global memory."""
+    tables before it leave room, back to back at 16-byte boundaries, a
+    byte an HLL register and a word a histogram bucket, else in global
+    memory."""
     spec = tp.random_sketch_spec(0, log2ms=(12, 16, 4), scalar=True)
     prog = pg.compile_plan(DevicePlan(**spec))
     rows = [tp.code_at(prog.code, pg.H_SLOT, j, pg.SLOT_W)
             for j in range(len(spec["agg_ops"]))]
     placed = [(r[3], r[4]) for r in rows if r[0] in pg.SKETCH_OPS]
-    # hll:12 at 0, hll:16 global, hll:4 after hll:12, hist:8192 after it
-    assert placed == [(0, 12), (-1, 16), (4096, 4), (4112, 8192)]
-    assert prog.sketch_smem_words == 4112 + 8192 <= pg.SKETCH_SMEM_WORDS
+    # hll:12 at 0, hll:16 after it, hll:4 after that, hist:8192 last
+    assert placed == [(0, 12), (4096, 16), (69632, 4), (69648, 8192)]
+    assert prog.sketch_smem_bytes == 69648 + 4 * 8192 \
+        <= pg.SKETCH_SMEM_BYTES
     assert prog.out_width == 1 + 4096 + 65536 + 16 + 8192 + 2
+
+
+@pytest.mark.parametrize("log2ms,buckets,placed,tab", [
+    # config #4's phase-3 plan: every table on chip (100 KB)
+    ((12, 16), 8192, [(0, 12), (4096, 16), (69632, 8192)], 102400),
+    # two log2m-16 HLLs: the second, and the histogram past it, global
+    ((16, 16), 8192, [(0, 16), (-1, 16), (65536, 8192)], 98304),
+    ((16, 16, 16), 64, [(0, 16), (-1, 16), (-1, 16), (65536, 64)], 65792),
+    # a 2^16-bucket histogram (256 KB) never fits; a small HLL after it
+    ((4,), 1 << 16, [(0, 4), (-1, 1 << 16)], 16),
+], ids=["phase3", "two-16", "three-16", "wide-hist"])
+def test_sketch_table_byte_offsets(log2ms, buckets, placed, tab):
+    """K3's on-chip placement in bytes: each sketch slot's byte offset
+    (-1: its global uint32 table) and the block's table bytes, which the
+    card's wrapper checks the kernel's own layout against."""
+    spec = tp.random_sketch_spec(1, log2ms=log2ms, scalar=False,
+                                 buckets=buckets)
+    prog = pg.compile_plan(DevicePlan(**spec))
+    rows = [tp.code_at(prog.code, pg.H_SLOT, j, pg.SLOT_W)
+            for j in range(len(spec["agg_ops"]))]
+    assert [(r[3], r[4]) for r in rows if r[0] in pg.SKETCH_OPS] == placed
+    assert prog.sketch_smem_bytes == tab <= pg.SKETCH_SMEM_BYTES
+    assert all(r[3] % 16 == 0 for r in rows if r[3] >= 0)
 
 
 def test_program_limits_raise():

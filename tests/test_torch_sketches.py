@@ -379,8 +379,8 @@ def test_chip_smoke_config4_truth_matches_port(tmp_path):
 
 
 def test_phase3_sketch_plan_layout():
-    """chip_smoke.py's K3 plan (phase 3): log2m 12 and the histogram in
-    shared memory, log2m 16 through global atomics."""
+    """chip_smoke.py's K3 plan (phase 3): log2m 12, log2m 16 and the
+    histogram all in shared memory, HLL registers a byte each."""
     plan = DevicePlan(
         filter_ir=("or", ("and", ("leaf", 0), ("leaf", 1)), ("leaf", 2)),
         leaves=(DeviceLeaf("range", "a"), DeviceLeaf("lut", "b"),
@@ -392,4 +392,4 @@ def test_phase3_sketch_plan_layout():
     from pinot_tpu_torch.ops import program
     prog = program.compile_plan(plan)
     assert prog.out_width == 1 + 4096 + 65536 + 8192
-    assert prog.sketch_smem_words == 4096 + 8192
+    assert prog.sketch_smem_bytes == 4096 + 65536 + 4 * 8192
