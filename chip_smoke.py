@@ -343,6 +343,27 @@ Phases, each of which exits non-zero on failure:
    card's answer (up to the keys tied at the 10th count), K2 once per
    slot and K9 once per query, `mesh_merge_fallback{disabled}` and
    `mesh_merge_served` counting.
+15. The server (after phase 4d): phase 4's 16 Q1 segment directories
+   loaded into the port's InstanceDataManager beside `small`, two
+   SMALL_DOCS-row segments (a raw FLOAT rf, 5% of it 0.1f), served on the
+   card by a MiniClusterServer on 127.0.0.1:0 and queried over TCP through
+   ServerConnection, each PDT1 reply decoded and reduced: Q1.1-Q1.3,
+   SRV_GB (a config-#3-shaped group-by), SRV_SKETCH (DISTINCTCOUNTHLL and a
+   p95), sel.1 and dist.1 equal to phase 4's numpy truth, `rf > 0.1` and
+   `rf = 0.1` to numpy's float32 compare (K1 once each); then the three
+   shapes the planner refuses (SMALL_REFUSED) equal to numpy, with
+   `host_fallback` up by exactly 3 (0 for the device queries) and no
+   launch; then a table the server lacks (TABLE_DOES_NOT_EXIST) and an
+   expired deadline (250). The p50 of SERVER_ITERS warm Q1.1 runs through
+   the server over TCP, through its executor in this process and through
+   QueryExecutor.execute over the same segments, and of a request for a
+   table the server lacks (the transport alone). Then a
+   replace of ssb_0 by other data (built in a spawned worker while the
+   queries ran): the warm-up prestages it before the swap, the next Q1.1
+   follows the new data, and the replace plus that query upload exactly
+   the new segment's resident rows; a 17th segment added after Q1.1 was
+   logged is prestaged, and the first Q1.1 after the add uploads no
+   column byte. Launches held as every leg's (K1-K4 and K6).
 8. Launch counts: each kernel's counter is set to 0 just before a leg's
    timed queries and read just after them; the leg's kernels must have
    launched once per query run (a CLP query: K7 once, then K1, K2 or K4
@@ -541,6 +562,39 @@ TAXI_QUERIES = {
     # a vrange64 leaf on the HLL column's own split planes (2^39)
     "q4.3": _SKETCHES + " WHERE trip_id < 549755813888",
 }
+#: phase 15: the server. Phase 4's table's fields, a config-#3-shaped
+#: group-by and a sketch query on its rows, and the `small` table of the
+#: host-served shapes and the FLOAT-literal queries
+Q1_FIELDS = [("lo_orderdate", "INT", False), ("lo_discount", "INT", False),
+             ("lo_quantity", "INT", False), ("lo_extendedprice", "INT", True)]
+Q1_NO_DICT = ["lo_extendedprice"]
+SRV_GB = ("SELECT lo_discount, lo_quantity, SUM(lo_extendedprice), COUNT(*) "
+          "FROM ssb WHERE lo_orderdate BETWEEN 19940101 AND 19941231 "
+          "GROUP BY lo_discount, lo_quantity "
+          "ORDER BY lo_discount, lo_quantity LIMIT 1000")
+SRV_SKETCH = ("SELECT DISTINCTCOUNTHLL(lo_extendedprice), "
+              "PERCENTILETDIGEST95(lo_quantity) FROM ssb "
+              "WHERE lo_discount BETWEEN 2 AND 4")
+SMALL_SEGMENTS, SMALL_DOCS = 2, 1 << 20
+SMALL_QUERIES = {
+    "grouped_sketches": ("SELECT grp, DISTINCTCOUNTHLL(k), "
+                         "PERCENTILETDIGEST50(v) FROM small GROUP BY grp "
+                         "ORDER BY grp"),
+    "two_order_keys": ("SELECT k, v FROM small WHERE r_small < 3 "
+                       "ORDER BY k, v LIMIT 20"),
+    "raw_group_by": ("SELECT r_small, COUNT(*), SUM(v) FROM small "
+                     "GROUP BY r_small ORDER BY r_small"),
+    "float_gt": "SELECT COUNT(*) FROM small WHERE rf > 0.1",
+    "float_eq": "SELECT COUNT(*) FROM small WHERE rf = 0.1",
+}
+#: the shapes the planner refuses, each with its `host_fallback{reason}`
+SMALL_REFUSED = {"grouped_sketches": "groupedSketch",
+                 "two_order_keys": "orderBy", "raw_group_by": "rawGroupBy"}
+#: warm Q1.1 runs timed through the server and through QueryExecutor
+SERVER_ITERS = 20
+#: seed offset of the replacement segment and the added one
+SERVER_SEED = 15_000
+
 #: the time-series leg: TSBS's devops `cpu-only` use case
 #: (github.com/timescale/tsbs: --use-case=cpu-only --scale=4000
 #: --log-interval=10s, 2016-01-01 to 2016-01-04): one row per host every
@@ -1011,8 +1065,29 @@ def sel_pool_truth(cols: dict, d0, d1, c0, c1):
                              for d in docs]
 
 
+def server_truth(cols: dict) -> dict:
+    """Phase 15's truths over one Q1 segment's columns: SRV_GB's exact
+    (SUM, COUNT) per (discount, quantity); SRV_SKETCH's HLL registers of
+    the kept lo_extendedprice and the counts of the kept lo_quantity."""
+    from pinot_tpu_torch.query.sketches import HyperLogLog
+    date, disc, qty, price = (cols[c] for c in SSB_COLS)
+    m = (date >= 19940101) & (date <= 19941231)
+    key = disc[m].astype(np.int64) * 64 + qty[m]
+    sums = np.bincount(key, weights=price[m].astype(np.float64),
+                       minlength=11 * 64)
+    counts = np.bincount(key, minlength=11 * 64)
+    gb = {(int(k) // 64, int(k) % 64): (int(sums[k]), int(counts[k]))
+          for k in np.nonzero(counts)[0]}
+    kept = (disc >= 2) & (disc <= 4)
+    hll = HyperLogLog(HLL_LOG2M)
+    hll.add_array(price[kept])
+    return {"gb": gb, "hll": hll.registers,
+            "qty": np.bincount(qty[kept], minlength=51)}
+
+
 def q1_leg_truth(cols: dict) -> dict:
     return {"q1": q1_truth(cols), "sel": selection_truth(cols),
+            "srv": server_truth(cols),
             "mse": mse_truth(cols),
             "mom": moments_truth(cols),
             "q1pool": [q1_window_truth(cols, *w) for w in Q1_POOL],
@@ -2700,9 +2775,10 @@ PEAK_LIMIT = 80e9
 
 
 def block_misses() -> float:
-    """Blocks the engines assembled so far: each one K6 launch."""
+    """Blocks the engines assembled so far (the server's engine, whose
+    meters carry its instance label, included): each one K6 launch."""
     from pinot_tpu_torch.utils.metrics import get_registry
-    return get_registry("server").meter("hbm_block_miss")
+    return get_registry("server").meter_total("hbm_block_miss")
 
 
 def check_peak(where: str) -> None:
@@ -5486,6 +5562,346 @@ def exact_pair(rows, want_sum: int, want_cnt: int):
     return None
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the server
+# ---------------------------------------------------------------------------
+
+SMALL_FIELDS = [("grp", "STRING", False), ("k", "INT", False),
+                ("v", "INT", True), ("r_small", "INT", True),
+                ("rf", "FLOAT", True)]
+SMALL_NO_DICT = ["v", "r_small", "rf"]
+
+
+def small_columns(rng, n: int) -> dict:
+    """The `small` table: a five-value string grp, a dictionary INT k,
+    raw INTs v and r_small, and a raw FLOAT rf, 5% of it exactly 0.1f."""
+    rf = rng.uniform(-0.5, 1.0, n).astype(np.float32)
+    rf[rng.random(n) < 0.05] = np.float32(0.1)
+    return {"grp": CATEGORIES[rng.integers(0, 5, n)],
+            "k": rng.integers(0, 1000, n).astype(np.int32),
+            "v": rng.integers(0, 100_000, n).astype(np.int32),
+            "r_small": rng.integers(0, 10, n).astype(np.int32),
+            "rf": rf}
+
+
+def all_columns(cols: dict) -> dict:
+    """A segment's 'truth' that is its columns (build_one_segment in this
+    process)."""
+    return cols
+
+
+def small_expected(parts: list) -> dict:
+    """Each SMALL_QUERIES answer from numpy over the segments' columns
+    (in segment order). The grouped sketches repeat the host executor's:
+    per segment an HLL of k and a t-digest of v per group, each digest
+    compressed as the wire writes it, merged in segment order."""
+    from pinot_tpu_torch.query.sketches import HyperLogLog, TDigest
+    cat = {c: np.concatenate([p[c] for p in parts]) for c in parts[0]}
+    rows = []
+    for g in sorted(set(cat["grp"].tolist())):
+        hll, digest = HyperLogLog(HLL_LOG2M), None
+        for p in parts:
+            m = p["grp"] == g
+            hll.add_array(p["k"][m])
+            d = TDigest(100.0)
+            d.add_array(p["v"][m])
+            d._compress(force=True)
+            digest = d if digest is None else digest.merge(d)
+        rows.append((g, hll.cardinality(), digest.quantile(0.5)))
+    m = cat["r_small"] < 3
+    k, v = cat["k"][m], cat["v"][m]
+    order = np.lexsort((v, k))[:20]
+    cnt = np.bincount(cat["r_small"], minlength=10)
+    sums = np.bincount(cat["r_small"], weights=cat["v"].astype(np.float64),
+                       minlength=10)
+    rf = cat["rf"]
+    return {"grouped_sketches": rows,
+            "two_order_keys": [(int(k[i]), int(v[i])) for i in order],
+            "raw_group_by": [(r, int(cnt[r]), float(sums[r]))
+                             for r in range(10) if cnt[r]],
+            "float_gt": [(int((rf > np.float32(0.1)).sum()),)],
+            "float_eq": [(int((rf == np.float32(0.1)).sum()),)]}
+
+
+def server_sketch_expected(truths: list, segs: list):
+    """SRV_SKETCH's (HLL cardinality, p95), the engine's arithmetic on the
+    numpy counts: the registers' max over the segments; the histogram
+    between the batch's lo_quantity metadata min and max, bucket =
+    clip((f32(v) - f32(lo)) * f32(B / span), 0, B - 1), one digest per
+    segment merged in segment order (taxi_expected's rule)."""
+    from pinot_tpu_torch.query.sketches import HyperLogLog, TDigest
+    metas = [s.metadata.columns["lo_quantity"] for s in segs]
+    lo = min(float(m.min_value) for m in metas)
+    span = max(max(float(m.max_value) for m in metas) - lo, 1e-30)
+    v32 = np.arange(51).astype(np.float32)
+    bucket = np.clip((v32 - np.float32(lo)) * np.float32(HIST_BUCKETS / span),
+                     0, HIST_BUCKETS - 1).astype(np.int64)
+    regs = np.zeros(1 << HLL_LOG2M, dtype=np.uint8)
+    digest = TDigest(100.0)
+    for t in truths:
+        np.maximum(regs, t["hll"], out=regs)
+        hist = np.bincount(bucket, weights=t["qty"], minlength=HIST_BUCKETS)
+        digest = digest.merge(TDigest.from_histogram(lo, span / HIST_BUCKETS,
+                                                     hist))
+    return (HyperLogLog.from_registers(regs, HLL_LOG2M).cardinality(),
+            digest.quantile(PCT / 100.0))
+
+
+def server_request(conn, table: str, sql: str, **kw):
+    """(the reduced response or None, the reply's exceptions) of one
+    request through a ServerConnection: the PDT1 reply decoded and
+    reduced as a broker does."""
+    from pinot_tpu_torch.query.context import QueryContext
+    from pinot_tpu_torch.query.reduce import reduce_results
+    from pinot_tpu_torch.server import datatable
+    results, exc, stats, _tree = datatable.deserialize_results_ex(
+        conn.request(table, sql, **kw))
+    if exc:
+        return None, exc
+    resp = reduce_results(QueryContext.from_sql(sql), results)
+    if stats is not None:
+        resp.stats.merge(stats)
+    return resp, exc
+
+
+def server_phase(tmp: str, seed: int, q1_dirs: list, truths: list,
+                 card: str, kernels=None, none=None, device=None,
+                 docs: int = Q1_DOCS, small_docs: int = SMALL_DOCS,
+                 iters: int = SERVER_ITERS, build_workers: int = 2) -> Counter:
+    """Phase 15 (see the module docstring) on `device` (None: the card);
+    `truths` are phase 4's per-segment truths of `q1_dirs`. With
+    `kernels`, each step's launches are held as every leg's
+    (launches_of_leg) and their sum is returned."""
+    import torch
+
+    from pinot_tpu_torch.cluster.mini import MiniClusterServer
+    from pinot_tpu_torch.ops import residency
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    from pinot_tpu_torch.server.query_server import ServerConnection
+    from pinot_tpu_torch.utils import errorcodes
+    from pinot_tpu_torch.utils.config import PinotConfiguration
+    from pinot_tpu_torch.utils.metrics import get_registry
+    got: Counter = Counter()
+    reg = get_registry("server")
+
+    def zero():
+        if kernels is not None:
+            zero_launches(kernels)
+
+    def take(step: str, want: dict):
+        if kernels is not None:
+            got.update(launches_of_leg(f"server: {step}", kernels,
+                                       {**none, **want}))
+
+    def show(what: dict):
+        print(f"[server] {json.dumps(what)} | {card}", flush=True)
+
+    root = os.path.join(tmp, "server")
+    os.makedirs(root, exist_ok=True)
+    # ssb_0's replacement and a 17th segment, other data, build while the
+    # queries run
+    jobs = [(root, "ssb", Q1_FIELDS, Q1_NO_DICT, docs, ssb_q1_columns,
+             q1_truth, seed + SERVER_SEED, i, None)
+            for i in (0, len(q1_dirs))]
+    pool = None
+    if build_workers > 1:
+        import multiprocessing
+        pool = multiprocessing.get_context("spawn").Pool(build_workers)
+        pending = pool.map_async(build_one_segment, jobs, chunksize=1)
+    try:
+        small = [build_one_segment((root, "small", SMALL_FIELDS,
+                                    SMALL_NO_DICT, small_docs, small_columns,
+                                    all_columns, seed + SERVER_SEED + 1, i,
+                                    None))
+                 for i in range(SMALL_SEGMENTS)]
+        small_want = small_expected([cols for _d, cols in small])
+        srv = MiniClusterServer("server_0", device=device, config=(
+            PinotConfiguration({"pinot.server.query.deadline.grace.ms": 0})))
+        srv.start()
+        try:
+            t0 = time.perf_counter()
+            tdm = srv.data_manager.table("ssb")
+            for d in q1_dirs:
+                tdm.add_segment_from_dir(d)
+            for d, _cols in small:
+                srv.data_manager.table("small").add_segment_from_dir(d)
+            conn = ServerConnection("127.0.0.1", srv.transport.port)
+            segs = [tdm.current_segment(n) for n in tdm.segment_names]
+            fb0 = reg.meter_total("host_fallback")
+            zero()
+            # the device shapes: phase 4's truth, numpy's float32 compare
+            for name, sql in Q1_QUERIES.items():
+                resp, exc = server_request(conn, "ssb", sql)
+                err = exc or exact_pair(
+                    resp.rows, sum(t["q1"][name][0] for t in truths),
+                    sum(t["q1"][name][1] for t in truths))
+                if err:
+                    fail(f"server {name}: {err}")
+            resp, exc = server_request(conn, "ssb", SRV_GB)
+            want = Counter()
+            for t in truths:
+                for key, (sm, cnt) in t["srv"]["gb"].items():
+                    want[key + ("s",)] += sm
+                    want[key + ("c",)] += cnt
+            keys = sorted({k[:2] for k in want})
+            if exc or [tuple(r[:2]) for r in resp.rows] != keys or any(
+                    int(r[3]) != want[tuple(r[:2]) + ("c",)]
+                    or abs(float(r[2]) - want[tuple(r[:2]) + ("s",)])
+                    > 1e-6 * want[tuple(r[:2]) + ("s",)] for r in resp.rows):
+                fail(f"server SRV_GB: {exc or resp.rows[:3]} vs numpy "
+                     f"truth over {len(keys)} groups")
+            resp, exc = server_request(conn, "ssb", SRV_SKETCH)
+            card_hll, p95 = server_sketch_expected(
+                [t["srv"] for t in truths], segs)
+            if exc or resp.rows != [(card_hll, p95)]:
+                fail(f"server SRV_SKETCH: {exc or resp.rows} vs numpy "
+                     f"{(card_hll, p95)}")
+            sel_truths = [t["sel"] for t in truths]
+            resp, exc = server_request(conn, "ssb", SEL_QUERIES["sel.1"][0])
+            want_rows, matched = selection_expected(
+                sel_truths, "sel.1", resp.result_table.columns) \
+                if resp is not None else (None, None)
+            if exc or resp.rows != want_rows \
+                    or resp.stats.num_docs_scanned != matched:
+                fail(f"server sel.1: {exc or resp.rows[:2]} vs numpy truth "
+                     f"{want_rows[:2] if want_rows else None}")
+            resp, exc = server_request(conn, "ssb", DIST_QUERY)
+            dwant = sorted(set().union(*(t["dist.1"] for t in sel_truths)))
+            if exc or [tuple(r) for r in resp.rows] != dwant:
+                fail(f"server dist.1: {exc or len(resp.rows)} vs numpy "
+                     f"truth {len(dwant)} pairs")
+            for name in ("float_gt", "float_eq"):
+                resp, exc = server_request(conn, "small", SMALL_QUERIES[name])
+                if exc or resp.rows != small_want[name]:
+                    fail(f"server {name}: {exc or resp.rows} vs numpy "
+                         f"{small_want[name]}")
+            if reg.meter_total("host_fallback") != fb0:
+                fail("server: a device shape reached the host executor")
+            take("device queries", {"scan_agg": len(Q1_QUERIES) + 2,
+                                    "group_agg": 2, "sketch_agg": 1,
+                                    "topn": 1})
+            show({"step": "device queries", "queries": len(Q1_QUERIES) + 6,
+                  "s": time.perf_counter() - t0, "hll": card_hll,
+                  "p95": p95})
+            # the shapes the planner refuses: the host executor, no launch
+            zero()
+            for name, reason in SMALL_REFUSED.items():
+                label = {"reason": reason}
+                fl0 = reg.meter("host_fallback", labels=label)
+                resp, exc = server_request(conn, "small", SMALL_QUERIES[name])
+                if exc or resp.rows != small_want[name]:
+                    fail(f"server {name}: {exc or resp.rows[:3]} vs numpy "
+                         f"{small_want[name][:3]}")
+                if reg.meter("host_fallback", labels=label) - fl0 != 1:
+                    fail(f"server {name}: not counted once on "
+                         f"host_fallback{{reason={reason}}}")
+            fell = reg.meter_total("host_fallback") - fb0
+            if fell != len(SMALL_REFUSED):
+                fail(f"server: host_fallback rose by {fell}, expected "
+                     f"{len(SMALL_REFUSED)}")
+            # the error replies
+            _r, exc = server_request(conn, "nosuch",
+                                     "SELECT COUNT(*) FROM nosuch")
+            _r, late = server_request(conn, "ssb", Q1_QUERIES["q1.1"],
+                                      timeout_ms=1e-6, query_id="late")
+            codes = [[e["errorCode"] for e in x] for x in (exc, late)]
+            if codes != [[errorcodes.TABLE_DOES_NOT_EXIST],
+                         [errorcodes.EXECUTION_TIMEOUT]]:
+                fail(f"server: error replies {codes}")
+            take("host shapes and errors", {})
+            show({"step": "host shapes and errors",
+                  "host_fallback": fell, "error_codes": codes})
+            # the replacement and the added segment, built meanwhile: their
+            # build workers leave the host's cores before the timed runs
+            if pool is not None:
+                (dir0, truth0), (dir_add, truth_add) = pending.get()
+            else:
+                (dir0, truth0), (dir_add, truth_add) = \
+                    [build_one_segment(job) for job in jobs]
+            # Q1.1's p50 through the server over TCP, through the server's
+            # executor in this process (no transport), and through
+            # QueryExecutor.execute (no pruning, no serde) over the same
+            # segments; and a request for a table the server lacks (the
+            # transport, the worker hop and the parse, no engine)
+            zero()
+
+            def p50_ms(fn) -> float:
+                lats = []
+                for _ in range(iters):
+                    t1 = time.perf_counter()
+                    fn()
+                    lats.append(time.perf_counter() - t1)
+                return statistics.median(lats) * 1e3
+            p_srv = p50_ms(lambda: server_request(conn, "ssb",
+                                                  Q1_QUERIES["q1.1"]))
+            p_in = p50_ms(lambda: srv.executor.execute(
+                "ssb", Q1_QUERIES["q1.1"]))
+            p_none = p50_ms(lambda: conn.request(
+                "nosuch", "SELECT COUNT(*) FROM nosuch"))
+            ex = QueryExecutor(segs, device=device)
+            _resp, _cold, lat_ex, _split = time_query(ex, Q1_QUERIES["q1.1"],
+                                                      iters)
+            del ex
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            take("timing", {"scan_agg": 3 * iters + 1})
+            p_ex = statistics.median(lat_ex) * 1e3
+            show({"step": "q1.1 p50 ms", "server_tcp": p_srv,
+                  "server_in_process": p_in, "query_executor": p_ex,
+                  "transport": p_srv - p_in,
+                  "server_path_and_serde": p_in - p_ex,
+                  "no_table_tcp": p_none, "iters": iters})
+            # a replace of ssb_0 by other data, then a 17th segment
+            eng = srv.executor.engine
+            c0 = residency.column_transfer_bytes()
+            zero()
+            tdm.add_segment_from_dir(dir0)
+            resp, exc = server_request(conn, "ssb", Q1_QUERIES["q1.1"])
+            moved = residency.column_transfer_bytes() - c0
+            q11 = [t["q1"]["q1.1"] for t in truths[1:]] + [truth0["q1.1"]]
+            err = exc or exact_pair(resp.rows, sum(a for a, _b in q11),
+                                    sum(b for _a, b in q11))
+            if err:
+                fail(f"server: Q1.1 after the replace: {err}")
+            new0 = tdm.current_segment("ssb_0")
+            # the engine's resident rows held for the new segment object
+            mine = sum(nb for s, _row, nb
+                       in list(eng.residency._entries.values())
+                       if s is new0)
+            if moved != mine or not moved:
+                fail(f"server: the replace uploaded {moved} column bytes, "
+                     f"the new segment's resident rows hold {mine}")
+            take("replace", {"scan_agg": 1})
+            show({"step": "replace ssb_0", "column_bytes": moved,
+                  "prestaged": srv.executor.warmup.segments_prestaged})
+            c0 = residency.column_transfer_bytes()
+            tdm.add_segment_from_dir(dir_add)
+            added = residency.column_transfer_bytes() - c0
+            c1 = residency.column_transfer_bytes()
+            zero()
+            resp, exc = server_request(conn, "ssb", Q1_QUERIES["q1.1"])
+            after = residency.column_transfer_bytes() - c1
+            q11.append(truth_add["q1.1"])
+            err = exc or exact_pair(resp.rows, sum(a for a, _b in q11),
+                                    sum(b for _a, b in q11))
+            if err or after or not added:
+                fail(f"server: Q1.1 after the add: {err}; {after} column "
+                     f"bytes uploaded, {added} prestaged")
+            take("add", {"scan_agg": 1})
+            show({"step": f"add ssb_{len(q1_dirs)}", "prestaged_bytes": added,
+                  "first_query_column_bytes": after,
+                  "segments_prestaged":
+                  srv.executor.warmup.segments_prestaged,
+                  "s": time.perf_counter() - t0})
+        finally:
+            srv.stop()
+    finally:
+        if pool is not None:
+            pool.close()
+            pool.join()
+    return got
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5846,6 +6262,13 @@ def main() -> None:
         del segs
         torch.cuda.empty_cache()
         lap("phases 4c and 4d")
+        # phase 15: the server, on phase 4's segment directories
+        p15 = server_phase(tmp, args.seed,
+                           [os.path.join(tmp, f"ssb_{i}")
+                            for i in range(Q1_SEGMENTS)], truths, card,
+                           kernels, none)
+        torch.cuda.empty_cache()
+        lap("phase 15")
 
         # phase 5: group-by leg
         t0 = time.perf_counter()
@@ -6128,6 +6551,13 @@ def main() -> None:
         if not batch:
             fail(f"phase 9 never launched {kern.name}'s batched form")
     batched["group_agg"]["launches"] += kc_batched["launches"]
+    # phase 15's launches (the server's device queries)
+    for kern, entry in ((_cuda.SCAN_AGG, k1), (_cuda.GROUP_AGG, k2),
+                        (_cuda.SKETCH_AGG, k3), (_cuda.TOPN, k4),
+                        (_cuda.ROW_ASSEMBLE, k6)):
+        if not p15[kern.name]:
+            fail(f"phase 15 never launched {kern.name}")
+        entry["launches"] += p15[kern.name]
     if not k6["launches"]:
         fail("the main path never launched row_assemble")
     k7["launches"] += p9["clp_match"][0]

@@ -134,6 +134,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pinot_tpu_torch.models.field_spec import DataType
 from pinot_tpu_torch.ops import dispatch as dispatch_mod
 from pinot_tpu_torch.ops import (clp_device, collective, kernels, program,
                                  startree_device, timeseries_device,
@@ -152,6 +153,7 @@ from pinot_tpu_torch.query.results import (
     AggregationResult, DistinctResult, ExecutionStats, GroupByResult,
     SelectionResult)
 from pinot_tpu_torch.segment.loader import ImmutableSegment
+from pinot_tpu_torch.utils import tracing
 from pinot_tpu_torch.utils.config import PinotConfiguration
 from pinot_tpu_torch.utils.metrics import get_registry
 
@@ -183,10 +185,12 @@ def _pow2(n: int, floor: int = 128) -> int:
 
 class NotOffloadable(NotImplementedError):
     """The query or segment batch needs a feature this slice lacks.
-    `reason`: the structured fallback reason where the JAX engine meters
-    one (a CLP pattern's, ops/clp_device.FALLBACK_REASONS), else None."""
+    `reason`: one fixed word naming the refusal (the JAX engine's fallback
+    reason where it meters one, e.g. a CLP pattern's,
+    ops/clp_device.FALLBACK_REASONS); the message names the query's parts
+    and may hold its literals."""
 
-    def __init__(self, message: str, reason: Optional[str] = None):
+    def __init__(self, message: str, reason: str):
         super().__init__(message)
         self.reason = reason
 
@@ -347,11 +351,22 @@ class TorchOperatorExecutor:
     def missing_feature(self, ctx: QueryContext) -> Optional[str]:
         """None when this slice runs the query's shape, else the feature
         it lacks."""
+        missing = self._missing(ctx)
+        return None if missing is None else missing[1]
+
+    def _missing(self, ctx: QueryContext) -> Optional[Tuple[str, str]]:
+        """None, or (reason, message) of the shape this slice lacks: the
+        reason is one fixed word, the message names the query's parts."""
         if ctx.distinct:
             return self._distinct_missing(ctx)
         if not ctx.aggregations:
             return self._selection_missing(ctx)
         return self._aggregation_missing(ctx)
+
+    def _refuse_shape(self, ctx: QueryContext) -> None:
+        missing = self._missing(ctx)
+        if missing is not None:
+            raise NotOffloadable(missing[1], reason=missing[0])
 
     def supports(self, ctx: QueryContext) -> bool:
         return self.missing_feature(ctx) is None
@@ -368,16 +383,17 @@ class TorchOperatorExecutor:
         'tbucket')."""
         return self.meters[(name, reason)]
 
-    def _aggregation_missing(self, ctx: QueryContext) -> Optional[str]:
+    def _aggregation_missing(self, ctx: QueryContext
+                             ) -> Optional[Tuple[str, str]]:
         for fn in ctx.agg_functions:
             if fn.missing_feature is not None:
-                return fn.missing_feature
+                return "aggregation", fn.missing_feature
         if ctx.group_by and any(kernels.is_sketch(op)
                                 for fn in ctx.agg_functions
                                 for op in fn.device_spec.ops):
             # sketch slots are vector-valued; the grouped layout is
             # scalar per slot (the JAX engine runs these on its host)
-            return "grouped sketches"
+            return "groupedSketch", "grouped sketches"
         for f in list(ctx.agg_filters) + [ctx.filter]:
             if f is not None:
                 why = self._filter_missing(f)
@@ -387,7 +403,8 @@ class TorchOperatorExecutor:
             if node.args and not (isinstance(node.args[0], Identifier)
                                   and node.args[0].name == "*"):
                 if self._value_ir_shape(node.args[0]) is None:
-                    return f"aggregation over expression {node.args[0]}"
+                    return ("aggregationInput",
+                            f"aggregation over expression {node.args[0]}")
         for i, g in enumerate(ctx.group_by):
             if isinstance(g, Identifier):
                 continue
@@ -397,22 +414,24 @@ class TorchOperatorExecutor:
                 # step) fuses into K2's key (its window and metadata are
                 # admitted in _plan)
                 continue
-            return f"group-by on expression {g}"
+            return "groupByExpression", f"group-by on expression {g}"
         return None
 
-    def _distinct_missing(self, ctx: QueryContext) -> Optional[str]:
+    def _distinct_missing(self, ctx: QueryContext
+                          ) -> Optional[Tuple[str, str]]:
         """DISTINCT over columns rides the group-by kernel (a presence-only
         group-by; JAX `_supports_distinct`)."""
         if not ctx.select or ctx.aggregations:
-            return "DISTINCT with aggregations"
+            return "distinct", "DISTINCT with aggregations"
         for e in ctx.select:
             if not isinstance(e, Identifier) or e.name == "*":
-                return f"DISTINCT over {e} (expressions)"
+                return "distinct", f"DISTINCT over {e} (expressions)"
         if ctx.filter is not None:
             return self._filter_missing(ctx.filter)
         return None
 
-    def _selection_missing(self, ctx: QueryContext) -> Optional[str]:
+    def _selection_missing(self, ctx: QueryContext
+                           ) -> Optional[Tuple[str, str]]:
         """Selection with at most one ORDER BY key runs as a device top-K
         over the order value (JAX `_supports_selection`); neither a filter
         nor an ORDER BY is the host's first-docs scan. A vector_similarity
@@ -420,29 +439,29 @@ class TorchOperatorExecutor:
         JAX fallback reasons."""
         if vector_device.contains_vector(ctx.filter):
             return None if ctx.limit + ctx.offset > 0 \
-                else "selection with LIMIT 0"
+                else ("limit", "selection with LIMIT 0")
         if ctx.filter is not None:
             why = self._filter_missing(ctx.filter)
             if why is not None:
                 return why
         if len(ctx.order_by) > 1:
-            return "selection with more than one ORDER BY key"
+            return "orderBy", "selection with more than one ORDER BY key"
         if ctx.filter is None and not ctx.order_by:
             return None
         k = ctx.limit + ctx.offset
         if k <= 0:
-            return "selection with LIMIT 0"
+            return "limit", "selection with LIMIT 0"
         if k > TOPN_MAX_K:
-            return f"selection of {k} rows per segment (top-N above " \
-                   f"{TOPN_MAX_K})"
+            return "limit", f"selection of {k} rows per segment (top-N " \
+                            f"above {TOPN_MAX_K})"
         if ctx.order_by:
             e, _asc = ctx.order_by[0]
             if not isinstance(e, (Identifier, Function)) \
                     or self._value_ir_shape(e) is None:
-                return f"ORDER BY {e} (expressions)"
+                return "orderBy", f"ORDER BY {e} (expressions)"
         return None
 
-    def _filter_missing(self, e: Expression) -> Optional[str]:
+    def _filter_missing(self, e: Expression) -> Optional[Tuple[str, str]]:
         if isinstance(e, Function):
             if e.name in ("and", "or", "not"):
                 for a in e.args:
@@ -451,15 +470,16 @@ class TorchOperatorExecutor:
                         return why
                 return None
             if e.name in _LATER_FILTERS:
-                return _LATER_FILTERS[e.name]
+                return "filterIndex", _LATER_FILTERS[e.name]
             if e.name == "vector_similarity":
-                return "vector similarity outside a selection's filter"
+                return ("filterExpression",
+                        "vector similarity outside a selection's filter")
             if e.name in _LEAF_RANGE_FUNCS | _LEAF_LUT_FUNCS \
                     | {"not_equals"} and e.args \
                     and isinstance(e.args[0], Identifier) \
                     and all(isinstance(a, Literal) for a in e.args[1:]):
                 return None
-        return f"filter {e} (expression predicates)"
+        return "filterExpression", f"filter {e} (expression predicates)"
 
     def _value_ir_shape(self, e: Expression) -> Optional[tuple]:
         """Structural value IR (column stagability checked at execute)."""
@@ -492,9 +512,7 @@ class TorchOperatorExecutor:
         the ring; what it raises (BrokerTimeoutError, QueryCancelledError)
         fails the query before its kernel runs."""
         t0 = time.perf_counter()
-        why = self.missing_feature(ctx)
-        if why is not None:
-            raise NotOffloadable(why)
+        self._refuse_shape(ctx)
         if not segments:
             self._tls.stage_ms = {}
             return []
@@ -539,16 +557,17 @@ class TorchOperatorExecutor:
         out: Future = Future()
         self._dispatcher.enter_active()
         out.add_done_callback(lambda _f: self._dispatcher.exit_active())
+        # the staging pool's thread does not see the caller's current span
+        parent_span = tracing.capture()
 
         def stage_and_enqueue():
             try:
-                why = self.missing_feature(ctx)
-                if why is not None:
-                    raise NotOffloadable(why)
+                self._refuse_shape(ctx)
                 if not segments:
                     out.set_result([])
                     return
-                launch, assemble = self._prepare(segments, ctx, cancel_check)
+                launch, assemble = self._prepare(segments, ctx, cancel_check,
+                                                 parent_span)
 
                 def finish(f):
                     try:
@@ -564,32 +583,85 @@ class TorchOperatorExecutor:
         dispatch_mod.staging_pool().submit(stage_and_enqueue)
         return out
 
-    def _prepare(self, segments, ctx: QueryContext, cancel_check):
+    def _prepare(self, segments, ctx: QueryContext, cancel_check,
+                 parent_span: Optional[tracing.SpanHandle] = None):
         """Plan and stage under the engine lock: (the Launch, the function
         that assembles its packed result). Records the clock after
         planning in `self._tls.planned`, and how much of this staging ran
-        while another launch was in flight (`staging_overlap_ms`)."""
+        while another launch was in flight (`staging_overlap_ms`). When
+        the request is traced (the current span, or `parent_span` for a
+        caller off the request thread) a `DeviceDispatch` child span
+        carries the staging's ms, its host-to-device bytes and its block
+        hits and misses (JAX `_staging_attrs` :1205): exact per query,
+        as staging holds the engine lock."""
+        if parent_span is None:
+            parent_span = tracing.capture()
+        dsp = None if parent_span is None else parent_span.child(
+            "DeviceDispatch", table=ctx.table,
+            mode="distinct" if ctx.distinct else
+            "agg" if ctx.aggregations else "topn")
         busy0 = self._dispatcher.busy_ms()
         with self._engine_lock:
-            if ctx.distinct:
-                prepared = self._prepare_agg(segments, ctx, cancel_check,
-                                             distinct=True)
-            elif not ctx.aggregations:
-                if self._mesh is not None:
-                    raise self._selection_refusal(ctx)
-                prepared = self._prepare_vector(segments, ctx, cancel_check) \
-                    if _is_vector(ctx) else \
-                    self._prepare_topn(segments, ctx, cancel_check)
-            else:
-                # the star-tree leg first: any fallback reason drops
-                # through to the scan path
-                prepared = self._prepare_startree(segments, ctx,
-                                                  cancel_check) \
-                    or self._prepare_agg(segments, ctx, cancel_check)
+            snap = self._staging_snapshot(dsp)
+            try:
+                prepared = self._prepare_locked(segments, ctx, cancel_check)
+            except Exception as e:
+                if dsp is not None:
+                    dsp.end(outcome="hostFallback" if isinstance(
+                        e, NotOffloadable) else "error")
+                raise
+            self._staging_attrs(dsp, snap, prepared[0])
+            self._refresh_tier_gauges()
         overlap = self._dispatcher.busy_ms() - busy0
         if overlap > 0:
             self._dispatcher.observe("staging_overlap_ms", overlap)
         return prepared
+
+    def _staging_snapshot(self, dsp):
+        """The counters a traced staging diffs (None: no span, no cost)."""
+        if dsp is None:
+            return None
+        return (time.perf_counter(), residency_mod.transfer_bytes(),
+                self._metrics.meter("hbm_block_hit", labels=self._labels),
+                self._metrics.meter("hbm_block_miss", labels=self._labels))
+
+    def _staging_attrs(self, dsp, snap, launch) -> None:
+        if dsp is None:
+            return
+        t0, xfer0, hits0, misses0 = snap
+        dsp.end(stagingMs=round((time.perf_counter() - t0) * 1e3, 3),
+                transferBytes=int(residency_mod.transfer_bytes() - xfer0),
+                hbmBlockHits=int(self._metrics.meter(
+                    "hbm_block_hit", labels=self._labels) - hits0),
+                hbmBlockMisses=int(self._metrics.meter(
+                    "hbm_block_miss", labels=self._labels) - misses0),
+                S=int(launch.num_docs.shape[0]), D=int(launch.D))
+
+    def _refresh_tier_gauges(self) -> None:
+        """The staging levels' bytes (JAX `_refresh_tier_gauges` :2625, on
+        one device): `hbm_cache_bytes`, the assembled blocks and the
+        resident rows on the card; `host_row_cache_bytes`, the host rows."""
+        self._metrics.set_gauge("hbm_cache_bytes",
+                                self._cached + self._residency.bytes,
+                                labels=self._labels)
+        self._metrics.set_gauge("host_row_cache_bytes", self._host_bytes,
+                                labels=self._labels)
+
+    def _prepare_locked(self, segments, ctx: QueryContext, cancel_check):
+        """_prepare's plan and stage; caller holds the engine lock."""
+        if ctx.distinct:
+            return self._prepare_agg(segments, ctx, cancel_check,
+                                     distinct=True)
+        if not ctx.aggregations:
+            if self._mesh is not None:
+                raise self._selection_refusal(ctx)
+            return self._prepare_vector(segments, ctx, cancel_check) \
+                if _is_vector(ctx) else \
+                self._prepare_topn(segments, ctx, cancel_check)
+        # the star-tree leg first: any fallback reason drops through to
+        # the scan path
+        return self._prepare_startree(segments, ctx, cancel_check) \
+            or self._prepare_agg(segments, ctx, cancel_check)
 
     def _prepare_agg(self, segments, ctx: QueryContext, cancel_check,
                      distinct: bool = False):
@@ -924,7 +996,8 @@ class TorchOperatorExecutor:
         if residual is not None:
             try:
                 if self._filter_missing(residual) is not None:
-                    raise NotOffloadable(str(residual))
+                    raise NotOffloadable(str(residual),
+                                         reason="filterExpression")
                 filter_ir = self._build_filter_ir(residual, segments, leaves,
                                                   classify)
             except NotOffloadable:
@@ -1141,7 +1214,7 @@ class TorchOperatorExecutor:
                 raise NotOffloadable(
                     f"time bucket {ctx.group_by[0]} without a bounded "
                     "window at or after its start on an int timestamp "
-                    "below 2^55")
+                    "below 2^55", reason="timeBucket")
         force64 = hll_cols | ({tb_spec.col} if tb_spec else set())
         # filter IR first: leaves fill in build order, so the main filter's
         # leaves precede agg-filter leaves (staging resolves in this order)
@@ -1189,7 +1262,7 @@ class TorchOperatorExecutor:
                 if arg_ir is None or not check_value_cols(arg_ir):
                     raise NotOffloadable(
                         f"aggregation input {node.args[0]} has no numeric "
-                        "device block")
+                        "device block", reason="aggregationInput")
             vidx = intern_ir(arg_ir)
             fidx = agg_fidx[i]
             # bit-exact SUM for int inputs under f32 staging: the slot
@@ -1219,7 +1292,8 @@ class TorchOperatorExecutor:
                     mapping[op] = slot(("count", None, fidx))
                 else:
                     if vidx is None:
-                        raise NotOffloadable(f"{op} over COUNT(*) input")
+                        raise NotOffloadable(f"{op} over COUNT(*) input",
+                                             reason="aggregationInput")
                     mapping[op] = slot((op, vidx, fidx))
             slots_of_fn.append(mapping)
 
@@ -1240,7 +1314,8 @@ class TorchOperatorExecutor:
                         not seg0.metadata.columns[col].has_dictionary:
                     # the JAX planner sends it to its host executor (:1672)
                     raise NotOffloadable(
-                        f"group-by on raw column {col} (no dictionary)")
+                        f"group-by on raw column {col} (no dictionary)",
+                        reason="rawGroupBy")
                 card = max(seg.metadata.columns[col].cardinality
                            for seg in segments)
                 group_cols.append(col)
@@ -1255,7 +1330,7 @@ class TorchOperatorExecutor:
                 raise NotOffloadable(
                     f"{num_groups} dense group keys (above "
                     f"{MAX_DEVICE_GROUPS}; compact keys never carry a time "
-                    "bucket)")
+                    "bucket)", reason="groups")
             if num_groups > MAX_DEVICE_GROUPS:
                 # a sparse key space: per-segment codes over the key
                 # tuples present replace the dense product (JAX
@@ -1267,7 +1342,8 @@ class TorchOperatorExecutor:
                 if len(segments) * num_groups * n_slots * 8 \
                         > MAX_GROUP_RESULT_BYTES:
                     raise NotOffloadable(
-                        "group-by result above the device cap")
+                        "group-by result above the device cap",
+                        reason="groups")
                 stride = num_groups
                 for c in card_pads:
                     stride //= c
@@ -1322,7 +1398,7 @@ class TorchOperatorExecutor:
             if isinstance(e, Identifier):
                 if not classify(e.name):
                     raise NotOffloadable(f"ORDER BY {e.name} with no "
-                                         "device block")
+                                         "device block", reason="orderBy")
                 if seg0.metadata.columns[e.name].has_dictionary:
                     # dictionaries are value-sorted: dictId order IS value
                     # order, and ids stay exact in f32 below 2^24
@@ -1330,24 +1406,26 @@ class TorchOperatorExecutor:
                            for s in segments) >= (1 << 24):
                         raise NotOffloadable(
                             f"ORDER BY {e.name} with 2^24 or more "
-                            "dictionary ids")
+                            "dictionary ids", reason="orderBy")
                     ir = ("ids", e.name)
                 elif e.name in raw64:
                     raise NotOffloadable(f"ORDER BY {e.name}, a raw64 "
-                                         "split-plane column")
+                                         "split-plane column",
+                                         reason="orderBy")
                 else:
                     ir = ("col", e.name)
             else:
                 ir = self._value_ir_shape(e)
                 if ir is None:
-                    raise NotOffloadable(f"ORDER BY {e} (expressions)")
+                    raise NotOffloadable(f"ORDER BY {e} (expressions)",
+                                         reason="orderBy")
                 for col in _ir_cols(ir):
                     if col in raw64 or not classify(col) \
                             or seg0.metadata.columns[col].data_type \
                             .np_dtype.kind not in "iuf":
                         raise NotOffloadable(
                             f"ORDER BY {e}: {col} has no numeric device "
-                            "block")
+                            "block", reason="orderBy")
             value_irs = (ir,)
 
         return DevicePlan(
@@ -1378,7 +1456,7 @@ class TorchOperatorExecutor:
             log2m = int(ops[0].split(":")[1])
             if not lo_m <= log2m <= hi_m:
                 raise NotOffloadable(f"DISTINCTCOUNTHLL log2m {log2m} "
-                                     f"outside [{lo_m}, {hi_m}]")
+                                     f"outside [{lo_m}, {hi_m}]", reason="hll")
             col = node.args[0].name
             for seg in segments:
                 m = seg.metadata.columns.get(col)
@@ -1386,15 +1464,17 @@ class TorchOperatorExecutor:
                         or m.data_type.np_dtype.kind not in "iu":
                     raise NotOffloadable(
                         f"DISTINCTCOUNTHLL over {col}, not a single-value "
-                        "int column (device HLL hashes int split planes)")
+                        "int column (device HLL hashes int split planes)",
+                        reason="hll")
                 if m.min_value is None or m.max_value is None:
                     raise NotOffloadable(
-                        f"DISTINCTCOUNTHLL over {col} without min/max")
+                        f"DISTINCTCOUNTHLL over {col} without min/max",
+                        reason="hll")
                 if max(abs(int(m.min_value)),
                        abs(int(m.max_value))) >= (1 << 55):
                     raise NotOffloadable(
                         f"DISTINCTCOUNTHLL over {col} with huge longs "
-                        "(|v| >= 2^55)")
+                        "(|v| >= 2^55)", reason="hll")
             out.add(col)
         return out
 
@@ -1417,7 +1497,7 @@ class TorchOperatorExecutor:
             return ("leaf", len(leaves) - 1)
         if not classify(col):
             raise NotOffloadable(f"filter on column {col} with no device "
-                                 "block")
+                                 "block", reason="filterColumn")
         m = segments[0].metadata.columns[col]
         if m.has_dictionary:
             if e.name in _LEAF_RANGE_FUNCS:
@@ -1428,7 +1508,8 @@ class TorchOperatorExecutor:
                 kind = "lut"
         else:
             if e.name not in _LEAF_RANGE_FUNCS:
-                raise NotOffloadable(f"{e.name} on raw column {col}")
+                raise NotOffloadable(f"{e.name} on raw column {col}",
+                                     reason="rawFilter")
             if col in force64:
                 kind = "vrange64"
             elif m.data_type.np_dtype.kind in "iu" \
@@ -1472,10 +1553,12 @@ class TorchOperatorExecutor:
         for seg in segments:
             m = seg.metadata.columns.get(col)
             if m is None or m.min_value is None or m.max_value is None:
-                raise NotOffloadable(f"raw column {col} without min/max")
+                raise NotOffloadable(f"raw column {col} without min/max",
+                                     reason="rawRange")
             peak = max(abs(int(m.min_value)), abs(int(m.max_value)))
             if peak >= (1 << 55):
-                raise NotOffloadable(f"raw column {col} beyond 2^55")
+                raise NotOffloadable(f"raw column {col} beyond 2^55",
+                                     reason="rawRange")
             if peak > (1 << 24):
                 big = True
         return "vrange64" if big else "vrange"
@@ -1556,7 +1639,8 @@ class TorchOperatorExecutor:
         under (read here when not given)."""
         if max(s.num_docs for s in segments) > MAX_DOCS_PER_SEGMENT:
             raise NotOffloadable(
-                f"segment above {MAX_DOCS_PER_SEGMENT} docs")
+                f"segment above {MAX_DOCS_PER_SEGMENT} docs",
+                reason="segmentSize")
         D = self._padded_D(segments)
         S = self._padded_S(len(segments), D)
         vdt = self._vdt
@@ -1605,7 +1689,8 @@ class TorchOperatorExecutor:
             def fetch_values(ds):
                 vals = ds.values()
                 if vals.dtype.kind not in "iuf":
-                    raise NotOffloadable(f"non-numeric values of {col}")
+                    raise NotOffloadable(f"non-numeric values of {col}",
+                                         reason="values")
                 return vals.astype(vdt)
             cols["val:" + col] = self._block(segments, S, D, col, "val",
                                              fetch_values, vdt)
@@ -1650,7 +1735,8 @@ class TorchOperatorExecutor:
             spec = timeseries_device.plan_bucket(ctx.group_by[0], ctx.filter,
                                                  segments)
             if spec is None or spec.count_pad != plan.tbucket[1]:
-                raise NotOffloadable(f"time bucket {ctx.group_by[0]}")
+                raise NotOffloadable(f"time bucket {ctx.group_by[0]}",
+                                     reason="timeBucket")
             for key, arr in timeseries_device.leaf_params(spec, S).items():
                 params[key] = self._upload(arr)
         # histogram slots: bucket bounds from the batch's metadata; B / span
@@ -1687,7 +1773,8 @@ class TorchOperatorExecutor:
             m = seg.metadata.columns.get(col)
             if m is None or m.min_value is None or m.max_value is None:
                 raise NotOffloadable(
-                    f"PERCENTILETDIGEST over {col} without min/max")
+                    f"PERCENTILETDIGEST over {col} without min/max",
+                    reason="tdigest")
             lo = min(lo, float(m.min_value))
             hi = max(hi, float(m.max_value))
         return lo, max(hi - lo, 1e-30)
@@ -1726,7 +1813,9 @@ class TorchOperatorExecutor:
                     tables = clp_device.pack_banks(tables)
                 padded.update(tables)
             elif leaf.kind == "vrange":
-                lo, hi = _vrange_bounds(expr, vdt)
+                lo, hi = _vrange_bounds(
+                    expr, vdt, segments[0].metadata.columns[
+                        leaf.column].data_type is DataType.FLOAT)
                 out[f"leaf{i}:lo"] = np.full(S, lo, dtype=vdt)
                 out[f"leaf{i}:hi"] = np.full(S, hi, dtype=vdt)
             elif leaf.kind == "vrange64":
@@ -1749,7 +1838,8 @@ class TorchOperatorExecutor:
                     elif p.kind == "set" and len(p.ids) == 1:
                         lo[s] = hi[s] = int(p.ids[0])
                     elif p.kind != "none":
-                        raise NotOffloadable(f"predicate {expr}")
+                        raise NotOffloadable(f"predicate {expr}",
+                                             reason="predicate")
                 out[f"leaf{i}:lo"], out[f"leaf{i}:hi"] = lo, hi
             elif leaf.kind == "neq":
                 idx = np.full(S, -1, dtype=np.int32)
@@ -1758,7 +1848,8 @@ class TorchOperatorExecutor:
                     if p.kind == "notset" and len(p.ids) == 1:
                         idx[s] = int(p.ids[0])
                     elif p.kind != "all":
-                        raise NotOffloadable(f"predicate {expr}")
+                        raise NotOffloadable(f"predicate {expr}",
+                                             reason="predicate")
                 out[f"leaf{i}:idx"] = idx
             else:  # lut
                 C = _pow2(max(s.metadata.columns[leaf.column].cardinality
@@ -1816,7 +1907,7 @@ class TorchOperatorExecutor:
                     max(abs(int(lo)), abs(int(hi))) > (1 << 24):
                 raise NotOffloadable(
                     f"int column {col} beyond 2^24 under float32 values "
-                    "(host executor)")
+                    "(host executor)", reason="intRange")
 
     def _stage_vmask(self, segments, S, D, stamps: tuple) -> torch.Tensor:
         """The uint8 [S, D] upsert validity block (1 = valid) of a batch
@@ -1868,7 +1959,8 @@ class TorchOperatorExecutor:
         """The [S, D] device block of one column (see _cached_block)."""
         def row(seg):
             if not seg.has_column(col):
-                raise NotOffloadable(f"column {col} missing in {seg.name}")
+                raise NotOffloadable(f"column {col} missing in {seg.name}",
+                                     reason="column")
             return fetch(seg.data_source(col))
         return self._cached_block(segments, S, D, kind, col,
                                   [col] * len(segments),
@@ -2112,6 +2204,7 @@ class TorchOperatorExecutor:
                           if any(stale(x) for x in v[0])]:
                     del cache[k]
             self._residency.invalidate_segment(name, keep=keep)
+            self._refresh_tier_gauges()
 
     def drop_caches(self, host: bool = True) -> None:
         """Release the device levels (assembled blocks, params, resident
@@ -2125,6 +2218,7 @@ class TorchOperatorExecutor:
                 self._gmap_cache.clear()
                 self._host_rows.clear()
                 self._host_bytes = 0
+            self._refresh_tier_gauges()
 
     def prestage(self, segments, ctx: QueryContext) -> bool:
         """Stage a query's columns into the device levels without launching
@@ -2163,6 +2257,8 @@ class TorchOperatorExecutor:
                 self._stage(segments, ctx, plan)
             except NotOffloadable:
                 return False
+            finally:
+                self._refresh_tier_gauges()
         return True
 
     # ------------------------------------------------------------------
@@ -2476,7 +2572,8 @@ def factorize_keys(seg, group_cols) -> Tuple[np.ndarray, np.ndarray]:
     cards, prod = [], 1
     for col in group_cols:
         if not seg.has_column(col):
-            raise NotOffloadable(f"column {col} missing in {seg.name}")
+            raise NotOffloadable(f"column {col} missing in {seg.name}",
+                                 reason="column")
         card = max(int(seg.metadata.columns[col].cardinality), 1)
         cards.append(card)
         prod *= card
@@ -2529,7 +2626,7 @@ def isum_u_value(planes: np.ndarray) -> float:
 def _resolve(seg, expr: Function):
     p = resolve_predicate(seg, expr)
     if p is None:
-        raise NotOffloadable(f"predicate {expr}")
+        raise NotOffloadable(f"predicate {expr}", reason="predicate")
     return p
 
 
@@ -2568,24 +2665,33 @@ def _leaf_exprs(e: Expression) -> List[Function]:
     return [e]
 
 
-def _vrange_bounds(e: Function, vdt) -> Tuple[float, float]:
+def _vrange_bounds(e: Function, vdt,
+                   float_col: bool = False) -> Tuple[float, float]:
     """Closed [lo, hi] bounds for a raw-value comparison, computed in the
     staging dtype vdt (nextafter in float64 would collapse back to the
-    literal once cast to float32, turning x > 5 into x >= 5)."""
+    literal once cast to float32, turning x > 5 into x >= 5).
+    float_col: the column is FLOAT, so the literal is first rounded to
+    float32, as the host filter reads it (numpy compares a float32 column
+    with a Python literal in float32) and as the pruner does: `rf > 0.1`
+    then means `rf > 0.1f` in either value dtype."""
     def lv(i):
         raw = e.args[i].value  # type: ignore[union-attr]
         try:
             if isinstance(raw, str):
                 raw = int(raw) if raw.lstrip("+-").isdigit() else float(raw)
+            if float_col:
+                with np.errstate(over="ignore"):
+                    raw = float(np.float32(raw))
             v = vdt(raw)
             # a literal not exactly representable in the staging dtype would
             # alias to a neighbour and match rows the exact answer would not
             exact = (int(v) if isinstance(raw, int) and float(v).is_integer()
                      else float(v))
             if exact != raw:
-                raise NotOffloadable(f"literal {raw} not exact in {vdt}")
+                raise NotOffloadable(f"literal {raw} not exact in {vdt}",
+                                     reason="literal")
         except (OverflowError, ValueError, TypeError):
-            raise NotOffloadable(f"literal in {e}") from None
+            raise NotOffloadable(f"literal in {e}", reason="literal") from None
         return v
     if e.name == "equals":
         return lv(1), lv(1)
@@ -2615,10 +2721,10 @@ def _vrange_int_bounds(e: Function) -> Tuple[int, int]:
                 raw = int(raw) if raw.lstrip("+-").isdigit() else float(raw)
             if isinstance(raw, bool) or raw is None or (
                     isinstance(raw, float) and not math.isfinite(raw)):
-                raise NotOffloadable(f"literal in {e}")
+                raise NotOffloadable(f"literal in {e}", reason="literal")
             return raw
         except (ValueError, TypeError, OverflowError):
-            raise NotOffloadable(f"literal in {e}") from None
+            raise NotOffloadable(f"literal in {e}", reason="literal") from None
 
     def clamp(v: int) -> int:
         return max(-_INT_BOUND_CLAMP, min(_INT_BOUND_CLAMP, v))

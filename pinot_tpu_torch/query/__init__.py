@@ -1,6 +1,6 @@
 """SQL front-end, query context, aggregation functions, reduce and the
-port's entry point, `QueryExecutor`.
+port's entry point, `QueryExecutor`, with the host half the server needs:
+the pruner, the transform and filter evaluators and the host executor.
 
-Counterpart of pinot_tpu/query, trimmed to what the device slices run,
-with the star-tree fit check (startree_exec.py).
+Counterpart of pinot_tpu/query, trimmed to what the port runs.
 """

@@ -6,14 +6,16 @@ classes of functions.py and the VARIANCE / STDDEV / SKEWNESS / KURTOSIS and
 BOOL_AND / BOOL_OR classes of functions_stats.py, with the
 `percentiletdigestNN` suffix resolution
 (`resolve_percentile_suffix`) (ref pinot-core
-query/aggregation/function/AggregationFunction.java:42). The port has no
-host executor, so a function here carries only what the device path and the
-reduce need: its device slots (`device_spec`), `from_device_slots`, `merge`,
-`identity` and `extract_final`.
+query/aggregation/function/AggregationFunction.java:42). A function carries
+its device slots (`device_spec`) and `from_device_slots` for the device
+path, its host `aggregate(values, mask)` and `aggregate_grouped(values,
+keys, num_groups, mask)` for the host executor (query/executor_cpu.py,
+JAX base.py:40,48), and `merge`, `identity` and `extract_final` for the
+reduce.
 
 Every other aggregation name the JAX package knows resolves to
-`UnsupportedAggregation`, which names the missing feature so the engine can
-refuse the query with it.
+`UnsupportedAggregation`, which names the missing feature: the engine
+refuses the query with it, and the host executor raises it.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import math
 import re
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Type
+
+import numpy as np
 
 from pinot_tpu_torch.query.expressions import Identifier, Literal
 from pinot_tpu_torch.query.sketches import HyperLogLog, TDigest
@@ -46,6 +50,22 @@ class AggregationFunction:
     def __init__(self, args: tuple):
         self.args = args
 
+    def aggregate(self, values: Optional[np.ndarray],
+                  mask: np.ndarray) -> Any:
+        """The intermediate over the docs `mask` keeps. values: the
+        materialized argument column (None for COUNT(*))."""
+        raise NotImplementedError
+
+    def aggregate_grouped(self, values: Optional[np.ndarray],
+                          keys: np.ndarray, num_groups: int,
+                          mask: np.ndarray) -> list:
+        """One intermediate per group key in [0, num_groups): keys is a
+        doc's group key where mask holds. This default loops over the
+        groups; the scalar functions override it with bincount-style
+        passes."""
+        return [self.aggregate(values, mask & (keys == g))
+                for g in range(num_groups)]
+
     def merge(self, a: Any, b: Any) -> Any:
         raise NotImplementedError
 
@@ -68,6 +88,15 @@ class AggregationFunction:
         return "DOUBLE"
 
 
+def _masked(values: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    return values if mask is None else values[mask]
+
+
+def _grouped_bincount(keys, num_groups, mask, weights=None):
+    w = None if weights is None else weights[mask]
+    return np.bincount(keys[mask], weights=w, minlength=num_groups)
+
+
 REGISTRY: Dict[str, Type[AggregationFunction]] = {}
 
 
@@ -81,6 +110,13 @@ def register(cls: Type[AggregationFunction]) -> Type[AggregationFunction]:
 class CountAggregation(AggregationFunction):
     names = ("count",)
     device_spec = DeviceAggSpec(("count",))
+
+    def aggregate(self, values, mask):
+        return int(np.count_nonzero(mask))
+
+    def aggregate_grouped(self, values, keys, num_groups, mask):
+        return _grouped_bincount(keys, num_groups, mask).astype(
+            np.int64).tolist()
 
     def merge(self, a, b):
         return a + b
@@ -107,6 +143,13 @@ class SumAggregation(AggregationFunction):
     names = ("sum",)
     device_spec = DeviceAggSpec(("sum",))
 
+    def aggregate(self, values, mask):
+        return float(np.sum(_masked(values, mask), dtype=np.float64))
+
+    def aggregate_grouped(self, values, keys, num_groups, mask):
+        return _grouped_bincount(keys, num_groups, mask,
+                                 values.astype(np.float64)).tolist()
+
     def merge(self, a, b):
         return a + b
 
@@ -121,6 +164,15 @@ class SumAggregation(AggregationFunction):
 class MinAggregation(AggregationFunction):
     names = ("min",)
     device_spec = DeviceAggSpec(("min",))
+
+    def aggregate(self, values, mask):
+        v = _masked(values, mask)
+        return float(np.min(v)) if len(v) else float("inf")
+
+    def aggregate_grouped(self, values, keys, num_groups, mask):
+        out = np.full(num_groups, np.inf)
+        np.minimum.at(out, keys[mask], values[mask].astype(np.float64))
+        return out.tolist()
 
     def merge(self, a, b):
         return min(a, b)
@@ -137,6 +189,15 @@ class MaxAggregation(AggregationFunction):
     names = ("max",)
     device_spec = DeviceAggSpec(("max",))
 
+    def aggregate(self, values, mask):
+        v = _masked(values, mask)
+        return float(np.max(v)) if len(v) else float("-inf")
+
+    def aggregate_grouped(self, values, keys, num_groups, mask):
+        out = np.full(num_groups, -np.inf)
+        np.maximum.at(out, keys[mask], values[mask].astype(np.float64))
+        return out.tolist()
+
     def merge(self, a, b):
         return max(a, b)
 
@@ -152,6 +213,16 @@ class AvgAggregation(AggregationFunction):
     """Intermediate is (sum, count) (ref AvgAggregationFunction AvgPair)."""
     names = ("avg",)
     device_spec = DeviceAggSpec(("sum", "count"))
+
+    def aggregate(self, values, mask):
+        v = _masked(values, mask)
+        return (float(np.sum(v, dtype=np.float64)), len(v))
+
+    def aggregate_grouped(self, values, keys, num_groups, mask):
+        s = _grouped_bincount(keys, num_groups, mask,
+                              values.astype(np.float64))
+        c = _grouped_bincount(keys, num_groups, mask)
+        return list(zip(s.tolist(), c.astype(np.int64).tolist()))
 
     def merge(self, a, b):
         return (a[0] + b[0], a[1] + b[1])
@@ -172,6 +243,12 @@ class MinMaxRangeAggregation(AggregationFunction):
     """Intermediate is (min, max) (ref MinMaxRangeAggregationFunction)."""
     names = ("minmaxrange",)
     device_spec = DeviceAggSpec(("min", "max"))
+
+    def aggregate(self, values, mask):
+        v = _masked(values, mask)
+        if not len(v):
+            return (float("inf"), float("-inf"))
+        return (float(np.min(v)), float(np.max(v)))
 
     def merge(self, a, b):
         return (min(a[0], b[0]), max(a[1], b[1]))
@@ -225,6 +302,11 @@ class DistinctCountHLLAggregation(AggregationFunction):
             return _sketch_input_missing("DISTINCTCOUNTHLL", self.args)
         return None
 
+    def aggregate(self, values, mask):
+        hll = HyperLogLog(self._log2m())
+        hll.add_array(_masked(values, mask))
+        return hll
+
     def merge(self, a, b):
         return a.merge(b)
 
@@ -277,6 +359,11 @@ class PercentileTDigestAggregation(AggregationFunction):
             return _sketch_input_missing("PERCENTILETDIGEST", self.args)
         return None
 
+    def aggregate(self, values, mask):
+        td = TDigest(self._compression)
+        td.add_array(_masked(values, mask))
+        return td
+
     def merge(self, a, b):
         return a.merge(b)
 
@@ -302,6 +389,25 @@ class _MomentsAggregation(AggregationFunction):
     """Intermediate = (count, sum, sumsq[, sum3, sum4]) raw moments:
     merged by addition, exactly the slots K1 / K2 compute."""
     order = 2
+
+    def aggregate(self, values, mask):
+        v = _masked(values, mask).astype(np.float64)
+        out = [float(len(v)), float(v.sum()), float((v * v).sum())]
+        if self.order >= 4:
+            out.append(float((v ** 3).sum()))
+            out.append(float((v ** 4).sum()))
+        return tuple(out)
+
+    def aggregate_grouped(self, values, keys, num_groups, mask):
+        k = keys[mask]
+        v = values[mask].astype(np.float64)
+        cols = [np.bincount(k, minlength=num_groups).astype(np.float64),
+                np.bincount(k, weights=v, minlength=num_groups),
+                np.bincount(k, weights=v * v, minlength=num_groups)]
+        if self.order >= 4:
+            cols.append(np.bincount(k, weights=v ** 3, minlength=num_groups))
+            cols.append(np.bincount(k, weights=v ** 4, minlength=num_groups))
+        return [tuple(float(c[g]) for c in cols) for g in range(num_groups)]
 
     def merge(self, a, b):
         return tuple(x + y for x, y in zip(a, b))
@@ -406,6 +512,10 @@ class BoolAndAggregation(AggregationFunction):
     names = ("bool_and", "booland")
     device_spec = DeviceAggSpec(("min", "count"))
 
+    def aggregate(self, values, mask):
+        v = _masked(values, mask)
+        return bool(np.all(v.astype(bool))) if len(v) else True
+
     def merge(self, a, b):
         return a and b
 
@@ -425,6 +535,10 @@ class BoolOrAggregation(AggregationFunction):
     """TRUE when some matched value is at least 0.5 (the device's max)."""
     names = ("bool_or", "boolor")
     device_spec = DeviceAggSpec(("max", "count"))
+
+    def aggregate(self, values, mask):
+        v = _masked(values, mask)
+        return bool(np.any(v.astype(bool))) if len(v) else False
 
     def merge(self, a, b):
         return a or b
@@ -465,12 +579,17 @@ _PERCENTILE_SUFFIX = re.compile(
 
 
 class UnsupportedAggregation(AggregationFunction):
-    """An aggregation the JAX package runs and this port does not yet."""
+    """An aggregation the JAX package runs and this port does not yet:
+    the engine refuses it and the host executor raises."""
 
     def __init__(self, name: str, args: tuple):
         super().__init__(args)
         self.names = (name,)
         self.missing_feature = f"{_FEATURE_OF.get(name, 'sketches')} ({name})"
+
+    def aggregate(self, values, mask):
+        raise NotImplementedError(
+            f"aggregation {self.names[0].upper()} is not in this port yet")
 
 
 def is_aggregation(name: str) -> bool:

@@ -3,18 +3,22 @@
 Counterpart of pinot_tpu/query/context.py (ref
 org.apache.pinot.common.request.context.QueryContext): pre-extracts the
 aggregation list, per-aggregation FILTER conditions, group-by, having,
-order-by and options, and classifies the query shape.
+order-by and options, and classifies the query shape. `fingerprint` is the
+digest the server's warm-up log keys plans on; `merge_extra_filter` ANDs a
+broker's extra filter into the tree.
 """
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from pinot_tpu_torch.query.aggregation import (
     AggregationFunction, get_aggregation, is_aggregation)
 from pinot_tpu_torch.query.expressions import (
-    Expression, Function, Identifier)
-from pinot_tpu_torch.query.parser import PinotQuery, parse_sql
+    Expression, Function, Identifier, func)
+from pinot_tpu_torch.query.parser import PinotQuery, _Parser, parse_sql, \
+    tokenize
 
 
 @dataclass
@@ -110,6 +114,40 @@ class QueryContext:
     def is_distinct_query(self) -> bool:
         return self.distinct
 
+    #: options that steer caching and observability, not the result
+    _FINGERPRINT_OPT_DENYLIST = frozenset(
+        {"skipcache", "usecache", "trace", "timeoutms"})
+
+    def fingerprint(self) -> str:
+        """Digest of everything that decides the result (JAX
+        context.py:133): table, select list and aliases, DISTINCT, the
+        filter / group-by / having / order-by trees, limit, offset and the
+        result-affecting options. Expression nodes print deterministically,
+        so the digest is the same in every process."""
+        memo = self.__dict__.get("_fp_memo")
+        if memo is not None:
+            return memo
+        opts = sorted(
+            (k.lower(), str(v)) for k, v in self.options.items()
+            if k.lower() not in self._FINGERPRINT_OPT_DENYLIST)
+        parts = [
+            "tbl:" + self.table,
+            "sel:" + "|".join(str(e) for e in self.select),
+            "als:" + "|".join(a or "" for a in self.aliases),
+            "dst:" + str(self.distinct),
+            "flt:" + (str(self.filter) if self.filter is not None else ""),
+            "gby:" + "|".join(str(e) for e in self.group_by),
+            "hav:" + (str(self.having) if self.having is not None else ""),
+            "oby:" + "|".join(f"{e}/{'asc' if asc else 'desc'}"
+                              for e, asc in self.order_by),
+            "lim:" + str(self.limit),
+            "off:" + str(self.offset),
+            "opt:" + "|".join(f"{k}={v}" for k, v in opts),
+        ]
+        fp = hashlib.sha256("\n".join(parts).encode()).hexdigest()
+        self._fp_memo = fp
+        return fp
+
     def filter_columns(self) -> List[str]:
         return self.filter.columns() if self.filter is not None else []
 
@@ -127,3 +165,17 @@ def _column_name(e: Expression) -> str:
     if isinstance(e, Function) and is_aggregation(e.name):
         return get_aggregation(e.name, e.args).result_name
     return str(e)
+
+
+def merge_extra_filter(ctx: QueryContext,
+                       extra_filter: Optional[str]) -> None:
+    """AND an expression string (a hybrid table's time-boundary predicate)
+    into ctx.filter, in place (JAX context.py:193): the server's execute
+    and the warm-up replay both merge here, so a replayed plan has the
+    logged fingerprint."""
+    if not extra_filter:
+        return
+    extra = _Parser(tokenize(extra_filter)).expr()
+    ctx.filter = extra if ctx.filter is None \
+        else func("and", ctx.filter, extra)
+    ctx.__dict__.pop("_fp_memo", None)

@@ -19,6 +19,8 @@ class ExecutionStats:
     num_segments_processed: int = 0
     num_segments_matched: int = 0
     total_docs: int = 0
+    #: segments the server's pruner dropped (query/pruner.py)
+    num_segments_pruned: int = 0
 
     def merge(self, o: "ExecutionStats") -> None:
         self.num_docs_scanned += o.num_docs_scanned
@@ -28,6 +30,7 @@ class ExecutionStats:
         self.num_segments_processed += o.num_segments_processed
         self.num_segments_matched += o.num_segments_matched
         self.total_docs += o.total_docs
+        self.num_segments_pruned += o.num_segments_pruned
 
 
 @dataclass
@@ -42,6 +45,8 @@ class GroupByResult:
     """group-key tuple (raw values) -> list of intermediates."""
     groups: Dict[Tuple, List[Any]]
     stats: ExecutionStats = field(default_factory=ExecutionStats)
+    #: the host executor stopped at numGroupsLimit groups
+    num_groups_limit_reached: bool = False
 
 
 @dataclass

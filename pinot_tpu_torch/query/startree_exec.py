@@ -1,11 +1,14 @@
-"""Star-tree fit check: which pre-agg pairs a query needs and which dictId
-sets its filter selects on a tree's dimensions.
+"""Star-tree query execution on the host, and the fit check the device
+leg shares.
 
-Counterpart of the fit-check half of pinot_tpu/query/startree_exec.py (ref
-pinot-core StarTreeUtils: aggregations must map to the tree's
-function-column pairs, the filter must be an AND of predicates on
-split-order dims). The device leg (ops/startree_device.py) plans from these;
-the port has no host star-tree executor.
+Counterpart of pinot_tpu/query/startree_exec.py (ref pinot-core
+core/startree/: StarTreeUtils' fit check, where the aggregations must map
+to the tree's function-column pairs and the filter must be an AND of
+predicates on split-order dims; StarTreeFilterOperator.java:90's
+traversal; StarTreeAggregationExecutor / StarTreeGroupByExecutor over the
+matched pre-agg records). The device leg (ops/startree_device.py) plans
+from `_agg_pairs_needed` and `_filter_id_sets`; the host executor
+(query/executor_cpu.py) answers a fitting segment with `execute_star_tree`.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import numpy as np
 from pinot_tpu_torch.query.context import QueryContext
 from pinot_tpu_torch.query.expressions import Expression, Function, Identifier
 from pinot_tpu_torch.query.predicate import resolve_predicate
+from pinot_tpu_torch.query.results import (
+    AggregationResult, ExecutionStats, GroupByResult)
 from pinot_tpu_torch.segment.startree import DimFilter
 
 
@@ -84,3 +89,99 @@ def _filter_id_sets(seg, expr: Optional[Expression], dims: List[str]
     if not walk(expr):
         return None
     return sets
+
+
+def execute_star_tree(seg, ctx: QueryContext):
+    """AggregationResult / GroupByResult from the first tree that fits, or
+    None when none does (or the query sets useStarTree=false)."""
+    if ctx.options.get("useStarTree", "true").lower() == "false":
+        return None
+    reader = getattr(seg, "star_tree", None)
+    if reader is None or not reader.trees:
+        return None
+    if not ctx.aggregations or ctx.distinct:
+        return None
+    needed = _agg_pairs_needed(ctx)
+    if needed is None:
+        return None
+    group_cols: List[str] = []
+    for g in ctx.group_by:
+        if not isinstance(g, Identifier):
+            return None
+        group_cols.append(g.name)
+    for tree in reader.trees:
+        dims = tree.meta.dims
+        if not all(pair in tree.metrics for pairs in needed
+                   for pair in pairs):
+            continue
+        if not all(c in dims for c in group_cols):
+            continue
+        id_sets = _filter_id_sets(seg, ctx.filter, dims)
+        if id_sets is None:
+            continue
+        return _execute_on_tree(seg, tree, ctx, needed, group_cols, id_sets)
+    return None
+
+
+def _execute_on_tree(seg, tree, ctx: QueryContext, needed, group_cols,
+                     id_sets):
+    recs = tree.traverse(id_sets, set(group_cols))
+    stats = ExecutionStats(
+        num_docs_scanned=len(recs),   # pre-agg records scanned
+        num_segments_processed=1,
+        num_segments_matched=1 if len(recs) else 0,
+        total_docs=seg.num_docs)
+
+    def pair_values(pair):
+        return tree.metrics[pair][recs]
+
+    if not group_cols:
+        return AggregationResult(
+            [_whole(node.name, needed[i], pair_values)
+             for i, node in enumerate(ctx.aggregations)], stats)
+    # group keys: the records' dim codes through the dictionaries
+    dicts = [seg.data_source(c).dictionary for c in group_cols]
+    stacked = np.stack([tree.dim_codes[c][recs] for c in group_cols], axis=1)
+    uniq, inverse = np.unique(stacked, axis=0, return_inverse=True)
+    inverse = inverse.reshape(-1)
+    n_groups = len(uniq)
+    per_fn = [_grouped(node.name, needed[i], pair_values, inverse, n_groups)
+              for i, node in enumerate(ctx.aggregations)]
+    groups = {tuple(d.get_value(int(uniq[g, j]))
+                    for j, d in enumerate(dicts)):
+              [per_fn[i][g] for i in range(len(per_fn))]
+              for g in range(n_groups)}
+    return GroupByResult(groups, stats)
+
+
+def _whole(name: str, pairs, pair_values):
+    if name == "count":
+        return int(pair_values(("count", "*")).sum())
+    if name == "sum":
+        return float(pair_values(pairs[0]).sum())
+    if name == "min":
+        v = pair_values(pairs[0])
+        return float(v.min()) if len(v) else float("inf")
+    if name == "max":
+        v = pair_values(pairs[0])
+        return float(v.max()) if len(v) else float("-inf")
+    # avg
+    return (float(pair_values(pairs[0]).sum()),
+            int(pair_values(("count", "*")).sum()))
+
+
+def _grouped(name: str, pairs, pair_values, inverse, n_groups):
+    def bsum(pair):
+        return np.bincount(inverse, weights=pair_values(pair),
+                           minlength=n_groups)
+    if name == "count":
+        return bsum(("count", "*")).astype(np.int64).tolist()
+    if name == "sum":
+        return bsum(pairs[0]).tolist()
+    if name == "avg":
+        return list(zip(bsum(pairs[0]).tolist(),
+                        bsum(("count", "*")).astype(np.int64).tolist()))
+    v = pair_values(pairs[0])
+    out = np.full(n_groups, np.inf if name == "min" else -np.inf)
+    (np.minimum if name == "min" else np.maximum).at(out, inverse, v)
+    return out.tolist()

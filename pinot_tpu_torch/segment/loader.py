@@ -136,6 +136,11 @@ class ImmutableSegment:
     def has_column(self, column: str) -> bool:
         return column in self.metadata.columns
 
+    def destroy(self) -> None:
+        """Drop the decoded columns (the server's data manager calls this
+        once a replaced or removed segment's last query releases it)."""
+        self._sources.clear()
+
     @property
     def star_tree(self) -> Optional[StarTreeReader]:
         """The segment's star-trees, read at first use; None without."""

@@ -1,7 +1,7 @@
-"""Server utilities the port's dispatch ring reads and writes: the
-configuration keys it takes, the failpoint registry its chaos tests arm,
-the meters and timers it writes, and the errors a query's cancel check
-raises.
+"""Server utilities: the configuration keys the port reads, the failpoint
+registry its chaos tests arm, its meters, gauges and timers, the query
+errorCodes and the deadline / cancel registry its server replies with, and
+per-query span trees.
 
-Counterpart of pinot_tpu/utils, trimmed to those four.
+Counterpart of pinot_tpu/utils, trimmed to those.
 """

@@ -46,6 +46,9 @@ KEYS: Dict[str, Any] = {
     # time-series device leg (ops/timeseries_device.py): fuse
     # floor((t-start)/step) into the group-by kernel's key
     "pinot.server.timeseries.bucket.enabled": True,
+    # the server (server/query_server.py): grace added to a broker's
+    # remaining budget before the local deadline cancels the query
+    "pinot.server.query.deadline.grace.ms": 50,
     # time-series leaf fetch cap: a leaf SQL may return at most
     # count * this many group rows before the engine fails loud
     # (silent truncation would corrupt downstream sums)

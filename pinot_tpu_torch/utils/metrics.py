@@ -9,7 +9,11 @@ gauge `dispatch_queue_depth`. The engine's staging levels write the meters
 `hbm_block_hit` / `hbm_block_miss` (assembled blocks; a miss is one K6
 launch), `host_row_hit` / `host_row_miss`, `hbm_transfer_bytes` (column
 bytes uploaded), and the resident tier `hbm_resident_hit` /
-`hbm_resident_miss`, `hbm_admission_rejected` and `hbm_evicted`.
+`hbm_resident_miss`, `hbm_admission_rejected` and `hbm_evicted`, and
+the gauges `hbm_cache_bytes` (assembled blocks and resident rows on the
+card) and `host_row_cache_bytes` (host rows). The server's executor
+writes the meter `host_fallback{reason}`: batches the engine refused and
+the host executor answered.
 """
 from __future__ import annotations
 
@@ -86,6 +90,11 @@ class MetricsRegistry:
               labels: Optional[Dict[str, str]] = None) -> float:
         with self._lock:
             return self._meters.get(_key(name, labels), 0.0)
+
+    def meter_total(self, name: str) -> float:
+        """A meter summed over all its label sets."""
+        with self._lock:
+            return sum(v for (n, _l), v in self._meters.items() if n == name)
 
     def gauge(self, name: str,
               labels: Optional[Dict[str, str]] = None) -> Optional[float]:

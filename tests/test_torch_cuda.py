@@ -2290,3 +2290,59 @@ def test_clp_match_edges_on_card(card, edge, D):
     torch.cuda.synchronize()
     assert torch.equal(out[0], ref)
     assert bool(ref.any())
+
+
+def _raw_segment(path, name: str, dtype, values):
+    """One segment of one raw column `name`, written by the port's
+    creator."""
+    from pinot_tpu_torch.models import (DataType, FieldSpec, FieldType,
+                                        Schema, TableConfig)
+    from pinot_tpu_torch.segment.creator import SegmentCreator
+    from pinot_tpu_torch.segment.loader import load_segment
+    tc = TableConfig("t")
+    tc.indexing.no_dictionary_columns = [name]
+    out = str(path / name)
+    SegmentCreator(tc, Schema("t", [FieldSpec(name, getattr(DataType, dtype),
+                                              FieldType.METRIC)])).build(
+        {name: np.asarray(values)}, out, f"t_{name}")
+    return load_segment(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdt", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_scan_at_the_denormal_bound_on_card(card, tmp_path, vdt):
+    """K1 at the bound nextafter(0, -inf) (the staged form of `rd < 0`)
+    and nextafter(0, inf) (`rd > 0`), with both zeros among the docs: the
+    card keeps denormals (no -ftz), so +0.0 and -0.0 match neither, as on
+    the host: 2 and 1 over [0.0, -0.0, -1.0, 2.0, -3.5], and equal to the
+    plain version on the CPU."""
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    seg = _raw_segment(tmp_path, "rd", "DOUBLE",
+                       np.array([0.0, -0.0, -1.0, 2.0, -3.5]))
+    ex = QueryExecutor([seg], device=card, value_dtype=vdt)
+    plain = QueryExecutor([seg], device="cpu", value_dtype=vdt)
+    for sql, want in (("SELECT COUNT(*) FROM t WHERE rd < 0", 2),
+                      ("SELECT COUNT(*) FROM t WHERE rd > 0", 1),
+                      ("SELECT COUNT(*) FROM t WHERE rd <= 0", 4),
+                      ("SELECT COUNT(*) FROM t WHERE rd >= 0", 3)):
+        before = _cuda.SCAN_AGG.launches
+        assert ex.execute(sql).rows == [(want,)], (sql, vdt)
+        assert _cuda.SCAN_AGG.launches == before + 1
+        assert plain.execute(sql).rows == [(want,)], (sql, vdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdt", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_float_literal_read_as_float32_on_card(card, tmp_path, vdt):
+    """A FLOAT column against 0.1, which float32 cannot hold: K1 compares
+    with 0.1f in either value dtype, as the host filter does."""
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    vals = np.array([0.1, 0.2, 0.1, -1.0, 0.05, 1.0], dtype=np.float32)
+    seg = _raw_segment(tmp_path, "rf", "FLOAT", vals)
+    ex = QueryExecutor([seg], device=card, value_dtype=vdt)
+    for sql, want in (("SELECT COUNT(*) FROM t WHERE rf > 0.1", 2),
+                      ("SELECT COUNT(*) FROM t WHERE rf = 0.1", 2),
+                      ("SELECT COUNT(*) FROM t WHERE rf < 0.1", 2)):
+        assert ex.execute(sql).rows == [(want,)], (sql, vdt)

@@ -1,7 +1,8 @@
-"""The port stands alone: importing it and running a query loads neither
-JAX nor any pinot_tpu module, its entry point defaults to the card and
-refuses to run without one, and chip_smoke.py imports nothing of either
-and fails where there is no card or no port beside it."""
+"""The port stands alone: importing it, running a query and answering one
+through its server over TCP loads neither JAX nor any pinot_tpu module,
+its entry points default to the card and refuse to run without one, and
+chip_smoke.py imports nothing of either and fails where there is no card
+or no port beside it."""
 import ast
 import os
 import shutil
@@ -83,6 +84,23 @@ tot = distributed_query_step(make_mesh(["cpu"] * 4, doc_axis=2))(4)(
     z, z.double() + 1, z, z[:, 0], z[:, 0], z[:, 0] + 256,
     torch.arange(256)[None])
 assert float(tot[1]) == 512.0
+from pinot_tpu_torch.cache.warmup import FingerprintLog
+from pinot_tpu_torch.cluster.mini import MiniClusterServer
+from pinot_tpu_torch.query.reduce import reduce_results
+from pinot_tpu_torch.server import datatable
+from pinot_tpu_torch.server.query_server import ServerConnection
+srv = MiniClusterServer(device="cpu")
+srv.start()
+try:
+    srv.data_manager.table("t").add_segment_from_dir(d)
+    sql = "SELECT a, COUNT(*) FROM t WHERE a > 4 GROUP BY a ORDER BY a"
+    results, exc, _st, _tr = datatable.deserialize_results_ex(
+        ServerConnection("127.0.0.1", srv.transport.port).request("t", sql))
+    assert not exc, exc
+    rows = reduce_results(QueryContext.from_sql(sql), results).rows
+    assert rows == [(5, 14), (6, 14)], rows
+finally:
+    srv.stop()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "pinot_tpu")
              or m.startswith(("jax.", "jaxlib.", "pinot_tpu.")))
@@ -153,6 +171,20 @@ def test_default_device_is_the_card():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             QueryExecutor([])
+
+
+def test_server_default_device_is_the_card():
+    """The server's executor and the embedded server default to the card
+    too, and never fall back to the CPU by themselves."""
+    from pinot_tpu_torch.cluster.mini import MiniClusterServer
+    from pinot_tpu_torch.server.data_manager import InstanceDataManager
+    from pinot_tpu_torch.server.query_server import ServerQueryExecutor
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServerQueryExecutor(InstanceDataManager())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MiniClusterServer()
 
 
 def test_chip_smoke_fails_without_card_or_port(tmp_path):
