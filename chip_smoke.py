@@ -364,6 +364,29 @@ Phases, each of which exits non-zero on failure:
    the new segment's resident rows; a 17th segment added after Q1.1 was
    logged is prestaged, and the first Q1.1 after the add uploads no
    column byte. Launches held as every leg's (K1-K4 and K6).
+16. The mesh's served modes, on logical segments-only meshes of the one
+   card (MODES_DEVICES: 4 slots on cuda:0; the times are the per-slot
+   launches on one card, no multi-card speed): sel.1 and the MSE leaf's
+   doc ids on phase 4's rows (K4 per slot), then Q1.1 and sel.1 through a
+   MiniClusterServer(devices=MODES_DEVICES) over loopback on the first
+   MODES_SERVER_SEGMENTS of phase 4's directories (after phase 13); st5.1
+   on phase 7's ssbst rows (K5 per slot); logs.1 (K7 and K1 per slot, K9)
+   and the log tail logs.5 (K7 and K4 per slot) in phase 11, and logs.1
+   on phase 13's 4x2 mesh, merged (K7 and K1 on 8 slots, K9); vec.1 and
+   vec.4 in phase 12 (K8 per slot). Each query: a cold run and
+   MODES_ITERS warm ones, its rows equal to the phase's one-card answer
+   (rows, ids and order; that answer matched the phase's numpy truth),
+   the launch counts set to 0 just before and read just after, no
+   `mesh_refused` or `host_fallback`; its warm p50 beside one card's. On
+   each mesh engine's staging the per-slot kernels are held against the
+   sharded plain versions (kernels.plain_sharded_topn_kernel for K4 and
+   K8, startree_device.plain_sharded_kernel for K5, the sharded plain
+   aggregation for logs.1); the engine's `hbm_cache_bytes{device=}` is
+   printed. Phase 3's K4 case (a) and its B = 8 broadcast form, K7's mode
+   'b', K8's IVF k = 10 case, and phase 7's K5 on st5.1's blocks and its
+   B = 8 form also run cut by segment over the 4x1 mesh, equal to one
+   card's output bit for bit: launches per call and CUDA-event times
+   beside the one-card case's time and bound (`[kernel] ... mesh`).
 8. Launch counts: each kernel's counter is set to 0 just before a leg's
    timed queries and read just after them; the leg's kernels must have
    launched once per query run (a CLP query: K7 once, then K1, K2 or K4
@@ -1616,7 +1639,13 @@ def filter_leaves(node) -> set:
 
 
 def leaf_columns(leaf) -> tuple:
-    """The staged columns a filter leaf reads."""
+    """The staged columns a filter leaf reads (a CLP leaf: its logtype
+    id, dict-var and encoded-var pseudo-columns)."""
+    if leaf.kind == "clp":
+        _mode, kd, ke = leaf.meta
+        c = leaf.column
+        return (f"clpid:{c}", *(f"clpdv{j}:{c}" for j in range(kd)),
+                *(f"clpe{h}{j}:{c}" for j in range(ke) for h in ("hi", "lo")))
     if leaf.kind == "vrange":
         return ("val:" + leaf.column,)
     if leaf.kind == "vrange64":
@@ -1676,12 +1705,17 @@ def batch_bytes(plan, col_sets, plist, ndlist, idx, D, out):
         def sectors(docs, size):
             return SECTOR * int(docs.view(docs.shape[0], -1,
                                           SECTOR // size).any(-1).sum())
-        for name in program.compile_plan(plan).cols:
+        read = program.compile_plan(plan).cols
+        for name in read:
             size = cols[name].element_size()
             if name in full and not plan.valid_mask:
                 moved += int(real.sum()) * size
             else:
                 moved += sectors(valid if name in full else kept, size)
+        # a CLP leaf's pseudo-columns: K7 reads them for every real doc
+        for name in sorted(full - set(read)):
+            if name in cols:
+                moved += int(real.sum()) * cols[name].element_size()
         moved += num_docs.numel() * num_docs.element_size()
     moved += sum(v.numel() * v.element_size()
                  for params in plist for v in params.values()) \
@@ -1848,12 +1882,24 @@ def check_batched(name: str, plan, sets, plist, ndlist, D) -> dict:
         del out, ref
     args = (sets[:1], plist, ndlist[:1], BATCH_FORMS["broadcast"], D)
     single_ms = cuda_ms(lambda: single(sets[0], plist[0], ndlist[0], D))
+    library_ms, library = None, "none: no single PyTorch call computes it"
+    if plan.mode == "topn":
+        # the select alone: one torch.topk over the members' masked score
+        # blocks of the broadcast form, as row 5 times it for one member
+        scores = torch.stack([kernels.topn_scores(
+            plan, sets[0], p, ndlist[0], D, vdt)[1] for p in plist])
+        k = min(plan.topn_k, D)
+        library_ms = cuda_ms(lambda: torch.topk(scores.view(-1, D), k,
+                                                dim=1))
+        library = ("torch.topk over the B members' masked score blocks at "
+                   "once (no tie order: time only)")
+        del scores
     entry = {"max_abs_err": max(f["max_abs_err"] for f in forms.values()),
              "ms": forms["broadcast"]["ms"],
              "plain_ms": cuda_ms(lambda: plain(*args), iters=3),
              "bound_ms": forms["broadcast"]["bound_ms"],
-             "bound_by": "bytes", "library_ms": None,
-             "library": "none: no single PyTorch call computes it"}
+             "bound_by": "bytes", "library_ms": library_ms,
+             "library": library}
     return {"B": BATCH_B, "forms": forms, "single_ms": single_ms,
             "8x_single_ms": BATCH_B * single_ms, **entry}
 
@@ -2630,7 +2676,7 @@ def startree_leg(tmp: str, seed: int, kernels, none: dict, card: str):
     cases by query name, the batched K5 check and 9f's window launches."""
     import torch
 
-    from pinot_tpu_torch.ops import residency
+    from pinot_tpu_torch.ops import _cuda, residency
     from pinot_tpu_torch.ops import startree_device as sd
     from pinot_tpu_torch.query.context import QueryContext
     from pinot_tpu_torch.query.executor import QueryExecutor
@@ -2671,6 +2717,8 @@ def startree_leg(tmp: str, seed: int, kernels, none: dict, card: str):
                     fail(f"{name} {path}: {got[:4]} vs numpy truth "
                          f"{want[:4]}")
                 answers[name] = got
+                if path == "tree" and name == "st5.1":
+                    st51_p50 = statistics.median(lats) * 1e3
                 legs.append({"query": name, "path": path, "rows": rows,
                              "selected": resp.stats.num_docs_scanned,
                              "p50_ms": statistics.median(lats) * 1e3,
@@ -2714,6 +2762,15 @@ def startree_leg(tmp: str, seed: int, kernels, none: dict, card: str):
                             staged[0], ex.engine.value_dtype)
                         cases[name].update(launch_pace(
                             lambda: kern(*staged[1:]), "startree_", tmp))
+                        # row 10 on phase 16's 4x1 mesh, the same blocks
+                        shard = sd.sharded_kernel(staged[0], modes_mesh(),
+                                                  ex.engine.value_dtype)
+                        scols = sharded_cols(staged[1])
+                        check_sharded(
+                            "startree_agg", f"{table} st5.1 staged",
+                            _cuda.STARTREE_AGG,
+                            lambda: shard(scols, *staged[2:]),
+                            kern(*staged[1:]), cases[name], card)
                     print(f"[kernel] startree_agg {json.dumps(cases[name])}"
                           f" | {card}", flush=True)
             else:
@@ -2734,6 +2791,32 @@ def startree_leg(tmp: str, seed: int, kernels, none: dict, card: str):
             batched = check_startree_batched(ex, pool[:BATCH_B])
             print(f"[kernel] startree_agg batched {json.dumps(batched)} "
                   f"| {card}", flush=True)
+            # row 8d on phase 16's 4x1 mesh: the broadcast form's blocks
+            vdt = ex.engine.value_dtype
+            plan, sets, plist, nds, idx, D = staged_startree_batch(
+                ex, pool[:BATCH_B], [tuple(range(len(segs)))] * BATCH_B)
+            shard = sd.batched_sharded_kernel(plan, modes_mesh(), vdt)
+            ssets = [sharded_cols(c) for c in sets]
+            check_sharded("startree_agg_batched", "st5.1-shaped B=8 broadcast",
+                          _cuda.STARTREE_AGG,
+                          lambda: shard(ssets, plist, nds, idx, D),
+                          sd.batched_kernel(plan, vdt)(sets, plist, nds, idx,
+                                                       D), batched, card)
+            del sets, ssets
+
+            # phase 16: st5.1 on a 4x1 mesh engine (K5 per slot)
+            mex = QueryExecutor(segs, devices=MODES_DEVICES)
+            got = modes_query(
+                "startree", "st5.1", mex, queries["st5.1"][0],
+                tree_answers["st5.1"], st51_p50,
+                {"startree_agg": len(MODES_DEVICES)}, kernels, none, card,
+                want=lambda rows: None if rows_agree(
+                    rows, startree_expected(truths, "st5.1"), True)
+                else "rows differ from numpy truth")
+            for k, v in got.items():
+                launches[k] += v
+            check_mesh_startree("st5.1", mex, queries["st5.1"][0], card)
+            del mex
 
             # phase 9f: st5.1-shaped queries under concurrency (K5)
             def st_check(i, rows):
@@ -3810,7 +3893,7 @@ def log_leg(tmp: str, seed: int, kernels, none: dict, card: str, done):
     ex = QueryExecutor(segs, value_dtype=torch.float64)
     torch.cuda.reset_peak_memory_stats()
     zero_launches(kernels)
-    legs, runs = [], Counter()
+    legs, runs, one = [], Counter(), {}
     queries = log_queries()
     for name, (sql, kname) in queries.items():
         t1 = time.perf_counter()
@@ -3826,6 +3909,7 @@ def log_leg(tmp: str, seed: int, kernels, none: dict, card: str, done):
         if got != want:
             fail(f"{name}: {got[:3]} ({len(got)} rows) vs numpy truth "
                  f"{want[:3]} ({len(want)} rows)")
+        one[name] = (rows_of(resp), statistics.median(lats) * 1e3)
         runs[kname] += 1 + ITERS
         runs["clp_match"] += 1 + ITERS
         legs.append({"query": name, "rows": rows, "result_rows": len(got),
@@ -3865,6 +3949,33 @@ def log_leg(tmp: str, seed: int, kernels, none: dict, card: str, done):
         case = check_clp(f"staged {name}", *staged_clp(
             ex, queries[name][0]))
         print(f"[kernel] clp_match {json.dumps(case)} | {card}", flush=True)
+
+    # phase 16: logs.1 and the log tail (logs.5) on a 4x1 mesh engine,
+    # logs.1 on phase 13's 4x2 mesh (merged); their rows equal one card's,
+    # which equal the numpy truth above
+    slots = len(MODES_DEVICES)
+    for label, mesh_kw, per in (
+            ("logs 4x1", {"devices": MODES_DEVICES}, {
+                "logs.1": {"clp_match": slots, "scan_agg": slots,
+                           "mesh_fold": 1},
+                "logs.5": {"clp_match": slots, "topn": slots}}),
+            ("logs 4x2", {"mesh": logical_mesh()}, {
+                "logs.1": {"clp_match": 8, "scan_agg": 8,
+                           "mesh_fold": 1}})):
+        mex = QueryExecutor(segs, value_dtype=torch.float64, **mesh_kw)
+        for name, per_run in per.items():
+            for k, v in modes_query(label, name, mex, queries[name][0],
+                                    *one[name], per_run, kernels, none,
+                                    card).items():
+                got[k] += v
+        if "logs.5" in per:
+            check_mesh_topn("logs.5", mex, queries["logs.5"][0], card)
+        case = check_mesh_launch(f"{label} logs.1", mex,
+                                 queries["logs.1"][0])
+        print(f"[kernel] mesh clp {json.dumps(case)} | {MODES_NOTE} | "
+              f"{card}", flush=True)
+        del mex
+        torch.cuda.empty_cache()
 
     # phase 9h: bench.py:3531's coalesce pool under concurrency (K7, K1)
     def pool_check(i, r):
@@ -4229,15 +4340,27 @@ K8_BATCHED = {"broadcast ivf k=10": (10, True, False, False),
 def vector_kernel_cases(seed: int, card: str):
     """Phase 3's K8 cases and phase 3b's B = 8 forms on one generated block
     (K8_SEGMENTS + BATCH_B - 1 rows, so each stacked member reads its own
-    rows); returns ({case: entry}, {form: entry})."""
+    rows); returns ({case: entry}, {form: entry}). The IVF k = 10 case
+    also runs on phase 16's 4x1 mesh."""
     import torch
+
+    from pinot_tpu_torch.ops import _cuda, kernels
     block = vector_block(seed, K8_SEGMENTS + BATCH_B - 1)
     single, batched = {}, {}
     for i, (name, (k, ivf, resid, _st)) in enumerate(K8_CASES.items()):
-        single[name] = check_vector(name, *vector_case(block, seed + i, k,
-                                                       ivf, resid))
+        case = vector_case(block, seed + i, k, ivf, resid)
+        single[name] = check_vector(name, *case)
         print(f"[kernel] vector_topk {json.dumps(single[name])} | {card}",
               flush=True)
+        if name == "ivf k=10":  # row 13 on phase 16's 4x1 mesh
+            plan, (cols,), (params,), (nd,), _idx, D = case
+            shard = kernels.sharded_topn_kernel(plan, modes_mesh())
+            scols = sharded_cols(cols)
+            check_sharded("vector_topk", name, _cuda.VECTOR_TOPK,
+                          lambda: shard(scols, params, nd, D),
+                          kernels.make_vector_kernel(plan)(cols, params, nd,
+                                                           D),
+                          single[name], card)
     for i, (name, (k, ivf, resid, st)) in enumerate(K8_BATCHED.items()):
         batched[name] = check_vector(name, *vector_case(
             block, seed + 10 + i, k, ivf, resid, B=BATCH_B, stacked=st))
@@ -4321,7 +4444,7 @@ def vector_leg(tmp: str, seed: int, kernels, none: dict, card: str, done):
     ex = QueryExecutor({"vec": segs, "vecx": xsegs})
     torch.cuda.reset_peak_memory_stats()
     zero_launches(kernels)
-    legs = []
+    legs, one = [], {}
     for name, (sql, (want, band), limit) in queries.items():
         t1 = time.perf_counter()
         resp = ex.execute(sql)
@@ -4336,6 +4459,7 @@ def vector_leg(tmp: str, seed: int, kernels, none: dict, card: str, done):
         if not vec_rows_agree(got, want, band, limit):
             fail(f"{name}: {got[:5]} ({len(got)} rows) vs the host search "
                  f"{want[:5]} ({len(want)} rows), band {sorted(band)[:5]}")
+        one[name] = (got, statistics.median(lats) * 1e3)
         legs.append({"query": name, "rows": rows if name != "vec.4"
                      else sum(s.num_docs for s in xsegs),
                      "result_rows": len(got), "band": len(band),
@@ -4384,6 +4508,20 @@ def vector_leg(tmp: str, seed: int, kernels, none: dict, card: str, done):
                             *staged_vector(ex, queries[name][0]))
         print(f"[kernel] vector_topk {json.dumps(case)} | {card}",
               flush=True)
+
+    # phase 16: vec.1 and vec.4 on a 4x1 mesh engine (K8 per slot), their
+    # rows equal one card's, which match the host search above
+    got = dict(got)
+    mex = QueryExecutor({"vec": segs, "vecx": xsegs}, devices=MODES_DEVICES)
+    for name in ("vec.1", "vec.4"):
+        for k, v in modes_query(
+                "vector", name, mex, queries[name][0], *one[name],
+                {"vector_topk": len(MODES_DEVICES)}, kernels, none,
+                card).items():
+            got[k] += v
+    check_mesh_vector("vec.1", mex, queries["vec.1"][0], card)
+    del mex
+    torch.cuda.empty_cache()
 
     # phase 9i: vec.1-shaped queries with other vectors under concurrency
     pool_q = vec_query_vectors(indexes, seed, VEC_POOL, 9)
@@ -4614,16 +4752,17 @@ def compare_mesh(name: str, plan, out, ref, merged: bool, S: int) -> None:
             fail(f"{name}: column {c} sum beyond rel 1e-5")
 
 
-def mesh_launch_bytes(plan, launch, minfo, out) -> int:
+def mesh_launch_bytes(plan, launch, minfo, out, params) -> int:
     """The bytes a mesh launch must move: each slot's shard as its kernel
-    must read it (batch_bytes, its partial written once), the partials
-    read once by K9, the output once."""
+    must read it (batch_bytes, its partial written once, its filter
+    evaluated on `params`), the partials read once by K9, the output
+    once."""
     import torch
 
     from pinot_tpu_torch.ops import kernels as kmod
     mesh = next(iter(launch.cols.values())).mesh
     shards, s_loc, d_loc = kmod.mesh_shards(
-        mesh, [launch.cols], [launch.params], [launch.num_docs], launch.D)
+        mesh, [launch.cols], [params], [launch.num_docs], launch.D)
     part = torch.empty((s_loc, kmod.packed_width(plan)) if not plan.num_groups
                        else (s_loc, plan.num_groups, len(plan.agg_ops)),
                        dtype=out.dtype, device=out.device)
@@ -4648,6 +4787,8 @@ def check_mesh_launch(name: str, ex, sql: str, B: int = 1,
     mesh = next(iter(launch.cols.values())).mesh
     vdt = ex.engine.value_dtype
     S = int(launch.num_docs.shape[0])
+    # the plain version reads a CLP leaf's bool dict-var LUTs
+    pparams = dict(launch.params, **bool_banks(launch.params))
     if B > 1:
         members = [launch] + [staged_mesh(ex, q)[1] for q in pool[:B - 1]]
         args = ([launch.cols], [m.params for m in members],
@@ -4670,7 +4811,7 @@ def check_mesh_launch(name: str, ex, sql: str, B: int = 1,
                 return mf(c, p, n, d, minfo["G"], minfo["fold"])
 
         def plain():
-            return pf(launch.cols, launch.params, launch.num_docs, launch.D)
+            return pf(launch.cols, pparams, launch.num_docs, launch.D)
     out, ref = run(), plain()
     torch.cuda.synchronize()
     compare_mesh(f"{name} vs plain", plan, out, ref, minfo is not None, S)
@@ -4678,11 +4819,14 @@ def check_mesh_launch(name: str, ex, sql: str, B: int = 1,
         for m, member in enumerate(members):
             compare_mesh(f"{name} member {m} vs its single launch", plan,
                          out[m], member.call(), False, S)
-    moved = mesh_launch_bytes(plan, launch, minfo, out)
+    # the bool LUTs are the plain version's: K7 reads the packed ones
+    moved = mesh_launch_bytes(plan, launch, minfo, out, pparams) - sum(
+        t.numel() * t.element_size()
+        for t in bool_banks(launch.params).values())
     if B > 1:
         moved += sum(v.numel() * v.element_size()
                      for m in members[1:] for v in m.params.values())
-    return {"case": name, "mesh": "x".join(map(str, MESH_SHAPE)),
+    return {"case": name, "mesh": "x".join(map(str, mesh.shape)),
             "merged": minfo is not None, "B": B, "S": S, "D": launch.D,
             "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, iters=3),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved,
@@ -4990,6 +5134,315 @@ def mesh_groupby(segs, want_rows, kernels, none: dict, card: str) -> dict:
     res = mesh_query(ex, "groupby", GB_QUERY, same, kernels, none,
                      ("group_agg",), card, "13a sharded f32, config #3")
     return res["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the mesh's served modes (a logical segments-only mesh)
+# ---------------------------------------------------------------------------
+
+#: phase 16's logical segments-only mesh: 4 slots, every one on cuda:0
+MODES_DEVICES = ["cuda:0"] * 4
+#: warm runs of a phase-16 query, after one cold run
+MODES_ITERS = 5
+#: the note on every phase-16 line: a logical mesh's times are the
+#: per-slot launches on one card, not a multi-card speed
+MODES_NOTE = "logical mesh on one card"
+
+
+def modes_mesh():
+    from pinot_tpu_torch.parallel import make_mesh
+    return make_mesh(MODES_DEVICES, doc_axis=1)
+
+
+def same_output(a, b) -> bool:
+    """Equal bit for bit (floats by their bits)."""
+    import torch
+    if a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        return torch.equal(bits(a), bits(b))
+    return torch.equal(a, b)
+
+
+def check_sharded(kname: str, case: str, kern, run, ref, entry: dict,
+                  card: str) -> dict:
+    """A one-card case's inputs cut by segment over phase 16's logical 4x1
+    mesh, through its sharded call `run` (the kernel `kern` once per slot,
+    the slots' rows concatenated in segment order): equal to the one-card
+    launch's output `ref` bit for bit. Prints its launches per call and
+    its CUDA-event time beside the one-card case's time and bound
+    (`entry`: one card's inputs, so one card's bound)."""
+    import torch
+    n0 = kern.launches + kern.batched_launches
+    out = run()
+    torch.cuda.synchronize()
+    per_call = kern.launches + kern.batched_launches - n0
+    if per_call != len(MODES_DEVICES):
+        fail(f"{kname} {case} on the 4x1 mesh: {per_call} launches, "
+             f"expected one per slot")
+    if not same_output(out, ref):
+        fail(f"{kname} {case} on the 4x1 mesh differs from one card's")
+    line = {"case": case, "mesh": "4x1", "launches_per_call": per_call,
+            "ms": cuda_ms(run), "one_card_ms": entry["ms"],
+            "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
+            "max_abs_err": max_abs_err(out, ref)}
+    print(f"[kernel] {kname} mesh {json.dumps(line)} | {MODES_NOTE} | "
+          f"{card}", flush=True)
+    return line
+
+
+def sharded_cols(cols: dict) -> dict:
+    """One card's [S, D] blocks cut by segment over phase 16's mesh."""
+    from pinot_tpu_torch.parallel import shard_block
+    mesh = modes_mesh()
+    return {k: shard_block(mesh, v) for k, v in cols.items()}
+
+
+def unsharded(cols: dict) -> dict:
+    """A segments-only mesh's blocks whole again (its shards are rows)."""
+    import torch
+    return {k: torch.cat(v.shards, 0) for k, v in cols.items()}
+
+
+def check_mesh_slots(name: str, kname: str, run, plain, same,
+                     card: str) -> None:
+    """Each slot's kernel on its own shard, on a mesh engine's staging,
+    against the sharded plain version (`plain`); `same(out, ref)` fails
+    the run where they differ. Prints both CUDA-event times."""
+    import torch
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    same(out, ref)
+    line = {"case": name, "ms": cuda_ms(run),
+            "plain_ms": cuda_ms(plain, iters=3),
+            "max_abs_err": max_abs_err(out, ref)}
+    print(f"[kernel] {kname} mesh slots {json.dumps(line)} | {MODES_NOTE} "
+          f"| {card}", flush=True)
+
+
+def staged_topn(ex, sql: str):
+    """(plan, Launch) a mesh engine stages for a selection (the sharded K4
+    launch the main path runs)."""
+    from pinot_tpu_torch.query.context import QueryContext
+    ctx = QueryContext.from_sql(sql)
+    segs = ex.segments_of(ctx.table)
+    eng = ex.engine
+    with eng._engine_lock:
+        plan = eng._plan_topn(segs, ctx)
+        return plan, eng._launch(segs, ctx, plan, None, None, "topn")
+
+
+def check_mesh_topn(name: str, ex, sql: str, card: str) -> None:
+    """Module 6 on the engine's staging: the sharded K4 (K7 first for a
+    CLP leaf) against `plain_sharded_topn_kernel`, bit for bit."""
+    from pinot_tpu_torch.ops import kernels as kmod
+    plan, launch = staged_topn(ex, sql)
+    mesh = next(iter(launch.cols.values())).mesh
+    plain = kmod.plain_sharded_topn_kernel(plan, mesh, ex.engine.value_dtype)
+
+    def same(out, ref):
+        if not same_output(out, ref):
+            fail(f"phase 16 {name}: the sharded K4 differs from its plain "
+                 "version")
+    # the plain version reads a CLP leaf's bool dict-var LUTs
+    pparams = dict(launch.params, **bool_banks(launch.params))
+    check_mesh_slots(name, "topn", launch.call, lambda: plain(
+        launch.cols, pparams, launch.num_docs, launch.D), same, card)
+
+
+def check_mesh_vector(name: str, ex, sql: str, card: str) -> None:
+    """Module 9 on the engine's staging: the sharded K8 against its plain
+    sharded version, bit for bit."""
+    from pinot_tpu_torch.ops import kernels as kmod
+    plan, (cols,), (params,), (nd,), _idx, D = staged_vector(ex, sql)
+    mesh = next(iter(cols.values())).mesh
+    run = kmod.sharded_topn_kernel(plan, mesh)
+    plain = kmod.plain_sharded_topn_kernel(plan, mesh)
+
+    def same(out, ref):
+        if not same_output(out, ref):
+            fail(f"phase 16 {name}: the sharded K8 differs from its plain "
+                 "version")
+    check_mesh_slots(name, "vector_topk", lambda: run(cols, params, nd, D),
+                     lambda: plain(cols, params, nd, D), same, card)
+
+
+def check_mesh_startree(name: str, ex, sql: str, card: str) -> None:
+    """Module 10 on the engine's staging: the sharded K5 against its plain
+    sharded version (counts, exact planes, min / max bit for bit, float
+    sums within 1e-5 of their sum of |contribution|)."""
+    from pinot_tpu_torch.ops import startree_device as sd
+    plan, cols, params, nd, D = staged_startree(ex, sql)
+    mesh = next(iter(cols.values())).mesh
+    vdt = ex.engine.value_dtype
+    run = sd.sharded_kernel(plan, mesh, vdt)
+    plain = sd.plain_sharded_kernel(plan, mesh, vdt)
+    check_mesh_slots(
+        name, "startree_agg", lambda: run(cols, params, nd, D),
+        lambda: plain(cols, params, nd, D),
+        lambda out, ref: compare_startree(
+            f"phase 16 {name} vs plain", plan, out, ref, unsharded(cols),
+            params, nd, D), card)
+
+
+def mesh_counters(ex) -> tuple:
+    """(mesh_refused, host_fallback) so far: a served mode moves
+    neither."""
+    from pinot_tpu_torch.utils.metrics import get_registry
+    return (sum(v for k, v in ex.engine.meters.items()
+                if k[0] == "mesh_refused"),
+            get_registry("server").meter_total("host_fallback"))
+
+
+def modes_query(label: str, name: str, ex, sql: str, one_rows,
+                one_p50_ms, per_run: dict, kernels, none: dict, card: str,
+                want=None) -> dict:
+    """One phase-16 query through a mesh engine: a cold run and MODES_ITERS
+    warm ones, its rows equal to one card's (`one_rows`: rows, ids and
+    order) and, where given, `want(rows)` (the numpy truth: None or what
+    differs); each run launches per_run[kernel] (once per slot a query),
+    the launch counts set to 0 just before and read just after; neither
+    `mesh_refused` nor `host_fallback` moves. Prints the warm p50 beside
+    one card's. Returns the launches."""
+    import torch
+    c0 = mesh_counters(ex)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    resp, cold, lats, split = time_query(ex, sql, MODES_ITERS)
+    runs = 1 + MODES_ITERS
+    got = launches_of_leg(f"phase 16 {label} {name}", kernels, {
+        **none, **{k: n * runs for k, n in per_run.items()}})
+    rows = rows_of(resp)
+    if rows != one_rows:
+        fail(f"phase 16 {label} {name}: {rows[:3]} ({len(rows)} rows) vs "
+             f"one card's {one_rows[:3]} ({len(one_rows)} rows)")
+    why = None if want is None else want(rows)
+    if why is not None:
+        fail(f"phase 16 {label} {name}: {why}")
+    if mesh_counters(ex) != c0:
+        fail(f"phase 16 {label} {name}: mesh_refused / host_fallback moved "
+             f"{c0} -> {mesh_counters(ex)}")
+    leg = {"query": name, "leg": label,
+           "p50_ms": statistics.median(lats) * 1e3,
+           "one_card_p50_ms": one_p50_ms, "cold_s": cold,
+           "kernel_fetch_ms": split.get("kernel_fetch"),
+           "launches": {k: v for k, v in got.items() if v},
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    print(f"[modes] {json.dumps(leg)} | {MODES_NOTE} | {card}", flush=True)
+    return got
+
+
+def chip_gauges(ex, card: str) -> None:
+    """The engine's per-chip gauges: a logical mesh is one chip, its
+    `hbm_cache_bytes{device=}` the blocks and resident rows it holds."""
+    from pinot_tpu_torch.parallel import device_label
+    from pinot_tpu_torch.utils.metrics import get_registry
+    eng, reg = ex.engine, get_registry("server")
+    labels = dict(eng._labels or {}, device=device_label(MODES_DEVICES[0]))
+    line = {"hbm_cache_bytes": reg.gauge("hbm_cache_bytes", labels=labels),
+            "hbm_resident_bytes": reg.gauge("hbm_resident_bytes",
+                                            labels=labels),
+            "bytes_by_device": eng.residency.bytes_by_device(),
+            "pressure": eng.residency.pressure()}
+    if not line["hbm_cache_bytes"]:
+        fail(f"phase 16: no hbm_cache_bytes gauge for {labels}")
+    print(f"[modes] gauges {json.dumps(line)} | {card}", flush=True)
+
+
+def modes_q1(segs, truths, sel1, q1_dirs, kernels, none: dict,
+             card: str) -> Counter:
+    """Phase 16 on phase 4's Q1 rows: sel.1 and the MSE leaf's doc ids on
+    a 4x1 mesh engine (K4 per slot), module 6 against its plain version on
+    the engine's staging; then Q1.1 and sel.1 through a
+    MiniClusterServer on that mesh over loopback, loading the first
+    MODES_SERVER_SEGMENTS of phase 4's directories (`q1_dirs`), beside one
+    card's executor over the same segments. `sel1`: one card's (rows,
+    p50_ms). Returns the phase's launches."""
+    from pinot_tpu_torch.cluster.mini import MiniClusterServer
+    from pinot_tpu_torch.query.context import QueryContext
+    from pinot_tpu_torch.query.executor import QueryExecutor
+    from pinot_tpu_torch.server.query_server import ServerConnection
+    total: Counter = Counter()
+    slots = len(MODES_DEVICES)
+    ex = QueryExecutor(segs, devices=MODES_DEVICES)
+    sql = SEL_QUERIES["sel.1"][0]
+    sel_truths = [t["sel"] for t in truths]
+    total.update(modes_query(
+        "q1", "sel.1", ex, sql, sel1[0], sel1[1], {"topn": slots}, kernels,
+        none, card, want=lambda rows: None if rows == selection_expected(
+            sel_truths, "sel.1", SSB_COLS)[0] else "rows differ from "
+        "numpy truth"))
+    # the MSE leaf's doc ids (K4 per slot), against the numpy truth that
+    # phase 4b's one card matched
+    zero_launches(kernels)
+    where = QueryContext.from_sql(
+        f"SELECT lo_discount FROM ssb WHERE {MSE_FILTER}").filter
+    c0 = mesh_counters(ex)
+    ids = ex.engine.filtered_doc_ids(segs, where)
+    total.update(launches_of_leg("phase 16 doc ids", kernels,
+                                 {**none, "topn": slots}))
+    for s, (g, t) in enumerate(zip(ids, truths)):
+        if g is None or not np.array_equal(g, t["mse"]["docs"]):
+            fail(f"phase 16 doc ids: segment {s}: {g} vs numpy "
+                 f"{t['mse']['docs']}")
+    if mesh_counters(ex) != c0:
+        fail("phase 16 doc ids: mesh_refused / host_fallback moved")
+    print(f"[modes] {json.dumps({'doc_ids': sum(len(g) for g in ids)})} | "
+          f"{MODES_NOTE} | {card}", flush=True)
+    chip_gauges(ex, card)
+    check_mesh_topn("sel.1", ex, sql, card)
+    del ex
+    # the server on the mesh, over loopback TCP
+    n = MODES_SERVER_SEGMENTS
+    srv = MiniClusterServer("modes_server", devices=MODES_DEVICES)
+    for d in q1_dirs[:n]:
+        srv.data_manager.table("ssb").add_segment_from_dir(d)
+    srv.start()
+    try:
+        conn = ServerConnection("127.0.0.1", srv.transport.port)
+        one = QueryExecutor(segs[:n], device=MODES_DEVICES[0])
+        for name, q, per_run, want in (
+                ("q1.1", Q1_QUERIES["q1.1"],
+                 {"scan_agg": slots, "mesh_fold": 1},
+                 q1_want(truths, "q1.1", n)),
+                ("sel.1", sql, {"topn": slots},
+                 lambda rows: None if rows == selection_expected(
+                     sel_truths[:n], "sel.1", SSB_COLS)[0]
+                 else "rows differ from numpy truth")):
+            one_resp, _c, one_lats, _s = time_query(one, q, MODES_ITERS)
+            total.update(modes_query(
+                "server", name, WireExecutor(conn, "ssb", srv), q,
+                rows_of(one_resp), statistics.median(one_lats) * 1e3,
+                per_run, kernels, none, card, want=want))
+    finally:
+        srv.stop()
+    del one
+    return total
+
+
+#: the server leg's segments of phase 4 (one a slot)
+MODES_SERVER_SEGMENTS = 4
+
+
+class WireExecutor:
+    """A server over loopback as time_query drives an executor:
+    execute(sql) requests `table` through `conn` and reduces the decoded
+    reply; `engine` is the server's."""
+
+    def __init__(self, conn, table: str, server):
+        self.conn, self.table = conn, table
+        self.engine = server.executor.engine
+        self.last_stage_ms: dict = {}
+
+    def execute(self, sql: str):
+        from pinot_tpu_torch.query.context import QueryContext
+        from pinot_tpu_torch.query.reduce import reduce_results
+        from pinot_tpu_torch.server import datatable
+        results, exc, _stats, _tree = datatable.deserialize_results_ex(
+            self.conn.request(self.table, sql))
+        if exc:
+            fail(f"phase 16 server: {exc}")
+        return reduce_results(QueryContext.from_sql(sql), results)
 
 
 # ---------------------------------------------------------------------------
@@ -5865,7 +6318,7 @@ def server_phase(tmp: str, seed: int, q1_dirs: list, truths: list,
                 fail(f"server: Q1.1 after the replace: {err}")
             new0 = tdm.current_segment("ssb_0")
             # the engine's resident rows held for the new segment object
-            mine = sum(nb for s, _row, nb
+            mine = sum(nb for s, _row, nb, _chip
                        in list(eng.residency._entries.values())
                        if s is new0)
             if moved != mine or not moved:
@@ -5923,6 +6376,7 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from pinot_tpu_torch.ops import _cuda
+        from pinot_tpu_torch.ops import kernels as kmod
         from pinot_tpu_torch.query.executor import QueryExecutor
     except ImportError as e:
         fail(f"the port's package is missing beside chip_smoke.py: {e}")
@@ -5979,6 +6433,16 @@ def main() -> None:
     for name, inputs in topn_kernel_inputs(args.seed).items():
         k4_cases[name] = check_topn(name, *inputs)
         print(f"[kernel] topn {json.dumps(k4_cases[name])}", flush=True)
+        if name.startswith("a:"):  # row 5 on phase 16's 4x1 mesh
+            plan, cols, params, num_docs, D = inputs
+            shard = kmod.sharded_topn_kernel(plan, modes_mesh())
+            scols = sharded_cols(cols)
+            check_sharded("topn", name, _cuda.TOPN,
+                          lambda: shard(scols, params, num_docs, D),
+                          kmod.make_topn_kernel(plan)(cols, params,
+                                                         num_docs, D),
+                          k4_cases[name], card)
+            del scols
     # the kernels line carries case (a), the shape of sel.1 and sel.4, and
     # the largest error over all four cases
     k4 = dict(k4_cases["a: raw value DESC k=10"],
@@ -6044,10 +6508,23 @@ def main() -> None:
     # K7 clp_match at the log leg's block, in both modes
     k7_cases = {}
     for mode in ("a", "b"):
-        k7_cases[mode] = check_clp(f"mode {mode}",
-                                   *clp_kernel_inputs(args.seed, mode))
+        leaves, cols, params, D = clp_kernel_inputs(args.seed, mode)
+        k7_cases[mode] = check_clp(f"mode {mode}", leaves, cols, params, D)
         print(f"[kernel] clp_match {json.dumps(k7_cases[mode])} | {card}",
               flush=True)
+        if mode == "b":  # row 11 on phase 16's 4x1 mesh
+            nd = torch.full((K7_SEGMENTS,), D, dtype=torch.int32,
+                            device="cuda")
+            shard = kmod.segments_sharded(
+                modes_mesh(), lambda c, p, _nd, d: _cuda.clp_match(
+                    leaves, c, p, d)[0])
+            scols = sharded_cols(cols)
+            check_sharded("clp_match", f"mode {mode}", _cuda.CLP_MATCH,
+                          lambda: shard(scols, params, nd, D),
+                          _cuda.clp_match(leaves, cols, params, D)[0],
+                          k7_cases[mode], card)
+            del scols
+        del leaves, cols, params
         torch.cuda.empty_cache()
     k7 = dict(k7_cases["b"], launches=0)
 
@@ -6060,10 +6537,21 @@ def main() -> None:
             ("sketch_agg", sketch_kernel_inputs),
             ("topn",
              lambda s: topn_kernel_inputs(s)["a: raw value DESC k=10"])):
-        batched[kname] = check_batched(kname,
-                                       *batched_inputs(inputs_fn, args.seed))
+        plan, sets, plist, ndlist, D = batched_inputs(inputs_fn, args.seed)
+        batched[kname] = check_batched(kname, plan, sets, plist, ndlist, D)
         print(f"[kernel] {kname} batched {json.dumps(batched[kname])} "
               f"| {card}", flush=True)
+        if kname == "topn":  # row 8b on phase 16's 4x1 mesh (broadcast)
+            idx = BATCH_FORMS["broadcast"]
+            shard = kmod.batched_sharded_topn_kernel(plan, modes_mesh())
+            scols = [sharded_cols(sets[0])]
+            check_sharded("topn_batched", "a, B=8 broadcast", _cuda.TOPN,
+                          lambda: shard(scols, plist, ndlist[:1], idx, D),
+                          kmod.batched_kernel(plan)(
+                              sets[:1], plist, ndlist[:1], idx, D),
+                          batched[kname], card)
+            del scols
+        del plan, sets, plist, ndlist
         torch.cuda.empty_cache()
     kb_batched = check_bucket_batched(args.seed)
     print(f"[kernel] group_agg bucket batched {json.dumps(kb_batched)} "
@@ -6183,6 +6671,8 @@ def main() -> None:
                          "p50_ms": statistics.median(lats) * 1e3,
                          "cold_s": cold,
                          "rows_per_s": rows / statistics.median(lats)})
+            if name == "sel.1":  # phase 16's one-card reference
+                sel1 = (rows_of(resp), statistics.median(lats) * 1e3)
         resp, cold, lats, splits["dist.1"] = time_query(ex, DIST_QUERY,
                                                         ITERS)
         want = sorted(set().union(*(t["dist.1"] for t in sel_truths)))
@@ -6249,6 +6739,14 @@ def main() -> None:
         count_phase9(p9j, p9)
         torch.cuda.empty_cache()
         lap("phase 13 and 9j")
+        # phase 16 on the Q1 rows: sel.1, the doc ids and the server on a
+        # logical 4x1 mesh
+        mesh_total.update(modes_q1(
+            segs, truths, sel1, [os.path.join(tmp, f"ssb_{i}")
+                                 for i in range(Q1_SEGMENTS)],
+            kernels, none, card))
+        torch.cuda.empty_cache()
+        lap("phase 16 on the Q1 rows")
 
         # phase 4c: the staging levels (residency) on the Q1 segments
         k6["launches"] += residency_phase(segs, truths, kernels, none,
@@ -6504,7 +7002,7 @@ def main() -> None:
         lap("phase 11 and 9h")
         for kern, entry in ((_cuda.SCAN_AGG, k1), (_cuda.GROUP_AGG, k2),
                             (_cuda.TOPN, k4), (_cuda.ROW_ASSEMBLE, k6),
-                            (_cuda.CLP_MATCH, k7)):
+                            (_cuda.CLP_MATCH, k7), (_cuda.MESH_FOLD, k9)):
             entry["launches"] += log_launches[kern.name]
         count_phase9(p9h, p9)
 
@@ -6568,10 +7066,11 @@ def main() -> None:
     k8_batched["launches"] = p9["vector_topk"][1]
     if not k8["launches"] or not k8_batched["launches"]:
         fail("the main path never launched vector_topk, single and batched")
-    # phase 13's launches (the mesh legs run K1-K3 and K6 as well)
+    # phase 13's and phase 16's Q1 launches (the mesh legs run K1-K4 and
+    # K6 as well)
     for kern, entry in ((_cuda.SCAN_AGG, k1), (_cuda.GROUP_AGG, k2),
-                        (_cuda.SKETCH_AGG, k3), (_cuda.ROW_ASSEMBLE, k6),
-                        (_cuda.MESH_FOLD, k9)):
+                        (_cuda.SKETCH_AGG, k3), (_cuda.TOPN, k4),
+                        (_cuda.ROW_ASSEMBLE, k6), (_cuda.MESH_FOLD, k9)):
         entry["launches"] += mesh_total[kern.name]
     k9["launches"] += p9["mesh_fold"][0]
     k9_batched["launches"] = p9["mesh_fold"][1]

@@ -24,14 +24,16 @@ class MiniClusterServer:
     def __init__(self, instance_id: str = "server_0", device=None,
                  value_dtype: torch.dtype = torch.float32,
                  config: Optional[PinotConfiguration] = None,
-                 host: str = "127.0.0.1", port: int = 0):
-        """device: None means "cuda", and raises RuntimeError when no CUDA
-        device is present; "cpu" runs the plain PyTorch kernels."""
+                 host: str = "127.0.0.1", port: int = 0, devices=None):
+        """device, devices: as ServerQueryExecutor takes them. None for
+        both means every card of the host, and raises RuntimeError when no
+        CUDA device is present; "cpu" runs the plain PyTorch kernels;
+        devices=[...] a segments-only mesh over those devices."""
         self.instance_id = instance_id
         self.data_manager = InstanceDataManager(instance_id)
         self.executor = ServerQueryExecutor(self.data_manager, device=device,
                                             value_dtype=value_dtype,
-                                            config=config)
+                                            config=config, devices=devices)
         self.transport = QueryServer(self.executor, host=host, port=port)
 
     def start(self) -> None:

@@ -74,25 +74,38 @@ apply; a refusal raises NotOffloadable with the JAX reason, counted as
 filtered doc ids per segment from K4.
 
 A mesh engine (`mesh=`, a parallel.mesh.Mesh over (segments, docs); or
-`devices=`, a segments-only mesh; JAX :74-105) pads S to the mesh's
-segment multiple and D to its doc multiple (JAX `_padded_S` :1963,
-`_padded_D` :1979), assembles each block on the lead device and keeps its
-[S_loc, D_loc] shards in the block cache, one per slot (JAX
-`_reshard_block` :2611), and launches `kernels.sharded_kernel`: K1-K3
-per slot, then K9 `mesh_fold` over the doc slices. On an explicit mesh of
-more than one slot an aggregation merges instead (JAX :455-496,
-ops/collective.py): one K9 folds every slot's partials into one row for
-the batch, through the host-built remap of dense group keys
-(`_merged_group_params`, cached per segment batch); the float32
-precision gate, the group caps and the config key
-`pinot.server.mesh.collective.merge` keep the sharded launch and the
-host fold, counted as `mesh_merge_fallback{reason}`, a merge as
-`mesh_merge_served`. The mesh's shape and the merge ride the coalesce
-key. A selection, the MSE leaf's doc ids, a CLP leaf, a star-tree query
-on a segments-only mesh and a time bucket on an explicit mesh raise
-NotOffloadable with reason 'mesh', counted as `mesh_refused{mode}`; a
-vector search on a doc-sharded mesh is JAX's 'staging' fallback; a
-star-tree query on a doc-sharded mesh takes the scan leg (JAX :674).
+`devices=`, a segments-only mesh; with neither, and no `device=`, every
+CUDA device: one card alone, several as a segments-only mesh; JAX :74-105)
+pads S to the mesh's segment multiple and D to its doc multiple (JAX
+`_padded_S` :1963, `_padded_D` :1979), assembles each block on the lead
+device and keeps its [S_loc, D_loc] shards in the block cache, one per slot
+(JAX `_reshard_block` :2611). An aggregation launches
+`kernels.sharded_kernel`: K1-K3 per slot (K7 first for a CLP leaf, its
+tables split by segment with the other parameters), then K9 `mesh_fold`
+over the doc slices. On an explicit mesh of more than one slot an
+aggregation merges instead (JAX :455-496, ops/collective.py): one K9 folds
+every slot's partials into one row for the batch, through the host-built
+remap of dense group keys (`_merged_group_params`, cached per segment
+batch); the float32 precision gate, the group caps, the config key
+`pinot.server.mesh.collective.merge` and the `server.mesh.collective`
+failpoint keep the sharded launch and the host fold, counted as
+`mesh_merge_fallback{reason}`, a merge as `mesh_merge_served`. On a
+segments-only mesh (doc axis 1, implicit or explicit; JAX routes on the
+doc axis) a selection's top-N and the MSE leaf's doc ids run K4 per slot,
+a vector search K8 and a star-tree query K5
+(`kernels.sharded_topn_kernel`, `startree_device.sharded_kernel`), each
+slot's rows concatenated in segment order on the lead, with no fold. The
+mesh's shape and the merge ride the coalesce key. A top-N and the doc ids
+on a doc-sharded mesh raise NotOffloadable with reason 'mesh' (JAX's host
+path, :1446-1447, :1758), a time bucket on an explicit mesh too (JAX
+:282-292), each counted as `mesh_refused{mode}`; a vector search on a
+doc-sharded mesh is JAX's 'staging' fallback; a star-tree query there
+takes the scan leg (JAX :674). Resident rows spread round-robin over the
+mesh's distinct devices and charge their chip's share of the resident
+budget (JAX `_put_row` :2585, ops/residency.py); K6 assembles a block on
+the lead from them, and a mesh engine reports `hbm_cache_bytes{device=}`
+and `hbm_resident_bytes{device=}` per chip. A logical mesh, every slot on
+one device, is one chip.
 
 A GROUP BY or DISTINCT over dictionary columns whose dense key space
 exceeds MAX_DEVICE_GROUPS plans compact keys (JAX :1688-1694): each
@@ -119,12 +132,14 @@ star-tree is answered from the fitted trees' pre-aggregated records first
 drops it through to the scan path (K1/K2). A selection with neither a
 filter nor an ORDER BY is answered on the host from the first docs of each
 segment, as the JAX engine leaves it to its host executor. A query or
-segment batch outside the slice raises NotImplementedError naming the
-missing feature: the port has no host executor to hand it to.
+segment batch the engine refuses raises NotOffloadable naming the missing
+feature; the server's call (query/executor.py `execute_context`) hands it,
+and only it, to the host executor.
 """
 from __future__ import annotations
 
 import functools
+import itertools
 import threading
 import time
 from collections import Counter, OrderedDict
@@ -143,7 +158,9 @@ from pinot_tpu_torch.ops import residency as residency_mod
 #: most rows a selection fetches per segment (limit + offset)
 from pinot_tpu_torch.ops._cuda import TOPN_MAX_K
 from pinot_tpu_torch.ops.plan_ir import DeviceLeaf, DevicePlan, is_grouped
-from pinot_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_block
+from pinot_tpu_torch.parallel.mesh import (Mesh, default_devices,
+                                           device_label, distinct_devices,
+                                           segments_mesh, shard_block)
 from pinot_tpu_torch.query import executor_cpu
 from pinot_tpu_torch.query.context import QueryContext
 from pinot_tpu_torch.query.expressions import (
@@ -155,6 +172,7 @@ from pinot_tpu_torch.query.results import (
 from pinot_tpu_torch.segment.loader import ImmutableSegment
 from pinot_tpu_torch.utils import tracing
 from pinot_tpu_torch.utils.config import PinotConfiguration
+from pinot_tpu_torch.utils.failpoints import fire
 from pinot_tpu_torch.utils.metrics import get_registry
 
 MAX_DEVICE_GROUPS = 1 << 20
@@ -196,13 +214,17 @@ class NotOffloadable(NotImplementedError):
 
 
 class TorchOperatorExecutor:
-    """Plans, stages and runs aggregation queries on one device; safe to
-    call from many threads at once.
+    """Plans, stages and runs queries on one device or a mesh of them;
+    safe to call from many threads at once.
 
     value_dtype: float32 (the card's default: f32 value blocks, exact int
     sums through isum planes) or float64 (f64 blocks, no isum).
-    device: the engine's device; None means "cuda", or the mesh's lead
-    device on a mesh engine (which must be the lead device if given).
+    device: the engine's device, or the mesh's lead device on a mesh engine
+    (which must be the lead device if given). With none of device, devices
+    and mesh the engine takes every CUDA device
+    (`parallel.mesh.default_devices`, JAX's `jax.devices()` default): one
+    card alone, several as a segments-only mesh; RuntimeError without a
+    CUDA device. device="cpu" runs the plain PyTorch versions.
     mesh: a parallel.mesh.Mesh over (segments, docs); devices: a list of
     devices for a segments-only mesh (one: that device), not both.
     config: a utils.config.PinotConfiguration; the engine reads the
@@ -252,20 +274,32 @@ class TorchOperatorExecutor:
         #: :87-91); devices= spans a segments-only mesh whose launches keep
         #: per-segment partials
         self._explicit_mesh = mesh is not None
+        if mesh is None and devices is None and device is None:
+            devices = default_devices()
         if mesh is None and devices is not None:
             devices = list(devices)
-            if len(devices) > 1:
-                mesh = make_mesh(devices, doc_axis=1)
-            elif devices and device is None:
+            mesh = segments_mesh(devices)
+            if mesh is None and device is None:
                 device = devices[0]
         self._mesh = mesh
         self._doc_axis = mesh.shape[1] if mesh is not None else 1
         if device is None:
-            device = mesh.lead if mesh is not None else "cuda"
+            device = mesh.lead
         self.device = torch.device(device)
         if mesh is not None and not _same_device(self.device, mesh.lead):
             raise ValueError(f"engine device {self.device} is not the "
                              f"mesh's lead device {mesh.lead}")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the port runs on the card; "
+                               "pass device='cpu' for the plain PyTorch "
+                               "kernels")
+        #: the chips: the mesh's distinct devices (a logical mesh on one
+        #: card is one chip), or the engine's device. Resident rows spread
+        #: over them round-robin and charge their chip's share of the
+        #: resident budget (JAX `_put_row` :2585)
+        self._chips = distinct_devices(mesh) if mesh is not None \
+            else [self.device]
+        self._row_rr = itertools.count()
         if value_dtype not in (torch.float32, torch.float64):
             raise ValueError(f"value dtype {value_dtype} is not float32/64")
         self.value_dtype = value_dtype
@@ -295,7 +329,8 @@ class TorchOperatorExecutor:
             admission=cfg.get_bool("pinot.server.hbm.admission.enabled",
                                    True),
             sample_window=cfg.get_int("pinot.server.hbm.admission.sample"),
-            metrics=self._metrics, labels=metrics_labels)
+            metrics=self._metrics, labels=metrics_labels,
+            devices=[device_label(d) for d in self._chips])
         #: plan and stage mutate the block and parameter caches and the
         #: meters, so they run under this lock; launches and fetches run
         #: outside it, on the dispatcher
@@ -378,9 +413,9 @@ class TorchOperatorExecutor:
         queries staged for K8), or `startree_fallback` / `clp_fallback` /
         `vector_fallback` with its reason; on a mesh, `mesh_merge_served`
         (merged launches staged), `mesh_merge_fallback` with its reason
-        ('disabled', 'precision', 'groups') and `mesh_refused` with the
-        refused mode ('topn', 'doc_ids', 'vector', 'clp', 'startree',
-        'tbucket')."""
+        ('disabled', 'chaos', 'precision', 'groups') and `mesh_refused`
+        with the refused mode ('topn' and 'doc_ids' on a doc-sharded mesh,
+        'tbucket' on an explicit one)."""
         return self.meters[(name, reason)]
 
     def _aggregation_missing(self, ctx: QueryContext
@@ -638,14 +673,29 @@ class TorchOperatorExecutor:
                 S=int(launch.num_docs.shape[0]), D=int(launch.D))
 
     def _refresh_tier_gauges(self) -> None:
-        """The staging levels' bytes (JAX `_refresh_tier_gauges` :2625, on
-        one device): `hbm_cache_bytes`, the assembled blocks and the
-        resident rows on the card; `host_row_cache_bytes`, the host rows."""
+        """The staging levels' bytes (JAX `_refresh_tier_gauges` :2625):
+        `hbm_cache_bytes`, the assembled blocks and the resident rows on
+        the device; `host_row_cache_bytes`, the host rows. A mesh engine
+        adds `hbm_cache_bytes{device=}` and `hbm_resident_bytes{device=}`
+        per chip: a block's shards are equal, so a chip holds the blocks'
+        share of the slots it fills, and its resident rows exactly."""
         self._metrics.set_gauge("hbm_cache_bytes",
                                 self._cached + self._residency.bytes,
                                 labels=self._labels)
         self._metrics.set_gauge("host_row_cache_bytes", self._host_bytes,
                                 labels=self._labels)
+        if self._mesh is None:
+            return
+        by_dev = self._residency.bytes_by_device()
+        for chip in self._chips:
+            lab = device_label(chip)
+            slots = sum(1 for d in self._mesh.flat if d == chip)
+            labels = dict(self._labels or {}, device=lab)
+            self._metrics.set_gauge(
+                "hbm_cache_bytes", self._cached * slots // self._mesh.size
+                + by_dev.get(lab, 0), labels=labels)
+            self._metrics.set_gauge("hbm_resident_bytes",
+                                    by_dev.get(lab, 0), labels=labels)
 
     def _prepare_locked(self, segments, ctx: QueryContext, cancel_check):
         """_prepare's plan and stage; caller holds the engine lock."""
@@ -653,7 +703,7 @@ class TorchOperatorExecutor:
             return self._prepare_agg(segments, ctx, cancel_check,
                                      distinct=True)
         if not ctx.aggregations:
-            if self._mesh is not None:
+            if self._doc_axis > 1:
                 raise self._selection_refusal(ctx)
             return self._prepare_vector(segments, ctx, cancel_check) \
                 if _is_vector(ctx) else \
@@ -672,7 +722,7 @@ class TorchOperatorExecutor:
             ctx = _distinct_context(ctx)
         plan, slots_of_fn = self._plan(segments, ctx)
         self._tls.planned = time.perf_counter()
-        minfo, why = self._merge_gate(segments, plan) \
+        minfo, why = self._merge_gate(segments, plan, ctx.table) \
             if self._mesh is not None and not distinct else (None, None)
         launch = self._launch(
             segments, ctx, plan, kernels.make_kernel(plan, self.value_dtype),
@@ -710,32 +760,37 @@ class TorchOperatorExecutor:
         segment batch; its column-set identity carries the fitted trees, so
         members that fit different trees of one segment stack rather than
         share a block."""
-        st = self._plan_startree(segments, ctx, meter=self._mesh is None)
+        st = self._plan_startree(segments, ctx)
         if st is None:
             return None
-        if self._mesh is not None:
-            # a segments-only mesh (a doc-sharded one takes the scan leg,
-            # `_startree_candidate`): K5 has no sharded form
-            raise self._mesh_refusal("startree", "a star-tree query")
         plan, needed, fits = st
         self._tls.planned = time.perf_counter()
-        kernel = startree_device.make_startree_kernel(plan, self.value_dtype)
+        vdt = self.value_dtype
         cols, params, num_docs, D = self._stage_startree(segments, ctx, plan,
                                                          fits)
+        if self._mesh is None:
+            kernel = startree_device.make_startree_kernel(plan, vdt)
+            batched = startree_device.batched_kernel(plan, vdt)
+        else:
+            # a segments-only mesh (a doc-sharded one takes the scan leg,
+            # `_startree_candidate`): K5 per slot over its segments' trees
+            kernel = startree_device.sharded_kernel(plan, self._mesh, vdt)
+            batched = startree_device.batched_sharded_kernel(plan,
+                                                             self._mesh, vdt)
         batch_key = None
         if self._dispatcher.batch_max > 1:
             if self._cross_table and D <= DOC_BUCKET_MAX:
                 batch_key = (plan, int(num_docs.shape[0]), D, 0,
-                             _shape_sig(cols, params))
+                             _shape_sig(cols, params)) + self._mesh_sig()
             else:
-                batch_key = (plan, _batch_key(segments), D, 0)
+                batch_key = (plan, _batch_key(segments), D, 0) \
+                    + self._mesh_sig()
         launch = dispatch_mod.Launch(
             call=lambda: kernel(cols, params, num_docs, D),
             cols=cols, params=params, num_docs=num_docs, D=D,
             batch_key=batch_key, cols_key=(_batch_key(segments),
                                            tuple(f.ti for f in fits)),
-            batched=startree_device.batched_kernel(plan, self.value_dtype),
-            cancel_check=cancel_check,
+            batched=batched, cancel_check=cancel_check,
             site_ctx={"table": ctx.table, "mode": "startree"},
             docs=sum(s.num_docs for s in segments))
         return launch, lambda packed: startree_device.assemble(
@@ -776,7 +831,13 @@ class TorchOperatorExecutor:
         mesh_sig: tuple = ()
         if self._mesh is not None:
             vdt, mesh = self.value_dtype, self._mesh
-            if minfo is None:
+            if plan.mode == "topn":
+                # a segments-only mesh: K4 per slot, the winners in
+                # segment order (a top-K is per segment: no fold)
+                kernel = kernels.sharded_topn_kernel(plan, mesh, vdt)
+                batched = kernels.batched_sharded_topn_kernel(plan, mesh,
+                                                              vdt)
+            elif minfo is None:
                 kernel = kernels.sharded_kernel(plan, mesh, vdt)
                 batched = kernels.batched_sharded_kernel(plan, mesh, vdt)
             else:
@@ -787,9 +848,9 @@ class TorchOperatorExecutor:
                           _m(c, p, nd, d, _g, _f))
                 batched = collective.batched_merged_kernel(plan, mesh, vdt,
                                                            G, fold)
-            mesh_sig = (("mesh", mesh.key, minfo is not None,
-                         id(minfo["fold"]) if minfo and plan.group_cols
-                         else None),)
+            mesh_sig = self._mesh_sig(minfo is not None,
+                                      id(minfo["fold"]) if minfo
+                                      and plan.group_cols else None)
         if gkw:
             batched = functools.partial(batched, **gkw)
         batch_key = None
@@ -810,18 +871,32 @@ class TorchOperatorExecutor:
     # ------------------------------------------------------------------
     # collective merge (ops/collective.py; JAX :455-496, :529-656)
     # ------------------------------------------------------------------
-    def _merge_gate(self, segments, plan: DevicePlan):
+    def _mesh_sig(self, merged: bool = False, remap=None) -> tuple:
+        """The mesh's part of a coalesce key (JAX :497-514 `mesh_sig`): its
+        shape and devices, the merge and a grouped merge's remap, so
+        launches never pair across differently sharded engines, merged
+        with unmerged, or over two remaps; () on one device."""
+        if self._mesh is None:
+            return ()
+        return (("mesh", self._mesh.key, merged, remap),)
+
+    def _merge_gate(self, segments, plan: DevicePlan, table: str):
         """(minfo, None) where the merge engages: an explicit mesh of more
-        than one slot, the config key on, and the gates of
-        `_merged_prepare` passed; else (None, the reason an eligible launch
-        keeps the per-segment sharded kernel and the host fold, JAX :536),
-        or (None, None) where no merge is eligible. The caller counts it
-        once the launch is staged: `mesh_merge_served`, or
-        `mesh_merge_fallback{reason}`. Caller holds the engine lock."""
+        than one slot, the config key on, the `server.mesh.collective`
+        failpoint unarmed (armed: reason 'chaos', JAX :461-471) and the
+        gates of `_merged_prepare` passed; else (None, the reason an
+        eligible launch keeps the per-segment sharded kernel and the host
+        fold, JAX :536), or (None, None) where no merge is eligible. The
+        caller counts it once the launch is staged: `mesh_merge_served`,
+        or `mesh_merge_fallback{reason}`. Caller holds the engine lock."""
         if not self._explicit_mesh or self._mesh.size < 2:
             return None, None
         if not self._collective_merge:
             return None, "disabled"
+        try:
+            fire("server.mesh.collective", table=table, mode="agg")
+        except Exception:  # noqa: BLE001 — armed chaos: the host fold
+            return None, "chaos"
         S = self._padded_S(len(segments), self._padded_D(segments))
         try:
             return self._merged_prepare(segments, plan, S), None
@@ -944,16 +1019,14 @@ class TorchOperatorExecutor:
         return NotOffloadable(f"{what} on {where} (mesh)", reason="mesh")
 
     def _selection_refusal(self, ctx: QueryContext) -> NotOffloadable:
-        """A selection on a mesh engine: a vector search on a doc-sharded
-        mesh is JAX's 'staging' fallback (:963), counted as
-        `vector_fallback`; every other one (a top-N across doc shards is
-        JAX's host path, :1446) is a mesh refusal."""
-        if _is_vector(ctx) and self._doc_axis > 1:
+        """A selection on a doc-sharded mesh (a segments-only one runs it
+        per slot): a vector search is JAX's 'staging' fallback (:963),
+        counted as `vector_fallback`; a top-N across doc shards is JAX's
+        host path (:1446), a mesh refusal."""
+        if _is_vector(ctx):
             return self._vector_refusal(
                 "staging", "vector blocks on a doc-sharded mesh")
-        return self._mesh_refusal("vector" if _is_vector(ctx) else "topn",
-                                  "a vector search" if _is_vector(ctx)
-                                  else "a selection (top-N)")
+        return self._mesh_refusal("topn", "a selection (top-N)")
 
     def _vector_refusal(self, reason: str, what: str,
                         meter: bool = True) -> NotOffloadable:
@@ -1083,21 +1156,29 @@ class TorchOperatorExecutor:
         except NotOffloadable as e:
             raise self._vector_refusal("staging", str(e)) from None
         self.meters[("vector_served", None)] += 1
-        kernel = kernels.make_vector_kernel(plan)
+        if self._mesh is None:
+            kernel = kernels.make_vector_kernel(plan)
+            batched = kernels.batched_kernel(plan)
+        else:
+            # a segments-only mesh: K8 per slot, the winners in segment
+            # order on the lead
+            kernel = kernels.sharded_topn_kernel(plan, self._mesh)
+            batched = kernels.batched_sharded_topn_kernel(plan, self._mesh)
         batch_key = None
         if self._dispatcher.batch_max > 1:
             if self._cross_table and D <= DOC_BUCKET_MAX:
                 batch_key = (plan, int(num_docs.shape[0]), D, 0,
-                             _shape_sig(cols, params))
+                             _shape_sig(cols, params)) + self._mesh_sig()
             else:
-                batch_key = (plan, _batch_key(segments), D, 0)
+                batch_key = (plan, _batch_key(segments), D, 0) \
+                    + self._mesh_sig()
         launch = dispatch_mod.Launch(
             call=lambda: kernel(cols, params, num_docs, D),
             cols=cols, params=params, num_docs=num_docs, D=D,
             batch_key=batch_key,
             cols_key=_batch_key(segments) if stamps is None
             else (_batch_key(segments), stamps),
-            batched=kernels.batched_kernel(plan), cancel_check=cancel_check,
+            batched=batched, cancel_check=cancel_check,
             site_ctx={"table": ctx.table, "mode": "vector"},
             docs=sum(s.num_docs for s in segments))
         return launch, lambda packed: vector_device.assemble(
@@ -1111,10 +1192,12 @@ class TorchOperatorExecutor:
         matching docs of each segment, sorted int64; None for a segment
         with more matches, and for every segment where the engine refuses
         the filter. The launch rides the ring with K4's coalesce key, so
-        concurrent leaf scans of one plan make one batched K4 launch."""
+        concurrent leaf scans of one plan make one batched K4 launch. On a
+        segments-only mesh K4 runs per slot (a segment's doc ids are its
+        own on every slot); a doc-sharded mesh raises NotOffloadable,
+        reason 'mesh', where JAX returns no ids (:1758)."""
         nothing: List[Optional[np.ndarray]] = [None] * len(segments)
-        if self._mesh is not None:
-            # JAX returns no ids on a doc-sharded mesh (:1758)
+        if self._doc_axis > 1:
             raise self._mesh_refusal("doc_ids", "the MSE leaf's doc ids")
         if not segments or filter_expr is None \
                 or self._filter_missing(filter_expr) is not None:
@@ -1131,6 +1214,7 @@ class TorchOperatorExecutor:
                         segments, ctx, plan,
                         kernels.make_topn_kernel(plan, self.value_dtype),
                         None, "doc_ids")
+                    self._refresh_tier_gauges()
             except NotOffloadable:
                 return nothing
             packed = dispatch_mod.wait_result(
@@ -1532,8 +1616,6 @@ class TorchOperatorExecutor:
         `col` (JAX `_clp_leaf` :704). The pattern stays out of the leaf:
         its constants resolve at staging, so queries whose patterns differ
         share one program."""
-        if self._mesh is not None:
-            raise self._mesh_refusal("clp", f"the CLP leaf {e.name}")
         if e.name not in ("like", "regexp_like") or len(e.args) != 2 \
                 or not isinstance(e.args[1], Literal):
             raise self._clp_fallback("predicate", f"filter {e}")
@@ -1887,7 +1969,12 @@ class TorchOperatorExecutor:
         t = torch.from_numpy(arr)
         if self.device.type != "cuda":
             return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        dev = self.device
+        if column and len(self._chips) > 1:
+            # a mesh of several cards: column rows round-robin over them,
+            # so resident bytes spread instead of piling onto the lead
+            dev = self._chips[next(self._row_rr) % len(self._chips)]
+        return t.pin_memory().to(dev, non_blocking=True)
 
     def _meter(self, name: str, value: float = 1) -> None:
         self._metrics.add_meter(name, value, labels=self._labels)
@@ -2007,7 +2094,12 @@ class TorchOperatorExecutor:
             rows[i] = self._upload(arr, column=True)
             if resident:
                 self._residency.admit(segments[i], kinds[i], names[i],
-                                      dtype_str, rows[i], arr.nbytes)
+                                      dtype_str, rows[i], arr.nbytes,
+                                      device=device_label(rows[i].device))
+        if len(self._chips) > 1:
+            # rows live on their chips; K6 assembles on the lead (JAX
+            # anchors the stack on device 0, :2548-2552)
+            rows = [r.to(self.device, non_blocking=True) for r in rows]
         dev = kernels.assemble_rows(rows, S, D)
         if self._mesh is not None:
             # the block assembles on the lead device, then its [S_loc,
@@ -2232,11 +2324,10 @@ class TorchOperatorExecutor:
         with self._engine_lock:
             try:
                 st = None
-                if self._mesh is not None and not ctx.aggregations \
+                if self._doc_axis > 1 and not ctx.aggregations \
                         and not ctx.distinct:
-                    return False  # selections are refused on a mesh
-                if ctx.aggregations and not ctx.distinct \
-                        and self._mesh is None:
+                    return False  # refused on a doc-sharded mesh
+                if ctx.aggregations and not ctx.distinct:
                     st = self._plan_startree(segments, ctx, meter=False)
                 if st is not None:
                     plan, _needed, fits = st

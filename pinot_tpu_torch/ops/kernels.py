@@ -94,6 +94,10 @@ __all__ = ["make_kernel", "plain_kernel", "make_topn_kernel", "topn_kernel",
            "DOC_COMBINE", "MeshFold", "doc_fold", "mesh_fold",
            "mesh_fold_plain", "sharded_kernel", "batched_sharded_kernel",
            "plain_sharded_kernel", "plain_batched_sharded_kernel",
+           "segments_sharded", "segments_batched_sharded",
+           "sharded_topn_kernel", "plain_sharded_topn_kernel",
+           "batched_sharded_topn_kernel",
+           "plain_batched_sharded_topn_kernel",
            "trace_count", "trace_count_by_plan", "plan_fingerprint",
            "ISUM_PLANES", "ISUM_U_BITS"]
 
@@ -1040,7 +1044,8 @@ def mesh_shards(mesh: Mesh, col_sets: Sequence[Dict[str, ShardedBlock]],
     counts) of its [S_loc, D_loc] shard on its device, with (S_loc,
     D_loc). A slot's doc counts are clamp(num_docs - doc0, 0, D_loc), doc0
     its doc slice's first global doc: K1-K3 mask docs from 0 up to them,
-    as the JAX kernel masks global doc positions (`_shard_one`)."""
+    as the JAX kernel masks global doc positions (`_shard_one`). A
+    parameter on the host stays there (K8's 'vq:nc' bound)."""
     n_doc = mesh.shape[1]
     s_loc, d_loc = local_shape(mesh, ndlist[0].shape[0], D)
     pslices = [{k: shard_segments(mesh, v) for k, v in pr.items()}
@@ -1141,6 +1146,101 @@ def _batched_sharded(plan, mesh, members, fold_fn):
                            G)
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# per-segment top-K on a segments-only mesh (GSPMD over kernels.py:583
+# `make_topn_kernel` and :858 `make_batched_topn_kernel`; over
+# vector_device.py:104 / :163)
+# ---------------------------------------------------------------------------
+
+def segments_sharded(mesh: Mesh, single):
+    """fn(cols, params, num_docs, D, *rest) -> [S, ...]: `single` (a
+    per-segment kernel with that signature) on each slot's [S_loc, D]
+    shard, its [S_loc, ...] rows moved to the lead device and
+    concatenated in segment order. No fold: each output row is one
+    segment's own. A segments-only mesh only (doc axis 1)."""
+    _segments_only(mesh)
+
+    def kernel(cols: Dict[str, ShardedBlock], params: Tensors,
+               num_docs: torch.Tensor, D: int, *rest) -> torch.Tensor:
+        shards, _s_loc, d_loc = mesh_shards(mesh, [cols], [params],
+                                            [num_docs], D)
+        return torch.cat([single(cs[0], ps[0], ns[0], d_loc, *rest).to(
+            mesh.lead, non_blocking=True) for cs, ps, ns in shards], 0)
+
+    return kernel
+
+
+def segments_batched_sharded(mesh: Mesh, members):
+    """fn(col_sets, plist, ndlist, idx, D, *rest) -> [B, S, ...]: the
+    batched form of `segments_sharded`, `members` (a batched kernel)
+    launched once per slot for every member, the slots' [B, S_loc, ...]
+    rows concatenated on the segment axis."""
+    _segments_only(mesh)
+
+    def run(col_sets, plist, ndlist, idx, D, *rest):
+        shards, _s_loc, d_loc = mesh_shards(mesh, col_sets, plist, ndlist,
+                                            D)
+        return torch.cat([members(cs, ps, ns, idx, d_loc, *rest).to(
+            mesh.lead, non_blocking=True) for cs, ps, ns in shards], 1)
+
+    return run
+
+
+def _segments_only(mesh: Mesh) -> None:
+    if mesh.shape[1] != 1:
+        raise ValueError(f"a per-segment top-K takes a segments-only mesh, "
+                         f"not {mesh.shape[0]}x{mesh.shape[1]}")
+
+
+def _topk_single(plan: DevicePlan, value_dtype: torch.dtype, plain: bool):
+    """A top-N or vector plan's single-launch kernel (K4 / K8, or its
+    plain version) as fn(cols, params, num_docs, D)."""
+    if plan.mode == "vector":
+        if not plain:
+            return make_vector_kernel(plan)
+        from pinot_tpu_torch.ops import vector_device
+        return functools.partial(vector_device.vector_topk, plan)
+    if not plain:
+        return make_topn_kernel(plan, value_dtype)
+    return lambda cols, params, num_docs, D: topn_kernel(
+        plan, cols, params, num_docs, D, value_dtype)
+
+
+def sharded_topn_kernel(plan: DevicePlan, mesh: Mesh,
+                        value_dtype: torch.dtype = torch.float32):
+    """fn(cols, params, num_docs, D) -> [S, 1 + k]: a top-N plan's K4 (a
+    vector plan's K8, [S, 1 + 2 kk]) per slot of a segments-only mesh,
+    the slots' winners in segment order on the lead device, in the single
+    device kernel's layout. cols: 'name' -> ShardedBlock; params (a CLP
+    leaf's tables and the vmask block's rows among them) and num_docs:
+    the global [S, ...] arrays, split by segment per slot; K8's host-side
+    'vq:nc' stays on the host."""
+    return segments_sharded(mesh, _topk_single(plan, value_dtype, False))
+
+
+def plain_sharded_topn_kernel(plan: DevicePlan, mesh: Mesh,
+                              value_dtype: torch.dtype = torch.float32):
+    """The plain version of `sharded_topn_kernel`, on whatever device its
+    inputs lie."""
+    return segments_sharded(mesh, _topk_single(plan, value_dtype, True))
+
+
+def batched_sharded_topn_kernel(plan: DevicePlan, mesh: Mesh,
+                                value_dtype: torch.dtype = torch.float32):
+    """fn(col_sets, plist, ndlist, idx, D) -> [B, S, ...]: B coalesced
+    top-N (or vector) queries of one plan, `batched_kernel`'s member axis
+    once per slot."""
+    return segments_batched_sharded(mesh, batched_kernel(plan, value_dtype))
+
+
+def plain_batched_sharded_topn_kernel(
+        plan: DevicePlan, mesh: Mesh,
+        value_dtype: torch.dtype = torch.float32):
+    """The plain version of `batched_sharded_topn_kernel`."""
+    return segments_batched_sharded(
+        mesh, plain_batched_kernel(plan, value_dtype))
 
 
 # ---------------------------------------------------------------------------

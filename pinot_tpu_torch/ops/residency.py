@@ -1,8 +1,8 @@
 """The device-resident row tier: one padded device row per (segment,
 column), kept on the card across queries and segment batches.
 
-Copy of pinot_tpu/ops/residency.py for one device (`ResidencyManager` :83,
-the transfer odometer :49-80). The engine's assembled-block cache keys a
+Copy of pinot_tpu/ops/residency.py (`ResidencyManager` :83, the transfer
+odometer :49-80). The engine's assembled-block cache keys a
 whole [S, D] block by its exact segment batch, so a batch that pruning
 recomposed, or that a newly sealed segment joined, would miss it and
 upload every column again. The unit that survives recomposition is the
@@ -26,9 +26,13 @@ flush the hot working set):
     still reads the row, and the caching allocator reuses its memory only
     after that kernel ran (every copy and launch is on one stream).
 
-Not ported: the per-device budget shares of a multi-chip mesh (`devices=`,
-`bytes_by_device`, the per-chip `pressure`), which belong to the
-multi-GPU slice.
+  * per-chip shares (JAX :99-135, `admit` :197-241): on an engine whose
+    mesh spans more than one device (`devices=`, their labels) a resident
+    row lives whole on one chip, so the budget splits evenly into
+    per-chip shares; an admission labelled with its chip (`device=`)
+    charges that chip's share and evicts on that chip first, and
+    `pressure` is the most-loaded chip's fill of its share. A logical
+    mesh on one card is one chip: one label, the whole budget.
 
 The module also owns the host-to-device transfer odometer: every byte the
 engine uploads is counted process-wide, column rows apart from per-query
@@ -83,18 +87,26 @@ class ResidencyManager:
 
     def __init__(self, budget_bytes: int, admission: bool = True,
                  sample_window: int = 4096, metrics=None,
-                 labels: Optional[Dict[str, str]] = None):
+                 labels: Optional[Dict[str, str]] = None, devices=None):
+        """devices: the chips' labels (or devices) of a mesh engine; more
+        than one splits the budget into equal per-chip shares."""
         self.budget_bytes = max(0, int(budget_bytes))
         self.enabled = self.budget_bytes > 0
         self.admission = bool(admission)
         self.sample_window = max(64, int(sample_window))
+        self.devices = list(devices) if devices else []
+        n = len(self.devices)
+        self.device_budget_bytes = \
+            self.budget_bytes // n if n > 1 else self.budget_bytes
         self._metrics = metrics
         self._labels = labels
         self._lock = threading.RLock()
-        #: key -> (segment, device row, nbytes); LRU order
-        self._entries: "OrderedDict[tuple, Tuple[Any, Any, int]]" = \
+        #: key -> (segment, device row, nbytes, chip label or ""); LRU order
+        self._entries: "OrderedDict[tuple, Tuple[Any, Any, int, str]]" = \
             OrderedDict()
         self._bytes = 0
+        #: chip label -> resident bytes (labelled admissions only)
+        self._dev_bytes: Dict[str, int] = {}
         #: (segment name, kind, col) -> access count (exact, bounded by the
         #: halving pass)
         self._freq: Dict[tuple, int] = {}
@@ -162,28 +174,52 @@ class ResidencyManager:
             return None
 
     def admit(self, seg, kind: str, col: str, dtype_str: str, dev_row,
-              nbytes: int) -> bool:
+              nbytes: int, device: Optional[str] = None) -> bool:
         """Offer an uploaded row for retention; True if it is now
         resident. A refusal never fails the query: the caller keeps its
-        own reference for this launch."""
+        own reference for this launch. device: the label of the chip
+        holding the row, whose share the row then charges: that chip
+        evicts (or declines) first, while the others stay warm."""
         if not self.enabled or nbytes > self.budget_bytes:
+            return False
+        dlabel = device or ""
+        if dlabel and nbytes > self.device_budget_bytes:
             return False
         key = self._key(seg, kind, col, dtype_str)
         fkey = self._fkey(seg, kind, col)
         with self._lock:
             old = self._entries.pop(key, None)
             if old is not None:
-                self._bytes -= old[2]
+                self._uncharge(old)
             seeded = self.seeding_active
             cand = self._freq.get(fkey, 0)
+            # the candidate's own chip first: a row never spans chips, so
+            # its chip's share binds before the pooled budget
+            while dlabel and self._dev_bytes.get(dlabel, 0) + nbytes \
+                    > self.device_budget_bytes:
+                vkey = next((k for k, e in self._entries.items()
+                             if e[3] == dlabel), None)
+                if vkey is None:
+                    break
+                if not self._evict_one_locked(vkey, cand, seeded):
+                    return False
             while self._bytes + nbytes > self.budget_bytes and self._entries:
                 if not self._evict_one_locked(next(iter(self._entries)),
                                               cand, seeded):
                     return False
-            self._entries[key] = (seg, dev_row, int(nbytes))
+            self._entries[key] = (seg, dev_row, int(nbytes), dlabel)
             self._bytes += int(nbytes)
+            if dlabel:
+                self._dev_bytes[dlabel] = \
+                    self._dev_bytes.get(dlabel, 0) + int(nbytes)
             self.admitted += 1
             return True
+
+    def _uncharge(self, entry) -> None:
+        """Take a popped entry's bytes off the pool and its chip."""
+        self._bytes -= entry[2]
+        if entry[3]:
+            self._dev_bytes[entry[3]] -= entry[2]
 
     def _evict_one_locked(self, vkey, cand: int, seeded: bool) -> bool:
         """The TinyLFU duel for one victim: False (refuse the candidate)
@@ -194,14 +230,14 @@ class ResidencyManager:
             self.rejected += 1
             self._meter("hbm_admission_rejected")
             return False
-        self._bytes -= self._entries.pop(vkey)[2]
+        self._uncharge(self._entries.pop(vkey))
         self.evicted += 1
         self._meter("hbm_evicted")
         return True
 
     def _drop_locked(self, keys) -> int:
         for k in keys:
-            self._bytes -= self._entries.pop(k)[2]
+            self._uncharge(self._entries.pop(k))
             self.evicted += 1
             self._meter("hbm_evicted")
         return len(keys)
@@ -231,11 +267,36 @@ class ResidencyManager:
         with self._lock:
             self._entries.clear()
             self._bytes = 0
+            self._dev_bytes.clear()
 
     @property
     def bytes(self) -> int:
         with self._lock:
             return self._bytes
+
+    def bytes_by_device(self) -> Dict[str, int]:
+        """Resident bytes per chip label (labelled admissions only)."""
+        with self._lock:
+            return dict(self._dev_bytes)
+
+    def max_device_bytes(self) -> int:
+        """The most-loaded chip's resident bytes; the pooled bytes where
+        no admission was labelled."""
+        with self._lock:
+            return max(self._dev_bytes.values()) if self._dev_bytes \
+                else self._bytes
+
+    def pressure(self) -> float:
+        """The budget fraction admission control reads: the most-loaded
+        chip's fill of its share where admissions are labelled (one hot
+        chip runs out alone), else the pooled fill; 0.0 unbudgeted."""
+        with self._lock:
+            if not self.enabled:
+                return 0.0
+            if self._dev_bytes and self.device_budget_bytes:
+                return max(self._dev_bytes.values()) \
+                    / self.device_budget_bytes
+            return self._bytes / self.budget_bytes
 
     def __len__(self) -> int:
         with self._lock:

@@ -1,7 +1,8 @@
 """Star-tree pre-aggregation on the card: the fit check and traversal on the
 host, the residual aggregation over the selected pre-agg records in K5
 `startree_agg`, one query per launch or B coalesced ones (`batched_kernel`,
-K5's member axis).
+K5's member axis), on one device or per slot of a segments-only mesh
+(`sharded_kernel`, `batched_sharded_kernel`).
 
 Counterpart of pinot_tpu/ops/startree_device.py (ref
 StarTreeFilterOperator + StarTreeAggregationExecutor /
@@ -227,6 +228,41 @@ def batched_kernel(plan: StarTreePlan,
                                           value_dtype)
 
     return run
+
+
+def sharded_kernel(plan: StarTreePlan, mesh,
+                   value_dtype: torch.dtype = torch.float32):
+    """fn(cols, params, num_docs, D, G=0) -> [S, ...]: K5 per slot of a
+    segments-only mesh over its segments' pre-agg record blocks and
+    selection mask, each segment's row on the lead device in segment
+    order (the JAX engine's GSPMD partition of `make_startree_kernel`
+    over its implicit mesh)."""
+    return kernels.segments_sharded(
+        mesh, make_startree_kernel(plan, value_dtype))
+
+
+def plain_sharded_kernel(plan: StarTreePlan, mesh,
+                         value_dtype: torch.dtype = torch.float32):
+    """The plain version of `sharded_kernel`."""
+    return kernels.segments_sharded(
+        mesh, lambda cols, params, num_docs, D, G=0: startree_kernel(
+            plan, cols, params, num_docs, D, G, value_dtype))
+
+
+def batched_sharded_kernel(plan: StarTreePlan, mesh,
+                           value_dtype: torch.dtype = torch.float32):
+    """fn(col_sets, plist, ndlist, idx, D) -> [B, S, ...]: B coalesced
+    star-tree queries, K5's member axis once per slot (JAX row 8d over
+    its implicit mesh)."""
+    return kernels.segments_batched_sharded(
+        mesh, batched_kernel(plan, value_dtype))
+
+
+def plain_batched_sharded_kernel(plan: StarTreePlan, mesh,
+                                 value_dtype: torch.dtype = torch.float32):
+    """The plain version of `batched_sharded_kernel`."""
+    return kernels.segments_batched_sharded(
+        mesh, plain_batched_kernel(plan, value_dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -6,10 +6,14 @@ devices in one process (mesh.py), and the fixed-shape sharded query step
 ops/kernels.py and ops/collective.py, the engine's mesh path in
 ops/engine.py.
 """
-from pinot_tpu_torch.parallel.mesh import (Mesh, ShardedBlock, make_mesh,
-                                           shard_block, shard_segments)
+from pinot_tpu_torch.parallel.mesh import (Mesh, ShardedBlock,
+                                           default_devices, device_label,
+                                           distinct_devices, make_mesh,
+                                           segments_mesh, shard_block,
+                                           shard_segments)
 
-__all__ = ["Mesh", "ShardedBlock", "make_mesh", "shard_block",
+__all__ = ["Mesh", "ShardedBlock", "default_devices", "device_label",
+           "distinct_devices", "make_mesh", "segments_mesh", "shard_block",
            "shard_segments", "distributed_query_step"]
 
 

@@ -17,6 +17,13 @@ partials on the lead device (K9 `mesh_fold`). A device may fill more than
 one slot: a logical mesh, the port's counterpart of the JAX tests'
 `--xla_force_host_platform_device_count=8`. It runs the whole sharded
 path, with a launch per slot and a real fold, on one card or on "cpu".
+
+`default_devices` is the device set an engine takes when given none
+(every CUDA device, as JAX's `jax.devices()` default); `segments_mesh`
+turns a device list into the implicit segments-only mesh the engine builds
+from it (none for one device). A logical mesh repeats a device, so
+per-chip accounting walks `distinct_devices` and names each chip by
+`device_label` (`cuda:1`, `cpu:0`).
 """
 from __future__ import annotations
 
@@ -70,18 +77,45 @@ class Mesh:
         return f"Mesh({self.shape[0]}x{self.shape[1]}, {list(self.key[1])})"
 
 
+def default_devices() -> List[torch.device]:
+    """Every CUDA device of the host, in index order (the counterpart of
+    JAX's `jax.devices()` default); RuntimeError where there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the cards; "
+                           "pass device='cpu' (or devices=['cpu'] * n for "
+                           "a CPU mesh) for the plain PyTorch kernels")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def segments_mesh(devices: Sequence) -> Optional[Mesh]:
+    """The implicit mesh of a device list (JAX engine :98-105): None for
+    one device, else a segments-only mesh (doc axis 1) over them."""
+    devices = list(devices)
+    if not devices:
+        raise ValueError("no devices")
+    return make_mesh(devices, doc_axis=1) if len(devices) > 1 else None
+
+
+def device_label(device) -> str:
+    """`type:index` of a device, the chip's name in the per-chip
+    residency shares and the `device=` gauges; "cuda" names card 0."""
+    d = torch.device(device)
+    return f"{d.type}:{d.index or 0}"
+
+
+def distinct_devices(mesh: Mesh) -> List[torch.device]:
+    """The mesh's devices, each once, in slot order: the chips of a
+    logical mesh, which fills several slots from one device."""
+    return list(dict.fromkeys(mesh.flat))
+
+
 def make_mesh(devices: Optional[Sequence] = None, doc_axis: int = 1) -> Mesh:
     """Mesh over (segments, docs): doc_axis devices per segment slice, the
     rest on the segment axis. devices=None means every CUDA device, and
     raises RuntimeError where there is none; a list may repeat a device
     (a logical mesh), but may not mix CPU and CUDA devices."""
     if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: make_mesh() spans the "
-                               "cards; pass devices=['cpu'] * n for a "
-                               "CPU mesh")
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        devices = default_devices()
     devs = [torch.device(d) for d in devices]
     n = len(devs)
     if doc_axis < 1 or n == 0 or n % doc_axis != 0:
@@ -150,7 +184,9 @@ def shard_block(mesh: Mesh, block: torch.Tensor) -> ShardedBlock:
 def shard_segments(mesh: Mesh, arr: torch.Tensor) -> List[torch.Tensor]:
     """Per slot, the rows of an [S, ...] array (a leaf parameter, a doc
     count) of its segment slice, on the slot's device (in place of
-    `segment_sharding`): a view where the slot's device holds `arr`."""
+    `segment_sharding`): a view where the slot's device holds `arr`. An
+    array on the host stays there: on a card it is a kernel's host-side
+    bound (K8's 'vq:nc')."""
     n_seg = mesh.shape[0]
     if arr.shape[0] % n_seg:
         raise ValueError(f"{arr.shape[0]} segments do not tile "
@@ -159,5 +195,7 @@ def shard_segments(mesh: Mesh, arr: torch.Tensor) -> List[torch.Tensor]:
     out = []
     for p, dev in enumerate(mesh.flat):
         i = mesh.slot(p)[0]
-        out.append(arr[i * s_loc:(i + 1) * s_loc].to(dev, non_blocking=True))
+        part = arr[i * s_loc:(i + 1) * s_loc]
+        out.append(part if arr.device.type == "cpu"
+                   else part.to(dev, non_blocking=True))
     return out

@@ -17,8 +17,9 @@ calls:
   exception, a CUDA error or a failed build or launch, propagates: a
   query the device path supports never reaches the host.
 
-The device defaults to the card; the plain PyTorch kernels run only when
-the caller asks for the CPU. Safe to call from many threads at once:
+The devices default to every card of the host (one card alone, several
+as a segments-only mesh); the plain PyTorch kernels run only when the
+caller asks for the CPU. Safe to call from many threads at once:
 concurrent queries meet in the engine's dispatch ring (ops/dispatch.py),
 where equal plans coalesce into one launch. Neither the engine nor the ring
 is imported with this module.
@@ -53,12 +54,16 @@ class QueryExecutor:
                                        Mapping[str, Sequence[ImmutableSegment]]],
                  device=None, value_dtype: torch.dtype = torch.float32,
                  config: Optional[PinotConfiguration] = None, mesh=None,
-                 engine=None, cancel_check=None):
+                 engine=None, cancel_check=None, devices=None):
         """segments: one table's segments, or {table name: segments} for a
         server holding several tables (a query reads the table its FROM
         names; equal plans over different tables coalesce in the ring).
-        device: None means "cuda", and raises RuntimeError when no CUDA
-        device is present; pass "cpu" for the plain PyTorch kernels.
+        device, devices, mesh: as TorchOperatorExecutor takes them. With
+        none of them the engine spans every CUDA device (one card alone,
+        several as a segments-only mesh), and raises RuntimeError when no
+        CUDA device is present; device="cpu" runs the plain PyTorch
+        kernels; devices=[...] is a segments-only mesh over those devices
+        (a logical one where they repeat).
         config: the engine's configuration (dispatch ring, star-tree,
         time-series keys); kept as `config`, which the time-series leaf
         reads its group cap from.
@@ -67,22 +72,15 @@ class QueryExecutor:
         on more than one slot, merges the segment batch into one row);
         device then defaults to the mesh's lead device.
         engine: a shared TorchOperatorExecutor (the server's, which owns
-        the staging levels across requests); device, value_dtype and mesh
-        are then the engine's.
+        the staging levels across requests); device, devices, value_dtype
+        and mesh are then the engine's.
         cancel_check: zero-arg callable polled before the device launch,
         while it waits in the ring, and before each host segment; raises
         when the query is cancelled or past its deadline."""
         if engine is None:
             from pinot_tpu_torch.ops.engine import TorchOperatorExecutor
-            if device is None and mesh is not None:
-                device = mesh.lead
-            dev = torch.device("cuda" if device is None else device)
-            if dev.type == "cuda" and not torch.cuda.is_available():
-                raise RuntimeError(
-                    "no CUDA device: the port runs on the card; pass "
-                    "device='cpu' for the plain PyTorch kernels")
-            engine = TorchOperatorExecutor(dev, value_dtype, config=config,
-                                           mesh=mesh)
+            engine = TorchOperatorExecutor(device, value_dtype, config=config,
+                                           mesh=mesh, devices=devices)
         self.tables = None
         if isinstance(segments, Mapping):
             self.tables = {t: list(segs) for t, segs in segments.items()}

@@ -67,17 +67,25 @@ class ServerQueryExecutor:
 
     def __init__(self, data_manager: InstanceDataManager, device=None,
                  value_dtype: torch.dtype = torch.float32,
-                 config: Optional[PinotConfiguration] = None):
-        """device: None means "cuda", and raises RuntimeError when no CUDA
-        device is present; "cpu" runs the plain PyTorch kernels (the
-        tests). The server never moves to the CPU by itself."""
-        dev = torch.device("cuda" if device is None else device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
+                 config: Optional[PinotConfiguration] = None, devices=None):
+        """device, devices: None for both means every card of the host
+        (one card alone, several as a segments-only mesh, JAX :222-235),
+        and raises RuntimeError when no CUDA device is present; "cpu" runs
+        the plain PyTorch kernels (the tests); devices=[...] a
+        segments-only mesh over those devices (a logical one where they
+        repeat). A device the server cannot use raises here: it never
+        moves to the CPU by itself."""
+        from pinot_tpu_torch.parallel.mesh import default_devices
+        if device is None and devices is None:
+            devices = default_devices()
+        if any(torch.device(d).type == "cuda"
+               for d in (devices if devices is not None else [device])) \
+                and not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: the port's server runs on the card; pass "
                 "device='cpu' for the plain PyTorch kernels")
         self.data_manager = data_manager
-        self.device = dev
+        self.device, self.devices = device, devices
         self.value_dtype = value_dtype
         self.config = config or PinotConfiguration()
         #: per-query deadline and cancel registry
@@ -94,14 +102,15 @@ class ServerQueryExecutor:
 
     def _shared_engine(self):
         """The server's one engine (JAX :222): it owns the staging levels,
-        which must outlive a request."""
+        which must outlive a request, and spans the server's devices."""
         with self._engine_lock:
             if self._engine is None:
                 from pinot_tpu_torch.ops.engine import TorchOperatorExecutor
                 self._engine = TorchOperatorExecutor(
                     self.device, self.value_dtype, config=self.config,
                     metrics_labels={
-                        "instance": self.data_manager.instance_id})
+                        "instance": self.data_manager.instance_id},
+                    devices=self.devices)
             return self._engine
 
     @property

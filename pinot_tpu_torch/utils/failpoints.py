@@ -35,6 +35,10 @@ SITES: Dict[str, str] = {
         "per MEMBER inside the coalesced-batch path (ctx: table, mode, "
         "batch_size) — an erroring member fails only its own future; "
         "peers stay batched and complete",
+    "server.mesh.collective":
+        "server-side, before the collective-merge path stages a query "
+        "(ctx: table, mode) — an armed error falls back to the host "
+        "fold with mesh_merge_fallback{reason=chaos}",
     "timeseries.leaf.fetch":
         "time-series engine, before a leaf plan node issues its "
         "GROUP-BY SQL (ctx: table) — an armed error fails that panel's "

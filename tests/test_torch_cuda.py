@@ -1487,6 +1487,77 @@ def test_sharded_and_merged_on_a_logical_mesh_equal_the_cpu(card, grouped):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["topn", "topn B=3", "vector", "startree"])
+def test_segments_sharded_topk_on_card(card, kind):
+    """K4 (single and batched), K8 and K5 per slot of a logical 4x1 mesh
+    over cuda:0: one launch a slot, the slots' rows in segment order equal
+    to the one-card launch bit for bit and to the sharded plain version
+    (K5's float sums within the star-tree tolerance)."""
+    from pinot_tpu_torch.parallel.mesh import make_mesh, shard_block
+    mesh = make_mesh(["cuda:0"] * 4, doc_axis=1)
+    S, D = 4, 20_000
+    if kind == "vector":
+        spec, cols, params, nd = tp.vector_case(7, S=S, D=D, ivf=True,
+                                                resid=True, pad_segments=1)
+        plan = tp.vector_plan(spec)
+        tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+        tpar = _with_bound(plan, tc, tpar, tnd, D)
+        one = tk.make_vector_kernel(plan)
+        run = tk.sharded_topn_kernel(plan, mesh)
+        plain = tk.plain_sharded_topn_kernel(plan, mesh)
+        kern = _cuda.VECTOR_TOPK
+    elif kind == "startree":
+        fields = tp.startree_spec("smem")
+        cols, params, nd = tp.startree_inputs(1, fields, S, D, np.float32)
+        plan = tsd.StarTreePlan(**fields)
+        tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+        one = tsd.make_startree_kernel(plan, torch.float32)
+        run = tsd.sharded_kernel(plan, mesh, torch.float32)
+        plain = tsd.plain_sharded_kernel(plan, mesh, torch.float32)
+        kern = _cuda.STARTREE_AGG
+    else:
+        spec = tp.topn_spec(2, "col", False, 100)
+        cols, params, nd = tp.topn_inputs(2, spec, S, D, np.float32,
+                                          pad_segments=1)
+        plan = DevicePlan(**spec)
+        tc, tpar, tnd = tk.from_jax_staged(cols, params, nd, device=card)
+        one = tk.make_topn_kernel(plan, torch.float32)
+        run = tk.sharded_topn_kernel(plan, mesh, torch.float32)
+        plain = tk.plain_sharded_topn_kernel(plan, mesh, torch.float32)
+        kern = _cuda.TOPN
+    sc = {k: shard_block(mesh, v) for k, v in tc.items()}
+    n0 = kern.launches + kern.batched_launches
+    if kind == "topn B=3":
+        plist = [tpar] * 3
+        want = tk.batched_kernel(plan, torch.float32)([tc], plist, [tnd],
+                                                       [0] * 3, D)
+        got = tk.batched_sharded_topn_kernel(plan, mesh, torch.float32)(
+            [sc], plist, [tnd], [0] * 3, D)
+        ref = tk.plain_batched_sharded_topn_kernel(plan, mesh,
+                                                   torch.float32)(
+            [sc], plist, [tnd], [0] * 3, D)
+    else:
+        want = one(tc, tpar, tnd, D)
+        got = run(sc, tpar, tnd, D)
+        ref = plain(sc, tpar, tnd, D)
+    torch.cuda.synchronize()
+    # one launch for the one-card output, then one a slot
+    assert kern.launches + kern.batched_launches == n0 + 1 + 4
+    assert got.shape == want.shape == ref.shape
+    if kind == "startree":
+        assert torch.equal(_bits(got), _bits(want))
+        tp.assert_startree_equal(fields, got.cpu().numpy(), ref.cpu().numpy(),
+                                 tp.startree_abs_sums(fields, cols, params,
+                                                      nd, D),
+                                 tp.F32_SUM_TOL)
+    elif got.is_floating_point():
+        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(_bits(got), _bits(ref))
+    else:
+        assert torch.equal(got, want) and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
 def test_mesh_engine_on_card_equals_the_cpu_engine(card, tmp_path):
     """SQL through a logical 4x2 mesh engine on cuda:0 (merged and
     sharded) equals the CPU mesh engine's rows."""

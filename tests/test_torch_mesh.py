@@ -817,6 +817,9 @@ def test_upsert_table_on_a_mesh(upsert_segs, n, doc_axis):
 
 
 def test_startree_fit_takes_the_scan_leg_on_a_doc_sharded_mesh(tmp_path):
+    """A doc-sharded mesh answers a fitting star-tree query on the scan leg
+    (JAX `_startree_candidate` :674); a segments-only mesh answers it from
+    the trees, K5 per slot, equal to its own scan."""
     rng = np.random.default_rng(5)
     fields = [FieldSpec("a", DataType.INT),
               FieldSpec("m", DataType.INT, FieldType.METRIC)]
@@ -839,10 +842,9 @@ def test_startree_fit_takes_the_scan_leg_on_a_doc_sharded_mesh(tmp_path):
     seg_only = QueryExecutor(segments, device="cpu",
                              value_dtype=torch.float64,
                              mesh=make_mesh(["cpu"] * 2, doc_axis=1))
-    with pytest.raises(NotOffloadable) as e:
-        seg_only.execute(sql)
-    assert e.value.reason == "mesh"
-    assert seg_only.engine.meter("mesh_refused", "startree") == 1
+    assert seg_only.execute(sql).rows == [(want,)]
+    assert seg_only.engine.meter("startree_served") == 1
+    assert seg_only.engine.meter("mesh_refused", "startree") == 0
     assert seg_only.execute(
         "SELECT SUM(m) FROM st0 WHERE a = 3 OPTION(useStarTree=false)"
     ).rows == [(want,)]
@@ -854,12 +856,20 @@ def test_startree_fit_takes_the_scan_leg_on_a_doc_sharded_mesh(tmp_path):
 ])
 @pytest.mark.parametrize("doc_axis", [1, 2])
 def test_selection_is_refused_on_a_mesh(segs, sql, mode, doc_axis):
+    """Refused, reason 'mesh', on a doc-sharded mesh (a top-N across doc
+    shards is JAX's host path, :1446); served per slot on a segments-only
+    mesh, equal row for row to the one-device engine."""
     _jsegs, tsegs = segs
     port = _port_exec(tsegs, 4, doc_axis, True)
+    if doc_axis == 1:
+        one = QueryExecutor(tsegs, device="cpu", value_dtype=torch.float64)
+        assert port.execute(sql).rows == one.execute(sql).rows
+        assert port.engine.meter("mesh_refused", mode) == 0
+        return
     with pytest.raises(NotOffloadable) as e:
         port.execute(sql)
     assert e.value.reason == "mesh"
-    assert ("doc-sharded" in str(e.value)) == (doc_axis > 1)
+    assert "doc-sharded" in str(e.value)
     assert port.engine.meter("mesh_refused", mode) == 1
 
 
@@ -887,6 +897,8 @@ def test_filtered_doc_ids_refused_on_a_mesh(segs):
 
 
 def test_vector_search_refused_on_a_mesh(tmp_path):
+    """JAX's 'staging' fallback on a doc-sharded mesh; K8 per slot on a
+    segments-only mesh, equal to the one-device engine."""
     rng = np.random.default_rng(3)
     n = 200
     v = rng.normal(0, 1, (n, 8)).astype(np.float32)
@@ -907,13 +919,16 @@ def test_vector_search_refused_on_a_mesh(tmp_path):
     assert doc.engine.meter("vector_fallback", "staging") == 1
     seg_only = QueryExecutor([seg], device="cpu",
                              mesh=make_mesh(["cpu"] * 2, doc_axis=1))
-    with pytest.raises(NotOffloadable) as e:
-        seg_only.execute(sql)
-    assert e.value.reason == "mesh"
-    assert seg_only.engine.meter("mesh_refused", "vector") == 1
+    one = QueryExecutor([seg], device="cpu")
+    assert seg_only.execute(sql).rows == one.execute(sql).rows
+    assert seg_only.engine.meter("vector_served") == 1
+    assert seg_only.engine.meter("mesh_refused", "vector") == 0
 
 
 def test_clp_leaf_refused_on_a_mesh(tmp_path):
+    """A CLP leaf is served on any mesh (JAX evaluates it inside every
+    kernel, kernels.py:180-183): K7 per slot on its shard, then K1, equal
+    to the one-device engine; sharded (2x1) and merged (1x2)."""
     msgs = [f"task {i % 7} finished in {i} ms" for i in range(300)]
     seg = _port_table(
         tmp_path, "logs", {"ts": np.arange(300, dtype=np.int64),
@@ -924,10 +939,9 @@ def test_clp_leaf_refused_on_a_mesh(tmp_path):
     for doc_axis in (1, 2):
         ex = QueryExecutor([seg], device="cpu",
                            mesh=make_mesh(["cpu"] * 2, doc_axis=doc_axis))
-        with pytest.raises(NotOffloadable) as e:
-            ex.execute(sql)
-        assert e.value.reason == "mesh"
-        assert ex.engine.meter("mesh_refused", "clp") == 1
+        assert ex.execute(sql).rows == [(43,)]
+        assert ex.engine.meter("clp_served") == 1
+        assert ex.engine.meter("mesh_refused", "clp") == 0
     assert QueryExecutor([seg], device="cpu").execute(sql).rows == [(43,)]
 
 
