@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K1-K5's, K7's and K8's phase-3 and 3b launch times and the main path's
-single-query p50 of two checkouts, in turns, on one card.
+"""K1-K5's and K7-K9's phase-3, 3b and 3c launch times and the main
+path's single-query p50 of two checkouts, in turns, on one card.
 
     python3 kernel_ab.py PARENT_DIR CHANGE_DIR [--seed N] [--iters N]
                          [--no-queries] [--splits] [--logs] [--vector]
@@ -32,13 +32,17 @@ phase-3 cases (`startree_kernel_inputs`), each also by its device time a
 call in a torch.profiler trace ("... device") and by the host clock a
 call over 200 calls back to back ("... wall"), the same three times of
 one empty kernel launched through a wrapper ("empty launch":
-`_cuda.empty_launch`, where the checkout has it), and K6 against
+`_cuda.empty_launch`, where the checkout has it), K9's phase-3c cases
+("mesh_fold ...": the CHANGE checkout's chip_smoke `mesh_fold_cases`,
+each fold built by the turn's own `doc_fold` / `merged_plan` and checked
+bit for bit against the turn's plain version; by events and by device
+time a call), and K6 against
 `torch.stack` on phase 3's full float32 rows (`RA_S` x `RA_D`), in turns
 within the process; --only times only the cases whose names it finds,
 and builds a query leg below only where it finds the leg's table (ssb,
 ssbgb, taxi, ssbst) or a case timed on the leg's staging. The first
 turn of each checkout also prints `nvcc -Xptxas -v`'s registers,
-spills and stack per kernel function of K1-K8, the atomic
+spills and stack per kernel function of K1-K9, the atomic
 instructions each function of K2 and K4 compiled to, and the constant
 loads at a register
 offset (LDC ...c[..][R..]) and local loads and stores (LDL, STL) in each
@@ -93,6 +97,7 @@ splits = sys.argv[5] == "1"
 logs = sys.argv[6]
 vector = sys.argv[7]
 only = re.compile(sys.argv[8])
+change_smoke = sys.argv[9]
 trace_dir = tempfile.TemporaryDirectory(prefix="kernel_ab_trace_")
 _cuda.build()
 out = {}
@@ -100,7 +105,7 @@ if ptxas:
     regs = {}
     for k in (_cuda.SCAN_AGG, _cuda.GROUP_AGG, _cuda.SKETCH_AGG, _cuda.TOPN,
               _cuda.STARTREE_AGG, _cuda.ROW_ASSEMBLE, _cuda.CLP_MATCH,
-              _cuda.VECTOR_TOPK):
+              _cuda.VECTOR_TOPK, _cuda.MESH_FOLD):
         flags = [f for f in _cuda.NVCC_FLAGS if f != "-shared"]
         r = subprocess.run([_cuda.nvcc(), *flags, "-c", "-Xptxas", "-v",
                             "-o", os.devnull,
@@ -390,11 +395,21 @@ if only.search("empty launch") and hasattr(_cuda, "empty_launch"):
     out["empty launch device"] = cs.trace_device_ms(
         _cuda.empty_launch, "pt_empty", 50, trace_dir.name)
     out["empty launch wall"] = cs.wall_ms(_cuda.empty_launch)
-# K9's phase-3c cases (chip_smoke `mesh_fold_cases`, each checked bit for
-# bit there), by their own CUDA-event times
+# K9's phase-3c cases as the change's chip_smoke.py makes them
+# (`mesh_fold_cases`, each checked bit for bit there against this
+# checkout's plain version), their folds built by this checkout's
+# `doc_fold` / `merged_plan`: their CUDA-event times and device times a
+# call in a trace
 if only.search("mesh_fold"):
-    for name, case in cs.mesh_fold_cases(seed).items():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("change_cases",
+                                                  change_smoke)
+    change_cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(change_cases)
+    for name, case in change_cases.mesh_fold_cases(
+            seed, trace_dir.name).items():
         out[f"mesh_fold {name}"] = case["ms"]
+        out[f"mesh_fold {name} device"] = case["device_ms"]
     torch.cuda.empty_cache()
 # K8's phase-3 cases and phase 3b's B = 8 forms on phase 3's block, with
 # chip_smoke's seeds (vector_kernel_cases)
@@ -680,7 +695,8 @@ def main() -> None:
         r = subprocess.run(
             [sys.executable, "-c", TURN, str(args.seed), str(args.iters),
              "1" if first else "0", "0" if args.no_queries else "1",
-             "1" if args.splits else "0", logs, vector, args.only],
+             "1" if args.splits else "0", logs, vector, args.only,
+             os.path.join(os.path.abspath(args.change), "chip_smoke.py")],
             cwd=tree, capture_output=True, text=True, timeout=1800)
         line = next((x for x in r.stdout.splitlines()
                      if x.startswith("TURN ")), None)

@@ -25,7 +25,8 @@ reading set idx[m]. `scan_agg`, `group_agg`, `sketch_agg`, `topn`,
 (B = U = 1); the `*_batched` forms take the members' column sets,
 parameters, doc counts and member-to-set map and return [B, S, ...].
 `mesh_fold` folds a mesh's per-slot partials, each with the query axis
-it carries, through host-built lists (ops/kernels.py `MeshFold`). A
+it carries: a strided doc fold, or through host-built lists
+(ops/kernels.py `MeshFold`). A
 kernel counts single launches in `launches`, batched ones in
 `batched_launches` and their members in `batched_members`, under a lock:
 pool threads launch concurrently, and ctypes releases the GIL for the call.
@@ -296,8 +297,9 @@ VECTOR_TOPK = CudaKernel("vector_topk", "vector_topk.cu", "pt_vector_topk",
                           _P, _P, _P, _P, _P, _I, _P],
                          layout=(_VecArgs, "pt_vec_args_bytes"))
 MESH_FOLD = CudaKernel("mesh_fold", "mesh_fold.cu", "pt_mesh_fold",
-                       [ctypes.POINTER(_FoldArgs), _P, _P, _P, _P, _P, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+                       [ctypes.POINTER(_FoldArgs), _P, _P, _P, _P, _P, _P, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                        _P],
                        layout=(_FoldArgs, "pt_mesh_fold_args_bytes"))
 KERNELS = (SCAN_AGG, GROUP_AGG, SKETCH_AGG, TOPN, STARTREE_AGG, ROW_ASSEMBLE,
            CLP_MATCH, VECTOR_TOPK, MESH_FOLD)
@@ -882,8 +884,10 @@ def mesh_fold(parts: List[torch.Tensor], fold,
               batched: bool = False) -> torch.Tensor:
     """K9: the [B, R * W + T] fold of P partials (one per mesh slot, each
     [B, ...] of fold.rows_in x fold.win values in the value dtype, on one
-    card) through `fold`'s lists (ops/kernels.py `MeshFold`). `batched`:
-    the partials carry a query axis of B coalesced members."""
+    card) by `fold` (ops/kernels.py `MeshFold`): a strided fold computes
+    its sources, a listed one reads its lists, and its tails longer than
+    MeshFold.LONG_LIST add in the lane order over a block's threads.
+    `batched`: the partials carry a query axis of B coalesced members."""
     if not 1 <= len(parts) <= MF_MAX_PARTS:
         raise ValueError(f"{len(parts)} partials: K9 folds 1-{MF_MAX_PARTS}")
     t0 = parts[0]
@@ -903,15 +907,19 @@ def mesh_fold(parts: List[torch.Tensor], fold,
     if fold.parts > len(parts):
         raise ValueError(f"the fold reads {fold.parts} partials, "
                          f"given {len(parts)}")
-    ops, off, src, toff, tsrc = fold.on(device)
+    ops, off, src, toff, tsrc, ltail = fold.on(device)
     out = torch.empty((B, fold.R * fold.W + fold.T), dtype=dtype,
                       device=device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (*parts, out))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     rc = MESH_FOLD.fn()(
-        ctypes.byref(args), ops.data_ptr(), off.data_ptr(), src.data_ptr(),
-        toff.data_ptr() if fold.T else None,
-        tsrc.data_ptr() if fold.T else None, fold.R, fold.W, fold.T,
-        fold.col0, fold.tail_col, fold.rows_in, fold.win, B,
-        int(dtype == torch.float64), out.data_ptr(), device.index,
+        ctypes.byref(args), ops.data_ptr(), ptr(off), ptr(src), ptr(toff),
+        ptr(tsrc), ptr(ltail), len(fold.ltail), fold.R, fold.W, fold.T,
+        fold.col0, fold.tail_col, fold.rows_in, fold.win, B, fold.n_doc,
+        int(aligned), int(dtype == torch.float64), out.data_ptr(),
+        device.index,
         torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mesh_fold launch failed: cudaError {rc}")

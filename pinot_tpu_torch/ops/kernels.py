@@ -888,49 +888,112 @@ def packed_fold_codes(plan: DevicePlan) -> Tuple[int, ...]:
 
 
 class MeshFold:
-    """The lists of one K9 fold (csrc/mesh_fold.cu), built on the host:
-    output row o of width W folds column col0 + w of the partial rows
-    src[off[o]:off[o + 1]] (each (slot << 32) | row, rows of `win`
+    """The lists of one K9 fold (csrc/mesh_fold.cu), built on the host.
+
+    Listed: output row o of width W folds column col0 + w of the partial
+    rows src[off[o]:off[o + 1]] (each (slot << 32) | row, rows of `win`
     values, `rows_in` rows per member and slot) by ops[w]; T tail
-    elements add column tail_col of their rows tsrc[toff[t]:toff[t +
-    1]]. Device copies are made once per device."""
+    elements add column tail_col of their rows tsrc[toff[t]:toff[t + 1]].
+    Strided (`n_doc` > 0, the doc fold): output row (i, r) folds row r of
+    slots i * n_doc .. i * n_doc + n_doc - 1 in that order, over all `win`
+    columns; K9 computes those sources, and `off` / `src` are built on
+    the host only where something reads them (the plain version).
+
+    A main row folds in list order, and so does a tail of at most
+    LONG_LIST entries. A longer tail (`ltail`: a grouped merge's, n_doc x
+    G_local entries) adds in the lane order: lane l of LANES adds entries
+    l, l + LANES, ... in order, and a fixed tree of adjacent pairs joins
+    the lanes (`_add_lists`). Device copies are made once per device."""
+
+    #: tails longer than this add in the lane order (csrc/mesh_fold.cu
+    #: MF_LONG_LIST): past 64 entries a block is faster than a sub-warp
+    #: on an H100 (PERF.md §6, K9's redesign)
+    LONG_LIST = 64
+    #: the lane order's lanes: one block of 1024 threads a tail (faster
+    #: than a warp or 256 threads; mesh_fold.cu MF_LIST_THREADS)
+    LANES = 1024
 
     def __init__(self, R: int, W: int, col0: int, rows_in: int, win: int,
-                 ops, off: np.ndarray, src: np.ndarray, tail_col: int = 0,
+                 ops, off: Optional[np.ndarray] = None,
+                 src: Optional[np.ndarray] = None, tail_col: int = 0,
                  toff: Optional[np.ndarray] = None,
-                 tsrc: Optional[np.ndarray] = None):
+                 tsrc: Optional[np.ndarray] = None, n_doc: int = 0):
         self.R, self.W, self.col0 = R, W, col0
         self.rows_in, self.win, self.tail_col = rows_in, win, tail_col
+        self.n_doc = n_doc
         self.ops = np.asarray(ops, dtype=np.int8)
-        self.off = np.ascontiguousarray(off, dtype=np.int64)
-        self.src = np.ascontiguousarray(src, dtype=np.int64)
         self.toff = None if toff is None else \
             np.ascontiguousarray(toff, dtype=np.int64)
         self.tsrc = None if tsrc is None else \
             np.ascontiguousarray(tsrc, dtype=np.int64)
         self.T = 0 if toff is None else len(toff) - 1
-        if len(self.ops) != W or len(self.off) != R + 1 \
-                or col0 + W > win:
+        if len(self.ops) != W or col0 + W > win:
             raise ValueError("fold lists out of shape")
-        srcs = [self.src] + ([self.tsrc] if self.T else [])
-        self.parts = max((int(s.max() >> 32) + 1 for s in srcs if len(s)),
-                         default=1)
+        if n_doc:
+            if off is not None or src is not None or self.T or col0 \
+                    or W != win or R % rows_in:
+                raise ValueError("a strided fold has no lists, no tail "
+                                 "and every column")
+            self._off = self._src = None
+            self.parts = R // rows_in * n_doc
+            self.ltail = np.zeros(0, dtype=np.int32)
+        else:
+            self._off = np.ascontiguousarray(off, dtype=np.int64)
+            self._src = np.ascontiguousarray(src, dtype=np.int64)
+            if len(self._off) != R + 1:
+                raise ValueError("fold lists out of shape")
+            srcs = [self._src] + ([self.tsrc] if self.T else [])
+            self.parts = max((int(s.max() >> 32) + 1
+                              for s in srcs if len(s)), default=1)
+            self.ltail = np.nonzero(np.diff(self.toff) > self.LONG_LIST)[
+                0].astype(np.int32) if self.T else np.zeros(0, np.int32)
         self._dev: Dict[str, tuple] = {}
 
     @property
+    def strided(self) -> bool:
+        return self.n_doc > 0
+
+    def _strided_lists(self) -> None:
+        o = np.arange(self.R, dtype=np.int64)
+        i, r = o // self.rows_in, o % self.rows_in
+        self._src = (((i[:, None] * self.n_doc + np.arange(self.n_doc))
+                      << 32) | r[:, None]).ravel()
+        self._off = np.arange(self.R + 1, dtype=np.int64) * self.n_doc
+
+    @property
+    def off(self) -> np.ndarray:
+        if self._off is None:
+            self._strided_lists()
+        return self._off
+
+    @property
+    def src(self) -> np.ndarray:
+        if self._src is None:
+            self._strided_lists()
+        return self._src
+
+    def _device_lists(self) -> tuple:
+        """(ops, off, src, toff, tsrc, ltail) as K9 reads them: None for
+        what it does not (a strided fold's lists, a missing tail, no long
+        tail)."""
+        if self.strided:
+            return self.ops, None, None, None, None, None
+        return (self.ops, self._off, self._src, self.toff, self.tsrc,
+                self.ltail if len(self.ltail) else None)
+
+    @property
     def nbytes(self) -> int:
-        return sum(a.nbytes for a in (self.ops, self.off, self.src,
-                                      self.toff, self.tsrc) if a is not None)
+        """Bytes of the lists K9 reads on the device."""
+        return sum(a.nbytes for a in self._device_lists() if a is not None)
 
     def on(self, device: torch.device) -> tuple:
-        """(ops, off, src, toff, tsrc) on `device` (toff and tsrc None
-        without a tail)."""
+        """(ops, off, src, toff, tsrc, ltail) on `device`, None for what
+        K9 does not read."""
         key = str(device)
         hit = self._dev.get(key)
         if hit is None:
             hit = tuple(None if a is None else torch.from_numpy(a).to(device)
-                        for a in (self.ops, self.off, self.src, self.toff,
-                                  self.tsrc))
+                        for a in self._device_lists())
             self._dev[key] = hit
         return hit
 
@@ -960,8 +1023,9 @@ def _fold_lists(vals: torch.Tensor, off: np.ndarray, rows: torch.Tensor,
 def mesh_fold_plain(parts: Sequence[torch.Tensor],
                     fold: MeshFold) -> torch.Tensor:
     """The plain version of K9: [B, R * W + T] in the partials' dtype,
-    each output element folded in float64 over its list in order and
-    rounded once, as K9 folds it; on whatever device the partials lie."""
+    each output element folded in float64 over its list in K9's order and
+    rounded once, as K9 folds it; on whatever device the partials lie. A
+    strided fold folds its n_doc slots in order."""
     B = parts[0].shape[0]
     x = torch.stack([p.reshape(B, fold.rows_in, fold.win) for p in parts])
     flat = x.transpose(0, 1).reshape(B, -1, fold.win).double()
@@ -983,23 +1047,38 @@ def mesh_fold_plain(parts: Sequence[torch.Tensor],
 
 def _add_lists(vals: torch.Tensor, off: np.ndarray) -> np.ndarray:
     """[B, T] float64: element t the sum of vals[:, off[t]:off[t + 1]]
-    (vals [B, N] float64), added in order from 0.0, as K9 adds a tail. A
-    grouped tail's list holds every local key of its segment (thousands
-    of entries at compact G), so the lists are padded with zeros, which
-    leave a sum started at +0.0 unchanged, into one [B, T, L] array whose
-    running sums numpy takes in order."""
+    (vals [B, N] float64) from 0.0, as K9 adds a tail: in order, or, past
+    MeshFold.LONG_LIST entries, in the lane order (lane l of
+    MeshFold.LANES adds entries l, l + LANES, ... in order, then adjacent
+    lanes join up a binary tree). A grouped tail's list holds every local
+    key of its segment (thousands of entries at compact G), so the lists
+    are padded with zeros, which leave a sum started at +0.0 unchanged,
+    into one [B, T, L / width, width] array (width 1 in order, LANES in
+    the lane order) whose planes are added in order, each lane its own
+    sum, and whose lanes then join in adjacent pairs."""
     x = vals.cpu().numpy()
     B, T = x.shape[0], len(off) - 1
     lens = np.diff(off)
-    L = int(lens.max(initial=0))
-    if not L:
-        return np.zeros((B, T))
-    pos = np.arange(L)
-    held = pos[None, :] < lens[:, None]
-    grid = np.zeros((B, T, L))
-    grid[:, held] = x[:, (off[:-1, None] + pos[None, :])[held]]
-    with np.errstate(invalid="ignore"):  # inf + -inf is NaN, as in K9
-        return np.add.accumulate(grid, axis=2)[:, :, -1]
+    out = np.zeros((B, T))
+    long = lens > MeshFold.LONG_LIST
+    for sel, width in ((~long, 1), (long, MeshFold.LANES)):
+        t = np.nonzero(sel)[0]
+        L = -(-int(lens[t].max(initial=0)) // width) * width
+        if not L:
+            continue
+        pos = np.arange(L)
+        held = pos[None, :] < lens[t, None]
+        grid = np.zeros((B, len(t), L))
+        grid[:, held] = x[:, (off[t, None] + pos[None, :])[held]]
+        grid = grid.reshape(B, len(t), L // width, width)
+        acc = np.zeros((B, len(t), width))
+        with np.errstate(invalid="ignore"):  # inf + -inf is NaN, as in K9
+            for m in range(L // width):
+                acc = acc + grid[:, :, m]
+            while acc.shape[2] > 1:
+                acc = acc[:, :, 0::2] + acc[:, :, 1::2]
+        out[:, t] = acc[:, :, 0]
+    return out
 
 
 def mesh_fold(parts: Sequence[torch.Tensor], fold: MeshFold,
@@ -1020,13 +1099,11 @@ def doc_fold(n_seg: int, n_doc: int, s_loc: int, per_seg: int, win: int,
     """The fold over the `docs` axis of per-slot partials [B, s_loc,
     (per_seg,) win]: output row (i, r, g) of segment slice i, local
     segment r (and group g) from the same row of slots (i, 0..n_doc - 1),
-    in that order. The output is [B, S (x per_seg) x win]."""
+    in that order, as a strided fold (no lists on the device). The output
+    is [B, S (x per_seg) x win]."""
     rows_in = s_loc * per_seg
-    o = np.arange(n_seg * rows_in, dtype=np.int64)
-    i, r = o // rows_in, o % rows_in
-    src = ((i[:, None] * n_doc + np.arange(n_doc)) << 32) | r[:, None]
-    off = np.arange(len(o) + 1, dtype=np.int64) * n_doc
-    return MeshFold(len(o), win, 0, rows_in, win, ops, off, src.ravel())
+    return MeshFold(n_seg * rows_in, win, 0, rows_in, win, ops,
+                    n_doc=n_doc)
 
 
 def packed_width(plan: DevicePlan) -> int:

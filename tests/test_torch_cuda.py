@@ -48,7 +48,8 @@ version's bit for bit (it copies bytes). K8's whole [S, 1 + 2 kk] output,
 scores included, bit-identical to its plain version on the card and on
 the CPU (the plain version adds in K8's order), and within
 torch_plans.VEC_TOL of the float64 truth. K9's output bit-identical to
-its plain version (both fold each list in order in double).
+its plain version (both fold each list in double, in list order or, for
+a tail past MeshFold.LONG_LIST entries, in the same lane order).
 """
 import os
 import sys
@@ -1746,6 +1747,105 @@ def test_compact_remap_fold_matches_plain_on_card(card, B):
     cpu = tk.mesh_fold_plain([p.cpu() for p in parts], fold)
     assert torch.equal(cpu.nan_to_num(nan=7.0),
                        out.cpu().nan_to_num(nan=7.0))
+
+
+def _same_fold(out, ref):
+    """Bit for bit, NaN where NaN (the kernel's NaN is the quiet NaN, the
+    plain version's may carry an input's payload)."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.equal(torch.isnan(out), torch.isnan(ref.to(out.device)))
+    a, b = out.cpu(), ref.cpu()
+    keep = ~torch.isnan(a)
+    assert torch.equal(a[keep], b[keep])
+    assert torch.equal(torch.signbit(a[keep]), torch.signbit(b[keep]))
+
+
+def _fold_on_card(parts, fold, batched):
+    """K9 on the card, its launch counted once, against the plain version
+    on the card and on the CPU."""
+    kern = _cuda.MESH_FOLD
+    before = (kern.launches, kern.batched_launches)
+    out = tk.mesh_fold(parts, fold, batched=batched)
+    ref = tk.mesh_fold_plain(parts, fold)
+    torch.cuda.synchronize()
+    after = (kern.launches, kern.batched_launches)
+    assert after[int(batched)] == before[int(batched)] + 1
+    assert after[1 - int(batched)] == before[1 - int(batched)]
+    _same_fold(out, ref)
+    _same_fold(out, tk.mesh_fold_plain([p.cpu() for p in parts], fold))
+    return out
+
+
+#: strided doc folds: (n_seg, n_doc, s_loc, per_seg, win); the last two
+#: rows are not a multiple of 16 bytes long, so units straddle rows and
+#: take the scalar path
+STRIDED = [(1, 2, 4, 1, 73), (4, 2, 2, 64, 4), (2, 4, 3, 1, 7),
+           (3, 2, 1, 5, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", STRIDED, ids=lambda g: "x".join(map(str, g)))
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_strided_doc_fold_on_card(card, geom, B, x64):
+    """The strided doc fold (no lists on the card) bit for bit against its
+    plain version, which folds the same sources through host lists, and
+    against the offset partials (not 16-byte aligned: the scalar path)."""
+    n_seg, n_doc, s_loc, per_seg, win = geom
+    ops = tuple(int(c) for c in np.random.default_rng(win).integers(
+        0, 3, win))
+    fold = tk.doc_fold(n_seg, n_doc, s_loc, per_seg, win, ops)
+    assert fold.strided and fold.nbytes == win
+    dt = np.float64 if x64 else np.float32
+    parts = _fold_parts(3, n_seg * n_doc, B, fold.rows_in, win, dt, card)
+    _fold_on_card(parts, fold, B > 1)
+    # the same values one element into a larger buffer
+    shifted = []
+    for p in parts:
+        buf = torch.empty(p.numel() + 1, dtype=p.dtype, device=card)
+        buf[1:] = p.reshape(-1)
+        shifted.append(buf[1:].view(p.shape))
+    _fold_on_card(shifted, fold, B > 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2_local", [16, 18])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_compact_tail_fold_on_card(card, log2_local, x64):
+    """Phase 14's compact merged fold at G_local = 2^16 and 2^18 (tails of
+    2^17 and 2^19 entries, in the lane order), every column normal floats
+    with NaN, +-inf and +-0.0, bit for bit against its plain version."""
+    fold, parts = cs.compact_fold_case(
+        1, log2_local, np.float64 if x64 else np.float32, card, floats=True)
+    assert len(fold.ltail) == fold.T == 8
+    assert (np.diff(fold.toff) == 2 << log2_local).all()
+    _fold_on_card(parts, fold, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_fold_lists_at_the_threshold_on_card(card, B, x64):
+    """Main rows of 0, LONG_LIST, LONG_LIST + 1 and many entries at each
+    op code, all in list order; tails of 0, LONG_LIST (in list order),
+    LONG_LIST + 1 and many entries (in the lane order over a block), bit
+    for bit against the plain version."""
+    thr, P, rows_in, win = tk.MeshFold.LONG_LIST, 4, 300, 5
+    rng = np.random.default_rng(thr + B)
+    lens = [0, thr, thr + 1, 3, 1000, thr - 1]
+    off = np.concatenate([[0], np.cumsum(lens)])
+    src = (rng.integers(0, P, off[-1]) << 32) | rng.integers(0, rows_in,
+                                                            off[-1])
+    tlens = [thr + 1, 0, thr, 5000, 1]
+    toff = np.concatenate([[0], np.cumsum(tlens)])
+    tsrc = (rng.integers(0, P, toff[-1]) << 32) | rng.integers(
+        0, rows_in, toff[-1])
+    fold = tk.MeshFold(len(lens), 3, 1, rows_in, win, (0, 1, 2), off, src,
+                       4, toff, tsrc)
+    assert fold.ltail.tolist() == [0, 3]
+    parts = _fold_parts(5, P, B, rows_in, win,
+                        np.float64 if x64 else np.float32, card)
+    _fold_on_card(parts, fold, B > 1)
 
 
 @pytest.mark.cuda
