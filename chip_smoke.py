@@ -394,6 +394,26 @@ Phases, each of which exits non-zero on failure:
    B = 8 form also run cut by segment over the 4x1 mesh, equal to one
    card's output bit for bit: launches per call and CUDA-event times
    beside the one-card case's time and bound (`[kernel] ... mesh`).
+17. The cluster (after phase 15): a port MiniCluster of two servers on
+   the card (device None: every CUDA device) behind a broker and its HTTP
+   edge. `ssb` holds phase 4's 16 Q1 directories, segment i on server
+   i % 2, each server loading its own copy; `small` (phase 15's two
+   directories) is a two-group replica table, group g on server g. Through
+   client.connect(<broker>)'s cursor: Q1.1-Q1.3, SRV_GB, SRV_SKETCH, sel.1
+   and dist.1 equal to phase 4's truth under phase 15's rules, taken in
+   the broker's plan order (server_0's segments, then server_1's: the
+   reduce merges in that order; SRV_SKETCH's ranges are each server's
+   batch), each answered by both servers in full; `small`'s five queries
+   by one group. The p50 of SERVER_ITERS warm Q1.1 runs through the client
+   over HTTP and through cluster.query in process, beside phase 15's
+   through the server, and of a query for a table no route knows (the
+   edge and the broker, no server); a trace=true Q1.1's broker split
+   (BrokerParse, BrokerRoute, the longest ServerScatter, BrokerReduce;
+   each scatter beside its server's span, queue wait and engine span) and
+   the card's peak memory. Then kill_server(1): Q1.1 is a typed 427 partial (the JAX
+   broker's code for the same kill), the client raises it, and `small`
+   answers in full from server_0. Launches held as every leg's (K1-K4 and
+   K6); the cluster stops before phase 5.
 8. Launch counts: each kernel's counter is set to 0 just before a leg's
    timed queries and read just after them; the leg's kernels must have
    launched once per query run (a CLP query: K7 once, then K1, K2 or K4
@@ -6228,26 +6248,32 @@ def small_expected(parts: list) -> dict:
             "float_eq": [(int((rf == np.float32(0.1)).sum()),)]}
 
 
-def server_sketch_expected(truths: list, segs: list):
+def server_sketch_expected(truths: list, segs: list, batches=None):
     """SRV_SKETCH's (HLL cardinality, p95), the engine's arithmetic on the
     numpy counts: the registers' max over the segments; the histogram
     between the batch's lo_quantity metadata min and max, bucket =
     clip((f32(v) - f32(lo)) * f32(B / span), 0, B - 1), one digest per
-    segment merged in segment order (taxi_expected's rule)."""
+    segment merged in segment order (taxi_expected's rule). batches: the
+    segment indexes each server ran, in the broker's plan order (phase
+    17); each batch takes its own range, and the digests merge batch after
+    batch. None: one batch of every segment in order (phase 15)."""
     from pinot_tpu_torch.query.sketches import HyperLogLog, TDigest
-    metas = [s.metadata.columns["lo_quantity"] for s in segs]
-    lo = min(float(m.min_value) for m in metas)
-    span = max(max(float(m.max_value) for m in metas) - lo, 1e-30)
-    v32 = np.arange(51).astype(np.float32)
-    bucket = np.clip((v32 - np.float32(lo)) * np.float32(HIST_BUCKETS / span),
-                     0, HIST_BUCKETS - 1).astype(np.int64)
     regs = np.zeros(1 << HLL_LOG2M, dtype=np.uint8)
     digest = TDigest(100.0)
-    for t in truths:
-        np.maximum(regs, t["hll"], out=regs)
-        hist = np.bincount(bucket, weights=t["qty"], minlength=HIST_BUCKETS)
-        digest = digest.merge(TDigest.from_histogram(lo, span / HIST_BUCKETS,
-                                                     hist))
+    for batch in batches or [range(len(truths))]:
+        metas = [segs[i].metadata.columns["lo_quantity"] for i in batch]
+        lo = min(float(m.min_value) for m in metas)
+        span = max(max(float(m.max_value) for m in metas) - lo, 1e-30)
+        v32 = np.arange(51).astype(np.float32)
+        bucket = np.clip((v32 - np.float32(lo))
+                         * np.float32(HIST_BUCKETS / span),
+                         0, HIST_BUCKETS - 1).astype(np.int64)
+        for i in batch:
+            np.maximum(regs, truths[i]["hll"], out=regs)
+            hist = np.bincount(bucket, weights=truths[i]["qty"],
+                               minlength=HIST_BUCKETS)
+            digest = digest.merge(TDigest.from_histogram(
+                lo, span / HIST_BUCKETS, hist))
     return (HyperLogLog.from_registers(regs, HLL_LOG2M).cardinality(),
             digest.quantile(PCT / 100.0))
 
@@ -6272,11 +6298,13 @@ def server_request(conn, table: str, sql: str, **kw):
 def server_phase(tmp: str, seed: int, q1_dirs: list, truths: list,
                  card: str, kernels=None, none=None, device=None,
                  docs: int = Q1_DOCS, small_docs: int = SMALL_DOCS,
-                 iters: int = SERVER_ITERS, build_workers: int = 2) -> Counter:
+                 iters: int = SERVER_ITERS, build_workers: int = 2,
+                 timings=None) -> Counter:
     """Phase 15 (see the module docstring) on `device` (None: the card);
     `truths` are phase 4's per-segment truths of `q1_dirs`. With
     `kernels`, each step's launches are held as every leg's
-    (launches_of_leg) and their sum is returned."""
+    (launches_of_leg) and their sum is returned. timings: a dict that
+    gets Q1.1's p50 through the server (ms) under "server_tcp"."""
     import torch
 
     from pinot_tpu_torch.cluster.mini import MiniClusterServer
@@ -6451,6 +6479,8 @@ def server_phase(tmp: str, seed: int, q1_dirs: list, truths: list,
                 torch.cuda.empty_cache()
             take("timing", {"scan_agg": 3 * iters + 1})
             p_ex = statistics.median(lat_ex) * 1e3
+            if timings is not None:
+                timings["server_tcp"] = p_srv
             show({"step": "q1.1 p50 ms", "server_tcp": p_srv,
                   "server_in_process": p_in, "query_executor": p_ex,
                   "transport": p_srv - p_in,
@@ -6504,6 +6534,238 @@ def server_phase(tmp: str, seed: int, q1_dirs: list, truths: list,
         if pool is not None:
             pool.close()
             pool.join()
+    return got
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the cluster
+# ---------------------------------------------------------------------------
+
+def client_rows(cur, sql: str):
+    """(rows as tuples, the response's stats and flags) of one query
+    through the client's cursor over the broker's HTTP edge (the client
+    raises on a response with exceptions)."""
+    rows = [tuple(r) for r in cur.execute(sql).fetchall()]
+    return rows, cur.result_set.stats
+
+
+def cluster_phase(tmp: str, seed: int, q1_dirs: list, truths: list,
+                  card: str, kernels=None, none=None, device=None,
+                  small_docs: int = SMALL_DOCS,
+                  iters: int = SERVER_ITERS, p15_ms=None) -> Counter:
+    """Phase 17 (see the module docstring) on `device` (None: the card).
+    `q1_dirs` and `truths` are phase 4's directories and per-segment
+    truths; `small` is phase 15's table, whose directories are under
+    {tmp}/server; p15_ms: phase 15's Q1.1 p50 through the server, printed
+    beside this phase's. With `kernels`, each step's launches are held as
+    every leg's (launches_of_leg) and their sum is returned."""
+    import torch
+
+    from pinot_tpu_torch.client import PinotClientError, connect
+    from pinot_tpu_torch.cluster.mini import MiniCluster
+    from pinot_tpu_torch.utils import errorcodes
+    got: Counter = Counter()
+    on_card = device is None or torch.device(device).type == "cuda"
+
+    def zero():
+        if kernels is not None:
+            zero_launches(kernels)
+
+    def take(step: str, want: dict):
+        if kernels is not None:
+            got.update(launches_of_leg(f"cluster: {step}", kernels,
+                                       {**none, **want}))
+
+    def show(what: dict):
+        print(f"[cluster] {json.dumps(what)} | {card}", flush=True)
+
+    def whole(name: str, stats: dict, servers: int = 2):
+        """A complete answer: every queried server responded, no
+        exception, no partial result."""
+        if (stats["numServersQueried"], stats["numServersResponded"],
+                stats["partialResult"], stats.get("exceptions", [])) != (
+                    servers, servers, False, []):
+            fail(f"cluster {name}: {servers} servers queried and answering "
+                 f"in full expected, got {stats}")
+
+    n = len(q1_dirs)
+    # the broker's plan lists server_0's segments (the even ones) first:
+    # its reduce merges replies in that order
+    order = list(range(0, n, 2)) + list(range(1, n, 2))
+    plan_truths = [truths[i] for i in order]
+    small_dirs = [os.path.join(tmp, "server", f"small_{i}")
+                  for i in range(SMALL_SEGMENTS)]
+    small_want = small_expected([
+        small_columns(np.random.default_rng([seed + SERVER_SEED + 1, i]),
+                      small_docs) for i in range(SMALL_SEGMENTS)])
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cl = MiniCluster(num_servers=2, device=device)
+    cl.start(with_http=True)
+    try:
+        cl.add_table("ssb")
+        for i, d in enumerate(q1_dirs):
+            cl.add_segment("ssb", d, i % 2)
+        # a replica-group table: group g is server g, each holding both
+        # segments; a query goes to one group
+        cl.add_table("small", num_replica_groups=2)
+        for d in small_dirs:
+            cl.add_segment("small", d, 0, replicas=[1])
+        cur = connect(cl.http.address).cursor()
+        segs = [cl.servers[i % 2].data_manager.table("ssb_OFFLINE")
+                .current_segment(f"ssb_{i}") for i in range(n)]
+        zero()
+        # the device shapes, through the client: phase 15's truths, in
+        # the plan's order
+        for name, sql in Q1_QUERIES.items():
+            rows, st = client_rows(cur, sql)
+            whole(name, st)
+            err = exact_pair(rows, sum(t["q1"][name][0] for t in truths),
+                             sum(t["q1"][name][1] for t in truths))
+            if err:
+                fail(f"cluster {name}: {err}")
+        rows, st = client_rows(cur, SRV_GB)
+        whole("SRV_GB", st)
+        want = Counter()
+        for t in truths:
+            for key, (sm, cnt) in t["srv"]["gb"].items():
+                want[key + ("s",)] += sm
+                want[key + ("c",)] += cnt
+        keys = sorted({k[:2] for k in want})
+        if [tuple(r[:2]) for r in rows] != keys or any(
+                int(r[3]) != want[tuple(r[:2]) + ("c",)]
+                or abs(float(r[2]) - want[tuple(r[:2]) + ("s",)])
+                > 1e-6 * want[tuple(r[:2]) + ("s",)] for r in rows):
+            fail(f"cluster SRV_GB: {rows[:3]} vs numpy truth over "
+                 f"{len(keys)} groups")
+        rows, st = client_rows(cur, SRV_SKETCH)
+        whole("SRV_SKETCH", st)
+        card_hll, p95 = server_sketch_expected(
+            [t["srv"] for t in truths], segs,
+            batches=[order[:(n + 1) // 2], order[(n + 1) // 2:]])
+        if rows != [(card_hll, p95)]:
+            fail(f"cluster SRV_SKETCH: {rows} vs numpy {(card_hll, p95)}")
+        sel_truths = [t["sel"] for t in plan_truths]
+        sql = SEL_QUERIES["sel.1"][0]
+        rows, st = client_rows(cur, sql)
+        whole("sel.1", st)
+        want_rows, matched = selection_expected(
+            sel_truths, "sel.1", [d[0] for d in cur.description])
+        if rows != want_rows or st["numDocsScanned"] != matched:
+            fail(f"cluster sel.1: {rows[:2]} vs numpy truth "
+                 f"{want_rows[:2]}")
+        rows, st = client_rows(cur, DIST_QUERY)
+        whole("dist.1", st)
+        dwant = sorted(set().union(*(t["dist.1"] for t in sel_truths)))
+        if rows != dwant:
+            fail(f"cluster dist.1: {len(rows)} vs numpy truth {len(dwant)} "
+                 "pairs")
+        # small: the FLOAT queries on K1, the refused shapes on the host
+        for name, sql in SMALL_QUERIES.items():
+            rows, st = client_rows(cur, sql)
+            whole(name, st, servers=1)
+            if rows != small_want[name]:
+                fail(f"cluster {name}: {rows[:3]} vs numpy "
+                     f"{small_want[name][:3]}")
+        take("queries", {"scan_agg": 2 * len(Q1_QUERIES) + 2,
+                         "group_agg": 4, "sketch_agg": 2, "topn": 2})
+        show({"step": "queries", "queries": len(Q1_QUERIES) + 4
+              + len(SMALL_QUERIES), "s": time.perf_counter() - t0,
+              "hll": card_hll, "p95": p95})
+        # Q1.1's p50 through the client over HTTP and through the broker
+        # in process; a trace=true Q1.1's broker split
+        zero()
+        q11 = Q1_QUERIES["q1.1"]
+
+        def p50_ms(fn) -> float:
+            lats = []
+            for _ in range(iters):
+                t1 = time.perf_counter()
+                fn()
+                lats.append(time.perf_counter() - t1)
+            return statistics.median(lats) * 1e3
+        p_http = p50_ms(lambda: cur.execute(q11).fetchall())
+        p_broker = p50_ms(lambda: cl.query(q11))
+
+        def no_table():
+            try:
+                cur.execute("SELECT COUNT(*) FROM nosuch")
+            except PinotClientError:
+                return
+            fail("cluster: a table the broker lacks answered")
+        # a table no route knows: the HTTP edge, the parse and the
+        # broker's answer, no server
+        p_none_http = p50_ms(no_table)
+        p_none = p50_ms(lambda: cl.query("SELECT COUNT(*) FROM nosuch"))
+        resp = cl.query("SET trace = true; " + q11)
+        whole("traced q1.1", resp.to_dict())
+        tree = resp.trace
+        spans = {}
+        for c in tree["children"]:
+            spans[c["operator"]] = max(spans.get(c["operator"], 0.0),
+                                       c["durationMs"])
+        if set(spans) != {"BrokerParse", "BrokerRoute", "ServerScatter",
+                          "BrokerReduce"} or sum(
+                1 for c in tree["children"]
+                if c["operator"] == "ServerScatter"
+                and c["children"][0]["operator"] == "ServerRequest") != 2:
+            fail(f"cluster: the traced Q1.1's tree {json.dumps(tree)[:500]}")
+        take("timing", {"scan_agg": 2 * (2 * iters + 1)})
+        # each scatter's time beside its server's own span, the wait for
+        # a worker in it and the engine's span
+        per_server = {
+            c["server"]: {
+                "scatter": c["durationMs"],
+                "server": c["children"][0]["durationMs"],
+                "queue_wait": c["children"][0].get("queueWaitMs"),
+                "engine": sum(g["durationMs"] for g in
+                              c["children"][0].get("children", []))}
+            for c in tree["children"] if c["operator"] == "ServerScatter"}
+        show({"step": "q1.1 p50 ms", "client_http": p_http,
+              "broker_in_process": p_broker,
+              "server_tcp_phase15": p15_ms,
+              "no_table_client_http": p_none_http,
+              "no_table_in_process": p_none, "iters": iters,
+              "trace_ms": {"total": tree["durationMs"],
+                           "parse": spans["BrokerParse"],
+                           "route": spans["BrokerRoute"],
+                           "scatter": spans["ServerScatter"],
+                           "reduce": spans["BrokerReduce"],
+                           "servers": per_server},
+              "peak_device_bytes": (torch.cuda.max_memory_allocated()
+                                    if on_card else None)})
+        # failover: server_1 dies. An ssb query loses its segments (no
+        # replica): a typed 427 partial, as the JAX broker answers the
+        # same kill; small still answers in full from server_0
+        zero()
+        cl.kill_server(1)
+        resp = cl.query(q11)
+        codes = [e["errorCode"] for e in resp.exceptions]
+        if not resp.partial_result or codes != [errorcodes.SERVER_ERROR] \
+                or (resp.num_servers_queried,
+                    resp.num_servers_responded) != (2, 1):
+            fail(f"cluster: Q1.1 after the kill: partial "
+                 f"{resp.partial_result}, codes {codes}, "
+                 f"{resp.num_servers_queried} queried, "
+                 f"{resp.num_servers_responded} responded")
+        try:
+            cur.execute(q11)
+            fail("cluster: the client took a partial answer as whole")
+        except PinotClientError as e:
+            if [x["errorCode"] for x in e.exceptions] != codes:
+                fail(f"cluster: the client's exceptions {e.exceptions}")
+        for name, sql in SMALL_QUERIES.items():
+            rows, st = client_rows(cur, sql)
+            if rows != small_want[name] or st["partialResult"]:
+                fail(f"cluster {name} after the kill: {rows[:3]}, {st}")
+        take("failover", {"scan_agg": 2 + 2})
+        show({"step": "failover", "error_codes": codes,
+              "s": time.perf_counter() - t0})
+    finally:
+        cl.stop()
+    if kernels is not None:
+        show({"step": "launches", **{k: got[k] for k in sorted(got)}})
     return got
 
 
@@ -6917,12 +7179,21 @@ def main() -> None:
         torch.cuda.empty_cache()
         lap("phases 4c and 4d")
         # phase 15: the server, on phase 4's segment directories
+        timings: dict = {}
         p15 = server_phase(tmp, args.seed,
                            [os.path.join(tmp, f"ssb_{i}")
                             for i in range(Q1_SEGMENTS)], truths, card,
-                           kernels, none)
+                           kernels, none, timings=timings)
         torch.cuda.empty_cache()
         lap("phase 15")
+        # phase 17: the cluster, on the same directories
+        p17 = cluster_phase(tmp, args.seed,
+                            [os.path.join(tmp, f"ssb_{i}")
+                             for i in range(Q1_SEGMENTS)], truths, card,
+                            kernels, none,
+                            p15_ms=timings.get("server_tcp"))
+        torch.cuda.empty_cache()
+        lap("phase 17")
 
         # phase 5: group-by leg
         t0 = time.perf_counter()
@@ -7210,13 +7481,15 @@ def main() -> None:
         if not batch:
             fail(f"phase 9 never launched {kern.name}'s batched form")
     batched["group_agg"]["launches"] += kc_batched["launches"]
-    # phase 15's launches (the server's device queries)
+    # phase 15's and phase 17's launches (the server's and the cluster's
+    # device queries)
     for kern, entry in ((_cuda.SCAN_AGG, k1), (_cuda.GROUP_AGG, k2),
                         (_cuda.SKETCH_AGG, k3), (_cuda.TOPN, k4),
                         (_cuda.ROW_ASSEMBLE, k6)):
-        if not p15[kern.name]:
-            fail(f"phase 15 never launched {kern.name}")
-        entry["launches"] += p15[kern.name]
+        for phase, got in (("15", p15), ("17", p17)):
+            if not got[kern.name]:
+                fail(f"phase {phase} never launched {kern.name}")
+            entry["launches"] += got[kern.name]
     if not k6["launches"]:
         fail("the main path never launched row_assemble")
     k7["launches"] += p9["clp_match"][0]

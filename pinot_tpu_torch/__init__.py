@@ -12,4 +12,7 @@ docs) mesh of devices (parallel). Entry point:
     QueryExecutor(segments).execute(sql)        # on the card
     QueryExecutor(segments, device="cpu")       # plain PyTorch kernels
     QueryExecutor(segments, mesh=make_mesh(["cuda:0"] * 8, doc_axis=2))
+
+and, through servers and a broker over HTTP, cluster/mini.py's
+`MiniCluster` with client/connection.py's `connect`.
 """

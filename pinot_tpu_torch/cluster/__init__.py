@@ -1,2 +1,2 @@
-"""An embedded server over real TCP (counterpart of pinot_tpu/cluster,
-trimmed to one server role)."""
+"""An embedded cluster over real TCP (counterpart of pinot_tpu/cluster):
+port servers behind port brokers and the brokers' HTTP edge."""

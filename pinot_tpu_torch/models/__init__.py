@@ -8,9 +8,10 @@ from pinot_tpu_torch.models.field_spec import DataType, FieldSpec, FieldType
 from pinot_tpu_torch.models.schema import Schema
 from pinot_tpu_torch.models.table_config import (
     IndexingConfig, RetentionConfig, StarTreeIndexConfig, TableConfig,
-    TableType)
+    TableType, base_table_name, split_physical_table_name)
 
 __all__ = [
     "DataType", "FieldType", "FieldSpec", "Schema", "TableConfig",
     "TableType", "IndexingConfig", "RetentionConfig", "StarTreeIndexConfig",
+    "base_table_name", "split_physical_table_name",
 ]

@@ -24,6 +24,20 @@ class TableType(enum.Enum):
     REALTIME = "REALTIME"
 
 
+def split_physical_table_name(table: str):
+    """(logical name, 'OFFLINE' | 'REALTIME' | None) of a possibly
+    type-suffixed table name."""
+    for suffix in ("_OFFLINE", "_REALTIME"):
+        if table.endswith(suffix):
+            return table[: -len(suffix)], suffix[1:]
+    return table, None
+
+
+def base_table_name(table: str) -> str:
+    """The logical name, any _OFFLINE / _REALTIME suffix stripped."""
+    return split_physical_table_name(table)[0]
+
+
 @dataclass
 class StarTreeIndexConfig:
     """Ref: spi/config/table/StarTreeIndexConfig.java."""

@@ -34,6 +34,8 @@ class QueryContext:
     limit: int
     offset: int
     options: Dict[str, str]
+    #: EXPLAIN PLAN FOR: the broker never caches it
+    explain: bool = False
 
     # derived
     aggregations: List[Function] = field(default_factory=list)
@@ -58,7 +60,7 @@ class QueryContext:
                   distinct=q.distinct, filter=q.filter,
                   group_by=list(q.group_by), having=q.having,
                   order_by=list(q.order_by), limit=q.limit, offset=q.offset,
-                  options=dict(q.options))
+                  options=dict(q.options), explain=q.explain)
         ctx._extract_aggregations()
         return ctx
 

@@ -39,8 +39,49 @@ class ResultTable:
 class BrokerResponse:
     """Ref BrokerResponseNative (pinot-common response/broker/)."""
     result_table: Optional[ResultTable] = None
+    exceptions: List[dict] = field(default_factory=list)
     stats: ExecutionStats = field(default_factory=ExecutionStats)
     time_used_ms: float = 0.0
+    num_servers_queried: int = 0
+    num_servers_responded: int = 0
+    num_groups_limit_reached: bool = False
+    #: the stitched span tree of a trace=true query
+    trace: Optional[dict] = None
+    #: served from the broker's result cache (or its negative cache)
+    cache_hit: bool = False
+    #: known incomplete (a server timed out, died mid-query, answered
+    #: with an error, or segments had no surviving replica); the
+    #: exceptions say why
+    partial_result: bool = False
+    #: served past its TTL (the brownout's stale serving, not in the
+    #: port: always False)
+    stale_result: bool = False
+
+    def to_dict(self) -> dict:
+        d = {
+            "resultTable": (self.result_table.to_dict()
+                            if self.result_table else None),
+            "exceptions": self.exceptions,
+            "numServersQueried": self.num_servers_queried,
+            "numServersResponded": self.num_servers_responded,
+            "numDocsScanned": self.stats.num_docs_scanned,
+            "numEntriesScannedInFilter":
+                self.stats.num_entries_scanned_in_filter,
+            "numEntriesScannedPostFilter":
+                self.stats.num_entries_scanned_post_filter,
+            "numSegmentsProcessed": self.stats.num_segments_processed,
+            "numSegmentsMatched": self.stats.num_segments_matched,
+            "numSegmentsPrunedByServer": self.stats.num_segments_pruned,
+            "totalDocs": self.stats.total_docs,
+            "numGroupsLimitReached": self.num_groups_limit_reached,
+            "timeUsedMs": self.time_used_ms,
+            "cacheHit": self.cache_hit,
+            "partialResult": self.partial_result,
+            "staleResult": self.stale_result,
+        }
+        if self.trace is not None:
+            d["traceInfo"] = self.trace
+        return d
 
     @property
     def rows(self) -> List[Tuple]:
@@ -102,6 +143,8 @@ def reduce_results(ctx: QueryContext, results: Sequence[Any]
     for r in results:
         resp.stats.merge(r.stats)
     if ctx.is_group_by_query:
+        resp.num_groups_limit_reached = any(
+            r.num_groups_limit_reached for r in results)
         resp.result_table = _reduce_group_by(ctx, results)
     elif ctx.is_aggregation_query:
         resp.result_table = _reduce_aggregation(ctx, results)

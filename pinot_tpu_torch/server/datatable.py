@@ -213,6 +213,10 @@ def serialize_value(v: Any) -> bytes:
     return w.bytes()
 
 
+def deserialize_value(buf: bytes) -> Any:
+    return _Reader(buf).value()
+
+
 def serialize_results(results: List[Any], exceptions: List[dict] = (),
                       extra_stats: Optional[ExecutionStats] = None) -> bytes:
     """A server's reply: its shape-tagged per-segment results, its

@@ -6,7 +6,7 @@ ServerQueryExecutorV1Impl, QueryServer + InstanceRequestHandler
 server speaks length-prefixed frames:
 
   request : u32 len | JSON {requestId, tableName, sql, segments?,
-            extraFilter?, timeoutMs?, queryId?, traceContext?}
+            extraFilter?, timeoutMs?, tenant?, queryId?, traceContext?}
             or {cancel: queryId}
   response: u32 len | PDT1 bytes (server/datatable.py)
 
@@ -16,9 +16,14 @@ with ONE device engine for the server's lifetime. A refused shape is
 answered by the host executor there; a table the server does not hold is
 a TABLE_DOES_NOT_EXIST reply, a missed deadline or a cancel a typed 250
 reply, and any other exception a QUERY_EXECUTION reply naming it: a
-kernel that fails to build or launch fails the query. Not ported yet:
-admission control and the other schedulers, streaming replies, the trace
-store, the slow-query log and workload accounting.
+kernel that fails to build or launch fails the query. A traced request
+(one that carries a traceContext) runs under the server's own span tree,
+which follows the reply; a sampled or slow one (at or over
+`pinot.server.slow.query.threshold.ms`) keeps its tree in the server's
+trace store, and a slow one logs a slow-query line. A request's tenant is
+accepted and charged nothing until the schedulers are ported. Not ported
+yet: admission control and the other schedulers, streaming replies and
+workload accounting.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from pinot_tpu_torch.query.executor import QueryExecutor
 from pinot_tpu_torch.server import datatable
 from pinot_tpu_torch.server.data_manager import (InstanceDataManager,
                                                  TableDataManager)
-from pinot_tpu_torch.utils import errorcodes, tracing
+from pinot_tpu_torch.utils import errorcodes, trace_store, tracing
 from pinot_tpu_torch.utils.accounting import (BrokerTimeoutError,
                                               QueryCancelledError,
                                               ResourceAccountant)
@@ -92,6 +97,10 @@ class ServerQueryExecutor:
         self.accountant = ResourceAccountant()
         self.deadline_grace_s = self.config.get_int(
             "pinot.server.query.deadline.grace.ms") / 1000.0
+        self._slow_threshold_ms = self.config.get_float(
+            "pinot.server.slow.query.threshold.ms")
+        self._trace_capacity = self.config.get_int(
+            "pinot.trace.store.capacity")
         self._engine = None
         self._engine_lock = threading.Lock()
         data_manager.add_segment_listener(self._on_segment_event)
@@ -148,28 +157,58 @@ class ServerQueryExecutor:
                 query_id=None, timeout_ms: Optional[float] = None,
                 deadline: Optional[float] = None,
                 trace_ctx: Optional[dict] = None,
-                arrival_s: Optional[float] = None) -> bytes:
+                arrival_s: Optional[float] = None,
+                tenant: Optional[str] = None) -> bytes:
         """PDT1 bytes (see _execute_inner). trace_ctx: the broker's
         TraceContext wire dict; the server then runs the query under its
         own span tree, rooted at ServerRequest with the time the request
-        waited for a worker, and appends the tree after the payload."""
+        waited for a worker, keeps it in the server's trace store when
+        sampled or slow (JAX :314-360), and appends it after the payload.
+        tenant: the request's scheduling group, shown in /debug/queries;
+        nothing is charged to it yet."""
         tc = tracing.TraceContext.from_wire(trace_ctx)
         if tc is None:
             return self._execute_inner(table_name, sql, segments,
                                        extra_filter, query_id, timeout_ms,
                                        deadline)
+        instance = self.data_manager.instance_id
         rt = tracing.RequestTrace(
             request_id=str(query_id or ""), operator="ServerRequest",
             trace_id=tc.trace_id, sampled=tc.sampled,
-            instance=self.data_manager.instance_id, table=table_name)
+            instance=instance, table=table_name)
         if arrival_s is not None:
             rt.handle().set(queueWaitMs=round(
                 max(0.0, time.time() - arrival_s) * 1000.0, 3))
-        with rt:
-            payload = self._execute_inner(table_name, sql, segments,
-                                          extra_filter, query_id,
-                                          timeout_ms, deadline)
-        return payload + datatable.serialize_value(rt.to_dict())
+        inflight = trace_store.get_inflight("server")
+        key = f"{tc.trace_id}:{query_id}"
+        inflight.begin(key, sql=sql, trace_id=tc.trace_id,
+                       detail=table_name, tenant=tenant, deadline=deadline)
+        inflight.phase(key, "execute", table_name)
+        try:
+            with rt:
+                payload = self._execute_inner(table_name, sql, segments,
+                                              extra_filter, query_id,
+                                              timeout_ms, deadline)
+        finally:
+            inflight.end(key)
+        dur = rt.root.duration_ms
+        tree = rt.to_dict()
+        slow = self._slow_threshold_ms > 0 and dur >= self._slow_threshold_ms
+        if tc.sampled or slow:
+            # keyed by instance too: servers sharing a process (an
+            # embedded cluster) record the same trace id
+            trace_store.get_store("server", self._trace_capacity).record(
+                f"{tc.trace_id}@{instance}", tree, sql=sql,
+                duration_ms=dur, slow=slow,
+                extra={"traceId": tc.trace_id, "instance": instance})
+            if slow:
+                trace_store.log_slow_query(
+                    "server", tc.trace_id, sql, dur,
+                    self._slow_threshold_ms, table=table_name,
+                    instance=instance)
+        get_registry("server").set_exemplar(
+            "query_execution", {"table": table_name}, tc.trace_id)
+        return payload + datatable.serialize_value(tree)
 
     def _execute_inner(self, table_name: str, sql: str,
                        segments: Optional[List[str]] = None,
@@ -275,7 +314,8 @@ class QueryServer:
                         r.get("extraFilter"),
                         query_id=r.get("queryId") or r.get("requestId"),
                         timeout_ms=r.get("timeoutMs"), deadline=d,
-                        trace_ctx=r.get("traceContext"), arrival_s=a))
+                        trace_ctx=r.get("traceContext"), arrival_s=a,
+                        tenant=r.get("tenant")))
                 writer.write(_LEN.pack(len(resp)) + resp)
                 await writer.drain()
         except (asyncio.IncompleteReadError, ConnectionResetError):
@@ -355,16 +395,18 @@ class ServerConnection:
                 segments: Optional[List[str]] = None, request_id: int = 0,
                 extra_filter: Optional[str] = None,
                 timeout_ms: Optional[float] = None, query_id=None,
+                tenant: Optional[str] = None,
                 trace_ctx: Optional[dict] = None) -> bytes:
         """The server's PDT1 reply. timeout_ms: the remaining budget,
         shipped to the server and the socket's read timeout (plus a
-        grace). trace_ctx: a TraceContext wire dict; the server's span
+        grace). tenant: the scheduling group the server charges (JAX
+        :763-769). trace_ctx: a TraceContext wire dict; the server's span
         tree then follows the reply's payload."""
         payload = json.dumps({
             "requestId": request_id, "tableName": table_name, "sql": sql,
             "segments": segments, "extraFilter": extra_filter,
-            "timeoutMs": timeout_ms, "queryId": query_id,
-            "traceContext": trace_ctx}).encode()
+            "timeoutMs": timeout_ms, "tenant": tenant,
+            "queryId": query_id, "traceContext": trace_ctx}).encode()
         frame = _LEN.pack(len(payload)) + payload
         sock = self._take()
         try:

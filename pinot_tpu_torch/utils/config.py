@@ -49,6 +49,36 @@ KEYS: Dict[str, Any] = {
     # the server (server/query_server.py): grace added to a broker's
     # remaining budget before the local deadline cancels the query
     "pinot.server.query.deadline.grace.ms": 50,
+    # the broker (broker/request_handler.py): the end-to-end budget
+    # (OPTION(timeoutMs=...) > pinot.broker.timeout.ms.<table> > this);
+    # servers get what remains at send time
+    "pinot.broker.timeout.ms": 60000,
+    # hedged scatter: past delay.min (capped at delay.max), a pending plan
+    # entry goes to another healthy replica too and the first clean
+    # answer wins
+    "pinot.broker.hedge.enabled": False,
+    "pinot.broker.hedge.delay.min.ms": 25,
+    "pinot.broker.hedge.delay.max.ms": 1000,
+    # the per-table retry budget (broker/adaptive.py RetryBudget): a
+    # clean primary answer deposits .ratio, a retry or hedge spends one
+    "pinot.broker.retry.budget.ratio": 0.2,
+    "pinot.broker.retry.budget.min": 3.0,
+    "pinot.broker.retry.budget.cap": 10.0,
+    # the negative cache: pruned-to-zero plans, keyed by the epoch
+    "pinot.broker.negative.cache.bytes": 1 << 20,
+    "pinot.broker.negative.cache.ttl.seconds": 60.0,
+    # the tier-1 whole-result cache (opt-in; with it, a hybrid table's
+    # offline partial too); .backend 'local' is the only one the port has
+    "pinot.broker.result.cache.enabled": False,
+    "pinot.broker.result.cache.bytes": 64 << 20,
+    "pinot.broker.result.cache.ttl.seconds": 60.0,
+    "pinot.broker.result.cache.backend": "local",
+    # tracing (utils/tracing.py, utils/trace_store.py): the store's
+    # capacity a role; a query at or over a threshold keeps its tree and
+    # logs a slow-query line (0 = off)
+    "pinot.trace.store.capacity": 256,
+    "pinot.broker.slow.query.threshold.ms": 10000.0,
+    "pinot.server.slow.query.threshold.ms": 0.0,
     # time-series leaf fetch cap: a leaf SQL may return at most
     # count * this many group rows before the engine fails loud
     # (silent truncation would corrupt downstream sums)
@@ -68,6 +98,9 @@ class PinotConfiguration:
     def get_int(self, key: str, default: int = 0) -> int:
         return int(self.get(key, default))
 
+    def get_float(self, key: str, default: float = 0.0) -> float:
+        return float(self.get(key, default))
+
     def get_bool(self, key: str, default: bool = False) -> bool:
         v = self.get(key, default)
         if isinstance(v, bool):
@@ -76,3 +109,7 @@ class PinotConfiguration:
 
     def get_str(self, key: str, default: str = "") -> str:
         return str(self.get(key, default))
+
+    def with_overrides(self, extra: Dict[str, Any]) -> "PinotConfiguration":
+        """A derived configuration, `extra` winning over these overrides."""
+        return PinotConfiguration({**self._overrides, **extra})

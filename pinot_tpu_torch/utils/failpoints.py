@@ -29,6 +29,16 @@ HOLD_POLL_S = 1e-3
 
 #: the sites the port fires, with the reference catalog's contracts
 SITES: Dict[str, str] = {
+    "broker.scatter.before":
+        "before the broker fans a plan entry out (ctx: server, table)",
+    "broker.group.scatter":
+        "before a scatter to a replica-group member (ctx: server, "
+        "table, group index — arm with where={'group': 0} to kill one "
+        "fault domain)",
+    "broker.retry.budget":
+        "broker-side, at every retry/hedge budget withdrawal (ctx: "
+        "table) — arm with error=FailpointError() to force seeded "
+        "budget exhaustion",
     "server.dispatch.before":
         "kernel dispatch (ring + inline paths)",
     "server.dispatch.batch":
@@ -150,6 +160,29 @@ class _Armed:
                 fps.remove(self.failpoint)
                 if not fps:
                     del self._registry._sites[self._site]
+
+
+class FaultSchedule:
+    """(site, policy-kwargs) entries armed and disarmed together: the
+    `MiniCluster(chaos=...)` payload."""
+
+    def __init__(self, entries: List[Tuple[str, Dict[str, Any]]]):
+        self.entries = list(entries)
+        self.failpoints: List[Failpoint] = []
+
+    def arm(self) -> None:
+        self.failpoints = [failpoints.arm(site, **kwargs)
+                           for site, kwargs in self.entries]
+
+    def disarm(self) -> None:
+        with failpoints._lock:
+            for fp in self.failpoints:
+                fps = failpoints._sites.get(fp.site)
+                if fps and fp in fps:
+                    fps.remove(fp)
+                    if not fps:
+                        del failpoints._sites[fp.site]
+        self.failpoints = []
 
 
 failpoints = FailpointRegistry()

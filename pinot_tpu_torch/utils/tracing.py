@@ -6,9 +6,13 @@ makes it the calling thread's current span; `Scope` times a child span of
 the current one; `annotate` sets attributes on the current span;
 `capture` gives a `SpanHandle`, which code off the request thread (the
 dispatch staging pool) uses to open and close its own child spans;
-`TraceContext.from_wire` reads the context a broker ships with a request.
-The server's tree travels back after the response payload, as the
-reference's does. There is no trace store and no slow-query log.
+`TraceContext` is what crosses a wire hop (`RequestTrace.wire_context`
+writes it, `from_wire` reads it). The server's tree travels back after
+the response payload, as the reference's does, and the broker grafts it
+under its scatter span (`SpanHandle.graft`): one tree across processes.
+`current_request` is the enclosing request, whose `sampled` flag the
+broker raises for a `trace=true` query. utils/trace_store.py keeps the
+finished trees.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ from typing import Any, Dict, List, Optional
 
 _current: contextvars.ContextVar[Optional["TraceNode"]] = \
     contextvars.ContextVar("pinot_tpu_torch_trace", default=None)
+_request: contextvars.ContextVar[Optional["RequestTrace"]] = \
+    contextvars.ContextVar("pinot_tpu_torch_trace_req", default=None)
 
 #: one lock for all tree mutation: handles append spans from pool threads
 #: while the request thread keeps building
@@ -35,6 +41,10 @@ class TraceContext:
     trace_id: str
     span_id: str = ""
     sampled: bool = False
+
+    def to_wire(self) -> dict:
+        return {"traceId": self.trace_id, "spanId": self.span_id,
+                "sampled": self.sampled}
 
     @classmethod
     def from_wire(cls, d: Optional[dict]) -> Optional["TraceContext"]:
@@ -65,6 +75,17 @@ class TraceNode:
                                  for c in self.children]}
                    if self.children else {})}
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "TraceNode":
+        """Inverse of to_dict: a remote side's shipped tree."""
+        attrs = {k: v for k, v in d.items()
+                 if k not in ("operator", "durationMs", "children")}
+        node = cls(operator=str(d.get("operator", "?")),
+                   duration_ms=float(d.get("durationMs", 0.0) or 0.0),
+                   attrs=attrs)
+        node.children = [cls.from_dict(c) for c in d.get("children", ())]
+        return node
+
 
 class SpanHandle:
     """A thread-safe handle on one span, for code where the current span
@@ -93,6 +114,19 @@ class SpanHandle:
     def set(self, **attrs) -> None:
         with _tree_lock:
             self.node.attrs.update(attrs)
+
+    def graft(self, tree: Optional[dict]) -> None:
+        """Attach a remote side's shipped tree (to_dict form) as a child:
+        the stitch point of a cross-process trace. A torn tree is
+        dropped, never fails the query."""
+        if not tree:
+            return
+        try:
+            node = TraceNode.from_dict(tree)
+        except Exception:  # noqa: BLE001
+            return
+        with _tree_lock:
+            self.node.children.append(node)
 
 
 class Scope:
@@ -140,18 +174,49 @@ class RequestTrace:
     def __enter__(self) -> "RequestTrace":
         self.root.start_ms = time.perf_counter() * 1000.0
         self._token = _current.set(self.root)
+        self._req_token = _request.set(self)
         return self
 
     def __exit__(self, *exc):
         self.root.duration_ms = \
             time.perf_counter() * 1000.0 - self.root.start_ms
         _current.reset(self._token)
+        _request.reset(self._req_token)
 
     def handle(self) -> SpanHandle:
         return SpanHandle(self.root)
 
+    def wire_context(self) -> dict:
+        """The TraceContext shipped on an outgoing hop, a fresh parent
+        span id each time."""
+        return TraceContext(self.trace_id, uuid.uuid4().hex[:8],
+                            self.sampled).to_wire()
+
     def to_dict(self) -> dict:
         return self.root.to_dict()
+
+
+def active() -> bool:
+    return _current.get() is not None
+
+
+def current_request() -> Optional[RequestTrace]:
+    """The enclosing RequestTrace, or None when untraced."""
+    return _request.get()
+
+
+def current_trace_id() -> Optional[str]:
+    req = _request.get()
+    return None if req is None else req.trace_id
+
+
+def get_attr(name: str, default: Any = None) -> Any:
+    """An attribute of the current span (default when untraced)."""
+    node = _current.get()
+    if node is None:
+        return default
+    with _tree_lock:
+        return node.attrs.get(name, default)
 
 
 def capture() -> Optional[SpanHandle]:

@@ -2517,3 +2517,45 @@ def test_float_literal_read_as_float32_on_card(card, tmp_path, vdt):
                       ("SELECT COUNT(*) FROM t WHERE rf = 0.1", 2),
                       ("SELECT COUNT(*) FROM t WHERE rf < 0.1", 2)):
         assert ex.execute(sql).rows == [(want,)], (sql, vdt)
+
+
+@pytest.mark.cuda
+def test_cluster_on_card_answers_as_cpu(card, tmp_path):
+    """A two-server cluster on the card (MiniCluster() takes every CUDA
+    device) answers every srv shape of torch_tables.SHAPES through its
+    broker as a device="cpu" cluster does: integral values equal, floats
+    within rel 1e-5 (float32 both), and the device shapes launch K1."""
+    import math
+
+    import torch_tables as tt
+    from pinot_tpu_torch.cluster.mini import MiniCluster
+    dirs = tt.build_table(str(tmp_path), "srv")
+    clusters = [MiniCluster(num_servers=2), MiniCluster(num_servers=2,
+                                                        device="cpu")]
+    try:
+        for c in clusters:
+            c.start()
+            c.add_table("srv")
+            for i, d in enumerate(dirs):
+                c.add_segment("srv", d, i % 2)
+        k1 = _cuda.SCAN_AGG.launches
+        for shape, (table, sql) in tt.SHAPES.items():
+            if table != "srv":
+                continue
+            got, want = (c.query(sql) for c in clusters)
+            assert got.exceptions == [] and not got.partial_result, shape
+            assert got.num_servers_responded == 2, shape
+            assert got.result_table.columns == want.result_table.columns
+            assert len(got.rows) == len(want.rows), shape
+            for gr, wr in zip(got.rows, want.rows):
+                for g, w in zip(gr, wr):
+                    if isinstance(w, (str, bool)) or w is None:
+                        assert g == w, shape
+                    else:
+                        assert math.isclose(float(g), float(w),
+                                            rel_tol=1e-5, abs_tol=1e-9), (
+                            shape, g, w)
+        assert _cuda.SCAN_AGG.launches > k1
+    finally:
+        for c in clusters:
+            c.stop()

@@ -1,5 +1,6 @@
-"""The port stands alone: importing it, running a query and answering one
-through its server over TCP loads neither JAX nor any pinot_tpu module,
+"""The port stands alone: importing it, running a query, answering one
+through its server over TCP and through a cluster's broker over HTTP loads
+neither JAX nor any pinot_tpu module,
 its entry points default to the card and refuse to run without one, and
 chip_smoke.py imports nothing of either and fails where there is no card
 or no port beside it."""
@@ -101,6 +102,19 @@ try:
     assert rows == [(5, 14), (6, 14)], rows
 finally:
     srv.stop()
+from pinot_tpu_torch.client import connect
+from pinot_tpu_torch.cluster.mini import MiniCluster
+cl = MiniCluster(num_servers=2, device="cpu")
+cl.start(with_http=True)
+try:
+    cl.add_table("t")
+    cl.add_segment("t", d, 1)
+    rs = connect(cl.http.address).execute(
+        "SELECT a, COUNT(*) FROM t WHERE a > 4 GROUP BY a ORDER BY a")
+    assert rs.rows == [[5, 14], [6, 14]], rs.rows
+    assert rs.stats["numServersResponded"] == 1
+finally:
+    cl.stop()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "pinot_tpu")
              or m.startswith(("jax.", "jaxlib.", "pinot_tpu.")))
@@ -174,8 +188,8 @@ def test_default_device_is_the_card():
 
 
 def test_server_default_device_is_the_card():
-    """The server's executor and the embedded server default to the card
-    too, and never fall back to the CPU by themselves."""
+    """The server's executor, the embedded server and the cluster default
+    to the card too, and never fall back to the CPU by themselves."""
     from pinot_tpu_torch.cluster.mini import MiniClusterServer
     from pinot_tpu_torch.server.data_manager import InstanceDataManager
     from pinot_tpu_torch.server.query_server import ServerQueryExecutor
@@ -185,6 +199,9 @@ def test_server_default_device_is_the_card():
         ServerQueryExecutor(InstanceDataManager())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MiniClusterServer()
+    from pinot_tpu_torch.cluster.mini import MiniCluster
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MiniCluster()
 
 
 def test_chip_smoke_fails_without_card_or_port(tmp_path):
